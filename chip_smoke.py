@@ -3,11 +3,14 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from gomel_tpu_torch/csrc, checks each
-against its plain PyTorch version on the card at the shapes of the mel bench
-(2 x 30 s of 48 kHz audio at MelConfig.cli_default()), drives the main path
-once through the user's entry point (the ``tomel`` CLI on a 30 s WAV) and
-holds its PNG against the port's CPU path, checks that every kernel of that
-path was launched, and times each kernel against its plain version.
+against its plain PyTorch version on the card at the shapes of the bench
+(2 x 30 s of 48 kHz audio at MelConfig.cli_default() and
+PhaseConfig.cli_default()), drives the main paths through the user's entry
+points (the ``tomel`` CLI, then ``tophase`` and ``fromphase``, on a 30 s
+48 kHz WAV and, for the zero-stuff ingest, a short 16 kHz WAV) and holds
+their PNGs and WAVs against the port's CPU path, checks that every kernel of
+each path was launched on it, and times each kernel against its plain
+version.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -64,8 +67,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device milliseconds per call: CUDA events around ``iters``
     back-to-back calls after ``warmup`` calls. A sleep kernel first keeps the
     card busy while the host enqueues the timed calls, so the events time the
-    device work, not the Python wrappers' launch overhead; if the card still
-    caught up with the host, the sleep doubles and the run repeats."""
+    device work, not the Python wrappers' launch overhead. If the card still
+    caught up with the host, the sleep was too short, or the calls' many small
+    kernels filled the launch queue (about a thousand entries; a full queue
+    blocks the host until the sleep ends): the sleep doubles, the number of
+    calls halves, and the run repeats."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -75,14 +81,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         torch.cuda._sleep(cycles)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        enqueue_s = time.perf_counter() - t0
         end.record()
         if not start.query():       # still sleeping: no gap between calls
             end.synchronize()
             return start.elapsed_time(end) / iters
         cycles *= 2
-    raise RuntimeError("could not enqueue the timed calls ahead of the card")
+        iters = max(2, iters // 2)
+    raise RuntimeError(f"could not enqueue the timed calls ahead of the card "
+                       f"(the last {iters} took {enqueue_s:.3f} s to enqueue)")
 
 
 def host_us(fn, iters: int = 50) -> float:
@@ -108,13 +118,37 @@ def wall_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def race(kernel_fn, plain_fn) -> tuple[float, float]:
+def seeded_pcm_rate(rng: np.random.Generator, n: int, sr: int) -> np.ndarray:
+    """int16 [n] at rate ``sr``: tones below 4 kHz plus light noise."""
+    t = np.arange(n) / sr
+    f = rng.uniform(80.0, 3500.0, size=4)
+    a = rng.uniform(0.05, 0.2, size=4)
+    x = sum(ai * np.sin(2 * np.pi * fi * t) for ai, fi in zip(a, f))
+    x = x + 0.005 * rng.standard_normal(n)
+    return np.clip(np.rint(x * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def png_steps(a_path: str, b_path: str, read_png) -> np.ndarray:
+    """Per-pixel steps between two 8-bit PNGs, wrap-aware on the derived B
+    channel (-1 vs 0 wraps to 255)."""
+    a = read_png(a_path).astype(np.int64)
+    b = read_png(b_path).astype(np.int64)
+    if a.shape != b.shape:
+        raise AssertionError(f"PNG shapes differ: {a.shape} vs {b.shape}")
+    d = np.abs(a - b)
+    return np.minimum(d, 256 - d)
+
+
+def race(kernel_fn, plain_fn, name: str = "") -> tuple[float, float]:
     """(kernel ms, plain ms), each the lower of two runs taken in the order
     plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain_fn)
-    k1 = cuda_ms(kernel_fn)
-    k2 = cuda_ms(kernel_fn)
-    p2 = cuda_ms(plain_fn)
+    try:
+        p1 = cuda_ms(plain_fn)
+        k1 = cuda_ms(kernel_fn)
+        k2 = cuda_ms(kernel_fn)
+        p2 = cuda_ms(plain_fn)
+    except RuntimeError as e:
+        raise RuntimeError(f"timing {name}: {e}") from e
     return min(k1, k2), min(p1, p2)
 
 
@@ -124,13 +158,15 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from gomel_tpu_torch.cli.tools import tomel
-    from gomel_tpu_torch.core.config import MelConfig
+    from gomel_tpu_torch.cli.tools import fromphase, tomel, tophase
+    from gomel_tpu_torch.core.config import MelConfig, PhaseConfig, pad_shift
     from gomel_tpu_torch.core.filterbank import mel_weights
     from gomel_tpu_torch.core.framing import pad_length
+    from gomel_tpu_torch.io import audio as audio_io
     from gomel_tpu_torch.io import imagecodec, wavcodec
     from gomel_tpu_torch.io.pngcodec import read_png
-    from gomel_tpu_torch.ops import _cuda, mel_ops, quantize, rfft_mag
+    from gomel_tpu_torch.ops import (_cuda, istft, mel_ops, phase_ops,
+                                     quantize, rfft_mag)
     from gomel_tpu_torch.ops.stft import hann_window
 
     # the plain references run in full float32 (no TF32 anywhere)
@@ -156,8 +192,36 @@ def main() -> int:
     padded = pad_length(length, hop)
     rng = np.random.default_rng(SEED)
     kernels = {k.name: k for k in (quantize.INGEST_KERNEL, rfft_mag.KERNEL,
-                                   mel_ops.KERNEL, quantize.QUANTIZE_KERNEL)}
+                                   mel_ops.KERNEL, quantize.QUANTIZE_KERNEL,
+                                   rfft_mag.PLANES_KERNEL,
+                                   quantize.PLANES_KERNEL,
+                                   istft.SYNTH_KERNEL, istft.OLA_KERNEL)}
     errs: dict[str, float] = {}
+    # launches of each kernel summed over the main-path runs (tomel, tophase,
+    # fromphase), each read with every count set to 0 just before it
+    launches = {name: 0 for name in kernels}
+
+    def drive(label: str, fn, must_run: tuple[str, ...]) -> float:
+        """Run one main-path call with the counts at 0; return its wall
+        seconds; fail if a kernel of that path did not launch."""
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        rc = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()
+                  if k.launches}
+        if rc != 0:
+            raise AssertionError(f"{label} returned {rc}")
+        log(f"{label}: {seconds:.3f} s wall, launches {counts}")
+        missing = [name for name in must_run if counts.get(name, 0) < 1]
+        if missing:
+            raise AssertionError(f"{label}: kernels of the path never ran: "
+                                 f"{missing}")
+        for name, c in counts.items():
+            launches[name] += c
+        return seconds
 
     # -- phase 2: each kernel against its plain version, bench shape -------
     pcm = torch.from_numpy(seeded_pcm(rng, BATCH, length)).to(dev)
@@ -219,26 +283,114 @@ def main() -> int:
     log(f"KD quantize_mel_plane -> {tuple(img.shape)}: bit-exact, extrema "
         f"{mx.tolist()} / {mn.tolist()}")
 
+    # -- phase 2b: the phase codec's kernels, bench shape --------------------
+    pcfg = PhaseConfig.cli_default()
+    nf = pcfg.num_freqs
+    if (pcfg.resolut, pcfg.window) != (n_fft, hop):
+        raise AssertionError("the phase and mel CLI widths share n and hop")
+    frames = (padded - n_fft) // hop + 1
+    zp, zs = pad_shift(16000)
+    n16 = length // 3                           # 30 s at 16 kHz
+    pcm16k = torch.from_numpy(np.stack([seeded_pcm_rate(rng, n16, 16000)
+                                        for _ in range(BATCH)])).to(dev)
+    padded16 = pad_length(n16 + n16 * zs, hop)
+    x16 = quantize.pcm16_ingest_batch(pcm16k, f32, 32768.0, padded16, zp, zs)
+    x16_ref = quantize.pcm16_ingest_plain(pcm16k, f32, 32768.0, padded16,
+                                          batched=True, zp=zp, zs=zs)
+    torch.cuda.synchronize()
+    if not torch.equal(x16, x16_ref):
+        raise AssertionError("pcm16_ingest (zero-stuff) differs from its "
+                             "plain version")
+    log(f"KA pcm16_ingest zp={zp} zs={zs} [{BATCH}, {n16}] -> "
+        f"{tuple(x16.shape)}: bit-exact")
+
+    spec = phase_ops.phase_encode_batch(x, nf, n_fft, hop, win)
+    spec_ref = rfft_mag.stft_planes_plain(x, win, n_fft, hop, 1, nf)
+    spec_64 = rfft_mag.stft_planes_plain(x.double(), win.double(), n_fft, hop,
+                                         1, nf)
+    torch.cuda.synchronize()
+    peak = spec_ref.abs().amax(dim=(-2, -1), keepdim=True)
+    peak_64 = spec_64.abs().amax(dim=(-2, -1), keepdim=True)
+    d_e = (spec - spec_ref).abs()
+    errs["phase_encode"] = float(d_e.max())
+    log(f"KE phase_encode -> {tuple(spec.shape)}: max|d| vs torch.fft f32 "
+        f"{errs['phase_encode']:.3e}, / frame peak "
+        f"{float((d_e / peak).max()):.3e} (bound 1e-5); vs float64: kernel "
+        f"{float(((spec.double() - spec_64).abs() / peak_64).max()):.3e}, "
+        f"torch.fft f32 "
+        f"{float(((spec_ref.double() - spec_64).abs() / peak_64).max()):.3e} "
+        f"of frame peak")
+    if not bool((d_e <= 1e-5 * peak).all()):
+        raise AssertionError("phase_encode error > 1e-5 of the frame peak")
+
+    img_p, mx_p, mn_p = quantize.quantize_planes_batch(spec_ref, 255, 0)
+    ref_p = quantize.quantize_planes_plain(spec_ref, 255, 0)
+    img_i, mx_i, mn_i = quantize.quantize_planes_batch(spec_ref, 255, 2)
+    ref_i = quantize.quantize_planes_plain(spec_ref, 255, 2)
+    torch.cuda.synchronize()
+    if not (torch.equal(img_p, ref_p[0]) and torch.equal(mx_p, ref_p[1])
+            and torch.equal(mn_p, ref_p[2])):
+        raise AssertionError("quantize_planes differs from its plain version")
+    d_i = (img_i.int() - ref_i[0].int()).abs()
+    flips_i = float((d_i > 0).float().mean())
+    ext_i = float(torch.cat([(mx_i - ref_i[1]).abs(),
+                             (mn_i - ref_i[2]).abs()]).max())
+    errs["quantize_planes"] = float(d_i.max())
+    log(f"KF quantize_planes -> {tuple(img_p.shape)}: ihs 0 bit-exact; ihs 2 "
+        f"max step {int(d_i.max())}, flip rate {flips_i:.2e} (bounds 1, 2e-3),"
+        f" extrema max|d| {ext_i:.3e}")
+    if int(d_i.max()) > 1 or flips_i >= 2e-3:
+        raise AssertionError("quantize_planes (ihs 2) outside its bound")
+
+    fw = istft.launch_irfft_window(istft.MODE_QUANT8, img_p, (mx_p, mn_p),
+                                   n_fft, frames, nf, win, (BATCH,), 255.0, 0)
+    deq = quantize.dequantize_planes_batch(img_p, mx_p, mn_p, 255, 0)
+    halves = phase_ops.grow_half_planes(deq, n_fft // 2)
+    fw_ref = istft.irfft_window_plain(*halves, n_fft, win)
+    fw_64 = istft.irfft_window_plain(
+        *phase_ops.grow_half_planes(deq.double(), n_fft // 2), n_fft,
+        win.double())
+    torch.cuda.synchronize()
+    # the FFT's rounding scales with the frame before the window: a frame
+    # whose energy sits where the Hann window is near 0 (a flat spectrum is
+    # an impulse at sample 0) keeps its absolute error but loses its peak
+    peak = istft.irfft_window_plain(*halves, n_fft, None).abs().amax(
+        dim=-1, keepdim=True)
+    peak_64 = peak.double()
+    d_g = (fw - fw_ref).abs()
+    errs["irfft_window"] = float(d_g.max())
+    log(f"KG irfft_window (dequantize + grow + irfft x window) -> "
+        f"{tuple(fw.shape)}: max|d| vs torch.fft f32 "
+        f"{errs['irfft_window']:.3e}, / peak of the unwindowed frame "
+        f"{float((d_g / peak).max()):.3e} (bound 1e-5); vs float64: kernel "
+        f"{float(((fw.double() - fw_64).abs() / peak_64).max()):.3e}, "
+        f"torch.fft f32 "
+        f"{float(((fw_ref.double() - fw_64).abs() / peak_64).max()):.3e} "
+        f"of that peak")
+    if not bool((d_g <= 1e-5 * peak).all()):
+        raise AssertionError("irfft_window error > 1e-5 of the frame peak")
+
+    pcm_k, ok_k = istft.overlap_normalize(fw_ref, hop, win, pcm16=True)
+    pcm_r, ok_r = istft.overlap_normalize_plain(fw_ref, hop, win, pcm16=True)
+    sig_k = istft.overlap_normalize(fw_ref, hop, win)
+    sig_r = istft.overlap_normalize_plain(fw_ref, hop, win)
+    torch.cuda.synchronize()
+    if not (torch.equal(pcm_k, pcm_r) and torch.equal(ok_k, ok_r)
+            and torch.equal(sig_k, sig_r)):
+        raise AssertionError("overlap_normalize differs from its plain version")
+    errs["overlap_normalize"] = float((sig_k - sig_r).abs().max())
+    log(f"KH overlap_normalize -> {tuple(sig_k.shape)}: float32 and PCM-16 "
+        f"bit-exact, finite {ok_k.tolist()}")
+
     # -- phase 3: the main path, tomel on a 30 s WAV ----------------------
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "speech.wav")
         wavcodec.write_wav(wav, seeded_pcm(rng, 1, length)[0], SAMPLE_RATE)
         png_gpu = os.path.join(tmp, "gpu.png")
         png_cpu = os.path.join(tmp, "cpu.png")
-        for k in kernels.values():
-            k.launches = 0
-        t0 = time.perf_counter()
-        rc = tomel([wav, "--device", "cuda", "-o", png_gpu])
-        torch.cuda.synchronize()
-        tomel_s = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in kernels.items()}
-        if rc != 0:
-            raise AssertionError(f"tomel on cuda returned {rc}")
-        log(f"tomel --device cuda: {tomel_s:.3f} s wall (first call), "
-            f"launches {launches}")
-        if min(launches.values()) < 1:
-            raise AssertionError(f"a kernel of the main path never ran: "
-                                 f"{launches}")
+        drive("tomel --device cuda (first call)",
+              lambda: tomel([wav, "--device", "cuda", "-o", png_gpu]),
+              ("pcm16_ingest", "stft_mag", "mel_log", "quantize_mel_plane"))
         if tomel([wav, "--device", "cpu", "-o", png_cpu]) != 0:
             raise AssertionError("tomel on cpu failed")
         a = read_png(png_gpu).astype(np.int64)
@@ -257,10 +409,79 @@ def main() -> int:
         if (mx_g, mn_g, samples_g, sr_g) != (mx_c, mn_c, samples_c, sr_c):
             raise AssertionError("tomel PNG metadata differs from the CPU path")
 
+        # -- phase 3b: the phase round trip, tophase then fromphase --------
+        for label, wav_in, sr_in in (
+                ("48 kHz 30 s", wav, SAMPLE_RATE),
+                ("16 kHz 3 s", os.path.join(tmp, "16k.wav"), 16000)):
+            if sr_in != SAMPLE_RATE:
+                wavcodec.write_wav(wav_in, seeded_pcm_rate(rng, 3 * sr_in,
+                                                           sr_in), sr_in)
+            stem = os.path.join(tmp, f"p{sr_in}")
+            png_g, png_c = stem + "_gpu.png", stem + "_cpu.png"
+            out_g, out_c = stem + "_gpu.wav", stem + "_cpu.wav"
+            t_enc = drive(f"tophase --device cuda, {label} (first call)",
+                          lambda: tophase([wav_in, "--device", "cuda", "-o",
+                                           png_g]),
+                          ("pcm16_ingest", "phase_encode", "quantize_planes"))
+            t_dec = drive(f"fromphase --device cuda, {label} (first call)",
+                          lambda: fromphase([png_g, "--device", "cuda", "-o",
+                                             out_g]),
+                          ("irfft_window", "overlap_normalize"))
+            if tophase([wav_in, "--device", "cpu", "-o", png_c]) != 0:
+                raise AssertionError("tophase on cpu failed")
+            if fromphase([png_g, "--device", "cpu", "-o", out_c]) != 0:
+                raise AssertionError("fromphase on cpu failed")
+            d = png_steps(png_g, png_c, read_png)
+            flips = float((d > 0).mean())
+            meta_g = imagecodec.load_phase_image_raw(png_g, True)[1:]
+            meta_c = imagecodec.load_phase_image_raw(png_c, True)[1:]
+            meta_eq = all(np.array_equal(u, v) for u, v in zip(meta_g, meta_c))
+            wg, sr_g = wavcodec.read_wav(out_g)
+            wc, sr_c = wavcodec.read_wav(out_c)
+            lsb = np.abs(wg.astype(np.int64) - wc.astype(np.int64))
+            log(f"phase round trip {label}: PNG {read_png(png_g).shape} cuda "
+                f"vs cpu max step {int(d.max())}, flip rate {flips:.2e} "
+                f"(bounds 1, 2e-3), metadata equal {meta_eq}; WAV "
+                f"{wg.shape} @ {sr_g} Hz cuda vs cpu decode of the same PNG "
+                f"max {int(lsb.max())} LSB, differing {float((lsb > 0).mean()):.2e}"
+                f" (bounds 1, 5e-2)")
+            if d.max() > 1 or flips >= 2e-3 or not meta_eq:
+                raise AssertionError(f"tophase PNG ({label}) differs from the "
+                                     f"CPU path")
+            if sr_g != sr_c or wg.shape != wc.shape or lsb.max() > 1 \
+                    or float((lsb > 0).mean()) >= 5e-2:
+                raise AssertionError(f"fromphase WAV ({label}) differs from "
+                                     f"the CPU path")
+            if sr_in == SAMPLE_RATE:
+                # the 16 kHz file comes back at 48 kHz, zero-stuffed, so
+                # only the 48 kHz one compares sample by sample
+                x_in, _ = audio_io.load_wav(wav_in)
+                y_out, _ = audio_io.load_wav(out_g)
+                n_c = min(len(x_in), len(y_out))
+                corr = float(np.corrcoef(x_in[4096:n_c - 4096],
+                                         y_out[4096:n_c - 4096])[0, 1])
+                log(f"  WAV -> PNG -> WAV correlation {corr:.6f} (bound 0.99)")
+                if corr <= 0.99:
+                    raise AssertionError(f"round-trip correlation {corr}")
+                runs_enc, runs_dec = [t_enc], [t_dec]
+                for _ in range(4):
+                    t0 = time.perf_counter()
+                    tophase([wav_in, "--device", "cuda", "-o", png_g])
+                    torch.cuda.synchronize()
+                    runs_enc.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    fromphase([png_g, "--device", "cuda", "-o", out_g])
+                    torch.cuda.synchronize()
+                    runs_dec.append(time.perf_counter() - t0)
+                log(f"  30 s file wall, median of 4 after the first: tophase "
+                    f"{1e3 * float(np.median(runs_enc[1:])):.3f} ms, fromphase "
+                    f"{1e3 * float(np.median(runs_dec[1:])):.3f} ms (first "
+                    f"{1e3 * t_enc:.3f}, {1e3 * t_dec:.3f} ms)")
+
     # -- phase 4: times at the bench shape ---------------------------------
-    log(f"timing on {card}: device ms per call (CUDA events over 20 calls "
-        f"queued behind a sleep kernel, after 3 warmup; lower of two runs, "
-        f"order plain-kernel-kernel-plain); host enqueue us per call")
+    log(f"timing on {card}: device ms per call (CUDA events over up to 20 "
+        f"calls queued behind a sleep kernel, after 3 warmup; lower of two "
+        f"runs, order plain-kernel-kernel-plain); host enqueue us per call")
     kernel_fns = {
         "pcm16_ingest": lambda: quantize.pcm16_ingest_batch(pcm, f32, 32768.0,
                                                             padded),
@@ -268,6 +489,17 @@ def main() -> int:
         "mel_log": lambda: mel_ops._mel_from_mags(mags_ref, fwd),
         "quantize_mel_plane": lambda: quantize.quantize_mel_plane_batch(
             logmel_ref),
+        "phase_encode": lambda: phase_ops.phase_encode_batch(x, nf, n_fft, hop,
+                                                             win),
+        "quantize_planes": lambda: quantize.quantize_planes_batch(spec_ref,
+                                                                  255, 0),
+        "irfft_window": lambda: istft.launch_irfft_window(
+            istft.MODE_QUANT8, img_p, (mx_p, mn_p), n_fft, frames, nf, win,
+            (BATCH,), 255.0, 0),
+        "overlap_normalize": lambda: istft.overlap_normalize(
+            fw_ref, hop, win, pcm16=True),
+        "pcm16_ingest zero-stuff": lambda: quantize.pcm16_ingest_batch(
+            pcm16k, f32, 32768.0, padded16, zp, zs),
     }
     plain_fns = {
         "pcm16_ingest": lambda: quantize.pcm16_ingest_plain(
@@ -276,8 +508,19 @@ def main() -> int:
         "mel_log": lambda: mel_ops.mel_from_mags_plain(mags_ref, fwd),
         "quantize_mel_plane": lambda: quantize.quantize_mel_plane_plain(
             logmel_ref),
+        "phase_encode": lambda: rfft_mag.stft_planes_plain(x, win, n_fft, hop,
+                                                           1, nf),
+        "quantize_planes": lambda: quantize.quantize_planes_plain(spec_ref,
+                                                                  255, 0),
+        "irfft_window": lambda: istft.irfft_window_plain(
+            *phase_ops.grow_half_planes(quantize.dequantize_planes_batch(
+                img_p, mx_p, mn_p, 255, 0), n_fft // 2), n_fft, win),
+        "overlap_normalize": lambda: istft.overlap_normalize_plain(
+            fw_ref, hop, win, pcm16=True),
+        "pcm16_ingest zero-stuff": lambda: quantize.pcm16_ingest_plain(
+            pcm16k, f32, 32768.0, padded16, batched=True, zp=zp, zs=zs),
     }
-    times = {name: race(kernel_fns[name], plain_fns[name])
+    times = {name: race(kernel_fns[name], plain_fns[name], name)
              for name in kernel_fns}
     for name, (k_ms, p_ms) in times.items():
         log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; wrapper "
@@ -300,6 +543,37 @@ def main() -> int:
     called = wall_ms(encode_kernels)
     log(f"  the same, called back to back from Python (host clock): kernels "
         f"{called:.4f} ms = {audio_s / (called / 1e3):.1f} audio-s/s")
+
+    def phase_encode_kernels():
+        sp = phase_ops.phase_encode_batch(x, nf, n_fft, hop, win)
+        return quantize.quantize_planes_batch(sp, 255, 0)
+
+    def phase_encode_plain():
+        return quantize.quantize_planes_plain(
+            rfft_mag.stft_planes_plain(x, win, n_fft, hop, 1, nf), 255, 0)
+
+    def phase_decode_kernels():
+        return phase_ops.dequantize_decode(img_p, mx_p, mn_p, 255, 0, n_fft,
+                                           hop, 0.0, win, pcm16=True)
+
+    def phase_decode_plain():
+        return phase_ops.dequantize_decode_plain(img_p, mx_p, mn_p, 255, 0,
+                                                 n_fft, hop, 0.0, win,
+                                                 pcm16=True)
+
+    out_s = BATCH * (n_fft + (frames - 1) * hop) / SAMPLE_RATE
+    for label, kfn, pfn, secs in (
+            ("phase_encode_batch + quantize_planes", phase_encode_kernels,
+             phase_encode_plain, audio_s),
+            ("dequantize + phase decode + PCM-16", phase_decode_kernels,
+             phase_decode_plain, out_s)):
+        k_ms, p_ms = race(kfn, pfn, label)
+        c_ms = wall_ms(kfn)
+        log(f"  {label}, [{BATCH}, {frames} frames], device: kernels "
+            f"{k_ms:.4f} ms = {secs / (k_ms / 1e3):.1f} audio-s/s; plain "
+            f"{p_ms:.4f} ms = {secs / (p_ms / 1e3):.1f} audio-s/s; called back "
+            f"to back (host clock) {c_ms:.4f} ms = "
+            f"{secs / (c_ms / 1e3):.1f} audio-s/s")
 
     rows = [{"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": launches[name],

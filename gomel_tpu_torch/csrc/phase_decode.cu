@@ -1,0 +1,310 @@
+// KG and KH: the phase decode, from spectrum (or quantized PNG planes) to
+// normalised audio (or PCM-16).
+//
+// KG: dequantize + grow + inverse rFFT x window, one thread block per frame.
+//   Replaces gomel_tpu/ops/quantize.py:51 dequantize_planes and :201
+//   dequantize_planes_batch (K7), gomel_tpu/ops/phase_ops.py:117
+//   grow_half_planes (K8), and the irfft x window of gomel_tpu/ops/istft.py:137
+//   istft_direct_planes (K9). Its source is one of:
+//     kPlanes  re, im [frames, n/2 + 1] float32 (fftbackend.irfft_planes);
+//     kSpec    the phase spectrogram [B, F, nf, 2] float32 (phase_decode);
+//     kQuant8/kQuant16  PNG planes [B, nf, F, 2] uint8/uint16 with
+//              per-channel extrema [B, 2] (the fromphase path).
+//   Prologue (per bin k of the half spectrum X, k = 0..n/2): bins past nf - 1
+//   repeat bin nf - 1 (grow), X[0] = 0, Re X[k] = channel 1 and
+//   Im X[k] = channel 0 of bin k - 1, Im X[n/2] = 0 (phase_ops.py:122-132);
+//   for planes the rescale is (v / max_val) * (max - min) + min, then
+//   ihs_passes x sinhf (quantize.py:56-59). The imaginary parts of DC and
+//   Nyquist are ignored, as numpy's irfft ignores them.
+//   Transform: the inverse real split (fft_core.cuh inverse_split_bin, Z
+//   formed in place two bins per thread) into an n/2-point inverse Stockham
+//   FFT with conjugated twiddles, scaled by 1/n and multiplied by the window
+//   on the way out into frames_w [B*F, n] float32.
+//
+// KH: overlap-add + window-sum normalisation + volume boost (+ PCM-16).
+//   Replaces gomel_tpu/ops/istft.py:22 overlap_add, :41 window_sum, :189
+//   normalize_by_window_sum, the boost of gomel_tpu/ops/phase_ops.py:157 and
+//   gomel_tpu/ops/quantize.py:124 pcm16_encode (K9, K11). One thread per
+//   output sample t, so every sample has one owner: no atomics, and the
+//   result is deterministic. It sums the K = ceil(n/hop) frames covering t
+//   with k ascending (frame i - k for hop-row i, istft.py:35-37), takes the
+//   window sum from a [K, hop] prefix table the host builds as window_sum
+//   does (head, periodic middle, tail; istft.py:51-72), normalises with the
+//   three branches of istft.py:202-207 (sig / threshold in the fade), then
+//   multiplies by the boost when it is non-zero, and writes float32 or, as
+//   pcm16_encode does, clears the finite flag on a non-finite value, clips to
+//   [-1, 1], rintf(x * 32768) (round half to even), saturates and stores int16
+//   (NaN stores 0, as the JAX program's conversion gives).
+//
+// Rounding: the JAX program rounds every product and sum on its own; nvcc
+// would fuse a multiply feeding an add into one FMA, so those steps use
+// __fmul_rn / __fadd_rn / __fdiv_rn explicitly (the global flags stay as
+// they are, so KB and KC do not move). KH is then bit-exact against its
+// plain version on the same frames_w; KG matches torch.fft.irfft to float32
+// FFT rounding.
+//
+// Bound: at the phase path's 2 x 1122 frames of 4096, KG writes 36.8 MB of
+// frames_w and KH reads it back (~22 us at 3.35 TB/s together); KG's 11
+// barrier-separated passes, as KB's, bound it. KG's column read of the
+// [nf, F, 2] planes is strided by F (uncoalesced); transposing through
+// shared memory, or fusing KH into KG, is later work.
+#include <math.h>
+
+#include "fft_core.cuh"
+
+namespace {
+
+constexpr int kPlanes = 0;
+constexpr int kSpec = 1;
+constexpr int kQuant8 = 2;
+constexpr int kQuant16 = 3;
+
+__device__ __forceinline__ float dequantize(float v, float max_val, float rng,
+                                            float mn, int ihs_passes) {
+  float x = __fadd_rn(__fmul_rn(__fdiv_rn(v, max_val), rng), mn);
+  for (int p = 0; p < ihs_passes; ++p) x = sinhf(x);
+  return x;
+}
+
+// channel pair (ch0 = imag, ch1 = real) of stored bin j of frame (bi, fi)
+template <int kMode>
+__device__ __forceinline__ float2 load_bin(const void* __restrict__ src,
+                                           long long bi, long long fi, int j,
+                                           int frames, int nf, float max_val,
+                                           float4 ext, int ihs_passes) {
+  if constexpr (kMode == kSpec) {
+    return static_cast<const float2*>(src)[(bi * frames + fi) * nf + j];
+  }
+  float c0, c1;
+  const long long at = (bi * nf + j) * frames + fi;
+  if constexpr (kMode == kQuant8) {
+    const uchar2 q = static_cast<const uchar2*>(src)[at];
+    c0 = q.x;
+    c1 = q.y;
+  } else {
+    const ushort2 q = static_cast<const ushort2*>(src)[at];
+    c0 = q.x;
+    c1 = q.y;
+  }
+  // ext = (max0, max1, min0, min1); the range is rounded to float32 first,
+  // as (maxs - mins) is in the JAX program
+  return make_float2(
+      dequantize(c0, max_val, __fsub_rn(ext.x, ext.z), ext.z, ihs_passes),
+      dequantize(c1, max_val, __fsub_rn(ext.y, ext.w), ext.w, ihs_passes));
+}
+
+template <int kMode>
+__global__ void irfft_window_kernel(const void* __restrict__ src,
+                                    const float* __restrict__ aux0,
+                                    const float* __restrict__ aux1,
+                                    const float* __restrict__ window,
+                                    const float2* __restrict__ tw,
+                                    float2* __restrict__ out, int frames,
+                                    int nf, int m, float max_val,
+                                    int ihs_passes, float inv_n) {
+  extern __shared__ float2 smem[];
+  float2* a = smem;          // m + 1: the half spectrum X, then Z in place
+  float2* b = smem + m + 1;  // m: the Stockham partner buffer
+  const long long frame = blockIdx.x;
+  const long long bi = frame / frames;
+  const long long fi = frame - bi * frames;
+
+  float4 ext = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (kMode == kQuant8 || kMode == kQuant16) {
+    ext = make_float4(aux0[2 * bi], aux0[2 * bi + 1], aux1[2 * bi],
+                      aux1[2 * bi + 1]);
+  }
+  for (int k = threadIdx.x; k <= m; k += blockDim.x) {
+    float re = 0.0f;
+    float im = 0.0f;
+    if constexpr (kMode == kPlanes) {
+      re = static_cast<const float*>(src)[frame * (m + 1) + k];
+      im = aux0[frame * (m + 1) + k];
+    } else {
+      if (k > 0) {
+        const int j = min(k - 1, nf - 1);
+        const float2 v = load_bin<kMode>(src, bi, fi, j, frames, nf, max_val,
+                                         ext, ihs_passes);
+        re = v.y;
+        im = v.x;
+      }
+    }
+    if (k == 0 || k == m) im = 0.0f;
+    a[k] = make_float2(re, im);
+  }
+  __syncthreads();
+
+  // 2 Z[k] and 2 Z[m - k] from X[k], X[m - k]: disjoint pairs, in place
+  for (int k = threadIdx.x; k <= m / 2; k += blockDim.x) {
+    const float2 p = a[k];
+    const float2 q = a[m - k];
+    const float2 zk = inverse_split_bin(p, q, tw[k]);
+    if (k > 0) a[m - k] = inverse_split_bin(q, p, tw[m - k]);
+    a[k] = zk;
+  }
+  __syncthreads();
+
+  const float2* z = stockham_fft<true>(a, b, tw, m);
+  const float2* w2 = reinterpret_cast<const float2*>(window);
+  float2* dst = out + frame * m;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const float2 v = z[i];
+    float x0 = __fmul_rn(v.x, inv_n);
+    float x1 = __fmul_rn(v.y, inv_n);
+    if (w2 != nullptr) {
+      const float2 w = w2[i];
+      x0 = __fmul_rn(x0, w.x);
+      x1 = __fmul_rn(x1, w.y);
+    }
+    dst[i] = make_float2(x0, x1);
+  }
+}
+
+// window sum at hop-row i, column c, from the prefix table
+// S[k] = sum_{j <= k} w^2 rows (istft.py:51-72)
+__device__ __forceinline__ float window_sum_at(const float* __restrict__ table,
+                                               long long i, int c, int frames,
+                                               int taps, int hop,
+                                               int short_form) {
+  const long long rows_out = static_cast<long long>(frames) + taps - 1;
+  if (short_form) {
+    const float top = table[min(i, static_cast<long long>(taps - 1)) * hop + c];
+    const long long s = i - frames;
+    const float sub =
+        s >= 0 ? table[min(s, static_cast<long long>(taps - 1)) * hop + c]
+               : 0.0f;
+    return top - sub;
+  }
+  const float full = table[static_cast<long long>(taps - 1) * hop + c];
+  if (i < taps - 1) return table[i * hop + c];
+  if (i < rows_out - (taps - 1)) return full;
+  return full - table[(i - (rows_out - (taps - 1))) * hop + c];
+}
+
+__global__ void overlap_normalize_kernel(
+    const float* __restrict__ frames_w, const float* __restrict__ table,
+    float* __restrict__ out_f, int16_t* __restrict__ out_pcm,
+    int* __restrict__ finite, long long length, int frames, int n, int hop,
+    int taps, int short_form, float threshold, float boost) {
+  const long long b = blockIdx.y;
+  const float* src = frames_w + b * frames * static_cast<long long>(n);
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       t < length; t += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = t / hop;
+    const int c = static_cast<int>(t - i * hop);
+    float acc = 0.0f;
+    for (int k = 0; k < taps; ++k) {
+      const long long fi = i - k;
+      const int col = k * hop + c;
+      float v = 0.0f;
+      if (fi >= 0 && fi < frames && col < n) v = src[fi * n + col];
+      acc = __fadd_rn(acc, v);
+    }
+    float y = acc;
+    if (table != nullptr) {
+      const float ws = window_sum_at(table, i, c, frames, taps, hop, short_form);
+      y = ws > threshold ? __fdiv_rn(acc, ws)
+                         : (ws > 1e-21f ? __fdiv_rn(acc, threshold) : acc);
+    }
+    if (boost != 0.0f) y = __fmul_rn(y, boost);
+    if (!isfinite(y)) finite[b] = 0;
+    if (out_f != nullptr) out_f[b * length + t] = y;
+    if (out_pcm != nullptr) {
+      float q = isnan(y) ? 0.0f : fminf(fmaxf(y, -1.0f), 1.0f);
+      q = fminf(fmaxf(rintf(q * 32768.0f), -32768.0f), 32767.0f);
+      out_pcm[b * length + t] = static_cast<int16_t>(q);
+    }
+  }
+}
+
+template <int kMode>
+int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
+                        const float* window, const float2* tw, float2* out,
+                        long long blocks, int frames, int nf, int m,
+                        float max_val, int ihs_passes, cudaStream_t s) {
+  const size_t smem = (2 * static_cast<size_t>(m) + 1) * sizeof(float2);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(irfft_window_kernel<kMode>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  int threads = m / 2;
+  if (threads > 256) threads = 256;
+  if (threads < 32) threads = 32;
+  irfft_window_kernel<kMode><<<static_cast<unsigned>(blocks), threads, smem, s>>>(
+      src, aux0, aux1, window, tw, out, frames, nf, m, max_val, ihs_passes,
+      1.0f / static_cast<float>(2 * m));
+  return gomel_status();
+}
+
+}  // namespace
+
+// mode 0: src = re, aux0 = im, float32 [batch*frames, n/2 + 1];
+// mode 1: src = spec float32 [batch, frames, nf, 2];
+// mode 2/3: src = planes uint8/uint16 [batch, nf, frames, 2], aux0 = maxs,
+//   aux1 = mins, float32 [batch, 2].
+// window: float32 [n] or null; tw: float2 [n/2]; out: float32
+// [batch*frames, n]. n/2 must be a power of two (the wrapper checks).
+GOMEL_API int gomel_irfft_window(int mode, const void* src, const void* aux0,
+                                 const void* aux1, const void* window,
+                                 const void* tw, void* out, long long batch,
+                                 long long frames, long long nf, long long n,
+                                 float max_val, int ihs_passes, int device,
+                                 void* stream) {
+  cudaSetDevice(device);
+  const int m = static_cast<int>(n / 2);
+  const long long blocks = batch * frames;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a0 = static_cast<const float*>(aux0);
+  const float* a1 = static_cast<const float*>(aux1);
+  const float* w = static_cast<const float*>(window);
+  const float2* t = static_cast<const float2*>(tw);
+  float2* o = static_cast<float2*>(out);
+  const int f = static_cast<int>(frames);
+  const int k = static_cast<int>(nf);
+  switch (mode) {
+    case kPlanes:
+      return launch_irfft_window<kPlanes>(src, a0, a1, w, t, o, blocks, f, k,
+                                          m, max_val, ihs_passes, s);
+    case kSpec:
+      return launch_irfft_window<kSpec>(src, a0, a1, w, t, o, blocks, f, k, m,
+                                        max_val, ihs_passes, s);
+    case kQuant8:
+      return launch_irfft_window<kQuant8>(src, a0, a1, w, t, o, blocks, f, k,
+                                          m, max_val, ihs_passes, s);
+    case kQuant16:
+      return launch_irfft_window<kQuant16>(src, a0, a1, w, t, o, blocks, f, k,
+                                           m, max_val, ihs_passes, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// frames_w: float32 [batch, frames, n]; table: float32 [ceil(n/hop), hop]
+// prefix table, or null for a plain overlap-add; out_f: float32
+// [batch, length] or null; out_pcm: int16 [batch, length] or null; finite:
+// int32 [batch], set to 1 by the caller; row b's is cleared on any
+// non-finite output of that row.
+// length = n + (frames - 1) * hop.
+GOMEL_API int gomel_overlap_normalize(const void* frames_w, const void* table,
+                                      void* out_f, void* out_pcm, void* finite,
+                                      long long batch, long long frames,
+                                      long long n, long long hop,
+                                      int short_form, float threshold,
+                                      float boost, int device, void* stream) {
+  cudaSetDevice(device);
+  const long long length = n + (frames - 1) * hop;
+  const int taps = static_cast<int>((n + hop - 1) / hop);
+  const int threads = 256;
+  long long bx = (length + threads - 1) / threads;
+  if (bx > 65535) bx = 65535;
+  overlap_normalize_kernel<<<dim3(static_cast<unsigned>(bx),
+                                  static_cast<unsigned>(batch)),
+                             threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(frames_w), static_cast<const float*>(table),
+      static_cast<float*>(out_f), static_cast<int16_t*>(out_pcm),
+      static_cast<int*>(finite), length, static_cast<int>(frames),
+      static_cast<int>(n), static_cast<int>(hop), taps, short_form, threshold,
+      boost);
+  return gomel_status();
+}

@@ -1,4 +1,6 @@
 // KD: mel PNG quantizer — per-row global min/max, trunc(255 * norm), transpose.
+// KF: phase PNG quantizer — the same with per-channel extrema, an asinh
+//     prologue and uint8 or uint16 planes (below).
 //
 // Replaces gomel_tpu/ops/quantize.py:63 quantize_mel_plane and :211
 // quantize_mel_plane_batch without ``frames`` (K4, unmasked form). Input
@@ -157,5 +159,178 @@ GOMEL_API int gomel_quantize_mel(const void* x, void* partial, void* out,
       static_cast<uchar2*>(out), static_cast<float*>(mx),
       static_cast<float*>(mn), static_cast<int>(frames),
       static_cast<int>(mels), max_val);
+  return gomel_status();
+}
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// KF: phase PNG quantizer.
+//
+// Replaces gomel_tpu/ops/quantize.py:30 quantize_planes and :185
+// quantize_planes_batch without ``frames`` (K6, unmasked form). Input
+// [B, F, nf, 2] float32; output [B, nf, F, 2] uint8 (max_val 255) or uint16
+// (HDR, max_val 65535), plus each row's per-channel maxs [B, 2] and
+// mins [B, 2]. KD's two passes, with three changes: the extrema are per
+// channel; ``ihs_passes`` x asinhf is applied to every value before both the
+// extrema and the quantize (recomputed in pass 2 rather than stored: the
+// spectrogram is read twice either way); the planes are 8 or 16 bits.
+//
+// Numerics: JAX's op order (quantize.py:39-47): asinh passes, subtract,
+// divide by the range, multiply by max_val, truncate, clip; a range <= 0
+// pins norm at 0.5. No multiply feeds an add, so no fused multiply-add can
+// form. Without IHS the planes equal the plain version's bit for bit; with
+// it they can differ where asinhf and the plain version's asinh differ in
+// the last bit and a truncation sits on that boundary.
+//
+// Bound: device memory, as KD: it reads the float32 spectrogram twice
+// (13.8 MB per row at the phase CLI width) and writes a quarter (uint8) or
+// half (uint16) of that, through the same shared-memory transpose.
+
+__device__ __forceinline__ float ihs_forward(float v, int passes) {
+  for (int p = 0; p < passes; ++p) v = asinhf(v);
+  return v;
+}
+
+__device__ __forceinline__ void block_minmax4(float4& e) {
+  // e = (mx0, mx1, mn0, mn1) reduced over the block, result in warp 0
+  __shared__ float4 s_e[32];
+  warp_minmax(e.x, e.z);
+  warp_minmax(e.y, e.w);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) s_e[warp] = e;
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x >> 5;
+    e = lane < warps ? s_e[lane]
+                     : make_float4(-INFINITY, -INFINITY, INFINITY, INFINITY);
+    warp_minmax(e.x, e.z);
+    warp_minmax(e.y, e.w);
+  }
+}
+
+__global__ void minmax_planes_partial_kernel(const float2* __restrict__ x,
+                                             long long n, int parts,
+                                             int ihs_passes,
+                                             float4* __restrict__ partial) {
+  const int b = blockIdx.y;
+  const float2* src = x + static_cast<long long>(b) * n;
+  float4 e = make_float4(-INFINITY, -INFINITY, INFINITY, INFINITY);
+  const long long step = static_cast<long long>(parts) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += step) {
+    const float2 v = src[i];
+    const float a = ihs_forward(v.x, ihs_passes);
+    const float c = ihs_forward(v.y, ihs_passes);
+    e.x = fmaxf(e.x, a);
+    e.y = fmaxf(e.y, c);
+    e.z = fminf(e.z, a);
+    e.w = fminf(e.w, c);
+  }
+  block_minmax4(e);
+  if (threadIdx.x == 0) partial[static_cast<long long>(b) * parts + blockIdx.x] = e;
+}
+
+template <typename T2>
+__global__ void quantize_planes_kernel(const float2* __restrict__ x,
+                                       const float4* __restrict__ partial,
+                                       int parts, T2* __restrict__ out,
+                                       float2* __restrict__ mx_out,
+                                       float2* __restrict__ mn_out, int frames,
+                                       int bins, float max_val, int ihs_passes) {
+  using E = decltype(T2::x);
+  __shared__ float s_ext[4];
+  __shared__ unsigned tile[kTile][kTile + 1];
+  const int b = blockIdx.z;
+
+  if (threadIdx.y == 0) {
+    float4 e = make_float4(-INFINITY, -INFINITY, INFINITY, INFINITY);
+    for (int p = threadIdx.x; p < parts; p += kTile) {
+      const float4 q = partial[static_cast<long long>(b) * parts + p];
+      e.x = fmaxf(e.x, q.x);
+      e.y = fmaxf(e.y, q.y);
+      e.z = fminf(e.z, q.z);
+      e.w = fminf(e.w, q.w);
+    }
+    warp_minmax(e.x, e.z);
+    warp_minmax(e.y, e.w);
+    if (threadIdx.x == 0) {
+      s_ext[0] = e.x;
+      s_ext[1] = e.y;
+      s_ext[2] = e.z;
+      s_ext[3] = e.w;
+      if (blockIdx.x == 0 && blockIdx.y == 0) {
+        mx_out[b] = make_float2(e.x, e.y);
+        mn_out[b] = make_float2(e.z, e.w);
+      }
+    }
+  }
+  __syncthreads();
+  const float mn0 = s_ext[2];
+  const float mn1 = s_ext[3];
+  const float rng0 = s_ext[0] - mn0;
+  const float rng1 = s_ext[1] - mn1;
+
+  const int f0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.y * kTile;
+  for (int j = threadIdx.y; j < kTile; j += kRows) {
+    const int f = f0 + j;
+    const int k = k0 + threadIdx.x;
+    if (f < frames && k < bins) {
+      const float2 v = x[(static_cast<long long>(b) * frames + f) * bins + k];
+      tile[j][threadIdx.x] =
+          quantize_one(ihs_forward(v.x, ihs_passes), mn0, rng0, max_val) |
+          (quantize_one(ihs_forward(v.y, ihs_passes), mn1, rng1, max_val) << 16);
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < kTile; j += kRows) {
+    const int k = k0 + j;
+    const int f = f0 + threadIdx.x;
+    if (f < frames && k < bins) {
+      const unsigned t = tile[threadIdx.x][j];
+      T2 o;
+      o.x = static_cast<E>(t & 0xffffu);
+      o.y = static_cast<E>(t >> 16);
+      out[(static_cast<long long>(b) * bins + k) * frames + f] = o;
+    }
+  }
+}
+
+}  // namespace
+
+// x: float32 [batch, frames, bins, 2]; partial: float32 scratch
+// [batch, parts, 4]; out: [batch, bins, frames, 2] uint8 (max_val <= 255) or
+// uint16; mx, mn: float32 [batch, 2].
+GOMEL_API int gomel_quantize_planes(const void* x, void* partial, void* out,
+                                    void* mx, void* mn, long long batch,
+                                    long long frames, long long bins,
+                                    int parts, float max_val, int ihs_passes,
+                                    int device, void* stream) {
+  cudaSetDevice(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  minmax_planes_partial_kernel<<<dim3(parts, static_cast<unsigned>(batch)), 256,
+                                 0, s>>>(
+      static_cast<const float2*>(x), frames * bins, parts, ihs_passes,
+      static_cast<float4*>(partial));
+  const int err = gomel_status();
+  if (err != 0) return err;
+  const dim3 grid(static_cast<unsigned>((frames + kTile - 1) / kTile),
+                  static_cast<unsigned>((bins + kTile - 1) / kTile),
+                  static_cast<unsigned>(batch));
+  const float4* part = static_cast<const float4*>(partial);
+  const float2* src = static_cast<const float2*>(x);
+  if (max_val > 255.0f) {
+    quantize_planes_kernel<ushort2><<<grid, dim3(kTile, kRows), 0, s>>>(
+        src, part, parts, static_cast<ushort2*>(out), static_cast<float2*>(mx),
+        static_cast<float2*>(mn), static_cast<int>(frames),
+        static_cast<int>(bins), max_val, ihs_passes);
+  } else {
+    quantize_planes_kernel<uchar2><<<grid, dim3(kTile, kRows), 0, s>>>(
+        src, part, parts, static_cast<uchar2*>(out), static_cast<float2*>(mx),
+        static_cast<float2*>(mn), static_cast<int>(frames),
+        static_cast<int>(bins), max_val, ihs_passes);
+  }
   return gomel_status();
 }

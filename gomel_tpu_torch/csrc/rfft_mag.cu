@@ -12,14 +12,13 @@
 // computes in float64 and rounds to float32 (tw[j] = exp(-2 pi i j / n),
 // j < n/2), not from sincosf.
 //
-// Algorithm: the n real samples are read as m = n/2 complex values
-// z[k] = x[2k] + i x[2k+1] (the interleaved float layout IS that complex
-// array, so the load is a plain coalesced copy with the window applied on
-// the way); an m-point Stockham radix-2 FFT (log2 m passes between two
-// shared buffers, natural order out) gives Z; the real-split post-pass forms
-//   X[k] = (Z[k] + conj Z[m-k]) / 2 - i tw[k] (Z[k] - conj Z[m-k]) / 2
-// for 0 < k < m, X[0] = Re Z0 + Im Z0, X[m] = Re Z0 - Im Z0, and writes
-// sqrtf(re^2 + im^2) for the m + 1 bins.
+// Algorithm (fft_core.cuh, shared with KE and KG): the n real samples are
+// read as m = n/2 complex values z[k] = x[2k] + i x[2k+1] (the interleaved
+// float layout IS that complex array, so the load is a plain coalesced copy
+// with the window applied on the way); an m-point Stockham radix-2 FFT
+// (log2 m passes between two shared buffers, natural order out) gives Z; the
+// real-split post-pass forms the m + 1 rfft bins, and this kernel writes
+// sqrtf(re^2 + im^2) for each.
 //
 // Bound: at the mel path's shape (2 x 1122 frames of 4096) the frames read
 // 37 MB (the signal itself 11.5 MB; neighbouring frames overlap in L2) and the
@@ -30,7 +29,7 @@
 // read straight from the signal) and keeps the whole transform in one block's
 // shared memory (2 x 16 KB at n = 4096). Radix-4 passes, a fused filterbank
 // epilogue and several frames per block are later work.
-#include "common.cuh"
+#include "fft_core.cuh"
 
 namespace {
 
@@ -40,64 +39,17 @@ __global__ void stft_mag_kernel(const float* __restrict__ x,
                                 float* __restrict__ out, int frames,
                                 long long batch_stride, long long hop, int m) {
   extern __shared__ float2 smem[];
-  float2* a = smem;
-  float2* b = smem + m;
-
   const long long frame = blockIdx.x;
   const long long bi = frame / frames;
   const long long fi = frame - bi * frames;
-  const float* src = x + bi * batch_stride + fi * hop;
-  const int n = 2 * m;
-
-  float* af = reinterpret_cast<float*>(a);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float v = src[i];
-    if (window != nullptr) v *= window[i];
-    af[i] = v;
-  }
-  __syncthreads();
-
-  // Stockham radix-2: pass with sub-transform size ns (1, 2, ..., m/2)
-  const int half = m / 2;
-  for (int ns = 1; ns < m; ns <<= 1) {
-    const int tw_stride = m / ns;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int k = j & (ns - 1);
-      const float2 w = tw[k * tw_stride];  // exp(-2 pi i k / (2 ns))
-      const float2 u = a[j];
-      const float2 v = a[j + half];
-      const float vr = v.x * w.x - v.y * w.y;
-      const float vi = v.x * w.y + v.y * w.x;
-      const int idx = ((j - k) << 1) + k;
-      b[idx] = make_float2(u.x + vr, u.y + vi);
-      b[idx + ns] = make_float2(u.x - vr, u.y - vi);
-    }
-    __syncthreads();
-    float2* t = a;
-    a = b;
-    b = t;
-  }
+  load_frame(reinterpret_cast<float*>(smem), x + bi * batch_stride + fi * hop,
+             window, 2 * m);
+  const float2* z = stockham_fft<false>(smem, smem + m, tw, m);
 
   float* dst = out + frame * (m + 1);
   for (int k = threadIdx.x; k <= m; k += blockDim.x) {
-    float re, im;
-    if (k == 0 || k == m) {
-      const float2 z = a[0];
-      re = (k == 0) ? z.x + z.y : z.x - z.y;
-      im = 0.0f;
-    } else {
-      const float2 p = a[k];
-      const float2 q = a[m - k];
-      // even part E = (p + conj q) / 2, odd part O = -i (p - conj q) / 2
-      const float er = 0.5f * (p.x + q.x);
-      const float ei = 0.5f * (p.y - q.y);
-      const float orr = 0.5f * (p.y + q.y);
-      const float oi = -0.5f * (p.x - q.x);
-      const float2 w = tw[k];
-      re = er + (orr * w.x - oi * w.y);
-      im = ei + (orr * w.y + oi * w.x);
-    }
-    dst[k] = sqrtf(re * re + im * im);
+    const float2 v = real_split_bin(z, tw, k, m);
+    dst[k] = sqrtf(v.x * v.x + v.y * v.y);
   }
 }
 

@@ -1,4 +1,4 @@
-"""Host WAV loading.
+"""Host WAV loading and saving.
 
 The WAV part of ``gomel_tpu/io/audio.py``, copied: the port cannot import
 ``gomel_tpu``, whose package __init__ imports JAX. tests/test_torch_host.py
@@ -85,3 +85,36 @@ def load_wav_any(path: str, mono: str = "mean", raw_pcm16: bool = False
         if raw is not None:
             return raw, int(sr)
     return _to_mono(_to_float(audio), mono), int(sr)
+
+
+def save_wav_pcm16(path: str, pcm: np.ndarray, sample_rate: int,
+                   stereo: bool = False) -> None:
+    """Write ALREADY-CONVERTED int16 PCM — the landing pad for the
+    device-side conversion (ops/quantize.pcm16_encode, kernel KH), which is
+    bit-identical to :func:`save_wav`'s float path on the same wave."""
+    pcm = np.asarray(pcm)
+    if pcm.dtype != np.int16:
+        raise ValueError(f"expected int16 PCM, got {pcm.dtype}")
+    if stereo and pcm.ndim == 1:
+        pcm = np.stack([pcm, pcm], axis=1)
+    wavcodec.write_wav(path, pcm, int(sample_rate))
+
+
+def save_wav(path: str, audio: np.ndarray, sample_rate: int,
+             clip: bool = True, stereo: bool = False) -> None:
+    """Save 16-bit PCM WAV. Clips to [-1, 1] like the port (phase.py:592-605);
+    float->int16 uses libsndfile's scale-by-32768 with saturation. Non-finite
+    samples raise (the reference design doc's error contract).
+
+    ``stereo=True`` duplicates mono into two identical channels — the Go
+    ``dumpwav`` container layout (mel/impl.go:195-232); default mono matches
+    the Python port."""
+    audio = np.asarray(audio, dtype=np.float64)
+    if not np.isfinite(audio).all():
+        raise ValueError("audio contains NaN/Inf samples")
+    if clip:
+        audio = np.clip(audio, -1.0, 1.0)
+    pcm = np.clip(np.rint(audio * 32768.0), -32768, 32767).astype(np.int16)
+    if stereo and pcm.ndim == 1:
+        pcm = np.stack([pcm, pcm], axis=1)
+    wavcodec.write_wav(path, pcm, int(sample_rate))

@@ -1,0 +1,286 @@
+"""Overlap-add iSTFT: kernels KG (inverse rFFT x window) and KH (overlap-add
++ window-sum normalisation + boost + PCM-16), both csrc/phase_decode.cu.
+
+Counterpart of ``gomel_tpu/ops/istft.py`` (reference phase/phase.go:93-133):
+``overlap_add``, ``window_sum``, ``normalize_by_window_sum`` and
+``istft_direct_planes``. On a CPU tensor each runs its plain PyTorch version
+(the JAX program's order of operations, so float32 results match it bit for
+bit where the JAX program is exact); on a CUDA tensor ``irfft_window``
+launches KG and ``overlap_add`` / ``overlap_normalize`` launch KH.
+
+KH takes the window sum from a [K, hop] prefix table (K = ceil(N/hop)) built
+on the host exactly as :func:`window_sum` builds it: the prefix is summed row
+after row in float32 (``torch.cumsum`` on the CPU accumulates float32 in
+float64, which the JAX program does not), so the kernel's window sum, and
+the 0.5 * max threshold taken from the same table, equal the JAX program's
+bit for bit. ``window_sum`` and ``normalize_by_window_sum`` are plain
+PyTorch on any device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _cuda
+from .quantize import pcm16_encode
+from .rfft_mag import _twiddles, supported
+
+SYNTH_KERNEL = _cuda.Kernel("irfft_window",
+                            "gomel_tpu_torch/csrc/phase_decode.cu",
+                            "gomel_tpu/ops/istft.py:137")
+OLA_KERNEL = _cuda.Kernel("overlap_normalize",
+                          "gomel_tpu_torch/csrc/phase_decode.cu",
+                          "gomel_tpu/ops/istft.py:22")
+
+# KG's sources (csrc/phase_decode.cu), and the alignment in bytes each needs
+# (the kernel reads float, float2, uchar2 and ushort2 elements)
+MODE_PLANES, MODE_SPEC, MODE_QUANT8, MODE_QUANT16 = 0, 1, 2, 3
+_ALIGN = {MODE_PLANES: 4, MODE_SPEC: 8, MODE_QUANT8: 2, MODE_QUANT16: 4}
+
+
+def overlap_add_plain(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Plain PyTorch overlap-add: [..., F, N] -> [..., N + (F-1)*hop], as K
+    shifted adds of hop-rows in the JAX program's order (istft.py:22-38)."""
+    *lead, F, N = frames.shape
+    K = -(-N // hop)
+    fp = torch.nn.functional.pad(frames, (0, K * hop - N)).reshape(
+        *lead, F, K, hop)
+    rows_out = F + K - 1
+    acc = frames.new_zeros((*lead, rows_out, hop))
+    for k in range(K):
+        acc = acc + torch.nn.functional.pad(fp[..., k, :],
+                                            (0, 0, k, rows_out - F - k))
+    return acc.reshape(*lead, -1)[..., : N + (F - 1) * hop]
+
+
+def _prefix_rows(window: torch.Tensor, hop: int) -> torch.Tensor:
+    """S[k] = sum_{j <= k} of the hop-rows of window**2, [K, hop], summed
+    row after row in the window's dtype."""
+    w2 = window * window
+    N = w2.shape[0]
+    K = -(-N // hop)
+    rows = torch.nn.functional.pad(w2, (0, K * hop - N)).reshape(K, hop)
+    prefix = [rows[0]]
+    for k in range(1, K):
+        prefix.append(prefix[-1] + rows[k])
+    return torch.stack(prefix)
+
+
+def _window_sum_rows(prefix: torch.Tensor, n_frames: int
+                     ) -> tuple[torch.Tensor, bool]:
+    """The distinct hop-rows of the window sum (istft.py:58-71) and whether
+    the signal is short. Short: all F + K - 1 rows. Otherwise the K - 1 head
+    rows, the one periodic middle row, and the K - 1 tail rows."""
+    K = prefix.shape[0]
+    rows_out = n_frames + K - 1
+    if rows_out <= 2 * (K - 1):
+        idx = torch.arange(rows_out, device=prefix.device)
+        top = prefix[torch.clamp(idx, max=K - 1)]
+        sub_idx = idx - n_frames
+        sub = torch.where((sub_idx >= 0)[:, None],
+                          prefix[torch.clamp(sub_idx, 0, K - 1)], 0.0)
+        return top - sub, True
+    full = prefix[-1]
+    return torch.cat([prefix[: K - 1], full[None], full - prefix[: K - 1]]), False
+
+
+def window_sum(window: torch.Tensor, n_frames: int, hop: int) -> torch.Tensor:
+    """Overlap-added sum of squared windows [N + (F-1)*hop] (reference:
+    phase/phase.go:109), built from the K = ceil(N/hop) prefix rows."""
+    N = window.shape[0]
+    prefix = _prefix_rows(window, hop)
+    rows, short = _window_sum_rows(prefix, n_frames)
+    if not short:
+        K = prefix.shape[0]
+        mid = n_frames + K - 1 - 2 * (K - 1)
+        rows = torch.cat([rows[: K - 1], rows[K - 1:K].expand(mid, hop),
+                          rows[K:]])
+    return rows.reshape(-1)[: N + (n_frames - 1) * hop]
+
+
+def normalize_by_window_sum(sig: torch.Tensor, wsum: torch.Tensor,
+                            threshold: torch.Tensor) -> torch.Tensor:
+    """Stability-thresholded window-sum normalisation (reference:
+    phase/phase.go:121-130): sig / wsum where wsum > threshold, the fade
+    sig / threshold where 1e-21 < wsum <= threshold, else sig untouched."""
+    safe = torch.where(wsum > 1e-21, wsum, 1.0)
+    normalized = sig / safe
+    faded = sig / threshold
+    return torch.where(wsum > threshold, normalized,
+                       torch.where(wsum > 1e-21, faded, sig))
+
+
+# (id(window), hop, device) -> (window, its version, prefix table on device,
+# prefix table on the CPU); the window is kept so its id cannot be recycled,
+# and its version counter invalidates the entry after an in-place write
+_TABLES: dict[tuple, tuple] = {}
+_TABLES_MAX = 16
+
+
+def _window_table(window: torch.Tensor, hop: int):
+    """KH's float32 prefix table for ``window``, on the window's device and
+    on the CPU, built once per window and hop."""
+    key = (id(window), hop, window.device)
+    entry = _TABLES.get(key)
+    if entry is not None and entry[0] is window and entry[1] == window._version:
+        return entry[2], entry[3]
+    prefix = _prefix_rows(window.detach().to("cpu", torch.float32), hop)
+    if len(_TABLES) >= _TABLES_MAX:
+        _TABLES.clear()
+    value = (prefix.to(window.device), prefix)
+    _TABLES[key] = (window, window._version, *value)
+    return value
+
+
+def window_sum_threshold(prefix: torch.Tensor, n_frames: int) -> float:
+    """0.5 * max(window_sum): the maximum over the distinct rows equals the
+    maximum over the whole sum (the columns the last row drops are exact
+    zeros, S[K-1] - S[K-2] of the window's zero padding)."""
+    rows, _ = _window_sum_rows(prefix, n_frames)
+    return float(0.5 * rows.max())
+
+
+def irfft_window_plain(re: torch.Tensor, im: torch.Tensor, n: int,
+                       window: torch.Tensor | None) -> torch.Tensor:
+    """Plain PyTorch version of KG on half-spectrum planes: irfft_n (the
+    imaginary parts of DC and Nyquist are ignored) times the window."""
+    frames = torch.fft.irfft(torch.complex(re, im), n=n, dim=-1)
+    return frames if window is None else frames * window
+
+
+def launch_irfft_window(mode: int, src: torch.Tensor,
+                        aux: tuple[torch.Tensor, ...], n: int, frames: int,
+                        nf: int, window: torch.Tensor | None,
+                        lead: tuple[int, ...], max_val: float = 0.0,
+                        ihs_passes: int = 0) -> torch.Tensor:
+    """Launch KG on ``src`` (see csrc/phase_decode.cu for the modes) ->
+    frames_w [*lead, frames, n] float32."""
+    tensors = (src, *aux) + (() if window is None else (window,))
+    dev = _cuda.check_cuda("irfft_window", *tensors)
+    if any(t.dtype != torch.float32 for t in aux) or (
+            window is not None and window.dtype != torch.float32):
+        raise ValueError("irfft_window: the CUDA kernel takes float32")
+    if not supported(n):
+        raise ValueError(f"irfft_window: n={n} unsupported (need even n, "
+                         f"n/2 a power of two, n <= 16384)")
+    if window is not None and window.shape != (n,):
+        raise ValueError(f"irfft_window: window shape {tuple(window.shape)} "
+                         f"!= ({n},)")
+    if src.data_ptr() % _ALIGN[mode] or (
+            window is not None and window.data_ptr() % 8):
+        raise ValueError("irfft_window: misaligned source or window")
+    batch = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty(lead + (frames, n), dtype=torch.float32, device=dev)
+    if batch * frames == 0:
+        return out
+    ptrs = [t.data_ptr() for t in aux] + [None] * (2 - len(aux))
+    _cuda.launch("gomel_irfft_window", dev, mode, src.data_ptr(), *ptrs,
+                 None if window is None else window.data_ptr(),
+                 _twiddles(n, dev).data_ptr(), out.data_ptr(), batch, frames,
+                 nf, n, float(max_val), int(ihs_passes))
+    SYNTH_KERNEL.launches += 1
+    return out
+
+
+def irfft_window(re: torch.Tensor, im: torch.Tensor, n: int,
+                 window: torch.Tensor | None = None) -> torch.Tensor:
+    """Half-spectrum planes [..., F, n/2 + 1] -> irfft_n x window
+    [..., F, n] (``window`` None: no window)."""
+    if re.shape != im.shape or re.shape[-1] != n // 2 + 1:
+        raise ValueError(f"irfft_window: planes {tuple(re.shape)}, "
+                         f"{tuple(im.shape)} do not hold n/2 + 1 = "
+                         f"{n // 2 + 1} bins")
+    if re.device.type == "cpu":
+        return irfft_window_plain(re, im, n, window)
+    if re.dtype != torch.float32:
+        raise ValueError("irfft_window: the CUDA kernel takes float32")
+    *lead, frames, _ = re.shape
+    return launch_irfft_window(MODE_PLANES, re.contiguous(), (im.contiguous(),),
+                               n, frames, n // 2 + 1, window, tuple(lead))
+
+
+def overlap_normalize_plain(frames_w: torch.Tensor, hop: int,
+                            window: torch.Tensor, volume_boost: float = 0.0,
+                            pcm16: bool = False):
+    """Plain PyTorch version of KH: overlap-add, window-sum normalisation,
+    boost when non-zero, then float32 or (int16 PCM, per-row finite flag)."""
+    sig = overlap_add_plain(frames_w, hop)
+    wsum = window_sum(window.to(frames_w.dtype), frames_w.shape[-2], hop)
+    sig = normalize_by_window_sum(sig, wsum, 0.5 * wsum.max())
+    if volume_boost != 0.0:
+        sig = sig * float(volume_boost)
+    if not pcm16:
+        return sig
+    finite = torch.isfinite(sig).all(dim=-1)
+    return pcm16_encode(sig)[0], finite
+
+
+def _launch_ola(frames_w: torch.Tensor, hop: int,
+                window: torch.Tensor | None, volume_boost: float,
+                pcm16: bool):
+    dev = _cuda.check_cuda("overlap_normalize", frames_w)
+    if frames_w.dtype != torch.float32:
+        raise ValueError("overlap_normalize: the CUDA kernel takes float32")
+    *lead, frames, n = frames_w.shape
+    if frames < 1 or hop < 1:
+        raise ValueError(f"overlap_normalize: {frames} frames, hop {hop}")
+    lead = tuple(lead)
+    batch = int(np.prod(lead, dtype=np.int64))
+    length = n + (frames - 1) * hop
+    table, threshold, short = None, 0.0, False
+    if window is not None:
+        if window.shape != (n,):
+            raise ValueError(f"overlap_normalize: window shape "
+                             f"{tuple(window.shape)} != ({n},)")
+        table, prefix = _window_table(window, hop)
+        table = table.to(dev)
+        threshold = window_sum_threshold(prefix, frames)
+        short = frames + prefix.shape[0] - 1 <= 2 * (prefix.shape[0] - 1)
+    out_f = out_pcm = None
+    if pcm16:
+        out_pcm = torch.empty(lead + (length,), dtype=torch.int16, device=dev)
+    else:
+        out_f = torch.empty(lead + (length,), dtype=torch.float32, device=dev)
+    finite = torch.ones(lead, dtype=torch.int32, device=dev)
+    if batch > 0:
+        _cuda.launch("gomel_overlap_normalize", dev, frames_w.data_ptr(),
+                     None if table is None else table.data_ptr(),
+                     None if out_f is None else out_f.data_ptr(),
+                     None if out_pcm is None else out_pcm.data_ptr(),
+                     finite.data_ptr(), batch, frames, n, hop, int(short),
+                     threshold, float(volume_boost))
+        OLA_KERNEL.launches += 1
+    if pcm16:
+        return out_pcm, finite.bool()
+    return out_f
+
+
+def overlap_normalize(frames_w: torch.Tensor, hop: int, window: torch.Tensor,
+                      volume_boost: float = 0.0, pcm16: bool = False):
+    """Windowed frames [..., F, N] -> normalised signal [..., N + (F-1)*hop]:
+    overlap-add, divide by the window sum (istft.py:189 branches), multiply
+    by ``volume_boost`` when it is non-zero. With ``pcm16``, returns
+    (int16 PCM [..., L], all-finite flag [...]) instead (quantize.py:124)."""
+    if frames_w.device.type == "cpu":
+        return overlap_normalize_plain(frames_w, hop, window, volume_boost,
+                                       pcm16)
+    return _launch_ola(frames_w.contiguous(), hop, window, volume_boost,
+                       pcm16)
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Sum overlapping frames: [..., F, N] -> [..., N + (F-1)*hop] (KH with
+    no normalisation on a CUDA tensor)."""
+    if frames.device.type == "cpu":
+        return overlap_add_plain(frames, hop)
+    return _launch_ola(frames.contiguous(), hop, None, 0.0, False)
+
+
+def istft_direct_planes(re: torch.Tensor, im: torch.Tensor, hop: int,
+                        window) -> torch.Tensor:
+    """Direct (0-iteration) iSTFT with window-sum normalisation: real/imag
+    planes [..., F, N/2 + 1] -> signal [..., N + (F-1)*hop] (reference:
+    phase/phase.go:93-133). ``window``: [N] numpy array or tensor."""
+    n = (re.shape[-1] - 1) * 2
+    window = torch.as_tensor(window, dtype=re.dtype, device=re.device)
+    return overlap_normalize(irfft_window(re, im, n, window), hop, window)

@@ -1,40 +1,59 @@
-"""PCM-16 ingest (kernel KA, csrc/ingest.cu) and the mel PNG quantizer
-(kernel KD, csrc/quantize.cu).
+"""PCM-16 ingest with the zero-stuff upsample (kernel KA, csrc/ingest.cu),
+the mel PNG quantizer (kernel KD) and the phase plane quantizer (kernel KF,
+both csrc/quantize.cu), and the plain de-quantizer and PCM-16 conversion of
+the phase decode.
 
 Counterparts of ``gomel_tpu/ops/quantize.py`` ``pcm16_ingest``,
-``quantize_mel_plane`` and ``quantize_mel_plane_batch`` (without the
-per-row ``frames`` mask, still to port). On the file path only int16 samples
-go to the device and only uint8 planes plus two extrema come back.
+``quantize_mel_plane(_batch)``, ``quantize_planes(_batch)`` (both without
+the per-row ``frames`` mask, still to port), ``dequantize_planes(_batch)``
+and ``pcm16_encode``. On the file paths only int16 samples go to the device
+and only integer planes plus extrema come back (encode), and only integer
+planes go up and int16 samples come back (decode).
+
+``dequantize_planes`` and ``pcm16_encode`` are plain PyTorch on any device:
+on the card's decode path their work is the prologue of kernel KG and the
+epilogue of kernel KH (ops/istft.py), and these functions are those
+kernels' plain versions.
 
 Byte parity: the host writer quantizes in float64, these in float32; the
 truncation can flip one step where the two roundings straddle an integer
-(rare; gomel_tpu/ops/quantize.py:10-14). The kernels equal their plain
-versions, and the JAX programs, bit for bit on the same float32 input.
+(rare; gomel_tpu/ops/quantize.py:10-14). KA and KD, and KF without IHS,
+equal their plain versions, and the JAX programs, bit for bit on the same
+float32 input.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.framing import zero_stuff_output_length
 from . import _cuda
+from .resample import zero_stuff_upsample
 
 INGEST_KERNEL = _cuda.Kernel("pcm16_ingest", "gomel_tpu_torch/csrc/ingest.cu",
                              "gomel_tpu/ops/quantize.py:105")
 QUANTIZE_KERNEL = _cuda.Kernel("quantize_mel_plane",
                                "gomel_tpu_torch/csrc/quantize.cu",
                                "gomel_tpu/ops/quantize.py:63")
+PLANES_KERNEL = _cuda.Kernel("quantize_planes",
+                             "gomel_tpu_torch/csrc/quantize.cu",
+                             "gomel_tpu/ops/quantize.py:30")
 
 # pass-1 blocks per row of the quantizer's min/max reduction
 _MINMAX_PARTS = 64
 
 
 def pcm16_ingest_plain(pcm: torch.Tensor, dtype: torch.dtype, scale: float,
-                       pad_to: int = 0, batched: bool = False) -> torch.Tensor:
+                       pad_to: int = 0, batched: bool = False, zp: int = 0,
+                       zs: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the ingest kernel (see :func:`pcm16_ingest`;
     ``batched``: [B, L] mono rows instead of one [L, 2] stereo signal)."""
     x = pcm.to(dtype)
     if x.ndim == 2 and not batched:
         x = x.mean(dim=1)
     x = x / float(scale)
+    if zp > 0:
+        x = (torch.stack([zero_stuff_upsample(r, zp, zs) for r in x])
+             if batched else zero_stuff_upsample(x, zp, zs))
     if pad_to > x.shape[-1]:
         x = torch.nn.functional.pad(x, (0, pad_to - x.shape[-1]))
     return x
@@ -54,38 +73,42 @@ def _ingest_layout(pcm: torch.Tensor, batched: bool) -> tuple[int, int, int]:
 
 
 def _ingest(pcm: torch.Tensor, dtype: torch.dtype, scale: float, pad_to: int,
-            batched: bool) -> torch.Tensor:
+            batched: bool, zp: int, zs: int) -> torch.Tensor:
     rows, n_in, channels = _ingest_layout(pcm, batched)
+    if zp < 0 or zs < 0 or (zp == 0 and zs != 0):
+        raise ValueError(f"pcm16_ingest: bad zero-stuff (zp={zp}, zs={zs})")
     if pcm.device.type == "cpu":
-        return pcm16_ingest_plain(pcm, dtype, scale, pad_to, batched)
+        return pcm16_ingest_plain(pcm, dtype, scale, pad_to, batched, zp, zs)
     dev = _cuda.check_cuda("pcm16_ingest", pcm)
     if pcm.dtype != torch.int16 or dtype != torch.float32:
         raise ValueError("pcm16_ingest: the CUDA kernel maps int16 to float32")
-    n_out = max(n_in, pad_to)
+    n_out = max(zero_stuff_output_length(n_in, zp, zs), pad_to)
     out = torch.empty((rows, n_out) if batched else (n_out,),
                       dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     _cuda.launch("gomel_pcm16_ingest", dev, pcm.data_ptr(), out.data_ptr(),
-                 rows, n_in, n_out, channels, float(scale))
+                 rows, n_in, n_out, channels, float(scale), zp, zs)
     INGEST_KERNEL.launches += 1
     return out
 
 
 def pcm16_ingest(pcm: torch.Tensor, dtype: torch.dtype, scale: float,
-                 pad_to: int = 0) -> torch.Tensor:
-    """int16 [L] or [L, 2] -> float [max(L, pad_to)]: convert, stereo mean
+                 pad_to: int = 0, zp: int = 0, zs: int = 0) -> torch.Tensor:
+    """int16 [L] or [L, 2] -> float [max(L', pad_to)]: convert, stereo mean
     (exact: the float32 sum of two int16 is exact), divide by ``scale`` (a
-    power of two, so exact), zero-pad to ``pad_to``. Bit-identical to the
-    host float path."""
-    return _ingest(pcm, dtype, scale, pad_to, batched=False)
+    power of two, so exact), zero-stuff upsample (``zp`` kept, ``zs`` zeros,
+    kept samples times 1 + zs; L' = L + ceil(L/zp)*zs, L' = L for zp = 0),
+    zero-pad to ``pad_to``. Bit-identical to the host float path."""
+    return _ingest(pcm, dtype, scale, pad_to, False, zp, zs)
 
 
 def pcm16_ingest_batch(pcm: torch.Tensor, dtype: torch.dtype, scale: float,
-                       pad_to: int = 0) -> torch.Tensor:
+                       pad_to: int = 0, zp: int = 0, zs: int = 0
+                       ) -> torch.Tensor:
     """Batched mono :func:`pcm16_ingest`: int16 [B, L] -> float
-    [B, max(L, pad_to)]."""
-    return _ingest(pcm, dtype, scale, pad_to, batched=True)
+    [B, max(L', pad_to)]."""
+    return _ingest(pcm, dtype, scale, pad_to, True, zp, zs)
 
 
 def quantize_mel_plane_plain(spec2: torch.Tensor, max_val: int = 255):
@@ -145,3 +168,114 @@ def quantize_mel_plane_batch(spec2b: torch.Tensor, max_val: int = 255):
     uint8, mgc_max [B], mgc_min [B]), each row with its own global extrema
     (one file per row)."""
     return _quantize(spec2b, max_val, batched=True)
+
+
+def quantize_planes_plain(spec2: torch.Tensor, max_val: int,
+                          ihs_passes: int = 0):
+    """Plain PyTorch version of the phase quantizer kernel: [..., F, nf, 2] ->
+    (img2 [..., nf, F, 2] uint8|uint16, maxs [..., 2], mins [..., 2])."""
+    for _ in range(ihs_passes):
+        spec2 = torch.asinh(spec2)
+    maxs = spec2.amax(dim=(-3, -2))
+    mins = spec2.amin(dim=(-3, -2))
+    mx = maxs[..., None, None, :]
+    mn = mins[..., None, None, :]
+    rng = mx - mn
+    norm = torch.where(rng > 0,
+                       (spec2 - mn) / torch.where(rng > 0, rng, 1.0), 0.5)
+    q = torch.clip(torch.trunc(max_val * norm), 0, max_val)
+    dtype = torch.uint16 if max_val > 255 else torch.uint8
+    return q.transpose(-3, -2).to(dtype), maxs, mins
+
+
+def _quantize_planes(spec2: torch.Tensor, max_val: int, ihs_passes: int,
+                     batched: bool):
+    if spec2.ndim != (4 if batched else 3) or spec2.shape[-1] != 2:
+        raise ValueError(f"expected {'[B, F, nf, 2]' if batched else '[F, nf, 2]'} "
+                         f"(got {tuple(spec2.shape)})")
+    if spec2.device.type == "cpu":
+        return quantize_planes_plain(spec2, max_val, ihs_passes)
+    dev = _cuda.check_cuda("quantize_planes", spec2)
+    if spec2.dtype != torch.float32:
+        raise ValueError("quantize_planes: the CUDA kernel takes float32")
+    if not 0 < max_val <= 65535:
+        raise ValueError(f"quantize_planes: max_val {max_val} exceeds uint16")
+    if spec2.numel() == 0:
+        raise ValueError("quantize_planes: empty spectrogram has no extrema")
+    batch = spec2.shape[0] if batched else 1
+    frames, bins = spec2.shape[-3], spec2.shape[-2]
+    lead = (batch,) if batched else ()
+    dtype = torch.uint16 if max_val > 255 else torch.uint8
+    img2 = torch.empty(lead + (bins, frames, 2), dtype=dtype, device=dev)
+    maxs = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
+    mins = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
+    partial = torch.empty((batch, _MINMAX_PARTS, 4), dtype=torch.float32,
+                          device=dev)
+    _cuda.launch("gomel_quantize_planes", dev, spec2.data_ptr(),
+                 partial.data_ptr(), img2.data_ptr(), maxs.data_ptr(),
+                 mins.data_ptr(), batch, frames, bins, _MINMAX_PARTS,
+                 float(max_val), int(ihs_passes))
+    PLANES_KERNEL.launches += 1
+    return img2, maxs, mins
+
+
+def quantize_planes(spec2: torch.Tensor, max_val: int, ihs_passes: int = 0):
+    """Quantize a phase spectrogram [F, nf, 2] to image planes.
+
+    Returns (img2 [nf, F, 2] uint8|uint16 in image (row = bin) layout,
+    maxs [2], mins [2]): the PER-CHANNEL extrema after ``ihs_passes`` asinh
+    passes, exactly what the PNG metadata stores (phase/impl.go:198-222).
+    Degenerate range pins norm at 0.5 like the host writer."""
+    return _quantize_planes(spec2, max_val, ihs_passes, batched=False)
+
+
+def quantize_planes_batch(spec2b: torch.Tensor, max_val: int,
+                          ihs_passes: int = 0):
+    """Batched :func:`quantize_planes`: [B, F, nf, 2] -> (img2 [B, nf, F, 2],
+    maxs [B, 2], mins [B, 2]), each row with its own per-channel extrema (one
+    file per row)."""
+    return _quantize_planes(spec2b, max_val, ihs_passes, batched=True)
+
+
+def dequantize_planes(img2: torch.Tensor, maxs, mins, max_val: int,
+                      ihs_passes: int = 0) -> torch.Tensor:
+    """Inverse of :func:`quantize_planes`: integer planes [..., nf, F, 2] +
+    per-channel extrema [..., 2] -> spectrogram [..., F, nf, 2] float32
+    (rescale per channel, then sinh IHS undo; phase/impl.go:109-147).
+
+    Plain PyTorch on any device; the card's decode path runs this as the
+    prologue of kernel KG. The divisor is a tensor, so the division is a
+    true division on every device, as in the kernel."""
+    dev = img2.device
+    f32 = torch.float32
+    maxs = torch.as_tensor(maxs, dtype=f32, device=dev)
+    mins = torch.as_tensor(mins, dtype=f32, device=dev)
+    # a device scalar made by a fill, not a host copy, so a call can be
+    # queued behind running work
+    spec = img2.to(f32).transpose(-3, -2) / torch.full(
+        (), float(max_val), dtype=f32, device=dev)
+    spec = spec * (maxs - mins)[..., None, None, :] + mins[..., None, None, :]
+    for _ in range(ihs_passes):
+        spec = torch.sinh(spec)
+    return spec
+
+
+def dequantize_planes_batch(img2b: torch.Tensor, maxs, mins, max_val: int,
+                            ihs_passes: int = 0) -> torch.Tensor:
+    """Batched :func:`dequantize_planes`: [B, nf, F, 2] + [B, 2] extrema ->
+    [B, F, nf, 2] float32."""
+    if img2b.ndim != 4:
+        raise ValueError(f"expected [B, nf, F, 2] (got {tuple(img2b.shape)})")
+    return dequantize_planes(img2b, maxs, mins, max_val, ihs_passes)
+
+
+def pcm16_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float audio -> (int16 PCM, all-finite flag): io.audio.save_wav's
+    conversion (clip to [-1, 1], round half to even of x*32768, saturate).
+    *32768 is exact, so it equals the host conversion of the same wave bit
+    for bit; NaN converts to 0, as in the JAX program. Plain PyTorch on any
+    device; the card's decode path runs it as the epilogue of kernel KH."""
+    finite = torch.isfinite(x).all()
+    x = torch.clip(x.nan_to_num(nan=0.0), -1.0, 1.0)
+    pcm = torch.clip(torch.round(x * 32768.0), -32768.0, 32767.0)
+    return pcm.to(torch.int16), finite

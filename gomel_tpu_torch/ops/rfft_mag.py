@@ -1,11 +1,15 @@
-"""Framed, windowed real-FFT magnitude: kernel KB (csrc/rfft_mag.cu).
+"""Framed, windowed real FFTs: kernels KB (csrc/rfft_mag.cu) and KE
+(csrc/phase_encode.cu), which share one float32 FFT body (csrc/fft_core.cuh).
 
 ``stft_mag(x, window, n, hop)`` maps a signal [..., L] to
 |rfft_n(frame * window)| [..., F, n/2 + 1] with F = (L - n)//hop + 1. It
 replaces the TPU's ``frame_signal`` x Hann -> ``mxu_fft.rfft_mag`` pipeline
-(gomel_tpu/ops/stft.py:35, gomel_tpu/ops/mxu_fft.py:140). On a CUDA tensor it
-launches the hand-written float32 FFT kernel, which reads each frame straight
-from the signal; on a CPU tensor it runs :func:`stft_mag_plain`.
+(gomel_tpu/ops/stft.py:35, gomel_tpu/ops/mxu_fft.py:140).
+``stft_planes(x, window, n, hop, first, count)`` gives the (imag, real)
+pairs of bins first..first+count-1 instead, [..., F, count, 2]: the phase
+encode (gomel_tpu/ops/phase_ops.py:27) and, on framed input, rfft_planes.
+On a CUDA tensor each launches its hand-written kernel, which reads every
+frame straight from the signal; on a CPU tensor it runs its plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +21,9 @@ from .stft import frame_signal, num_frames_of
 
 KERNEL = _cuda.Kernel("stft_mag", "gomel_tpu_torch/csrc/rfft_mag.cu",
                       "gomel_tpu/ops/mxu_fft.py:140")
+PLANES_KERNEL = _cuda.Kernel("phase_encode",
+                             "gomel_tpu_torch/csrc/phase_encode.cu",
+                             "gomel_tpu/ops/phase_ops.py:27")
 
 
 def supported(n: int) -> bool:
@@ -54,21 +61,28 @@ def stft_mag_plain(x: torch.Tensor, window: torch.Tensor | None, n: int,
     return torch.fft.rfft(frames, dim=-1).abs()
 
 
+def _check(name: str, x: torch.Tensor, window: torch.Tensor | None,
+           n: int) -> torch.device:
+    """Device, dtype, size and window checks of the CUDA frame kernels."""
+    tensors = (x,) if window is None else (x, window)
+    dev = _cuda.check_cuda(name, *tensors)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"{name}: the CUDA kernel takes float32 tensors")
+    if not supported(n):
+        raise ValueError(f"{name}: n={n} unsupported (need even n, "
+                         f"n/2 a power of two, n <= 16384)")
+    if window is not None and window.shape != (n,):
+        raise ValueError(f"{name}: window shape {tuple(window.shape)} != ({n},)")
+    return dev
+
+
 def stft_mag(x: torch.Tensor, window: torch.Tensor | None, n: int,
              hop: int) -> torch.Tensor:
     """|rfft_n| of the hop-spaced frames of ``x`` [..., L], each multiplied by
     ``window`` [n] (None: no window) -> [..., F, n/2 + 1]."""
     if x.device.type == "cpu":
         return stft_mag_plain(x, window, n, hop)
-    tensors = (x,) if window is None else (x, window)
-    dev = _cuda.check_cuda("stft_mag", *tensors)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError("stft_mag: the CUDA kernel takes float32 tensors")
-    if not supported(n):
-        raise ValueError(f"stft_mag: n={n} unsupported (need even n, "
-                         f"n/2 a power of two, n <= 16384)")
-    if window is not None and window.shape != (n,):
-        raise ValueError(f"stft_mag: window shape {tuple(window.shape)} != ({n},)")
+    dev = _check("stft_mag", x, window, n)
     lead, length = x.shape[:-1], x.shape[-1]
     frames = num_frames_of(length, n, hop)
     batch = int(np.prod(lead, dtype=np.int64))
@@ -81,4 +95,40 @@ def stft_mag(x: torch.Tensor, window: torch.Tensor | None, n: int,
                  _twiddles(n, dev).data_ptr(), out.data_ptr(), batch, frames,
                  length, hop, n)
     KERNEL.launches += 1
+    return out
+
+
+def stft_planes_plain(x: torch.Tensor, window: torch.Tensor | None, n: int,
+                      hop: int, first: int, count: int) -> torch.Tensor:
+    """Plain PyTorch version of the planes kernel, in ``x``'s dtype."""
+    frames = frame_signal(x, n, hop)
+    if window is not None:
+        frames = frames * window
+    spec = torch.fft.rfft(frames, dim=-1)[..., first:first + count]
+    return torch.stack([spec.imag, spec.real], dim=-1)
+
+
+def stft_planes(x: torch.Tensor, window: torch.Tensor | None, n: int,
+                hop: int, first: int, count: int) -> torch.Tensor:
+    """(imag, real) of rfft_n bins ``first``..``first + count - 1`` of the
+    hop-spaced frames of ``x`` [..., L], each multiplied by ``window`` [n]
+    (None: no window) -> [..., F, count, 2]."""
+    if not (0 <= first and count > 0 and first + count <= n // 2 + 1):
+        raise ValueError(f"stft_planes: bins {first}..{first + count - 1} "
+                         f"outside 0..{n // 2}")
+    if x.device.type == "cpu":
+        return stft_planes_plain(x, window, n, hop, first, count)
+    dev = _check("stft_planes", x, window, n)
+    lead, length = x.shape[:-1], x.shape[-1]
+    frames = num_frames_of(length, n, hop)
+    batch = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty(lead + (frames, count, 2), dtype=torch.float32,
+                      device=dev)
+    if batch == 0:
+        return out
+    win_ptr = None if window is None else window.data_ptr()
+    _cuda.launch("gomel_stft_planes", dev, x.data_ptr(), win_ptr,
+                 _twiddles(n, dev).data_ptr(), out.data_ptr(), batch, frames,
+                 length, hop, n, first, count)
+    PLANES_KERNEL.launches += 1
     return out

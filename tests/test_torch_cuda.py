@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from gomel_tpu_torch.core.config import MelConfig
+from gomel_tpu_torch.core.config import PAD_SHIFT_TABLE, MelConfig, PhaseConfig
 from gomel_tpu_torch.core.filterbank import mel_weights
-from gomel_tpu_torch.ops import fftbackend, mel_ops, quantize, rfft_mag
+from gomel_tpu_torch.ops import (fftbackend, istft, mel_ops, phase_ops,
+                                 quantize, rfft_mag)
 from gomel_tpu_torch.ops.stft import hann_window
 from gomel_tpu_torch.pipelines.mel import Mel
+from gomel_tpu_torch.pipelines.phase import Phase
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +142,211 @@ def test_mel_encode_cuda_vs_cpu(cuda):
     # compare magnitudes: exp(log-mel) within 1e-5 of its peak
     e_gpu, e_cpu = gpu.double().exp(), cpu.exp()
     assert float((e_gpu - e_cpu).abs().max()) <= 1e-5 * float(e_cpu.max())
+
+
+# -- phase codec kernels: KA's zero-stuff, KE, KF, KG, KH ---------------------
+
+@pytest.mark.parametrize("sr", sorted(PAD_SHIFT_TABLE))
+@pytest.mark.parametrize("shape", [(1001,), (999, 2)])
+def test_pcm16_ingest_zero_stuff_bit_exact(cuda, sr, shape):
+    zp, zs = PAD_SHIFT_TABLE[sr]
+    pcm = _pcm(shape, seed=sr)
+    before = quantize.INGEST_KERNEL.launches
+    out = quantize.pcm16_ingest(pcm.to(cuda), torch.float32, 32768.0, 7001,
+                                zp, zs)
+    assert quantize.INGEST_KERNEL.launches == before + 1
+    ref = quantize.pcm16_ingest_plain(pcm, torch.float32, 32768.0, 7001,
+                                      zp=zp, zs=zs)
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_pcm16_ingest_batch_zero_stuff_bit_exact(cuda):
+    pcm = _pcm((2, 1003), seed=5)
+    out = quantize.pcm16_ingest_batch(pcm.to(cuda), torch.float32, 32768.0, 0,
+                                      2, 1)
+    ref = quantize.pcm16_ingest_plain(pcm, torch.float32, 32768.0, 0,
+                                      batched=True, zp=2, zs=1)
+    assert out.shape == ref.shape == (2, 1003 + 502)
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("n,hop,lead,first,count", [
+    (4096, 1280, (2,), 1, 1536),     # the phase CLI width
+    (4096, 1280, (), 1, 2048),       # up to the Nyquist bin
+    (512, 128, (3,), 0, 257),        # every bin
+    (64, 16, (1, 2), 5, 7),
+])
+def test_stft_planes_vs_plain(cuda, n, hop, lead, first, count):
+    rng = np.random.default_rng(n + first)
+    x = torch.from_numpy(rng.standard_normal(lead + (hop * 9 + n + 3,))
+                         .astype(np.float32))
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    before = rfft_mag.PLANES_KERNEL.launches
+    out = rfft_mag.stft_planes(x.to(cuda), win.to(cuda), n, hop, first, count)
+    assert rfft_mag.PLANES_KERNEL.launches == before + 1
+    ref = rfft_mag.stft_planes_plain(x.double(), win.double(), n, hop, first,
+                                     count)
+    assert out.shape == ref.shape
+    # float32 FFT against float64: 1e-5 of each frame's peak
+    err = (out.cpu().double() - ref).abs()
+    peak = ref.abs().amax(dim=(-2, -1), keepdim=True)
+    assert bool((err <= 1e-5 * peak).all())
+
+
+def test_fftbackend_planes_vs_torch_fft(cuda):
+    x = torch.randn(3, 5, 1024, generator=torch.Generator().manual_seed(1))
+    re, im = fftbackend.rfft_planes(x.to(cuda), 1024)
+    ref = torch.fft.rfft(x.double(), dim=-1)
+    peak = ref.abs().amax(-1, keepdim=True)
+    assert bool(((re.cpu().double() - ref.real).abs() <= 1e-5 * peak).all())
+    assert bool(((im.cpu().double() - ref.imag).abs() <= 1e-5 * peak).all())
+    back = fftbackend.irfft_planes(ref.real.float().to(cuda),
+                                   ref.imag.float().to(cuda), 1024).cpu()
+    assert float((back.double() - x.double()).abs().max()) <= 1e-5 * float(
+        x.abs().max())
+
+
+@pytest.mark.parametrize("shape,max_val", [
+    ((37, 45, 2), 255), ((2, 70, 33, 2), 255), ((3, 19, 65, 2), 65535),
+    ((1, 1, 2), 255)])
+def test_quantize_planes_bit_exact(cuda, shape, max_val):
+    rng = np.random.default_rng(3)
+    spec = torch.from_numpy((rng.standard_normal(shape) * 40).astype(np.float32))
+    fn = quantize.quantize_planes_batch if len(shape) == 4 \
+        else quantize.quantize_planes
+    before = quantize.PLANES_KERNEL.launches
+    img, mx, mn = fn(spec.to(cuda), max_val, 0)
+    assert quantize.PLANES_KERNEL.launches == before + 1
+    ref = quantize.quantize_planes_plain(spec, max_val, 0)
+    assert img.dtype == ref[0].dtype
+    assert torch.equal(img.cpu(), ref[0])
+    assert torch.equal(mx.cpu(), ref[1]) and torch.equal(mn.cpu(), ref[2])
+
+
+@pytest.mark.parametrize("max_val", [255, 65535])
+def test_quantize_planes_ihs_within_one_step(cuda, max_val):
+    rng = np.random.default_rng(4)
+    spec = torch.from_numpy((rng.standard_normal((2, 60, 96, 2)) * 300)
+                            .astype(np.float32))
+    img, mx, mn = quantize.quantize_planes_batch(spec.to(cuda), max_val, 2)
+    ref = quantize.quantize_planes_plain(spec.to(cuda), max_val, 2)
+    d = (img.int() - ref[0].int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
+    torch.testing.assert_close(mx, ref[1], rtol=2e-7, atol=0)
+    torch.testing.assert_close(mn, ref[2], rtol=2e-7, atol=0)
+
+
+def test_quantize_planes_degenerate_channel(cuda):
+    spec = torch.zeros((5, 8, 2))
+    spec[:, :, 1] = torch.linspace(0, 1, 40).reshape(5, 8)
+    img, _, _ = quantize.quantize_planes(spec.to(cuda), 255)
+    img = img.cpu()
+    assert bool((img[:, :, 0] == 127).all())
+    assert int(img[:, :, 1].min()) == 0 and int(img[:, :, 1].max()) == 255
+
+
+def _spec(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(shape) * 20).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,nf,lead,frames", [
+    (4096, 1536, (), 23), (4096, 2048, (2,), 9), (512, 100, (3,), 17),
+    (16384, 8192, (), 3)])
+def test_irfft_window_spec_vs_plain(cuda, n, nf, lead, frames):
+    spec = _spec(lead + (frames, nf, 2), n + nf)
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    before = istft.SYNTH_KERNEL.launches
+    out = istft.launch_irfft_window(istft.MODE_SPEC, spec.to(cuda), (), n,
+                                    frames, nf, win.to(cuda), lead).cpu()
+    assert istft.SYNTH_KERNEL.launches == before + 1
+    re, im = phase_ops.grow_half_planes(spec.double(), n // 2)
+    ref = istft.irfft_window_plain(re, im, n, win.double())
+    peak = ref.abs().amax(-1, keepdim=True)
+    assert bool(((out.double() - ref).abs() <= 1e-5 * peak).all())
+
+
+def test_irfft_window_ignores_dc_nyquist_imag(cuda):
+    rng = np.random.default_rng(6)
+    re = torch.from_numpy(rng.standard_normal((4, 257)).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal((4, 257)).astype(np.float32))
+    out = istft.irfft_window(re.to(cuda), im.to(cuda), 512).cpu().double()
+    ref = torch.fft.irfft(torch.complex(re.double(), im.double()), n=512)
+    im0 = im.clone()
+    im0[:, 0] = 0
+    im0[:, -1] = 0
+    assert torch.equal(out, istft.irfft_window(
+        re.to(cuda), im0.to(cuda), 512).cpu().double())
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("hdr,ihs", [(False, 0), (False, 2), (True, 0)])
+def test_dequantize_decode_vs_plain(cuda, hdr, ihs):
+    max_val = 65535 if hdr else 255
+    rng = np.random.default_rng(7)
+    planes = torch.from_numpy(rng.integers(
+        0, max_val + 1, size=(2, 300, 40, 2)).astype(np.uint16 if hdr else np.uint8))
+    maxs = torch.tensor([[3.0, 2.5], [1.0, 4.0]])
+    mins = torch.tensor([[-2.0, -3.5], [-1.0, 0.5]])
+    win = torch.from_numpy(hann_window(1024).astype(np.float32))
+    out = phase_ops.dequantize_decode(planes.to(cuda), maxs.to(cuda),
+                                      mins.to(cuda), max_val, ihs, 1024, 320,
+                                      0.0, win.to(cuda)).cpu().double()
+    ref = phase_ops.dequantize_decode_plain(planes, maxs, mins, max_val, ihs,
+                                            1024, 320, 0.0, win).double()
+    assert out.shape == ref.shape == (2, 1024 + 39 * 320)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("n,hop,frames,boost", [
+    (4096, 1280, 40, 0.0), (4096, 1280, 2, 0.0), (4096, 1280, 4, 1.5),
+    (1024, 1024, 5, 0.0), (1000, 300, 13, -2.0)])
+def test_overlap_normalize_bit_exact(cuda, n, hop, frames, boost):
+    rng = np.random.default_rng(n + frames)
+    fw = torch.from_numpy((rng.standard_normal((2, frames, n)) * 0.3)
+                          .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    before = istft.OLA_KERNEL.launches
+    out = istft.overlap_normalize(fw, hop, win, boost)
+    pcm, finite = istft.overlap_normalize(fw, hop, win, boost, pcm16=True)
+    assert istft.OLA_KERNEL.launches == before + 2
+    ref = istft.overlap_normalize_plain(fw, hop, win, boost)
+    ref_pcm, ref_finite = istft.overlap_normalize_plain(fw, hop, win, boost,
+                                                        pcm16=True)
+    assert torch.equal(out, ref)
+    assert torch.equal(pcm, ref_pcm) and torch.equal(finite, ref_finite)
+    assert torch.equal(istft.overlap_add(fw, hop),
+                       istft.overlap_add_plain(fw, hop))
+
+
+def test_overlap_normalize_finite_flag(cuda):
+    fw = torch.zeros((3, 6, 512), device=cuda)
+    fw[1, 2, 100] = float("nan")
+    fw[2, 0, 7] = float("inf")
+    win = torch.from_numpy(hann_window(512).astype(np.float32)).to(cuda)
+    pcm, finite = istft.overlap_normalize(fw, 128, win, pcm16=True)
+    assert finite.tolist() == [True, False, False]
+    _, ref_finite = istft.overlap_normalize_plain(fw, 128, win, pcm16=True)
+    assert torch.equal(finite, ref_finite)
+
+
+@pytest.mark.parametrize("ihs,hdr", [(False, False), (True, False), (False, True)])
+def test_phase_roundtrip_cuda_vs_cpu(cuda, ihs, hdr):
+    rng = np.random.default_rng(8)
+    t = np.arange(48000) / 48000
+    x = 0.3 * np.sin(2 * np.pi * 330 * t) + 0.02 * rng.standard_normal(t.shape)
+    cfg = PhaseConfig.cli_default(ihs=ihs, hdr=hdr)
+    gpu, cpu = Phase(cfg, device=cuda), Phase(cfg)
+    img_g, mx_g, mn_g = gpu.encode_quantized(x)
+    img_c, mx_c, mn_c = cpu.encode_quantized(x)
+    d = (img_g.cpu().int() - img_c.int()).abs()
+    assert int(d.max()) <= (2 if hdr else 1)
+    assert float((d > 0).float().mean()) < 2e-3
+    pcm_g, ok_g = gpu.decode_quantized_pcm16(img_c, mx_c, mn_c)
+    pcm_c, ok_c = cpu.decode_quantized_pcm16(img_c, mx_c, mn_c)
+    assert bool(ok_g) and bool(ok_c)
+    lsb = (pcm_g.cpu().int() - pcm_c.int()).abs()
+    assert int(lsb.max()) <= 1 and float((lsb > 0).float().mean()) < 5e-2
+    sig_g = gpu.decode(cpu.encode(x)).cpu().double()
+    sig_c = cpu.decode(cpu.encode(x)).double()
+    assert float((sig_g - sig_c).abs().max()) <= 1e-5 * float(sig_c.abs().max())

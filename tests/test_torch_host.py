@@ -131,9 +131,96 @@ def test_mel_image_codec_equal(tmp_path):
     assert tf16.pack_floats([1.5, -3.0, 1e4]) == jf16.pack_floats([1.5, -3.0, 1e4])
 
 
+@pytest.mark.parametrize("layout,hdr,ihs", [
+    ("go", False, 0), ("py", False, 0), ("go", True, 0), ("py", True, 0),
+    ("go", False, 2), ("py", False, 2)])
+def test_phase_image_codec_equal(tmp_path, layout, hdr, ihs):
+    rng = np.random.default_rng(3)
+    spec = rng.standard_normal((21, 64, 2)) * 30.0
+    a, b = tmp_path / "jax.png", tmp_path / "port.png"
+    jimg.save_phase_image(str(a), spec, True, 1280.5, 48000.0, ihs, hdr,
+                          layout=layout)
+    timg.save_phase_image(str(b), spec, True, 1280.5, 48000.0, ihs, hdr,
+                          layout=layout)
+    assert a.read_bytes() == b.read_bytes()
+    for lay in (layout, "auto"):
+        for x, y in zip(timg.load_phase_image(str(a), True, ihs, hdr, lay),
+                        jimg.load_phase_image(str(a), True, ihs, hdr, lay)):
+            np.testing.assert_array_equal(x, y)
+        for x, y in zip(timg.load_phase_image_raw(str(a), True, hdr, lay),
+                        jimg.load_phase_image_raw(str(a), True, hdr, lay)):
+            np.testing.assert_array_equal(x, y)
+    img = tpng.read_png(str(a))
+    assert timg._detect_phase_layout(img[::-1]) == \
+        jimg._detect_phase_layout(img[::-1]) == layout
+    np.testing.assert_array_equal(timg._quantize_wrap(-spec[..., 0] / 40, 255),
+                                  jimg._quantize_wrap(-spec[..., 0] / 40, 255))
+    assert (timg.GO_PHASE_META_BYTES, timg.PY_PHASE_META_BYTES) == \
+        (jimg.GO_PHASE_META_BYTES, jimg.PY_PHASE_META_BYTES)
+
+
+@pytest.mark.parametrize("layout,hdr", [("go", False), ("py", False),
+                                        ("go", True)])
+def test_phase_image_quantized_round_trip(tmp_path, layout, hdr):
+    rng = np.random.default_rng(4)
+    max_val = 65535 if hdr else 255
+    dtype = np.uint16 if hdr else np.uint8
+    planes = rng.integers(0, max_val + 1, size=(40, 23, 2)).astype(dtype)
+    maxs, mins = np.array([2.5, 3.0], np.float32), np.array([-1.5, -4.0],
+                                                            np.float32)
+    a, b = tmp_path / "jax.png", tmp_path / "port.png"
+    jimg.save_phase_image_quantized(str(a), planes, maxs, mins, True, 1280.0,
+                                    16000.0, hdr, layout=layout)
+    timg.save_phase_image_quantized(str(b), planes, maxs, mins, True, 1280.0,
+                                    16000.0, hdr, layout=layout)
+    assert a.read_bytes() == b.read_bytes()
+    got = timg.load_phase_image_raw(str(b), True, hdr)
+    np.testing.assert_array_equal(got[0], planes)
+    np.testing.assert_array_equal(got[1], maxs)
+    np.testing.assert_array_equal(got[2], mins)
+    assert got[3:] == (1280.0 * 23, 16000.0, 40)
+    with pytest.raises(ValueError):
+        timg.save_phase_image_quantized(str(b), planes.astype(np.int32), maxs,
+                                        mins, True, 1.0, 1.0, hdr)
+
+
+def test_save_wav_equal(tmp_path):
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.standard_normal(3001) * 0.4, [1.5, -2.0, 0.5 / 32768,
+                                                          1.5 / 32768]])
+    for stereo in (False, True):
+        a, b = tmp_path / "jax.wav", tmp_path / "port.wav"
+        jaudio.save_wav(str(a), x, 24000, stereo=stereo)
+        taudio.save_wav(str(b), x, 24000, stereo=stereo)
+        assert a.read_bytes() == b.read_bytes()
+        pcm = twav.read_wav(str(b))[0]
+        pcm = pcm if pcm.ndim == 1 else pcm[:, 0]
+        jaudio.save_wav_pcm16(str(a), pcm, 24000, stereo=stereo)
+        taudio.save_wav_pcm16(str(b), pcm, 24000, stereo=stereo)
+        assert a.read_bytes() == b.read_bytes()
+    with pytest.raises(ValueError):
+        taudio.save_wav(str(b), np.array([0.1, np.nan]), 24000)
+    with pytest.raises(ValueError):
+        taudio.save_wav_pcm16(str(b), np.zeros(4, np.int32), 24000)
+
+
+def test_phase_configs_equal():
+    assert (tcfg.PhaseConfig.cli_default().__dict__
+            == jcfg.PhaseConfig.cli_default().__dict__)
+    assert tcfg.PhaseConfig().__dict__ == jcfg.PhaseConfig().__dict__
+    for sr in tcfg.SUPPORTED_SAMPLE_RATES:
+        for hdr in (False, True):
+            assert (tcfg.PhaseConfig.for_sample_rate(sr, hdr=hdr).__dict__
+                    == jcfg.PhaseConfig.for_sample_rate(sr, hdr=hdr).__dict__)
+        for n in (0, 1, 999, 1000, 1001):
+            zp, zs = tcfg.pad_shift(sr)
+            assert (tfr.zero_stuff_output_length(n, zp, zs)
+                    == jfr.zero_stuff_output_length(n, zp, zs))
+
+
 def test_port_imports_no_jax():
-    code = ("import sys; import gomel_tpu_torch.cli.tools, "
-            "gomel_tpu_torch.ops.fftbackend; "
+    code = ("import sys; import gomel_tpu_torch, gomel_tpu_torch.cli.tools, "
+            "gomel_tpu_torch.ops.fftbackend, gomel_tpu_torch.ops.phase_ops; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gomel_tpu' or m.startswith('gomel_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

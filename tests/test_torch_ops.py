@@ -14,14 +14,21 @@ import torch
 
 import jax.numpy as jnp
 
+from gomel_tpu.core.config import PAD_SHIFT_TABLE
 from gomel_tpu.core.filterbank import mel_weights
 from gomel_tpu.ops import fftbackend as jfft
+from gomel_tpu.ops import istft as jistft
 from gomel_tpu.ops import mel_ops as jmel
+from gomel_tpu.ops import phase_ops as jphase
 from gomel_tpu.ops import quantize as jq
+from gomel_tpu.ops import resample as jres
 from gomel_tpu.ops import stft as jstft
 from gomel_tpu_torch.ops import fftbackend as tfft
+from gomel_tpu_torch.ops import istft as tistft
 from gomel_tpu_torch.ops import mel_ops as tmel
+from gomel_tpu_torch.ops import phase_ops as tphase
 from gomel_tpu_torch.ops import quantize as tq
+from gomel_tpu_torch.ops import resample as tres
 from gomel_tpu_torch.ops import rfft_mag as trfft
 from gomel_tpu_torch.ops import stft as tstft
 
@@ -221,3 +228,261 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     w = torch.from_numpy(mel_weights(8, 2, 0.0, 8000.0)).float()
     with pytest.raises(ValueError):
         tmel._mel_from_mags(torch.zeros((3, 9), device=meta), w)
+    with pytest.raises(ValueError):
+        tq.pcm16_ingest(torch.zeros(16, dtype=torch.int16, device=meta),
+                        torch.float32, 32768.0, 0, 1, 2)
+    with pytest.raises(ValueError):
+        trfft.stft_planes(torch.zeros(64, device=meta), None, 16, 4, 1, 8)
+    with pytest.raises(ValueError):
+        tq.quantize_planes(torch.zeros((4, 3, 2), device=meta), 255)
+    with pytest.raises(ValueError):
+        tistft.irfft_window(torch.zeros((3, 9), device=meta),
+                            torch.zeros((3, 9), device=meta), 16)
+    with pytest.raises(ValueError):
+        tistft.overlap_add(torch.zeros((3, 16), device=meta), 4)
+    with pytest.raises(ValueError):
+        tphase.dequantize_decode(
+            torch.zeros((8, 3, 2), dtype=torch.uint8, device=meta),
+            [1.0, 1.0], [0.0, 0.0], 255, 0, 16, 4)
+
+
+# -- phase codec ops ------------------------------------------------------------
+
+RATES = sorted(PAD_SHIFT_TABLE)
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_zero_stuff_upsample_bit_exact(sr):
+    zp, zs = PAD_SHIFT_TABLE[sr]
+    x = np.random.default_rng(sr).standard_normal(1001).astype(np.float32)
+    ref = np.asarray(jres.zero_stuff_upsample(jnp.asarray(x), zp, zs))
+    out = tres.zero_stuff_upsample(torch.from_numpy(x), zp, zs).numpy()
+    host = tres.zero_stuff_upsample(x, zp, zs)
+    np.testing.assert_array_equal(out, ref)      # exact: one product each
+    np.testing.assert_array_equal(host, jres.zero_stuff_upsample(x, zp, zs))
+    assert len(out) == (1001 if zp == 0 else 1001 + -(-1001 // zp) * zs)
+
+
+@pytest.mark.parametrize("sr", RATES)
+@pytest.mark.parametrize("shape", [(3001,), (2999, 2)])
+def test_pcm16_ingest_zero_stuff_bit_exact(sr, shape):
+    zp, zs = PAD_SHIFT_TABLE[sr]
+    pcm = np.random.default_rng(sr + len(shape)).integers(
+        -32768, 32768, size=shape, dtype=np.int16)
+    ref = np.asarray(jq.pcm16_ingest(jnp.asarray(pcm), jnp.float32, 32768.0,
+                                     20479, zp, zs))
+    out = tq.pcm16_ingest(torch.from_numpy(pcm), torch.float32, 32768.0,
+                          20479, zp, zs).numpy()
+    assert out.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(out, ref)   # bit-exact in float32
+    mono = pcm[:, 0].copy() if pcm.ndim == 2 else pcm
+    rows = tq.pcm16_ingest_batch(torch.from_numpy(np.stack([mono, mono])),
+                                 torch.float32, 32768.0, 20479, zp, zs).numpy()
+    ref1 = np.asarray(jq.pcm16_ingest(jnp.asarray(mono), jnp.float32, 32768.0,
+                                      20479, zp, zs))
+    np.testing.assert_array_equal(rows[1], ref1)
+    with pytest.raises(ValueError):
+        tq.pcm16_ingest(torch.from_numpy(pcm), torch.float32, 32768.0, 0, 0, 1)
+
+
+def _signal(n, seed, dtype=np.float64):
+    return np.random.default_rng(seed).standard_normal(n).astype(dtype)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("n,hop,nf", [(4096, 1280, 1536), (4096, 1280, 2048),
+                                      (512, 128, 100)])
+def test_phase_encode_vs_jax(dt, n, hop, nf):
+    np_dt, t_dt, j_dt = DTYPES[dt]
+    x = _signal(9 * hop + n, n + nf, np_dt)
+    win = jstft.hann_window(n).astype(np_dt)
+    ref = np.asarray(jphase.phase_encode(jnp.asarray(x), nf, n, hop,
+                                         jnp.asarray(win)))
+    out = tphase.phase_encode(torch.from_numpy(x), nf, n, hop,
+                              torch.from_numpy(win)).numpy()
+    assert out.shape == ref.shape == (10, nf, 2) and out.dtype == np_dt
+    peak = np.abs(ref).max(axis=(1, 2), keepdims=True)
+    if dt == "f64":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-9)
+    else:   # two float32 FFTs: within 1e-5 of each frame's peak
+        assert np.all(np.abs(out - ref) <= 1e-5 * peak)
+    xb = np.stack([x, x[::-1].copy()])
+    refb = np.asarray(jphase.phase_encode_batch(jnp.asarray(xb), nf, n, hop,
+                                                jnp.asarray(win)))
+    outb = tphase.phase_encode_batch(torch.from_numpy(xb), nf, n, hop,
+                                     torch.from_numpy(win)).numpy()
+    np.testing.assert_allclose(outb, refb, rtol=0,
+                               atol=(1e-9 if dt == "f64" else 1e-5 * float(
+                                   np.abs(refb).max())))
+
+
+def test_fftbackend_planes_vs_jax():
+    frames = np.random.default_rng(9).standard_normal((3, 7, 256))
+    re_j, im_j = jfft.rfft_planes(jnp.asarray(frames), 256, "xla")
+    re, im = tfft.rfft_planes(torch.from_numpy(frames), 256)
+    np.testing.assert_allclose(re.numpy(), np.asarray(re_j), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(im.numpy(), np.asarray(im_j), rtol=0, atol=1e-12)
+    back_j = np.asarray(jfft.irfft_planes(re_j, im_j, 256, "xla"))
+    back = tfft.irfft_planes(re, im, 256).numpy()
+    np.testing.assert_allclose(back, back_j, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(back, frames, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("ihs,max_val", [(0, 255), (2, 255), (0, 65535)])
+def test_quantize_planes_vs_jax(ihs, max_val):
+    spec = (np.random.default_rng(10).standard_normal((3, 50, 64, 2)) * 40
+            ).astype(np.float32)
+    spec[1, :, :, 0] = 2.5    # a constant channel: degenerate range -> 0.5
+    img_j, mx_j, mn_j = jq.quantize_planes_batch(jnp.asarray(spec), max_val, ihs)
+    img, mx, mn = tq.quantize_planes_batch(torch.from_numpy(spec), max_val, ihs)
+    assert img.dtype == (torch.uint16 if max_val > 255 else torch.uint8)
+    assert img.shape == (3, 64, 50, 2)
+    # extrema within 1 ulp (asinh is a libm call on each side)
+    np.testing.assert_array_max_ulp(mx.numpy(), np.asarray(mx_j), maxulp=1)
+    np.testing.assert_array_max_ulp(mn.numpy(), np.asarray(mn_j), maxulp=1)
+    d = np.abs(img.numpy().astype(np.int64) - np.asarray(img_j).astype(np.int64))
+    # at most 1 step (2 for 16 bits), rarely (tests/test_device_quantize.py)
+    assert d.max() <= (2 if max_val > 255 else 1) and (d > 0).mean() < 2e-3
+    assert np.all(img.numpy()[1, :, :, 0] == max_val // 2)
+    one = tq.quantize_planes(torch.from_numpy(spec[0]), max_val, ihs)
+    assert torch.equal(one[0], img[0]) and torch.equal(one[1], mx[0])
+
+
+@pytest.mark.parametrize("ihs,max_val", [(0, 255), (2, 255), (0, 65535)])
+def test_dequantize_planes_vs_jax(ihs, max_val):
+    rng = np.random.default_rng(11)
+    dt = np.uint16 if max_val > 255 else np.uint8
+    img = rng.integers(0, max_val + 1, size=(2, 300, 40, 2)).astype(dt)
+    mx = np.array([[3.0, 2.5], [1.0, 2.0]])
+    mn = np.array([[-2.0, -3.5], [-1.0, 0.5]])
+    ref = np.asarray(jq.dequantize_planes_batch(
+        jnp.asarray(img), jnp.asarray(mx, jnp.float32),
+        jnp.asarray(mn, jnp.float32), max_val, ihs))
+    out = tq.dequantize_planes_batch(torch.from_numpy(img), mx, mn, max_val,
+                                     ihs).numpy()
+    assert out.dtype == np.float32 and out.shape == (2, 40, 300, 2)
+    if ihs == 0:
+        np.testing.assert_array_equal(out, ref)   # the same float32 steps
+        return
+    # sinh(sinh(.)) amplifies a libm ulp of the inner sinh about tenfold here
+    # (XLA's and PyTorch's sinh differ by up to 5 ulp): hold both to float64
+    lin = tq.dequantize_planes_batch(torch.from_numpy(img), mx, mn, max_val,
+                                     0).numpy().astype(np.float64)
+    exact = np.sinh(np.sinh(lin))
+    scale = np.maximum(np.abs(exact), 1e-30)
+    assert (np.abs(out - exact) / scale).max() <= 2e-6
+    assert (np.abs(out - ref) / scale).max() <= 4e-6
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("nf,n", [(1536, 4096), (2048, 4096), (5, 16)])
+def test_grow_half_planes_exact(dt, nf, n):
+    np_dt, _, _ = DTYPES[dt]
+    spec = np.random.default_rng(nf).standard_normal((7, nf, 2)).astype(np_dt)
+    re_j, im_j = jphase.grow_half_planes(jnp.asarray(spec), n // 2)
+    re, im = tphase.grow_half_planes(torch.from_numpy(spec), n // 2)
+    np.testing.assert_array_equal(re.numpy(), np.asarray(re_j))
+    np.testing.assert_array_equal(im.numpy(), np.asarray(im_j))
+    np.testing.assert_array_equal(
+        tphase.grow_half_spectrum(torch.from_numpy(spec), n // 2).numpy(),
+        np.asarray(jphase.grow_half_spectrum(jnp.asarray(spec), n // 2)))
+    np.testing.assert_array_equal(
+        tphase.shrink(torch.from_numpy(spec), 3).numpy(),
+        np.asarray(jphase.shrink(jnp.asarray(spec), 3)))
+
+
+@pytest.mark.parametrize("n,hop", [(4096, 1280), (1024, 1024), (1000, 300),
+                                   (16, 5)])
+@pytest.mark.parametrize("frames", [1, 2, 3, 4, 7, 40])
+def test_window_sum_and_normalize_bit_exact(n, hop, frames):
+    win = jstft.hann_window(n).astype(np.float32)
+    ref = np.asarray(jistft.window_sum(jnp.asarray(win), frames, hop))
+    out = tistft.window_sum(torch.from_numpy(win), frames, hop).numpy()
+    np.testing.assert_array_equal(out, ref)   # the same float32 formula
+    prefix = tistft._prefix_rows(torch.from_numpy(win), hop)
+    assert tistft.window_sum_threshold(prefix, frames) == float(
+        np.float32(0.5) * ref.max())
+    sig = np.random.default_rng(n).standard_normal(ref.shape).astype(np.float32)
+    thr = np.float32(0.5) * ref.max()
+    nj = np.asarray(jistft.normalize_by_window_sum(
+        jnp.asarray(sig), jnp.asarray(ref), jnp.asarray(thr)))
+    nt = tistft.normalize_by_window_sum(torch.from_numpy(sig),
+                                        torch.from_numpy(out),
+                                        torch.tensor(thr)).numpy()
+    np.testing.assert_array_equal(nt, nj)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_overlap_add_bit_exact(dt):
+    np_dt, _, _ = DTYPES[dt]
+    fw = np.random.default_rng(12).standard_normal((9, 1000)).astype(np_dt)
+    ref = np.asarray(jistft.overlap_add(jnp.asarray(fw), 300))
+    out = tistft.overlap_add(torch.from_numpy(fw), 300).numpy()
+    np.testing.assert_array_equal(out, ref)
+    both = tistft.overlap_add(torch.from_numpy(np.stack([fw, 2 * fw])), 300)
+    np.testing.assert_array_equal(both[0].numpy(), out)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("boost", [0.0, 1.7])
+def test_phase_decode_vs_jax(dt, boost):
+    np_dt, _, _ = DTYPES[dt]
+    n, hop, nf = 4096, 1280, 1536
+    spec = (np.random.default_rng(13).standard_normal((12, nf, 2)) * 5
+            ).astype(np_dt)
+    win = jstft.hann_window(n)
+    ref = np.asarray(jphase.phase_decode(jnp.asarray(spec), n, hop, boost,
+                                         jnp.asarray(win.astype(np_dt))))
+    out = tphase.phase_decode(torch.from_numpy(spec), n, hop, boost,
+                              torch.from_numpy(win.astype(np_dt))).numpy()
+    assert out.shape == ref.shape == (n + 11 * hop,) and out.dtype == np_dt
+    # f64: both exact to rounding; f32: two float32 irffts, 1e-5 of the peak
+    tol = 1e-9 if dt == "f64" else 1e-5 * float(np.abs(ref).max())
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+    re, im = jphase.grow_half_planes(jnp.asarray(spec), n // 2)
+    ref_i = np.asarray(jistft.istft_direct_planes(re, im, hop,
+                                                  win.astype(np_dt)))
+    out_i = tistft.istft_direct_planes(
+        torch.from_numpy(np.array(re)), torch.from_numpy(np.array(im)),
+        hop, win).numpy()
+    np.testing.assert_allclose(out_i, ref_i, rtol=0, atol=tol)
+    b = tphase.phase_decode(torch.from_numpy(np.stack([spec, spec])), n, hop,
+                            boost, torch.from_numpy(win.astype(np_dt)))
+    np.testing.assert_array_equal(b[1].numpy(), out)
+
+
+def test_dequantize_decode_is_dequantize_then_decode():
+    rng = np.random.default_rng(14)
+    img = rng.integers(0, 256, size=(1536, 9, 2)).astype(np.uint8)
+    mx, mn = np.array([2.0, 3.0]), np.array([-1.0, -4.0])
+    ref_pcm, ref_ok = jq.pcm16_encode(jphase.phase_decode(
+        jq.dequantize_planes(jnp.asarray(img), jnp.asarray(mx, jnp.float32),
+                             jnp.asarray(mn, jnp.float32), 255, 0),
+        4096, 1280, 0.0, None))
+    pcm, ok = tphase.dequantize_decode(torch.from_numpy(img), mx, mn, 255, 0,
+                                       4096, 1280, pcm16=True)
+    d = np.abs(pcm.numpy().astype(np.int64) - np.asarray(ref_pcm))
+    # float32 irfft differences under PCM-16: at most 1 LSB, rarely
+    assert d.max() <= 1 and (d > 0).mean() < 5e-2
+    assert bool(ok) == bool(ref_ok)
+
+
+def test_pcm16_encode_bit_exact_with_nonfinite():
+    x = np.array([0.1, -0.2, 0.5 / 32768, 1.5 / 32768, 2.5 / 32768, 1.0, -1.0,
+                  1.7, -3.0, -0.0, np.nan, np.inf, -np.inf], np.float32)
+    for sl in (slice(0, 10), slice(None)):
+        pj, fj = jq.pcm16_encode(jnp.asarray(x[sl]))
+        pt, ft = tq.pcm16_encode(torch.from_numpy(x[sl]))
+        assert pt.dtype == torch.int16
+        np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+        assert bool(ft) == bool(fj)
+    assert not bool(tq.pcm16_encode(torch.from_numpy(x))[1])
+
+
+def test_overlap_normalize_plain_flags_per_row():
+    fw = torch.zeros((2, 5, 64))
+    fw[1, 0, 3] = float("nan")
+    win = torch.from_numpy(jstft.hann_window(64).astype(np.float32))
+    pcm, ok = tistft.overlap_normalize(fw, 16, win, pcm16=True)
+    assert ok.tolist() == [True, False] and pcm.dtype == torch.int16
+    assert np.all(pcm.numpy()[1] == 0)
