@@ -7,10 +7,10 @@ against its plain PyTorch version on the card at the shapes of the bench
 (2 x 30 s of 48 kHz audio at MelConfig.cli_default() and
 PhaseConfig.cli_default()), drives the main paths through the user's entry
 points (the ``tomel`` CLI, then ``tophase`` and ``fromphase``, on a 30 s
-48 kHz WAV and, for the zero-stuff ingest, a short 16 kHz WAV) and holds
-their PNGs and WAVs against the port's CPU path, checks that every kernel of
-each path was launched on it, and times each kernel against its plain
-version.
+48 kHz WAV and, for the zero-stuff ingest, a short 16 kHz WAV, then
+``towav`` on the ``tomel`` PNG) and holds their PNGs and WAVs against the
+port's CPU path, checks that every kernel of each path was launched on it,
+and times each kernel against its plain version.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -139,6 +139,93 @@ def png_steps(a_path: str, b_path: str, read_png) -> np.ndarray:
     return np.minimum(d, 256 - d)
 
 
+def spectral_convergence(pcm: np.ndarray, target: torch.Tensor,
+                         window: torch.Tensor, n_fft: int, hop: int,
+                         stft_mag) -> float:
+    """Scale-invariant spectral convergence of an int16 wave against target
+    magnitudes [F, n/2 + 1] (gomel_tpu/utils/metrics.py:106): the least-
+    squares gain c is factored out, since Griffin-Lim's overlap-add is not
+    normalised. The wave is zero-padded back to the frames' span (towav
+    trims the reference padding)."""
+    length = n_fft + (target.shape[0] - 1) * hop
+    x = torch.from_numpy(pcm[:length].astype(np.float64) / 32768.0)
+    x = torch.nn.functional.pad(x, (0, length - x.shape[0]))
+    a = stft_mag(x, window, n_fft, hop)
+    c = float((a * target).sum() / (target * target).sum())
+    return float((a - c * target).norm() / (abs(c) * target.norm()))
+
+
+def towav_split(png: str, out: str, dev: torch.device, runs: int
+                ) -> dict[str, float]:
+    """Milliseconds of each step of ``towav --device cuda`` (the steps of
+    Mel.to_wav_png with device quantize), each ended by a synchronise;
+    medians of ``runs``."""
+    from gomel_tpu_torch.cli import tools
+    from gomel_tpu_torch.core.framing import is_padded
+    from gomel_tpu_torch.io import audio as audio_io
+    from gomel_tpu_torch.io import imagecodec
+    from gomel_tpu_torch.ops import griffinlim, mel_ops
+
+    steps: dict[str, list[float]] = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        steps.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
+        return value
+
+    for _ in range(runs):
+        def setup():
+            a = tools._mel_parser("towav", True).parse_args(
+                [png, str(SAMPLE_RATE), "--seed", "1", "-o", out, "--device",
+                 str(dev)])
+            return tools._mel_from_args(a, a.sample_rate), a
+        m, a = step("setup (argparse + Mel)", setup)
+        c = m.config
+        planes, mx, mn, samples, sr = step(
+            "PNG read", lambda: imagecodec.load_mel_image_raw(png, True))
+        planes = step("H2D planes", lambda: torch.from_numpy(planes).to(dev))
+        gl_len = c.resolut + (planes.shape[1] - 1) * c.window
+        init = step("init draw (CPU) + H2D", lambda: griffinlim.random_init(
+            (gl_len,), torch.Generator().manual_seed(a.seed),
+            torch.float32).to(dev))
+
+        def kernels():
+            mag = mel_ops.mel_to_magnitudes(planes, m.inv_weights, c.tune_mul,
+                                            c.tune_add, c.volume_boost, mx, mn)
+            return griffinlim.griffin_lim(mag, c.window,
+                                          c.griffin_lim_iterations, m.window,
+                                          init=init, pcm16=True)
+        pcm, finite = step("KI + GL kernels", kernels)
+        wave = step("D2H int16 + flag", lambda: (pcm.cpu().numpy(),
+                                                bool(finite)))[0]
+
+        def write():
+            w = wave
+            if int(samples) > 0 and is_padded(int(samples), len(w), c.window) \
+                    and len(w) > int(samples):
+                w = w[:int(samples)]
+            audio_io.save_wav_pcm16(out, w, c.sample_rate)
+        step("WAV write", write)
+    return {k: float(np.median(v)) for k, v in steps.items()}
+
+
+def graph(fn):
+    """``fn`` captured once in a CUDA graph (after warmup calls on a side
+    stream); returns a function that replays it: one launch per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g.replay
+
+
 def race(kernel_fn, plain_fn, name: str = "") -> tuple[float, float]:
     """(kernel ms, plain ms), each the lower of two runs taken in the order
     plain, kernel, kernel, plain."""
@@ -158,15 +245,15 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from gomel_tpu_torch.cli.tools import fromphase, tomel, tophase
+    from gomel_tpu_torch.cli.tools import fromphase, tomel, tophase, towav
     from gomel_tpu_torch.core.config import MelConfig, PhaseConfig, pad_shift
-    from gomel_tpu_torch.core.filterbank import mel_weights
+    from gomel_tpu_torch.core.filterbank import inverse_mel_weights, mel_weights
     from gomel_tpu_torch.core.framing import pad_length
     from gomel_tpu_torch.io import audio as audio_io
     from gomel_tpu_torch.io import imagecodec, wavcodec
     from gomel_tpu_torch.io.pngcodec import read_png
-    from gomel_tpu_torch.ops import (_cuda, istft, mel_ops, phase_ops,
-                                     quantize, rfft_mag)
+    from gomel_tpu_torch.ops import (_cuda, griffinlim, istft, mel_ops,
+                                     phase_ops, quantize, rfft_mag)
     from gomel_tpu_torch.ops.stft import hann_window
 
     # the plain references run in full float32 (no TF32 anywhere)
@@ -195,15 +282,20 @@ def main() -> int:
                                    mel_ops.KERNEL, quantize.QUANTIZE_KERNEL,
                                    rfft_mag.PLANES_KERNEL,
                                    quantize.PLANES_KERNEL,
-                                   istft.SYNTH_KERNEL, istft.OLA_KERNEL)}
+                                   istft.SYNTH_KERNEL, istft.OLA_KERNEL,
+                                   mel_ops.MAG_KERNEL,
+                                   griffinlim.PROJECT_KERNEL,
+                                   griffinlim.OLA_KERNEL)}
     errs: dict[str, float] = {}
     # launches of each kernel summed over the main-path runs (tomel, tophase,
-    # fromphase), each read with every count set to 0 just before it
+    # fromphase, towav), each read with every count set to 0 just before it
     launches = {name: 0 for name in kernels}
 
-    def drive(label: str, fn, must_run: tuple[str, ...]) -> float:
+    def drive(label: str, fn, must_run: tuple[str, ...]
+              ) -> tuple[float, dict[str, int]]:
         """Run one main-path call with the counts at 0; return its wall
-        seconds; fail if a kernel of that path did not launch."""
+        seconds and its launch counts; fail if a kernel of that path did not
+        launch."""
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
@@ -221,7 +313,7 @@ def main() -> int:
                                  f"{missing}")
         for name, c in counts.items():
             launches[name] += c
-        return seconds
+        return seconds, counts
 
     # -- phase 2: each kernel against its plain version, bench shape -------
     pcm = torch.from_numpy(seeded_pcm(rng, BATCH, length)).to(dev)
@@ -382,6 +474,75 @@ def main() -> int:
     log(f"KH overlap_normalize -> {tuple(sig_k.shape)}: float32 and PCM-16 "
         f"bit-exact, finite {ok_k.tolist()}")
 
+    # -- phase 2c: the mel decode's kernels, bench shape ---------------------
+    # sources: phase 2's log-mel and its uint8 planes (KD)
+    inv = torch.tensor(inverse_mel_weights(cfg.n_bins, cfg.num_mels,
+                                           cfg.mel_fmin, cfg.mel_fmax),
+                       dtype=f32, device=dev)
+    ki_rel = []
+    for label, src, ext in (("uint8 planes", img, dict(mgc_max=mx, mgc_min=mn)),
+                            ("float log-mel", logmel_ref, {})):
+        mag_k = mel_ops.mel_to_magnitudes(src, inv, **ext)
+        mag_r = mel_ops.mel_to_magnitudes_plain(src, inv, **ext)
+        torch.cuda.synchronize()
+        peak = mag_r.amax(dim=-1, keepdim=True)
+        d_i = (mag_k - mag_r).abs()
+        ki_rel.append(float((d_i / peak).max()))
+        errs["mel_to_magnitudes"] = max(errs.get("mel_to_magnitudes", 0.0),
+                                        float(d_i.max()))
+        log(f"KI mel_to_magnitudes ({label}) -> {tuple(mag_k.shape)}: max|d| "
+            f"{float(d_i.max()):.3e}, / frame peak {ki_rel[-1]:.3e} "
+            f"(bound 1e-5)")
+    if max(ki_rel) > 1e-5:
+        raise AssertionError("mel_to_magnitudes error > 1e-5 of the frame peak")
+    mag = mel_ops.mel_to_magnitudes_plain(img, inv, mgc_max=mx, mgc_min=mn)
+    gl_len = n_fft + (frames - 1) * hop
+    sig0 = griffinlim.random_init((BATCH, gl_len), torch.Generator().manual_seed(
+        SEED), f32).to(dev)
+    fw_j = {}
+    kj_rel = []
+    for label, sig in (("random init", sig0),
+                       ("after one iteration", None)):
+        if sig is None:
+            sig = griffinlim.gl_overlap_add_plain(fw_j["random init"], hop)
+        fw_k = griffinlim.gl_project(sig, mag, win, n_fft, hop)
+        fw_r = griffinlim.gl_project_plain(sig, mag, win, n_fft, hop)
+        fw_64 = griffinlim.gl_project_plain(sig.double(), mag.double(),
+                                            win.double(), n_fft, hop)
+        torch.cuda.synchronize()
+        fw_j[label] = fw_r
+        norm = fw_r.norm(dim=-1)
+        kj_rel.append(float(((fw_k - fw_r).norm(dim=-1) / norm).max()))
+        errs["gl_project"] = max(errs.get("gl_project", 0.0),
+                                 float((fw_k - fw_r).abs().max()))
+        log(f"KJ gl_project ({label}) -> {tuple(fw_k.shape)}: relative L2 "
+            f"per frame vs torch.fft f32 max {kj_rel[-1]:.3e} (bound 1e-4); "
+            f"vs float64: kernel "
+            f"{float(((fw_k.double() - fw_64).norm(dim=-1) / fw_64.norm(dim=-1)).max()):.3e}, "
+            f"torch.fft f32 "
+            f"{float(((fw_r.double() - fw_64).norm(dim=-1) / fw_64.norm(dim=-1)).max()):.3e}")
+    if max(kj_rel) > 1e-4:
+        raise AssertionError("gl_project relative L2 per frame > 1e-4")
+    fw_gl = fw_j["random init"]
+    for momentum, pcm16 in ((0.0, False), (0.99, False), (0.0, True)):
+        prev = sig0 if momentum else None
+        out_k = griffinlim.gl_overlap_add(fw_gl, hop, prev, momentum, pcm16)
+        out_r = griffinlim.gl_overlap_add_plain(fw_gl, hop, prev, momentum,
+                                                pcm16)
+        torch.cuda.synchronize()
+        if not isinstance(out_k, tuple):
+            out_k, out_r = (out_k,), (out_r,)
+        if not all(torch.equal(a, b) for a, b in zip(out_k, out_r)):
+            raise AssertionError(f"gl_overlap_add (momentum {momentum}, "
+                                 f"pcm16 {pcm16}) differs from its plain "
+                                 f"version")
+        if not pcm16:
+            errs["gl_overlap_add"] = max(
+                errs.get("gl_overlap_add", 0.0),
+                max(float((a - b).abs().max()) for a, b in zip(out_k, out_r)))
+    log(f"KK gl_overlap_add -> {tuple(out_k[0].shape)}: momentum 0 and 0.99, "
+        f"float32 and PCM-16 bit-exact, finite {out_k[1].tolist()}")
+
     # -- phase 3: the main path, tomel on a 30 s WAV ----------------------
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "speech.wav")
@@ -419,14 +580,15 @@ def main() -> int:
             stem = os.path.join(tmp, f"p{sr_in}")
             png_g, png_c = stem + "_gpu.png", stem + "_cpu.png"
             out_g, out_c = stem + "_gpu.wav", stem + "_cpu.wav"
-            t_enc = drive(f"tophase --device cuda, {label} (first call)",
-                          lambda: tophase([wav_in, "--device", "cuda", "-o",
-                                           png_g]),
-                          ("pcm16_ingest", "phase_encode", "quantize_planes"))
-            t_dec = drive(f"fromphase --device cuda, {label} (first call)",
-                          lambda: fromphase([png_g, "--device", "cuda", "-o",
-                                             out_g]),
-                          ("irfft_window", "overlap_normalize"))
+            t_enc, _ = drive(f"tophase --device cuda, {label} (first call)",
+                             lambda: tophase([wav_in, "--device", "cuda",
+                                              "-o", png_g]),
+                             ("pcm16_ingest", "phase_encode",
+                              "quantize_planes"))
+            t_dec, _ = drive(f"fromphase --device cuda, {label} (first call)",
+                             lambda: fromphase([png_g, "--device", "cuda",
+                                                "-o", out_g]),
+                             ("irfft_window", "overlap_normalize"))
             if tophase([wav_in, "--device", "cpu", "-o", png_c]) != 0:
                 raise AssertionError("tophase on cpu failed")
             if fromphase([png_g, "--device", "cpu", "-o", out_c]) != 0:
@@ -478,6 +640,59 @@ def main() -> int:
                     f"{1e3 * float(np.median(runs_dec[1:])):.3f} ms (first "
                     f"{1e3 * t_enc:.3f}, {1e3 * t_dec:.3f} ms)")
 
+        # -- phase 3c: the mel decode, towav on the tomel PNG ----------------
+        wav_g = os.path.join(tmp, "towav_gpu.wav")
+        wav_c = os.path.join(tmp, "towav_cpu.wav")
+        towav_args = [png_gpu, str(SAMPLE_RATE), "--seed", "1"]
+        t_wav, counts = drive(
+            "towav --device cuda (first call)",
+            lambda: towav(towav_args + ["-o", wav_g, "--device", "cuda"]),
+            ("mel_to_magnitudes", "gl_project", "gl_overlap_add"))
+        n_gl = cfg.griffin_lim_iterations
+        want = {"mel_to_magnitudes": 1, "gl_project": n_gl,
+                "gl_overlap_add": n_gl}
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise AssertionError(f"towav launches {counts}, expected {want}")
+        if towav(towav_args + ["-o", wav_c, "--device", "cpu"]) != 0:
+            raise AssertionError("towav on cpu failed")
+        wg, sr_g = wavcodec.read_wav(wav_g)
+        wc, sr_c = wavcodec.read_wav(wav_c)
+        if sr_g != sr_c or wg.shape != wc.shape:
+            raise AssertionError(f"towav WAVs differ in form: {wg.shape} @ "
+                                 f"{sr_g} Hz vs {wc.shape} @ {sr_c} Hz")
+        lsb = np.abs(wg.astype(np.int64) - wc.astype(np.int64))
+        planes, p_mx, p_mn, _, _ = imagecodec.load_mel_image_raw(png_gpu, True)
+        target = mel_ops.mel_to_magnitudes_plain(
+            torch.from_numpy(planes.copy()), inv.cpu(), mgc_max=p_mx,
+            mgc_min=p_mn).double()
+        win64 = torch.tensor(hann_window(n_fft), dtype=torch.float64)
+        sc_g, sc_c = (spectral_convergence(w, target, win64, n_fft, hop,
+                                           rfft_mag.stft_mag_plain)
+                      for w in (wg, wc))
+        log(f"towav WAV {wg.shape} @ {sr_g} Hz: cuda vs cpu (same --seed) max "
+            f"{int(lsb.max())} LSB, differing {float((lsb > 0).mean()):.2e} "
+            f"(bounds 2, 5e-2); scale-invariant spectral convergence against "
+            f"the target magnitudes: cuda {sc_g:.6f}, cpu {sc_c:.6f} (differ "
+            f"by {abs(sc_g - sc_c):.2e}, bound 1e-3)")
+        if lsb.max() > 2 or float((lsb > 0).mean()) >= 5e-2:
+            raise AssertionError("towav WAV differs from the CPU path")
+        if not (math.isfinite(sc_g) and abs(sc_g - sc_c) <= 1e-3):
+            raise AssertionError("towav spectral convergence differs from the "
+                                 "CPU path")
+        runs_wav = [t_wav]
+        for _ in range(4):
+            t0 = time.perf_counter()
+            towav(towav_args + ["-o", wav_g, "--device", "cuda"])
+            torch.cuda.synchronize()
+            runs_wav.append(time.perf_counter() - t0)
+        log(f"  towav 30 s file wall, median of 4 after the first: "
+            f"{1e3 * float(np.median(runs_wav[1:])):.3f} ms (first "
+            f"{1e3 * t_wav:.3f} ms)")
+        log(f"  towav split (host clock, each step ended by a synchronise, "
+            f"median of 10): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in towav_split(
+                    png_gpu, wav_g, dev, 10).items()))
+
     # -- phase 4: times at the bench shape ---------------------------------
     log(f"timing on {card}: device ms per call (CUDA events over up to 20 "
         f"calls queued behind a sleep kernel, after 3 warmup; lower of two "
@@ -500,6 +715,11 @@ def main() -> int:
             fw_ref, hop, win, pcm16=True),
         "pcm16_ingest zero-stuff": lambda: quantize.pcm16_ingest_batch(
             pcm16k, f32, 32768.0, padded16, zp, zs),
+        "mel_to_magnitudes": lambda: mel_ops.mel_to_magnitudes(
+            img, inv, mgc_max=mx, mgc_min=mn),
+        "gl_project": lambda: griffinlim.gl_project(sig0, mag, win, n_fft,
+                                                    hop),
+        "gl_overlap_add": lambda: griffinlim.gl_overlap_add(fw_gl, hop),
     }
     plain_fns = {
         "pcm16_ingest": lambda: quantize.pcm16_ingest_plain(
@@ -519,6 +739,11 @@ def main() -> int:
             fw_ref, hop, win, pcm16=True),
         "pcm16_ingest zero-stuff": lambda: quantize.pcm16_ingest_plain(
             pcm16k, f32, 32768.0, padded16, batched=True, zp=zp, zs=zs),
+        "mel_to_magnitudes": lambda: mel_ops.mel_to_magnitudes_plain(
+            img, inv, mgc_max=mx, mgc_min=mn),
+        "gl_project": lambda: griffinlim.gl_project_plain(sig0, mag, win,
+                                                          n_fft, hop),
+        "gl_overlap_add": lambda: griffinlim.gl_overlap_add_plain(fw_gl, hop),
     }
     times = {name: race(kernel_fns[name], plain_fns[name], name)
              for name in kernel_fns}
@@ -574,6 +799,55 @@ def main() -> int:
             f"{p_ms:.4f} ms = {secs / (p_ms / 1e3):.1f} audio-s/s; called back "
             f"to back (host clock) {c_ms:.4f} ms = "
             f"{secs / (c_ms / 1e3):.1f} audio-s/s")
+
+    def gl_plain(m_half, n_iter: int, momentum: float, pcm16: bool):
+        """Griffin-Lim from sig0 through the plain versions."""
+        sig, t_prev = sig0, sig0
+        for _ in range(n_iter - 1):
+            fw = griffinlim.gl_project_plain(sig, m_half, win, n_fft, hop)
+            if momentum:
+                sig, t_prev = griffinlim.gl_overlap_add_plain(fw, hop, t_prev,
+                                                              momentum)
+            else:
+                sig = griffinlim.gl_overlap_add_plain(fw, hop)
+        fw = griffinlim.gl_project_plain(sig, m_half, win, n_fft, hop)
+        return griffinlim.gl_overlap_add_plain(fw, hop, pcm16=pcm16)
+
+    def decode_kernels():
+        m_half = mel_ops.mel_to_magnitudes(img, inv, mgc_max=mx, mgc_min=mn)
+        return griffinlim.griffin_lim(m_half, hop, 2, win, init=sig0,
+                                      pcm16=True)
+
+    def decode_plain():
+        return gl_plain(mel_ops.mel_to_magnitudes_plain(
+            img, inv, mgc_max=mx, mgc_min=mn), 2, 0.0, True)
+
+    mom24, it24 = griffinlim.recommended_gl(64)
+    gl_out_s = BATCH * gl_len / SAMPLE_RATE
+    for label, kfn, pfn in (
+            ("dequantize + KI + GL-2 + PCM-16 (the towav device work)",
+             decode_kernels, decode_plain),
+            ("one GL iteration (KJ + KK)",
+             lambda: griffinlim.gl_overlap_add(griffinlim.gl_project(
+                 sig0, mag, win, n_fft, hop), hop),
+             lambda: gl_plain(mag, 1, 0.0, False))):
+        k_ms, p_ms = race(kfn, pfn, label)
+        c_ms = wall_ms(kfn)
+        log(f"  {label}, [{BATCH}, {frames} frames], device: kernels "
+            f"{k_ms:.4f} ms = {gl_out_s / (k_ms / 1e3):.1f} audio-s/s; plain "
+            f"{p_ms:.4f} ms = {gl_out_s / (p_ms / 1e3):.1f} audio-s/s; called "
+            f"back to back (host clock) {c_ms:.4f} ms = "
+            f"{gl_out_s / (c_ms / 1e3):.1f} audio-s/s")
+    # recommended_gl(64): the plain version's ~35 small kernels an iteration
+    # would fill the launch queue behind the sleep, so both run as CUDA graphs
+    k_ms, p_ms = race(
+        graph(lambda: griffinlim.griffin_lim(mag, hop, it24, win, init=sig0,
+                                             momentum=mom24)),
+        graph(lambda: gl_plain(mag, it24, mom24, False)), "recommended_gl(64)")
+    log(f"  recommended_gl(64) = momentum {mom24} x {it24} iterations, "
+        f"[{BATCH}, {frames} frames], device (CUDA graph replays): kernels "
+        f"{k_ms:.4f} ms = {gl_out_s / (k_ms / 1e3):.1f} audio-s/s; plain "
+        f"{p_ms:.4f} ms = {gl_out_s / (p_ms / 1e3):.1f} audio-s/s")
 
     rows = [{"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": launches[name],

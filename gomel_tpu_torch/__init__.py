@@ -3,16 +3,19 @@
 The port of ``gomel_tpu`` (JAX on a TPU, kept beside it as the reference) to
 PyTorch, with its device kernels written by hand in CUDA C++ for Hopper
 (``csrc/``). This package imports neither JAX nor ``gomel_tpu``. It covers
-the mel-encode path (WAV -> log-mel -> quantized PNG, ``tomel``) and the
-phase codec round trip (WAV -> phase PNG -> WAV, ``tophase`` and
-``fromphase``) so far.
+the mel codec (WAV -> log-mel -> quantized PNG, ``tomel``, and back by
+Griffin-Lim, ``towav``) and the phase codec round trip (WAV -> phase PNG ->
+WAV, ``tophase`` and ``fromphase``) so far.
 """
 
-from .core.config import ConfigError, GomelError, MelConfig, PhaseConfig
+from .core.config import (ConfigError, FileNotLoadedError, GomelError,
+                          MelConfig, PhaseConfig, UnsupportedSampleRateError,
+                          num_freqs_for_sample_rate, pad_shift)
 from .pipelines.mel import Mel
 from .pipelines.phase import Phase
 
 __version__ = "0.1.0"
 
-__all__ = ["Mel", "MelConfig", "Phase", "PhaseConfig", "GomelError",
-           "ConfigError", "__version__"]
+__all__ = ["Mel", "Phase", "MelConfig", "PhaseConfig", "GomelError",
+           "FileNotLoadedError", "UnsupportedSampleRateError", "ConfigError",
+           "num_freqs_for_sample_rate", "pad_shift", "__version__"]

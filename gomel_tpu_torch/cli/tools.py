@@ -1,18 +1,21 @@
-"""Command-line tools ``tomel`` (audio -> mel spectrogram PNG), ``tophase``
-(audio -> phase spectrogram PNG) and ``fromphase`` (phase PNG -> WAV).
+"""Command-line tools ``tomel`` (audio -> mel spectrogram PNG), ``towav``
+(mel PNG -> WAV by Griffin-Lim), ``tophase`` (audio -> phase spectrogram
+PNG) and ``fromphase`` (phase PNG -> WAV).
 
 Counterparts of ``gomel_tpu/cli/tools.py`` (reference Go CLIs
-cmd/tomel/main.go:11-60, cmd/tophase/main.go:11-56,
-cmd/fromphase/main.go:10-36): the same baked-in parameters, file routing and
-flags, plus ``--device``. Run as::
+cmd/tomel/main.go:11-60, cmd/towav/main.go:10-48,
+cmd/tophase/main.go:11-56, cmd/fromphase/main.go:10-36): the same baked-in
+parameters, file routing and flags, plus ``--device``. Run as::
 
     python -m gomel_tpu_torch.cli.tools tomel input.wav [--device cuda|cpu]
+    python -m gomel_tpu_torch.cli.tools towav input.wav.png [sample_rate] \
+        [--seed S] [--gl-momentum M] [--device cuda|cpu]
     python -m gomel_tpu_torch.cli.tools tophase input.wav [--device cuda|cpu]
     python -m gomel_tpu_torch.cli.tools fromphase input.wav.png [--device ...]
 
 ``--device`` defaults to ``cuda``. Without a CUDA device a tool prints an
 error naming the missing device and exits 1; the CPU path runs only when
-``--device cpu`` asks for it. ``towav`` is still to port (ROADMAP.md).
+``--device cpu`` asks for it.
 """
 from __future__ import annotations
 
@@ -62,30 +65,53 @@ def _missing_device(prog: str, device: str) -> bool:
     return False
 
 
-def _mel_parser(prog: str) -> argparse.ArgumentParser:
+def _mel_parser(prog: str, png_input: bool) -> argparse.ArgumentParser:
+    """The flags of ``tomel`` and ``towav``, shared as in the JAX package
+    (gomel_tpu/cli/tools.py:36-74), plus ``--device``."""
     d = MelConfig.cli_default()   # single source of the reference CLI params
     p = argparse.ArgumentParser(prog=prog)
     p.add_argument("filename",
-                   help="audio file (.wav/.flac; bare name implies .wav)")
+                   help="PNG file" if png_input else
+                   "audio file (.wav/.flac; bare name implies .wav)")
+    if png_input:
+        p.add_argument("sample_rate", nargs="?", type=int, default=44100,
+                       help="output sample rate (default 44100)")
+        p.add_argument("--seed", type=int, default=0,
+                       help="Griffin-Lim seed of the initial signal")
+        p.add_argument("--gl-momentum", type=float, default=0.0,
+                       help="fast-Griffin-Lim momentum (0 = reference "
+                            "behaviour); ops/griffinlim.recommended_gl gives "
+                            "the JAX package's measured equal-quality pairs, "
+                            "e.g. 0.99 at 24 iterations for plain 64")
     p.add_argument("--output", "-o", default=None, help="output path")
     p.add_argument("--num-mels", type=int, default=d.num_mels)
     p.add_argument("--window", type=int, default=d.window)
     p.add_argument("--resolut", type=int, default=d.resolut)
     p.add_argument("--fmax", type=float, default=d.mel_fmax)
+    p.add_argument("--griffin-lim-iterations", type=int,
+                   default=d.griffin_lim_iterations)
+    p.add_argument("--volume-boost", type=float, default=d.volume_boost)
     _add_device_flags(p)
     return p
 
 
+def _mel_from_args(a, sample_rate: int = 0) -> Mel:
+    return Mel(MelConfig(
+        num_mels=a.num_mels, mel_fmin=0.0, mel_fmax=a.fmax, y_reverse=True,
+        window=a.window, resolut=a.resolut,
+        griffin_lim_iterations=a.griffin_lim_iterations,
+        volume_boost=a.volume_boost, sample_rate=sample_rate),
+        device_quantize=a.device_quantize, device=a.device)
+
+
 def tomel(argv: Optional[Sequence[str]] = None) -> int:
     """audio -> <file>.png mel spectrogram (cmd/tomel/main.go)."""
-    a = _mel_parser("tomel").parse_args(argv)
+    a = _mel_parser("tomel", png_input=False).parse_args(argv)
     if _missing_device("tomel", a.device):
         return 1
     infile, kind = _route_audio_input(a.filename)
     outfile = a.output or a.filename + ".png"
-    m = Mel(MelConfig(num_mels=a.num_mels, mel_fmin=0.0, mel_fmax=a.fmax,
-                      y_reverse=True, window=a.window, resolut=a.resolut),
-            device_quantize=a.device_quantize, device=a.device)
+    m = _mel_from_args(a)
     try:
         if kind == "flac":
             m.to_mel_flac(infile, outfile)
@@ -93,6 +119,21 @@ def tomel(argv: Optional[Sequence[str]] = None) -> int:
             m.to_mel_wav(infile, outfile)
     except Exception as e:  # reference prints and exits 1
         print(f"Error generating mel spectrogram: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def towav(argv: Optional[Sequence[str]] = None) -> int:
+    """mel PNG -> <file>.wav (cmd/towav/main.go; argv[2] = sample rate)."""
+    a = _mel_parser("towav", png_input=True).parse_args(argv)
+    if _missing_device("towav", a.device):
+        return 1
+    outfile = a.output or a.filename + ".wav"
+    m = _mel_from_args(a, sample_rate=a.sample_rate)
+    try:
+        m.to_wav_png(a.filename, outfile, seed=a.seed, momentum=a.gl_momentum)
+    except Exception as e:
+        print(f"Error generating wave from spectrogram: {e}", file=sys.stderr)
         return 1
     return 0
 
@@ -167,7 +208,8 @@ def fromphase(argv: Optional[Sequence[str]] = None) -> int:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """Multiplexed entry: ``python -m gomel_tpu_torch.cli.tools <tool> ...``."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    tools = {"tomel": tomel, "tophase": tophase, "fromphase": fromphase}
+    tools = {"tomel": tomel, "towav": towav, "tophase": tophase,
+             "fromphase": fromphase}
     if not argv or argv[0] not in tools:
         print(f"Usage: gomel_tpu_torch.cli.tools {{{','.join(tools)}}} <args>",
               file=sys.stderr)

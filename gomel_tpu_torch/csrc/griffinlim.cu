@@ -1,0 +1,183 @@
+// KJ and KK: one Griffin-Lim iteration, from signal to signal.
+//
+// KJ: the projection, one thread block per frame. Replaces the body of
+//   gomel_tpu/ops/griffinlim.py:98 griffin_lim up to its overlap-add
+//   (:171-195; K13): frame_signal x window -> rfft -> unit phase (angle 0 ->
+//   unit 1, and 1/a times, not a division, :178-181) x the fixed magnitudes
+//   -> irfft x window, into frames_w [B*F, n] float32.
+//   The frame is read straight from the signal with the window on the way
+//   (fft_core.cuh load_frame, as KB), an n/2-point Stockham FFT gives Z, and
+//   one pass then takes each pair of bins (k, n/2 - k): real_split_bin forms
+//   X[k] and X[n/2 - k], the unit phase and the magnitude give Y, the
+//   imaginary parts of DC and Nyquist are dropped (irfft ignores them), and
+//   inverse_split_bin (KG's) forms 2 Z'[k] and 2 Z'[n/2 - k] into the other
+//   shared buffer. The inverse Stockham FFT (conjugated twiddles) follows,
+//   scaled by 1/n and multiplied by the window on the way out. Two buffers
+//   of n/2 float2, 32 KB at n = 4096. Every iteration runs in exact float32
+//   on the CUDA cores, as the JAX package's does off the TPU (its bf16 DFT,
+//   dft_mm.py, is selected only by a TPU backend).
+//   The unit phase rounds each step as the JAX program does
+//   (__fmul_rn / __fadd_rn / __fsqrt_rn / __fdiv_rn), so nvcc forms no FMA
+//   there; the FFT passes are fft_core.cuh's.
+//
+// KK: the overlap-add of frames_w, with no window-sum normalisation
+//   (reference mel/mel.go:127-132; gomel_tpu/ops/griffinlim.py:196), through
+//   KH's one-owner-per-sample body (overlap_add.cuh). Its epilogue is one of:
+//   the signal t (float32); the momentum step of an interior fast-Griffin-Lim
+//   iteration (:201-204), writing t and c = t + m * (t - t_prev) rounded
+//   step by step in that order; or, for the final iteration of a file
+//   decode, gomel_tpu/ops/quantize.py:124 pcm16_encode (K11) with a per-row
+//   finite flag. Bit-exact against its plain version.
+//
+// Bound: at the bench shape (2 x 1122 frames of 4096) KJ reads the signal
+// (~11.5 MB once, neighbouring frames in L2) and 18 MB of magnitudes and
+// writes 37 MB of frames_w, and KK reads them back: ~20 us of memory
+// together at 3.35 TB/s. KJ's 22 barrier-separated radix-2 passes (two
+// transforms) bound it, as they bind KB and KG; fusing KK into KJ (each
+// frame adding into its neighbours' samples) needs atomics or a second pass.
+#include <math.h>
+
+#include "fft_core.cuh"
+#include "overlap_add.cuh"
+
+namespace {
+
+// mag * (re, im) / |(re, im)|, or (mag, 0) where |(re, im)| is 0
+__device__ __forceinline__ float2 project_bin(float2 x, float mag) {
+  const float a =
+      __fsqrt_rn(__fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y)));
+  const float inv = a > 0.0f ? __fdiv_rn(1.0f, a) : 0.0f;
+  const float ur = a > 0.0f ? __fmul_rn(x.x, inv) : 1.0f;
+  const float ui = __fmul_rn(x.y, inv);
+  return make_float2(__fmul_rn(mag, ur), __fmul_rn(mag, ui));
+}
+
+__global__ void gl_project_kernel(const float* __restrict__ sig,
+                                  const float* __restrict__ mag,
+                                  const float* __restrict__ window,
+                                  const float2* __restrict__ tw,
+                                  float2* __restrict__ out, int frames,
+                                  long long length, long long hop, int m,
+                                  float inv_n) {
+  extern __shared__ float2 smem[];
+  float2* a = smem;
+  float2* b = smem + m;
+  const long long frame = blockIdx.x;
+  const long long bi = frame / frames;
+  const long long fi = frame - bi * frames;
+  load_frame(reinterpret_cast<float*>(a), sig + bi * length + fi * hop,
+             window, 2 * m);
+  float2* z = stockham_fft<false>(a, b, tw, m);
+  float2* y = (z == a) ? b : a;
+
+  const float* mg = mag + frame * (m + 1);
+  for (int k = threadIdx.x; k <= m / 2; k += blockDim.x) {
+    const int q = m - k;
+    float2 xk = project_bin(real_split_bin(z, tw, k, m), mg[k]);
+    float2 xq = project_bin(real_split_bin(z, tw, q, m), mg[q]);
+    if (k == 0) {  // DC and Nyquist
+      xk.y = 0.0f;
+      xq.y = 0.0f;
+    }
+    y[k] = inverse_split_bin(xk, xq, tw[k]);
+    if (k > 0 && k < q) y[q] = inverse_split_bin(xq, xk, tw[q]);
+  }
+  __syncthreads();
+
+  const float2* r = stockham_fft<true>(y, z, tw, m);
+  const float2* w2 = reinterpret_cast<const float2*>(window);
+  float2* dst = out + frame * m;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const float2 v = r[i];
+    const float2 w = w2[i];
+    dst[i] = make_float2(__fmul_rn(__fmul_rn(v.x, inv_n), w.x),
+                         __fmul_rn(__fmul_rn(v.y, inv_n), w.y));
+  }
+}
+
+__global__ void gl_overlap_add_kernel(const float* __restrict__ frames_w,
+                                      const float* __restrict__ t_prev,
+                                      float* __restrict__ out_t,
+                                      float* __restrict__ out_c,
+                                      int16_t* __restrict__ out_pcm,
+                                      int* __restrict__ finite,
+                                      long long length, int frames, int n,
+                                      int hop, int taps, float momentum) {
+  const long long b = blockIdx.y;
+  const float* src = frames_w + b * frames * static_cast<long long>(n);
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       t < length; t += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = t / hop;
+    const int c = static_cast<int>(t - i * hop);
+    const float y = ola_sum(src, i, c, frames, n, hop, taps);
+    const long long at = b * length + t;
+    if (out_t != nullptr) out_t[at] = y;
+    if (out_c != nullptr) {
+      out_c[at] = __fadd_rn(y, __fmul_rn(momentum, __fsub_rn(y, t_prev[at])));
+    }
+    if (out_pcm != nullptr) {
+      if (!isfinite(y)) finite[b] = 0;
+      out_pcm[at] = pcm16_sample(y);
+    }
+  }
+}
+
+}  // namespace
+
+// sig: float32 [batch, length], length = n + (frames - 1) * hop; mag:
+// float32 [batch*frames, n/2 + 1]; window: float32 [n] (8-byte aligned);
+// tw: float2 [n/2]; out: float32 [batch*frames, n]. n/2 must be a power of
+// two (the wrapper checks).
+GOMEL_API int gomel_gl_project(const void* sig, const void* mag,
+                               const void* window, const void* tw, void* out,
+                               long long batch, long long frames,
+                               long long length, long long hop, long long n,
+                               int device, void* stream) {
+  cudaSetDevice(device);
+  const int m = static_cast<int>(n / 2);
+  const size_t smem = 2 * static_cast<size_t>(m) * sizeof(float2);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(gl_project_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  int threads = m / 2;
+  if (threads > 256) threads = 256;
+  if (threads < 32) threads = 32;
+  gl_project_kernel<<<static_cast<unsigned>(batch * frames), threads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sig), static_cast<const float*>(mag),
+      static_cast<const float*>(window), static_cast<const float2*>(tw),
+      static_cast<float2*>(out), static_cast<int>(frames), length, hop, m,
+      1.0f / static_cast<float>(n));
+  return gomel_status();
+}
+
+// frames_w: float32 [batch, frames, n]; t_prev: float32 [batch, length] or
+// null; out_t: float32 [batch, length] or null; out_c: float32
+// [batch, length] (with t_prev) or null; out_pcm: int16 [batch, length] or
+// null; finite: int32 [batch], set to 1 by the caller; row b's is cleared on
+// any non-finite sample of that row when out_pcm is given.
+// length = n + (frames - 1) * hop.
+GOMEL_API int gomel_gl_overlap_add(const void* frames_w, const void* t_prev,
+                                   void* out_t, void* out_c, void* out_pcm,
+                                   void* finite, long long batch,
+                                   long long frames, long long n,
+                                   long long hop, float momentum, int device,
+                                   void* stream) {
+  cudaSetDevice(device);
+  const long long length = n + (frames - 1) * hop;
+  const int taps = static_cast<int>((n + hop - 1) / hop);
+  const int threads = 256;
+  long long bx = (length + threads - 1) / threads;
+  if (bx > 65535) bx = 65535;
+  gl_overlap_add_kernel<<<dim3(static_cast<unsigned>(bx),
+                               static_cast<unsigned>(batch)),
+                          threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(frames_w), static_cast<const float*>(t_prev),
+      static_cast<float*>(out_t), static_cast<float*>(out_c),
+      static_cast<int16_t*>(out_pcm), static_cast<int*>(finite), length,
+      static_cast<int>(frames), static_cast<int>(n), static_cast<int>(hop),
+      taps, momentum);
+  return gomel_status();
+}

@@ -27,7 +27,8 @@
 //   gomel_tpu/ops/quantize.py:124 pcm16_encode (K9, K11). One thread per
 //   output sample t, so every sample has one owner: no atomics, and the
 //   result is deterministic. It sums the K = ceil(n/hop) frames covering t
-//   with k ascending (frame i - k for hop-row i, istft.py:35-37), takes the
+//   with k ascending (frame i - k for hop-row i, istft.py:35-37; the body
+//   is overlap_add.cuh's, shared with KK in griffinlim.cu), takes the
 //   window sum from a [K, hop] prefix table the host builds as window_sum
 //   does (head, periodic middle, tail; istft.py:51-72), normalises with the
 //   three branches of istft.py:202-207 (sig / threshold in the fade), then
@@ -51,6 +52,7 @@
 #include <math.h>
 
 #include "fft_core.cuh"
+#include "overlap_add.cuh"
 
 namespace {
 
@@ -192,14 +194,7 @@ __global__ void overlap_normalize_kernel(
        t < length; t += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long i = t / hop;
     const int c = static_cast<int>(t - i * hop);
-    float acc = 0.0f;
-    for (int k = 0; k < taps; ++k) {
-      const long long fi = i - k;
-      const int col = k * hop + c;
-      float v = 0.0f;
-      if (fi >= 0 && fi < frames && col < n) v = src[fi * n + col];
-      acc = __fadd_rn(acc, v);
-    }
+    const float acc = ola_sum(src, i, c, frames, n, hop, taps);
     float y = acc;
     if (table != nullptr) {
       const float ws = window_sum_at(table, i, c, frames, taps, hop, short_form);
@@ -209,11 +204,7 @@ __global__ void overlap_normalize_kernel(
     if (boost != 0.0f) y = __fmul_rn(y, boost);
     if (!isfinite(y)) finite[b] = 0;
     if (out_f != nullptr) out_f[b * length + t] = y;
-    if (out_pcm != nullptr) {
-      float q = isnan(y) ? 0.0f : fminf(fmaxf(y, -1.0f), 1.0f);
-      q = fminf(fmaxf(rintf(q * 32768.0f), -32768.0f), 32767.0f);
-      out_pcm[b * length + t] = static_cast<int16_t>(q);
-    }
+    if (out_pcm != nullptr) out_pcm[b * length + t] = pcm16_sample(y);
   }
 }
 

@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source for ``sm_90a`` into one shared library
-with a plain C interface, ``build/gomel_tpu_torch/libgomel_kernels.so`` beside
-the package, at first use. A stamp file holds the hash of the sources the
-library was built from; a changed source rebuilds it. ``ctypes`` loads the
-library, and :func:`launch` calls an entry point on PyTorch's current stream
-and raises if the launch failed.
+At first use one ``nvcc`` per source, all started together, compiles each for
+``sm_90a``, and one more links the objects into one shared library with a
+plain C interface, ``build/gomel_tpu_torch/libgomel_kernels.so`` beside the
+package. A stamp file holds the hash of the sources the library was built
+from; a changed source rebuilds it. ``ctypes`` loads the library, and
+:func:`launch` calls an entry point on PyTorch's current stream and raises
+if the launch failed.
 
 Nothing here runs at import: this module is imported on machines with no
 CUDA toolkit, where only the kernels' plain PyTorch versions run.
@@ -27,8 +28,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "gomel_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libgomel_kernels.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
+LINK_FLAGS = [*_ARCH, "-shared"]
 
 _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
@@ -46,6 +49,11 @@ _SIGNATURES = {
                            _F32, _I32],
     "gomel_overlap_normalize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                 _I32, _F32, _F32],
+    "gomel_mel_to_mag": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                         _I64, _I64, _F32, _F32, _F32, _F32],
+    "gomel_gl_project": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64],
+    "gomel_gl_overlap_add": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                             _F32],
 }
 
 
@@ -71,7 +79,7 @@ def sources_hash() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()
 
 
@@ -90,8 +98,9 @@ def _nvcc() -> str:
 
 def build() -> float:
     """Compile the kernels unless the stamp matches the sources; returns the
-    seconds spent compiling (0.0 when the library was current). The compiler's
-    report (registers, shared memory, spills) goes to ``build.log``."""
+    seconds spent compiling (0.0 when the library was current). The
+    compiler's report (registers, shared memory, spills) goes to
+    ``build.log``."""
     digest = sources_hash()
     stamp = LIB_PATH + ".sha256"
     if os.path.exists(LIB_PATH) and os.path.exists(stamp):
@@ -99,22 +108,42 @@ def build() -> float:
             if f.read().strip() == digest:
                 return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in _sources()
-                                              if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)   # atomic: a concurrent loader sees old or new
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        try:
+            for src in (s for s in _sources() if s.endswith(".cu")):
+                stem = os.path.join(work, os.path.basename(src)[:-3])
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", stem + ".o", src]
+                with open(stem + ".log", "w") as out:
+                    jobs.append((cmd, stem, subprocess.Popen(
+                        cmd, stdout=out, stderr=subprocess.STDOUT)))
+        finally:
+            for _, _, proc in jobs:   # every compiler started has ended
+                proc.wait()
+        report, failed = [], []
+        for cmd, stem, proc in jobs:
+            with open(stem + ".log") as f:
+                report.append(" ".join(cmd) + "\n" + f.read())
+            if proc.returncode != 0:
+                failed.append(report[-1])
+        tmp = os.path.join(work, "lib.so")
+        if not failed:
+            cmd = [nvcc, *LINK_FLAGS, "-o", tmp,
+                   *(stem + ".o" for _, stem, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            report.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(report[-1])
+        with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+            f.write("\n".join(report))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, LIB_PATH)   # atomic: a concurrent loader sees old or new
     with open(stamp, "w") as f:
         f.write(digest)
-    return seconds
+    return time.perf_counter() - t0
 
 
 _lock = threading.Lock()

@@ -1,0 +1,250 @@
+"""Griffin-Lim phase reconstruction: one iteration is kernel KJ (frame x
+window -> rFFT -> unit phase x magnitude -> inverse rFFT x window) then
+kernel KK (overlap-add, with the momentum step or the PCM-16 conversion as
+its epilogue), both csrc/griffinlim.cu.
+
+Counterpart of ``gomel_tpu/ops/griffinlim.py`` (reference mel/mel.go:76-139):
+the magnitudes are fixed across iterations, ``mag[k] = |ch0[k]|`` for
+k < N/2 and ``mag[N/2] = |ch1[N/2-1]|``, and each iteration is
+``signal <- overlap_add(irfft(mag * e^{i phase(rfft(window * frames))}) *
+window)`` with no window-sum normalisation (mel/mel.go:127-132).
+
+The JAX package runs the interior iterations through a reduced-precision
+DFT only when its backend is a TPU (``fftbackend.resolve("auto_lowp")``);
+elsewhere every iteration is the exact float32 FFT, and so is every
+iteration here. On a CPU tensor each step runs its plain PyTorch version
+(``torch.fft``, the JAX program's order of operations); on a CUDA tensor it
+launches its kernel.
+
+The random initial signal is drawn by :func:`random_init` on a CPU
+``torch.Generator`` and copied to the device, so a seed gives the same
+start on every device. It cannot reproduce the JAX PRNG's draw: tests pass
+``init=`` or replace :func:`random_init`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _cuda
+from .istft import overlap_add_plain
+from .quantize import pcm16_encode
+from .rfft_mag import _twiddles, supported
+from .stft import frame_signal, window_like
+
+PROJECT_KERNEL = _cuda.Kernel("gl_project", "gomel_tpu_torch/csrc/griffinlim.cu",
+                              "gomel_tpu/ops/griffinlim.py:98")
+OLA_KERNEL = _cuda.Kernel("gl_overlap_add",
+                          "gomel_tpu_torch/csrc/griffinlim.cu",
+                          "gomel_tpu/ops/griffinlim.py:196")
+
+# Measured equal-quality serving pairs of the JAX package
+# (benchmarks/exp_gl_frontier.py; benchmarks/RESULTS.md "GL momentum"):
+# plain-GL(n) quality class -> (momentum, iterations) matching or beating it.
+# Per-iteration cost is unchanged by momentum.
+GL_EQUAL_QUALITY_PAIRS: dict[int, tuple[float, int]] = {
+    2: (0.99, 2),     # momentum needs 2 iterations of history: equal cost
+    16: (0.99, 8),
+    32: (0.99, 16),
+    64: (0.99, 24),
+}
+
+
+def recommended_gl(plain_iters: int) -> tuple[float, int]:
+    """(momentum, iterations) matching plain-GL(``plain_iters``) quality at
+    the least measured cost (gomel_tpu/ops/griffinlim.py:68-87): momentum
+    at equal iterations below 16, n/2 from 16, 3n/8 from 64."""
+    if plain_iters < 1:
+        raise ValueError("plain_iters must be >= 1")
+    if plain_iters < 2:
+        return (0.0, plain_iters)
+    if plain_iters < 16:
+        return (0.99, plain_iters)
+    if plain_iters < 64:
+        return (0.99, -(-plain_iters // 2))
+    return (0.99, -(-plain_iters * 3 // 8))
+
+
+def griffin_lim_magnitudes(linear2: torch.Tensor) -> torch.Tensor:
+    """Half-spectrum magnitudes [..., F, N/2 + 1] from a 2-channel linear
+    spectrogram [..., F, N/2, 2]: |ch0| for bins 0..N/2-1, and bin N/2 =
+    |ch1[N/2-1]| (the ``undospectrum`` layout, mel/impl.go:386-408)."""
+    return torch.cat([linear2[..., 0].abs(), linear2[..., -1:, 1].abs()],
+                     dim=-1)
+
+
+def random_init(shape: tuple[int, ...], generator: torch.Generator | None,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The initial signal: uniform [0, 1) (mel/mel.go:81-83), drawn on the
+    CPU from ``generator`` (None: PyTorch's default CPU generator)."""
+    return torch.rand(shape, generator=generator, dtype=dtype)
+
+
+def gl_project_plain(sig: torch.Tensor, mag_half: torch.Tensor,
+                     window: torch.Tensor, n: int, hop: int) -> torch.Tensor:
+    """Plain PyTorch version of KJ: frames of ``sig`` x window -> rfft ->
+    unit phase (angle 0 -> 1, times 1/|X|, gomel_tpu/ops/griffinlim.py:
+    177-181) x ``mag_half`` -> irfft x window, in ``sig``'s dtype."""
+    spec = torch.fft.rfft(frame_signal(sig, n, hop) * window, dim=-1)
+    re, im = spec.real, spec.imag
+    a = torch.sqrt(re * re + im * im)
+    pos = a > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, a, 1.0), 0.0)
+    unit_re = torch.where(pos, re * inv, 1.0)
+    unit_im = im * inv
+    rec = torch.fft.irfft(torch.complex(mag_half * unit_re, mag_half * unit_im),
+                          n=n, dim=-1)
+    return rec * window
+
+
+def gl_project(sig: torch.Tensor, mag_half: torch.Tensor,
+               window: torch.Tensor, n: int, hop: int) -> torch.Tensor:
+    """One Griffin-Lim projection up to the overlap-add: signal
+    [..., N + (F-1)*hop] and magnitudes [..., F, n/2 + 1] -> windowed frames
+    [..., F, n] (the body of gomel_tpu/ops/griffinlim.py:171-195)."""
+    *lead, frames, bins = mag_half.shape
+    if bins != n // 2 + 1:
+        raise ValueError(f"gl_project: {bins} magnitude bins, n={n} needs "
+                         f"{n // 2 + 1}")
+    if tuple(sig.shape) != tuple(lead) + (n + (frames - 1) * hop,):
+        raise ValueError(f"gl_project: signal {tuple(sig.shape)} does not hold "
+                         f"{frames} frames of {n} at hop {hop} for magnitudes "
+                         f"{tuple(mag_half.shape)}")
+    if sig.device.type == "cpu":
+        return gl_project_plain(sig, mag_half, window, n, hop)
+    sig, mag_half, window = (t.contiguous() for t in (sig, mag_half, window))
+    dev = _cuda.check_cuda("gl_project", sig, mag_half, window)
+    if any(t.dtype != torch.float32 for t in (sig, mag_half, window)):
+        raise ValueError("gl_project: the CUDA kernel takes float32 tensors")
+    if not supported(n):
+        raise ValueError(f"gl_project: n={n} unsupported (need even n, "
+                         f"n/2 a power of two, n <= 16384)")
+    if window.shape != (n,) or window.data_ptr() % 8:
+        raise ValueError(f"gl_project: window shape {tuple(window.shape)} "
+                         f"!= ({n},) or misaligned (the kernel reads float2)")
+    batch = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty(tuple(lead) + (frames, n), dtype=torch.float32,
+                      device=dev)
+    if batch * frames == 0:
+        return out
+    _cuda.launch("gomel_gl_project", dev, sig.data_ptr(), mag_half.data_ptr(),
+                 window.data_ptr(), _twiddles(n, dev).data_ptr(),
+                 out.data_ptr(), batch, frames, sig.shape[-1], hop, n)
+    PROJECT_KERNEL.launches += 1
+    return out
+
+
+def gl_overlap_add_plain(frames_w: torch.Tensor, hop: int,
+                         t_prev: torch.Tensor | None = None,
+                         momentum: float = 0.0, pcm16: bool = False):
+    """Plain PyTorch version of KK: overlap-add (no normalisation), then
+    the momentum step t + m * (t - t_prev) returning (c, t), or (int16 PCM,
+    per-row finite flag), or the float signal t."""
+    t = overlap_add_plain(frames_w, hop)
+    if pcm16:
+        return pcm16_encode(t)[0], torch.isfinite(t).all(dim=-1)
+    if t_prev is None:
+        return t
+    return t + momentum * (t - t_prev), t
+
+
+def gl_overlap_add(frames_w: torch.Tensor, hop: int,
+                   t_prev: torch.Tensor | None = None, momentum: float = 0.0,
+                   pcm16: bool = False):
+    """Overlap-add windowed frames [..., F, N] -> t [..., N + (F-1)*hop]
+    with no window-sum normalisation (gomel_tpu/ops/griffinlim.py:196).
+
+    With ``t_prev`` (an interior momentum iteration) returns
+    (c = t + momentum * (t - t_prev), t); with ``pcm16`` (the final
+    iteration of a file decode) returns (int16 PCM, per-row all-finite
+    flag [...]) as gomel_tpu/ops/quantize.py:124 converts; else t."""
+    if pcm16 and t_prev is not None:
+        raise ValueError("gl_overlap_add: the momentum step and PCM-16 are "
+                         "separate iterations")
+    *lead, frames, n = frames_w.shape
+    length = n + (frames - 1) * hop
+    if t_prev is not None and tuple(t_prev.shape) != tuple(lead) + (length,):
+        raise ValueError(f"gl_overlap_add: t_prev {tuple(t_prev.shape)} != "
+                         f"{tuple(lead) + (length,)}")
+    if frames_w.device.type == "cpu":
+        return gl_overlap_add_plain(frames_w, hop, t_prev, momentum, pcm16)
+    frames_w = frames_w.contiguous()
+    if t_prev is not None:
+        t_prev = t_prev.contiguous()
+    tensors = (frames_w,) if t_prev is None else (frames_w, t_prev)
+    dev = _cuda.check_cuda("gl_overlap_add", *tensors)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("gl_overlap_add: the CUDA kernel takes float32")
+    if frames < 1 or hop < 1:
+        raise ValueError(f"gl_overlap_add: {frames} frames, hop {hop}")
+    lead = tuple(lead)
+    batch = int(np.prod(lead, dtype=np.int64))
+    out_t = out_c = out_pcm = None
+    if pcm16:
+        out_pcm = torch.empty(lead + (length,), dtype=torch.int16, device=dev)
+    else:
+        out_t = torch.empty(lead + (length,), dtype=torch.float32, device=dev)
+    if t_prev is not None:
+        out_c = torch.empty_like(out_t)
+    finite = torch.ones(lead, dtype=torch.int32, device=dev)
+    if batch > 0:
+        _cuda.launch("gomel_gl_overlap_add", dev, frames_w.data_ptr(),
+                     None if t_prev is None else t_prev.data_ptr(),
+                     None if out_t is None else out_t.data_ptr(),
+                     None if out_c is None else out_c.data_ptr(),
+                     None if out_pcm is None else out_pcm.data_ptr(),
+                     finite.data_ptr(), batch, frames, n, hop,
+                     float(momentum))
+        OLA_KERNEL.launches += 1
+    if pcm16:
+        return out_pcm, finite.bool()
+    if t_prev is not None:
+        return out_c, out_t
+    return out_t
+
+
+def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
+                *, init=None, generator: torch.Generator | None = None,
+                momentum: float = 0.0, pcm16: bool = False):
+    """Iterative phase reconstruction (gomel_tpu/ops/griffinlim.py:98).
+
+    mag_half: [..., F, N/2 + 1] fixed half-spectrum magnitudes. Returns the
+    signal [..., N + (F-1)*hop] in ``mag_half``'s dtype, or with ``pcm16``
+    (int16 PCM, per-row all-finite flag). ``n_iter`` = 0 returns the
+    initial signal (mel/mel.go:85: the loop never runs). ``init`` overrides
+    the random initial signal; ``window`` is Hann when None.
+
+    ``momentum`` 0.0 is the reference's plain Griffin-Lim; a value in
+    (0, 1] runs fast Griffin-Lim in the signal domain, as the JAX package
+    does: ``n_iter - 1`` iterations t_n = G(c_n), c_{n+1} = t_n +
+    momentum * (t_n - t_{n-1}) from (c, t) = (init, init), then one plain
+    final iteration.
+    """
+    *lead, frames, bins = mag_half.shape
+    n = (bins - 1) * 2
+    dtype, dev = mag_half.dtype, mag_half.device
+    window = window_like(window, n, mag_half)
+    out_len = n + (frames - 1) * hop
+    shape = tuple(lead) + (out_len,)
+    if init is not None:
+        sig = torch.as_tensor(init, dtype=dtype, device=dev)
+        if tuple(sig.shape) != shape:
+            raise ValueError(f"griffin_lim: init {tuple(sig.shape)} != {shape}")
+    else:
+        sig = random_init(shape, generator, dtype).to(dev)
+    interior = max(n_iter - 1, 0)
+    if momentum != 0.0:
+        t_prev = sig
+        for _ in range(interior):
+            sig, t_prev = gl_overlap_add(
+                gl_project(sig, mag_half, window, n, hop), hop, t_prev,
+                float(momentum))
+    else:
+        for _ in range(interior):
+            sig = gl_overlap_add(gl_project(sig, mag_half, window, n, hop), hop)
+    if n_iter >= 1:
+        return gl_overlap_add(gl_project(sig, mag_half, window, n, hop), hop,
+                              pcm16=pcm16)
+    if pcm16:
+        return pcm16_encode(sig)[0], torch.isfinite(sig).all(dim=-1)
+    return sig

@@ -1,10 +1,15 @@
-"""Mel spectrogram encode: filterbank + log is kernel KC (csrc/mel_log.cu).
+"""Mel spectrogram codec: the encode's filterbank + log is kernel KC
+(csrc/mel_log.cu), the decode's dequantize + exp + inverse filterbank +
+magnitudes is kernel KI (csrc/mel_decode.cu), and its Griffin-Lim is
+kernels KJ and KK (ops/griffinlim.py).
 
-Counterpart of ``gomel_tpu/ops/mel_ops.py`` (encode side). Channel
-extraction (reference mel/mel.go:54-66): for real input ``|S[j]|`` (ch0) and
-``|S[N-j-1]| = |S[j+1]|`` (ch1) for j in [0, N/2), so the two channels are
-the rfft magnitude vector offset by one bin, and one extended weight matrix
-[N/2 + 1, 2M] with interleaved columns maps the magnitudes to both.
+Counterpart of ``gomel_tpu/ops/mel_ops.py``. Encode (reference
+mel/mel.go:46-74): for real input ``|S[j]|`` (ch0) and ``|S[N-j-1]| =
+|S[j+1]|`` (ch1) for j in [0, N/2), so the two channels are the rfft
+magnitude vector offset by one bin, and one extended weight matrix
+[N/2 + 1, 2M] with interleaved columns maps the magnitudes to both. Decode
+(mel/mel.go:142-152): exp, the ``undomel`` matrix U [N/2, M], the TuneMul /
+TuneAdd undo, then Griffin-Lim on the fixed magnitudes.
 
 Layout: [..., frames, num_mels, 2] channel-last, as in the JAX package.
 """
@@ -14,11 +19,16 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .griffinlim import griffin_lim, griffin_lim_magnitudes
+from .quantize import dequantize_mel_plane
 from .rfft_mag import stft_mag
 from .stft import hann_window
 
 KERNEL = _cuda.Kernel("mel_log", "gomel_tpu_torch/csrc/mel_log.cu",
                       "gomel_tpu/ops/mel_ops.py:98")
+MAG_KERNEL = _cuda.Kernel("mel_to_magnitudes",
+                          "gomel_tpu_torch/csrc/mel_decode.cu",
+                          "gomel_tpu/ops/mel_ops.py:152")
 
 # id(weights) -> (pinned weights, their version, (W_ext, lo, hi)); the source
 # tensor is kept in the value so its id cannot be recycled, and its version
@@ -121,3 +131,153 @@ def mel_encode_batch(xb: torch.Tensor, num_mels: int, frame_len: int, hop: int,
     if xb.ndim != 2:
         raise ValueError(f"mel_encode_batch takes [B, L] (got {tuple(xb.shape)})")
     return mel_encode(xb, num_mels, frame_len, hop, fwd_weights, window)
+
+
+# id(inv_weights) -> (pinned weights, their version, (first, count, taps));
+# as _EXT_WEIGHT_CACHE
+_BAND_CACHE: dict[int, tuple[torch.Tensor, int, tuple]] = {}
+
+
+def _band_table(inv_weights: torch.Tensor):
+    """U [N/2, M] -> memoized KI table on U's device: per bin the first mel
+    of its non-zero run (int32 [N/2]), the run's length (int32 [N/2]) and
+    its weights as float32 [N/2, max run], zero-padded. Runs are contiguous
+    (core/filterbank.inverse_mel_weights fills one branch per bin)."""
+    entry = _BAND_CACHE.get(id(inv_weights))
+    if (entry is not None and entry[0] is inv_weights
+            and entry[1] == inv_weights._version):
+        return entry[2]
+    u = inv_weights.detach().cpu().numpy()
+    nz = u != 0
+    any_nz = nz.any(axis=1)
+    first = np.where(any_nz, nz.argmax(axis=1), 0)
+    last = np.where(any_nz, u.shape[1] - nz[:, ::-1].argmax(axis=1), 0)
+    count = last - first
+    t = np.arange(max(1, int(count.max())))
+    idx = np.minimum(first[:, None] + t, u.shape[1] - 1)
+    taps = np.where(t < count[:, None], np.take_along_axis(u, idx, axis=1),
+                    0.0).astype(np.float32)
+    dev = inv_weights.device
+    value = (torch.from_numpy(first.astype(np.int32)).to(dev),
+             torch.from_numpy(count.astype(np.int32)).to(dev),
+             torch.from_numpy(taps).to(dev))
+    if len(_BAND_CACHE) >= _EXT_WEIGHT_CACHE_MAX:
+        _BAND_CACHE.clear()
+    _BAND_CACHE[id(inv_weights)] = (inv_weights, inv_weights._version, value)
+    return value
+
+
+def spectral_denormalize(x: torch.Tensor) -> torch.Tensor:
+    """exp (reference: mel/impl.go:421-427)."""
+    return torch.exp(x)
+
+
+def mel_to_linear(logmel: torch.Tensor, inv_weights: torch.Tensor,
+                  tune_mul: float = 1.0, tune_add: float = 0.0) -> torch.Tensor:
+    """log-mel [..., F, num_mels, 2] -> linear 2-channel spectrum
+    [..., F, N/2, 2]: exp -> ``undomel`` product with U [N/2, num_mels] ->
+    (v - TuneAdd) / TuneMul when they are not (0, 1) (reference
+    mel/mel.go:142-147, mel/impl.go:386-408). Plain PyTorch on any device
+    (kernel KI runs it on the card, :func:`mel_to_magnitudes`)."""
+    mel = spectral_denormalize(logmel)
+    lin = torch.einsum("...mc,bm->...bc", mel, inv_weights.to(mel.dtype))
+    if tune_add != 0.0 or tune_mul != 1.0:
+        def scalar(v):
+            return torch.full((), v, dtype=lin.dtype, device=lin.device)
+        lin = (lin - scalar(tune_add)) / scalar(tune_mul)
+    return lin
+
+
+def mel_to_magnitudes_plain(src: torch.Tensor, inv_weights: torch.Tensor,
+                            tune_mul: float = 1.0, tune_add: float = 0.0,
+                            boost: float = 0.0, mgc_max=None, mgc_min=None,
+                            max_val: int = 255) -> torch.Tensor:
+    """Plain PyTorch version of KI: dequantize_mel_plane (uint8 ``src``),
+    + ``boost`` when it is non-zero, mel_to_linear, griffin_lim_magnitudes."""
+    logmel = src
+    if src.dtype == torch.uint8:
+        logmel = dequantize_mel_plane(src, mgc_max, mgc_min, max_val)
+    if boost != 0.0:
+        logmel = logmel + torch.full((), boost, dtype=logmel.dtype,
+                                     device=logmel.device)
+    return griffin_lim_magnitudes(mel_to_linear(logmel, inv_weights, tune_mul,
+                                                tune_add))
+
+
+def mel_to_magnitudes(src: torch.Tensor, inv_weights: torch.Tensor,
+                      tune_mul: float = 1.0, tune_add: float = 0.0,
+                      boost: float = 0.0, mgc_max=None, mgc_min=None,
+                      max_val: int = 255) -> torch.Tensor:
+    """The fixed Griffin-Lim magnitudes of a mel spectrogram: mag_half
+    [..., F, N/2 + 1] float, from float log-mel [..., F, M, 2] or from uint8
+    PNG planes [..., M, F, 2] with their global extrema ``mgc_max``,
+    ``mgc_min`` [...] (dequantized first, in float32). ``boost`` is added in
+    the log domain (the VolumeBoost of gomel_tpu/pipelines/mel.py:152-154);
+    ``inv_weights`` is U [N/2, M]."""
+    quantized = src.dtype == torch.uint8
+    mels = src.shape[-3] if quantized else src.shape[-2]
+    if src.ndim < 3 or src.shape[-1] != 2 or inv_weights.shape[1] != mels:
+        raise ValueError(f"mel_to_magnitudes: source {tuple(src.shape)} does "
+                         f"not match U {tuple(inv_weights.shape)}")
+    if quantized and (mgc_max is None or mgc_min is None):
+        raise ValueError("mel_to_magnitudes: uint8 planes need mgc_max and "
+                         "mgc_min")
+    if src.device.type == "cpu":
+        return mel_to_magnitudes_plain(src, inv_weights, tune_mul, tune_add,
+                                       boost, mgc_max, mgc_min, max_val)
+    if quantized:
+        *lead, _, frames, _ = src.shape
+        f32 = torch.float32
+        mx = torch.as_tensor(mgc_max, dtype=f32, device=src.device)
+        mn = torch.as_tensor(mgc_min, dtype=f32, device=src.device)
+        mx, mn = mx.reshape(-1).contiguous(), mn.reshape(-1).contiguous()
+        dev = _cuda.check_cuda("mel_to_magnitudes", src, mx, mn)
+        if not 0 < max_val <= 255:
+            raise ValueError(f"mel_to_magnitudes: max_val {max_val} exceeds "
+                             f"uint8")
+    else:
+        *lead, frames, _, _ = src.shape
+        mx = mn = None
+        dev = _cuda.check_cuda("mel_to_magnitudes", src)
+        if src.dtype != torch.float32:
+            raise ValueError("mel_to_magnitudes: the CUDA kernel takes "
+                             "float32 or uint8")
+    batch = int(np.prod(lead, dtype=np.int64))
+    if quantized and mx.numel() != batch:
+        raise ValueError(f"mel_to_magnitudes: {mx.numel()} extrema for "
+                         f"{batch} rows")
+    first, count, taps = _band_table(inv_weights)
+    first, count, taps = first.to(dev), count.to(dev), taps.to(dev)
+    bins = inv_weights.shape[0]
+    out = torch.empty(tuple(lead) + (frames, bins + 1), dtype=torch.float32,
+                      device=dev)
+    if batch * frames == 0:
+        return out
+    _cuda.launch("gomel_mel_to_mag", dev, int(quantized), src.data_ptr(),
+                 None if mx is None else mx.data_ptr(),
+                 None if mn is None else mn.data_ptr(), first.data_ptr(),
+                 count.data_ptr(), taps.data_ptr(), out.data_ptr(), batch,
+                 frames, mels, bins, taps.shape[1], float(max_val),
+                 float(boost), float(tune_mul), float(tune_add))
+    MAG_KERNEL.launches += 1
+    return out
+
+
+def mel_decode(logmel: torch.Tensor, frame_len: int, hop: int,
+               inv_weights: torch.Tensor, n_iter: int,
+               generator: torch.Generator | None = None,
+               tune_mul: float = 1.0, tune_add: float = 0.0,
+               window: torch.Tensor | None = None, momentum: float = 0.0,
+               *, init=None) -> torch.Tensor:
+    """log-mel [..., F, num_mels, 2] -> audio [..., N + (F-1)*hop] via
+    Griffin-Lim (reference mel/mel.go:142-152), with the un-normalised
+    overlap-add amplitude of the reference. The initial signal is drawn from
+    ``generator`` (ops/griffinlim.random_init) unless ``init`` is given;
+    ``momentum`` > 0 opts into fast Griffin-Lim."""
+    if 2 * inv_weights.shape[0] != frame_len:
+        raise ValueError(f"inv_weights has {inv_weights.shape[0]} rows, "
+                         f"frame_len={frame_len} needs {frame_len // 2}")
+    mag = mel_to_magnitudes(logmel.contiguous(), inv_weights, tune_mul,
+                            tune_add)
+    return griffin_lim(mag, hop, n_iter, window, init=init,
+                       generator=generator, momentum=momentum)

@@ -21,13 +21,7 @@ import torch
 from . import istft
 from .quantize import dequantize_planes
 from .rfft_mag import stft_planes
-from .stft import hann_window
-
-
-def _window(window, frame_len: int, like: torch.Tensor) -> torch.Tensor:
-    if window is None:
-        window = hann_window(frame_len)
-    return torch.as_tensor(window, dtype=like.dtype, device=like.device)
+from .stft import window_like
 
 
 def phase_encode(x_padded: torch.Tensor, num_freqs: int, frame_len: int,
@@ -37,7 +31,7 @@ def phase_encode(x_padded: torch.Tensor, num_freqs: int, frame_len: int,
     phase/phase.go:50-64 then shrink, phase/impl.go:383-391)."""
     if not 0 < num_freqs <= frame_len // 2:
         raise ValueError(f"num_freqs {num_freqs} outside (0, {frame_len // 2}]")
-    return stft_planes(x_padded, _window(window, frame_len, x_padded),
+    return stft_planes(x_padded, window_like(window, frame_len, x_padded),
                        frame_len, hop, 1, num_freqs)
 
 
@@ -94,7 +88,7 @@ def phase_decode_plain(spec2: torch.Tensor, frame_len: int, hop: int,
                        pcm16: bool = False):
     """Plain PyTorch version of KG + KH on a spectrogram: grow, irfft x
     window, overlap-add and normalise, boost, optionally PCM-16."""
-    window = _window(window, frame_len, spec2)
+    window = window_like(window, frame_len, spec2)
     re, im = grow_half_planes(spec2, frame_len // 2)
     frames_w = istft.irfft_window_plain(re, im, frame_len, window)
     return istft.overlap_normalize_plain(frames_w, hop, window, volume_boost,
@@ -115,7 +109,7 @@ def phase_decode(spec2: torch.Tensor, frame_len: int, hop: int,
         return phase_decode_plain(spec2, frame_len, hop, volume_boost, window)
     if spec2.dtype != torch.float32:
         raise ValueError("phase_decode: the CUDA kernels take float32")
-    window = _window(window, frame_len, spec2)
+    window = window_like(window, frame_len, spec2)
     *lead, frames, nf, _ = spec2.shape
     frames_w = istft.launch_irfft_window(
         istft.MODE_SPEC, spec2.contiguous(), (), frame_len, frames, nf,
@@ -162,7 +156,7 @@ def dequantize_decode(planes: torch.Tensor, maxs, mins, max_val: int,
                            device=planes.device).contiguous()
     mins = torch.as_tensor(mins, dtype=torch.float32,
                            device=planes.device).contiguous()
-    window = _window(window, frame_len, maxs)
+    window = window_like(window, frame_len, maxs)
     if maxs.shape != tuple(lead) + (2,) or mins.shape != maxs.shape:
         raise ValueError(f"dequantize_decode: extrema {tuple(maxs.shape)}, "
                          f"{tuple(mins.shape)} for planes {tuple(planes.shape)}")

@@ -1,19 +1,21 @@
 """PCM-16 ingest with the zero-stuff upsample (kernel KA, csrc/ingest.cu),
 the mel PNG quantizer (kernel KD) and the phase plane quantizer (kernel KF,
-both csrc/quantize.cu), and the plain de-quantizer and PCM-16 conversion of
-the phase decode.
+both csrc/quantize.cu), and the plain de-quantizers and PCM-16 conversion
+of the decodes.
 
 Counterparts of ``gomel_tpu/ops/quantize.py`` ``pcm16_ingest``,
 ``quantize_mel_plane(_batch)``, ``quantize_planes(_batch)`` (both without
-the per-row ``frames`` mask, still to port), ``dequantize_planes(_batch)``
-and ``pcm16_encode``. On the file paths only int16 samples go to the device
-and only integer planes plus extrema come back (encode), and only integer
-planes go up and int16 samples come back (decode).
+the per-row ``frames`` mask, still to port), ``dequantize_planes(_batch)``,
+``dequantize_mel_plane(_batch)`` and ``pcm16_encode``. On the file paths
+only int16 samples go to the device and only integer planes plus extrema
+come back (encode), and only integer planes go up and int16 samples come
+back (decode).
 
-``dequantize_planes`` and ``pcm16_encode`` are plain PyTorch on any device:
-on the card's decode path their work is the prologue of kernel KG and the
-epilogue of kernel KH (ops/istft.py), and these functions are those
-kernels' plain versions.
+``dequantize_planes``, ``dequantize_mel_plane`` and ``pcm16_encode`` are
+plain PyTorch on any device: on the card's decode paths their work is the
+prologue of kernel KG (ops/istft.py) or KI (ops/mel_ops.py) and the
+epilogue of kernel KH or KK (ops/griffinlim.py), and these functions are
+those kernels' plain versions.
 
 Byte parity: the host writer quantizes in float64, these in float32; the
 truncation can flip one step where the two roundings straddle an integer
@@ -267,6 +269,33 @@ def dequantize_planes_batch(img2b: torch.Tensor, maxs, mins, max_val: int,
     if img2b.ndim != 4:
         raise ValueError(f"expected [B, nf, F, 2] (got {tuple(img2b.shape)})")
     return dequantize_planes(img2b, maxs, mins, max_val, ihs_passes)
+
+
+def dequantize_mel_plane(img2: torch.Tensor, mgc_max, mgc_min,
+                         max_val: int = 255) -> torch.Tensor:
+    """Inverse of :func:`quantize_mel_plane`: integer planes [..., M, F, 2]
+    + GLOBAL extrema [...] -> log-mel [..., F, M, 2] float32
+    (mel/impl.go:109-116), as (v / max_val) * (max - min) + min.
+
+    Plain PyTorch on any device; the card's mel decode runs this as the
+    prologue of kernel KI (ops/mel_ops.mel_to_magnitudes). The divisor is a
+    tensor, so the division is a true division on every device."""
+    dev = img2.device
+    f32 = torch.float32
+    mx = torch.as_tensor(mgc_max, dtype=f32, device=dev)[..., None, None, None]
+    mn = torch.as_tensor(mgc_min, dtype=f32, device=dev)[..., None, None, None]
+    spec = img2.to(f32).transpose(-3, -2) / torch.full(
+        (), float(max_val), dtype=f32, device=dev)
+    return spec * (mx - mn) + mn
+
+
+def dequantize_mel_plane_batch(img2b: torch.Tensor, mgc_max, mgc_min,
+                               max_val: int = 255) -> torch.Tensor:
+    """Batched :func:`dequantize_mel_plane`: [B, M, F, 2] + [B] extrema ->
+    [B, F, M, 2] float32."""
+    if img2b.ndim != 4:
+        raise ValueError(f"expected [B, M, F, 2] (got {tuple(img2b.shape)})")
+    return dequantize_mel_plane(img2b, mgc_max, mgc_min, max_val)
 
 
 def pcm16_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

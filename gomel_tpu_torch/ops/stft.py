@@ -40,3 +40,11 @@ def frame_signal(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
     F = (L - frame_len)//hop + 1 (a view of ``x``)."""
     num_frames_of(x.shape[-1], frame_len, hop)
     return x.unfold(-1, frame_len, hop)
+
+
+def window_like(window, frame_len: int, like: torch.Tensor) -> torch.Tensor:
+    """``window`` ([frame_len] array or tensor; None: Hann) as a tensor in
+    ``like``'s dtype on its device."""
+    if window is None:
+        window = hann_window(frame_len)
+    return torch.as_tensor(window, dtype=like.dtype, device=like.device)

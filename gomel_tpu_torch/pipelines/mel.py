@@ -1,18 +1,18 @@
-"""High-level mel codec pipeline, encode side.
+"""High-level mel codec pipeline.
 
 Counterpart of ``gomel_tpu/pipelines/mel.py`` (reference ``Mel`` API,
 mel/mel.go): host-side orchestration (audio files, PNG codec, length math)
-around the device ops (ops/mel_ops.py, ops/quantize.py), which run the
-hand-written CUDA kernels on a CUDA device and their plain PyTorch versions
-on the CPU.
+around the device ops (ops/mel_ops.py, ops/griffinlim.py, ops/quantize.py),
+which run the hand-written CUDA kernels on a CUDA device and their plain
+PyTorch versions on the CPU.
 
-Reference method map (encode side):
+Reference method map:
 - ToMel        -> Mel.to_mel / Mel.encode        (mel/mel.go:46-74)
+- FromMel      -> Mel.from_mel / Mel.decode      (mel/mel.go:142-152)
 - ToMelWav     -> Mel.to_mel_wav                 (mel/mel.go:194-209)
 - ToMelFlac    -> Mel.to_mel_flac                (not yet ported)
+- ToWavPng     -> Mel.to_wav_png                 (mel/mel.go:211-238)
 - Image        -> Mel.image                      (mel/mel.go:171-173, impl.go:16-44)
-The decode side (FromMel, ToWavPng: Griffin-Lim) is still to port
-(ROADMAP.md queue 1, slice 3).
 """
 from __future__ import annotations
 
@@ -21,24 +21,28 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.config import MelConfig
-from ..core.filterbank import mel_weights
-from ..core.framing import pad_length
+from ..core.config import ConfigError, MelConfig
+from ..core.filterbank import inverse_mel_weights, mel_weights
+from ..core.framing import is_padded, pad_length
 from ..io import audio as audio_io
 from ..io import imagecodec
-from ..ops.mel_ops import mel_encode
+from ..ops.griffinlim import griffin_lim
+from ..ops.mel_ops import mel_decode, mel_encode, mel_to_magnitudes
 from ..ops.quantize import pcm16_ingest, quantize_mel_plane
 from ..ops.stft import hann_window
 
 
 class Mel(torch.nn.Module):
-    """Mel spectrogram codec, encode side (reference parity: mel/mel.go).
+    """Mel spectrogram codec (reference parity: mel/mel.go).
 
-    The forward filterbank [num_mels, N/2] and the Hann window [N] are
-    buffers on ``device`` in ``dtype``. ``device_quantize`` fuses the PNG
-    quantizer into the device work on file paths (only uint8 planes and two
-    extrema come back); its float32 truncation can flip a pixel by one step
-    against the float64 host quantizer, rarely (ops/quantize.py).
+    The forward filterbank [num_mels, N/2], the inverse filterbank U
+    [N/2, num_mels] and the Hann window [N] are buffers on ``device`` in
+    ``dtype``. ``device_quantize`` fuses the PNG (de)quantizer into the
+    device work on file paths: only uint8 planes and two extrema cross to
+    or from the device, and int16 samples come back from the decode. Its
+    float32 truncation can flip a pixel by one step against the float64
+    host quantizer, rarely (ops/quantize.py); the quantized decode runs in
+    float32 whatever ``dtype`` is, as in the JAX program.
     """
 
     def __init__(self, config: MelConfig | None = None,
@@ -56,17 +60,21 @@ class Mel(torch.nn.Module):
         fwd = mel_weights(c.n_bins, c.num_mels, c.mel_fmin, c.mel_fmax)
         self.register_buffer(
             "fwd_weights", torch.tensor(fwd, dtype=dtype, device=device))
+        inv = inverse_mel_weights(c.n_bins, c.num_mels, c.mel_fmin, c.mel_fmax)
+        self.register_buffer(
+            "inv_weights", torch.tensor(inv, dtype=dtype, device=device))
         self.register_buffer(
             "window", torch.tensor(hann_window(c.resolut), dtype=dtype,
                                    device=device))
 
     @classmethod
     def from_numpy(cls, config: MelConfig, fwd_weights: np.ndarray,
-                   window: np.ndarray,
+                   window: np.ndarray, inv_weights: np.ndarray | None = None,
                    device: torch.device | str = "cpu") -> "Mel":
-        """A ``Mel`` whose filterbank and window are the given arrays (for
-        example the JAX package's ``Mel._weights()[0]`` and ``Mel._win()``),
-        in their dtype, on ``device``."""
+        """A ``Mel`` whose filterbank, window and (when given) inverse
+        filterbank are the given arrays (for example the JAX package's
+        ``Mel._weights()`` and ``Mel._win()``), in their dtype, on
+        ``device``."""
         fwd = torch.tensor(np.asarray(fwd_weights))
         win = torch.tensor(np.asarray(window))
         if fwd.shape != (config.num_mels, config.n_bins):
@@ -77,6 +85,15 @@ class Mel(torch.nn.Module):
         m = cls(config, dtype=fwd.dtype, device=device)
         m.fwd_weights.copy_(fwd)
         m.window.copy_(win)
+        if inv_weights is not None:
+            inv = torch.tensor(np.asarray(inv_weights))
+            if inv.shape != (config.n_bins, config.num_mels) or \
+                    inv.dtype != fwd.dtype:
+                raise ValueError(f"inv_weights must be "
+                                 f"{(config.n_bins, config.num_mels)} in the "
+                                 f"weights' dtype (got {tuple(inv.shape)}, "
+                                 f"{inv.dtype})")
+            m.inv_weights.copy_(inv)
         return m
 
     @property
@@ -119,12 +136,80 @@ class Mel(torch.nn.Module):
         min/max like the reference writer, mel/impl.go:138-152)."""
         return quantize_mel_plane(self.encode(x), 255)
 
+    def _check_mels(self, mels: int) -> None:
+        if mels != self.config.num_mels:
+            # the reference has the same footgun (NewMel defaults to 160
+            # mels, mel/mel.go:32, the CLI bakes 192, cmd/tomel/main.go:28):
+            # fail with the cause instead of a shape error in the product
+            raise ConfigError(
+                f"spectrogram has {mels} mel bins but config.num_mels="
+                f"{self.config.num_mels}; decode with the same config the "
+                f"image was written with (the CLI preset "
+                f"MelConfig.cli_default() uses 192 mels, bare MelConfig() "
+                f"uses the NewMel default 160)")
+
+    @staticmethod
+    def _generator(seed: int) -> torch.Generator:
+        return torch.Generator().manual_seed(int(seed))
+
+    def decode(self, logmel, seed: int = 0, momentum: float = 0.0
+               ) -> torch.Tensor:
+        """log-mel [..., F, num_mels, 2] -> audio [..., N + (F-1)*hop] on
+        ``device``, by Griffin-Lim with ``config.griffin_lim_iterations``.
+
+        The reference starts Griffin-Lim from unseeded global rand
+        (mel/mel.go:81-83); here the start is uniform [0, 1) drawn on the
+        CPU from ``seed`` (ops/griffinlim.random_init), the same on every
+        device. ``momentum`` > 0 opts into fast Griffin-Lim; 0.0 is exact
+        reference behaviour."""
+        c = self.config
+        if not isinstance(logmel, torch.Tensor):
+            logmel = torch.from_numpy(np.array(logmel))
+        logmel = logmel.to(device=self.device, dtype=self.dtype)
+        if logmel.ndim >= 2:
+            self._check_mels(logmel.shape[-2])
+        return mel_decode(logmel, c.resolut, c.window, self.inv_weights,
+                          c.griffin_lim_iterations, self._generator(seed),
+                          c.tune_mul, c.tune_add, self.window,
+                          momentum=float(momentum))
+
+    def decode_quantized_pcm16(self, planes, mgc_max, mgc_min, seed: int = 0,
+                               momentum: float = 0.0):
+        """uint8 PNG planes [..., num_mels, F, 2] + global extrema [...] ->
+        (int16 PCM [..., N + (F-1)*hop], all-finite flag [...]): dequantize,
+        + ``config.volume_boost`` in the log domain, Griffin-Lim and the
+        PCM-16 conversion on ``device`` in float32 (kernels KI, then KJ and
+        KK per iteration, on a card). Only the planes and the extrema go up
+        (imagecodec.load_mel_image_raw); only int16 comes back."""
+        c = self.config
+        if isinstance(planes, np.ndarray):
+            planes = torch.from_numpy(np.ascontiguousarray(planes))
+        planes = planes.to(self.device)
+        if planes.ndim >= 3:
+            self._check_mels(planes.shape[-3])
+        mag = mel_to_magnitudes(planes.contiguous(), self.inv_weights,
+                                c.tune_mul, c.tune_add, float(c.volume_boost),
+                                mgc_max, mgc_min)
+        return griffin_lim(mag, c.window, c.griffin_lim_iterations,
+                           self.window.to(torch.float32),
+                           generator=self._generator(seed),
+                           momentum=float(momentum), pcm16=True)
+
     # -- reference-layout API ------------------------------------------------
     def to_mel(self, buf) -> np.ndarray:
         """Audio buffer -> flattened [F*num_mels, 2] float64 log-mel
         (reference ToMel, mel/mel.go:46-74)."""
         out = self.encode(buf).cpu().numpy().astype(np.float64)
         return out.reshape(-1, 2)
+
+    def from_mel(self, ospectrum, seed: int = 0,
+                 momentum: float = 0.0) -> np.ndarray:
+        """Flattened [F*num_mels, 2] log-mel -> audio float64
+        (reference FromMel, mel/mel.go:142-152)."""
+        spec = np.asarray(ospectrum, dtype=np.float64).reshape(
+            -1, self.config.num_mels, 2)
+        return self.decode(spec, seed=seed, momentum=momentum
+                           ).cpu().numpy().astype(np.float64)
 
     def image(self, buf) -> np.ndarray:
         """In-memory uint16 image R | G<<8 with per-channel min/max
@@ -195,3 +280,44 @@ class Mel(torch.nn.Module):
         """WAV file -> log-mel [F, num_mels, 2] on ``device``."""
         buf, _ = audio_io.load_wav(input_file, mono="left")
         return self.encode(buf)
+
+    def to_wav_png(self, input_file: str, output_file: str, seed: int = 0,
+                   momentum: float = 0.0) -> int:
+        """mel PNG -> WAV (reference ToWavPng, mel/mel.go:211-238).
+
+        VolumeBoost is added to the LOG-domain values before decoding
+        (mel/mel.go:218-221); the output is trimmed by the padding detector,
+        and the rate embedded in the image is used when none is configured.
+        Returns the sample rate written. With ``device_quantize`` the uint8
+        planes go to the device and int16 samples come back
+        (:meth:`decode_quantized_pcm16`); otherwise the host dequantizes in
+        float64, adds the boost there and :meth:`decode` runs in ``dtype``.
+        """
+        c = self.config
+        if self.device_quantize:
+            planes, mx, mn, samples, sr = imagecodec.load_mel_image_raw(
+                input_file, c.y_reverse)
+            pcm, finite = self.decode_quantized_pcm16(planes, mx, mn, seed,
+                                                      momentum)
+            wave = pcm.cpu().numpy()   # int16 readback: half the bytes
+            if not bool(finite):
+                raise ValueError("audio contains NaN/Inf samples")
+        else:
+            spec, samples, sr = imagecodec.load_mel_image(input_file,
+                                                          c.y_reverse)
+            if c.volume_boost != 0.0:
+                spec = spec + c.volume_boost
+            wave = self.decode(spec, seed=seed, momentum=momentum
+                               ).cpu().numpy().astype(np.float64)
+        samples_i = int(samples)
+        if samples_i > 0 and is_padded(samples_i, len(wave), c.window) \
+                and len(wave) > samples_i:
+            wave = wave[:samples_i]
+        out_sr = c.sample_rate
+        if sr != 0 and out_sr == 0:
+            out_sr = int(sr)
+        if self.device_quantize:
+            audio_io.save_wav_pcm16(output_file, wave, out_sr)
+        else:
+            audio_io.save_wav(output_file, wave, out_sr)
+        return out_sr

@@ -350,3 +350,137 @@ def test_phase_roundtrip_cuda_vs_cpu(cuda, ihs, hdr):
     sig_g = gpu.decode(cpu.encode(x)).cpu().double()
     sig_c = cpu.decode(cpu.encode(x)).double()
     assert float((sig_g - sig_c).abs().max()) <= 1e-5 * float(sig_c.abs().max())
+
+
+# -- mel decode kernels: KI, KJ, KK ----------------------------------------------
+
+def _inv(cfg):
+    from gomel_tpu_torch.core.filterbank import inverse_mel_weights
+    return torch.tensor(inverse_mel_weights(cfg.n_bins, cfg.num_mels,
+                                            cfg.mel_fmin, cfg.mel_fmax),
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("cfg,quantized,tune", [
+    (MelConfig.cli_default(), True, (1.0, 0.0)),
+    (MelConfig.cli_default(), False, (1.0, 0.0)),
+    (MelConfig(num_mels=40, resolut=512, window=128, tune_mul=1.5,
+               tune_add=0.25), False, (1.5, 0.25)),
+    (MelConfig(num_mels=40, resolut=512, window=128), True, (1.0, 0.0))])
+def test_mel_to_magnitudes_vs_plain(cuda, cfg, quantized, tune):
+    rng = np.random.default_rng(cfg.num_mels)
+    inv = _inv(cfg)
+    if quantized:
+        src = torch.from_numpy(rng.integers(0, 256, size=(2, cfg.num_mels, 37, 2),
+                                            dtype=np.uint8))
+        ext = dict(mgc_max=torch.tensor([2.5, 0.75]),
+                   mgc_min=torch.tensor([-11.0, -9.5]), boost=1.5)
+    else:
+        src = torch.from_numpy(rng.uniform(-11.5, 3.0, size=(2, 37, cfg.num_mels, 2))
+                               .astype(np.float32))
+        ext = {}
+    before = mel_ops.MAG_KERNEL.launches
+    out = mel_ops.mel_to_magnitudes(
+        src.to(cuda), inv.to(cuda), *tune,
+        **{k: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+           for k, v in ext.items()}).cpu()
+    assert mel_ops.MAG_KERNEL.launches == before + 1
+    ref = mel_ops.mel_to_magnitudes_plain(src, inv, *tune, **ext)
+    assert out.shape == ref.shape == (2, 37, cfg.n_bins + 1)
+    # float32 exp and products in another order: 1e-5 of each frame's peak
+    peak = ref.amax(dim=-1, keepdim=True)
+    assert bool(((out - ref).abs() <= 1e-5 * peak).all())
+
+
+@pytest.mark.parametrize("n,hop,lead,frames", [
+    (4096, 1280, (2,), 11), (512, 128, (3,), 17), (64, 16, (1, 2), 5),
+    (16384, 4096, (), 3)])          # > 48 KB shared memory
+def test_gl_project_vs_plain(cuda, n, hop, lead, frames):
+    from gomel_tpu_torch.ops import griffinlim
+    rng = np.random.default_rng(n + frames)
+    length = n + (frames - 1) * hop
+    sig = torch.from_numpy(rng.random(lead + (length,)).astype(np.float32))
+    sig[(0,) * len(lead)][:n] = 0.0            # frame 0 is silent: unit phase 1
+    mag = torch.from_numpy((rng.random(lead + (frames, n // 2 + 1)) * 3)
+                           .astype(np.float32))
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    before = griffinlim.PROJECT_KERNEL.launches
+    out = griffinlim.gl_project(sig.to(cuda), mag.to(cuda), win.to(cuda), n,
+                                hop).cpu()
+    assert griffinlim.PROJECT_KERNEL.launches == before + 1
+    ref = griffinlim.gl_project_plain(sig.double(), mag.double(), win.double(),
+                                      n, hop)
+    assert out.shape == ref.shape == lead + (frames, n)
+    # float32 FFTs against float64: relative L2 per frame <= 1e-4 (the phase
+    # of a near-zero bin is rounding noise in both)
+    rel = (out.double() - ref).norm(dim=-1) / ref.norm(dim=-1)
+    assert float(rel.max()) <= 1e-4, float(rel.max())
+
+
+@pytest.mark.parametrize("n,hop,frames,momentum,pcm16", [
+    (4096, 1280, 40, 0.0, False), (4096, 1280, 40, 0.99, False),
+    (4096, 1280, 40, 0.0, True), (1024, 1024, 5, 0.5, False),
+    (1000, 300, 13, 0.0, True)])
+def test_gl_overlap_add_bit_exact(cuda, n, hop, frames, momentum, pcm16):
+    from gomel_tpu_torch.ops import griffinlim
+    rng = np.random.default_rng(n + frames)
+    fw = torch.from_numpy((rng.standard_normal((2, frames, n)) * 0.4)
+                          .astype(np.float32)).to(cuda)
+    length = n + (frames - 1) * hop
+    prev = None
+    if momentum:
+        prev = torch.from_numpy(rng.standard_normal((2, length))
+                                .astype(np.float32)).to(cuda)
+    before = griffinlim.OLA_KERNEL.launches
+    out = griffinlim.gl_overlap_add(fw, hop, prev, momentum, pcm16)
+    assert griffinlim.OLA_KERNEL.launches == before + 1
+    ref = griffinlim.gl_overlap_add_plain(fw, hop, prev, momentum, pcm16)
+    if not isinstance(out, tuple):
+        out, ref = (out,), (ref,)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and torch.equal(o, r)
+
+
+def test_gl_overlap_add_finite_flag(cuda):
+    from gomel_tpu_torch.ops import griffinlim
+    fw = torch.zeros((3, 6, 512), device=cuda)
+    fw[1, 2, 100] = float("nan")
+    fw[2, 0, 7] = float("inf")
+    _, finite = griffinlim.gl_overlap_add(fw, 128, pcm16=True)
+    assert finite.tolist() == [True, False, False]
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.99])
+def test_mel_decode_cuda_vs_cpu(cuda, momentum):
+    from gomel_tpu_torch.ops import griffinlim
+    cfg = MelConfig.cli_default()
+    rng = np.random.default_rng(9)
+    logmel = torch.from_numpy(rng.uniform(-11.5, 3.0, size=(2, 12, 192, 2))
+                              .astype(np.float32))
+    inv = _inv(cfg)
+    init = torch.from_numpy(rng.random((2, 4096 + 11 * 1280)).astype(np.float32))
+    counts = [k.launches for k in (mel_ops.MAG_KERNEL, griffinlim.PROJECT_KERNEL,
+                                   griffinlim.OLA_KERNEL)]
+    gpu = mel_ops.mel_decode(logmel.to(cuda), 4096, 1280, inv.to(cuda), 3,
+                             init=init.to(cuda), momentum=momentum).cpu()
+    assert [k.launches - c for k, c in zip(
+        (mel_ops.MAG_KERNEL, griffinlim.PROJECT_KERNEL, griffinlim.OLA_KERNEL),
+        counts)] == [1, 3, 3]
+    cpu = mel_ops.mel_decode(logmel.double(), 4096, 1280, inv.double(), 3,
+                             init=init.double(), momentum=momentum)
+    rel = float((gpu.double() - cpu).norm() / cpu.norm())
+    assert rel <= 1e-4, rel
+
+
+def test_mel_decode_quantized_cuda_vs_cpu(cuda):
+    rng = np.random.default_rng(10)
+    t = np.arange(48000) / 48000
+    x = 0.3 * np.sin(2 * np.pi * 330 * t) + 0.02 * rng.standard_normal(t.shape)
+    cfg = MelConfig.cli_default(volume_boost=0.5)
+    img, mx, mn = Mel(cfg).encode_quantized(x)
+    pcm_g, ok_g = Mel(cfg, device=cuda).decode_quantized_pcm16(img, mx, mn,
+                                                               seed=2)
+    pcm_c, ok_c = Mel(cfg).decode_quantized_pcm16(img, mx, mn, seed=2)
+    assert bool(ok_g) and bool(ok_c) and pcm_g.shape == pcm_c.shape
+    lsb = (pcm_g.cpu().int() - pcm_c.int()).abs()
+    assert int(lsb.max()) <= 2 and float((lsb > 0).float().mean()) < 5e-2
