@@ -5,12 +5,15 @@
 Builds the hand-written CUDA kernels from gomel_tpu_torch/csrc, checks each
 against its plain PyTorch version on the card at the shapes of the bench
 (2 x 30 s of 48 kHz audio at MelConfig.cli_default() and
-PhaseConfig.cli_default()), drives the main paths through the user's entry
-points (the ``tomel`` CLI, then ``tophase`` and ``fromphase``, on a 30 s
-48 kHz WAV and, for the zero-stuff ingest, a short 16 kHz WAV, then
-``towav`` on the ``tomel`` PNG) and holds their PNGs and WAVs against the
-port's CPU path, checks that every kernel of each path was launched on it,
-and times each kernel against its plain version.
+PhaseConfig.cli_default(); for the batch forms, 4 rows of 30 s with masked
+frame counts, NaNs and mixed per-row scales), drives the main paths through
+the user's entry points (the ``tomel`` CLI, then ``tophase`` and
+``fromphase``, on a 30 s 48 kHz WAV and, for the zero-stuff ingest, a short
+16 kHz WAV, then ``towav`` on the ``tomel`` PNG; then the four batch CLIs on
+a directory of 12 WAV and FLAC files of 2-45 s) and holds their PNGs and
+WAVs against the port's CPU path and its single-file tools, checks that
+every kernel of each path was launched on it, and times each kernel against
+its plain version and each batch CLI against the single-file tool.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -22,6 +25,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -239,6 +243,220 @@ def race(kernel_fn, plain_fn, name: str = "") -> tuple[float, float]:
     return min(k1, k2), min(p1, p2)
 
 
+def busy_share(fn) -> tuple[float, float, float]:
+    """(wall ms, device-busy ms, busy share) of one call of ``fn`` under
+    torch.profiler: the device time of every kernel and copy it traced,
+    over the host-clock wall of the call (ended by a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return 1e3 * wall, busy_us / 1e3, busy_us / 1e6 / wall
+
+
+def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
+    """Phase 3d: the four batch CLIs with --device cuda on a directory of 12
+    files of 2-45 s (48 kHz WAV, mono and stereo, four of them of one length
+    so that the decodes run a batch of 4 rows of equal frames; two 16-bit
+    FLACs; two 16 kHz WAVs, the second phase family), against --device cpu
+    on a subset of 7 and against the single-file tools (tomel / tophase
+    PNGs, fromphase WAVs of the batch PNGs) for every file; then the wall
+    per file of each batch CLI against the single-file tool, and the busy
+    share of one batch-tomel run."""
+    from gomel_tpu_torch.cli.batch import (batch_fromphase, batch_tomel,
+                                           batch_tophase, batch_towav)
+    from gomel_tpu_torch.cli.tools import fromphase, tomel, tophase, towav
+    from gomel_tpu_torch.core.config import num_freqs_for_sample_rate
+    from gomel_tpu_torch.io import flac, imagecodec, wavcodec
+    from gomel_tpu_torch.io.pngcodec import read_png
+
+    def path(*parts):
+        return os.path.join(tmp, *parts)
+
+    src, sub = path("batch_in"), path("batch_sub")
+    os.makedirs(src)
+    os.makedirs(sub)
+    # (name, seconds, rate, stereo, in the CPU subset)
+    spec = [("w02.wav", 2, SAMPLE_RATE, False, True),
+            ("w09a.wav", 9, SAMPLE_RATE, False, True),
+            ("w09b.wav", 9, SAMPLE_RATE, False, True),
+            ("s09a.wav", 9, SAMPLE_RATE, True, True),
+            ("s09b.wav", 9, SAMPLE_RATE, True, True),
+            ("w30.wav", 30, SAMPLE_RATE, False, False),
+            ("w45.wav", 45, SAMPLE_RATE, False, False),
+            ("s38.wav", 38, SAMPLE_RATE, True, False),
+            ("f03.flac", 3, SAMPLE_RATE, False, True),
+            ("f06.flac", 6, SAMPLE_RATE, True, False),
+            ("k03.wav", 3, 16000, False, True),
+            ("k10.wav", 10, 16000, False, False)]
+    t0 = time.perf_counter()
+    for name, secs, sr, stereo, in_sub in spec:
+        n = int(secs * sr)
+        x = seeded_pcm_rate(rng, n, sr)
+        if stereo:
+            x = np.stack([x, seeded_pcm_rate(rng, n, sr)], axis=1)
+        out = os.path.join(src, name)
+        if name.endswith(".flac"):
+            flac.write_flac(out, x, sr)
+        else:
+            wavcodec.write_wav(out, x, sr)
+        if in_sub:
+            shutil.copy(out, os.path.join(sub, name))
+    names = [n for n, *_ in spec]
+    audio_s = float(sum(secs for _, secs, *_ in spec))
+    log(f"batch directory: {len(spec)} files, {audio_s:.0f} s of audio, "
+        f"written in {time.perf_counter() - t0:.2f} s; FLAC decoder: "
+        f"{flac.decoder()}")
+    if flac.decoder() != "native":
+        raise AssertionError("the native FLAC decoder did not build or load")
+
+    runs = {
+        "batch-tomel": (batch_tomel, [src], "bm", ("pcm16_ingest_rows",
+                        "stft_mag", "mel_log", "quantize_mel_plane_masked")),
+        "batch-towav": (batch_towav, [path("bm_cuda"), "--seed", "1"], "bw",
+                        ("mel_to_magnitudes", "gl_project", "gl_overlap_add")),
+        "batch-tophase": (batch_tophase, [src], "bp", (
+            "pcm16_ingest", "phase_encode", "quantize_planes_masked")),
+        "batch-fromphase": (batch_fromphase, [path("bp_cuda")], "bf",
+                            ("irfft_window", "overlap_normalize")),
+    }
+    first = {}
+    for label, (tool, args, out, must) in runs.items():
+        first[label], _ = drive(
+            f"{label} --device cuda, {len(spec)} files (first call)",
+            lambda: tool(args + ["--out-dir", path(out + "_cuda"),
+                                 "--device", "cuda"]), must)
+        if len(os.listdir(path(out + "_cuda"))) != len(spec):
+            raise AssertionError(f"{label} wrote {os.listdir(path(out + '_cuda'))}")
+
+    def pngs_near(a, b, mel: bool) -> tuple[int, float]:
+        d = png_steps(a, b, read_png)
+        load = (lambda p: imagecodec.load_mel_image_raw(p, True)[1:]) if mel \
+            else (lambda p: imagecodec.load_phase_image_raw(p, True)[1:])
+        meta_eq = all(np.array_equal(u, v) for u, v in zip(load(a), load(b)))
+        if d.max() > 1 or float((d > 0).mean()) >= 2e-3 or not meta_eq:
+            raise AssertionError(f"{a} vs {b}: max step {int(d.max())}, flip "
+                                 f"rate {float((d > 0).mean()):.2e}, metadata "
+                                 f"equal {meta_eq}")
+        return int(d.max()), float((d > 0).mean())
+
+    def wavs_near(a, b, lsb_bound: int) -> tuple[int, float]:
+        (wa, sa), (wb, sb) = wavcodec.read_wav(a), wavcodec.read_wav(b)
+        if sa != sb or wa.shape != wb.shape:
+            raise AssertionError(f"{a} vs {b}: {wa.shape} @ {sa} vs "
+                                 f"{wb.shape} @ {sb}")
+        d = np.abs(wa.astype(np.int64) - wb.astype(np.int64))
+        if d.max() > lsb_bound or float((d > 0).mean()) >= 5e-2:
+            raise AssertionError(f"{a} vs {b}: {int(d.max())} LSB, "
+                                 f"{float((d > 0).mean()):.2e} differing")
+        return int(d.max()), float((d > 0).mean())
+
+    # the encodes on the CPU subset: a file's PNG does not depend on its
+    # bucket (masked extrema), so the 12-file cuda run compares file by file
+    sub_names = sorted(os.listdir(sub))
+    for tool, out, mel in ((batch_tomel, "bm", True),
+                           (batch_tophase, "bp", False)):
+        if tool([sub, "--out-dir", path(out + "_cpu"), "--device", "cpu"]):
+            raise AssertionError(f"{out} on the CPU failed")
+        worst = [pngs_near(path(out + "_cuda", n + ".png"),
+                           path(out + "_cpu", n + ".png"), mel)
+                 for n in sub_names]
+        log(f"{'batch-tomel' if mel else 'batch-tophase'} PNGs, cuda (12-file "
+            f"run) vs cpu (subset of {len(sub_names)}): max step "
+            f"{max(w[0] for w in worst)}, flip rate <= "
+            f"{max(w[1] for w in worst):.2e} (bounds 1, 2e-3), metadata equal")
+    # the decodes of the same PNGs on both devices (a batch-towav row's
+    # start depends on its row, so both runs see the same directory)
+    for tool, enc, dec, extra, lsb in (
+            (batch_towav, "bm", "bw", ["--seed", "1"], 2),
+            (batch_fromphase, "bp", "bf", [], 1)):
+        pngdir = path(enc + "_sub")
+        os.makedirs(pngdir)
+        for n in sub_names:
+            shutil.copy(path(enc + "_cuda", n + ".png"), pngdir)
+        for device in ("cuda", "cpu"):
+            if tool([pngdir, "--out-dir", path(f"{dec}_sub_{device}"),
+                     "--device", device] + extra):
+                raise AssertionError(f"{dec} on {device} failed")
+        worst = [wavs_near(path(f"{dec}_sub_cuda", n + ".png.wav"),
+                           path(f"{dec}_sub_cpu", n + ".png.wav"), lsb)
+                 for n in sub_names]
+        log(f"{'batch-towav' if dec == 'bw' else 'batch-fromphase'} WAVs of "
+            f"the same {len(sub_names)} PNGs, cuda vs cpu: max "
+            f"{max(w[0] for w in worst)} LSB, differing <= "
+            f"{max(w[1] for w in worst):.2e} (bounds {lsb}, 5e-2)")
+
+    # every batch PNG against the single-file tool's PNG of its file
+    single = {"tomel": [], "tophase": [], "towav": [], "fromphase": []}
+    os.makedirs(path("single"))
+    worst = {"tomel": (0, 0.0), "tophase": (0, 0.0)}
+    for rep in range(2):     # the second pass is timed
+        for n, _, sr, _, _ in spec:
+            stem = path("single", n)
+            # the batch tool takes each file's bin count from its rate
+            nf = str(num_freqs_for_sample_rate(sr))
+            for label, tool, args, out in (
+                    ("tomel", tomel, [path("batch_in", n)], stem + ".m.png"),
+                    ("tophase", tophase, [path("batch_in", n), "--num-freqs",
+                                          nf], stem + ".p.png"),
+                    ("towav", towav, [stem + ".m.png", "44100", "--seed",
+                                      "1"], stem + ".m.wav"),
+                    ("fromphase", fromphase, [path("bp_cuda", n + ".png")],
+                     stem + ".p.wav")):
+                t0 = time.perf_counter()
+                if tool(args + ["--device", "cuda", "-o", out]):
+                    raise AssertionError(f"{label} {n} failed")
+                torch.cuda.synchronize()
+                if rep:
+                    single[label].append(time.perf_counter() - t0)
+                elif label in worst:
+                    batch = path("bm_cuda" if label == "tomel" else "bp_cuda",
+                                 n + ".png")
+                    w = pngs_near(batch, out, label == "tomel")
+                    worst[label] = (max(worst[label][0], w[0]),
+                                    max(worst[label][1], w[1]))
+    log(f"batch PNGs vs the single-file tools' PNGs of all {len(names)} files: "
+        f"tomel max step {worst['tomel'][0]}, flip rate <= "
+        f"{worst['tomel'][1]:.2e}; tophase max step {worst['tophase'][0]}, "
+        f"flip rate <= {worst['tophase'][1]:.2e} (bounds 1, 2e-3), metadata "
+        f"equal")
+    worst = [wavs_near(path("bf_cuda", n + ".png.wav"),
+                       path("single", n + ".p.wav"), 1) for n in names]
+    log(f"batch-fromphase WAVs (rows of up to 4) vs fromphase of the same PNG "
+        f"alone, all {len(names)} files: max {max(w[0] for w in worst)} LSB, "
+        f"differing <= {max(w[1] for w in worst):.2e} (bounds 1, 5e-2)")
+
+    # wall per file, warm: each batch CLI once more, against the single tool
+    log(f"batch CLIs on {card}, {len(names)} files ({audio_s:.0f} s of audio), "
+        f"host clock, warm (first call in parentheses):")
+    singles = {"batch-tomel": "tomel", "batch-towav": "towav",
+               "batch-tophase": "tophase", "batch-fromphase": "fromphase"}
+    for label, (tool, args, out, _) in runs.items():
+        t0 = time.perf_counter()
+        if tool(args + ["--out-dir", path(out + "_warm"), "--device",
+                        "cuda"]):
+            raise AssertionError(f"{label} (warm) failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        one = single[singles[label]]
+        log(f"  {label}: {1e3 * wall / len(names):.4f} ms per file "
+            f"({1e3 * first[label] / len(names):.3f}), "
+            f"{audio_s / wall:.1f} audio-s/s; {singles[label]} one file at a "
+            f"time: {1e3 * float(np.mean(one)):.4f} ms per file, "
+            f"{audio_s / float(np.sum(one)):.1f} audio-s/s")
+    wall, busy, share = busy_share(lambda: batch_tomel(
+        [src, "--out-dir", path("bm_prof"), "--device", "cuda"]))
+    log(f"  batch-tomel under torch.profiler: {wall:.3f} ms wall, "
+        f"{busy:.3f} ms of device kernels and copies: busy share "
+        f"{100 * share:.2f}%")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -285,10 +503,14 @@ def main() -> int:
                                    istft.SYNTH_KERNEL, istft.OLA_KERNEL,
                                    mel_ops.MAG_KERNEL,
                                    griffinlim.PROJECT_KERNEL,
-                                   griffinlim.OLA_KERNEL)}
+                                   griffinlim.OLA_KERNEL,
+                                   quantize.INGEST_ROWS_KERNEL,
+                                   quantize.QUANTIZE_MASKED_KERNEL,
+                                   quantize.PLANES_MASKED_KERNEL)}
     errs: dict[str, float] = {}
     # launches of each kernel summed over the main-path runs (tomel, tophase,
-    # fromphase, towav), each read with every count set to 0 just before it
+    # fromphase, towav and the four batch CLIs), each read with every count
+    # set to 0 just before it
     launches = {name: 0 for name in kernels}
 
     def drive(label: str, fn, must_run: tuple[str, ...]
@@ -543,6 +765,88 @@ def main() -> int:
     log(f"KK gl_overlap_add -> {tuple(out_k[0].shape)}: momentum 0 and 0.99, "
         f"float32 and PCM-16 bit-exact, finite {out_k[1].tolist()}")
 
+    # -- phase 2d: the batch forms, 4 rows of 30 s, masked frames ---------
+    rows4 = 4
+    frames4 = torch.tensor([frames, min(843, frames - 1),
+                            min(562, frames // 2 + 1), 0], dtype=torch.int32,
+                           device=dev)
+    pcm4 = torch.from_numpy(seeded_pcm(rng, rows4, padded)).to(dev)
+    scales4 = torch.tensor([32768.0, 65536.0, 32768.0, 65536.0], device=dev)
+    x4 = quantize.pcm16_ingest_batch(pcm4, f32, scales4)
+    x4_ref = quantize.pcm16_ingest_plain(pcm4, f32, scales4, batched=True)
+    torch.cuda.synchronize()
+    if not torch.equal(x4, x4_ref):
+        raise AssertionError("pcm16_ingest (per-row scales) differs from its "
+                             "plain version")
+    errs["pcm16_ingest_rows"] = float((x4 - x4_ref).abs().max())
+    log(f"KA pcm16_ingest per-row scales {scales4.tolist()} [{rows4}, "
+        f"{padded}]: bit-exact")
+
+    def nan_rows(t):
+        """A NaN in a counted frame of row 1 and in a pad frame of row 2."""
+        t = t.clone()
+        t[1, 10, 5, 0] = float("nan")
+        t[2, (int(frames4[2]) + frames) // 2, 7, 1] = float("nan")
+        return t
+
+    def same(a, b) -> bool:
+        """Bit-equal, NaN where the other has NaN."""
+        if a.dtype.is_floating_point:
+            return bool(torch.equal(a.isnan(), b.isnan())
+                        and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+        return torch.equal(a, b)
+
+    big = torch.finfo(f32).max
+
+    def masked_rows_ok(img_m, mx_m, max_val) -> bool:
+        """Row 3 (frames 0): the -+FLT_MAX sentinels and all midpoint
+        pixels; row 1 (a NaN counted in channel 0): NaN extrema, midpoint
+        pixels in that channel; row 2 (NaN in a pad frame): finite
+        extrema."""
+        mid = max_val // 2
+        return bool((img_m[3] == mid).all() and (img_m[1][..., 0] == mid).all()
+                    and mx_m[1].isnan().any() and torch.isfinite(mx_m[2]).all()
+                    and (mx_m[3] == -big).all())
+
+    logmel4 = nan_rows(mel_ops._mel_from_mags(rfft_mag.stft_mag(
+        x4, win, n_fft, hop), fwd))
+    got_m = quantize.quantize_mel_plane_batch(logmel4, 255, frames4)
+    ref_m = quantize.quantize_mel_plane_plain(logmel4, 255, frames4)
+    torch.cuda.synchronize()
+    if not all(same(a, b) for a, b in zip(got_m, ref_m)):
+        raise AssertionError("quantize_mel_plane (masked) differs from its "
+                             "plain version")
+    if not (masked_rows_ok(got_m[0], got_m[1], 255)
+            and bool((got_m[2][3] == big).all())):
+        raise AssertionError("quantize_mel_plane (masked): wrong sentinel, "
+                             "NaN or pad-frame rows")
+    errs["quantize_mel_plane_masked"] = 0.0
+    log(f"KD quantize_mel_plane masked, frames {frames4.tolist()} -> "
+        f"{tuple(got_m[0].shape)}: bit-exact with NaN rows; extrema "
+        f"{got_m[1].tolist()} / {got_m[2].tolist()}")
+
+    spec4 = nan_rows(phase_ops.phase_encode_batch(x4, nf, n_fft, hop, win))
+    errs["quantize_planes_masked"] = 0.0
+    for max_val, ihs in ((255, 0), (65535, 0), (255, 2), (65535, 2)):
+        got_p = quantize.quantize_planes_batch(spec4, max_val, ihs, frames4)
+        ref_p = quantize.quantize_planes_plain(spec4, max_val, ihs, frames4)
+        torch.cuda.synchronize()
+        d_p = (got_p[0].int() - ref_p[0].int()).abs()
+        flips_p = float((d_p > 0).float().mean())
+        exact = all(same(a, b) for a, b in zip(got_p, ref_p))
+        log(f"KF quantize_planes masked, max_val {max_val}, ihs {ihs} -> "
+            f"{tuple(got_p[0].shape)}: max step {int(d_p.max())}, flip rate "
+            f"{flips_p:.2e}, bit-exact {exact} (bound: bit-exact without "
+            f"IHS, else 1 step at < 2e-3)")
+        errs["quantize_planes_masked"] = max(errs["quantize_planes_masked"],
+                                             float(d_p.max()))
+        if (ihs == 0 and not exact) or int(d_p.max()) > 1 or flips_p >= 2e-3:
+            raise AssertionError(f"quantize_planes (masked, max_val "
+                                 f"{max_val}, ihs {ihs}) outside its bound")
+        if not masked_rows_ok(got_p[0], got_p[1], max_val):
+            raise AssertionError("quantize_planes (masked): wrong sentinel, "
+                                 "NaN or pad-frame rows")
+
     # -- phase 3: the main path, tomel on a 30 s WAV ----------------------
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "speech.wav")
@@ -693,6 +997,9 @@ def main() -> int:
                 f"{k} {v:.3f} ms" for k, v in towav_split(
                     png_gpu, wav_g, dev, 10).items()))
 
+        # -- phase 3d: the batch CLIs on a directory of WAV and FLAC -------
+        batch_clis(tmp, rng, drive, card)
+
     # -- phase 4: times at the bench shape ---------------------------------
     log(f"timing on {card}: device ms per call (CUDA events over up to 20 "
         f"calls queued behind a sleep kernel, after 3 warmup; lower of two "
@@ -720,6 +1027,12 @@ def main() -> int:
         "gl_project": lambda: griffinlim.gl_project(sig0, mag, win, n_fft,
                                                     hop),
         "gl_overlap_add": lambda: griffinlim.gl_overlap_add(fw_gl, hop),
+        "pcm16_ingest_rows": lambda: quantize.pcm16_ingest_batch(
+            pcm4, f32, scales4),
+        "quantize_mel_plane_masked": lambda: quantize.quantize_mel_plane_batch(
+            logmel4, 255, frames4),
+        "quantize_planes_masked": lambda: quantize.quantize_planes_batch(
+            spec4, 255, 0, frames4),
     }
     plain_fns = {
         "pcm16_ingest": lambda: quantize.pcm16_ingest_plain(
@@ -744,6 +1057,12 @@ def main() -> int:
         "gl_project": lambda: griffinlim.gl_project_plain(sig0, mag, win,
                                                           n_fft, hop),
         "gl_overlap_add": lambda: griffinlim.gl_overlap_add_plain(fw_gl, hop),
+        "pcm16_ingest_rows": lambda: quantize.pcm16_ingest_plain(
+            pcm4, f32, scales4, batched=True),
+        "quantize_mel_plane_masked": lambda: quantize.quantize_mel_plane_plain(
+            logmel4, 255, frames4),
+        "quantize_planes_masked": lambda: quantize.quantize_planes_plain(
+            spec4, 255, 0, frames4),
     }
     times = {name: race(kernel_fns[name], plain_fns[name], name)
              for name in kernel_fns}

@@ -3,9 +3,10 @@
 The port of ``gomel_tpu`` (JAX on a TPU, kept beside it as the reference) to
 PyTorch, with its device kernels written by hand in CUDA C++ for Hopper
 (``csrc/``). This package imports neither JAX nor ``gomel_tpu``. It covers
-the mel codec (WAV -> log-mel -> quantized PNG, ``tomel``, and back by
-Griffin-Lim, ``towav``) and the phase codec round trip (WAV -> phase PNG ->
-WAV, ``tophase`` and ``fromphase``) so far.
+the mel codec (WAV or FLAC -> log-mel -> quantized PNG, ``tomel``, and back
+by Griffin-Lim, ``towav``), the phase codec round trip (WAV or FLAC -> phase
+PNG -> WAV, ``tophase`` and ``fromphase``) and their batched forms on one
+device (``parallel/``, the ``batch-*`` tools of ``cli/batch.py``) so far.
 """
 
 from .core.config import (ConfigError, FileNotLoadedError, GomelError,

@@ -12,6 +12,8 @@ parameters, file routing and flags, plus ``--device``. Run as::
         [--seed S] [--gl-momentum M] [--device cuda|cpu]
     python -m gomel_tpu_torch.cli.tools tophase input.wav [--device cuda|cpu]
     python -m gomel_tpu_torch.cli.tools fromphase input.wav.png [--device ...]
+    python -m gomel_tpu_torch.cli.tools batch-tomel|batch-tophase|\
+        batch-fromphase|batch-towav DIR... [--out-dir D] [--device ...]
 
 ``--device`` defaults to ``cuda``. Without a CUDA device a tool prints an
 error naming the missing device and exits 1; the CPU path runs only when
@@ -206,10 +208,15 @@ def fromphase(argv: Optional[Sequence[str]] = None) -> int:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """Multiplexed entry: ``python -m gomel_tpu_torch.cli.tools <tool> ...``."""
+    """Multiplexed entry: ``python -m gomel_tpu_torch.cli.tools <tool> ...``
+    (the batch tools are in cli/batch.py)."""
+    from .batch import (batch_fromphase, batch_tomel, batch_tophase,
+                        batch_towav)
     argv = list(sys.argv[1:] if argv is None else argv)
     tools = {"tomel": tomel, "towav": towav, "tophase": tophase,
-             "fromphase": fromphase}
+             "fromphase": fromphase, "batch-tomel": batch_tomel,
+             "batch-tophase": batch_tophase,
+             "batch-fromphase": batch_fromphase, "batch-towav": batch_towav}
     if not argv or argv[0] not in tools:
         print(f"Usage: gomel_tpu_torch.cli.tools {{{','.join(tools)}}} <args>",
               file=sys.stderr)

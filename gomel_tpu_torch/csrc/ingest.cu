@@ -1,11 +1,17 @@
 // KA: raw PCM-16 ingest — int16 samples to the padded float32 signal.
 //
 // Replaces gomel_tpu/ops/quantize.py:105 pcm16_ingest (K1) with its zero-stuff
-// upsample, gomel_tpu/ops/resample.py:17 zero_stuff_upsample (K12).
+// upsample, gomel_tpu/ops/resample.py:17 zero_stuff_upsample (K12), and the
+// batch CLIs' per-row scaled ingest, gomel_tpu/parallel/batch.py:289.
 //
 // Per output sample: int16 -> float, stereo mean ((a + b) / 2, exact in
 // float32), divide by the power-of-two scale (exact), zero past the input.
 // Every step is exact, so the result equals the JAX program bit for bit.
+//
+// Per-row scales (``scales`` not null): row r divides by scales[r] instead
+// of the one ``scale`` (a bucket of the batch CLIs mixes WAV rows, 32768, and
+// mel-scaled FLAC rows, 65536). The JAX program multiplies by the float32
+// reciprocal; for a power of two both are exact, so they agree bit for bit.
 //
 // Zero-stuffing (zp > 0; the phase path at 8-32 kHz and 11.025/22.05 kHz):
 // after every zp input samples come zs zeros, and kept samples are
@@ -42,13 +48,16 @@ __device__ __forceinline__ float load_sample(const int16_t* __restrict__ src,
 __global__ void pcm16_ingest_kernel(const int16_t* __restrict__ pcm,
                                     float* __restrict__ out, long long rows,
                                     long long n_in, long long n_out,
-                                    int channels, float scale, int zp, int zs) {
+                                    int channels, float scale,
+                                    const float* __restrict__ scales, int zp,
+                                    int zs) {
   const long long group = static_cast<long long>(zp) + zs;
   const float boost = static_cast<float>(1 + zs);
   const long long tile = static_cast<long long>(kThreads) * kUnroll;
   for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
     const int16_t* src = pcm + r * n_in * channels;
     float* dst = out + r * n_out;
+    const float row_scale = scales != nullptr ? scales[r] : scale;
     for (long long base = blockIdx.x * tile; base < n_out;
          base += static_cast<long long>(gridDim.x) * tile) {
       // all loads first, so each thread keeps kUnroll of them in flight
@@ -69,7 +78,9 @@ __global__ void pcm16_ingest_kernel(const int16_t* __restrict__ pcm,
 #pragma unroll
       for (int k = 0; k < kUnroll; ++k) {
         const long long t = base + k * kThreads + threadIdx.x;
-        if (t < n_out) dst[t] = zp == 0 ? v[k] / scale : (v[k] / scale) * boost;
+        if (t < n_out) {
+          dst[t] = zp == 0 ? v[k] / row_scale : (v[k] / row_scale) * boost;
+        }
       }
     }
   }
@@ -78,11 +89,12 @@ __global__ void pcm16_ingest_kernel(const int16_t* __restrict__ pcm,
 }  // namespace
 
 // pcm: int16 [rows, n_in, channels] (channels 1 or 2); out: float32
-// [rows, n_out] with n_out >= the upsampled length (n_in when zp = 0).
+// [rows, n_out] with n_out >= the upsampled length (n_in when zp = 0);
+// scales: float32 [rows], or null for the one ``scale``.
 GOMEL_API int gomel_pcm16_ingest(const void* pcm, void* out, long long rows,
                                  long long n_in, long long n_out, int channels,
-                                 float scale, int zp, int zs, int device,
-                                 void* stream) {
+                                 float scale, const void* scales, int zp,
+                                 int zs, int device, void* stream) {
   cudaSetDevice(device);
   const long long tile = static_cast<long long>(kThreads) * kUnroll;
   long long bx = (n_out + tile - 1) / tile;
@@ -92,6 +104,6 @@ GOMEL_API int gomel_pcm16_ingest(const void* pcm, void* out, long long rows,
                         kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(pcm), static_cast<float*>(out), rows, n_in,
-      n_out, channels, scale, zp, zs);
+      n_out, channels, scale, static_cast<const float*>(scales), zp, zs);
   return gomel_status();
 }

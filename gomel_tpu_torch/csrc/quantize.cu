@@ -3,8 +3,24 @@
 //     prologue and uint8 or uint16 planes (below).
 //
 // Replaces gomel_tpu/ops/quantize.py:63 quantize_mel_plane and :211
-// quantize_mel_plane_batch without ``frames`` (K4, unmasked form). Input
-// [B, F, M, 2] float32; output [B, M, F, 2] uint8 plus each row's max and min.
+// quantize_mel_plane_batch (K4), with or without ``frames``, the masked form
+// being :176 _quantize_mel_masked. Input [B, F, M, 2] float32 and, for the
+// masked form, frames [B] int32; output [B, M, F, 2] uint8 plus each row's
+// max and min.
+//
+// Masked form (length-bucketed batches): row b's extrema come from its first
+// f = min(max(frames[b], 0), F) frames only, which are the first f*M*2 floats
+// of the row, so pass 1 just reduces a shorter row. Pass 2 quantizes all F
+// frames with those extrema (pad frames clip), as the JAX program does. JAX
+// takes the extrema of where(mask, x, -+FLT_MAX), so a row with pad frames
+// (frames[b] < F) starts its reduction from the -+FLT_MAX sentinels instead
+// of -+inf: a row with frames = 0 gives max -FLT_MAX and min +FLT_MAX, a
+// negative range, and every pixel 127.
+//
+// NaN: the extrema propagate NaN, as JAX's max and min do (fmaxf would drop
+// it). A NaN in a counted frame makes the row's (channel's, for KF) range NaN,
+// which pins norm at 0.5: every pixel 127 (or 32767). A NaN in a pad frame
+// never reaches the extrema.
 //
 // Numerics follow the JAX program exactly (quantize.py:72-74): subtract,
 // divide by the range (never a reciprocal multiply), multiply by max_val,
@@ -21,6 +37,7 @@
 // hundred bytes, from L2) into the final extrema, then quantizing with
 // coalesced float2 loads and writing the transposed uint8 pairs through a
 // shared-memory tile, so both the loads and the stores coalesce.
+#include <float.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -30,27 +47,62 @@ namespace {
 constexpr int kTile = 32;
 constexpr int kRows = 8;
 
+// NaN-propagating max and min (JAX semantics): one max.NaN / min.NaN
+// instruction each (sm_80 and later); equal to fmaxf / fminf (max.f32,
+// min.f32) for any other input
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ void warp_minmax(float& mx, float& mn) {
   for (int off = 16; off > 0; off >>= 1) {
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    mn = min_nan(mn, __shfl_xor_sync(0xffffffffu, mn, off));
   }
 }
 
+// Elements of row b that pass 1 reduces, and its starting extrema: the whole
+// row from -+inf (unmasked), or the first frames[b] frames from -+inf when no
+// frame is masked and from the -+FLT_MAX sentinels when some are.
+__device__ __forceinline__ long long masked_count(const int* frames, int b,
+                                                  long long n, int n_frames,
+                                                  long long frame_elems,
+                                                  float& lo, float& hi) {
+  lo = -INFINITY;
+  hi = INFINITY;
+  if (frames == nullptr) return n;
+  const int f = frames[b];
+  if (f >= n_frames) return n;
+  lo = -FLT_MAX;
+  hi = FLT_MAX;
+  return f > 0 ? static_cast<long long>(f) * frame_elems : 0;
+}
+
 __global__ void minmax_partial_kernel(const float* __restrict__ x, long long n,
+                                      const int* __restrict__ frames,
+                                      int n_frames, long long frame_elems,
                                       int parts, float2* __restrict__ partial) {
   __shared__ float s_mx[32];
   __shared__ float s_mn[32];
   const int b = blockIdx.y;
   const float* src = x + static_cast<long long>(b) * n;
-  float mx = -INFINITY;
-  float mn = INFINITY;
+  float mx, mn;
+  const long long count = masked_count(frames, b, n, n_frames, frame_elems, mx,
+                                       mn);
   const long long step = static_cast<long long>(parts) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += step) {
+       i < count; i += step) {
     const float v = src[i];
-    mx = fmaxf(mx, v);
-    mn = fminf(mn, v);
+    mx = max_nan(mx, v);
+    mn = min_nan(mn, v);
   }
   warp_minmax(mx, mn);
   const int lane = threadIdx.x & 31;
@@ -92,8 +144,8 @@ __global__ void quantize_mel_kernel(const float2* __restrict__ x,
     float mn = INFINITY;
     for (int p = threadIdx.x; p < parts; p += kTile) {
       const float2 e = partial[static_cast<long long>(b) * parts + p];
-      mx = fmaxf(mx, e.x);
-      mn = fminf(mn, e.y);
+      mx = max_nan(mx, e.x);
+      mn = min_nan(mn, e.y);
     }
     warp_minmax(mx, mn);
     if (threadIdx.x == 0) {
@@ -137,18 +189,20 @@ __global__ void quantize_mel_kernel(const float2* __restrict__ x,
 
 }  // namespace
 
-// x: float32 [batch, frames, mels, 2]; partial: float32 scratch
-// [batch, parts, 2]; out: uint8 [batch, mels, frames, 2]; mx, mn: float32
-// [batch].
-GOMEL_API int gomel_quantize_mel(const void* x, void* partial, void* out,
-                                 void* mx, void* mn, long long batch,
-                                 long long frames, long long mels, int parts,
-                                 float max_val, int device, void* stream) {
+// x: float32 [batch, frames, mels, 2]; true_frames: int32 [batch] (masked
+// form) or null (unmasked); partial: float32 scratch [batch, parts, 2]; out:
+// uint8 [batch, mels, frames, 2]; mx, mn: float32 [batch].
+GOMEL_API int gomel_quantize_mel(const void* x, const void* true_frames,
+                                 void* partial, void* out, void* mx, void* mn,
+                                 long long batch, long long frames,
+                                 long long mels, int parts, float max_val,
+                                 int device, void* stream) {
   cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n = frames * mels * 2;
   minmax_partial_kernel<<<dim3(parts, static_cast<unsigned>(batch)), 256, 0, s>>>(
-      static_cast<const float*>(x), n, parts, static_cast<float2*>(partial));
+      static_cast<const float*>(x), n, static_cast<const int*>(true_frames),
+      static_cast<int>(frames), mels * 2, parts, static_cast<float2*>(partial));
   const int err = gomel_status();
   if (err != 0) return err;
   const dim3 grid(static_cast<unsigned>((frames + kTile - 1) / kTile),
@@ -168,7 +222,9 @@ namespace {
 // KF: phase PNG quantizer.
 //
 // Replaces gomel_tpu/ops/quantize.py:30 quantize_planes and :185
-// quantize_planes_batch without ``frames`` (K6, unmasked form). Input
+// quantize_planes_batch (K6), with or without ``frames``, the masked form
+// being :164 _quantize_planes_masked (the asinh passes come before the mask,
+// and the mask and NaN rules are KD's, per channel). Input
 // [B, F, nf, 2] float32; output [B, nf, F, 2] uint8 (max_val 255) or uint16
 // (HDR, max_val 65535), plus each row's per-channel maxs [B, 2] and
 // mins [B, 2]. KD's two passes, with three changes: the extrema are per
@@ -211,22 +267,26 @@ __device__ __forceinline__ void block_minmax4(float4& e) {
 }
 
 __global__ void minmax_planes_partial_kernel(const float2* __restrict__ x,
-                                             long long n, int parts,
-                                             int ihs_passes,
+                                             long long n,
+                                             const int* __restrict__ frames,
+                                             int n_frames, long long bins,
+                                             int parts, int ihs_passes,
                                              float4* __restrict__ partial) {
   const int b = blockIdx.y;
   const float2* src = x + static_cast<long long>(b) * n;
-  float4 e = make_float4(-INFINITY, -INFINITY, INFINITY, INFINITY);
+  float lo, hi;
+  const long long count = masked_count(frames, b, n, n_frames, bins, lo, hi);
+  float4 e = make_float4(lo, lo, hi, hi);
   const long long step = static_cast<long long>(parts) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += step) {
+       i < count; i += step) {
     const float2 v = src[i];
     const float a = ihs_forward(v.x, ihs_passes);
     const float c = ihs_forward(v.y, ihs_passes);
-    e.x = fmaxf(e.x, a);
-    e.y = fmaxf(e.y, c);
-    e.z = fminf(e.z, a);
-    e.w = fminf(e.w, c);
+    e.x = max_nan(e.x, a);
+    e.y = max_nan(e.y, c);
+    e.z = min_nan(e.z, a);
+    e.w = min_nan(e.w, c);
   }
   block_minmax4(e);
   if (threadIdx.x == 0) partial[static_cast<long long>(b) * parts + blockIdx.x] = e;
@@ -248,10 +308,10 @@ __global__ void quantize_planes_kernel(const float2* __restrict__ x,
     float4 e = make_float4(-INFINITY, -INFINITY, INFINITY, INFINITY);
     for (int p = threadIdx.x; p < parts; p += kTile) {
       const float4 q = partial[static_cast<long long>(b) * parts + p];
-      e.x = fmaxf(e.x, q.x);
-      e.y = fmaxf(e.y, q.y);
-      e.z = fminf(e.z, q.z);
-      e.w = fminf(e.w, q.w);
+      e.x = max_nan(e.x, q.x);
+      e.y = max_nan(e.y, q.y);
+      e.z = min_nan(e.z, q.z);
+      e.w = min_nan(e.w, q.w);
     }
     warp_minmax(e.x, e.z);
     warp_minmax(e.y, e.w);
@@ -300,11 +360,13 @@ __global__ void quantize_planes_kernel(const float2* __restrict__ x,
 
 }  // namespace
 
-// x: float32 [batch, frames, bins, 2]; partial: float32 scratch
-// [batch, parts, 4]; out: [batch, bins, frames, 2] uint8 (max_val <= 255) or
-// uint16; mx, mn: float32 [batch, 2].
-GOMEL_API int gomel_quantize_planes(const void* x, void* partial, void* out,
-                                    void* mx, void* mn, long long batch,
+// x: float32 [batch, frames, bins, 2]; true_frames: int32 [batch] (masked
+// form) or null (unmasked); partial: float32 scratch [batch, parts, 4]; out:
+// [batch, bins, frames, 2] uint8 (max_val <= 255) or uint16; mx, mn: float32
+// [batch, 2].
+GOMEL_API int gomel_quantize_planes(const void* x, const void* true_frames,
+                                    void* partial, void* out, void* mx,
+                                    void* mn, long long batch,
                                     long long frames, long long bins,
                                     int parts, float max_val, int ihs_passes,
                                     int device, void* stream) {
@@ -312,8 +374,9 @@ GOMEL_API int gomel_quantize_planes(const void* x, void* partial, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   minmax_planes_partial_kernel<<<dim3(parts, static_cast<unsigned>(batch)), 256,
                                  0, s>>>(
-      static_cast<const float2*>(x), frames * bins, parts, ihs_passes,
-      static_cast<float4*>(partial));
+      static_cast<const float2*>(x), frames * bins,
+      static_cast<const int*>(true_frames), static_cast<int>(frames), bins,
+      parts, ihs_passes, static_cast<float4*>(partial));
   const int err = gomel_status();
   if (err != 0) return err;
   const dim3 grid(static_cast<unsigned>((frames + kTile - 1) / kTile),

@@ -1,12 +1,15 @@
-"""Host WAV loading and saving.
+"""Host WAV and FLAC loading, WAV saving.
 
-The WAV part of ``gomel_tpu/io/audio.py``, copied: the port cannot import
-``gomel_tpu``, whose package __init__ imports JAX. tests/test_torch_host.py
-pins the copy to the original. FLAC loading is still to port (ROADMAP.md).
+Copy of ``gomel_tpu/io/audio.py``: the port cannot import ``gomel_tpu``,
+whose package __init__ imports JAX. tests/test_torch_host.py pins the copy to
+the original.
 
-Replaces the reference's Go codec (faiface/beep, mel/impl.go:195-264):
-channel-0 extraction on load with ``mono="left"``; the Python port's
-channel-MEAN for stereo (phase.py:488-489) with ``mono="mean"``.
+Replaces the reference's Go codecs: WAV by faiface/beep (mel/impl.go:195-264),
+channel-0 extraction on load with ``mono="left"``, the Python port's
+channel-MEAN for stereo (phase.py:488-489) with ``mono="mean"``; FLAC by
+mewkiz/flac (io/flac.py here) with two different integer scalings: mel
+divides by 65536 (mel/impl.go:290), phase by 32768 (phase/impl.go:375), so
+``scaling="mel"`` halves the standard full-scale value.
 """
 from __future__ import annotations
 
@@ -85,6 +88,66 @@ def load_wav_any(path: str, mono: str = "mean", raw_pcm16: bool = False
         if raw is not None:
             return raw, int(sr)
     return _to_mono(_to_float(audio), mono), int(sr)
+
+
+def load_flac_any(path: str, mono: str = "mean", scaling: str = "phase",
+                  raw_pcm16: bool = False) -> tuple[np.ndarray, int]:
+    """FLAC counterpart of :func:`load_wav_any`. For the float fallback
+    the ``scaling`` applies (phase 1/32768, mel 1/65536); raw int16 results
+    leave the power-of-two scale to the device ingest
+    (``io.dataset.pcm_scale_for``)."""
+    from . import flac as flacdec
+    try:
+        audio, sr = flacdec.read_flac(
+            path, layout="go_concat" if mono == "go_concat" else "interleaved")
+    except FileNotFoundError as e:
+        raise FileNotLoadedError(f"could not load flac {path!r}: {e}") from e
+    except Exception as e:
+        raise FileNotLoadedError(f"could not decode flac {path!r}: {e}") from e
+    if audio.size == 0 or sr == 0:
+        raise FileNotLoadedError(f"empty or invalid flac: {path!r}")
+    if raw_pcm16:
+        raw = _raw_or_none(audio, mono)
+        if raw is not None:
+            return raw, int(sr)
+    out = _to_mono(_to_float(audio), mono)
+    if scaling == "mel":
+        out = out * 0.5
+    return out, int(sr)
+
+
+def load_flac_pcm16(path: str, mono: str = "mean"):
+    """RAW-only variant of :func:`load_flac_any`: (int16, sr) or None when
+    the file needs the float path (it decodes the file either way)."""
+    buf, sr = load_flac_any(path, mono=mono, raw_pcm16=True)
+    if buf.dtype != np.int16:
+        return None
+    return buf, sr
+
+
+def load_flac(path: str, mono: str = "mean", scaling: str = "phase"
+              ) -> tuple[np.ndarray, int]:
+    """Load a FLAC file -> (float64 mono samples, sample_rate).
+
+    scaling="phase": 1/32768 integer scaling for 16-bit content (reference
+    phase/impl.go:375). scaling="mel": 1/65536 (reference mel/impl.go:290).
+    Streams deeper than 16 bits are normalized to full scale, as in the JAX
+    package (its docs/PARITY.md: the reference's fixed divisors leave 24-bit
+    content at +/-256 amplitude, judged a bug and not reproduced)."""
+    from . import flac as flacdec
+    try:
+        audio, sr = flacdec.read_flac(
+            path, layout="go_concat" if mono == "go_concat" else "interleaved")
+    except FileNotFoundError as e:
+        raise FileNotLoadedError(f"could not load flac {path!r}: {e}") from e
+    except Exception as e:
+        raise FileNotLoadedError(f"could not decode flac {path!r}: {e}") from e
+    audio = _to_mono(_to_float(audio), mono)
+    if audio.size == 0 or sr == 0:
+        raise FileNotLoadedError(f"empty or invalid flac: {path!r}")
+    if scaling == "mel":
+        audio = audio * 0.5
+    return audio, int(sr)
 
 
 def save_wav_pcm16(path: str, pcm: np.ndarray, sample_rate: int,

@@ -37,14 +37,16 @@ _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
 # every entry point ends with (device index, stream) and returns a cudaError_t
 _SIGNATURES = {
-    "gomel_pcm16_ingest": [_P, _P, _I64, _I64, _I64, _I32, _F32, _I32, _I32],
+    "gomel_pcm16_ingest": [_P, _P, _I64, _I64, _I64, _I32, _F32, _P, _I32,
+                           _I32],
     "gomel_stft_mag": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64],
     "gomel_stft_planes": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32,
                           _I32],
     "gomel_mel_log": [_P, _P, _P, _P, _P, _I64, _I64, _I64],
-    "gomel_quantize_mel": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32],
-    "gomel_quantize_planes": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _F32,
-                              _I32],
+    "gomel_quantize_mel": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32,
+                           _F32],
+    "gomel_quantize_planes": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32,
+                              _F32, _I32],
     "gomel_irfft_window": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                            _F32, _I32],
     "gomel_overlap_normalize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,

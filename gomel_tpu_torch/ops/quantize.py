@@ -4,12 +4,13 @@ both csrc/quantize.cu), and the plain de-quantizers and PCM-16 conversion
 of the decodes.
 
 Counterparts of ``gomel_tpu/ops/quantize.py`` ``pcm16_ingest``,
-``quantize_mel_plane(_batch)``, ``quantize_planes(_batch)`` (both without
-the per-row ``frames`` mask, still to port), ``dequantize_planes(_batch)``,
-``dequantize_mel_plane(_batch)`` and ``pcm16_encode``. On the file paths
-only int16 samples go to the device and only integer planes plus extrema
-come back (encode), and only integer planes go up and int16 samples come
-back (decode).
+``quantize_mel_plane(_batch)``, ``quantize_planes(_batch)`` (the batch forms
+with the per-row ``frames`` mask of length-bucketed batches too),
+``dequantize_planes(_batch)``, ``dequantize_mel_plane(_batch)`` and
+``pcm16_encode``, and of the batch CLIs' ingest with a divisor per row
+(gomel_tpu/parallel/batch.py:289). On the file paths only int16 samples go
+to the device and only integer planes plus extrema come back (encode), and
+only integer planes go up and int16 samples come back (decode).
 
 ``dequantize_planes``, ``dequantize_mel_plane`` and ``pcm16_encode`` are
 plain PyTorch on any device: on the card's decode paths their work is the
@@ -25,6 +26,7 @@ float32 input.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.framing import zero_stuff_output_length
@@ -33,26 +35,39 @@ from .resample import zero_stuff_upsample
 
 INGEST_KERNEL = _cuda.Kernel("pcm16_ingest", "gomel_tpu_torch/csrc/ingest.cu",
                              "gomel_tpu/ops/quantize.py:105")
+INGEST_ROWS_KERNEL = _cuda.Kernel("pcm16_ingest_rows",
+                                  "gomel_tpu_torch/csrc/ingest.cu",
+                                  "gomel_tpu/parallel/batch.py:289")
 QUANTIZE_KERNEL = _cuda.Kernel("quantize_mel_plane",
                                "gomel_tpu_torch/csrc/quantize.cu",
                                "gomel_tpu/ops/quantize.py:63")
+QUANTIZE_MASKED_KERNEL = _cuda.Kernel("quantize_mel_plane_masked",
+                                      "gomel_tpu_torch/csrc/quantize.cu",
+                                      "gomel_tpu/ops/quantize.py:176")
 PLANES_KERNEL = _cuda.Kernel("quantize_planes",
                              "gomel_tpu_torch/csrc/quantize.cu",
                              "gomel_tpu/ops/quantize.py:30")
+PLANES_MASKED_KERNEL = _cuda.Kernel("quantize_planes_masked",
+                                    "gomel_tpu_torch/csrc/quantize.cu",
+                                    "gomel_tpu/ops/quantize.py:164")
 
 # pass-1 blocks per row of the quantizer's min/max reduction
 _MINMAX_PARTS = 64
 
 
-def pcm16_ingest_plain(pcm: torch.Tensor, dtype: torch.dtype, scale: float,
+def pcm16_ingest_plain(pcm: torch.Tensor, dtype: torch.dtype, scale,
                        pad_to: int = 0, batched: bool = False, zp: int = 0,
                        zs: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the ingest kernel (see :func:`pcm16_ingest`;
-    ``batched``: [B, L] mono rows instead of one [L, 2] stereo signal)."""
+    ``batched``: [B, L] mono rows instead of one [L, 2] stereo signal, and
+    ``scale`` may then be a [B] tensor of per-row divisors)."""
     x = pcm.to(dtype)
     if x.ndim == 2 and not batched:
         x = x.mean(dim=1)
-    x = x / float(scale)
+    if isinstance(scale, torch.Tensor):
+        x = x / scale.to(device=x.device, dtype=dtype)[:, None]
+    else:
+        x = x / float(scale)
     if zp > 0:
         x = (torch.stack([zero_stuff_upsample(r, zp, zs) for r in x])
              if batched else zero_stuff_upsample(x, zp, zs))
@@ -74,14 +89,22 @@ def _ingest_layout(pcm: torch.Tensor, batched: bool) -> tuple[int, int, int]:
     raise ValueError(f"pcm16_ingest takes [L] or [L, 2] (got {tuple(pcm.shape)})")
 
 
-def _ingest(pcm: torch.Tensor, dtype: torch.dtype, scale: float, pad_to: int,
+def _ingest(pcm: torch.Tensor, dtype: torch.dtype, scale, pad_to: int,
             batched: bool, zp: int, zs: int) -> torch.Tensor:
     rows, n_in, channels = _ingest_layout(pcm, batched)
     if zp < 0 or zs < 0 or (zp == 0 and zs != 0):
         raise ValueError(f"pcm16_ingest: bad zero-stuff (zp={zp}, zs={zs})")
+    per_row = (scale.ndim > 0 if isinstance(scale, torch.Tensor)
+               else np.ndim(scale) > 0)
+    if per_row:
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=pcm.device)
+        if not batched or tuple(scale.shape) != (rows,):
+            raise ValueError(f"pcm16_ingest: per-row scales {tuple(scale.shape)}"
+                             f" need a [B, L] batch of {rows} rows")
     if pcm.device.type == "cpu":
         return pcm16_ingest_plain(pcm, dtype, scale, pad_to, batched, zp, zs)
-    dev = _cuda.check_cuda("pcm16_ingest", pcm)
+    tensors = (pcm, scale.contiguous()) if per_row else (pcm,)
+    dev = _cuda.check_cuda("pcm16_ingest", *tensors)
     if pcm.dtype != torch.int16 or dtype != torch.float32:
         raise ValueError("pcm16_ingest: the CUDA kernel maps int16 to float32")
     n_out = max(zero_stuff_output_length(n_in, zp, zs), pad_to)
@@ -90,8 +113,9 @@ def _ingest(pcm: torch.Tensor, dtype: torch.dtype, scale: float, pad_to: int,
     if out.numel() == 0:
         return out
     _cuda.launch("gomel_pcm16_ingest", dev, pcm.data_ptr(), out.data_ptr(),
-                 rows, n_in, n_out, channels, float(scale), zp, zs)
-    INGEST_KERNEL.launches += 1
+                 rows, n_in, n_out, channels, 0.0 if per_row else float(scale),
+                 tensors[1].data_ptr() if per_row else None, zp, zs)
+    (INGEST_ROWS_KERNEL if per_row else INGEST_KERNEL).launches += 1
     return out
 
 
@@ -105,20 +129,40 @@ def pcm16_ingest(pcm: torch.Tensor, dtype: torch.dtype, scale: float,
     return _ingest(pcm, dtype, scale, pad_to, False, zp, zs)
 
 
-def pcm16_ingest_batch(pcm: torch.Tensor, dtype: torch.dtype, scale: float,
+def pcm16_ingest_batch(pcm: torch.Tensor, dtype: torch.dtype, scale,
                        pad_to: int = 0, zp: int = 0, zs: int = 0
                        ) -> torch.Tensor:
     """Batched mono :func:`pcm16_ingest`: int16 [B, L] -> float
-    [B, max(L', pad_to)]."""
+    [B, max(L', pad_to)]. ``scale`` is one divisor, or one per row (a [B]
+    tensor or array: the batch CLIs mix WAV rows, 32768, with mel-scaled
+    FLAC rows, 65536, in one bucket); powers of two keep it exact."""
     return _ingest(pcm, dtype, scale, pad_to, True, zp, zs)
 
 
-def quantize_mel_plane_plain(spec2: torch.Tensor, max_val: int = 255):
+def _masked_extrema(spec2: torch.Tensor, frames, dims):
+    """Per-row extrema of [B, F, X, 2] over each row's first ``frames[b]``
+    frames, as gomel_tpu/ops/quantize.py:151 takes them: the pad frames hold
+    the -+finfo.max sentinels, so a row with frames = 0 gets (-max, +max)."""
+    frames = torch.as_tensor(frames, device=spec2.device).reshape(-1, 1)
+    mask = (torch.arange(spec2.shape[-3], device=spec2.device)
+            < frames)[:, :, None, None]
+    big = torch.finfo(spec2.dtype).max
+    return (torch.where(mask, spec2, -big).amax(dim=dims),
+            torch.where(mask, spec2, big).amin(dim=dims))
+
+
+def quantize_mel_plane_plain(spec2: torch.Tensor, max_val: int = 255,
+                             frames=None):
     """Plain PyTorch version of the quantizer kernel: [..., F, M, 2] ->
-    (img2 [..., M, F, 2] uint8, max [...], min [...])."""
+    (img2 [..., M, F, 2] uint8, max [...], min [...]); with ``frames`` [B]
+    (a [B, F, M, 2] batch) the masked form. The extrema propagate NaN, as
+    JAX's do."""
     dims = (-3, -2, -1)
-    mgc_max = spec2.amax(dim=dims)
-    mgc_min = spec2.amin(dim=dims)
+    if frames is None:
+        mgc_max = spec2.amax(dim=dims)
+        mgc_min = spec2.amin(dim=dims)
+    else:
+        mgc_max, mgc_min = _masked_extrema(spec2, frames, dims)
     mx = mgc_max[..., None, None, None]
     mn = mgc_min[..., None, None, None]
     rng = mx - mn
@@ -128,32 +172,48 @@ def quantize_mel_plane_plain(spec2: torch.Tensor, max_val: int = 255):
     return q.transpose(-3, -2).to(torch.uint8), mgc_max, mgc_min
 
 
-def _quantize(spec2: torch.Tensor, max_val: int, batched: bool):
+def _true_frames(frames, batch: int, device: torch.device):
+    """``frames`` as an int32 [batch] tensor on ``device`` (None stays)."""
+    if frames is None:
+        return None
+    frames = torch.as_tensor(frames, dtype=torch.int32, device=device)
+    if tuple(frames.shape) != (batch,):
+        raise ValueError(f"frames has shape {tuple(frames.shape)} for a "
+                         f"{batch}-row batch")
+    return frames.contiguous()
+
+
+def _quantize(spec2: torch.Tensor, max_val: int, batched: bool, frames=None):
     if spec2.ndim != (4 if batched else 3) or spec2.shape[-1] != 2:
         raise ValueError(f"expected {'[B, F, M, 2]' if batched else '[F, M, 2]'} "
                          f"(got {tuple(spec2.shape)})")
+    true_frames = _true_frames(frames, spec2.shape[0], spec2.device)
     if spec2.device.type == "cpu":
-        return quantize_mel_plane_plain(spec2, max_val)
-    dev = _cuda.check_cuda("quantize_mel_plane", spec2)
+        return quantize_mel_plane_plain(spec2, max_val, true_frames)
+    dev = _cuda.check_cuda("quantize_mel_plane", spec2,
+                           *(() if true_frames is None else (true_frames,)))
     if spec2.dtype != torch.float32:
         raise ValueError("quantize_mel_plane: the CUDA kernel takes float32")
     if not 0 < max_val <= 255:
         raise ValueError(f"quantize_mel_plane: max_val {max_val} exceeds uint8")
     batch = spec2.shape[0] if batched else 1
-    frames, mels = spec2.shape[-3], spec2.shape[-2]
+    n_frames, mels = spec2.shape[-3], spec2.shape[-2]
     if spec2.numel() == 0:
         raise ValueError("quantize_mel_plane: empty spectrogram has no extrema")
     lead = (batch,) if batched else ()
-    img2 = torch.empty(lead + (mels, frames, 2), dtype=torch.uint8, device=dev)
+    img2 = torch.empty(lead + (mels, n_frames, 2), dtype=torch.uint8,
+                       device=dev)
     mx = torch.empty(lead, dtype=torch.float32, device=dev)
     mn = torch.empty(lead, dtype=torch.float32, device=dev)
     partial = torch.empty((batch, _MINMAX_PARTS, 2), dtype=torch.float32,
                           device=dev)
     _cuda.launch("gomel_quantize_mel", dev, spec2.data_ptr(),
+                 None if true_frames is None else true_frames.data_ptr(),
                  partial.data_ptr(), img2.data_ptr(), mx.data_ptr(),
-                 mn.data_ptr(), batch, frames, mels, _MINMAX_PARTS,
+                 mn.data_ptr(), batch, n_frames, mels, _MINMAX_PARTS,
                  float(max_val))
-    QUANTIZE_KERNEL.launches += 1
+    (QUANTIZE_KERNEL if true_frames is None
+     else QUANTIZE_MASKED_KERNEL).launches += 1
     return img2, mx, mn
 
 
@@ -161,25 +221,33 @@ def quantize_mel_plane(spec2: torch.Tensor, max_val: int = 255):
     """Mel quantizer: GLOBAL (not per-channel) min/max (mel/impl.go:138-152).
 
     [F, M, 2] -> (img2 [M, F, 2] uint8, mgc_max scalar, mgc_min scalar).
-    Degenerate range pins norm at 0.5 like the host writer."""
+    Degenerate range pins norm at 0.5 like the host writer; a NaN makes the
+    extrema NaN and every pixel 127, as in the JAX program."""
     return _quantize(spec2, max_val, batched=False)
 
 
-def quantize_mel_plane_batch(spec2b: torch.Tensor, max_val: int = 255):
+def quantize_mel_plane_batch(spec2b: torch.Tensor, max_val: int = 255,
+                             frames=None):
     """Batched :func:`quantize_mel_plane`: [B, F, M, 2] -> (img2 [B, M, F, 2]
     uint8, mgc_max [B], mgc_min [B]), each row with its own global extrema
-    (one file per row)."""
-    return _quantize(spec2b, max_val, batched=True)
+    (one file per row). ``frames`` [B]: each row's true frame count in a
+    length-bucketed batch; the extrema then exclude the pad frames, which
+    are quantized all the same (gomel_tpu/ops/quantize.py:176)."""
+    return _quantize(spec2b, max_val, batched=True, frames=frames)
 
 
 def quantize_planes_plain(spec2: torch.Tensor, max_val: int,
-                          ihs_passes: int = 0):
+                          ihs_passes: int = 0, frames=None):
     """Plain PyTorch version of the phase quantizer kernel: [..., F, nf, 2] ->
-    (img2 [..., nf, F, 2] uint8|uint16, maxs [..., 2], mins [..., 2])."""
+    (img2 [..., nf, F, 2] uint8|uint16, maxs [..., 2], mins [..., 2]); with
+    ``frames`` [B] (a [B, F, nf, 2] batch) the masked form."""
     for _ in range(ihs_passes):
         spec2 = torch.asinh(spec2)
-    maxs = spec2.amax(dim=(-3, -2))
-    mins = spec2.amin(dim=(-3, -2))
+    if frames is None:
+        maxs = spec2.amax(dim=(-3, -2))
+        mins = spec2.amin(dim=(-3, -2))
+    else:
+        maxs, mins = _masked_extrema(spec2, frames, (-3, -2))
     mx = maxs[..., None, None, :]
     mn = mins[..., None, None, :]
     rng = mx - mn
@@ -191,13 +259,15 @@ def quantize_planes_plain(spec2: torch.Tensor, max_val: int,
 
 
 def _quantize_planes(spec2: torch.Tensor, max_val: int, ihs_passes: int,
-                     batched: bool):
+                     batched: bool, frames=None):
     if spec2.ndim != (4 if batched else 3) or spec2.shape[-1] != 2:
         raise ValueError(f"expected {'[B, F, nf, 2]' if batched else '[F, nf, 2]'} "
                          f"(got {tuple(spec2.shape)})")
+    true_frames = _true_frames(frames, spec2.shape[0], spec2.device)
     if spec2.device.type == "cpu":
-        return quantize_planes_plain(spec2, max_val, ihs_passes)
-    dev = _cuda.check_cuda("quantize_planes", spec2)
+        return quantize_planes_plain(spec2, max_val, ihs_passes, true_frames)
+    dev = _cuda.check_cuda("quantize_planes", spec2,
+                           *(() if true_frames is None else (true_frames,)))
     if spec2.dtype != torch.float32:
         raise ValueError("quantize_planes: the CUDA kernel takes float32")
     if not 0 < max_val <= 65535:
@@ -205,19 +275,21 @@ def _quantize_planes(spec2: torch.Tensor, max_val: int, ihs_passes: int,
     if spec2.numel() == 0:
         raise ValueError("quantize_planes: empty spectrogram has no extrema")
     batch = spec2.shape[0] if batched else 1
-    frames, bins = spec2.shape[-3], spec2.shape[-2]
+    n_frames, bins = spec2.shape[-3], spec2.shape[-2]
     lead = (batch,) if batched else ()
     dtype = torch.uint16 if max_val > 255 else torch.uint8
-    img2 = torch.empty(lead + (bins, frames, 2), dtype=dtype, device=dev)
+    img2 = torch.empty(lead + (bins, n_frames, 2), dtype=dtype, device=dev)
     maxs = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
     mins = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
     partial = torch.empty((batch, _MINMAX_PARTS, 4), dtype=torch.float32,
                           device=dev)
     _cuda.launch("gomel_quantize_planes", dev, spec2.data_ptr(),
+                 None if true_frames is None else true_frames.data_ptr(),
                  partial.data_ptr(), img2.data_ptr(), maxs.data_ptr(),
-                 mins.data_ptr(), batch, frames, bins, _MINMAX_PARTS,
+                 mins.data_ptr(), batch, n_frames, bins, _MINMAX_PARTS,
                  float(max_val), int(ihs_passes))
-    PLANES_KERNEL.launches += 1
+    (PLANES_KERNEL if true_frames is None
+     else PLANES_MASKED_KERNEL).launches += 1
     return img2, maxs, mins
 
 
@@ -227,16 +299,20 @@ def quantize_planes(spec2: torch.Tensor, max_val: int, ihs_passes: int = 0):
     Returns (img2 [nf, F, 2] uint8|uint16 in image (row = bin) layout,
     maxs [2], mins [2]): the PER-CHANNEL extrema after ``ihs_passes`` asinh
     passes, exactly what the PNG metadata stores (phase/impl.go:198-222).
-    Degenerate range pins norm at 0.5 like the host writer."""
+    Degenerate range pins norm at 0.5 like the host writer; a NaN makes its
+    channel's extrema NaN and that channel's pixels the midpoint."""
     return _quantize_planes(spec2, max_val, ihs_passes, batched=False)
 
 
 def quantize_planes_batch(spec2b: torch.Tensor, max_val: int,
-                          ihs_passes: int = 0):
+                          ihs_passes: int = 0, frames=None):
     """Batched :func:`quantize_planes`: [B, F, nf, 2] -> (img2 [B, nf, F, 2],
     maxs [B, 2], mins [B, 2]), each row with its own per-channel extrema (one
-    file per row)."""
-    return _quantize_planes(spec2b, max_val, ihs_passes, batched=True)
+    file per row). ``frames`` [B]: per-row true frame counts; the extrema
+    (after the asinh passes) exclude the pad frames
+    (gomel_tpu/ops/quantize.py:164)."""
+    return _quantize_planes(spec2b, max_val, ihs_passes, batched=True,
+                            frames=frames)
 
 
 def dequantize_planes(img2: torch.Tensor, maxs, mins, max_val: int,

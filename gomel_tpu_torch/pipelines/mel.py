@@ -10,7 +10,7 @@ Reference method map:
 - ToMel        -> Mel.to_mel / Mel.encode        (mel/mel.go:46-74)
 - FromMel      -> Mel.from_mel / Mel.decode      (mel/mel.go:142-152)
 - ToMelWav     -> Mel.to_mel_wav                 (mel/mel.go:194-209)
-- ToMelFlac    -> Mel.to_mel_flac                (not yet ported)
+- ToMelFlac    -> Mel.to_mel_flac                (mel/mel.go:176-191)
 - ToWavPng     -> Mel.to_wav_png                 (mel/mel.go:211-238)
 - Image        -> Mel.image                      (mel/mel.go:171-173, impl.go:16-44)
 """
@@ -244,6 +244,18 @@ class Mel(torch.nn.Module):
             output_file, spec, self.config.y_reverse,
             self._samples_in_mel(len(buf), spec.shape[0]), float(sr))
 
+    def _to_mel_pcm(self, buf: np.ndarray, sr: int, output_file: str,
+                    scale: float) -> None:
+        """Device-quantize file encode from raw int16 [L]: the conversion
+        and padding (kernel KA, dividing by the power-of-two ``scale``), the
+        encode and the PNG quantizer run on the device."""
+        padded = pad_length(buf.shape[0], self.config.window)
+        pcm = torch.from_numpy(buf.copy()).to(self.device)
+        x = pcm16_ingest(pcm, self.dtype, scale, padded)
+        spec = self._encode_padded(x)
+        self._save_quantized(output_file, quantize_mel_plane(spec, 255),
+                             buf.shape[0], sr)
+
     def to_mel_wav(self, input_file: str, output_file: str) -> None:
         """WAV -> mel PNG (reference ToMelWav, mel/mel.go:194-209). With
         ``device_quantize`` a 16-bit file goes to the device as raw int16
@@ -252,12 +264,7 @@ class Mel(torch.nn.Module):
             buf, sr = audio_io.load_wav_any(input_file, mono="left",
                                             raw_pcm16=True)
             if buf.dtype == np.int16:
-                padded = pad_length(buf.shape[0], self.config.window)
-                pcm = torch.from_numpy(buf.copy()).to(self.device)
-                x = pcm16_ingest(pcm, self.dtype, 32768.0, padded)
-                spec = self._encode_padded(x)
-                self._save_quantized(output_file, quantize_mel_plane(spec, 255),
-                                     buf.shape[0], sr)
+                self._to_mel_pcm(buf, sr, output_file, 32768.0)
                 return
             self._to_mel_file(buf, sr, output_file)
             return
@@ -265,11 +272,23 @@ class Mel(torch.nn.Module):
         self._to_mel_file(buf, sr, output_file)
 
     def to_mel_flac(self, input_file: str, output_file: str) -> None:
-        """FLAC -> mel PNG: not ported yet."""
-        raise NotImplementedError(
-            "FLAC input is not ported to gomel_tpu_torch yet (ROADMAP.md "
-            "queue 1: FLAC ingest, io/flac.py and native/flacdec.cpp); "
-            "convert to WAV or use gomel_tpu")
+        """FLAC -> mel PNG (reference ToMelFlac, mel/mel.go:176-191), with
+        the mel package's 1/65536 FLAC scaling (mel/impl.go:290) and the
+        reference's channel order (each FLAC frame's channels appended as
+        one stream, io/flac.read_flac ``go_concat``). With
+        ``device_quantize`` a 16-bit file goes to the device as raw int16
+        and kernel KA divides by 65536 (a power of two: exact)."""
+        if self.device_quantize:
+            buf, sr = audio_io.load_flac_any(input_file, mono="go_concat",
+                                             scaling="mel", raw_pcm16=True)
+            if buf.dtype == np.int16:
+                self._to_mel_pcm(buf, sr, output_file, 65536.0)
+                return
+            self._to_mel_file(buf, sr, output_file)
+            return
+        buf, sr = audio_io.load_flac(input_file, mono="go_concat",
+                                     scaling="mel")
+        self._to_mel_file(buf, sr, output_file)
 
     def to_tensor(self, buf) -> torch.Tensor:
         """Audio buffer -> log-mel [F, num_mels, 2] on ``device``: the
@@ -279,6 +298,14 @@ class Mel(torch.nn.Module):
     def to_tensor_wav(self, input_file: str) -> torch.Tensor:
         """WAV file -> log-mel [F, num_mels, 2] on ``device``."""
         buf, _ = audio_io.load_wav(input_file, mono="left")
+        return self.encode(buf)
+
+    def to_tensor_flac(self, input_file: str) -> torch.Tensor:
+        """FLAC file -> log-mel [F, num_mels, 2] on ``device``, with the mel
+        1/65536 scaling and the ``go_concat`` channel order of
+        :meth:`to_mel_flac`, so both routes see the same signal."""
+        buf, _ = audio_io.load_flac(input_file, mono="go_concat",
+                                    scaling="mel")
         return self.encode(buf)
 
     def to_wav_png(self, input_file: str, output_file: str, seed: int = 0,

@@ -10,7 +10,7 @@ Reference method map:
 - ToPhase        -> Phase.to_phase / Phase.encode    (phase/phase.go:41-70)
 - FromPhase      -> Phase.from_phase / Phase.decode  (phase/phase.go:136-153)
 - ToPhaseWav     -> Phase.to_phase_wav               (phase/phase.go:221-244)
-- ToPhaseFlac    -> Phase.to_phase_flac              (not yet ported)
+- ToPhaseFlac    -> Phase.to_phase_flac              (phase/phase.go:195-218)
 - ToWavPng       -> Phase.to_wav_png                 (phase/phase.go:246-275)
 
 Behavioral switches where Go and the Python port disagree:
@@ -261,11 +261,24 @@ class Phase(torch.nn.Module):
         self._encode_file(buf, sr, output_file)
 
     def to_phase_flac(self, input_file: str, output_file: str) -> None:
-        """FLAC -> phase PNG: not ported yet."""
-        raise NotImplementedError(
-            "FLAC input is not ported to gomel_tpu_torch yet (ROADMAP.md "
-            "queue 1: FLAC ingest, io/flac.py and native/flacdec.cpp); "
-            "convert to WAV or use gomel_tpu")
+        """FLAC -> phase PNG (reference ToPhaseFlac, phase/phase.go:195-218;
+        phase FLAC scaling is 1/32768, phase/impl.go:375). With
+        ``device_quantize`` a 16-bit file goes to the device as raw int16
+        (kernel KA). With ``length_mode="py"`` the recorded rate is scaled by
+        the upsample, as the Python port does for FLAC (phase.py:274-275)."""
+        mono = "go_concat" if self.metadata_layout == "go" else "mean"
+        buf, sr = audio_io.load_flac_any(input_file, mono=mono,
+                                         scaling="phase",
+                                         raw_pcm16=self.device_quantize)
+        if self.config.sample_rate == 0 and self.metadata_layout == "py":
+            self.reconfigure_sr(sr)
+        update_sr = self.length_mode == "py"
+        if buf.dtype == np.int16:
+            self._encode_file_pcm(buf, sr, output_file,
+                                  update_sr_after_upsample=update_sr)
+            return
+        self._encode_file(buf, sr, output_file,
+                          update_sr_after_upsample=update_sr)
 
     def to_tensor(self, buf, sr: int) -> torch.Tensor:
         """Audio buffer + rate -> spectrogram [F, num_freqs, 2] on ``device``:
@@ -275,6 +288,16 @@ class Phase(torch.nn.Module):
         if zp > 0:
             buf = zero_stuff_upsample(np.asarray(buf), zp, zs)
         return self.encode(buf)
+
+    def to_tensor_flac(self, input_file: str) -> np.ndarray:
+        """FLAC -> flattened [F*num_freqs, 2] float64 spectrogram (the
+        Python port's ML hook, phase.py:291-318): channel mean, phase
+        scaling, the rate adopted when none is configured."""
+        buf, sr = audio_io.load_flac(input_file, mono="mean", scaling="phase")
+        if self.config.sample_rate == 0:
+            self.reconfigure_sr(sr)
+        return self.to_tensor(buf, sr).cpu().numpy().astype(
+            np.float64).reshape(-1, 2)
 
     def to_wav_png(self, input_file: str, output_file: str,
                    layout: str = "auto") -> int:

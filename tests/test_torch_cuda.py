@@ -245,6 +245,123 @@ def test_quantize_planes_degenerate_channel(cuda):
     assert int(img[:, :, 1].min()) == 0 and int(img[:, :, 1].max()) == 255
 
 
+# -- NaN, the masked batch forms of KD and KF, KA's per-row scales ------------
+
+def _equal(got, want) -> bool:
+    """Bit-equal, NaN equal to NaN."""
+    got = got.cpu()
+    if got.dtype.is_floating_point:
+        return bool(torch.equal(torch.isnan(got), torch.isnan(want))
+                    and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)))
+    return torch.equal(got, want)
+
+
+def test_quantize_nan_plane_matches_plain(cuda):
+    """A NaN makes the row's (KF: the channel's) extrema NaN and its pixels
+    127, as JAX's max does; fmaxf would have dropped it."""
+    spec = _spec((6, 4, 2), 11)
+    spec[2, 1, 0] = float("nan")
+    img, mx, mn = quantize.quantize_mel_plane(spec.to(cuda))
+    ref = quantize.quantize_mel_plane_plain(spec)
+    assert _equal(img, ref[0]) and _equal(mx, ref[1]) and _equal(mn, ref[2])
+    assert bool(torch.isnan(mx.cpu())) and bool((img.cpu() == 127).all())
+    for max_val in (255, 65535):
+        got = quantize.quantize_planes(spec.to(cuda), max_val)
+        ref = quantize.quantize_planes_plain(spec, max_val)
+        assert all(_equal(g, r) for g, r in zip(got, ref))
+        assert bool(torch.isnan(got[1][0].cpu()))
+        assert not bool(torch.isnan(got[1][1].cpu()))
+        assert bool((got[0][..., 0].cpu() == max_val // 2).all())
+
+
+_MASK_FRAMES = [23, 11, 0, 30]   # full, partial, none, beyond F
+
+
+def _masked_spec(seed, bins):
+    """[4, 23, bins, 2] with a NaN in a counted frame of row 3 and one in a
+    pad frame of row 1."""
+    spec = _spec((4, 23, bins, 2), seed)
+    spec[3, 5, 1, 0] = float("nan")
+    spec[1, 17, 2, 1] = float("nan")
+    return spec
+
+
+def test_quantize_mel_masked_matches_plain(cuda):
+    spec = _masked_spec(12, 33)
+    before = quantize.QUANTIZE_MASKED_KERNEL.launches
+    got = quantize.quantize_mel_plane_batch(spec.to(cuda), frames=_MASK_FRAMES)
+    assert quantize.QUANTIZE_MASKED_KERNEL.launches == before + 1
+    ref = quantize.quantize_mel_plane_plain(spec, 255, torch.tensor(_MASK_FRAMES))
+    assert all(_equal(g, r) for g, r in zip(got, ref))
+    mx, mn = got[1].cpu(), got[2].cpu()
+    assert (float(mx[2]), float(mn[2])) == (-3.4028234663852886e38,
+                                            3.4028234663852886e38)
+    assert bool((got[0][2].cpu() == 127).all())
+    assert not bool(torch.isnan(mx[1])) and bool(torch.isnan(mx[3]))
+
+
+@pytest.mark.parametrize("max_val,ihs", [(255, 0), (65535, 0), (255, 2),
+                                         (65535, 2)])
+def test_quantize_planes_masked_matches_plain(cuda, max_val, ihs):
+    spec = _masked_spec(13, 65) * 10
+    before = quantize.PLANES_MASKED_KERNEL.launches
+    got = quantize.quantize_planes_batch(spec.to(cuda), max_val, ihs,
+                                         frames=_MASK_FRAMES)
+    assert quantize.PLANES_MASKED_KERNEL.launches == before + 1
+    # the plain version on the card, so asinh comes from the same library
+    ref = [t.cpu() for t in quantize.quantize_planes_plain(
+        spec.to(cuda), max_val, ihs, torch.tensor(_MASK_FRAMES, device=cuda))]
+    if ihs == 0:
+        assert all(_equal(g, r) for g, r in zip(got, ref))
+    else:
+        d = (got[0].cpu().int() - ref[0].int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
+        assert torch.equal(torch.isnan(got[1].cpu()), torch.isnan(ref[1]))
+    assert got[1].cpu()[2].tolist() == [-3.4028234663852886e38] * 2
+    assert bool((got[0][2].cpu() == max_val // 2).all())
+
+
+def test_pcm16_ingest_per_row_scales_bit_exact(cuda):
+    pcm = _pcm((4, 1001), seed=7)
+    scales = torch.tensor([32768.0, 65536.0, 65536.0, 32768.0])
+    before = quantize.INGEST_ROWS_KERNEL.launches
+    out = quantize.pcm16_ingest_batch(pcm.to(cuda), torch.float32, scales, 1280)
+    assert quantize.INGEST_ROWS_KERNEL.launches == before + 1
+    ref = quantize.pcm16_ingest_plain(pcm, torch.float32, scales, 1280,
+                                      batched=True)
+    assert torch.equal(out.cpu(), ref)
+    # JAX multiplies by the float32 reciprocal: equal for powers of two
+    recip = (1.0 / scales.double()).float()
+    assert torch.equal(out.cpu()[:, :1001], pcm.float() * recip[:, None])
+
+
+def test_batched_encode_quantized_cuda_vs_cpu(cuda):
+    """BatchedMel and BatchedPhase on the card against the CPU path, int16
+    rows with mixed scales and masked frames."""
+    from gomel_tpu_torch.core.framing import frames_for_padded
+    from gomel_tpu_torch.parallel.batch import BatchedMel, BatchedPhase
+    rng = np.random.default_rng(8)
+    lengths = [9000, 5000, 12000]
+    pcm = np.zeros((3, 12800), np.int16)
+    for r, n in enumerate(lengths):
+        pcm[r, :n] = rng.integers(-8000, 8000, n)
+    frames = np.asarray([frames_for_padded(n, 256, 1024) for n in lengths],
+                        np.int32)
+    scales = np.asarray([32768.0, 65536.0, 32768.0], np.float32)
+    mcfg = MelConfig(num_mels=32, window=256, resolut=1024, mel_fmax=8000.0)
+    got = BatchedMel(mcfg, device=cuda).encode_quantized(pcm, frames, scales)
+    want = BatchedMel(mcfg).encode_quantized(pcm, frames, scales)
+    d = (got[0].cpu().int() - want[0].int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+    pcfg = PhaseConfig(num_freqs=200, window=256, resolut=1024)
+    got = BatchedPhase(pcfg, device=cuda).encode_quantized(pcm, frames)
+    want = BatchedPhase(pcfg).encode_quantized(pcm, frames)
+    d = (got[0].cpu().int() - want[0].int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+
+
 def _spec(shape, seed):
     rng = np.random.default_rng(seed)
     return torch.from_numpy((rng.standard_normal(shape) * 20).astype(np.float32))

@@ -17,18 +17,25 @@ from gomel_tpu.core import config as jcfg
 from gomel_tpu.core import filterbank as jfb
 from gomel_tpu.core import framing as jfr
 from gomel_tpu.io import audio as jaudio
+from gomel_tpu.io import dataset as jds
+from gomel_tpu.io import flac as jflac
 from gomel_tpu.io import float16meta as jf16
 from gomel_tpu.io import imagecodec as jimg
 from gomel_tpu.io import pngcodec as jpng
 from gomel_tpu.io import wavcodec as jwav
+from gomel_tpu.parallel import batch as jbatch
 from gomel_tpu_torch.core import config as tcfg
 from gomel_tpu_torch.core import filterbank as tfb
 from gomel_tpu_torch.core import framing as tfr
+from gomel_tpu_torch.io import _native as tnative
 from gomel_tpu_torch.io import audio as taudio
+from gomel_tpu_torch.io import dataset as tds
+from gomel_tpu_torch.io import flac as tflac
 from gomel_tpu_torch.io import float16meta as tf16
 from gomel_tpu_torch.io import imagecodec as timg
 from gomel_tpu_torch.io import pngcodec as tpng
 from gomel_tpu_torch.io import wavcodec as twav
+from gomel_tpu_torch.parallel import batch as tbatch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -220,6 +227,8 @@ def test_phase_configs_equal():
 
 def test_port_imports_no_jax():
     code = ("import sys; import gomel_tpu_torch, gomel_tpu_torch.cli.tools, "
+            "gomel_tpu_torch.cli.batch, gomel_tpu_torch.parallel, "
+            "gomel_tpu_torch.io.flac, gomel_tpu_torch.io.dataset, "
             "gomel_tpu_torch.ops.fftbackend, gomel_tpu_torch.ops.phase_ops; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gomel_tpu' or m.startswith('gomel_tpu.')]; "
@@ -243,3 +252,182 @@ def test_port_sources_name_no_jax():
                                                  "import gomel_tpu.",
                                                  "from gomel_tpu ",
                                                  "from gomel_tpu.")), f
+
+
+# -- FLAC, the dataset loader and the bucketer (the batch slice) -------------
+
+def _flac_pcm(n, ch, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    tone = 8000 * np.sin(2 * np.pi * 440 * t)[:, None] + rng.integers(
+        -300, 300, size=(n, ch))
+    return np.clip(tone, -32768, 32767).astype(np.int64).squeeze()
+
+
+def test_flacdec_source_equal():
+    """The C++ decoder is the JAX package's, byte for byte below its header
+    comment (which names the port's paths)."""
+    def body(path):
+        with open(path, "rb") as f:
+            lines = f.read().split(b"\n")
+        return b"\n".join(lines[next(i for i, ln in enumerate(lines)
+                                     if not ln.startswith(b"//")):])
+    assert body(os.path.join(REPO, "gomel_tpu_torch", "native",
+                             "flacdec.cpp")) == \
+        body(os.path.join(REPO, "gomel_tpu", "native", "flacdec.cpp"))
+
+
+@pytest.mark.parametrize("mode", ["verbatim", "fixed"])
+@pytest.mark.parametrize("ch", [1, 2])
+def test_read_flac_equal(tmp_path, mode, ch):
+    pcm = _flac_pcm(9000 + 123, ch, seed=ch)
+    path = str(tmp_path / "a.flac")
+    tflac.write_flac(path, pcm, 16000, mode=mode)
+    with open(path, "rb") as f:
+        data = f.read()
+    jflac.write_flac(str(tmp_path / "j.flac"), pcm, 16000, mode=mode)
+    assert (tmp_path / "j.flac").read_bytes() == data
+    for layout in ("interleaved", "go_concat"):
+        got, sr = tflac.read_flac(path, layout=layout)
+        want, sr_j = jflac.read_flac(path, layout=layout)
+        assert sr == sr_j == 16000 and got.dtype == want.dtype == np.int16
+        np.testing.assert_array_equal(got, want)
+        lay = 1 if layout == "go_concat" else 0
+        for x, y in zip(tflac._decode_python(data, lay),
+                        jflac._decode_python(data, lay)):
+            np.testing.assert_array_equal(x, y)
+    # the native and the pure-Python decoders agree
+    arr, nch, sr, bps = tflac._decode_python(data)
+    np.testing.assert_array_equal(arr.reshape(-1, nch).squeeze(),
+                                  tflac.read_flac(path)[0])
+    assert tflac.decoder() == "native"
+
+
+def test_native_flac_builds_outside_the_sources():
+    lib = tflac._get_lib()
+    assert lib is not None
+    assert os.path.dirname(tflac._flaclib._so) == tnative.BUILD_DIR
+    assert tnative.BUILD_DIR.startswith(os.path.join(REPO, "build"))
+    assert not [f for f in os.listdir(os.path.join(REPO, "gomel_tpu_torch",
+                                                   "native"))
+                if f.endswith(".so")]
+
+
+@pytest.mark.parametrize("mono", ["mean", "left", "go_concat"])
+def test_load_flac_equal(tmp_path, mono):
+    path = str(tmp_path / "s.flac")
+    tflac.write_flac(path, _flac_pcm(5001, 2, seed=3), 16000)
+    for scaling in ("phase", "mel"):
+        x, sr = taudio.load_flac(path, mono, scaling)
+        y, sr_j = jaudio.load_flac(path, mono, scaling)
+        assert sr == sr_j
+        np.testing.assert_array_equal(x, y)
+        for raw in (False, True):
+            x, _ = taudio.load_flac_any(path, mono, scaling, raw_pcm16=raw)
+            y, _ = jaudio.load_flac_any(path, mono, scaling, raw_pcm16=raw)
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+    got = taudio.load_flac_pcm16(path, mono)
+    want = jaudio.load_flac_pcm16(path, mono)
+    np.testing.assert_array_equal(got[0], want[0])
+    with pytest.raises(tcfg.FileNotLoadedError):
+        taudio.load_flac(str(tmp_path / "missing.flac"))
+
+
+@pytest.fixture
+def audio_dir(tmp_path):
+    """Five files, WAV and FLAC alternating, plus a file to ignore."""
+    rng = np.random.default_rng(6)
+    paths = []
+    for i in range(5):
+        buf = rng.uniform(-0.5, 0.5, 1000 + 500 * i)
+        p = tmp_path / (f"u{i}.wav" if i % 2 == 0 else f"u{i}.flac")
+        if i % 2 == 0:
+            jaudio.save_wav(str(p), buf, 16000)
+        else:
+            jflac.write_flac(str(p), buf, 16000)
+        paths.append(str(p))
+    (tmp_path / "notes.txt").write_text("ignore me")
+    return tmp_path, sorted(paths)
+
+
+def test_dataset_equal(audio_dir, tmp_path):
+    d, paths = audio_dir
+    assert tds.list_audio_files(str(d)) == jds.list_audio_files(str(d)) \
+        == paths
+    assert tds.list_audio_files(str(d), recursive=False) == paths
+    for p in paths:
+        for raw in (False, True):
+            for scaling in ("phase", "mel"):
+                x, sr = tds.load_audio(p, "go_concat", scaling, raw)
+                y, sr_j = jds.load_audio(p, "go_concat", scaling, raw)
+                assert sr == sr_j and x.dtype == y.dtype
+                np.testing.assert_array_equal(x, y)
+                assert tds.pcm_scale_for(p, x, scaling) == \
+                    jds.pcm_scale_for(p, y, scaling)
+    # order, prefetch, skip and raise, as tests/test_dataset.py
+    got = [(p, b) for p, b, _ in tds.AudioDataset(paths, num_workers=3,
+                                                   prefetch=2)]
+    want = [(p, b) for p, b, _ in jds.AudioDataset(paths)]
+    assert [p for p, _ in got] == [p for p, _ in want] == paths
+    for (_, x), (_, y) in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+    bad = str(tmp_path / "bad.flac")
+    with open(bad, "wb") as f:
+        f.write(b"garbage")
+    ds = tds.AudioDataset([paths[0], bad, paths[1]], on_error="skip")
+    assert [p for p, _, _ in ds] == [paths[0], paths[1]]
+    with pytest.raises(tcfg.GomelError):
+        list(tds.AudioDataset([bad], on_error="raise"))
+    batches = list(tds.batched_buffers(tds.AudioDataset(paths), 2))
+    assert [len(b) for b in batches] == [2, 2, 1]
+
+
+def test_wav_and_flac_agree(tmp_path):
+    """The same content as WAV and as FLAC decodes alike (to 2 LSB: the two
+    writers round differently)."""
+    buf = np.clip(np.random.default_rng(7).standard_normal(4000) * 0.3,
+                  -0.999, 0.999)
+    wav_p, flac_p = str(tmp_path / "same.wav"), str(tmp_path / "same.flac")
+    taudio.save_wav(wav_p, buf, 16000)
+    tflac.write_flac(flac_p, buf, 16000)
+    (w, sr_w), (f, sr_f) = tds.load_audio(wav_p), tds.load_audio(flac_p)
+    assert sr_w == sr_f == 16000
+    np.testing.assert_allclose(w, f, atol=2.0 / 32768)
+
+
+def test_shard_files_for_process_equal():
+    files = [f"f{i}" for i in range(10)]
+    for count in (1, 3, 4):
+        for index in range(count):
+            assert tds.shard_files_for_process(files, index, count) == \
+                jds.shard_files_for_process(files, index, count)
+    assert tds.shard_files_for_process(files) == files   # rank 0 of 1
+    with pytest.raises(ValueError):
+        tds.shard_files_for_process(files, 3, 3)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+@pytest.mark.parametrize("max_batch", [1, 2, 64])
+def test_make_buckets_equal(dtype, max_batch):
+    rng = np.random.default_rng(8)
+    utts = [(rng.standard_normal(n) * 1000).astype(dtype)
+            for n in (100, 5000, 120, 5100, 30000, 0, 777)]
+    got = tbatch.make_buckets(utts, hop=64, max_batch=max_batch, dtype=dtype)
+    want = jbatch.make_buckets(utts, hop=64, max_batch=max_batch, dtype=dtype)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for field in ("audio", "lengths", "indices"):
+            np.testing.assert_array_equal(getattr(g, field), getattr(w, field))
+            assert getattr(g, field).dtype == getattr(w, field).dtype
+        assert g.padded_len == w.padded_len
+        for multiple in (1, 3, 4):
+            gp = tbatch.pad_batch_to_multiple(g, multiple)
+            wp = jbatch.pad_batch_to_multiple(w, multiple)
+            for field in ("audio", "lengths", "indices"):
+                np.testing.assert_array_equal(getattr(gp, field),
+                                              getattr(wp, field))
+    bounds = [64 * 20, 64 * 100]
+    got = tbatch.make_buckets(utts, 64, 4, bucket_boundaries=bounds)
+    want = jbatch.make_buckets(utts, 64, 4, bucket_boundaries=bounds)
+    assert [b.padded_len for b in got] == [b.padded_len for b in want]

@@ -486,3 +486,118 @@ def test_overlap_normalize_plain_flags_per_row():
     pcm, ok = tistft.overlap_normalize(fw, 16, win, pcm16=True)
     assert ok.tolist() == [True, False] and pcm.dtype == torch.int16
     assert np.all(pcm.numpy()[1] == 0)
+
+
+# -- NaN, the masked batch quantizers and per-row ingest scales --------------
+
+def _nan_plane(np_dt):
+    """The [6, 4, 2] plane with one NaN of the repair's report."""
+    x = (np.random.default_rng(20).standard_normal((6, 4, 2)) * 3 - 1)
+    x[2, 1, 0] = np.nan
+    return x.astype(np_dt)
+
+
+def _same(port: torch.Tensor, ref) -> None:
+    """Bit-equal, NaN where the JAX op has NaN."""
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_quantize_nan_plane_vs_jax(dt):
+    """A NaN reaches the extrema (JAX's max propagates it) and pins every
+    pixel of the row, or of the channel for the phase quantizer, at the
+    midpoint."""
+    np_dt = DTYPES[dt][0]
+    x = _nan_plane(np_dt)
+    ref = jq.quantize_mel_plane(jnp.asarray(x))
+    out = tq.quantize_mel_plane(torch.from_numpy(x))
+    for o, r in zip(out, ref):
+        _same(o, r)
+    assert np.isnan(float(out[1])) and bool((out[0] == 127).all())
+    for max_val in (255, 65535):
+        ref = jq.quantize_planes(jnp.asarray(x), max_val)
+        out = tq.quantize_planes(torch.from_numpy(x), max_val)
+        for o, r in zip(out, ref):
+            _same(o, r)
+        assert np.isnan(float(out[1][0])) and not np.isnan(float(out[1][1]))
+        assert bool((out[0][..., 0] == max_val // 2).all())
+
+
+def _masked_batch(np_dt, bins=6, scale=3.0):
+    """[4, 9, bins, 2] with a NaN in a counted frame of row 1 and one in a
+    pad frame of row 2; frames: full, partial, partial, 0."""
+    x = np.random.default_rng(21).standard_normal((4, 9, bins, 2)) * scale - 1
+    x[1, 2, 3, 0] = np.nan
+    x[2, 8, 1, 1] = np.nan
+    return x.astype(np_dt), np.array([9, 5, 4, 0], np.int32)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_quantize_mel_masked_vs_jax(dt):
+    x, frames = _masked_batch(DTYPES[dt][0])
+    ref = jq.quantize_mel_plane_batch(jnp.asarray(x), 255,
+                                      frames=jnp.asarray(frames))
+    out = tq.quantize_mel_plane_batch(torch.from_numpy(x), 255, frames=frames)
+    for o, r in zip(out, ref):
+        _same(o, r)   # bit-equal in both dtypes
+    mx, mn = out[1].numpy(), out[2].numpy()
+    big = np.finfo(DTYPES[dt][0]).max
+    assert (mx[3], mn[3]) == (-big, big)     # frames = 0: the sentinels
+    assert bool((out[0][3] == 127).all())
+    assert np.isnan(mx[1]) and not np.isnan(mx[2])   # counted vs pad NaN
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("max_val,ihs", [(255, 0), (65535, 0), (255, 2),
+                                         (65535, 2)])
+def test_quantize_planes_masked_vs_jax(dt, max_val, ihs):
+    x, frames = _masked_batch(DTYPES[dt][0], bins=40, scale=30.0)
+    ref = [np.asarray(r) for r in jq.quantize_planes_batch(
+        jnp.asarray(x), max_val, ihs, frames=jnp.asarray(frames))]
+    out = [t.numpy() for t in tq.quantize_planes_batch(
+        torch.from_numpy(x), max_val, ihs, frames=frames)]
+    if ihs == 0:
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(o, r)   # bit-equal
+    else:
+        # XLA's and PyTorch's asinh differ in the last bit (up to 1 ulp in
+        # float64): extrema within 4 ulp, planes within 1 step, rarely
+        d = np.abs(out[0].astype(np.int64) - ref[0].astype(np.int64))
+        assert d.max() <= 1 and (d > 0).mean() < 2e-3
+        for o, r in zip(out[1:], ref[1:]):
+            np.testing.assert_allclose(o, r, rtol=4 * np.finfo(o.dtype).eps)
+    big = np.finfo(DTYPES[dt][0]).max
+    assert out[1][3].tolist() == [-big, -big]
+    assert bool((out[0][3] == max_val // 2).all())
+
+
+def test_masked_quantizers_need_one_frame_count_per_row():
+    x = torch.zeros((3, 5, 4, 2))
+    with pytest.raises(ValueError):
+        tq.quantize_mel_plane_batch(x, frames=[5, 5])
+    with pytest.raises(ValueError):
+        tq.quantize_planes_batch(x, 255, frames=[5, 5, 5, 5])
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_pcm16_ingest_per_row_scales_vs_jax(dt):
+    """KA's per-row form against the JAX package's per-row ingest: each row
+    as pcm16_ingest alone, and the batch CLIs' multiply by the float32
+    reciprocal (gomel_tpu/parallel/batch.py:299), bit for bit."""
+    _, t_dt, j_dt = DTYPES[dt]
+    pcm = np.random.default_rng(22).integers(-32768, 32768, size=(4, 999),
+                                             dtype=np.int16)
+    scales = np.array([32768.0, 65536.0, 65536.0, 32768.0], np.float32)
+    out = tq.pcm16_ingest_batch(torch.from_numpy(pcm), t_dt, scales,
+                                1280).numpy()
+    for r in range(4):
+        ref = np.asarray(jq.pcm16_ingest(jnp.asarray(pcm[r]), j_dt,
+                                         float(scales[r]), 1280))
+        np.testing.assert_array_equal(out[r], ref)
+    recip = (1.0 / scales.astype(np.float64)).astype(np.float32)
+    ref = np.asarray(jnp.asarray(pcm).astype(j_dt) * jnp.asarray(recip)[:, None])
+    np.testing.assert_array_equal(out[:, :999], ref)
+    with pytest.raises(ValueError):
+        tq.pcm16_ingest_batch(torch.from_numpy(pcm), t_dt, scales[:3])
+    with pytest.raises(ValueError):
+        tq.pcm16_ingest(torch.from_numpy(pcm[0]), t_dt, scales)

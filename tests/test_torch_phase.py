@@ -291,11 +291,19 @@ def test_cli_without_cuda_exits_1(wav, tmp_path, capsys):
 
 
 def test_flac_input_not_ported(tmp_path, capsys):
+    """FLAC input is ported now: a missing FLAC fails with the loader's
+    error and tophase exits 1; a 16-bit FLAC encodes (its parity with the
+    JAX package is tests/test_torch_batch.py::test_to_phase_flac_vs_jax)."""
+    from gomel_tpu_torch.core.config import FileNotLoadedError
+    from gomel_tpu_torch.io.flac import write_flac
     flac = str(tmp_path / "x.flac")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotLoadedError):
         Phase(PhaseConfig.cli_default()).to_phase_flac(flac, flac + ".png")
     assert ttools.tophase([flac, "--device", "cpu"]) == 1
-    assert "not ported" in capsys.readouterr().err
+    assert "could not load flac" in capsys.readouterr().err
+    write_flac(flac, np.sin(np.arange(9000) / 7.0) * 0.3, 48000)
+    assert ttools.tophase([flac, "--device", "cpu"]) == 0
+    assert read_png(flac + ".png").shape[0] == 1536
     assert ttools.fromphase([str(tmp_path / "missing.png"), "--device",
                              "cpu"]) == 1
 
