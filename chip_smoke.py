@@ -10,10 +10,13 @@ frame counts, NaNs and mixed per-row scales), drives the main paths through
 the user's entry points (the ``tomel`` CLI, then ``tophase`` and
 ``fromphase``, on a 30 s 48 kHz WAV and, for the zero-stuff ingest, a short
 16 kHz WAV, then ``towav`` on the ``tomel`` PNG; then the four batch CLIs on
-a directory of 12 WAV and FLAC files of 2-45 s) and holds their PNGs and
-WAVs against the port's CPU path and its single-file tools, checks that
-every kernel of each path was launched on it, and times each kernel against
-its plain version and each batch CLI against the single-file tool.
+a directory of 12 WAV and FLAC files of 2-45 s; then LongFormPhase and
+LongFormMel on a 30-minute WAV over four frame shards of the card) and holds
+their PNGs and WAVs against the port's CPU path and its single-file tools,
+checks that every kernel of each path was launched on it, and times each
+kernel against its plain version, its bound and, where one exists, the one
+PyTorch call of the same function, each batch CLI against the single-file
+tool, and each long-form call step by step.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -230,14 +233,15 @@ def graph(fn):
     return g.replay
 
 
-def race(kernel_fn, plain_fn, name: str = "") -> tuple[float, float]:
+def race(kernel_fn, plain_fn, name: str = "", iters: int = 20,
+         warmup: int = 3) -> tuple[float, float]:
     """(kernel ms, plain ms), each the lower of two runs taken in the order
     plain, kernel, kernel, plain."""
     try:
-        p1 = cuda_ms(plain_fn)
-        k1 = cuda_ms(kernel_fn)
-        k2 = cuda_ms(kernel_fn)
-        p2 = cuda_ms(plain_fn)
+        p1 = cuda_ms(plain_fn, iters, warmup)
+        k1 = cuda_ms(kernel_fn, iters, warmup)
+        k2 = cuda_ms(kernel_fn, iters, warmup)
+        p2 = cuda_ms(plain_fn, iters, warmup)
     except RuntimeError as e:
         raise RuntimeError(f"timing {name}: {e}") from e
     return min(k1, k2), min(p1, p2)
@@ -258,6 +262,474 @@ def busy_share(fn) -> tuple[float, float, float]:
     busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
     return 1e3 * wall, busy_us / 1e3, busy_us / 1e6 / wall
+
+
+def pngs_near(a: str, b: str, mel: bool) -> tuple[int, float]:
+    """(max step, flip rate) between two PNGs of the mel (or phase) codec;
+    raises beyond 1 step, a flip rate of 2e-3, or unequal metadata."""
+    from gomel_tpu_torch.io import imagecodec
+    from gomel_tpu_torch.io.pngcodec import read_png
+    d = png_steps(a, b, read_png)
+    load = (lambda p: imagecodec.load_mel_image_raw(p, True)[1:]) if mel \
+        else (lambda p: imagecodec.load_phase_image_raw(p, True)[1:])
+    meta_eq = all(np.array_equal(u, v) for u, v in zip(load(a), load(b)))
+    if d.max() > 1 or float((d > 0).mean()) >= 2e-3 or not meta_eq:
+        raise AssertionError(f"{a} vs {b}: max step {int(d.max())}, flip "
+                             f"rate {float((d > 0).mean()):.2e}, metadata "
+                             f"equal {meta_eq}")
+    return int(d.max()), float((d > 0).mean())
+
+
+def wavs_near(a: str, b: str, lsb_bound: int) -> tuple[int, float]:
+    """(max LSB, differing share) between two WAVs; raises beyond
+    ``lsb_bound`` or 5e-2 differing, or on unequal rates or lengths."""
+    from gomel_tpu_torch.io import wavcodec
+    (wa, sa), (wb, sb) = wavcodec.read_wav(a), wavcodec.read_wav(b)
+    if sa != sb or wa.shape != wb.shape:
+        raise AssertionError(f"{a} vs {b}: {wa.shape} @ {sa} vs "
+                             f"{wb.shape} @ {sb}")
+    d = np.abs(wa.astype(np.int64) - wb.astype(np.int64))
+    if d.max() > lsb_bound or float((d > 0).mean()) >= 5e-2:
+        raise AssertionError(f"{a} vs {b}: {int(d.max())} LSB, "
+                             f"{float((d > 0).mean()):.2e} differing")
+    return int(d.max()), float((d > 0).mean())
+
+
+LONG_SECONDS = 1800.0   # the long-form phase's file: 30 minutes at 48 kHz
+N_SHARDS = 4            # frame shards of that phase, all on one card
+# H100 SXM peaks for bound_ms (NVIDIA's data sheet): HBM bytes/s and
+# float32 SIMT FLOP/s; every kernel of the port is float32 on the CUDA cores
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+
+
+def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over the float32 peak."""
+    t_b, t_f = n_bytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def nbytes(*tensors) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def fft_ops(n: int) -> float:
+    """Operations of one real FFT of n points (the usual 2.5 n log2 n)."""
+    return 2.5 * n * math.log2(n)
+
+
+def long_plan(pcfg):
+    """The frame-shard plan of the 30-minute file at the CLI widths."""
+    from gomel_tpu_torch.core.framing import num_frames, pad_length
+    from gomel_tpu_torch.parallel import sharded as sh
+    n = int(SAMPLE_RATE * LONG_SECONDS)
+    f = num_frames(pad_length(n, pcfg.window), pcfg.resolut, pcfg.window)
+    return sh.plan_frame_sharding(f, pcfg.resolut, pcfg.window, N_SHARDS)
+
+
+def longform_kernels(dev: torch.device, errs: dict) -> dict:
+    """Phase 2e: KL, KG with its real-frame count (counts 0, partial and
+    full) and KM's three modes against their plain versions, at the shapes
+    of the last shard of the 30-minute long-form phase decode (PNG planes
+    [1, F_loc, 1536, 2]); returns phase 4's closures and work counts."""
+    from gomel_tpu_torch.core.config import PhaseConfig
+    from gomel_tpu_torch.ops import istft, phase_ops, quantize
+    from gomel_tpu_torch.ops.stft import hann_window
+    from gomel_tpu_torch.parallel import sharded as sh
+
+    pcfg = PhaseConfig.cli_default()
+    n, hop, nf = pcfg.resolut, pcfg.window, pcfg.num_freqs
+    plan = long_plan(pcfg)
+    f_loc, chunk, halo = plan.frames_per_shard, plan.chunk, plan.halo
+    last = N_SHARDS - 1
+    real = sh._local_frame_count(plan, last)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    planes = torch.randint(0, 256, (1, f_loc, nf, 2), generator=g,
+                           device=dev, dtype=torch.uint8)
+    maxs = torch.tensor([41.5, 37.25], device=dev)
+    mins = torch.tensor([-40.75, -38.5], device=dev)
+    spec = quantize.dequantize_raw(planes, maxs, mins, 255)
+    spec_ref = quantize.dequantize_raw_plain(planes, maxs, mins, 255)
+    rng16 = np.random.default_rng(SEED)
+    p16 = torch.from_numpy(rng16.integers(0, 65536, (1, 2048, nf, 2),
+                                          dtype=np.uint16)).to(dev)
+    small = (torch.tensor([2.0, 1.5], device=dev),
+             torch.tensor([-1.75, -2.0], device=dev))
+    d16 = quantize.dequantize_raw(p16, *small, 65535, 2, 0.5)
+    r16 = quantize.dequantize_raw_plain(p16, *small, 65535, 2, 0.5)
+    torch.cuda.synchronize()
+    if not torch.equal(spec, spec_ref):
+        raise AssertionError("dequantize_raw differs from its plain version")
+    rel16 = float(((d16 - r16).abs() / r16.abs().clamp_min(1e-6)).max())
+    errs["dequantize_raw"] = float((d16 - r16).abs().max())
+    log(f"KL dequantize_raw u8 {tuple(planes.shape)}: bit-exact; u16 with 2 "
+        f"sinh passes and boost 0.5 {tuple(p16.shape)}: max|d| "
+        f"{errs['dequantize_raw']:.3e}, relative {rel16:.3e} (bound 1e-6)")
+    if rel16 > 1e-6:
+        raise AssertionError("dequantize_raw (IHS) outside its bound")
+
+    win = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
+    full = istft.launch_irfft_window(istft.MODE_SPEC, spec, (), n, f_loc, nf,
+                                     win, (1,))
+    re, im = phase_ops.grow_half_planes(spec, n // 2)
+    peak = istft.irfft_window_plain(re, im, n, None).abs().amax(-1, keepdim=True)
+    errs["irfft_window_masked"] = 0.0
+    for count in (0, real, f_loc):
+        fw = istft.launch_irfft_window(istft.MODE_SPEC, spec, (), n, f_loc,
+                                       nf, win, (1,), real_frames=count)
+        ref = istft.irfft_window_plain(re, im, n, win, count)
+        torch.cuda.synchronize()
+        d = (fw - ref).abs()
+        ok = bool((d <= 1e-5 * peak).all()) and torch.equal(
+            fw[:, :count], full[:, :count]) and not bool(fw[:, count:].any())
+        errs["irfft_window_masked"] = max(errs["irfft_window_masked"],
+                                          float(d.max()))
+        log(f"KG irfft_window, real frames {count} of {f_loc}: max|d| vs "
+            f"torch.fft f32 {float(d.max()):.3e}, / unwindowed frame peak "
+            f"{float((d / peak.clamp_min(1e-30)).max()):.3e} (bound 1e-5); "
+            f"real frames bit-equal to the unmasked launch, the rest zero: "
+            f"{ok}")
+        if not ok:
+            raise AssertionError(f"irfft_window with {count} real frames "
+                                 f"outside its bound")
+    fw_last = istft.launch_irfft_window(istft.MODE_SPEC, spec, (), n, f_loc,
+                                        nf, win, (1,), real_frames=real)
+    sig_ext = istft.overlap_add(fw_last, hop)
+    left = istft.overlap_add(full, hop)
+    recv = left[:, chunk:]
+    t_prev = torch.rand((1, chunk), generator=g, device=dev)
+    decode = dict(window=win, hop=hop, start=last * chunk,
+                  n_frames=plan.n_frames)
+    errs["shard_epilogue"] = 0.0
+    for label, kw in (
+            ("decode, boost 1.5, PCM-16", dict(decode, volume_boost=1.5,
+                                                pcm16=True)),
+            ("decode, float32", decode),
+            ("GL momentum 0.99, extended carry",
+             dict(t_prev=t_prev, momentum=0.99, extend=True)),
+            ("GL final, PCM-16", dict(pcm16=True)),
+            ("GL final, float32", {})):
+        got = istft.shard_epilogue(sig_ext, recv, chunk, **kw)
+        want = istft.shard_epilogue_plain(sig_ext, recv, chunk, **kw)
+        torch.cuda.synchronize()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        if not all(torch.equal(a[..., :chunk], b[..., :chunk])
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"shard_epilogue ({label}) differs from its "
+                                 f"plain version")
+        for a, b in zip(got, want):
+            if a.dtype.is_floating_point:
+                errs["shard_epilogue"] = max(errs["shard_epilogue"], float(
+                    (a[..., :chunk] - b[..., :chunk]).abs().max()))
+    log(f"KM shard_epilogue [1, {chunk} + {halo}] (shard {last}, {real} real "
+        f"frames): decode with and without boost, float32 and PCM-16, GL "
+        f"momentum and final: bit-exact")
+
+    prefix = istft._window_table(win, hop)[1]
+    spec_c = torch.complex(re, im)
+    return {
+        "dequantize_raw": dict(
+            kernel=lambda: quantize.dequantize_raw(planes, maxs, mins, 255),
+            plain=lambda: quantize.dequantize_raw_plain(planes, maxs, mins,
+                                                        255),
+            work=(nbytes(planes, maxs, mins, spec), 4.0 * planes.numel()),
+            library=None),
+        "irfft_window_masked": dict(
+            kernel=lambda: istft.launch_irfft_window(
+                istft.MODE_SPEC, spec, (), n, f_loc, nf, win, (1,),
+                real_frames=real),
+            plain=lambda: istft.irfft_window_plain(
+                *phase_ops.grow_half_planes(spec, n // 2), n, win, real),
+            work=(nbytes(spec, win, fw_last),
+                  real * (fft_ops(n) + n) + 3.0 * spec.numel()),
+            library=lambda: torch.fft.irfft(spec_c, n=n)),
+        "shard_epilogue": dict(
+            kernel=lambda: istft.shard_epilogue(sig_ext, recv, chunk,
+                                                pcm16=True, **decode),
+            plain=lambda: istft.shard_epilogue_plain(sig_ext, recv, chunk,
+                                                     pcm16=True, **decode),
+            work=(nbytes(sig_ext, recv, prefix) + 2.0 * chunk, 8.0 * chunk),
+            library=None),
+    }
+
+
+def long_pcm(n: int, dev: torch.device) -> np.ndarray:
+    """int16 [n] at 48 kHz, made on the card from the seed: four tones
+    whose levels drift slowly, light noise and a quiet stretch."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    f64 = torch.float64
+    t = torch.arange(n, device=dev, dtype=f64) / SAMPLE_RATE
+    f = torch.rand(4, generator=g, device=dev, dtype=f64) * 3920.0 + 80.0
+    a = torch.rand(4, generator=g, device=dev, dtype=f64) * 0.15 + 0.02
+    x = 0.01 * torch.randn(n, generator=g, device=dev, dtype=f64)
+    for k in range(4):
+        x += a[k] * (1.0 + 0.5 * torch.sin(2 * math.pi * t / (97.0 + 31 * k))
+                     ) * torch.sin(2 * math.pi * f[k] * t)
+    x[n // 3: n // 3 + SAMPLE_RATE] *= 1e-3
+    pcm = torch.clamp(torch.round(x * 32768.0), -32768, 32767).to(torch.int16)
+    return pcm.cpu().numpy()
+
+
+def longform_split(lp, lm, wav: str, pngs: dict, outs: dict, runs: int
+                   ) -> dict[str, dict[str, float]]:
+    """Host-clock milliseconds of each step of the four long-form file calls
+    with device quantize (the steps of LongFormPhase / LongFormMel
+    to_*_wav and to_wav_png), each ended by a synchronise; medians of
+    ``runs``."""
+    from gomel_tpu_torch.io import audio as audio_io
+    from gomel_tpu_torch.io import imagecodec
+    from gomel_tpu_torch.ops.quantize import quantize_mel_plane, quantize_planes
+    from gomel_tpu_torch.parallel import sharded as sh
+    from gomel_tpu_torch.pipelines import longform as lf
+
+    result: dict[str, dict[str, list[float]]] = {}
+
+    def step(call, name, fn):
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        result.setdefault(call, {}).setdefault(name, []).append(
+            1e3 * (time.perf_counter() - t0))
+        return value
+
+    for _ in range(runs):
+        for call, codec in (("LongFormPhase.to_phase_wav", lp),
+                            ("LongFormMel.to_mel_wav", lm)):
+            c = codec.config
+            buf, sr = step(call, "WAV read", lambda: audio_io.load_wav_any(
+                wav, mono="left", raw_pcm16=True))
+            plan = codec._plan(len(buf))
+            xg, b = step(call, "pad + H2D int16", lambda: codec._prep_signal(
+                buf, plan, raw=True))
+
+            def device():
+                spec = codec._trim(codec._encode_fn(plan)(
+                    codec._pcm_convert(xg, 32768.0)), b, plan.n_frames)
+                if codec is lp:
+                    return quantize_planes(spec[0].contiguous(), 255,
+                                           c.ihs_passes)
+                return quantize_mel_plane(spec[0].contiguous(), 255)
+            q = step(call, "device (KA, encode, gather, quantize)", device)
+            img2, mx, mn = step(call, "D2H planes + extrema", lambda: tuple(
+                t.cpu().numpy() for t in q))
+            if codec is lp:
+                step(call, "PNG write", lambda: imagecodec.save_phase_image_quantized(
+                    pngs["split"], img2, mx, mn, c.y_reverse,
+                    float(len(buf)) / img2.shape[1], float(sr), c.hdr,
+                    layout="go"))
+            else:
+                step(call, "PNG write", lambda: imagecodec.save_mel_image_quantized(
+                    pngs["split"], img2, float(mx), float(mn), c.y_reverse,
+                    float(len(buf)) / img2.shape[1], float(sr)))
+        call = "LongFormPhase.to_wav_png"
+        c = lp.config
+        planes, maxs, mins, samples, sr, nf = step(
+            call, "PNG read", lambda: imagecodec.load_phase_image_raw(
+                pngs["phase"], c.y_reverse, c.hdr))
+        plan = lp._plan_for_frames(planes.shape[1])
+        pg, _ = step(call, "pad + H2D planes", lambda: lp._prep_frames(
+            planes.transpose(1, 0, 2)[None], plan, raw=True))
+
+        def phase_device():
+            spec = sh.Sharded(lp.mesh, [lf.dequantize_raw(
+                s, maxs, mins, 255, c.ihs_passes) for s in pg.shards])
+            return lp._decode_fn(plan, pcm16=True)(spec)
+        res = step(call, "device (KL, KG, KH, KM, gather)", phase_device)
+        wave = step(call, "D2H int16 + flag", lambda: lf._finite_pcm(
+            res, plan.out_len))
+        step(call, "WAV write", lambda: audio_io.save_wav_pcm16(
+            outs["split"], wave[:int(samples)], c.family_main_rate))
+
+        call = "LongFormMel.to_wav_png"
+        c = lm.config
+        planes, mx, mn, samples, sr = step(
+            call, "PNG read", lambda: imagecodec.load_mel_image_raw(
+                pngs["mel"], c.y_reverse))
+        plan = lm._plan_for_frames(planes.shape[1])
+        pg, _ = step(call, "pad + H2D planes", lambda: lm._prep_frames(
+            planes.transpose(1, 0, 2)[None], plan, raw=True))
+        sig0 = step(call, "GL start drawn (CPU) + H2D",
+                    lambda: sh.sharded_gl_noise_fn(lm.mesh, plan, 1)(1))
+
+        def mel_device():
+            logmel = sh.Sharded(lm.mesh, [lf.dequantize_raw(
+                s, mx, mn, 255, 0, float(c.volume_boost)) for s in pg.shards])
+            mag = sh.sharded_mel_magnitudes_fn(lm.mesh, lm._inv, c.tune_mul,
+                                               c.tune_add)(logmel)
+            return sh.sharded_griffin_lim_fn(
+                lm.mesh, plan, c.griffin_lim_iterations, pcm16=True)(mag,
+                                                                      sig0)
+        res = step(call, "device (KL, KI, KJ, KK, KM, gather)", mel_device)
+        wave = step(call, "D2H int16 + flag", lambda: lf._finite_pcm(
+            res, plan.out_len))
+        step(call, "WAV write", lambda: audio_io.save_wav_pcm16(
+            outs["split"], wave[:int(samples)], int(sr)))
+    return {call: {k: float(np.median(v)) for k, v in steps.items()}
+            for call, steps in result.items()}
+
+
+def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
+    """Phase 3e: the long-form path on one seeded 30-minute 48 kHz mono WAV
+    through LongFormPhase and LongFormMel with device quantize, on four frame
+    shards of one card (about 16,900 frames a shard, which K18's
+    auto_frame_chunk would cut into 1024-frame chunks): to_phase_wav then
+    to_wav_png, to_mel_wav then to_wav_png at the
+    config's GL-2. Checks the launches of KA-KM on these paths, the PNGs and
+    WAVs against the single-file Phase / Mel on the same file, the GL
+    against ops/griffinlim.griffin_lim from the concatenated per-shard start,
+    and decode_resumable against decode; then the host-clock split of each
+    call, the cost of the CPU draw of the GL start, and K18's race (chunked
+    against unchunked encodes)."""
+    from gomel_tpu_torch import (LongFormMel, LongFormPhase, Mel, MelConfig,
+                                 Phase, PhaseConfig, make_mesh)
+    from gomel_tpu_torch.core.framing import is_padded
+    from gomel_tpu_torch.io import imagecodec, wavcodec
+    from gomel_tpu_torch.io.pngcodec import read_png
+    from gomel_tpu_torch.ops import griffinlim, mel_ops
+    from gomel_tpu_torch.parallel import sharded as sh
+
+    def path(name):
+        return os.path.join(tmp, "long_" + name)
+
+    n = int(SAMPLE_RATE * LONG_SECONDS)
+    t0 = time.perf_counter()
+    pcm = long_pcm(n, dev)
+    wav = path("in.wav")
+    wavcodec.write_wav(wav, pcm, SAMPLE_RATE)
+    log(f"long-form file: {LONG_SECONDS:.0f} s at {SAMPLE_RATE} Hz mono, "
+        f"{n} samples, made and written in {time.perf_counter() - t0:.2f} s")
+    mesh = make_mesh(data=1, frame=N_SHARDS, devices=[dev] * N_SHARDS)
+    pcfg, mcfg = PhaseConfig.cli_default(), MelConfig.cli_default()
+    lp = LongFormPhase(pcfg, mesh, device_quantize=True)
+    lm = LongFormMel(mcfg, mesh, device_quantize=True)
+    plan = lp._plan(n)
+    log(f"plan: {plan.n_frames} frames, {plan.n_frames_padded} padded, "
+        f"{plan.frames_per_shard} a shard over {N_SHARDS} shards "
+        f"(auto_frame_chunk: {sh._frame_chunk(plan, 'auto')})")
+    pngs = {"phase": path("p.png"), "mel": path("m.png"),
+            "split": path("split.png")}
+    outs = {"phase": path("p.wav"), "mel": path("m.wav"),
+            "split": path("split.wav")}
+    letters = {"pcm16_ingest": "A", "stft_mag": "B", "mel_log": "C",
+               "quantize_mel_plane": "D", "phase_encode": "E",
+               "quantize_planes": "F", "irfft_window_masked": "G",
+               "overlap_normalize": "H", "mel_to_magnitudes": "I",
+               "gl_project": "J", "gl_overlap_add": "K",
+               "dequantize_raw": "L", "shard_epilogue": "M"}
+    runs = (
+        ("LongFormPhase.to_phase_wav", lambda: lp.to_phase_wav(
+            wav, pngs["phase"]), ("pcm16_ingest", "phase_encode",
+                                  "quantize_planes")),
+        ("LongFormPhase.to_wav_png", lambda: lp.to_wav_png(
+            pngs["phase"], outs["phase"]), ("dequantize_raw",
+                                            "irfft_window_masked",
+                                            "overlap_normalize",
+                                            "shard_epilogue")),
+        ("LongFormMel.to_mel_wav", lambda: lm.to_mel_wav(
+            wav, pngs["mel"]), ("pcm16_ingest", "stft_mag", "mel_log",
+                                "quantize_mel_plane")),
+        ("LongFormMel.to_wav_png", lambda: lm.to_wav_png(
+            pngs["mel"], outs["mel"], seed=1), (
+                "dequantize_raw", "mel_to_magnitudes", "gl_project",
+                "gl_overlap_add", "shard_epilogue")))
+    seen = set()
+    for label, fn, must in runs:
+        _, counts = drive(f"{label}, {LONG_SECONDS / 60:g} min, {N_SHARDS} "
+                          f"frame shards on one card (first call)",
+                          lambda: (fn(), 0)[1], must)
+        seen |= {letters[k] for k in counts if k in letters}
+    missing = sorted(set("ABCDEFGHIJKLM") - seen)
+    if missing:
+        raise AssertionError(f"kernels never launched on the long-form "
+                             f"paths: {['K' + m for m in missing]}")
+    log(f"long-form paths launched every kernel KA-KM "
+        f"({''.join(sorted(seen))})")
+
+    sp = Phase(pcfg, device_quantize=True, device=dev)
+    sm = Mel(mcfg, device_quantize=True, device=dev)
+    single_p, single_m = path("ps.png"), path("ms.png")
+    sp.to_phase_wav(wav, single_p)
+    sm.to_mel_wav(wav, single_m)
+    w = pngs_near(pngs["phase"], single_p, False)
+    log(f"long-form phase PNG {read_png(single_p).shape} vs Phase on the same "
+        f"file: max step {w[0]}, flip rate {w[1]:.2e} (bounds 1, 2e-3), "
+        f"metadata equal")
+    w = pngs_near(pngs["mel"], single_m, True)
+    log(f"long-form mel PNG {read_png(single_m).shape} vs Mel on the same "
+        f"file: max step {w[0]}, flip rate {w[1]:.2e} (bounds 1, 2e-3), "
+        f"metadata equal")
+    sp.to_wav_png(pngs["phase"], path("ps.wav"))
+    w = wavs_near(outs["phase"], path("ps.wav"), 1)
+    log(f"long-form phase WAV vs Phase.to_wav_png of the same PNG: max {w[0]} "
+        f"LSB, differing {w[1]:.2e} (bounds 1, 5e-2)")
+
+    c = mcfg
+    planes, mx, mn, samples, _ = imagecodec.load_mel_image_raw(pngs["mel"],
+                                                               c.y_reverse)
+    mplan = lm._plan_for_frames(planes.shape[1])
+    start = sh.sharded_gl_noise_fn(mesh, mplan, 1)(1).gather()[
+        0, :mplan.out_len].contiguous()
+    mag = mel_ops.mel_to_magnitudes(
+        torch.from_numpy(planes.copy()).to(dev), sm.inv_weights, c.tune_mul,
+        c.tune_add, float(c.volume_boost), mx, mn)
+    pcm1, ok1 = griffinlim.griffin_lim(mag, c.window, c.griffin_lim_iterations,
+                                       sm.window, init=start, pcm16=True)
+    wave1 = pcm1.cpu().numpy()
+    if not bool(ok1):
+        raise AssertionError("single-path GL gave non-finite samples")
+    if int(samples) > 0 and is_padded(int(samples), len(wave1), c.window) \
+            and len(wave1) > int(samples):
+        wave1 = wave1[:int(samples)]
+    wavcodec.write_wav(path("ms.wav"), wave1,
+                       wavcodec.read_wav(outs["mel"])[1])
+    w = wavs_near(outs["mel"], path("ms.wav"), 2)
+    log(f"long-form mel WAV (GL-{c.griffin_lim_iterations}) vs "
+        f"ops/griffinlim.griffin_lim from the concatenated per-shard start: "
+        f"max {w[0]} LSB, differing {w[1]:.2e} (bounds 2, 5e-2)")
+
+    x60 = pcm[:60 * SAMPLE_RATE].astype(np.float64) / 32768.0
+    lm_f = LongFormMel(mcfg, mesh)
+    logmel = lm_f.encode(x60)
+    a = lm_f.decode(logmel, seed=2)
+    b = lm_f.decode_resumable(logmel, seed=2, segment_iters=1)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("decode_resumable differs from decode")
+    log(f"decode_resumable (1 iteration a segment) vs decode, 60 s "
+        f"{tuple(a.shape)}: bit-equal")
+
+    for call, steps in longform_split(lp, lm, wav, pngs, outs, 3).items():
+        log(f"  {call} split on {card} (host clock, each step ended by a "
+            f"synchronise, median of 3): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in steps.items()))
+    draw = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sh.sharded_gl_noise_fn(mesh, plan, 1)(1)
+        torch.cuda.synchronize()
+        draw.append(time.perf_counter() - t0)
+    log(f"  GL start of the {LONG_SECONDS / 60:g}-minute file, {N_SHARDS} "
+        f"shards drawn on a CPU "
+        f"generator + H2D: {1e3 * float(np.median(draw)):.3f} ms (median of "
+        f"3)")
+
+    xg, _ = lp._prep_signal(pcm, plan, raw=True)
+    xf = lp._pcm_convert(xg, 32768.0)
+    for label, make in (
+            ("mel encode (KB + KC)", lambda fc: sh.sharded_mel_encode_fn(
+                mesh, plan, mcfg.num_mels, lm._fwd, frame_chunk=fc)),
+            ("phase encode (KE)", lambda fc: sh.sharded_phase_encode_fn(
+                mesh, plan, pcfg.num_freqs, frame_chunk=fc))):
+        auto, flat = make("auto"), make(None)
+        a_ms, f_ms = race(lambda: auto(xf), lambda: flat(xf), label,
+                          iters=4, warmup=1)
+        log(f"  K18 race, {label} of the {LONG_SECONDS / 60:g}-minute file "
+            f"over {N_SHARDS} "
+            f"shards, device ms (lower of two, order flat-chunked-chunked-"
+            f"flat): frame_chunk auto ({sh._frame_chunk(plan, 'auto')} "
+            f"frames) {a_ms:.4f} ms, None {f_ms:.4f} ms")
 
 
 def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
@@ -334,28 +806,6 @@ def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
                                  "--device", "cuda"]), must)
         if len(os.listdir(path(out + "_cuda"))) != len(spec):
             raise AssertionError(f"{label} wrote {os.listdir(path(out + '_cuda'))}")
-
-    def pngs_near(a, b, mel: bool) -> tuple[int, float]:
-        d = png_steps(a, b, read_png)
-        load = (lambda p: imagecodec.load_mel_image_raw(p, True)[1:]) if mel \
-            else (lambda p: imagecodec.load_phase_image_raw(p, True)[1:])
-        meta_eq = all(np.array_equal(u, v) for u, v in zip(load(a), load(b)))
-        if d.max() > 1 or float((d > 0).mean()) >= 2e-3 or not meta_eq:
-            raise AssertionError(f"{a} vs {b}: max step {int(d.max())}, flip "
-                                 f"rate {float((d > 0).mean()):.2e}, metadata "
-                                 f"equal {meta_eq}")
-        return int(d.max()), float((d > 0).mean())
-
-    def wavs_near(a, b, lsb_bound: int) -> tuple[int, float]:
-        (wa, sa), (wb, sb) = wavcodec.read_wav(a), wavcodec.read_wav(b)
-        if sa != sb or wa.shape != wb.shape:
-            raise AssertionError(f"{a} vs {b}: {wa.shape} @ {sa} vs "
-                                 f"{wb.shape} @ {sb}")
-        d = np.abs(wa.astype(np.int64) - wb.astype(np.int64))
-        if d.max() > lsb_bound or float((d > 0).mean()) >= 5e-2:
-            raise AssertionError(f"{a} vs {b}: {int(d.max())} LSB, "
-                                 f"{float((d > 0).mean()):.2e} differing")
-        return int(d.max()), float((d > 0).mean())
 
     # the encodes on the CPU subset: a file's PNG does not depend on its
     # bucket (masked extrema), so the 12-file cuda run compares file by file
@@ -506,7 +956,10 @@ def main() -> int:
                                    griffinlim.OLA_KERNEL,
                                    quantize.INGEST_ROWS_KERNEL,
                                    quantize.QUANTIZE_MASKED_KERNEL,
-                                   quantize.PLANES_MASKED_KERNEL)}
+                                   quantize.PLANES_MASKED_KERNEL,
+                                   quantize.DEQUANTIZE_RAW_KERNEL,
+                                   istft.SYNTH_MASKED_KERNEL,
+                                   istft.SHARD_KERNEL)}
     errs: dict[str, float] = {}
     # launches of each kernel summed over the main-path runs (tomel, tophase,
     # fromphase, towav and the four batch CLIs), each read with every count
@@ -847,6 +1300,9 @@ def main() -> int:
             raise AssertionError("quantize_planes (masked): wrong sentinel, "
                                  "NaN or pad-frame rows")
 
+    # -- phase 2e: the long-form kernels, one shard of the 30-minute file ---
+    long_k = longform_kernels(dev, errs)
+
     # -- phase 3: the main path, tomel on a 30 s WAV ----------------------
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "speech.wav")
@@ -1000,6 +1456,9 @@ def main() -> int:
         # -- phase 3d: the batch CLIs on a directory of WAV and FLAC -------
         batch_clis(tmp, rng, drive, card)
 
+        # -- phase 3e: the long-form path, a 30-minute file, 4 shards ------
+        longform(tmp, drive, card, dev)
+
     # -- phase 4: times at the bench shape ---------------------------------
     log(f"timing on {card}: device ms per call (CUDA events over up to 20 "
         f"calls queued behind a sleep kernel, after 3 warmup; lower of two "
@@ -1064,11 +1523,74 @@ def main() -> int:
         "quantize_planes_masked": lambda: quantize.quantize_planes_plain(
             spec4, 255, 0, frames4),
     }
+    for name, entry in long_k.items():
+        kernel_fns[name], plain_fns[name] = entry["kernel"], entry["plain"]
     times = {name: race(kernel_fns[name], plain_fns[name], name)
              for name in kernel_fns}
     for name, (k_ms, p_ms) in times.items():
         log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; wrapper "
             f"enqueue {host_us(kernel_fns[name]):.1f} us")
+
+    # bound_ms: bytes each input read once and each output written once, and
+    # operations, at the timed inputs; library_ms: one PyTorch call of the
+    # same function where there is one
+    taps = -(-n_fft // hop)
+    f2 = BATCH * frames
+    we = mel_ops._extended_weights(fwd)[0]
+    nnz = float((we != 0).sum())
+    work = {
+        "pcm16_ingest": (nbytes(pcm, x), float(x.numel())),
+        "stft_mag": (nbytes(x, win, mags_ref),
+                     f2 * (fft_ops(n_fft) + n_fft + 3 * (n_fft // 2 + 1))),
+        "mel_log": (nbytes(mags_ref, we, logmel_ref),
+                    f2 * (2 * nnz + 2 * cfg.num_mels)),
+        "quantize_mel_plane": (nbytes(logmel_ref, img, mx, mn),
+                               6.0 * logmel_ref.numel()),
+        "phase_encode": (nbytes(x, win, spec_ref),
+                         f2 * (fft_ops(n_fft) + n_fft)),
+        "quantize_planes": (nbytes(spec_ref, img_p, mx_p, mn_p),
+                            6.0 * spec_ref.numel()),
+        "irfft_window": (nbytes(img_p, mx_p, mn_p, win, fw_ref),
+                         f2 * (fft_ops(n_fft) + n_fft) + 3.0 * img_p.numel()),
+        "overlap_normalize": (nbytes(fw_ref, pcm_k),
+                              float(pcm_k.numel()) * (taps + 5)),
+        "mel_to_magnitudes": (nbytes(img, inv, mag),
+                              f2 * (8 * cfg.num_mels + 10 * (n_fft // 2))),
+        "gl_project": (nbytes(sig0, mag, win, fw_gl),
+                       f2 * (2 * fft_ops(n_fft) + 2 * n_fft
+                             + 12 * (n_fft // 2 + 1))),
+        "gl_overlap_add": (nbytes(fw_gl, sig0),
+                           float(sig0.numel()) * taps),
+        "pcm16_ingest zero-stuff": (nbytes(pcm16k, x16), float(x16.numel())),
+        "pcm16_ingest_rows": (nbytes(pcm4, scales4, x4), float(x4.numel())),
+        "quantize_mel_plane_masked": (nbytes(logmel4, frames4, *got_m),
+                                      6.0 * logmel4.numel()),
+        "quantize_planes_masked": (nbytes(spec4, frames4) + spec4.numel()
+                                   + 16.0 * rows4, 6.0 * spec4.numel()),
+    }
+    frames_kb = (rfft_mag.frame_signal(x, n_fft, hop) * win).contiguous()
+    spec_c = torch.complex(*halves)
+    mel_lin = logmel_ref.transpose(-1, -2).contiguous()
+    inv_t = inv.t().contiguous()
+    library = {"stft_mag": lambda: torch.fft.rfft(frames_kb, dim=-1),
+               "phase_encode": lambda: torch.fft.rfft(frames_kb, dim=-1),
+               "irfft_window": lambda: torch.fft.irfft(spec_c, n=n_fft),
+               "gl_project": lambda: torch.fft.irfft(spec_c, n=n_fft),
+               "mel_log": lambda: torch.matmul(mags_ref, we),
+               "mel_to_magnitudes": lambda: torch.matmul(mel_lin, inv_t)}
+    for name, entry in long_k.items():
+        work[name] = entry["work"]
+        if entry["library"] is not None:
+            library[name] = entry["library"]
+    library_ms = {name: min(cuda_ms(fn), cuda_ms(fn))
+                  for name, fn in library.items()}
+    bounds = {name: bound(*w) for name, w in work.items()}
+    for name in times:
+        b_ms, b_by = bounds[name]
+        log(f"  {name}: bound {b_ms:.4f} ms ({b_by}; "
+            f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.3f} GFLOP), "
+            f"kernel at {100 * b_ms / times[name][0]:.1f}% of it; library "
+            f"call {'none' if name not in library_ms else f'{library_ms[name]:.4f} ms'}")
 
     def encode_kernels():
         spec = mel_ops.mel_encode_batch(x, cfg.num_mels, n_fft, hop, fwd, win)
@@ -1171,7 +1693,10 @@ def main() -> int:
     rows = [{"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1]} for name, k in kernels.items()]
+             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1],
+             "library_ms": library_ms.get(name)}
+            for name, k in kernels.items()]
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

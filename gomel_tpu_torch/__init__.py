@@ -5,18 +5,23 @@ PyTorch, with its device kernels written by hand in CUDA C++ for Hopper
 (``csrc/``). This package imports neither JAX nor ``gomel_tpu``. It covers
 the mel codec (WAV or FLAC -> log-mel -> quantized PNG, ``tomel``, and back
 by Griffin-Lim, ``towav``), the phase codec round trip (WAV or FLAC -> phase
-PNG -> WAV, ``tophase`` and ``fromphase``) and their batched forms on one
-device (``parallel/``, the ``batch-*`` tools of ``cli/batch.py``) so far.
+PNG -> WAV, ``tophase`` and ``fromphase``), their batched forms on one
+device (``parallel/``, the ``batch-*`` tools of ``cli/batch.py``) and the
+long-form frame-sharded codecs on one controller (``LongFormMel``,
+``LongFormPhase`` over a ``make_mesh`` grid of devices) so far.
 """
 
 from .core.config import (ConfigError, FileNotLoadedError, GomelError,
                           MelConfig, PhaseConfig, UnsupportedSampleRateError,
                           num_freqs_for_sample_rate, pad_shift)
+from .parallel.mesh import Mesh, make_mesh
+from .pipelines.longform import LongFormMel, LongFormPhase
 from .pipelines.mel import Mel
 from .pipelines.phase import Phase
 
 __version__ = "0.1.0"
 
-__all__ = ["Mel", "Phase", "MelConfig", "PhaseConfig", "GomelError",
+__all__ = ["Mel", "Phase", "LongFormMel", "LongFormPhase", "Mesh",
+           "make_mesh", "MelConfig", "PhaseConfig", "GomelError",
            "FileNotLoadedError", "UnsupportedSampleRateError", "ConfigError",
            "num_freqs_for_sample_rate", "pad_shift", "__version__"]

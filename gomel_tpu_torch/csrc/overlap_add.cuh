@@ -1,4 +1,6 @@
-// The overlap-add body shared by KH (phase_decode.cu) and KK (griffinlim.cu).
+// The overlap-add body shared by KH (phase_decode.cu) and KK (griffinlim.cu),
+// and the window sum and PCM-16 conversion KH shares with KM
+// (shard_epilogue.cu).
 //
 // One thread per output sample t = i * hop + c (hop-row i, column c), so
 // every sample has one owner: no atomics, and the sum is deterministic. It
@@ -24,6 +26,29 @@ __device__ __forceinline__ float ola_sum(const float* __restrict__ src,
     acc = __fadd_rn(acc, v);
   }
   return acc;
+}
+
+// The window sum of ``frames`` frames at hop-row i (< frames + taps - 1),
+// column c, from the [taps, hop] prefix table S[k] = sum_{j <= k} of the
+// hop-rows of w^2 (gomel_tpu/ops/istft.py:51-72): head, periodic middle and
+// tail rows, or the short form. Shared by KH and KM (shard_epilogue.cu).
+__device__ __forceinline__ float window_sum_at(const float* __restrict__ table,
+                                               long long i, int c, int frames,
+                                               int taps, int hop,
+                                               int short_form) {
+  const long long rows_out = static_cast<long long>(frames) + taps - 1;
+  if (short_form) {
+    const float top = table[min(i, static_cast<long long>(taps - 1)) * hop + c];
+    const long long s = i - frames;
+    const float sub =
+        s >= 0 ? table[min(s, static_cast<long long>(taps - 1)) * hop + c]
+               : 0.0f;
+    return top - sub;
+  }
+  const float full = table[static_cast<long long>(taps - 1) * hop + c];
+  if (i < taps - 1) return table[i * hop + c];
+  if (i < rows_out - (taps - 1)) return full;
+  return full - table[(i - (rows_out - (taps - 1))) * hop + c];
 }
 
 // gomel_tpu/ops/quantize.py:124 pcm16_encode for one sample: clip to

@@ -37,6 +37,13 @@
 //   [-1, 1], rintf(x * 32768) (round half to even), saturates and stores int16
 //   (NaN stores 0, as the JAX program's conversion gives).
 //
+// Real-frame count (K10, gomel_tpu/ops/istft.py:75 chunked_irfft_overlap_add
+// with its frame mask, as the sharded decode builds it, sharded.py:487-501):
+// in every mode, a frame at or past ``real_frames`` of its row writes zeros,
+// as jnp.where(mask, frames_w, 0) gives; the mask of a shard is always a
+// prefix of its frames, so a count carries it. The block returns before
+// its first barrier, so a masked frame costs one pass of stores.
+//
 // Rounding: the JAX program rounds every product and sum on its own; nvcc
 // would fuse a multiply feeding an add into one FMA, so those steps use
 // __fmul_rn / __fadd_rn / __fdiv_rn explicitly (the global flags stay as
@@ -102,14 +109,21 @@ __global__ void irfft_window_kernel(const void* __restrict__ src,
                                     const float* __restrict__ window,
                                     const float2* __restrict__ tw,
                                     float2* __restrict__ out, int frames,
-                                    int nf, int m, float max_val,
-                                    int ihs_passes, float inv_n) {
+                                    int real_frames, int nf, int m,
+                                    float max_val, int ihs_passes,
+                                    float inv_n) {
   extern __shared__ float2 smem[];
   float2* a = smem;          // m + 1: the half spectrum X, then Z in place
   float2* b = smem + m + 1;  // m: the Stockham partner buffer
   const long long frame = blockIdx.x;
   const long long bi = frame / frames;
   const long long fi = frame - bi * frames;
+  if (fi >= real_frames) {  // block-uniform: no barrier is skipped
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      out[frame * m + i] = make_float2(0.0f, 0.0f);
+    }
+    return;
+  }
 
   float4 ext = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if constexpr (kMode == kQuant8 || kMode == kQuant16) {
@@ -162,27 +176,6 @@ __global__ void irfft_window_kernel(const void* __restrict__ src,
   }
 }
 
-// window sum at hop-row i, column c, from the prefix table
-// S[k] = sum_{j <= k} w^2 rows (istft.py:51-72)
-__device__ __forceinline__ float window_sum_at(const float* __restrict__ table,
-                                               long long i, int c, int frames,
-                                               int taps, int hop,
-                                               int short_form) {
-  const long long rows_out = static_cast<long long>(frames) + taps - 1;
-  if (short_form) {
-    const float top = table[min(i, static_cast<long long>(taps - 1)) * hop + c];
-    const long long s = i - frames;
-    const float sub =
-        s >= 0 ? table[min(s, static_cast<long long>(taps - 1)) * hop + c]
-               : 0.0f;
-    return top - sub;
-  }
-  const float full = table[static_cast<long long>(taps - 1) * hop + c];
-  if (i < taps - 1) return table[i * hop + c];
-  if (i < rows_out - (taps - 1)) return full;
-  return full - table[(i - (rows_out - (taps - 1))) * hop + c];
-}
-
 __global__ void overlap_normalize_kernel(
     const float* __restrict__ frames_w, const float* __restrict__ table,
     float* __restrict__ out_f, int16_t* __restrict__ out_pcm,
@@ -211,8 +204,8 @@ __global__ void overlap_normalize_kernel(
 template <int kMode>
 int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
                         const float* window, const float2* tw, float2* out,
-                        long long blocks, int frames, int nf, int m,
-                        float max_val, int ihs_passes, cudaStream_t s) {
+                        long long blocks, int frames, int real_frames, int nf,
+                        int m, float max_val, int ihs_passes, cudaStream_t s) {
   const size_t smem = (2 * static_cast<size_t>(m) + 1) * sizeof(float2);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(irfft_window_kernel<kMode>,
@@ -223,8 +216,8 @@ int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
   if (threads > 256) threads = 256;
   if (threads < 32) threads = 32;
   irfft_window_kernel<kMode><<<static_cast<unsigned>(blocks), threads, smem, s>>>(
-      src, aux0, aux1, window, tw, out, frames, nf, m, max_val, ihs_passes,
-      1.0f / static_cast<float>(2 * m));
+      src, aux0, aux1, window, tw, out, frames, real_frames, nf, m, max_val,
+      ihs_passes, 1.0f / static_cast<float>(2 * m));
   return gomel_status();
 }
 
@@ -235,13 +228,14 @@ int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
 // mode 2/3: src = planes uint8/uint16 [batch, nf, frames, 2], aux0 = maxs,
 //   aux1 = mins, float32 [batch, 2].
 // window: float32 [n] or null; tw: float2 [n/2]; out: float32
-// [batch*frames, n]. n/2 must be a power of two (the wrapper checks).
+// [batch*frames, n]; frames at or past real_frames (0..frames) of each row
+// write zeros. n/2 must be a power of two (the wrapper checks).
 GOMEL_API int gomel_irfft_window(int mode, const void* src, const void* aux0,
                                  const void* aux1, const void* window,
                                  const void* tw, void* out, long long batch,
-                                 long long frames, long long nf, long long n,
-                                 float max_val, int ihs_passes, int device,
-                                 void* stream) {
+                                 long long frames, long long real_frames,
+                                 long long nf, long long n, float max_val,
+                                 int ihs_passes, int device, void* stream) {
   cudaSetDevice(device);
   const int m = static_cast<int>(n / 2);
   const long long blocks = batch * frames;
@@ -252,19 +246,20 @@ GOMEL_API int gomel_irfft_window(int mode, const void* src, const void* aux0,
   const float2* t = static_cast<const float2*>(tw);
   float2* o = static_cast<float2*>(out);
   const int f = static_cast<int>(frames);
+  const int r = static_cast<int>(real_frames);
   const int k = static_cast<int>(nf);
   switch (mode) {
     case kPlanes:
-      return launch_irfft_window<kPlanes>(src, a0, a1, w, t, o, blocks, f, k,
+      return launch_irfft_window<kPlanes>(src, a0, a1, w, t, o, blocks, f, r, k,
                                           m, max_val, ihs_passes, s);
     case kSpec:
-      return launch_irfft_window<kSpec>(src, a0, a1, w, t, o, blocks, f, k, m,
+      return launch_irfft_window<kSpec>(src, a0, a1, w, t, o, blocks, f, r, k, m,
                                         max_val, ihs_passes, s);
     case kQuant8:
-      return launch_irfft_window<kQuant8>(src, a0, a1, w, t, o, blocks, f, k,
+      return launch_irfft_window<kQuant8>(src, a0, a1, w, t, o, blocks, f, r, k,
                                           m, max_val, ihs_passes, s);
     case kQuant16:
-      return launch_irfft_window<kQuant16>(src, a0, a1, w, t, o, blocks, f, k,
+      return launch_irfft_window<kQuant16>(src, a0, a1, w, t, o, blocks, f, r, k,
                                            m, max_val, ihs_passes, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

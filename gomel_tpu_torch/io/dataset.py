@@ -1,7 +1,7 @@
 """Prefetching audio dataset loader — host ingest for batched pipelines.
 
 Copy of ``gomel_tpu/io/dataset.py`` without the mesh (``shard_files_for_group``
-waits for the frame-sharded slice): the port cannot import ``gomel_tpu``,
+waits for the multi-process slice): the port cannot import ``gomel_tpu``,
 whose package __init__ imports JAX. tests/test_torch_host.py pins the copy to
 the original.
 

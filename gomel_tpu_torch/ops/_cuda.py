@@ -48,7 +48,7 @@ _SIGNATURES = {
     "gomel_quantize_planes": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32,
                               _F32, _I32],
     "gomel_irfft_window": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                           _F32, _I32],
+                           _I64, _F32, _I32],
     "gomel_overlap_normalize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                 _I32, _F32, _F32],
     "gomel_mel_to_mag": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
@@ -56,6 +56,11 @@ _SIGNATURES = {
     "gomel_gl_project": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64],
     "gomel_gl_overlap_add": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                              _F32],
+    "gomel_dequantize_raw": [_P, _P, _P, _P, _I64, _I32, _I32, _F32, _I32,
+                             _F32],
+    "gomel_shard_epilogue": [_P, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64,
+                             _I64, _I32, _F32, _F32, _P, _F32, _P, _I64, _P,
+                             _P, _P, _I64, _I64],
 }
 
 
@@ -178,6 +183,18 @@ def launch(symbol: str, device: torch.device, *args) -> None:
     if rc != 0:
         msg = lib.gomel_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {symbol} failed: {msg} ({rc})")
+
+
+def require_device(device, what: str,
+                   hint: str = 'pass device="cpu"') -> torch.device:
+    """``device`` as a ``torch.device``; raise when it names CUDA and none is
+    available, so an entry point never falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}: device {str(dev)!r} is not available "
+            f"(torch.cuda.is_available() is False); {hint} to run on the CPU")
+    return dev
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

@@ -80,6 +80,16 @@ def random_init(shape: tuple[int, ...], generator: torch.Generator | None,
     return torch.rand(shape, generator=generator, dtype=dtype)
 
 
+def stream_generator(seed: int, stream: int) -> torch.Generator:
+    """A CPU generator for stream ``stream`` of a decode ``seed``, seeded by
+    numpy's SeedSequence of (seed mod 2^64, stream): streams are
+    independent and each depends on (seed, stream) alone (a batch row,
+    parallel/batch.row_start; a frame shard, parallel/sharded._shard_noise)."""
+    state = np.random.SeedSequence([int(seed) % (1 << 64), int(stream)])
+    return torch.Generator().manual_seed(
+        int(state.generate_state(1, np.uint64)[0]))
+
+
 def gl_project_plain(sig: torch.Tensor, mag_half: torch.Tensor,
                      window: torch.Tensor, n: int, hop: int) -> torch.Tensor:
     """Plain PyTorch version of KJ: frames of ``sig`` x window -> rfft ->

@@ -1,12 +1,18 @@
-"""Overlap-add iSTFT: kernels KG (inverse rFFT x window) and KH (overlap-add
-+ window-sum normalisation + boost + PCM-16), both csrc/phase_decode.cu.
+"""Overlap-add iSTFT: kernels KG (inverse rFFT x window, with an optional
+real-frame count) and KH (overlap-add + window-sum normalisation + boost +
+PCM-16), both csrc/phase_decode.cu, and KM (csrc/shard_epilogue.cu), the
+epilogue of a frame shard's synthesis (halo add, then the global window-sum
+normalisation, the Griffin-Lim momentum step or PCM-16).
 
 Counterpart of ``gomel_tpu/ops/istft.py`` (reference phase/phase.go:93-133):
-``overlap_add``, ``window_sum``, ``normalize_by_window_sum`` and
-``istft_direct_planes``. On a CPU tensor each runs its plain PyTorch version
-(the JAX program's order of operations, so float32 results match it bit for
-bit where the JAX program is exact); on a CUDA tensor ``irfft_window``
-launches KG and ``overlap_add`` / ``overlap_normalize`` launch KH.
+``overlap_add``, ``window_sum``, ``normalize_by_window_sum``,
+``istft_direct_planes`` and ``chunked_irfft_overlap_add``, and of the halo
+add and normalisation of gomel_tpu/parallel/sharded.py (``shard_epilogue``).
+On a CPU tensor each runs its plain PyTorch version (the JAX program's order
+of operations, so float32 results match it bit for bit where the JAX
+program is exact); on a CUDA tensor ``irfft_window`` launches KG,
+``overlap_add`` / ``overlap_normalize`` launch KH and ``shard_epilogue``
+launches KM.
 
 KH takes the window sum from a [K, hop] prefix table (K = ceil(N/hop)) built
 on the host exactly as :func:`window_sum` builds it: the prefix is summed row
@@ -31,6 +37,13 @@ SYNTH_KERNEL = _cuda.Kernel("irfft_window",
 OLA_KERNEL = _cuda.Kernel("overlap_normalize",
                           "gomel_tpu_torch/csrc/phase_decode.cu",
                           "gomel_tpu/ops/istft.py:22")
+# KG launched with a real-frame count (the masked synthesis of K10)
+SYNTH_MASKED_KERNEL = _cuda.Kernel("irfft_window_masked",
+                                   "gomel_tpu_torch/csrc/phase_decode.cu",
+                                   "gomel_tpu/ops/istft.py:75")
+SHARD_KERNEL = _cuda.Kernel("shard_epilogue",
+                            "gomel_tpu_torch/csrc/shard_epilogue.cu",
+                            "gomel_tpu/parallel/sharded.py:229")
 
 # KG's sources (csrc/phase_decode.cu), and the alignment in bytes each needs
 # (the kernel reads float, float2, uchar2 and ushort2 elements)
@@ -141,20 +154,28 @@ def window_sum_threshold(prefix: torch.Tensor, n_frames: int) -> float:
 
 
 def irfft_window_plain(re: torch.Tensor, im: torch.Tensor, n: int,
-                       window: torch.Tensor | None) -> torch.Tensor:
+                       window: torch.Tensor | None,
+                       real_frames: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of KG on half-spectrum planes: irfft_n (the
-    imaginary parts of DC and Nyquist are ignored) times the window."""
+    imaginary parts of DC and Nyquist are ignored) times the window; frames
+    at or past ``real_frames`` are zeros."""
     frames = torch.fft.irfft(torch.complex(re, im), n=n, dim=-1)
-    return frames if window is None else frames * window
+    frames = frames if window is None else frames * window
+    if real_frames is not None:
+        frames = frames.clone()
+        frames[..., real_frames:, :] = 0.0
+    return frames
 
 
 def launch_irfft_window(mode: int, src: torch.Tensor,
                         aux: tuple[torch.Tensor, ...], n: int, frames: int,
                         nf: int, window: torch.Tensor | None,
                         lead: tuple[int, ...], max_val: float = 0.0,
-                        ihs_passes: int = 0) -> torch.Tensor:
+                        ihs_passes: int = 0,
+                        real_frames: int | None = None) -> torch.Tensor:
     """Launch KG on ``src`` (see csrc/phase_decode.cu for the modes) ->
-    frames_w [*lead, frames, n] float32."""
+    frames_w [*lead, frames, n] float32; with ``real_frames`` the frames at
+    or past that count in each row are zeros (K10's frame mask)."""
     tensors = (src, *aux) + (() if window is None else (window,))
     dev = _cuda.check_cuda("irfft_window", *tensors)
     if any(t.dtype != torch.float32 for t in aux) or (
@@ -169,6 +190,9 @@ def launch_irfft_window(mode: int, src: torch.Tensor,
     if src.data_ptr() % _ALIGN[mode] or (
             window is not None and window.data_ptr() % 8):
         raise ValueError("irfft_window: misaligned source or window")
+    if real_frames is not None and not 0 <= real_frames <= frames:
+        raise ValueError(f"irfft_window: real_frames {real_frames} outside "
+                         f"0..{frames}")
     batch = int(np.prod(lead, dtype=np.int64))
     out = torch.empty(lead + (frames, n), dtype=torch.float32, device=dev)
     if batch * frames == 0:
@@ -177,26 +201,54 @@ def launch_irfft_window(mode: int, src: torch.Tensor,
     _cuda.launch("gomel_irfft_window", dev, mode, src.data_ptr(), *ptrs,
                  None if window is None else window.data_ptr(),
                  _twiddles(n, dev).data_ptr(), out.data_ptr(), batch, frames,
-                 nf, n, float(max_val), int(ihs_passes))
-    SYNTH_KERNEL.launches += 1
+                 frames if real_frames is None else real_frames, nf, n,
+                 float(max_val), int(ihs_passes))
+    (SYNTH_KERNEL if real_frames is None
+     else SYNTH_MASKED_KERNEL).launches += 1
     return out
 
 
 def irfft_window(re: torch.Tensor, im: torch.Tensor, n: int,
-                 window: torch.Tensor | None = None) -> torch.Tensor:
+                 window: torch.Tensor | None = None,
+                 real_frames: int | None = None) -> torch.Tensor:
     """Half-spectrum planes [..., F, n/2 + 1] -> irfft_n x window
-    [..., F, n] (``window`` None: no window)."""
+    [..., F, n] (``window`` None: no window); frames at or past
+    ``real_frames`` are zeros."""
     if re.shape != im.shape or re.shape[-1] != n // 2 + 1:
         raise ValueError(f"irfft_window: planes {tuple(re.shape)}, "
                          f"{tuple(im.shape)} do not hold n/2 + 1 = "
                          f"{n // 2 + 1} bins")
     if re.device.type == "cpu":
-        return irfft_window_plain(re, im, n, window)
+        return irfft_window_plain(re, im, n, window, real_frames)
     if re.dtype != torch.float32:
         raise ValueError("irfft_window: the CUDA kernel takes float32")
     *lead, frames, _ = re.shape
     return launch_irfft_window(MODE_PLANES, re.contiguous(), (im.contiguous(),),
-                               n, frames, n // 2 + 1, window, tuple(lead))
+                               n, frames, n // 2 + 1, window, tuple(lead),
+                               real_frames=real_frames)
+
+
+def chunked_irfft_overlap_add(re: torch.Tensor, im: torch.Tensor, hop: int,
+                              window: torch.Tensor, chunk: int,
+                              real_frames: int | None = None) -> torch.Tensor:
+    """Un-normalised windowed overlap-add synthesis: [..., F, N/2 + 1]
+    planes -> [..., N + (F-1)*hop] (gomel_tpu/ops/istft.py:75). Frames at or
+    past ``real_frames`` contribute nothing (the JAX program's
+    ``frame_mask``, always a prefix on the sharded decode, held as its
+    length).
+
+    The JAX program scans over ``chunk``-frame slices and carries each
+    overlap-add tail, to keep a slice's frames in a TPU core's fast memory.
+    Here one KG launch with the real-frame count writes every frame and one
+    KH launch without a window sums them, one owner per output sample, so no
+    tail is carried: the result equals the JAX program's up to the order of
+    the adds at slice edges. ``chunk`` is validated as the JAX program does
+    (``chunk * hop >= N - hop``)."""
+    n = (re.shape[-1] - 1) * 2
+    if chunk * hop < n - hop:
+        raise ValueError(f"chunk {chunk} too small: need chunk*hop >= "
+                         f"N - hop = {n - hop}")
+    return overlap_add(irfft_window(re, im, n, window, real_frames), hop)
 
 
 def overlap_normalize_plain(frames_w: torch.Tensor, hop: int,
@@ -284,3 +336,146 @@ def istft_direct_planes(re: torch.Tensor, im: torch.Tensor, hop: int,
     n = (re.shape[-1] - 1) * 2
     window = torch.as_tensor(window, dtype=re.dtype, device=re.device)
     return overlap_normalize(irfft_window(re, im, n, window), hop, window)
+
+
+def _window_sum_span(prefix: torch.Tensor, n_frames: int, hop: int,
+                     start: int, length: int) -> torch.Tensor:
+    """Samples ``start .. start + length - 1`` of the window sum of
+    ``n_frames`` frames (:func:`window_sum`, 0 past its end), read from the
+    distinct rows as KM reads them from the prefix table."""
+    K = prefix.shape[0]
+    rows_out = n_frames + K - 1
+    rows, short = _window_sum_rows(prefix, n_frames)
+    p = torch.arange(start, start + length, device=prefix.device)
+    i, c = p // hop, p % hop
+    if short:
+        r = i
+    else:
+        r = torch.where(i < K - 1, i, torch.where(
+            i < rows_out - (K - 1), K - 1, i - (rows_out - (K - 1)) + K))
+    w = rows[torch.clamp(r, 0, rows.shape[0] - 1), c]
+    return torch.where(i < rows_out, w, 0.0)
+
+
+def shard_epilogue_plain(sig_ext: torch.Tensor, recv: torch.Tensor | None,
+                         chunk: int, *, window: torch.Tensor | None = None,
+                         hop: int = 0, start: int = 0, n_frames: int = 0,
+                         volume_boost: float = 0.0,
+                         t_prev: torch.Tensor | None = None,
+                         momentum: float = 0.0, pcm16: bool = False,
+                         extend: bool = False):
+    """Plain PyTorch version of KM (see :func:`shard_epilogue`)."""
+    halo = sig_ext.shape[-1] - chunk
+    t = sig_ext[..., :chunk].clone()
+    if recv is not None:
+        t[..., :halo] = t[..., :halo] + recv.to(t.device)
+    y = t
+    if window is not None:
+        table, prefix = _window_table(window, hop)
+        # the table already on the device: a copy from the host would wait
+        # for the work queued before it
+        wsum = _window_sum_span(table.to(t.device), n_frames, hop, start,
+                                chunk)
+        threshold = torch.full((), window_sum_threshold(prefix, n_frames),
+                               dtype=t.dtype, device=t.device)
+        y = normalize_by_window_sum(t, wsum, threshold)
+        if volume_boost != 0.0:
+            y = y * torch.full((), float(volume_boost), dtype=y.dtype,
+                               device=y.device)
+    if t_prev is not None:
+        y = t + momentum * (t - t_prev)
+    finite = torch.isfinite(y).all(dim=-1)
+    if pcm16:
+        return pcm16_encode(y)[0], finite
+    if extend:
+        y = torch.nn.functional.pad(y, (0, halo))
+    return (y, t) if t_prev is not None else y
+
+
+def shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,
+                   chunk: int, *, window: torch.Tensor | None = None,
+                   hop: int = 0, start: int = 0, n_frames: int = 0,
+                   volume_boost: float = 0.0,
+                   t_prev: torch.Tensor | None = None, momentum: float = 0.0,
+                   pcm16: bool = False, extend: bool = False):
+    """The shard epilogue of the frame-sharded synthesis (kernel KM on a
+    CUDA tensor): a shard's un-normalised overlap-add ``sig_ext``
+    [B, chunk + halo] plus the tail ``recv`` [B, halo] its left neighbour
+    spilled into it (None on shard 0) -> the shard's [B, chunk] samples t.
+
+    With ``window`` (and ``hop``): divide by the window sum of a signal of
+    ``n_frames`` real frames at each sample's global position ``start + j``
+    under the global threshold 0.5 * max of that sum, with the branches of
+    :func:`normalize_by_window_sum`, then x ``volume_boost`` when non-zero
+    (gomel_tpu/parallel/sharded.py:503-508). With ``t_prev`` [B, chunk]:
+    the momentum step, returning (c = t + momentum * (t - t_prev), t)
+    (:423-426). Else t. ``pcm16`` returns (int16 [B, chunk], per-row finite
+    flags) instead of the float result; ``extend`` returns the float result
+    (c in the momentum step) in a [B, chunk + halo] buffer whose last halo
+    columns are for the caller to fill (the next Griffin-Lim iteration's
+    extended signal)."""
+    if sig_ext.ndim != 2 or not 0 < chunk <= sig_ext.shape[1]:
+        raise ValueError(f"shard_epilogue: signal {tuple(sig_ext.shape)}, "
+                         f"chunk {chunk}")
+    b, ext_len = sig_ext.shape
+    halo = ext_len - chunk
+    if recv is not None and tuple(recv.shape) != (b, halo):
+        raise ValueError(f"shard_epilogue: recv {tuple(recv.shape)} != "
+                         f"{(b, halo)}")
+    if t_prev is not None and (window is not None or pcm16
+                               or tuple(t_prev.shape) != (b, chunk)):
+        raise ValueError("shard_epilogue: the momentum step takes t_prev "
+                         "[B, chunk] and no window or PCM-16")
+    if window is not None and (hop < 1 or n_frames < 1):
+        raise ValueError(f"shard_epilogue: hop {hop}, {n_frames} frames")
+    if sig_ext.device.type == "cpu":
+        return shard_epilogue_plain(
+            sig_ext, recv, chunk, window=window, hop=hop, start=start,
+            n_frames=n_frames, volume_boost=volume_boost, t_prev=t_prev,
+            momentum=momentum, pcm16=pcm16, extend=extend)
+    sig_ext = sig_ext.contiguous()
+    if t_prev is not None:
+        t_prev = t_prev.contiguous()
+    dev = _cuda.check_cuda("shard_epilogue", sig_ext,
+                           *(() if t_prev is None else (t_prev,)))
+    if recv is not None and (recv.device != dev or recv.stride(-1) != 1
+                             or recv.dtype != torch.float32):
+        recv = recv.to(dev, torch.float32).contiguous()
+    if sig_ext.dtype != torch.float32 or (
+            t_prev is not None and t_prev.dtype != torch.float32):
+        raise ValueError("shard_epilogue: the CUDA kernel takes float32")
+    table, threshold, short, taps = None, 0.0, False, 1
+    if window is not None:
+        table, prefix = _window_table(window, hop)
+        table = table.to(dev)
+        taps = prefix.shape[0]
+        threshold = window_sum_threshold(prefix, n_frames)
+        short = n_frames + taps - 1 <= 2 * (taps - 1)
+    out_f = out_t = out_pcm = None
+    stride = chunk + halo if extend else chunk
+    if pcm16:
+        out_pcm = torch.empty((b, chunk), dtype=torch.int16, device=dev)
+    else:
+        out_f = torch.empty((b, stride), dtype=torch.float32, device=dev)
+    if t_prev is not None:
+        out_t = torch.empty((b, chunk), dtype=torch.float32, device=dev)
+    finite = torch.ones(b, dtype=torch.int32, device=dev)
+    if b > 0:
+        _cuda.launch("gomel_shard_epilogue", dev, sig_ext.data_ptr(), ext_len,
+                     None if recv is None else recv.data_ptr(),
+                     0 if recv is None else recv.stride(0), halo,
+                     None if table is None else table.data_ptr(), start,
+                     n_frames, hop, taps, int(short), threshold,
+                     float(volume_boost),
+                     None if t_prev is None else t_prev.data_ptr(),
+                     float(momentum),
+                     None if out_f is None else out_f.data_ptr(), stride,
+                     None if out_t is None else out_t.data_ptr(),
+                     None if out_pcm is None else out_pcm.data_ptr(),
+                     finite.data_ptr(), b, chunk)
+        SHARD_KERNEL.launches += 1
+    if pcm16:
+        return out_pcm, finite.bool()
+    if t_prev is not None:
+        return out_f, out_t
+    return out_f

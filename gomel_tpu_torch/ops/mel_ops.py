@@ -22,7 +22,7 @@ from . import _cuda
 from .griffinlim import griffin_lim, griffin_lim_magnitudes
 from .quantize import dequantize_mel_plane
 from .rfft_mag import stft_mag
-from .stft import hann_window
+from .stft import hann_window, map_frame_chunks
 
 KERNEL = _cuda.Kernel("mel_log", "gomel_tpu_torch/csrc/mel_log.cu",
                       "gomel_tpu/ops/mel_ops.py:98")
@@ -107,11 +107,15 @@ def _mel_from_mags(mags: torch.Tensor, fwd_weights: torch.Tensor) -> torch.Tenso
 
 def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
                fwd_weights: torch.Tensor,
-               window: torch.Tensor | None = None) -> torch.Tensor:
+               window: torch.Tensor | None = None,
+               frame_chunk: int | None = None) -> torch.Tensor:
     """Audio [..., L] -> log-mel [..., F, num_mels, 2].
 
     fwd_weights: [num_mels, N/2] filterbank matrix (core.filterbank.mel_weights).
     window: [frame_len] analysis window, Hann when None.
+    frame_chunk: launch the kernels once per chunk of that many frames
+    (ops/stft.map_frame_chunks); the frames are independent, so the result
+    is the same.
     """
     if fwd_weights.shape[0] != num_mels:
         raise ValueError(f"fwd_weights has {fwd_weights.shape[0]} rows, "
@@ -119,6 +123,11 @@ def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
     if window is None:
         window = torch.as_tensor(hann_window(frame_len), dtype=x_padded.dtype,
                                  device=x_padded.device)
+    if frame_chunk:
+        return map_frame_chunks(
+            x_padded, frame_len, hop, frame_chunk,
+            lambda seg: mel_encode(seg, num_mels, frame_len, hop, fwd_weights,
+                                   window))
     mags = stft_mag(x_padded, window, frame_len, hop)   # [..., F, N/2+1]
     return _mel_from_mags(mags, fwd_weights)
 

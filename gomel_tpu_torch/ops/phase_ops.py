@@ -21,18 +21,27 @@ import torch
 from . import istft
 from .quantize import dequantize_planes
 from .rfft_mag import stft_planes
-from .stft import window_like
+from .stft import map_frame_chunks, window_like
 
 
 def phase_encode(x_padded: torch.Tensor, num_freqs: int, frame_len: int,
-                 hop: int, window: torch.Tensor | None = None) -> torch.Tensor:
+                 hop: int, window: torch.Tensor | None = None,
+                 frame_chunk: int | None = None) -> torch.Tensor:
     """Audio [..., L] -> phase spectrogram [..., F, num_freqs, 2]: (imag, real)
     of rfft bins 1..num_freqs of each Hann-windowed frame (reference
-    phase/phase.go:50-64 then shrink, phase/impl.go:383-391)."""
+    phase/phase.go:50-64 then shrink, phase/impl.go:383-391).
+    ``frame_chunk``: one launch per chunk of that many frames
+    (ops/stft.map_frame_chunks); the frames are independent, so the result
+    is the same."""
     if not 0 < num_freqs <= frame_len // 2:
         raise ValueError(f"num_freqs {num_freqs} outside (0, {frame_len // 2}]")
-    return stft_planes(x_padded, window_like(window, frame_len, x_padded),
-                       frame_len, hop, 1, num_freqs)
+    window = window_like(window, frame_len, x_padded)
+    if frame_chunk:
+        return map_frame_chunks(
+            x_padded, frame_len, hop, frame_chunk,
+            lambda seg: stft_planes(seg, window, frame_len, hop, 1,
+                                    num_freqs))
+    return stft_planes(x_padded, window, frame_len, hop, 1, num_freqs)
 
 
 def phase_encode_batch(xb: torch.Tensor, num_freqs: int, frame_len: int,
@@ -115,6 +124,32 @@ def phase_decode(spec2: torch.Tensor, frame_len: int, hop: int,
         istft.MODE_SPEC, spec2.contiguous(), (), frame_len, frames, nf,
         window, tuple(lead))
     return istft.overlap_normalize(frames_w, hop, window, volume_boost)
+
+
+def phase_synthesize(spec2: torch.Tensor, frame_len: int, hop: int,
+                     window: torch.Tensor | None = None,
+                     real_frames: int | None = None) -> torch.Tensor:
+    """Phase spectrogram [..., F, num_freqs, 2] -> the un-normalised
+    windowed overlap-add [..., N + (F-1)*hop]: grow, irfft x window with
+    the frames at or past ``real_frames`` zero, overlap-add with no
+    window-sum normalisation (the shard-local synthesis of
+    gomel_tpu/parallel/sharded.py:487-502). Kernel KG with its real-frame
+    count, then KH without a window, on a CUDA tensor."""
+    if spec2.ndim < 3 or spec2.shape[-1] != 2 or spec2.shape[-2] > frame_len // 2:
+        raise ValueError(f"phase_synthesize: bad spectrogram shape "
+                         f"{tuple(spec2.shape)} for frame_len {frame_len}")
+    window = window_like(window, frame_len, spec2)
+    if spec2.device.type == "cpu":
+        re, im = grow_half_planes(spec2, frame_len // 2)
+        return istft.overlap_add_plain(istft.irfft_window_plain(
+            re, im, frame_len, window, real_frames), hop)
+    if spec2.dtype != torch.float32:
+        raise ValueError("phase_synthesize: the CUDA kernels take float32")
+    *lead, frames, nf, _ = spec2.shape
+    frames_w = istft.launch_irfft_window(
+        istft.MODE_SPEC, spec2.contiguous(), (), frame_len, frames, nf,
+        window, tuple(lead), real_frames=real_frames)
+    return istft.overlap_add(frames_w, hop)
 
 
 def dequantize_decode_plain(planes: torch.Tensor, maxs, mins, max_val: int,

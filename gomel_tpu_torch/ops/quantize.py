@@ -1,13 +1,15 @@
 """PCM-16 ingest with the zero-stuff upsample (kernel KA, csrc/ingest.cu),
 the mel PNG quantizer (kernel KD) and the phase plane quantizer (kernel KF,
-both csrc/quantize.cu), and the plain de-quantizers and PCM-16 conversion
-of the decodes.
+both csrc/quantize.cu), the long-form de-quantizer ``dequantize_raw``
+(kernel KL, csrc/dequantize.cu), and the plain de-quantizers and PCM-16
+conversion of the single-file decodes.
 
 Counterparts of ``gomel_tpu/ops/quantize.py`` ``pcm16_ingest``,
 ``quantize_mel_plane(_batch)``, ``quantize_planes(_batch)`` (the batch forms
 with the per-row ``frames`` mask of length-bucketed batches too),
 ``dequantize_planes(_batch)``, ``dequantize_mel_plane(_batch)`` and
-``pcm16_encode``, and of the batch CLIs' ingest with a divisor per row
+``pcm16_encode``, ``dequantize_raw``, and of the batch CLIs' ingest with a
+divisor per row
 (gomel_tpu/parallel/batch.py:289). On the file paths only int16 samples go
 to the device and only integer planes plus extrema come back (encode), and
 only integer planes go up and int16 samples come back (decode).
@@ -50,6 +52,9 @@ PLANES_KERNEL = _cuda.Kernel("quantize_planes",
 PLANES_MASKED_KERNEL = _cuda.Kernel("quantize_planes_masked",
                                     "gomel_tpu_torch/csrc/quantize.cu",
                                     "gomel_tpu/ops/quantize.py:164")
+DEQUANTIZE_RAW_KERNEL = _cuda.Kernel("dequantize_raw",
+                                     "gomel_tpu_torch/csrc/dequantize.cu",
+                                     "gomel_tpu/ops/quantize.py:88")
 
 # pass-1 blocks per row of the quantizer's min/max reduction
 _MINMAX_PARTS = 64
@@ -345,6 +350,65 @@ def dequantize_planes_batch(img2b: torch.Tensor, maxs, mins, max_val: int,
     if img2b.ndim != 4:
         raise ValueError(f"expected [B, nf, F, 2] (got {tuple(img2b.shape)})")
     return dequantize_planes(img2b, maxs, mins, max_val, ihs_passes)
+
+
+def dequantize_raw_plain(img: torch.Tensor, maxs, mins, max_val: int,
+                         ihs_passes: int = 0, boost: float = 0.0,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of KL (see :func:`dequantize_raw`). Every
+    scalar is a tensor made by a fill, so each division is a true division
+    on every device, as in the kernel."""
+    dev = img.device
+
+    def scalar(v):
+        return torch.full((), float(v), dtype=dtype, device=dev)
+
+    maxs = torch.as_tensor(maxs, device=dev).to(torch.float32)
+    mins = torch.as_tensor(mins, device=dev).to(torch.float32)
+    s = img.to(dtype) / scalar(max_val)
+    s = s * (maxs - mins).to(dtype) + mins.to(dtype)
+    for _ in range(ihs_passes):
+        s = torch.sinh(s)
+    if boost != 0.0:
+        s = s + scalar(boost)
+    return s
+
+
+def dequantize_raw(img: torch.Tensor, maxs, mins, max_val: int,
+                   ihs_passes: int = 0, boost: float = 0.0,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Layout-agnostic de-quantization (gomel_tpu/ops/quantize.py:88): an
+    integer array (uint8 or uint16) -> ``dtype``, rescaled by the extrema
+    broadcast against its trailing axis (per-channel [C] for phase planes,
+    scalars for mel), ``ihs_passes`` x sinh, then + ``boost`` when it is
+    non-zero (the additive log-domain VolumeBoost). Kernel KL on a CUDA
+    tensor (float32 only)."""
+    if img.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"dequantize_raw: img must be uint8 or uint16 (got "
+                         f"{img.dtype})")
+    if img.device.type == "cpu":
+        return dequantize_raw_plain(img, maxs, mins, max_val, ihs_passes,
+                                    boost, dtype)
+    f32 = torch.float32
+    mx = torch.as_tensor(maxs, dtype=f32, device=img.device).contiguous()
+    mn = torch.as_tensor(mins, dtype=f32, device=img.device).contiguous()
+    if mx.shape != mn.shape or mx.ndim > 1 or (
+            mx.ndim == 1 and (img.ndim == 0 or mx.shape[0] != img.shape[-1])):
+        raise ValueError(f"dequantize_raw: extrema {tuple(mx.shape)}, "
+                         f"{tuple(mn.shape)} do not broadcast over the "
+                         f"trailing axis of {tuple(img.shape)}")
+    img = img.contiguous()
+    dev = _cuda.check_cuda("dequantize_raw", img, mx, mn)
+    if dtype != f32:
+        raise ValueError("dequantize_raw: the CUDA kernel writes float32")
+    out = torch.empty(img.shape, dtype=f32, device=dev)
+    if img.numel() > 0:
+        _cuda.launch("gomel_dequantize_raw", dev, img.data_ptr(),
+                     mx.data_ptr(), mn.data_ptr(), out.data_ptr(), img.numel(),
+                     img.element_size(), max(1, mx.numel()), float(max_val),
+                     int(ihs_passes), float(boost))
+        DEQUANTIZE_RAW_KERNEL.launches += 1
+    return out
 
 
 def dequantize_mel_plane(img2: torch.Tensor, mgc_max, mgc_min,

@@ -1,9 +1,10 @@
-"""Hann window and frame gathering.
+"""Hann window, frame gathering and frame chunking.
 
-Counterpart of ``gomel_tpu/ops/stft.py`` (``hann_window``, ``frame_signal``).
-On the card the frames are never gathered: the STFT-magnitude kernel reads
-them straight from the signal (ops/rfft_mag.py). ``frame_signal`` serves the
-plain versions, as a strided view that copies nothing.
+Counterpart of ``gomel_tpu/ops/stft.py`` (``hann_window``, ``frame_signal``,
+``auto_frame_chunk``, ``map_frame_chunks``). On the card the frames are
+never gathered: the STFT kernels read them straight from the signal
+(ops/rfft_mag.py). ``frame_signal`` serves the plain versions, as a strided
+view that copies nothing.
 """
 from __future__ import annotations
 
@@ -48,3 +49,36 @@ def window_like(window, frame_len: int, like: torch.Tensor) -> torch.Tensor:
     if window is None:
         window = hann_window(frame_len)
     return torch.as_tensor(window, dtype=like.dtype, device=like.device)
+
+
+def auto_frame_chunk(n_frames: int, threshold: int = 3072,
+                     chunk: int = 1024) -> int | None:
+    """Chunk size policy for the frame-local analysis kernels (copied from
+    gomel_tpu/ops/stft.py:77): ``chunk`` once a signal has ``threshold``
+    frames or more, else None (no chunking)."""
+    return chunk if n_frames >= threshold else None
+
+
+def map_frame_chunks(x: torch.Tensor, frame_len: int, hop: int, chunk: int,
+                     per_chunk_fn) -> torch.Tensor:
+    """Run a frame-local analysis over ``chunk``-frame slices of a signal
+    [..., L] (gomel_tpu/ops/stft.py:88, K18): ``per_chunk_fn`` maps a
+    segment of ``chunk*hop + frame_len - hop`` samples to ``[..., chunk,
+    ...]`` frame-wise outputs. The signal is zero-padded so every chunk is
+    full, and the result is cut back to the true frame count. The JAX
+    program maps over the chunks in one dispatch to keep each chunk's frames
+    in a TPU core's fast memory; here it is a host loop that launches the
+    kernels once per chunk, on a contiguous copy of each segment."""
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} must be >= 1")
+    L = x.shape[-1]
+    F = num_frames_of(L, frame_len, hop)
+    n_chunks = -(-F // chunk)
+    seg_len = chunk * hop + frame_len - hop
+    need = (n_chunks - 1) * chunk * hop + seg_len
+    if need > L:
+        x = torch.nn.functional.pad(x, (0, need - L))
+    lead = x.ndim - 1
+    outs = [per_chunk_fn(x[..., c * chunk * hop: c * chunk * hop + seg_len]
+                         .contiguous()) for c in range(n_chunks)]
+    return torch.cat(outs, dim=lead).narrow(lead, 0, F)

@@ -11,7 +11,7 @@ copied from the JAX package and pinned to it by tests/test_torch_host.py.
 ``BatchedMel`` and ``BatchedPhase`` run a whole batch on one explicit
 ``device`` through the port's kernels (their plain versions on the CPU).
 The mesh of the JAX package (the 'data' axis, ``input_mode``,
-``local_rows``, ``process_local``) waits for the frame-sharded slice.
+``local_rows``, ``process_local``) waits for the multi-process slice.
 
 Griffin-Lim starts. The JAX package gives row r of every decode call the key
 ``split(PRNGKey(seed), B)[r]``; the port cannot reproduce JAX's draws, so row
@@ -32,7 +32,7 @@ import torch
 
 from ..core.config import MelConfig, PhaseConfig
 from ..core.framing import pad_length
-from ..ops.griffinlim import griffin_lim, random_init
+from ..ops.griffinlim import griffin_lim, random_init, stream_generator
 from ..ops.mel_ops import mel_decode, mel_encode_batch, mel_to_magnitudes
 from ..ops.phase_ops import dequantize_decode, phase_decode, phase_encode_batch
 from ..ops.quantize import (pcm16_ingest_batch, quantize_mel_plane_batch,
@@ -121,10 +121,7 @@ def row_start(seed: int, row: int, length: int,
     [length], drawn on the CPU from a generator seeded by numpy's
     SeedSequence of (seed mod 2^64, row), so rows draw independent streams
     that depend on (seed, row) alone."""
-    state = np.random.SeedSequence([int(seed) % (1 << 64), int(row)])
-    generator = torch.Generator().manual_seed(
-        int(state.generate_state(1, np.uint64)[0]))
-    return random_init((length,), generator, dtype)
+    return random_init((length,), stream_generator(seed, row), dtype)
 
 
 def row_starts(seed: int, rows: int, length: int,
@@ -169,7 +166,8 @@ class BatchedMel:
 
     def __init__(self, config: MelConfig | None = None,
                  dtype: torch.dtype = torch.float32, gl_momentum: float = 0.0,
-                 device: torch.device | str = "cpu", *, mel: Mel | None = None):
+                 device: torch.device | str = "cuda", *,
+                 mel: Mel | None = None):
         self.mel = mel if mel is not None else Mel(
             config or MelConfig(), dtype=dtype, device=device)
         self.config = self.mel.config
@@ -271,7 +269,7 @@ class BatchedPhase:
 
     def __init__(self, config: PhaseConfig | None = None,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu", *,
+                 device: torch.device | str = "cuda", *,
                  phase: Phase | None = None):
         self.phase = phase if phase is not None else Phase(
             config or PhaseConfig(), dtype=dtype, device=device)

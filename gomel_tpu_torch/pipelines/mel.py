@@ -26,6 +26,7 @@ from ..core.filterbank import inverse_mel_weights, mel_weights
 from ..core.framing import is_padded, pad_length
 from ..io import audio as audio_io
 from ..io import imagecodec
+from ..ops import _cuda
 from ..ops.griffinlim import griffin_lim
 from ..ops.mel_ops import mel_decode, mel_encode, mel_to_magnitudes
 from ..ops.quantize import pcm16_ingest, quantize_mel_plane
@@ -48,8 +49,9 @@ class Mel(torch.nn.Module):
     def __init__(self, config: MelConfig | None = None,
                  dtype: torch.dtype = torch.float32,
                  device_quantize: bool = False,
-                 device: torch.device | str = "cpu", **overrides):
+                 device: torch.device | str = "cuda", **overrides):
         super().__init__()
+        device = _cuda.require_device(device, "Mel")
         if config is None:
             config = MelConfig(**overrides)
         elif overrides:
@@ -70,7 +72,7 @@ class Mel(torch.nn.Module):
     @classmethod
     def from_numpy(cls, config: MelConfig, fwd_weights: np.ndarray,
                    window: np.ndarray, inv_weights: np.ndarray | None = None,
-                   device: torch.device | str = "cpu") -> "Mel":
+                   device: torch.device | str = "cuda") -> "Mel":
         """A ``Mel`` whose filterbank, window and (when given) inverse
         filterbank are the given arrays (for example the JAX package's
         ``Mel._weights()`` and ``Mel._win()``), in their dtype, on

@@ -31,6 +31,7 @@ from ..core.config import PhaseConfig, num_freqs_for_sample_rate, pad_shift
 from ..core.framing import is_padded, pad_length, zero_stuff_output_length
 from ..io import audio as audio_io
 from ..io import imagecodec
+from ..ops import _cuda
 from ..ops.phase_ops import dequantize_decode, phase_decode, phase_encode
 from ..ops.quantize import pcm16_ingest, quantize_planes
 from ..ops.resample import zero_stuff_upsample
@@ -56,8 +57,9 @@ class Phase(torch.nn.Module):
                  metadata_layout: str = "go", length_mode: str = "go",
                  sample_rate: int | None = None,
                  device_quantize: bool = False,
-                 device: torch.device | str = "cpu", **overrides):
+                 device: torch.device | str = "cuda", **overrides):
         super().__init__()
+        device = _cuda.require_device(device, "Phase")
         if config is None:
             if sample_rate is not None:
                 config = PhaseConfig.for_sample_rate(sample_rate, **overrides)
@@ -75,7 +77,7 @@ class Phase(torch.nn.Module):
 
     @classmethod
     def from_numpy(cls, config: PhaseConfig, window: np.ndarray,
-                   device: torch.device | str = "cpu", **kwargs) -> "Phase":
+                   device: torch.device | str = "cuda", **kwargs) -> "Phase":
         """A ``Phase`` whose window is the given array (for example the JAX
         package's ``hann_window(resolut)`` cast to its working dtype), in its
         dtype, on ``device``."""

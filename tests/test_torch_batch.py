@@ -95,8 +95,8 @@ def test_batched_mel_encode_quantized_vs_jax_and_single(pcm):
     jb = jbatch.BatchedMel(JMelConfig(**MEL))
     # the JAX package's float32 filterbank and window, carried across
     tb = tbatch.BatchedMel(mel=Mel.from_numpy(MelConfig(**MEL), jb._fwd,
-                                              jb._window))
-    single = Mel(MelConfig(**MEL), device_quantize=True)
+                                              jb._window, device="cpu"))
+    single = Mel(MelConfig(**MEL), device_quantize=True, device="cpu")
     for bucket in tbatch.make_buckets(utts, 256, max_batch=4,
                                       dtype=np.int16 if pcm else np.float32):
         frames = _frames(bucket, 256, 1024)
@@ -132,8 +132,8 @@ def test_batched_phase_encode_quantized_vs_jax_and_single(pcm, ihs, hdr):
     utts = _utterances([2500, 6000, 4000], seed=2, pcm=pcm)
     jb = jbatch.BatchedPhase(JPhaseConfig(**cfg))
     tb = tbatch.BatchedPhase(phase=Phase.from_numpy(PhaseConfig(**cfg),
-                                                    jb._window))
-    single = Phase(PhaseConfig(**cfg), device_quantize=True)
+                                                    jb._window, device="cpu"))
+    single = Phase(PhaseConfig(**cfg), device_quantize=True, device="cpu")
     for bucket in tbatch.make_buckets(utts, 256, max_batch=4,
                                       dtype=np.int16 if pcm else np.float32):
         frames = _frames(bucket, 256, 1024)
@@ -162,12 +162,12 @@ def test_batched_encode_vs_jax():
     1e-5 of each row's peak."""
     utts = _utterances([3000, 4500], seed=3)
     bucket = tbatch.make_buckets(utts, 256, max_batch=4)[0]
-    got = tbatch.BatchedMel(MelConfig(**MEL)).encode(bucket.audio).numpy()
+    got = tbatch.BatchedMel(MelConfig(**MEL), device="cpu").encode(bucket.audio).numpy()
     want = np.asarray(jbatch.BatchedMel(JMelConfig(**MEL)).encode(
         bucket.audio))
     np.testing.assert_allclose(np.exp(got), np.exp(want), rtol=0,
                                atol=1e-5 * float(np.exp(want).max()))
-    got = tbatch.BatchedPhase(PhaseConfig(**PHASE)).encode(bucket.audio)
+    got = tbatch.BatchedPhase(PhaseConfig(**PHASE), device="cpu").encode(bucket.audio)
     want = np.asarray(jbatch.BatchedPhase(JPhaseConfig(**PHASE)).encode(
         bucket.audio))
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
@@ -175,7 +175,7 @@ def test_batched_encode_vs_jax():
 
 
 def test_encode_quantized_checks_rows():
-    tb = tbatch.BatchedMel(MelConfig(**MEL))
+    tb = tbatch.BatchedMel(MelConfig(**MEL), device="cpu")
     pcm = np.zeros((2, 2560), np.int16)
     with pytest.raises(ValueError):
         tb.encode_quantized(pcm, np.array([5, 5], np.int32))   # no scales
@@ -198,7 +198,7 @@ def test_batched_phase_decode_quantized_vs_jax():
     jb = jbatch.BatchedPhase(JPhaseConfig(**PHASE))
     img, mx, mn = (np.array(t) for t in jb.encode_quantized(xb, frames))
     mx[1] = np.nan
-    tb = tbatch.BatchedPhase(PhaseConfig(**PHASE))
+    tb = tbatch.BatchedPhase(PhaseConfig(**PHASE), device="cpu")
     pcm, ok = tb.decode_quantized(img, mx, mn, pcm16=True)
     j_pcm, j_ok = jb.decode_quantized(img, mx, mn, pcm16=True)
     assert ok.tolist() == np.asarray(j_ok).tolist() == [True, False, True]
@@ -224,7 +224,7 @@ def test_batched_mel_decode_quantized_vs_jax(jax_starts, momentum, boost):
     frames = np.full(3, frames_for_padded(5000, 256, 1024), np.int32)
     jb = jbatch.BatchedMel(JMelConfig(**cfg), gl_momentum=momentum)
     tb = tbatch.BatchedMel(gl_momentum=momentum, mel=Mel.from_numpy(
-        MelConfig(**cfg), jb._fwd, jb._window, jb._inv))
+        MelConfig(**cfg), jb._fwd, jb._window, jb._inv, device="cpu"))
     img, mx, mn = (np.array(t) for t in jb.encode_quantized(xb, frames))
     pcm, ok = tb.decode_quantized(img, mx, mn, seed=7, boost=boost,
                                   pcm16=True)
@@ -252,7 +252,7 @@ def test_row_start_rule():
     assert not torch.equal(tbatch.row_starts(12, 1, 3000, torch.float32)[0],
                            starts[1][0])
     # the decode draws them: row 0 decodes alike alone and in a batch of 4
-    tb = tbatch.BatchedMel(MelConfig(**MEL))
+    tb = tbatch.BatchedMel(MelConfig(**MEL), device="cpu")
     xb = np.stack(_utterances([4000] * 4, seed=6))
     frames = np.full(4, frames_for_padded(4000, 256, 1024), np.int32)
     img, mx, mn = (t.numpy() for t in tb.encode_quantized(xb, frames))
@@ -405,7 +405,7 @@ def test_to_mel_flac_vs_jax(mixed_dir, tmp_path, device_quantize):
     path: PNGs within 1 step at < 2e-3, metadata equal."""
     for name in ("c.flac", "d.flac"):
         t_png, j_png = tmp_path / ("t" + name), tmp_path / ("j" + name)
-        Mel(MelConfig(**MEL), device_quantize=device_quantize).to_mel_flac(
+        Mel(MelConfig(**MEL), device_quantize=device_quantize, device="cpu").to_mel_flac(
             str(mixed_dir / name), str(t_png))
         JMel(JMelConfig(**MEL), device_quantize=device_quantize).to_mel_flac(
             str(mixed_dir / name), str(j_png))
@@ -413,7 +413,7 @@ def test_to_mel_flac_vs_jax(mixed_dir, tmp_path, device_quantize):
         _near(a, b)
         assert jimg.load_mel_image_raw(str(t_png), False)[1:] == \
             jimg.load_mel_image_raw(str(j_png), False)[1:]
-    got = Mel(MelConfig(**MEL)).to_tensor_flac(str(mixed_dir / "d.flac"))
+    got = Mel(MelConfig(**MEL), device="cpu").to_tensor_flac(str(mixed_dir / "d.flac"))
     want = np.asarray(JMel(JMelConfig(**MEL)).to_tensor_flac(
         str(mixed_dir / "d.flac")))
     np.testing.assert_allclose(np.exp(got.numpy()), np.exp(want), rtol=0,
@@ -424,7 +424,7 @@ def test_to_mel_flac_vs_jax(mixed_dir, tmp_path, device_quantize):
 def test_to_phase_flac_vs_jax(mixed_dir, tmp_path, name):
     for dq in (True, False):
         t_png, j_png = tmp_path / f"t{dq}.png", tmp_path / f"j{dq}.png"
-        Phase(sample_rate=48000, device_quantize=dq).to_phase_flac(
+        Phase(sample_rate=48000, device_quantize=dq, device="cpu").to_phase_flac(
             str(mixed_dir / name), str(t_png))
         JPhase(sample_rate=48000, device_quantize=dq).to_phase_flac(
             str(mixed_dir / name), str(j_png))
@@ -433,7 +433,7 @@ def test_to_phase_flac_vs_jax(mixed_dir, tmp_path, name):
         d = np.abs(a.astype(np.int64) - b.astype(np.int64))
         d = np.minimum(d, 256 - d)
         assert d.max() <= 1 and (d > 0).mean() < 2e-3
-    got = Phase(sample_rate=48000).to_tensor_flac(str(mixed_dir / name))
+    got = Phase(sample_rate=48000, device="cpu").to_tensor_flac(str(mixed_dir / name))
     want = JPhase(sample_rate=48000).to_tensor_flac(str(mixed_dir / name))
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * float(np.abs(want).max()))
@@ -445,7 +445,7 @@ def test_flac_16k_phase_and_tomel_cli(tmp_path):
     from gomel_tpu_torch.cli.tools import tomel
     path = str(tmp_path / "s.flac")
     tflac.write_flac(path, _tone(6000, 16000, 9), 16000)
-    Phase(device_quantize=True).to_phase_flac(path, str(tmp_path / "t.png"))
+    Phase(device_quantize=True, device="cpu").to_phase_flac(path, str(tmp_path / "t.png"))
     JPhase(device_quantize=True).to_phase_flac(path, str(tmp_path / "j.png"))
     a, b = read_png(str(tmp_path / "t.png")), read_png(str(tmp_path / "j.png"))
     d = np.abs(a.astype(np.int64) - b.astype(np.int64))

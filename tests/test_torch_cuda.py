@@ -137,7 +137,7 @@ def test_mel_encode_cuda_vs_cpu(cuda):
     x = 0.3 * rng.standard_normal(48000 * 2)
     cfg = MelConfig.cli_default()
     gpu = Mel(cfg, device=cuda).encode(x).cpu()
-    cpu = Mel(cfg, dtype=torch.float64).encode(x)
+    cpu = Mel(cfg, dtype=torch.float64, device="cpu").encode(x)
     assert gpu.shape == cpu.shape
     # compare magnitudes: exp(log-mel) within 1e-5 of its peak
     e_gpu, e_cpu = gpu.double().exp(), cpu.exp()
@@ -350,13 +350,13 @@ def test_batched_encode_quantized_cuda_vs_cpu(cuda):
     scales = np.asarray([32768.0, 65536.0, 32768.0], np.float32)
     mcfg = MelConfig(num_mels=32, window=256, resolut=1024, mel_fmax=8000.0)
     got = BatchedMel(mcfg, device=cuda).encode_quantized(pcm, frames, scales)
-    want = BatchedMel(mcfg).encode_quantized(pcm, frames, scales)
+    want = BatchedMel(mcfg, device="cpu").encode_quantized(pcm, frames, scales)
     d = (got[0].cpu().int() - want[0].int()).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
     pcfg = PhaseConfig(num_freqs=200, window=256, resolut=1024)
     got = BatchedPhase(pcfg, device=cuda).encode_quantized(pcm, frames)
-    want = BatchedPhase(pcfg).encode_quantized(pcm, frames)
+    want = BatchedPhase(pcfg, device="cpu").encode_quantized(pcm, frames)
     d = (got[0].cpu().int() - want[0].int()).abs()
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
@@ -453,7 +453,7 @@ def test_phase_roundtrip_cuda_vs_cpu(cuda, ihs, hdr):
     t = np.arange(48000) / 48000
     x = 0.3 * np.sin(2 * np.pi * 330 * t) + 0.02 * rng.standard_normal(t.shape)
     cfg = PhaseConfig.cli_default(ihs=ihs, hdr=hdr)
-    gpu, cpu = Phase(cfg, device=cuda), Phase(cfg)
+    gpu, cpu = Phase(cfg, device=cuda), Phase(cfg, device="cpu")
     img_g, mx_g, mn_g = gpu.encode_quantized(x)
     img_c, mx_c, mn_c = cpu.encode_quantized(x)
     d = (img_g.cpu().int() - img_c.int()).abs()
@@ -594,10 +594,162 @@ def test_mel_decode_quantized_cuda_vs_cpu(cuda):
     t = np.arange(48000) / 48000
     x = 0.3 * np.sin(2 * np.pi * 330 * t) + 0.02 * rng.standard_normal(t.shape)
     cfg = MelConfig.cli_default(volume_boost=0.5)
-    img, mx, mn = Mel(cfg).encode_quantized(x)
+    img, mx, mn = Mel(cfg, device="cpu").encode_quantized(x)
     pcm_g, ok_g = Mel(cfg, device=cuda).decode_quantized_pcm16(img, mx, mn,
                                                                seed=2)
-    pcm_c, ok_c = Mel(cfg).decode_quantized_pcm16(img, mx, mn, seed=2)
+    pcm_c, ok_c = Mel(cfg, device="cpu").decode_quantized_pcm16(img, mx, mn, seed=2)
     assert bool(ok_g) and bool(ok_c) and pcm_g.shape == pcm_c.shape
     lsb = (pcm_g.cpu().int() - pcm_c.int()).abs()
     assert int(lsb.max()) <= 2 and float((lsb > 0).float().mean()) < 5e-2
+
+
+# -- the long-form slice: KL, KG's real-frame count, KM ----------------------
+
+@pytest.mark.parametrize("dtype,max_val,ext,passes,boost", [
+    (np.uint8, 255, 2, 0, 0.0), (np.uint16, 65535, 2, 0, 0.0),
+    (np.uint8, 255, 1, 0, 1.5), (np.uint16, 65535, 2, 2, 0.0),
+    (np.uint8, 255, 2, 1, -0.5)])
+def test_dequantize_raw_vs_plain(cuda, dtype, max_val, ext, passes, boost):
+    """KL bit-exact against its plain version without IHS; with sinh passes
+    within 2 ulp (CUDA's sinhf and PyTorch's may round apart)."""
+    rng = np.random.default_rng(20)
+    img = torch.from_numpy(rng.integers(0, max_val + 1, (1, 301, 37, 2),
+                                        dtype=dtype))
+    maxs = torch.tensor([2.0, 1.25])[:ext].reshape((2,) if ext == 2 else ())
+    mins = torch.tensor([-1.75, -0.5])[:ext].reshape((2,) if ext == 2 else ())
+    before = quantize.DEQUANTIZE_RAW_KERNEL.launches
+    out = quantize.dequantize_raw(img.to(cuda), maxs, mins, max_val, passes,
+                                  boost)
+    assert quantize.DEQUANTIZE_RAW_KERNEL.launches == before + 1
+    ref = quantize.dequantize_raw_plain(img.to(cuda), maxs, mins, max_val,
+                                        passes, boost)
+    if passes == 0:
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, rtol=2.5e-7, atol=1e-7)
+    with pytest.raises(ValueError, match="broadcast"):
+        quantize.dequantize_raw(img.to(cuda), torch.zeros(3), torch.zeros(3),
+                                max_val)
+
+
+@pytest.mark.parametrize("mode", ["planes", "spec", "quant8"])
+@pytest.mark.parametrize("real", [0, 7, 23])
+def test_irfft_window_real_frames(cuda, mode, real):
+    """KG with a real-frame count: frames at or past it are exact zeros,
+    the others equal KG without the count bit for bit."""
+    n, nf, frames = 1024, 300, 23
+    rng = np.random.default_rng(21)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    if mode == "planes":
+        re = torch.from_numpy(rng.standard_normal((2, frames, n // 2 + 1))
+                              .astype(np.float32)).to(cuda)
+        im = torch.from_numpy(rng.standard_normal((2, frames, n // 2 + 1))
+                              .astype(np.float32)).to(cuda)
+        full = istft.irfft_window(re, im, n, win)
+        before = istft.SYNTH_MASKED_KERNEL.launches
+        out = istft.irfft_window(re, im, n, win, real)
+    else:
+        if mode == "spec":
+            src, aux, m = _spec((2, frames, nf, 2), 22).to(cuda), (), \
+                istft.MODE_SPEC
+        else:
+            src = torch.from_numpy(rng.integers(0, 256, (2, nf, frames, 2),
+                                                dtype=np.uint8)).to(cuda)
+            aux = (torch.tensor([[1.0, 2.0], [3.0, 0.5]], device=cuda),
+                   torch.tensor([[-1.0, -2.0], [0.0, -0.5]], device=cuda))
+            m = istft.MODE_QUANT8
+        full = istft.launch_irfft_window(m, src, aux, n, frames, nf, win, (2,),
+                                         255.0, 0)
+        before = istft.SYNTH_MASKED_KERNEL.launches
+        out = istft.launch_irfft_window(m, src, aux, n, frames, nf, win, (2,),
+                                        255.0, 0, real_frames=real)
+    assert istft.SYNTH_MASKED_KERNEL.launches == before + 1
+    assert torch.equal(out[:, :real], full[:, :real])
+    assert not out[:, real:].any()
+
+
+@pytest.mark.parametrize("start_shard,n_frames", [(0, 40), (1, 40), (3, 40),
+                                                  (2, 9), (1, 3)])
+@pytest.mark.parametrize("pcm16,boost", [(False, 0.0), (True, 1.5)])
+def test_shard_epilogue_decode_bit_exact(cuda, start_shard, n_frames, pcm16,
+                                         boost):
+    """KM's decode mode (halo add, global window sum at the global sample,
+    threshold, boost, float32 or PCM-16) equals its plain version bit for
+    bit, on shards inside, at the end of and past the real frames."""
+    n, hop, f_loc = 4096, 1280, 12
+    chunk, halo = f_loc * hop, n - hop
+    rng = np.random.default_rng(23 + start_shard)
+    sig = torch.from_numpy((rng.standard_normal((2, chunk + halo)) * 0.3)
+                           .astype(np.float32)).to(cuda)
+    recv = None if start_shard == 0 else torch.from_numpy(
+        (rng.standard_normal((2, halo)) * 0.3).astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    kw = dict(window=win, hop=hop, start=start_shard * chunk,
+              n_frames=n_frames, volume_boost=boost, pcm16=pcm16)
+    before = istft.SHARD_KERNEL.launches
+    got = istft.shard_epilogue(sig, recv, chunk, **kw)
+    assert istft.SHARD_KERNEL.launches == before + 1
+    want = istft.shard_epilogue_plain(sig, recv, chunk, **kw)
+    got, want = (got, want) if pcm16 else ((got,), (want,))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("momentum,pcm16,extend", [
+    (0.99, False, True), (0.0, False, True), (0.0, True, False),
+    (0.0, False, False)])
+def test_shard_epilogue_gl_bit_exact(cuda, momentum, pcm16, extend):
+    """KM's Griffin-Lim modes: the momentum step (c, t) into an extended
+    carry, the plain interior carry, and the final iteration's float32 or
+    PCM-16, each bit-exact against the plain version (the halo columns of
+    an extended carry are the caller's to fill and are not compared)."""
+    chunk, halo = 5 * 320, 1024 - 320
+    rng = np.random.default_rng(24)
+    sig = torch.from_numpy(rng.standard_normal((3, chunk + halo))
+                           .astype(np.float32)).to(cuda)
+    recv_src = torch.from_numpy(rng.standard_normal((3, chunk + halo))
+                                .astype(np.float32)).to(cuda)
+    recv = recv_src[:, chunk:]           # a strided view, as the halo push
+    kw = dict(pcm16=pcm16, extend=extend)
+    if momentum:
+        kw.update(momentum=momentum, t_prev=torch.from_numpy(
+            rng.standard_normal((3, chunk)).astype(np.float32)).to(cuda))
+    got = istft.shard_epilogue(sig, recv, chunk, **kw)
+    want = istft.shard_epilogue_plain(sig, recv, chunk, **kw)
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        assert torch.equal(a[..., :chunk], b[..., :chunk])
+
+
+def test_longform_cuda_vs_cpu(cuda):
+    """The long-form codecs on four frame shards of one card against the
+    same on four CPU entries: phase encode within 1e-5 of the peak, decode
+    within 1e-5, mel GL-3 from the same per-shard starts within 1e-4, with
+    every kernel of the path launched."""
+    from gomel_tpu_torch import LongFormMel, LongFormPhase, make_mesh
+    from gomel_tpu_torch.ops import griffinlim
+    g = make_mesh(data=1, frame=4, devices=[cuda] * 4)
+    c = make_mesh(data=1, frame=4, devices=[torch.device("cpu")] * 4)
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((2, 48000)).astype(np.float32) * 0.1
+    pc = PhaseConfig(num_freqs=384, window=320, resolut=1024)
+    spec_g = LongFormPhase(pc, g).encode(x).cpu()
+    spec_c = LongFormPhase(pc, c).encode(x)
+    peak = float(spec_c.abs().max())
+    assert float((spec_g - spec_c).abs().max()) <= 1e-5 * peak
+    before = (istft.SYNTH_MASKED_KERNEL.launches, istft.SHARD_KERNEL.launches)
+    dec_g = LongFormPhase(pc, g).decode(spec_c).cpu()
+    assert istft.SYNTH_MASKED_KERNEL.launches == before[0] + 4
+    assert istft.SHARD_KERNEL.launches == before[1] + 4
+    dec_c = LongFormPhase(pc, c).decode(spec_c)
+    assert float((dec_g - dec_c).abs().max()) <= 1e-5 * float(
+        dec_c.abs().max())
+    mc = MelConfig(num_mels=64, window=320, resolut=1024, mel_fmax=8000.0,
+                   griffin_lim_iterations=3)
+    logmel = LongFormMel(mc, c).encode(x)
+    before = griffinlim.PROJECT_KERNEL.launches
+    wav_g = LongFormMel(mc, g).decode(logmel, seed=1, momentum=0.9).cpu()
+    assert griffinlim.PROJECT_KERNEL.launches == before + 12
+    wav_c = LongFormMel(mc, c).decode(logmel, seed=1, momentum=0.9)
+    assert float((wav_g - wav_c).abs().max()) <= 1e-4 * float(
+        wav_c.abs().max())

@@ -23,7 +23,9 @@ from gomel_tpu.io import float16meta as jf16
 from gomel_tpu.io import imagecodec as jimg
 from gomel_tpu.io import pngcodec as jpng
 from gomel_tpu.io import wavcodec as jwav
+from gomel_tpu.ops import stft as jstft
 from gomel_tpu.parallel import batch as jbatch
+from gomel_tpu.parallel import sharded as jsharded
 from gomel_tpu_torch.core import config as tcfg
 from gomel_tpu_torch.core import filterbank as tfb
 from gomel_tpu_torch.core import framing as tfr
@@ -35,7 +37,9 @@ from gomel_tpu_torch.io import float16meta as tf16
 from gomel_tpu_torch.io import imagecodec as timg
 from gomel_tpu_torch.io import pngcodec as tpng
 from gomel_tpu_torch.io import wavcodec as twav
+from gomel_tpu_torch.ops import stft as tstft
 from gomel_tpu_torch.parallel import batch as tbatch
+from gomel_tpu_torch.parallel import sharded as tsharded
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -431,3 +435,64 @@ def test_make_buckets_equal(dtype, max_batch):
     got = tbatch.make_buckets(utts, 64, 4, bucket_boundaries=bounds)
     want = jbatch.make_buckets(utts, 64, 4, bucket_boundaries=bounds)
     assert [b.padded_len for b in got] == [b.padded_len for b in want]
+
+
+# -- the frame-sharded plan (the long-form slice) ----------------------------
+
+def _plan_fields(plan):
+    return (plan.frame_len, plan.hop, plan.n_shards, plan.n_frames,
+            plan.n_frames_padded, plan.out_len, plan.halo,
+            plan.frames_per_shard, plan.chunk, plan.sharded_signal_len)
+
+
+@pytest.mark.parametrize("frame_len,hop", [(4096, 1280), (256, 64),
+                                           (128, 32), (100, 30), (64, 64)])
+def test_plan_frame_sharding_equal(frame_len, hop):
+    for n_shards in (1, 2, 3, 4, 8):
+        for f in (1, 2, 3, 7, 12, 13, 14, 59, 75, 1000, 67501):
+            assert _plan_fields(tsharded.plan_frame_sharding(
+                f, frame_len, hop, n_shards)) == _plan_fields(
+                    jsharded.plan_frame_sharding(f, frame_len, hop, n_shards))
+    for bad in (0, -3):
+        for mod in (tsharded, jsharded):
+            with pytest.raises(ValueError, match="at least one frame"):
+                mod.plan_frame_sharding(bad, frame_len, hop, 4)
+
+
+def test_pads_for_plan_equal():
+    rng = np.random.default_rng(5)
+    for f, n_shards in ((12, 4), (13, 4), (59, 8), (3, 2)):
+        plan = tsharded.plan_frame_sharding(f, 256, 64, n_shards)
+        jplan = jsharded.plan_frame_sharding(f, 256, 64, n_shards)
+        target = plan.sharded_signal_len
+        # shorter, equal, and reference-padded past the buffer (truncated),
+        # in int16 and float, 1-D and batched; type-preserving on numpy
+        for length in (plan.out_len - 10, target, plan.out_len + 63):
+            for x in (rng.standard_normal(length).astype(np.float32),
+                      rng.integers(-9, 9, (2, length)).astype(np.int16)):
+                got = tsharded.pad_signal_for_plan(x, plan)
+                want = jsharded.pad_signal_for_plan(x, jplan)
+                assert type(got) is np.ndarray and got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want)
+                import torch
+                np.testing.assert_array_equal(
+                    tsharded.pad_signal_for_plan(torch.from_numpy(x),
+                                                 plan).numpy(), want)
+        for mod, pl in ((tsharded, plan), (jsharded, jplan)):
+            with pytest.raises(ValueError, match="inconsistent with plan"):
+                mod.pad_signal_for_plan(
+                    np.zeros(max(target, plan.out_len) + 64), pl)
+        spec = rng.standard_normal((2, f, 5, 2)).astype(np.float32)
+        np.testing.assert_array_equal(
+            tsharded.pad_frames_for_plan(spec, plan),
+            jsharded.pad_frames_for_plan(spec, jplan))
+        np.testing.assert_array_equal(
+            tsharded.pad_frames_for_plan(spec[0], plan, axis=0),
+            jsharded.pad_frames_for_plan(spec[0], jplan, axis=0))
+
+
+def test_auto_frame_chunk_equal():
+    for n in (0, 1, 1023, 3071, 3072, 3073, 16880, 67501):
+        assert tstft.auto_frame_chunk(n) == jstft.auto_frame_chunk(n)
+        assert (tstft.auto_frame_chunk(n, 100, 7)
+                == jstft.auto_frame_chunk(n, 100, 7))

@@ -1,0 +1,598 @@
+"""The port's long-form frame-sharded path against the JAX package's.
+
+The same seeded numpy inputs go through ``gomel_tpu`` on its ('data',
+'frame') = (2, 4) mesh of eight virtual CPU devices (tests/conftest.py) and
+through ``gomel_tpu_torch`` on a mesh of the same shape over eight CPU
+entries, where each kernel runs its plain PyTorch version. The kernels
+themselves are held to those plain versions on the card by
+tests/test_torch_cuda.py and chip_smoke.py. Each tolerance is stated where
+it is checked.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import shard_map
+from jax.sharding import PartitionSpec as P
+
+from gomel_tpu.core.config import MelConfig as JMelConfig
+from gomel_tpu.core.config import PhaseConfig as JPhaseConfig
+from gomel_tpu.io import imagecodec as jimg
+from gomel_tpu.ops import istft as jistft
+from gomel_tpu.ops import mel_ops as jmel
+from gomel_tpu.ops import phase_ops as jphase
+from gomel_tpu.ops import quantize as jquant
+from gomel_tpu.ops import stft as jstft
+from gomel_tpu.parallel import mesh as jmesh_mod
+from gomel_tpu.parallel import sharded as jsh
+from gomel_tpu.pipelines import longform as jlf
+from gomel_tpu_torch import (LongFormMel, LongFormPhase, MelConfig,
+                             PhaseConfig, make_mesh)
+from gomel_tpu_torch.io import flac as tflac
+from gomel_tpu_torch.io import wavcodec
+from gomel_tpu_torch.io.pngcodec import read_png
+from gomel_tpu_torch.ops import istft, mel_ops, phase_ops, quantize
+from gomel_tpu_torch.ops import stft as tstft
+from gomel_tpu_torch.parallel import sharded as tsh
+from gomel_tpu_torch.parallel.batch import BatchedMel, BatchedPhase
+from gomel_tpu_torch.parallel.mesh import shard_array
+from gomel_tpu_torch.pipelines import longform as tlf
+from gomel_tpu_torch.pipelines.mel import Mel
+from gomel_tpu_torch.pipelines.phase import Phase
+
+CFG = dict(window=64, resolut=256)
+CPU8 = [torch.device("cpu")] * 8
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    return (jmesh_mod.make_mesh(data=2, frame=4),
+            make_mesh(data=2, frame=4, devices=CPU8))
+
+
+def _plans(f, frame_len=256, hop=64, n_shards=4):
+    return (jsh.plan_frame_sharding(f, frame_len, hop, n_shards),
+            tsh.plan_frame_sharding(f, frame_len, hop, n_shards))
+
+
+def _run(fn, x, tmesh, dtype=torch.float32):
+    """A port sharded fn on a whole host array, gathered back to numpy."""
+    return fn(shard_array(x, tmesh, dtype)).gather().numpy()
+
+
+def _peak_close(got, want, tol):
+    """max |got - want| <= tol * max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+# -- the global threshold ------------------------------------------------------
+
+@pytest.mark.parametrize("f,frame_len,hop", [(12, 256, 64), (59, 256, 64),
+                                             (5, 128, 32), (30, 100, 30)])
+def test_host_threshold_equals_jax_pmax(meshes, f, frame_len, hop):
+    """0.5 * max of the window sum, computed once per plan on the host,
+    equals the JAX program's pmax over the shards' masked window sums
+    (sharded.py:300-302) to 1 ulp: the two sum the squared-window rows of a
+    sample in another order at shard boundaries."""
+    jm, _ = meshes
+    jplan, plan = _plans(f, frame_len, hop)
+    window = jnp.asarray(jstft.hann_window(frame_len), jnp.float32)
+
+    @functools.partial(shard_map, mesh=jm,
+                       in_specs=(P(jmesh_mod.DATA_AXIS, jmesh_mod.FRAME_AXIS),),
+                       out_specs=P(jmesh_mod.DATA_AXIS, jmesh_mod.FRAME_AXIS))
+    def thresholds(x):
+        mask = jsh._local_frame_mask(jplan.frames_per_shard, jplan.n_frames,
+                                     jmesh_mod.FRAME_AXIS)
+        wsum = jsh._local_window_sum(window, mask, jplan)
+        return (0.5 * jax.lax.pmax(jnp.max(wsum), jmesh_mod.FRAME_AXIS)
+                + 0.0 * x[:, :1])
+
+    want = np.asarray(thresholds(jnp.zeros((2, 4), jnp.float32)))
+    assert np.all(want == want.flat[0])      # one global value
+    _, prefix = istft._window_table(
+        torch.tensor(tstft.hann_window(frame_len), dtype=torch.float32), hop)
+    got = np.float32(istft.window_sum_threshold(prefix, f))
+    assert abs(got - want.flat[0]) <= np.spacing(np.float32(want.flat[0]))
+
+
+# -- the ops: KL, K10, K18 -----------------------------------------------------
+
+@pytest.mark.parametrize("dtype,max_val", [(np.uint8, 255), (np.uint16, 65535)])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_dequantize_raw_vs_jax(dtype, max_val, per_channel):
+    """Bit-exact against the JAX op without IHS and boost; within 1e-6
+    relative (1e-6 absolute near 0) with 2 sinh passes and a boost, as
+    XLA's and PyTorch's sinh differ by a few ulp. The extrema stay within
+    |2|, the range of two asinh passes over a spectrogram's values up to
+    ~13; the second pass multiplies the first's relative error by x coth x
+    (at most 3.6 there)."""
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, max_val + 1, (2, 9, 7, 2), dtype=dtype)
+    if per_channel:
+        maxs = np.array([2.0, 0.75], np.float32)
+        mins = np.array([-1.75, -1.5], np.float32)
+    else:
+        maxs, mins = np.float32(1.75), np.float32(-2.0)
+    t = torch.from_numpy(img)
+    got = quantize.dequantize_raw(t, maxs, mins, max_val).numpy()
+    want = np.asarray(jquant.dequantize_raw(jnp.asarray(img), maxs, mins,
+                                            max_val))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    got = quantize.dequantize_raw(t, maxs, mins, max_val, 2, 1.25).numpy()
+    want = np.asarray(jquant.dequantize_raw(jnp.asarray(img), maxs, mins,
+                                            max_val, 2, 1.25))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_dequantize_raw_rejects_bad_input():
+    with pytest.raises(ValueError, match="uint8 or uint16"):
+        quantize.dequantize_raw(torch.zeros(4), 1.0, 0.0, 255)
+
+
+@pytest.mark.parametrize("real", [0, 5, 17])
+def test_chunked_irfft_overlap_add_vs_jax(real):
+    """The masked synthesis (frames past ``real`` contribute nothing) within
+    1e-5 of the peak of the JAX program's chunked scan (chunk 4, with its
+    tail carry), for counts 0, partial and full."""
+    rng = np.random.default_rng(2)
+    f, n, hop = 17, 256, 64
+    re = rng.standard_normal((f, n // 2 + 1)).astype(np.float32)
+    im = rng.standard_normal((f, n // 2 + 1)).astype(np.float32)
+    win = jstft.hann_window(n).astype(np.float32)
+    want = np.asarray(jistft.chunked_irfft_overlap_add(
+        jnp.asarray(re), jnp.asarray(im), hop, jnp.asarray(win), 4,
+        frame_mask=jnp.arange(f) < real))
+    got = istft.chunked_irfft_overlap_add(
+        torch.from_numpy(re), torch.from_numpy(im), hop,
+        torch.from_numpy(win), 4, real_frames=real).numpy()
+    if real == 0:
+        np.testing.assert_array_equal(got, want)
+        assert not got.any()
+    else:
+        _peak_close(got, want, 1e-5)
+    with pytest.raises(ValueError, match="too small"):
+        istft.chunked_irfft_overlap_add(torch.from_numpy(re),
+                                        torch.from_numpy(im), hop,
+                                        torch.from_numpy(win), 2)
+
+
+@pytest.mark.parametrize("chunk", [4, 5, 6, 7, 8])
+def test_map_frame_chunks_equals_unchunked(chunk):
+    """K18 on the mel and phase encodes: each frame is computed alone, so
+    the chunked result equals the unchunked one within 1e-6 (float32 FFT
+    rounding of the shorter segments' frames is the same), and the JAX
+    chunked encode within 1e-6 of its peak."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(64 * 40 + 256 - 64 + 11).astype(np.float32)
+    t = torch.from_numpy(x)
+    fwd = MelConfig(num_mels=24, **CFG)
+    w = Mel(fwd, device="cpu").fwd_weights
+    base = mel_ops.mel_encode(t, 24, 256, 64, w)
+    got = mel_ops.mel_encode(t, 24, 256, 64, w, frame_chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), base.numpy(), rtol=0, atol=1e-6)
+    want = np.asarray(jmel.mel_encode(jnp.asarray(x), 24, 256, 64,
+                                      np.asarray(w.numpy()),
+                                      frame_chunk=chunk))
+    _peak_close(got.numpy(), want, 1e-6)
+    base = phase_ops.phase_encode(t, 96, 256, 64)
+    got = phase_ops.phase_encode(t, 96, 256, 64, frame_chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), base.numpy(), rtol=0,
+                               atol=1e-6 * float(base.abs().max()))
+    want = np.asarray(jphase.phase_encode(jnp.asarray(x), 96, 256, 64,
+                                          frame_chunk=chunk))
+    _peak_close(got.numpy(), want, 1e-6)
+
+
+# -- the sharded programs ------------------------------------------------------
+
+@pytest.mark.parametrize("frame_chunk", ["auto", None, 4])
+def test_sharded_encodes_vs_jax(meshes, frame_chunk):
+    """sharded_phase_encode_fn and sharded_mel_encode_fn within 1e-4 (the
+    tolerance of tests/test_longform.py:30-31) of the JAX programs."""
+    jm, tm = meshes
+    jplan, plan = _plans(75)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, plan.sharded_signal_len)).astype(np.float32)
+    want = np.asarray(jsh.sharded_phase_encode_fn(
+        jm, jplan, 96, frame_chunk=frame_chunk)(jnp.asarray(x)))
+    got = _run(tsh.sharded_phase_encode_fn(tm, plan, 96,
+                                           frame_chunk=frame_chunk), x, tm)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    fwd = Mel(MelConfig(num_mels=24, **CFG), device="cpu").fwd_weights.numpy()
+    want = np.asarray(jsh.sharded_mel_encode_fn(
+        jm, jplan, 24, fwd, frame_chunk=frame_chunk)(jnp.asarray(x)))
+    got = _run(tsh.sharded_mel_encode_fn(tm, plan, 24, fwd,
+                                         frame_chunk=frame_chunk), x, tm)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_stft_istft_vs_jax(meshes):
+    """The sharded STFT planes within 1e-4 of the peak, and the sharded
+    iSTFT (masked frames, global threshold) within 1e-3, as
+    tests/test_longform.py:33-34 holds the decodes."""
+    jm, tm = meshes
+    jplan, plan = _plans(30)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, plan.sharded_signal_len)).astype(np.float32)
+    jre, jim = jsh.sharded_stft_fn(jm, jplan)(jnp.asarray(x))
+    tre, tim = tsh.sharded_stft_fn(tm, plan)(shard_array(x, tm))
+    _peak_close(tre.gather().numpy(), np.asarray(jre), 1e-4)
+    _peak_close(tim.gather().numpy(), np.asarray(jim), 1e-4)
+    spec = np.asarray(jre) + 1j * np.asarray(jim)
+    want = np.asarray(jsh.sharded_istft_fn(jm, jplan)(
+        jnp.asarray(spec.astype(np.complex64))))
+    got = _run(tsh.sharded_istft_fn(tm, plan), spec.astype(np.complex64), tm,
+               torch.complex64)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("boost,f", [(0.0, 30), (1.5, 30), (0.0, 7)])
+def test_sharded_phase_decode_vs_jax(meshes, boost, f):
+    """Within 1e-3 of the JAX program (tests/test_longform.py:33-34), with
+    and without a boost, and for a signal whose last shards hold no real
+    frame (F = 7 of F_pad = 12 on 4 shards)."""
+    jm, tm = meshes
+    jplan, plan = _plans(f)
+    rng = np.random.default_rng(6)
+    spec = rng.standard_normal((2, plan.n_frames_padded, 96, 2)).astype(
+        np.float32)
+    want = np.asarray(jsh.sharded_phase_decode_fn(jm, jplan, boost)(
+        jnp.asarray(spec)))
+    got = _run(tsh.sharded_phase_decode_fn(tm, plan, boost), spec, tm)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+    pcm, finite = tsh.sharded_phase_decode_fn(tm, plan, boost, pcm16=True)(
+        shard_array(spec, tm))
+    assert finite.tolist() == [True, True]
+    np.testing.assert_array_equal(pcm.gather().numpy(), quantize.pcm16_encode(
+        torch.from_numpy(got))[0].numpy())
+
+
+@pytest.mark.parametrize("momentum,final,n_iter", [
+    (0.0, True, 3), (0.9, True, 3), (0.0, False, 2), (0.9, False, 2),
+    (0.0, True, 1)])
+def test_sharded_griffin_lim_vs_jax(meshes, momentum, final, n_iter):
+    """From the same start, with and without momentum, interior-only and
+    with the final iteration: within 1e-3 of the JAX program
+    (tests/test_longform.py:33-34). The magnitudes of pad frames are zeroed
+    inside (sharded.py:390), so the input carries non-zero pad frames."""
+    jm, tm = meshes
+    jplan, plan = _plans(21)
+    rng = np.random.default_rng(7)
+    mag = rng.random((2, plan.n_frames_padded, 129)).astype(np.float32)
+    sig0 = rng.random((2, plan.sharded_signal_len)).astype(np.float32)
+    want = np.asarray(jsh.sharded_griffin_lim_fn(
+        jm, jplan, n_iter, momentum=momentum, final_iteration=final)(
+            jnp.asarray(mag), jnp.asarray(sig0)))
+    got = tsh.sharded_griffin_lim_fn(tm, plan, n_iter, momentum=momentum,
+                                     final_iteration=final)(
+        shard_array(mag, tm), shard_array(sig0, tm)).gather().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_sharded_griffin_lim_interior_mm_not_ported(meshes):
+    _, tm = meshes
+    _, plan = _plans(21)
+    with pytest.raises(NotImplementedError, match="K14"):
+        tsh.sharded_griffin_lim_fn(tm, plan, 2, interior_mm=True)
+    for mm in (None, False):
+        tsh.sharded_griffin_lim_fn(tm, plan, 2, interior_mm=mm)
+
+
+def test_sharded_mel_decode_vs_jax_from_jax_starts(meshes, monkeypatch):
+    """sharded_mel_decode_fn with the JAX program's per-shard starts fed in:
+    within 1e-3 of it."""
+    jm, tm = meshes
+    jplan, plan = _plans(21)
+    rng = np.random.default_rng(8)
+    logmel = (rng.standard_normal((2, plan.n_frames_padded, 24, 2)) - 3.0
+              ).astype(np.float32)
+    inv = Mel(MelConfig(num_mels=24, **CFG), device="cpu").inv_weights.numpy()
+    _feed_jax_starts(monkeypatch, jm)
+    want = np.asarray(jsh.sharded_mel_decode_fn(jm, jplan, inv, 2)(
+        jnp.asarray(logmel), jax.random.PRNGKey(5)))
+    got = tsh.sharded_mel_decode_fn(tm, plan, inv, 2)(
+        shard_array(logmel, tm), 5).gather().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+def _feed_jax_starts(monkeypatch, jm):
+    """Make the port's per-shard Griffin-Lim starts the JAX program's:
+    shard i's [b_loc, chunk] block of sharded_gl_noise_fn(PRNGKey(seed))."""
+    cache = {}
+
+    def draw(seed, plan, b_loc, dtype, shard_id):
+        key = (seed, plan, b_loc)
+        if key not in cache:
+            jplan = jsh.plan_frame_sharding(plan.n_frames, plan.frame_len,
+                                            plan.hop, plan.n_shards)
+            cache[key] = np.asarray(jsh.sharded_gl_noise_fn(
+                jm, jplan, b_loc * jm.shape["data"])(
+                    jax.random.PRNGKey(seed)))
+        d, f = divmod(shard_id, plan.n_shards)
+        block = cache[key][d * b_loc:(d + 1) * b_loc,
+                           f * plan.chunk:(f + 1) * plan.chunk]
+        return torch.from_numpy(np.array(block)).to(dtype)
+
+    monkeypatch.setattr(tsh, "_shard_noise", draw)
+
+
+# -- the pipelines ---------------------------------------------------------
+
+def test_longform_phase_roundtrip_vs_jax(meshes):
+    """Encode within 1e-4 and decode within 1e-3 of the JAX package's
+    LongFormPhase (tests/test_longform.py:30-34), 2 rows and one row."""
+    jm, tm = meshes
+    cfg = dict(num_freqs=96, **CFG)
+    jl = jlf.LongFormPhase(JPhaseConfig(**cfg), jm)
+    tl = LongFormPhase(PhaseConfig(**cfg), tm)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 5000)).astype(np.float32)
+    want = np.asarray(jl.encode(x))
+    got = tl.encode(x)
+    assert got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tl.decode(want).numpy(),
+                               np.asarray(jl.decode(want)), rtol=1e-3,
+                               atol=1e-3)
+    one = tl.encode(x[0])
+    assert one.shape == (1,) + want.shape[1:]
+    np.testing.assert_allclose(tl.decode(want.tolist()).numpy(),
+                               tl.decode(want).numpy(), atol=1e-6)
+
+
+def test_longform_mel_vs_jax(meshes, monkeypatch):
+    """LongFormMel encode within 1e-4; decode from the JAX program's starts
+    within 1e-3; an odd batch pads to the data axis and is trimmed."""
+    jm, tm = meshes
+    cfg = dict(num_mels=24, griffin_lim_iterations=2, **CFG)
+    jl = jlf.LongFormMel(JMelConfig(**cfg), jm)
+    tl = LongFormMel.from_numpy(MelConfig(**cfg), tm, jl._fwd, jl._inv)
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((3, 4000)).astype(np.float32)
+    want = np.asarray(jl.encode(x))
+    got = tl.encode(x).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    _feed_jax_starts(monkeypatch, jm)
+    np.testing.assert_allclose(tl.decode(want, seed=2).numpy(),
+                               np.asarray(jl.decode(want, seed=2)),
+                               rtol=1e-3, atol=1e-3)
+    with pytest.raises(ValueError):
+        LongFormMel.from_numpy(MelConfig(**cfg), tm, jl._fwd[:3], jl._inv)
+
+
+def test_longform_mel_seed_semantics(meshes):
+    """Per-shard starts: one seed gives one result, another seed another."""
+    _, tm = meshes
+    tl = LongFormMel(MelConfig(num_mels=24, griffin_lim_iterations=2, **CFG),
+                     tm)
+    logmel = tl.encode(np.random.default_rng(11).standard_normal(
+        (2, 4000)).astype(np.float32))
+    a, b, c = (tl.decode(logmel, seed=s).numpy() for s in (0, 0, 1))
+    np.testing.assert_array_equal(a, b)
+    assert np.abs(a - c).max() > 0
+
+
+def test_decode_cache_not_stale_across_frame_counts(meshes):
+    """F = 12, 13, 14 can pad to one n_frames_padded; each decode keeps its
+    own real-frame counts: within 1e-3 of the single-file decode
+    (tests/test_longform.py:83-96)."""
+    _, tm = meshes
+    cfg = PhaseConfig(num_freqs=64, window=32, resolut=128)
+    tl = LongFormPhase(cfg, tm)
+    single = Phase(cfg, device="cpu")
+    rng = np.random.default_rng(12)
+    for f in (12, 13, 14):
+        spec = rng.standard_normal((2, f, 64, 2)).astype(np.float32)
+        got = tl.decode(spec).numpy()
+        for i in range(2):
+            want = single.decode(spec[i]).numpy()
+            np.testing.assert_allclose(got[i][:len(want)], want, atol=1e-3,
+                                       rtol=1e-3)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_decode_resumable(meshes, momentum):
+    """With momentum 0, every segment length gives decode's output bit for
+    bit (tests/test_longform.py:99-112); with momentum it runs and is
+    finite."""
+    _, tm = meshes
+    tl = LongFormMel(MelConfig(num_mels=24, griffin_lim_iterations=7, **CFG),
+                     tm)
+    logmel = tl.encode(np.random.default_rng(13).standard_normal(
+        (2, 4000)).astype(np.float32))
+    want = tl.decode(logmel, seed=3, momentum=momentum).numpy()
+    for seg in (1, 3, 7, 100):
+        got = tl.decode_resumable(logmel, seed=3, momentum=momentum,
+                                  segment_iters=seg).numpy()
+        if momentum == 0.0:
+            np.testing.assert_array_equal(got, want)
+        assert np.isfinite(got).all()
+    with pytest.raises(ValueError):
+        tl.decode_resumable(logmel, segment_iters=0)
+
+
+def test_decode_resumable_checkpoint_roundtrip(meshes, tmp_path):
+    """Run 4 of 6 iterations, persist, resume in a new object: bit-equal to
+    the uninterrupted run."""
+    _, tm = meshes
+    cfg = MelConfig(num_mels=24, griffin_lim_iterations=6, **CFG)
+    tl = LongFormMel(cfg, tm)
+    logmel = tl.encode(np.random.default_rng(14).standard_normal(
+        (2, 4000)).astype(np.float32))
+    want = tl.decode_resumable(logmel, seed=0, segment_iters=2).numpy()
+    ckpt = str(tmp_path / "gl.npz")
+    seen = []
+
+    def cb(done, carry):
+        seen.append(done)
+        if done == 4:
+            tlf.save_gl_checkpoint(ckpt, done, carry)
+
+    out = LongFormMel(cfg, tm).decode_resumable(logmel, seed=0,
+                                                segment_iters=2, callback=cb)
+    assert seen == [2, 4, 6]
+    resumed = LongFormMel(cfg, tm).decode_resumable(
+        logmel, seed=0, segment_iters=2,
+        resume=tlf.load_gl_checkpoint(ckpt)).numpy()
+    np.testing.assert_array_equal(resumed, want)
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+# -- the file API ------------------------------------------------------------
+
+def _audio_file(tmp_path, sr, kind, seed, secs=0.5, name="in"):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(secs * sr)) / sr
+    a = 0.4 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(t.shape)
+    pcm = np.clip(np.rint(a * 32768.0), -32768, 32767).astype(np.int16)
+    path = str(tmp_path / f"{name}.{kind}")
+    if kind == "flac":
+        tflac.write_flac(path, pcm, sr)
+    else:
+        wavcodec.write_wav(path, pcm, sr)
+    return path
+
+
+def _png_near(a, b, loader):
+    """At most 1 step at a flip rate < 2e-3 (wrap-aware on the derived B
+    channel), and equal metadata."""
+    x, y = read_png(a).astype(np.int64), read_png(b).astype(np.int64)
+    assert x.shape == y.shape
+    d = np.abs(x - y)
+    d = np.minimum(d, 256 - d)
+    assert d.max() <= 1 and (d > 0).mean() < 2e-3, (d.max(), (d > 0).mean())
+    for u, v in zip(loader(a)[1:], loader(b)[1:]):
+        np.testing.assert_array_equal(u, v)
+
+
+def _wav_near(a, b, lsb):
+    wa, sa = wavcodec.read_wav(a)
+    wb, sb = wavcodec.read_wav(b)
+    assert sa == sb and wa.shape == wb.shape
+    d = np.abs(wa.astype(np.int64) - wb.astype(np.int64))
+    assert d.max() <= lsb and (d > 0).mean() < 5e-2, (d.max(), (d > 0).mean())
+
+
+@pytest.mark.parametrize("kind,sr", [("wav", 48000), ("wav", 24000),
+                                     ("flac", 48000)])
+@pytest.mark.parametrize("device_quantize", [True, False])
+def test_longform_phase_files_vs_jax(meshes, tmp_path, kind, sr,
+                                     device_quantize):
+    """to_phase_wav / to_phase_flac PNGs within 1 step at < 2e-3 with equal
+    metadata, and to_wav_png of the JAX package's PNG within 1 LSB at < 5e-2
+    differing, in both quantize modes (48 kHz: raw int16 ingest with device
+    quantize; 24 kHz: the zero-stuffed family)."""
+    jm, tm = meshes
+    cfg = dict(num_freqs=96, ihs=device_quantize, **CFG)
+    audio = _audio_file(tmp_path, sr, kind, seed=15)
+    jl = jlf.LongFormPhase(JPhaseConfig(**cfg), jm,
+                           device_quantize=device_quantize)
+    tl = LongFormPhase(PhaseConfig(**cfg), tm,
+                       device_quantize=device_quantize)
+    enc = "to_phase_flac" if kind == "flac" else "to_phase_wav"
+    a, b = str(tmp_path / "j.png"), str(tmp_path / "t.png")
+    getattr(jl, enc)(audio, a)
+    getattr(tl, enc)(audio, b)
+    _png_near(a, b, lambda p: jimg.load_phase_image_raw(p, cfg_y(cfg), False))
+    wa, wb = str(tmp_path / "j.wav"), str(tmp_path / "t.wav")
+    assert jl.to_wav_png(a, wa) == tl.to_wav_png(a, wb)
+    _wav_near(wa, wb, 1)
+
+
+def cfg_y(cfg):
+    return PhaseConfig(**cfg).y_reverse
+
+
+@pytest.mark.parametrize("kind", ["wav", "flac"])
+@pytest.mark.parametrize("device_quantize", [True, False])
+def test_longform_mel_files_vs_jax(meshes, tmp_path, monkeypatch, kind,
+                                   device_quantize):
+    """to_mel_wav / to_mel_flac PNGs within 1 step at < 2e-3 with equal
+    metadata; to_wav_png of the JAX package's PNG (boost 1.0, GL-2) from
+    the JAX program's starts within 2 LSB at < 5e-2 differing (the JAX
+    package's float32 Griffin-Lim bound, tests/test_device_quantize_mel.py)."""
+    jm, tm = meshes
+    cfg = dict(num_mels=24, griffin_lim_iterations=2, volume_boost=1.0, **CFG)
+    audio = _audio_file(tmp_path, 48000, kind, seed=16)
+    jl = jlf.LongFormMel(JMelConfig(**cfg), jm,
+                         device_quantize=device_quantize)
+    tl = LongFormMel(MelConfig(**cfg), tm, device_quantize=device_quantize)
+    enc = "to_mel_flac" if kind == "flac" else "to_mel_wav"
+    a, b = str(tmp_path / "j.png"), str(tmp_path / "t.png")
+    getattr(jl, enc)(audio, a)
+    getattr(tl, enc)(audio, b)
+    y = MelConfig(**cfg).y_reverse
+    _png_near(a, b, lambda p: jimg.load_mel_image_raw(p, y))
+    _feed_jax_starts(monkeypatch, jm)
+    wa, wb = str(tmp_path / "j.wav"), str(tmp_path / "t.wav")
+    assert jl.to_wav_png(a, wa, seed=3) == tl.to_wav_png(a, wb, seed=3)
+    _wav_near(wa, wb, 2)
+
+
+def test_longform_mel_file_mismatched_mels_raises(meshes, tmp_path):
+    from gomel_tpu_torch.core.config import ConfigError
+    _, tm = meshes
+    audio = _audio_file(tmp_path, 48000, "wav", seed=17)
+    png = str(tmp_path / "m.png")
+    LongFormMel(MelConfig(num_mels=24, **CFG), tm).to_mel_wav(audio, png)
+    for dq in (True, False):
+        bad = LongFormMel(MelConfig(num_mels=16, **CFG), tm,
+                          device_quantize=dq)
+        with pytest.raises(ConfigError, match="mel bins"):
+            bad.to_wav_png(png, str(tmp_path / "o.wav"))
+
+
+def test_longform_phase_pcm_ingest_matches_float(meshes, tmp_path):
+    """The raw int16 ingest (KA per shard) writes the byte-identical PNG as
+    the float ingest of the same file."""
+    _, tm = meshes
+    audio = _audio_file(tmp_path, 48000, "wav", seed=18)
+    tl = LongFormPhase(PhaseConfig(num_freqs=96, **CFG), tm,
+                       device_quantize=True)
+    a, b = str(tmp_path / "pcm.png"), str(tmp_path / "flt.png")
+    tl.to_phase_wav(audio, a)
+    from gomel_tpu_torch.io.audio import load_wav
+    buf, sr = load_wav(audio, mono="left")
+    tl._encode_file(buf, sr, b)
+    assert open(a, "rb").read() == open(b, "rb").read()
+
+
+# -- entry points default to the card ----------------------------------------
+
+@pytest.mark.parametrize("make", [
+    lambda: Mel(),
+    lambda: Mel.from_numpy(MelConfig(), np.zeros((160, 1024)),
+                           np.zeros(2048)),
+    lambda: Phase(),
+    lambda: Phase.from_numpy(PhaseConfig(), np.zeros(4096)),
+    lambda: BatchedMel(),
+    lambda: BatchedPhase(),
+    lambda: make_mesh(frame=4),
+    lambda: LongFormPhase(PhaseConfig()),
+    lambda: LongFormMel(MelConfig()),
+], ids=["Mel", "Mel.from_numpy", "Phase", "Phase.from_numpy", "BatchedMel",
+        "BatchedPhase", "make_mesh", "LongFormPhase", "LongFormMel"])
+def test_entry_points_default_to_cuda(monkeypatch, make):
+    """Without CUDA each entry point raises an error naming the device and
+    saying how to run on the CPU; none falls back to it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"'cuda' is not available.*cpu"):
+        make()
+
+
+def test_make_mesh_shapes():
+    m = make_mesh(data=2, frame=4, devices=CPU8)
+    assert m.shape == {"data": 2, "frame": 4} and m.size == 8
+    assert make_mesh(frame=2, devices=CPU8).shape == {"data": 4, "frame": 2}
+    with pytest.raises(ValueError, match="must divide"):
+        make_mesh(frame=3, devices=CPU8)
+    with pytest.raises(ValueError, match="needs"):
+        make_mesh(data=3, frame=4, devices=CPU8)

@@ -53,7 +53,7 @@ def wav(tmp_path_factory):
 def test_encode_f64_matches_jax():
     x = _audio()
     ref = np.asarray(JMel(JMelConfig.cli_default(), dtype=jnp.float64).encode(x))
-    out = Mel(MelConfig.cli_default(), dtype=torch.float64).encode(x)
+    out = Mel(MelConfig.cli_default(), dtype=torch.float64, device="cpu").encode(x)
     assert out.dtype == torch.float64 and out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-9)
 
@@ -61,7 +61,7 @@ def test_encode_f64_matches_jax():
 def test_encode_f32_matches_jax():
     x = _audio()
     ref = np.asarray(JMel(JMelConfig.cli_default()).encode(x), np.float64)
-    out = Mel(MelConfig.cli_default()).encode(x).numpy().astype(np.float64)
+    out = Mel(MelConfig.cli_default(), device="cpu").encode(x).numpy().astype(np.float64)
     assert out.shape == ref.shape
     # two float32 FFTs differ by ~1e-6 of the peak, which is large in log
     # on quiet bins: compare the mel energies, within 1e-5 of their peak
@@ -73,7 +73,7 @@ def test_encode_f32_matches_jax():
 def test_mel_encode_batch_matches_jax(dt):
     cfg = MelConfig.cli_default()
     xb = np.stack([_audio(2.0, seed=1), _audio(2.0, seed=2)])
-    w = Mel(cfg).fwd_weights.double().numpy()
+    w = Mel(cfg, device="cpu").fwd_weights.double().numpy()
     np_dt, t_dt, j_dt = ((np.float64, torch.float64, jnp.float64) if dt == "f64"
                          else (np.float32, torch.float32, jnp.float32))
     ref = np.asarray(jmel.mel_encode_batch(
@@ -97,21 +97,21 @@ def test_from_numpy_matches_own_construction():
     cfg = MelConfig.cli_default()
     jm = JMel(JMelConfig.cli_default())
     fwd, _ = jm._weights()
-    port = Mel.from_numpy(cfg, np.asarray(fwd), np.asarray(jm._win()))
-    own = Mel(cfg)
+    port = Mel.from_numpy(cfg, np.asarray(fwd), np.asarray(jm._win()), device="cpu")
+    own = Mel(cfg, device="cpu")
     assert port.dtype == own.dtype == torch.float32
     assert torch.equal(port.fwd_weights, own.fwd_weights)
     assert torch.equal(port.window, own.window)
     x = _audio(1.0)
     assert torch.equal(port.encode(x), own.encode(x))
     with pytest.raises(ValueError):
-        Mel.from_numpy(cfg, np.asarray(fwd)[:10], np.asarray(jm._win()))
+        Mel.from_numpy(cfg, np.asarray(fwd)[:10], np.asarray(jm._win()), device="cpu")
 
 
 def test_reference_layout_api_matches_jax(wav):
     x = _audio(1.0, seed=3)
     jm = JMel(JMelConfig.cli_default(), dtype=jnp.float64)
-    tm = Mel(MelConfig.cli_default(), dtype=torch.float64)
+    tm = Mel(MelConfig.cli_default(), dtype=torch.float64, device="cpu")
     flat = tm.to_mel(x)
     assert flat.dtype == np.float64
     np.testing.assert_allclose(flat, jm.to_mel(x), rtol=0, atol=1e-9)
@@ -127,7 +127,7 @@ def test_reference_layout_api_matches_jax(wav):
 def test_encode_quantized_matches_jax():
     x = _audio(2.0, seed=4)
     img_j, mx_j, mn_j = JMel(JMelConfig.cli_default()).encode_quantized(x)
-    img, mx, mn = Mel(MelConfig.cli_default()).encode_quantized(x)
+    img, mx, mn = Mel(MelConfig.cli_default(), device="cpu").encode_quantized(x)
     a, b = np.asarray(img_j).astype(np.int64), img.numpy().astype(np.int64)
     assert a.shape == b.shape
     diff = np.abs(a - b)
@@ -140,7 +140,7 @@ def test_host_quantize_png_byte_equal_f64(wav, tmp_path):
     """The host-quantize path in float64 on both sides writes the same bytes."""
     a, b = str(tmp_path / "jax.png"), str(tmp_path / "port.png")
     JMel(JMelConfig.cli_default(), dtype=jnp.float64).to_mel_wav(wav, a)
-    Mel(MelConfig.cli_default(), dtype=torch.float64).to_mel_wav(wav, b)
+    Mel(MelConfig.cli_default(), dtype=torch.float64, device="cpu").to_mel_wav(wav, b)
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
 
@@ -177,7 +177,7 @@ def test_tomel_float_wav_takes_float_branch(tmp_path):
     _write_float32_wav(wav, _audio(1.5, seed=5), SR)
     a, b = str(tmp_path / "jax.png"), str(tmp_path / "port.png")
     JMel(JMelConfig.cli_default(), device_quantize=True).to_mel_wav(wav, a)
-    Mel(MelConfig.cli_default(), device_quantize=True).to_mel_wav(wav, b)
+    Mel(MelConfig.cli_default(), device_quantize=True, device="cpu").to_mel_wav(wav, b)
     ia, ib = read_png(a).astype(np.int64), read_png(b).astype(np.int64)
     assert ia.shape == ib.shape
     diff = np.abs(ia - ib)
@@ -201,7 +201,7 @@ def test_flac_input_not_ported(tmp_path, capsys):
     from gomel_tpu_torch.io.flac import write_flac
     flac = str(tmp_path / "x.flac")
     with pytest.raises(FileNotLoadedError):
-        Mel(MelConfig.cli_default()).to_mel_flac(flac, flac + ".png")
+        Mel(MelConfig.cli_default(), device="cpu").to_mel_flac(flac, flac + ".png")
     assert ttools.tomel([flac, "--device", "cpu"]) == 1
     assert "could not load flac" in capsys.readouterr().err
     write_flac(flac, np.sin(np.arange(9000) / 7.0) * 0.3, 48000)

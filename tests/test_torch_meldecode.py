@@ -351,7 +351,7 @@ def test_decode_and_from_mel_f64_match_jax(jax_init):
     jax_init(4)
     x = _audio(0.5, seed=16)
     jm = JMel(JMelConfig.cli_default(), dtype=jnp.float64)
-    tm = Mel(CFG, dtype=torch.float64)
+    tm = Mel(CFG, dtype=torch.float64, device="cpu")
     flat = jm.to_mel(x)
     ref = jm.from_mel(flat, seed=4)
     out = tm.from_mel(flat, seed=4)
@@ -367,13 +367,13 @@ def test_from_numpy_carries_inverse_weights():
     jm = JMel(JMelConfig.cli_default())
     fwd, inv = jm._weights()
     port = Mel.from_numpy(CFG, np.asarray(fwd), np.asarray(jm._win()),
-                          np.asarray(inv))
-    own = Mel(CFG)
+                          np.asarray(inv), device="cpu")
+    own = Mel(CFG, device="cpu")
     assert torch.equal(port.inv_weights, own.inv_weights)
     assert port.inv_weights.dtype == torch.float32
     with pytest.raises(ValueError):
         Mel.from_numpy(CFG, np.asarray(fwd), np.asarray(jm._win()),
-                       np.asarray(inv)[:10])
+                       np.asarray(inv)[:10], device="cpu")
 
 
 @pytest.mark.parametrize("device_quantize,momentum", [
@@ -389,8 +389,8 @@ def test_to_wav_png_matches_jax(pngs, tmp_path, jax_init, device_quantize,
     a, b = str(tmp_path / "jax.wav"), str(tmp_path / "port.wav")
     sr_a = JMel(JMelConfig.cli_default(**cfg), device_quantize=device_quantize
                 ).to_wav_png(png, a, seed=7, momentum=momentum)
-    sr_b = Mel(MelConfig.cli_default(**cfg), device_quantize=device_quantize
-               ).to_wav_png(png, b, seed=7, momentum=momentum)
+    sr_b = Mel(MelConfig.cli_default(**cfg), device_quantize=device_quantize,
+               device="cpu").to_wav_png(png, b, seed=7, momentum=momentum)
     lsb, sr = _lsb(a, b)
     assert sr_a == sr_b == sr == SR
     assert lsb.max() <= 2 and (lsb > 0).mean() < 5e-2, (lsb.max(),
@@ -428,9 +428,9 @@ def test_mel_bin_mismatch_raises_config_error(pngs, tmp_path):
     out = str(tmp_path / "o.wav")
     for dq in (True, False):
         with pytest.raises(ConfigError, match="mel bins"):
-            Mel(device_quantize=dq).to_wav_png(pngs["--device-quantize"], out)
+            Mel(device_quantize=dq, device="cpu").to_wav_png(pngs["--device-quantize"], out)
     with pytest.raises(ConfigError, match="mel bins"):
-        Mel(CFG).decode(np.zeros((4, 160, 2)))
+        Mel(CFG, device="cpu").decode(np.zeros((4, 160, 2)))
     assert ttools.towav([pngs["--device-quantize"], "-o", out, "--num-mels",
                          "160", "--device", "cpu"]) == 1
     assert not os.path.exists(out)

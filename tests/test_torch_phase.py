@@ -66,7 +66,7 @@ def _png_step_diff(a_path, b_path, max_val=255):
 def test_encode_f64_matches_jax():
     x = _audio(1.0)
     ref = np.asarray(JPhase(JPhaseConfig.cli_default(), dtype=jnp.float64).encode(x))
-    out = Phase(PhaseConfig.cli_default(), dtype=torch.float64).encode(x)
+    out = Phase(PhaseConfig.cli_default(), dtype=torch.float64, device="cpu").encode(x)
     assert out.dtype == torch.float64 and out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-9)
 
@@ -74,7 +74,7 @@ def test_encode_f64_matches_jax():
 def test_encode_f32_matches_jax():
     x = _audio(1.0)
     ref = np.asarray(JPhase(JPhaseConfig.cli_default()).encode(x), np.float64)
-    out = Phase(PhaseConfig.cli_default()).encode(x).numpy().astype(np.float64)
+    out = Phase(PhaseConfig.cli_default(), device="cpu").encode(x).numpy().astype(np.float64)
     # two float32 FFTs: within 1e-5 of each frame's peak
     peak = np.abs(ref).max(axis=(1, 2), keepdims=True)
     assert np.all(np.abs(out - ref) <= 1e-5 * peak)
@@ -88,7 +88,7 @@ def test_decode_matches_jax(dt):
                       .encode(_audio(1.0, seed=2)))
     ref = np.asarray(JPhase(JPhaseConfig.cli_default(), dtype=j_dt).decode(spec),
                      np.float64)
-    out = Phase(PhaseConfig.cli_default(), dtype=t_dt).decode(spec)
+    out = Phase(PhaseConfig.cli_default(), dtype=t_dt, device="cpu").decode(spec)
     assert out.dtype == t_dt and out.shape == ref.shape
     # f64: exact to rounding; f32: two float32 irffts, 1e-5 of the peak
     tol = 1e-9 if dt == "f64" else 1e-5 * float(np.abs(ref).max())
@@ -99,7 +99,7 @@ def test_decode_matches_jax(dt):
 def test_reference_layout_api_matches_jax():
     x = _audio(1.0, seed=3)
     jp = JPhase(JPhaseConfig.cli_default(), dtype=jnp.float64)
-    tp = Phase(PhaseConfig.cli_default(), dtype=torch.float64)
+    tp = Phase(PhaseConfig.cli_default(), dtype=torch.float64, device="cpu")
     flat = tp.to_phase(x)
     assert flat.dtype == np.float64
     np.testing.assert_allclose(flat, jp.to_phase(x), rtol=0, atol=1e-9)
@@ -119,7 +119,7 @@ def test_encode_quantized_matches_jax(hdr, ihs):
     x = _audio(1.0, seed=5)
     cfg = dict(hdr=hdr, ihs=ihs)
     img_j, mx_j, mn_j = JPhase(JPhaseConfig.cli_default(**cfg)).encode_quantized(x)
-    img, mx, mn = Phase(PhaseConfig.cli_default(**cfg)).encode_quantized(x)
+    img, mx, mn = Phase(PhaseConfig.cli_default(**cfg), device="cpu").encode_quantized(x)
     a, b = np.asarray(img_j).astype(np.int64), img.numpy().astype(np.int64)
     assert a.shape == b.shape and img.dtype == (torch.uint16 if hdr else torch.uint8)
     d = np.abs(a - b)
@@ -136,7 +136,7 @@ def test_host_quantize_png_byte_equal_f64(wav, tmp_path, layout):
     JPhase(JPhaseConfig.cli_default(), dtype=jnp.float64,
            metadata_layout=layout).to_phase_wav(wav, a)
     Phase(PhaseConfig.cli_default(), dtype=torch.float64,
-          metadata_layout=layout).to_phase_wav(wav, b)
+          metadata_layout=layout, device="cpu").to_phase_wav(wav, b)
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
 
@@ -188,7 +188,7 @@ def test_device_quantize_layouts_match_jax(wav16k, tmp_path, layout,
     kw = dict(metadata_layout=layout, length_mode=length_mode,
               device_quantize=True)
     JPhase(JPhaseConfig.cli_default(hdr=hdr, ihs=ihs), **kw).to_phase_wav(wav16k, a)
-    Phase(PhaseConfig.cli_default(hdr=hdr, ihs=ihs), **kw).to_phase_wav(wav16k, b)
+    Phase(PhaseConfig.cli_default(hdr=hdr, ihs=ihs), **kw, device="cpu").to_phase_wav(wav16k, b)
     _check_device_pngs(a, b, hdr)
 
 
@@ -196,7 +196,7 @@ def test_py_layout_reconfigures_sample_rate(wav16k, tmp_path):
     """A py-layout Phase with no rate adopts the file's (phase.py:49-61)."""
     a, b = str(tmp_path / "jax.png"), str(tmp_path / "port.png")
     jp = JPhase(metadata_layout="py", device_quantize=True)
-    tp = Phase(metadata_layout="py", device_quantize=True)
+    tp = Phase(metadata_layout="py", device_quantize=True, device="cpu")
     jp.to_phase_wav(wav16k, a)
     tp.to_phase_wav(wav16k, b)
     assert tp.config.__dict__ == jp.config.__dict__
@@ -250,7 +250,7 @@ def test_cli_round_trip_correlation(wav, tmp_path):
 def test_decode_quantized_pcm16_is_save_wav_conversion(wav):
     """The fused PCM-16 conversion equals save_wav's float64 conversion of
     the float32 decode, bit for bit."""
-    p = Phase(PhaseConfig.cli_default(), device_quantize=True)
+    p = Phase(PhaseConfig.cli_default(), device_quantize=True, device="cpu")
     img, mx, mn = p.encode_quantized(_audio(1.0, seed=6))
     x = p.decode_quantized(img, mx, mn).numpy().astype(np.float64)
     host = np.clip(np.rint(np.clip(x, -1, 1) * 32768.0), -32768, 32767
@@ -263,15 +263,15 @@ def test_decode_quantized_pcm16_is_save_wav_conversion(wav):
 def test_from_numpy_with_jax_window():
     cfg = PhaseConfig.cli_default()
     win = j_hann_window(cfg.resolut).astype(np.float32)
-    port = Phase.from_numpy(cfg, win)
-    own = Phase(cfg)
+    port = Phase.from_numpy(cfg, win, device="cpu")
+    own = Phase(cfg, device="cpu")
     assert port.dtype == own.dtype == torch.float32
     assert torch.equal(port.window, own.window)
     x = _audio(0.5)
     assert torch.equal(port.encode(x), own.encode(x))
     with pytest.raises(ValueError):
-        Phase.from_numpy(cfg, win[:10])
-    assert Phase.from_numpy(cfg, win.astype(np.float64)).dtype == torch.float64
+        Phase.from_numpy(cfg, win[:10], device="cpu")
+    assert Phase.from_numpy(cfg, win.astype(np.float64), device="cpu").dtype == torch.float64
 
 
 def test_cli_without_cuda_exits_1(wav, tmp_path, capsys):
@@ -298,7 +298,7 @@ def test_flac_input_not_ported(tmp_path, capsys):
     from gomel_tpu_torch.io.flac import write_flac
     flac = str(tmp_path / "x.flac")
     with pytest.raises(FileNotLoadedError):
-        Phase(PhaseConfig.cli_default()).to_phase_flac(flac, flac + ".png")
+        Phase(PhaseConfig.cli_default(), device="cpu").to_phase_flac(flac, flac + ".png")
     assert ttools.tophase([flac, "--device", "cpu"]) == 1
     assert "could not load flac" in capsys.readouterr().err
     write_flac(flac, np.sin(np.arange(9000) / 7.0) * 0.3, 48000)
