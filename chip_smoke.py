@@ -16,7 +16,18 @@ their PNGs and WAVs against the port's CPU path and its single-file tools,
 checks that every kernel of each path was launched on it, and times each
 kernel against its plain version, its bound and, where one exists, the one
 PyTorch call of the same function, each batch CLI against the single-file
-tool, and each long-form call step by step.
+tool, and each long-form call step by step. This slice's phases: 2f holds
+the matmul DFT's kernels KN and KO (bf16 and float32 modes, every epilogue)
+against their plain versions at the bench shape and at ragged shapes, the
+FFT kernels' mixed radix at n = 3000 at every site, and the xla route
+(torch.fft for a size without the TPU's n1 * n2 split, which the TPU also
+gives its library FFT) at n = 514 at every site; 3f drives
+mel_decode(fft_backend="mm") at GL-2 and recommended_gl(64) against the
+exact route, the phase codec with "mm", tomel/towav and Phase at resolut
+3000 and Phase at resolut 514 against the CPU, and (in 3e)
+sharded_mel_decode_fn(interior_mm=True) on the 30-minute file; phase 4 times
+KN and KO in each mode, one interior Griffin-Lim iteration on them against
+KJ, KB and KJ at n = 3000, and the xla route at n = 514.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -297,16 +308,19 @@ def wavs_near(a: str, b: str, lsb_bound: int) -> tuple[int, float]:
 
 LONG_SECONDS = 1800.0   # the long-form phase's file: 30 minutes at 48 kHz
 N_SHARDS = 4            # frame shards of that phase, all on one card
-# H100 SXM peaks for bound_ms (NVIDIA's data sheet): HBM bytes/s and
-# float32 SIMT FLOP/s; every kernel of the port is float32 on the CUDA cores
+# H100 SXM peaks for bound_ms (NVIDIA's data sheet): HBM bytes/s, float32
+# SIMT FLOP/s (every kernel but KN/KO's bf16 mode) and dense bf16 tensor-core
+# FLOP/s (KN/KO's bf16 mode)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float,
+          peak: float = FP32_FLOP_S) -> tuple[float, str]:
     """(least ms, "bytes" or "operations"): the larger of the bytes over the
-    memory rate and the operations over the float32 peak."""
-    t_b, t_f = n_bytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    memory rate and the operations over ``peak``."""
+    t_b, t_f = n_bytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -455,6 +469,461 @@ def longform_kernels(dev: torch.device, errs: dict) -> dict:
     }
 
 
+def frame_peak_err(got: torch.Tensor, want: torch.Tensor,
+                   peak: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want| / the frame's peak, max |got - want|)."""
+    d = (got.double() - want.double()).abs()
+    return float((d / peak.clamp_min(1e-30)).max()), float(d.max())
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest relative L2 distance of a frame (the last dimension)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)
+                  .clamp_min(1e-30)).max())
+
+
+def dft_kernels(dev: torch.device, errs: dict, x: torch.Tensor,
+                win: torch.Tensor, n: int, hop: int, mag: torch.Tensor,
+                sig0: torch.Tensor) -> dict:
+    """Phase 2f, K14: KN (planes, magnitudes, (imag, real) pairs and the
+    Griffin-Lim projection) and KO, each mode against its plain version at
+    the bench shape and at ragged shapes (n 4096, 3000, 512, 8192 and 2,
+    signal and framed input, several leads): the bf16 mode within 2e-5 of
+    each frame's peak of the bf16-operand plain version and within 1e-2 of
+    torch.fft in float64, the float32 mode within 1e-5 of float64 (KB's
+    bound); KO ignores imag(DC) and imag(Nyquist) and zeroes the frames past
+    a real-frame count. Returns phase 4's closures and work counts."""
+    from gomel_tpu_torch.ops import dft_mm
+    from gomel_tpu_torch.ops.stft import frame_signal, hann_window
+
+    f64 = torch.float64
+
+    def forward_refs(xs, w, nn, hh):
+        spec = torch.fft.rfft(frame_signal(xs.double(), nn, hh) * w.double(),
+                              dim=-1)
+        return spec.real, spec.imag
+
+    def check(label, rel, limit):
+        if not rel <= limit:
+            raise AssertionError(f"{label}: {rel:.3e} of the frame peak, "
+                                 f"bound {limit}")
+
+    def forward_case(label, xs, w, nn, hh, kinds):
+        """KN's epilogues ``kinds`` in both modes on (xs, w, nn, hh)."""
+        re64, im64 = forward_refs(xs, w, nn, hh)
+        peak = torch.sqrt(re64 * re64 + im64 * im64).amax(-1, keepdim=True)
+        half = nn // 2 + 1
+        first, count = 1, max(1, (nn // 2) * 3 // 4)
+        want64 = {"planes": (re64, im64),
+                  "mag": (torch.sqrt(re64 * re64 + im64 * im64),),
+                  "pairs": (torch.stack([im64[..., first:first + count],
+                                         re64[..., first:first + count]],
+                                        -1),)}
+        worst = {}
+        for kind in kinds:
+            kw = dict(first=first, count=count) if kind == "pairs" else {}
+            pk = peak[..., None] if kind == "pairs" else peak
+            for precision, mode in (("default", "bf16"), (None, "f32")):
+                got = dft_mm._fwd(xs, nn, hh, w, precision, kind, **kw)
+                got = got if isinstance(got, tuple) else (got,)
+                r64 = max(frame_peak_err(g, r, pk)[0]
+                          for g, r in zip(got, want64[kind]))
+                if mode == "bf16":
+                    plain = dft_mm.dft_fwd_plain(xs, nn, hh, w, kind=kind,
+                                                 bf16_operands=True, **kw)
+                    plain = plain if isinstance(plain, tuple) else (plain,)
+                    pe = [frame_peak_err(g, r, pk) for g, r in zip(got, plain)]
+                    rel = max(e[0] for e in pe)
+                    errs["dft_fwd_bf16"] = max(errs.get("dft_fwd_bf16", 0.0),
+                                               max(e[1] for e in pe))
+                    check(f"KN bf16 {kind} {label} vs plain", rel, 2e-5)
+                    check(f"KN bf16 {kind} {label} vs float64", r64, 1e-2)
+                    worst[f"{kind} bf16"] = (rel, r64)
+                else:
+                    errs["dft_fwd_f32"] = max(
+                        errs.get("dft_fwd_f32", 0.0),
+                        max(frame_peak_err(g, r, pk)[1]
+                            for g, r in zip(got, want64[kind])))
+                    check(f"KN f32 {kind} {label} vs float64", r64, 1e-5)
+                    worst[f"{kind} f32"] = (0.0, r64)
+        torch.cuda.synchronize()
+        log(f"KN {label} (rows {tuple(re64.shape[:-1])}, {half} bins): " +
+            "; ".join(f"{k} {a:.2e} / {b:.2e}" if k.endswith("bf16") else
+                      f"{k} {b:.2e}" for k, (a, b) in worst.items()) +
+            " of the frame peak (bf16: vs its plain version, bound 2e-5 / "
+            "vs float64, bound 1e-2; f32: vs float64, bound 1e-5)")
+        return re64, im64
+
+    def inverse_case(label, re64, im64, w, nn, real):
+        """KO in both modes from float32 planes with imag(DC), imag(Nyquist)
+        set, against float64 and its plain version."""
+        re, im = re64.float(), im64.float().clone()
+        im[..., 0], im[..., -1] = 3.0, -2.0
+        im0 = im.clone()
+        im0[..., 0] = im0[..., -1] = 0.0
+        want = torch.fft.irfft(torch.complex(re.double(), im0.double()), n=nn,
+                               dim=-1)
+        peak = want.abs().amax(-1, keepdim=True)
+        want = want * w.double()
+        out = {}
+        for precision, mode in (("default", "bf16"), ("highest", "f32")):
+            got = dft_mm.istft_frames(re, im, nn, w, precision)
+            same = dft_mm.istft_frames(re, im0, nn, w, precision)
+            masked = dft_mm.istft_frames(re, im, nn, w, precision, real)
+            r64, a64 = frame_peak_err(got, want, peak)
+            if not (torch.equal(got, same) and torch.equal(
+                    masked[..., :real, :], got[..., :real, :])
+                    and not bool(masked[..., real:, :].any())):
+                raise AssertionError(f"KO {mode} {label}: imag(DC/Nyquist) "
+                                     f"not ignored or the real-frame count "
+                                     f"not kept")
+            if mode == "bf16":
+                plain = dft_mm.dft_inv_plain(re, im, nn, w,
+                                             bf16_operands=True)
+                rel, a = frame_peak_err(got, plain, peak)
+                errs["dft_inv_bf16"] = max(errs.get("dft_inv_bf16", 0.0), a)
+                check(f"KO bf16 {label} vs plain", rel, 2e-5)
+                check(f"KO bf16 {label} vs float64", r64, 1e-2)
+                out[mode] = f"{rel:.2e} / {r64:.2e}"
+            else:
+                errs["dft_inv_f32"] = max(errs.get("dft_inv_f32", 0.0), a64)
+                check(f"KO f32 {label} vs float64", r64, 1e-5)
+                out[mode] = f"{r64:.2e}"
+        torch.cuda.synchronize()
+        log(f"KO {label}: bf16 {out['bf16']}, f32 {out['f32']} of the "
+            f"unwindowed frame peak (bounds as KN); imag(DC), imag(Nyquist) "
+            f"ignored, frames past {real} zero, the rest bit-equal")
+
+    re64, im64 = forward_case(f"bench [{x.shape[0]}, {x.shape[1]}]", x, win,
+                              n, hop, ("planes", "mag", "pairs"))
+    inverse_case(f"bench [{x.shape[0]}, {re64.shape[1]} frames]", re64, im64,
+                 win, n, re64.shape[1] // 2)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for nn, hh, lead, framed in ((4096, 1280, (3,), False),
+                                 (3000, 3000, (2, 5), True),
+                                 (512, 100, (), False),
+                                 (8192, 2048, (1,), False),
+                                 (2, 1, (4,), False)):
+        length = nn * 7 if framed else nn + hh * 9 + 11
+        xs = torch.randn(lead + (length,), generator=g, device=dev)
+        # the symmetric Hann window of 2 points is zero: take none there
+        w = torch.tensor(hann_window(nn) if nn > 2 else np.ones(nn),
+                         dtype=torch.float32, device=dev)
+        label = f"n {nn} hop {hh} lead {lead} {'framed' if framed else 'signal'}"
+        r, i = forward_case(label, xs, w, nn, hh,
+                            ("planes", "mag", "pairs"))
+        inverse_case(label, r, i, w, nn, r.shape[-2] - 1)
+
+    # the projection epilogue at the bench shape: float32 planes (the final
+    # iteration) against the bf16-operand plain version, bf16 planes (an
+    # interior one) within one bf16 rounding of those
+    yr, yi = dft_mm.gl_spectrum(sig0, mag, n, hop, win, "default", final=True)
+    pr, pi = dft_mm.dft_fwd_plain(sig0, n, hop, win, kind="project", mag=mag,
+                                  bf16_operands=True)
+    lr, li = dft_mm.gl_spectrum(sig0, mag, n, hop, win, "default")
+    torch.cuda.synchronize()
+    proj = rel_l2(torch.cat([yr, yi], -1), torch.cat([pr, pi], -1))
+    low = torch.cat([lr, li], -1).float()
+    full = torch.cat([yr, yi], -1)
+    one_rounding = bool(((low - full).abs() <= 2.0 ** -8 * full.abs()).all())
+    log(f"KN projection epilogue {tuple(yr.shape)}: float32 planes vs the "
+        f"bf16-operand plain version, relative L2 per frame max {proj:.3e} "
+        f"(bound 1e-4); bf16 planes within one bf16 rounding: "
+        f"{one_rounding}")
+    if proj > 1e-4 or not one_rounding:
+        raise AssertionError("KN projection epilogue outside its bound")
+
+    # phase 4: the main-path calls of each mode at the bench shape, with the
+    # host window (a tensor window is copied to the host on every call,
+    # which would stall the timed queue)
+    win_np = hann_window(n)
+    rows = yr.shape[0] * yr.shape[1]
+    half = n // 2 + 1
+    fwd16 = dft_mm._weights("fwd", n, win_np, "bf16", dev)
+    fwd32 = dft_mm._weights("fwd", n, win_np, "f32", dev)
+    inv16 = dft_mm._weights("inv", n, win_np, "bf16", dev)
+    inv32 = dft_mm._weights("inv", n, win_np, "f32", dev)
+    frames32 = (frame_signal(sig0, n, hop) * win).reshape(rows, n)
+    frames16 = frames32.to(torch.bfloat16)
+    w_f16 = dft_mm._weights("fwd", n, win_np, torch.float32, dev).to(
+        torch.bfloat16)
+    w_f32 = dft_mm._weights("fwd", n, win_np, torch.float32, dev)
+    z32 = torch.cat([yr, yi], -1).reshape(rows, 2 * half)
+    z16 = z32.to(torch.bfloat16)
+    w_i16 = dft_mm._weights("inv", n, win_np, torch.float32, dev).to(
+        torch.bfloat16)
+    w_i32 = dft_mm._weights("inv", n, win_np, torch.float32, dev)
+    products = 2.0 * rows * n * 2 * half
+    sig_frames = nbytes(sig0)
+    return {
+        "dft_fwd_bf16": dict(
+            kernel=lambda: dft_mm.gl_spectrum(sig0, mag, n, hop, win_np,
+                                              "default"),
+            plain=lambda: dft_mm.dft_fwd_plain(sig0, n, hop, win_np,
+                                               kind="project", mag=mag,
+                                               bf16_operands=True),
+            work=(sig_frames + nbytes(mag, fwd16, lr, li), products,
+                  BF16_FLOP_S),
+            library=lambda: torch.matmul(frames16, w_f16)),
+        "dft_fwd_f32": dict(
+            kernel=lambda: dft_mm.stft(x, n, hop, win_np),
+            plain=lambda: dft_mm.dft_fwd_plain(x, n, hop, win_np),
+            work=(nbytes(x, fwd32, yr, yi), products),
+            library=lambda: torch.matmul(frames32, w_f32)),
+        "dft_inv_bf16": dict(
+            kernel=lambda: dft_mm.istft_frames(lr, li, n, win_np, "default"),
+            plain=lambda: dft_mm.dft_inv_plain(lr, li, n, win_np,
+                                               bf16_operands=True),
+            work=(nbytes(lr, li, inv16) + 4.0 * rows * n, products,
+                  BF16_FLOP_S),
+            library=lambda: torch.matmul(z16, w_i16)),
+        "dft_inv_f32": dict(
+            kernel=lambda: dft_mm.istft_frames(yr, yi, n, win_np),
+            plain=lambda: dft_mm.dft_inv_plain(yr, yi, n, win_np),
+            work=(nbytes(yr, yi, inv32) + 4.0 * rows * n, products),
+            library=lambda: torch.matmul(z32, w_i32)),
+    }
+
+
+def fft_size_checks(dev: torch.device, x: torch.Tensor, n: int, hop: int,
+                    nf: int, routed: bool) -> dict:
+    """Phase 2f, K19's repair: every FFT kernel site at a size n whose half
+    is not a power of two, on the route fftbackend.resolve picks: n = 3000
+    (24 x 125 on the TPU's split) runs the kernels' mixed radix, so their
+    tallies move and the xla route's does not; n = 514 (2 x 257, no split:
+    the TPU's library FFT) goes by the xla route (``routed``), the other way
+    round. KB's and KE's sites within 1e-5 of each frame's peak of their
+    plain versions, KG's (planes with and without a real-frame count, the
+    spectrogram, uint8 and uint16 planes with and without IHS, the masked
+    synthesis) within 1e-5, KJ's within 1e-4 relative L2 per frame.
+    Returns phase 4's rows of the size."""
+    from gomel_tpu_torch.ops import (fftbackend, griffinlim, istft,
+                                     phase_ops, rfft_mag)
+    from gomel_tpu_torch.ops.stft import frame_signal, hann_window
+
+    win = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
+    hand = (rfft_mag.KERNEL, rfft_mag.PLANES_KERNEL, istft.SYNTH_KERNEL,
+            istft.SYNTH_MASKED_KERNEL, griffinlim.PROJECT_KERNEL)
+    before = [k.launches for k in hand]
+    route0 = fftbackend.XLA_ROUTE.launches
+    worst = {}
+    what = "xla route" if routed else "mixed radix"
+
+    def peak_check(label, got, want, dims=(-1,)):
+        rel = frame_peak_err(got, want, want.double().abs().amax(
+            dim=dims, keepdim=True))[0]
+        worst[label] = rel
+        if rel > 1e-5:
+            raise AssertionError(f"{what} n {n} {label}: {rel:.3e} > 1e-5")
+
+    mags = rfft_mag.stft_mag(x, win, n, hop)
+    peak_check("KB stft_mag", mags, rfft_mag.stft_mag_plain(x, win, n, hop))
+    spec = phase_ops.phase_encode_batch(x, nf, n, hop, win)
+    spec_ref = rfft_mag.stft_planes_plain(x, win, n, hop, 1, nf)
+    peak_check("KE phase_encode", spec, spec_ref, (-2, -1))
+    re, im = phase_ops.grow_half_planes(spec_ref, n // 2)
+    frames = spec.shape[1]
+    for real in (None, frames // 3):
+        peak_check(f"KG planes, real frames {real}",
+                   istft.irfft_window(re, im, n, win, real),
+                   istft.irfft_window_plain(re, im, n, win, real))
+    peak_check("KG spectrogram (phase_decode)",
+               phase_ops.phase_decode(spec_ref, n, hop, 0.0, win),
+               phase_ops.phase_decode_plain(spec_ref, n, hop, 0.0, win))
+    peak_check("KG masked synthesis",
+               phase_ops.phase_synthesize(spec_ref, n, hop, win, frames - 5),
+               phase_ops.phase_synthesize(spec_ref.cpu(), n, hop, win.cpu(),
+                                          frames - 5).to(dev))
+    rng = np.random.default_rng(SEED + 8)
+    mx = torch.tensor([[3.0, 2.5], [1.0, 4.0]], device=dev)
+    mn = torch.tensor([[-2.0, -3.5], [-1.0, 0.5]], device=dev)
+    for max_val, dt in ((255, np.uint8), (65535, np.uint16)):
+        planes = torch.from_numpy(rng.integers(
+            0, max_val + 1, (2, nf, frames, 2), dtype=dt)).to(dev)
+        for ihs in (0, 2):
+            peak_check(f"KG uint{8 if max_val == 255 else 16} ihs {ihs}",
+                       phase_ops.dequantize_decode(planes, mx, mn, max_val,
+                                                   ihs, n, hop, 0.0, win),
+                       phase_ops.dequantize_decode_plain(
+                           planes, mx, mn, max_val, ihs, n, hop, 0.0, win))
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    sig = torch.rand((x.shape[0], n + (frames - 1) * hop), generator=g,
+                     device=dev)
+    mag = mags * 0.5
+    fw = griffinlim.gl_project(sig, mag, win, n, hop)
+    kj = rel_l2(fw, griffinlim.gl_project_plain(sig, mag, win, n, hop))
+    torch.cuda.synchronize()
+    moved = sum(k.launches - b for k, b in zip(hand, before))
+    routed_calls = fftbackend.XLA_ROUTE.launches - route0
+    log(f"{what}, n {n} hop {hop}, [{x.shape[0]}, {frames} frames]: " +
+        ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) +
+        f" of the frame peak (bound 1e-5); KJ gl_project relative L2 per "
+        f"frame {kj:.2e} (bound 1e-4); xla route calls {routed_calls}, FFT "
+        f"kernel launches {moved}")
+    want = (11, 0) if routed else (0, 11)
+    if kj > 1e-4 or (routed_calls, moved) != want:
+        raise AssertionError(f"{what} at n {n}: KJ {kj:.3e}, (route calls, "
+                             f"kernel launches) {(routed_calls, moved)}, "
+                             f"expected {want}")
+    frames_c = (frame_signal(x, n, hop) * win).contiguous()
+    spec_c = torch.complex(re, im)
+    return {
+        f"{what} stft_mag (KB's site)": dict(
+            n=n, kernel=lambda: rfft_mag.stft_mag(x, win, n, hop),
+            plain=lambda: rfft_mag.stft_mag_plain(x, win, n, hop),
+            library=lambda: torch.fft.rfft(frames_c, dim=-1)),
+        f"{what} gl_project (KJ's site)": dict(
+            n=n, kernel=lambda: griffinlim.gl_project(sig, mag, win, n, hop),
+            plain=lambda: griffinlim.gl_project_plain(sig, mag, win, n, hop),
+            library=lambda: torch.fft.irfft(spec_c, n=n)),
+    }
+
+
+def spectral_convergence_t(sig: torch.Tensor, target: torch.Tensor,
+                           window: torch.Tensor, n_fft: int,
+                           hop: int) -> float:
+    """Scale-invariant spectral convergence of a float signal [..., L]
+    against target magnitudes [..., F, n/2 + 1], on the signal's device in
+    its dtype (see spectral_convergence)."""
+    from gomel_tpu_torch.ops.rfft_mag import stft_mag_plain
+    a = stft_mag_plain(sig, window, n_fft, hop)
+    c = (a * target).sum() / (target * target).sum()
+    return float((a - c * target).norm() / (c.abs() * target.norm()))
+
+
+def new_paths(tmp: str, drive, dev: torch.device, wav: str,
+              logmel: torch.Tensor, inv: torch.Tensor, sig0: torch.Tensor,
+              win: torch.Tensor, x: torch.Tensor, nf: int) -> None:
+    """Phase 3f, the paths this slice adds: mel_decode(fft_backend="mm") at
+    the bench shape (GL-2 and recommended_gl(64)) against the exact route
+    from the same start, with KN and KO on each interior iteration and
+    KN + KG + KK on the final one; the phase codec with fft_backend="mm"
+    (KN and KO in float32) against the exact route; resolut 3000 (the FFT
+    kernels' mixed radix) through tomel and towav and through Phase, and
+    resolut 514 (the xla route) through Phase, on the card against the
+    CPU."""
+    from gomel_tpu_torch import Phase, PhaseConfig
+    from gomel_tpu_torch.cli.tools import tomel, towav
+    from gomel_tpu_torch.ops import griffinlim, mel_ops, phase_ops
+
+    n_fft, hop = 4096, 1280
+    target = mel_ops.mel_to_magnitudes_plain(logmel, inv)
+    mom24, it24 = griffinlim.recommended_gl(64)
+    for label, n_iter, mom in (("GL-2", 2, 0.0),
+                               (f"recommended_gl(64) = momentum {mom24} x "
+                                f"{it24}", it24, mom24)):
+        out = {}
+        for backend in ("mm", "auto"):
+            must = (("dft_fwd_bf16", "dft_inv_bf16", "irfft_window",
+                     "gl_overlap_add") if backend == "mm"
+                    else ("gl_project", "gl_overlap_add"))
+
+            def run(backend=backend):
+                out[backend] = mel_ops.mel_decode(
+                    logmel, n_fft, hop, inv, n_iter, window=win,
+                    fft_backend=backend, momentum=mom, init=sig0)
+                return 0
+            _, counts = drive(f"mel_decode(fft_backend={backend!r}) {label}, "
+                              f"[{logmel.shape[0]}, {logmel.shape[1]} "
+                              f"frames]", run, must)
+            want = ({"mel_to_magnitudes": 1, "dft_fwd_bf16": n_iter,
+                     "dft_inv_bf16": n_iter - 1, "irfft_window": 1,
+                     "gl_overlap_add": n_iter, "gl_project": 0}
+                    if backend == "mm" else
+                    {"mel_to_magnitudes": 1, "gl_project": n_iter,
+                     "gl_overlap_add": n_iter, "dft_fwd_bf16": 0})
+            if {k: counts.get(k, 0) for k in want} != want:
+                raise AssertionError(f"mel_decode {backend} {label} "
+                                     f"launches {counts}, expected {want}")
+        sc_mm = spectral_convergence_t(out["mm"], target, win, n_fft, hop)
+        sc_ex = spectral_convergence_t(out["auto"], target, win, n_fft, hop)
+        log(f"  mel_decode {label} from one start: spectral convergence mm "
+            f"{sc_mm:.6f}, exact {sc_ex:.6f} (bound: mm <= 1.05 x exact + "
+            f"1e-3 = {1.05 * sc_ex + 1e-3:.6f})")
+        if not (math.isfinite(sc_mm) and sc_mm <= 1.05 * sc_ex + 1e-3):
+            raise AssertionError(f"mel_decode mm {label}: spectral "
+                                 f"convergence {sc_mm} against {sc_ex}")
+
+    res = {}
+
+    def phase_mm():
+        res["spec"] = phase_ops.phase_encode_batch(x, nf, n_fft, hop, win,
+                                                   fft_backend="mm")
+        res["sig"] = phase_ops.phase_decode(res["spec"], n_fft, hop, 0.0, win,
+                                            fft_backend="mm")
+        return 0
+    drive("phase_encode_batch + phase_decode (fft_backend='mm'), bench shape",
+          phase_mm, ("dft_fwd_f32", "dft_inv_f32", "overlap_normalize"))
+    spec = phase_ops.phase_encode_batch(x, nf, n_fft, hop, win)
+    sig = phase_ops.phase_decode(res["spec"], n_fft, hop, 0.0, win)
+    rel_e = frame_peak_err(res["spec"], spec, spec.abs().amax(
+        dim=(-2, -1), keepdim=True))[0]
+    rel_d = float((res["sig"] - sig).abs().max() / sig.abs().max())
+    log(f"  phase codec with mm (KN, KO float32) vs the exact route (KE, KG): "
+        f"encode {rel_e:.3e} of the frame peak, decode {rel_d:.3e} of the "
+        f"peak (bounds 1e-5)")
+    if rel_e > 1e-5 or rel_d > 1e-5:
+        raise AssertionError("the mm phase codec is outside its bound")
+
+    def path(name):
+        return os.path.join(tmp, "r_" + name)
+
+    m_args = ["--resolut", "3000"]
+    for device in ("cuda", "cpu"):
+        fn = lambda d=device: tomel([wav, "--device", d, "-o",
+                                     path(f"{d}.png")] + m_args)
+        if device == "cuda":
+            drive("tomel --resolut 3000 --device cuda", fn,
+                  ("pcm16_ingest", "stft_mag", "mel_log",
+                   "quantize_mel_plane"))
+        elif fn() != 0:
+            raise AssertionError("tomel --resolut 3000 on cpu failed")
+    w = pngs_near(path("cuda.png"), path("cpu.png"), True)
+    log(f"  tomel --resolut 3000 PNG, cuda vs cpu: max step {w[0]}, flip rate "
+        f"{w[1]:.2e} (bounds 1, 2e-3), metadata equal")
+    for device in ("cuda", "cpu"):
+        fn = lambda d=device: towav([path("cuda.png"), str(SAMPLE_RATE),
+                                     "--seed", "1", "--device", d, "-o",
+                                     path(f"{d}.wav")] + m_args)
+        if device == "cuda":
+            drive("towav --resolut 3000 --device cuda", fn,
+                  ("mel_to_magnitudes", "gl_project", "gl_overlap_add"))
+        elif fn() != 0:
+            raise AssertionError("towav --resolut 3000 on cpu failed")
+    w = wavs_near(path("cuda.wav"), path("cpu.wav"), 2)
+    log(f"  towav --resolut 3000 WAV of the same PNG, cuda vs cpu: max {w[0]} "
+        f"LSB, differing {w[1]:.2e} (bounds 2, 5e-2)")
+
+    # resolut 3000 on the FFT kernels' mixed radix, resolut 514 (2 x 257,
+    # no n1 * n2 split) on the xla route
+    for n, nf, hop, fft, ifft, routed in (
+            (3000, 1152, 1280, "phase_encode", "irfft_window", False),
+            (514, 200, 128, "xla_route", "xla_route", True)):
+        pcfg = PhaseConfig.cli_default(resolut=n, num_freqs=nf, window=hop)
+        runs = (("to_phase_wav", lambda p: p.to_phase_wav(wav, path(
+                    f"{n}_{p.device.type}_p.png")),
+                 ("pcm16_ingest", fft, "quantize_planes")),
+                ("to_wav_png", lambda p: p.to_wav_png(
+                    path(f"{n}_cuda_p.png"),
+                    path(f"{n}_{p.device.type}_p.wav")),
+                 (ifft, "overlap_normalize")))
+        for label, call, must in runs:
+            for device in ("cuda", "cpu"):
+                codec = Phase(pcfg, device_quantize=True, device=device)
+                if device == "cuda":
+                    drive(f"Phase(resolut={n}).{label} --device cuda",
+                          lambda: (call(codec), 0)[1], must, route_ok=routed)
+                else:
+                    call(codec)
+        w = pngs_near(path(f"{n}_cuda_p.png"), path(f"{n}_cpu_p.png"), False)
+        log(f"  Phase(resolut={n}) PNG, cuda vs cpu: max step {w[0]}, flip "
+            f"rate {w[1]:.2e} (bounds 1, 2e-3), metadata equal")
+        w = wavs_near(path(f"{n}_cuda_p.wav"), path(f"{n}_cpu_p.wav"), 1)
+        log(f"  Phase(resolut={n}) WAV of the same PNG, cuda vs cpu: max "
+            f"{w[0]} LSB, differing {w[1]:.2e} (bounds 1, 5e-2)")
+
+
 def long_pcm(n: int, dev: torch.device) -> np.ndarray:
     """int16 [n] at 48 kHz, made on the card from the seed: four tones
     whose levels drift slowly, light noise and a quiet stretch."""
@@ -579,7 +1048,9 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
     config's GL-2. Checks the launches of KA-KM on these paths, the PNGs and
     WAVs against the single-file Phase / Mel on the same file, the GL
     against ops/griffinlim.griffin_lim from the concatenated per-shard start,
-    and decode_resumable against decode; then the host-clock split of each
+    sharded_mel_decode_fn with interior_mm (KN, KO on the interior
+    iterations) against the exact program by spectral convergence, and
+    decode_resumable against decode; then the host-clock split of each
     call, the cost of the CPU draw of the GL start, and K18's race (chunked
     against unchunked encodes)."""
     from gomel_tpu_torch import (LongFormMel, LongFormPhase, Mel, MelConfig,
@@ -588,7 +1059,9 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
     from gomel_tpu_torch.io import imagecodec, wavcodec
     from gomel_tpu_torch.io.pngcodec import read_png
     from gomel_tpu_torch.ops import griffinlim, mel_ops
+    from gomel_tpu_torch.ops.stft import hann_window
     from gomel_tpu_torch.parallel import sharded as sh
+    from gomel_tpu_torch.pipelines import longform as lf
 
     def path(name):
         return os.path.join(tmp, "long_" + name)
@@ -688,6 +1161,37 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
     log(f"long-form mel WAV (GL-{c.griffin_lim_iterations}) vs "
         f"ops/griffinlim.griffin_lim from the concatenated per-shard start: "
         f"max {w[0]} LSB, differing {w[1]:.2e} (bounds 2, 5e-2)")
+
+    # interior_mm on the four frame shards at GL-2, from the same per-shard
+    # starts as the exact program
+    pg, _ = lm._prep_frames(planes.transpose(1, 0, 2)[None], mplan, raw=True)
+    logmel_s = sh.Sharded(mesh, [lf.dequantize_raw(
+        s, mx, mn, 255, 0, float(c.volume_boost)) for s in pg.shards])
+    target = sh.sharded_mel_magnitudes_fn(mesh, lm._inv, c.tune_mul,
+                                          c.tune_add)(logmel_s).gather()[
+        0, :mplan.n_frames]
+    decoded = {}
+    for mm in (True, False):
+        dec = sh.sharded_mel_decode_fn(mesh, mplan, lm._inv, 2, c.tune_mul,
+                                       c.tune_add, interior_mm=mm)
+        must = ("mel_to_magnitudes", "gl_overlap_add", "shard_epilogue") + (
+            ("dft_fwd_bf16", "dft_inv_bf16", "irfft_window") if mm
+            else ("gl_project",))
+
+        def run(dec=dec, mm=mm):
+            decoded[mm] = dec(logmel_s, 1).gather()[0, :mplan.out_len]
+            return 0
+        drive(f"sharded_mel_decode_fn(interior_mm={mm}) GL-2, "
+              f"{LONG_SECONDS / 60:g} min, {N_SHARDS} frame shards", run, must)
+    win = torch.tensor(hann_window(c.resolut), dtype=torch.float32,
+                       device=dev)
+    sc = {mm: spectral_convergence_t(decoded[mm], target, win, c.resolut,
+                                     c.window) for mm in (True, False)}
+    log(f"sharded mel decode GL-2 from the same per-shard starts: spectral "
+        f"convergence interior_mm=True {sc[True]:.6f}, False {sc[False]:.6f} "
+        f"(bound: True <= 1.05 x False + 1e-3)")
+    if not (math.isfinite(sc[True]) and sc[True] <= 1.05 * sc[False] + 1e-3):
+        raise AssertionError("sharded interior_mm outside its bound")
 
     x60 = pcm[:60 * SAMPLE_RATE].astype(np.float64) / 32768.0
     lm_f = LongFormMel(mcfg, mesh)
@@ -920,8 +1424,9 @@ def main() -> int:
     from gomel_tpu_torch.io import audio as audio_io
     from gomel_tpu_torch.io import imagecodec, wavcodec
     from gomel_tpu_torch.io.pngcodec import read_png
-    from gomel_tpu_torch.ops import (_cuda, griffinlim, istft, mel_ops,
-                                     phase_ops, quantize, rfft_mag)
+    from gomel_tpu_torch.ops import (_cuda, dft_mm, fftbackend, griffinlim,
+                                     istft, mel_ops, phase_ops, quantize,
+                                     rfft_mag)
     from gomel_tpu_torch.ops.stft import hann_window
 
     # the plain references run in full float32 (no TF32 anywhere)
@@ -959,25 +1464,31 @@ def main() -> int:
                                    quantize.PLANES_MASKED_KERNEL,
                                    quantize.DEQUANTIZE_RAW_KERNEL,
                                    istft.SYNTH_MASKED_KERNEL,
-                                   istft.SHARD_KERNEL)}
+                                   istft.SHARD_KERNEL, dft_mm.FWD_KERNEL,
+                                   dft_mm.FWD_F32_KERNEL, dft_mm.INV_KERNEL,
+                                   dft_mm.INV_F32_KERNEL)}
+    # the kernels' tallies and the xla route's (torch.fft on the card, for
+    # the sizes the hand FFT kernels do not take; not a kernel of the port)
+    tallies = dict(kernels, xla_route=fftbackend.XLA_ROUTE)
     errs: dict[str, float] = {}
-    # launches of each kernel summed over the main-path runs (tomel, tophase,
-    # fromphase, towav and the four batch CLIs), each read with every count
-    # set to 0 just before it
-    launches = {name: 0 for name in kernels}
+    # launches of each kernel summed over the main-path runs (the CLIs, the
+    # batch CLIs, the long-form calls and phase 3f's paths), each read with
+    # every count set to 0 just before it
+    launches = {name: 0 for name in tallies}
 
-    def drive(label: str, fn, must_run: tuple[str, ...]
-              ) -> tuple[float, dict[str, int]]:
+    def drive(label: str, fn, must_run: tuple[str, ...],
+              route_ok: bool = False) -> tuple[float, dict[str, int]]:
         """Run one main-path call with the counts at 0; return its wall
         seconds and its launch counts; fail if a kernel of that path did not
-        launch."""
-        for k in kernels.values():
+        launch, or if the xla route ran on a path whose sizes the hand
+        kernels take (``route_ok`` False)."""
+        for k in tallies.values():
             k.launches = 0
         t0 = time.perf_counter()
         rc = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {name: k.launches for name, k in kernels.items()
+        counts = {name: k.launches for name, k in tallies.items()
                   if k.launches}
         if rc != 0:
             raise AssertionError(f"{label} returned {rc}")
@@ -986,6 +1497,9 @@ def main() -> int:
         if missing:
             raise AssertionError(f"{label}: kernels of the path never ran: "
                                  f"{missing}")
+        if not route_ok and counts.get("xla_route"):
+            raise AssertionError(f"{label}: the xla route ran at a size the "
+                                 f"hand kernels take")
         for name, c in counts.items():
             launches[name] += c
         return seconds, counts
@@ -1303,6 +1817,11 @@ def main() -> int:
     # -- phase 2e: the long-form kernels, one shard of the 30-minute file ---
     long_k = longform_kernels(dev, errs)
 
+    # -- phase 2f: KN, KO and the xla route ----------------------------------
+    dft_k = dft_kernels(dev, errs, x, win, n_fft, hop, mag, sig0)
+    route_k = (fft_size_checks(dev, x, 3000, 750, 1152, False)
+               | fft_size_checks(dev, x, 514, 128, 200, True))
+
     # -- phase 3: the main path, tomel on a 30 s WAV ----------------------
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "speech.wav")
@@ -1459,6 +1978,9 @@ def main() -> int:
         # -- phase 3e: the long-form path, a 30-minute file, 4 shards ------
         longform(tmp, drive, card, dev)
 
+        # -- phase 3f: the mm Griffin-Lim, the mm phase codec, resolut 3000
+        new_paths(tmp, drive, dev, wav, logmel_ref, inv, sig0, win, x, nf)
+
     # -- phase 4: times at the bench shape ---------------------------------
     log(f"timing on {card}: device ms per call (CUDA events over up to 20 "
         f"calls queued behind a sleep kernel, after 3 warmup; lower of two "
@@ -1523,7 +2045,7 @@ def main() -> int:
         "quantize_planes_masked": lambda: quantize.quantize_planes_plain(
             spec4, 255, 0, frames4),
     }
-    for name, entry in long_k.items():
+    for name, entry in (long_k | dft_k).items():
         kernel_fns[name], plain_fns[name] = entry["kernel"], entry["plain"]
     times = {name: race(kernel_fns[name], plain_fns[name], name)
              for name in kernel_fns}
@@ -1578,7 +2100,7 @@ def main() -> int:
                "gl_project": lambda: torch.fft.irfft(spec_c, n=n_fft),
                "mel_log": lambda: torch.matmul(mags_ref, we),
                "mel_to_magnitudes": lambda: torch.matmul(mel_lin, inv_t)}
-    for name, entry in long_k.items():
+    for name, entry in (long_k | dft_k).items():
         work[name] = entry["work"]
         if entry["library"] is not None:
             library[name] = entry["library"]
@@ -1689,6 +2211,29 @@ def main() -> int:
         f"[{BATCH}, {frames} frames], device (CUDA graph replays): kernels "
         f"{k_ms:.4f} ms = {gl_out_s / (k_ms / 1e3):.1f} audio-s/s; plain "
         f"{p_ms:.4f} ms = {gl_out_s / (p_ms / 1e3):.1f} audio-s/s")
+
+    # the race of this slice: one interior Griffin-Lim iteration on the
+    # tensor cores (KN's projection + KO, bf16 operands) against the exact
+    # one (KJ), each with KK's momentum step
+    def iteration(backend):
+        return lambda: griffinlim.gl_overlap_add(griffinlim.gl_project(
+            sig0, mag, win, n_fft, hop, backend,
+            window_host=hann_window(n_fft)), hop, sig0, 0.99)
+    mm_ms, kj_ms = race(iteration("mm"), iteration("auto"),
+                        "interior GL iteration")
+    log(f"  one interior GL iteration with momentum, [{BATCH}, {frames} "
+        f"frames], device: mm (KN + KO + KK) {mm_ms:.4f} ms = "
+        f"{gl_out_s / (mm_ms / 1e3):.1f} audio-s/s; exact (KJ + KK) "
+        f"{kj_ms:.4f} ms = {gl_out_s / (kj_ms / 1e3):.1f} audio-s/s; mm / "
+        f"exact {mm_ms / kj_ms:.3f}")
+    for name, entry in route_k.items():
+        k_ms, p_ms = race(entry["kernel"], entry["plain"], name)
+        lib = min(cuda_ms(entry["library"]), cuda_ms(entry["library"]))
+        log(f"  {name}, n {entry['n']}, [{BATCH}, {x.shape[1]}]: "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, its torch.fft call alone "
+            f"{lib:.4f} ms")
+    log(f"  xla route calls on the main-path drives: "
+        f"{launches['xla_route']} (all sites)")
 
     rows = [{"name": name, "route": "cuda", "source": k.source,
              "replaces": k.replaces, "launches": launches[name],

@@ -39,19 +39,11 @@
 
 #include "fft_core.cuh"
 #include "overlap_add.cuh"
+#include "unit_phase.cuh"
 
 namespace {
 
-// mag * (re, im) / |(re, im)|, or (mag, 0) where |(re, im)| is 0
-__device__ __forceinline__ float2 project_bin(float2 x, float mag) {
-  const float a =
-      __fsqrt_rn(__fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y)));
-  const float inv = a > 0.0f ? __fdiv_rn(1.0f, a) : 0.0f;
-  const float ur = a > 0.0f ? __fmul_rn(x.x, inv) : 1.0f;
-  const float ui = __fmul_rn(x.y, inv);
-  return make_float2(__fmul_rn(mag, ur), __fmul_rn(mag, ui));
-}
-
+template <bool kPow2>
 __global__ void gl_project_kernel(const float* __restrict__ sig,
                                   const float* __restrict__ mag,
                                   const float* __restrict__ window,
@@ -67,7 +59,7 @@ __global__ void gl_project_kernel(const float* __restrict__ sig,
   const long long fi = frame - bi * frames;
   load_frame(reinterpret_cast<float*>(a), sig + bi * length + fi * hop,
              window, 2 * m);
-  float2* z = stockham_fft<false>(a, b, tw, m);
+  float2* z = complex_fft<false, kPow2>(a, b, tw, m);
   float2* y = (z == a) ? b : a;
 
   const float* mg = mag + frame * (m + 1);
@@ -84,7 +76,7 @@ __global__ void gl_project_kernel(const float* __restrict__ sig,
   }
   __syncthreads();
 
-  const float2* r = stockham_fft<true>(y, z, tw, m);
+  const float2* r = complex_fft<true, kPow2>(y, z, tw, m);
   const float2* w2 = reinterpret_cast<const float2*>(window);
   float2* dst = out + frame * m;
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
@@ -126,8 +118,9 @@ __global__ void gl_overlap_add_kernel(const float* __restrict__ frames_w,
 
 // sig: float32 [batch, length], length = n + (frames - 1) * hop; mag:
 // float32 [batch*frames, n/2 + 1]; window: float32 [n] (8-byte aligned);
-// tw: float2 [n/2]; out: float32 [batch*frames, n]. n/2 must be a power of
-// two (the wrapper checks).
+// tw: float2 [n/2]; out: float32 [batch*frames, n]. n must be an even size
+// of the TPU's n1 * n2 split (ops/fftbackend.ct_supported; the wrapper
+// checks).
 GOMEL_API int gomel_gl_project(const void* sig, const void* mag,
                                const void* window, const void* tw, void* out,
                                long long batch, long long frames,
@@ -136,16 +129,9 @@ GOMEL_API int gomel_gl_project(const void* sig, const void* mag,
   cudaSetDevice(device);
   const int m = static_cast<int>(n / 2);
   const size_t smem = 2 * static_cast<size_t>(m) * sizeof(float2);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(gl_project_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  int threads = m / 2;
-  if (threads > 256) threads = 256;
-  if (threads < 32) threads = 32;
-  gl_project_kernel<<<static_cast<unsigned>(batch * frames), threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  launch_frames(
+      is_pow2(m) ? gl_project_kernel<true> : gl_project_kernel<false>,
+      batch * frames, m, smem, static_cast<cudaStream_t>(stream),
       static_cast<const float*>(sig), static_cast<const float*>(mag),
       static_cast<const float*>(window), static_cast<const float2*>(tw),
       static_cast<float2*>(out), static_cast<int>(frames), length, hop, m,

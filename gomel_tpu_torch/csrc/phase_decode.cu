@@ -102,7 +102,7 @@ __device__ __forceinline__ float2 load_bin(const void* __restrict__ src,
       dequantize(c1, max_val, __fsub_rn(ext.y, ext.w), ext.w, ihs_passes));
 }
 
-template <int kMode>
+template <int kMode, bool kPow2>
 __global__ void irfft_window_kernel(const void* __restrict__ src,
                                     const float* __restrict__ aux0,
                                     const float* __restrict__ aux1,
@@ -160,7 +160,7 @@ __global__ void irfft_window_kernel(const void* __restrict__ src,
   }
   __syncthreads();
 
-  const float2* z = stockham_fft<true>(a, b, tw, m);
+  const float2* z = complex_fft<true, kPow2>(a, b, tw, m);
   const float2* w2 = reinterpret_cast<const float2*>(window);
   float2* dst = out + frame * m;
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
@@ -207,17 +207,11 @@ int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
                         long long blocks, int frames, int real_frames, int nf,
                         int m, float max_val, int ihs_passes, cudaStream_t s) {
   const size_t smem = (2 * static_cast<size_t>(m) + 1) * sizeof(float2);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(irfft_window_kernel<kMode>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  int threads = m / 2;
-  if (threads > 256) threads = 256;
-  if (threads < 32) threads = 32;
-  irfft_window_kernel<kMode><<<static_cast<unsigned>(blocks), threads, smem, s>>>(
-      src, aux0, aux1, window, tw, out, frames, real_frames, nf, m, max_val,
-      ihs_passes, 1.0f / static_cast<float>(2 * m));
+  launch_frames(is_pow2(m) ? irfft_window_kernel<kMode, true>
+                           : irfft_window_kernel<kMode, false>,
+                blocks, m, smem, s, src, aux0, aux1, window, tw, out, frames,
+                real_frames, nf, m, max_val, ihs_passes,
+                1.0f / static_cast<float>(2 * m));
   return gomel_status();
 }
 
@@ -229,7 +223,8 @@ int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
 //   aux1 = mins, float32 [batch, 2].
 // window: float32 [n] or null; tw: float2 [n/2]; out: float32
 // [batch*frames, n]; frames at or past real_frames (0..frames) of each row
-// write zeros. n/2 must be a power of two (the wrapper checks).
+// write zeros. n must be an even size of the TPU's n1 * n2 split
+// (ops/fftbackend.ct_supported; the wrapper checks).
 GOMEL_API int gomel_irfft_window(int mode, const void* src, const void* aux0,
                                  const void* aux1, const void* window,
                                  const void* tw, void* out, long long batch,

@@ -23,6 +23,7 @@
 
 namespace {
 
+template <bool kPow2>
 __global__ void stft_planes_kernel(const float* __restrict__ x,
                                    const float* __restrict__ window,
                                    const float2* __restrict__ tw,
@@ -35,7 +36,7 @@ __global__ void stft_planes_kernel(const float* __restrict__ x,
   const long long fi = frame - bi * frames;
   load_frame(reinterpret_cast<float*>(smem), x + bi * batch_stride + fi * hop,
              window, 2 * m);
-  const float2* z = stockham_fft<false>(smem, smem + m, tw, m);
+  const float2* z = complex_fft<false, kPow2>(smem, smem + m, tw, m);
 
   float2* dst = out + frame * count;
   for (int j = threadIdx.x; j < count; j += blockDim.x) {
@@ -49,8 +50,8 @@ __global__ void stft_planes_kernel(const float* __restrict__ x,
 // x: float32 signal, frame (b, f) starting at x + b*batch_stride + f*hop;
 // window: float32 [n] or null; tw: float2 [n/2]; out: float32
 // [batch*frames, count, 2] holding (im, re) of bins first..first+count-1,
-// with first + count <= n/2 + 1. n/2 must be a power of two (the wrapper
-// checks).
+// with first + count <= n/2 + 1. n must be an even size of the TPU's
+// n1 * n2 split (ops/fftbackend.ct_supported; the wrapper checks).
 GOMEL_API int gomel_stft_planes(const void* x, const void* window,
                                 const void* tw, void* out, long long batch,
                                 long long frames, long long batch_stride,
@@ -59,16 +60,9 @@ GOMEL_API int gomel_stft_planes(const void* x, const void* window,
   cudaSetDevice(device);
   const int m = static_cast<int>(n / 2);
   const size_t smem = 2 * static_cast<size_t>(m) * sizeof(float2);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(stft_planes_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  int threads = m / 2;
-  if (threads > 256) threads = 256;
-  if (threads < 32) threads = 32;
-  stft_planes_kernel<<<static_cast<unsigned>(batch * frames), threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  launch_frames(
+      is_pow2(m) ? stft_planes_kernel<true> : stft_planes_kernel<false>,
+      batch * frames, m, smem, static_cast<cudaStream_t>(stream),
       static_cast<const float*>(x), static_cast<const float*>(window),
       static_cast<const float2*>(tw), static_cast<float2*>(out),
       static_cast<int>(frames), batch_stride, hop, m, first, count);

@@ -4,7 +4,8 @@
 // gomel_tpu/ops/mxu_fft.py:140 rfft_mag (K2; reached through
 // gomel_tpu/ops/fftbackend.py:65). On the TPU the FFT was a Cooley-Tukey split
 // into two 32x128 dense matmuls on the matrix unit; on Hopper it is a radix-2
-// Stockham FFT in shared memory, one thread block per frame.
+// Stockham FFT in shared memory, one thread block per frame (mixed radix for
+// the other sizes of that split, such as n = 3000: fft_core.cuh).
 //
 // Precision: all arithmetic is float32 on the CUDA cores. No tensor cores and
 // no TF32: an FFT below full float32 precision is catastrophic after the log
@@ -33,6 +34,7 @@
 
 namespace {
 
+template <bool kPow2>
 __global__ void stft_mag_kernel(const float* __restrict__ x,
                                 const float* __restrict__ window,
                                 const float2* __restrict__ tw,
@@ -44,7 +46,7 @@ __global__ void stft_mag_kernel(const float* __restrict__ x,
   const long long fi = frame - bi * frames;
   load_frame(reinterpret_cast<float*>(smem), x + bi * batch_stride + fi * hop,
              window, 2 * m);
-  const float2* z = stockham_fft<false>(smem, smem + m, tw, m);
+  const float2* z = complex_fft<false, kPow2>(smem, smem + m, tw, m);
 
   float* dst = out + frame * (m + 1);
   for (int k = threadIdx.x; k <= m; k += blockDim.x) {
@@ -57,7 +59,8 @@ __global__ void stft_mag_kernel(const float* __restrict__ x,
 
 // x: float32 signal, frame (b, f) starting at x + b*batch_stride + f*hop;
 // window: float32 [n] or null; tw: float2 [n/2]; out: float32
-// [batch*frames, n/2 + 1]. n/2 must be a power of two (the wrapper checks).
+// [batch*frames, n/2 + 1]. n must be an even size of the TPU's n1 * n2 split
+// (ops/fftbackend.ct_supported; the wrapper checks).
 GOMEL_API int gomel_stft_mag(const void* x, const void* window, const void* tw,
                              void* out, long long batch, long long frames,
                              long long batch_stride, long long hop, long long n,
@@ -65,16 +68,9 @@ GOMEL_API int gomel_stft_mag(const void* x, const void* window, const void* tw,
   cudaSetDevice(device);
   const int m = static_cast<int>(n / 2);
   const size_t smem = 2 * static_cast<size_t>(m) * sizeof(float2);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(stft_mag_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  int threads = m / 2;
-  if (threads > 256) threads = 256;
-  if (threads < 32) threads = 32;
-  stft_mag_kernel<<<static_cast<unsigned>(batch * frames), threads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  launch_frames(
+      is_pow2(m) ? stft_mag_kernel<true> : stft_mag_kernel<false>,
+      batch * frames, m, smem, static_cast<cudaStream_t>(stream),
       static_cast<const float*>(x), static_cast<const float*>(window),
       static_cast<const float2*>(tw), static_cast<float*>(out),
       static_cast<int>(frames), batch_stride, hop, m);

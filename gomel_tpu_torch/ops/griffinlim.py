@@ -9,12 +9,18 @@ k < N/2 and ``mag[N/2] = |ch1[N/2-1]|``, and each iteration is
 ``signal <- overlap_add(irfft(mag * e^{i phase(rfft(window * frames))}) *
 window)`` with no window-sum normalisation (mel/mel.go:127-132).
 
-The JAX package runs the interior iterations through a reduced-precision
-DFT only when its backend is a TPU (``fftbackend.resolve("auto_lowp")``);
-elsewhere every iteration is the exact float32 FFT, and so is every
-iteration here. On a CPU tensor each step runs its plain PyTorch version
-(``torch.fft``, the JAX program's order of operations); on a CUDA tensor it
-launches its kernel.
+``fft_backend`` takes the JAX package's names (ops/fftbackend.py). Its
+default, ``auto``, resolves as ``auto_lowp``, which is exact on the card as
+on every backend of the JAX package but a TPU: every iteration is KJ + KK
+(or the xla route, ``torch.fft``, for a size KJ does not take). ``mm`` runs
+the reduced-precision DFT of the JAX package's TPU default
+(gomel_tpu/ops/griffinlim.py:146-193): every forward transform, the final
+one too, is KN at "default" (bf16 operands) with the window folded into
+its weights and the projection as its epilogue; the interior inverses are
+KO at "default"; the final inverse is exact (KG, or the xla route), then
+KK. On a CPU tensor each step runs its plain PyTorch version (the JAX
+program's order of operations, and the matmul DFT in full precision, as
+XLA's CPU backend runs it); on a CUDA tensor it launches its kernel.
 
 The random initial signal is drawn by :func:`random_init` on a CPU
 ``torch.Generator`` and copied to the device, so a seed gives the same
@@ -26,11 +32,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _cuda
+from . import _cuda, dft_mm, fftbackend, istft
 from .istft import overlap_add_plain
 from .quantize import pcm16_encode
-from .rfft_mag import _twiddles, supported
-from .stft import frame_signal, window_like
+from .rfft_mag import _twiddles
+from .stft import frame_signal, hann_window, window_like
 
 PROJECT_KERNEL = _cuda.Kernel("gl_project", "gomel_tpu_torch/csrc/griffinlim.cu",
                               "gomel_tpu/ops/griffinlim.py:98")
@@ -108,10 +114,16 @@ def gl_project_plain(sig: torch.Tensor, mag_half: torch.Tensor,
 
 
 def gl_project(sig: torch.Tensor, mag_half: torch.Tensor,
-               window: torch.Tensor, n: int, hop: int) -> torch.Tensor:
+               window: torch.Tensor, n: int, hop: int, backend: str = "auto",
+               final: bool = False, window_host=None) -> torch.Tensor:
     """One Griffin-Lim projection up to the overlap-add: signal
     [..., N + (F-1)*hop] and magnitudes [..., F, n/2 + 1] -> windowed frames
-    [..., F, n] (the body of gomel_tpu/ops/griffinlim.py:171-195)."""
+    [..., F, n] (the body of gomel_tpu/ops/griffinlim.py:171-195). The route
+    is ``backend``'s (ops/fftbackend.resolve): KJ, the xla route, or, for
+    ``mm``, KN's projection at "default" then KO at "default" (``final``
+    False) or the exact inverse (``final``). ``window_host``, the window as
+    a host array, is what ``mm`` folds into its weights (None: ``window``,
+    copied to the host)."""
     *lead, frames, bins = mag_half.shape
     if bins != n // 2 + 1:
         raise ValueError(f"gl_project: {bins} magnitude bins, n={n} needs "
@@ -120,15 +132,23 @@ def gl_project(sig: torch.Tensor, mag_half: torch.Tensor,
         raise ValueError(f"gl_project: signal {tuple(sig.shape)} does not hold "
                          f"{frames} frames of {n} at hop {hop} for magnitudes "
                          f"{tuple(mag_half.shape)}")
+    route = fftbackend.resolve(backend, n, sig.device.type)
+    if route == "mm":
+        fold = window if window_host is None else window_host
+        yr, yi = dft_mm.gl_spectrum(sig, mag_half, n, hop, fold, "default",
+                                    final)
+        if final:
+            return istft.irfft_window(yr, yi, n, window)
+        return dft_mm.istft_frames(yr, yi, n, fold, "default")
     if sig.device.type == "cpu":
         return gl_project_plain(sig, mag_half, window, n, hop)
     sig, mag_half, window = (t.contiguous() for t in (sig, mag_half, window))
     dev = _cuda.check_cuda("gl_project", sig, mag_half, window)
     if any(t.dtype != torch.float32 for t in (sig, mag_half, window)):
         raise ValueError("gl_project: the CUDA kernel takes float32 tensors")
-    if not supported(n):
-        raise ValueError(f"gl_project: n={n} unsupported (need even n, "
-                         f"n/2 a power of two, n <= 16384)")
+    if route == "xla":
+        fftbackend.XLA_ROUTE.launches += 1
+        return gl_project_plain(sig, mag_half, window, n, hop)
     if window.shape != (n,) or window.data_ptr() % 8:
         raise ValueError(f"gl_project: window shape {tuple(window.shape)} "
                          f"!= ({n},) or misaligned (the kernel reads float2)")
@@ -215,7 +235,8 @@ def gl_overlap_add(frames_w: torch.Tensor, hop: int,
 
 def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
                 *, init=None, generator: torch.Generator | None = None,
-                momentum: float = 0.0, pcm16: bool = False):
+                fft_backend: str = "auto", momentum: float = 0.0,
+                pcm16: bool = False):
     """Iterative phase reconstruction (gomel_tpu/ops/griffinlim.py:98).
 
     mag_half: [..., F, N/2 + 1] fixed half-spectrum magnitudes. Returns the
@@ -229,10 +250,20 @@ def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
     does: ``n_iter - 1`` iterations t_n = G(c_n), c_{n+1} = t_n +
     momentum * (t_n - t_{n-1}) from (c, t) = (init, init), then one plain
     final iteration.
+
+    ``fft_backend``: ``auto`` resolves as ``auto_lowp`` (exact on every
+    device); ``mm`` is the JAX package's TPU default (see the module
+    docstring); ``xla`` and ``mxu`` are exact.
     """
     *lead, frames, bins = mag_half.shape
     n = (bins - 1) * 2
     dtype, dev = mag_half.dtype, mag_half.device
+    backend = fftbackend.resolve(
+        "auto_lowp" if fft_backend == "auto" else fft_backend, n, dev.type)
+    # the host window the mm route folds into its weights, as the JAX
+    # program takes it (a tensor window is copied to the host instead)
+    window_host = (hann_window(n) if window is None else
+                   window if isinstance(window, np.ndarray) else None)
     window = window_like(window, n, mag_half)
     out_len = n + (frames - 1) * hop
     shape = tuple(lead) + (out_len,)
@@ -242,19 +273,21 @@ def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
             raise ValueError(f"griffin_lim: init {tuple(sig.shape)} != {shape}")
     else:
         sig = random_init(shape, generator, dtype).to(dev)
+    def project(s, final=False):
+        return gl_project(s, mag_half, window, n, hop, backend, final,
+                          window_host)
+
     interior = max(n_iter - 1, 0)
     if momentum != 0.0:
         t_prev = sig
         for _ in range(interior):
-            sig, t_prev = gl_overlap_add(
-                gl_project(sig, mag_half, window, n, hop), hop, t_prev,
-                float(momentum))
+            sig, t_prev = gl_overlap_add(project(sig), hop, t_prev,
+                                         float(momentum))
     else:
         for _ in range(interior):
-            sig = gl_overlap_add(gl_project(sig, mag_half, window, n, hop), hop)
+            sig = gl_overlap_add(project(sig), hop)
     if n_iter >= 1:
-        return gl_overlap_add(gl_project(sig, mag_half, window, n, hop), hop,
-                              pcm16=pcm16)
+        return gl_overlap_add(project(sig, final=True), hop, pcm16=pcm16)
     if pcm16:
         return pcm16_encode(sig)[0], torch.isfinite(sig).all(dim=-1)
     return sig

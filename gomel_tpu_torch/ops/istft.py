@@ -10,7 +10,8 @@ Counterpart of ``gomel_tpu/ops/istft.py`` (reference phase/phase.go:93-133):
 add and normalisation of gomel_tpu/parallel/sharded.py (``shard_epilogue``).
 On a CPU tensor each runs its plain PyTorch version (the JAX program's order
 of operations, so float32 results match it bit for bit where the JAX
-program is exact); on a CUDA tensor ``irfft_window`` launches KG,
+program is exact); on a CUDA tensor ``irfft_window`` launches KG (or, by
+ops/fftbackend.resolve, takes the xla route or the matmul DFT KO),
 ``overlap_add`` / ``overlap_normalize`` launch KH and ``shard_epilogue``
 launches KM.
 
@@ -27,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _cuda
+from . import _cuda, dft_mm, fftbackend
 from .quantize import pcm16_encode
 from .rfft_mag import _twiddles, supported
 
@@ -182,8 +183,8 @@ def launch_irfft_window(mode: int, src: torch.Tensor,
             window is not None and window.dtype != torch.float32):
         raise ValueError("irfft_window: the CUDA kernel takes float32")
     if not supported(n):
-        raise ValueError(f"irfft_window: n={n} unsupported (need even n, "
-                         f"n/2 a power of two, n <= 16384)")
+        raise ValueError(f"irfft_window: n={n} unsupported (need even "
+                         f"n = n1 * n2 with n1, n2 <= 128)")
     if window is not None and window.shape != (n,):
         raise ValueError(f"irfft_window: window shape {tuple(window.shape)} "
                          f"!= ({n},)")
@@ -210,18 +211,30 @@ def launch_irfft_window(mode: int, src: torch.Tensor,
 
 def irfft_window(re: torch.Tensor, im: torch.Tensor, n: int,
                  window: torch.Tensor | None = None,
-                 real_frames: int | None = None) -> torch.Tensor:
+                 real_frames: int | None = None, backend: str = "auto",
+                 precision=None) -> torch.Tensor:
     """Half-spectrum planes [..., F, n/2 + 1] -> irfft_n x window
     [..., F, n] (``window`` None: no window); frames at or past
-    ``real_frames`` are zeros."""
+    ``real_frames`` are zeros. ``backend`` picks the route
+    (ops/fftbackend.resolve): KG, the xla route or the matmul DFT KO;
+    ``precision`` applies to the ``mm`` route only."""
     if re.shape != im.shape or re.shape[-1] != n // 2 + 1:
         raise ValueError(f"irfft_window: planes {tuple(re.shape)}, "
                          f"{tuple(im.shape)} do not hold n/2 + 1 = "
                          f"{n // 2 + 1} bins")
+    route = fftbackend.resolve(backend, n, re.device.type)
+    if route == "mm":
+        return dft_mm.istft_frames(re, im, n, window, precision, real_frames)
     if re.device.type == "cpu":
         return irfft_window_plain(re, im, n, window, real_frames)
     if re.dtype != torch.float32:
         raise ValueError("irfft_window: the CUDA kernel takes float32")
+    if route == "xla":
+        re, im = re.contiguous(), im.contiguous()
+        _cuda.check_cuda("irfft_window", re, im,
+                         *(() if window is None else (window,)))
+        fftbackend.XLA_ROUTE.launches += 1
+        return irfft_window_plain(re, im, n, window, real_frames)
     *lead, frames, _ = re.shape
     return launch_irfft_window(MODE_PLANES, re.contiguous(), (im.contiguous(),),
                                n, frames, n // 2 + 1, window, tuple(lead),
@@ -230,6 +243,7 @@ def irfft_window(re: torch.Tensor, im: torch.Tensor, n: int,
 
 def chunked_irfft_overlap_add(re: torch.Tensor, im: torch.Tensor, hop: int,
                               window: torch.Tensor, chunk: int,
+                              fft_backend: str = "xla",
                               real_frames: int | None = None) -> torch.Tensor:
     """Un-normalised windowed overlap-add synthesis: [..., F, N/2 + 1]
     planes -> [..., N + (F-1)*hop] (gomel_tpu/ops/istft.py:75). Frames at or
@@ -243,12 +257,14 @@ def chunked_irfft_overlap_add(re: torch.Tensor, im: torch.Tensor, hop: int,
     KH launch without a window sums them, one owner per output sample, so no
     tail is carried: the result equals the JAX program's up to the order of
     the adds at slice edges. ``chunk`` is validated as the JAX program does
-    (``chunk * hop >= N - hop``)."""
+    (``chunk * hop >= N - hop``). ``fft_backend`` as in
+    :func:`irfft_window` (the JAX default, ``xla``, is the library FFT)."""
     n = (re.shape[-1] - 1) * 2
     if chunk * hop < n - hop:
         raise ValueError(f"chunk {chunk} too small: need chunk*hop >= "
                          f"N - hop = {n - hop}")
-    return overlap_add(irfft_window(re, im, n, window, real_frames), hop)
+    return overlap_add(irfft_window(re, im, n, window, real_frames,
+                                    fft_backend), hop)
 
 
 def overlap_normalize_plain(frames_w: torch.Tensor, hop: int,
@@ -329,13 +345,16 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
 
 
 def istft_direct_planes(re: torch.Tensor, im: torch.Tensor, hop: int,
-                        window) -> torch.Tensor:
+                        window, fft_backend: str = "auto") -> torch.Tensor:
     """Direct (0-iteration) iSTFT with window-sum normalisation: real/imag
     planes [..., F, N/2 + 1] -> signal [..., N + (F-1)*hop] (reference:
-    phase/phase.go:93-133). ``window``: [N] numpy array or tensor."""
+    phase/phase.go:93-133). ``window``: [N] numpy array or tensor.
+    ``fft_backend`` as in :func:`irfft_window`: ``auto`` is exact on every
+    device, as the JAX program's ``auto`` -> ``xla``."""
     n = (re.shape[-1] - 1) * 2
     window = torch.as_tensor(window, dtype=re.dtype, device=re.device)
-    return overlap_normalize(irfft_window(re, im, n, window), hop, window)
+    return overlap_normalize(irfft_window(re, im, n, window,
+                                          backend=fft_backend), hop, window)
 
 
 def _window_sum_span(prefix: torch.Tensor, n_frames: int, hop: int,

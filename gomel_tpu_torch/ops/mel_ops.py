@@ -22,7 +22,7 @@ from . import _cuda
 from .griffinlim import griffin_lim, griffin_lim_magnitudes
 from .quantize import dequantize_mel_plane
 from .rfft_mag import stft_mag
-from .stft import hann_window, map_frame_chunks
+from .stft import map_frame_chunks, window_like
 
 KERNEL = _cuda.Kernel("mel_log", "gomel_tpu_torch/csrc/mel_log.cu",
                       "gomel_tpu/ops/mel_ops.py:98")
@@ -108,11 +108,14 @@ def _mel_from_mags(mags: torch.Tensor, fwd_weights: torch.Tensor) -> torch.Tenso
 def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
                fwd_weights: torch.Tensor,
                window: torch.Tensor | None = None,
+               fft_backend: str = "auto",
                frame_chunk: int | None = None) -> torch.Tensor:
     """Audio [..., L] -> log-mel [..., F, num_mels, 2].
 
     fwd_weights: [num_mels, N/2] filterbank matrix (core.filterbank.mel_weights).
     window: [frame_len] analysis window, Hann when None.
+    fft_backend: the transform's route (ops/fftbackend.resolve); ``auto`` is
+    KB on the card, or the xla route for a size KB does not take.
     frame_chunk: launch the kernels once per chunk of that many frames
     (ops/stft.map_frame_chunks); the frames are independent, so the result
     is the same.
@@ -120,26 +123,27 @@ def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
     if fwd_weights.shape[0] != num_mels:
         raise ValueError(f"fwd_weights has {fwd_weights.shape[0]} rows, "
                          f"num_mels={num_mels}")
-    if window is None:
-        window = torch.as_tensor(hann_window(frame_len), dtype=x_padded.dtype,
-                                 device=x_padded.device)
+    window = window_like(window, frame_len, x_padded)
     if frame_chunk:
         return map_frame_chunks(
             x_padded, frame_len, hop, frame_chunk,
             lambda seg: mel_encode(seg, num_mels, frame_len, hop, fwd_weights,
-                                   window))
-    mags = stft_mag(x_padded, window, frame_len, hop)   # [..., F, N/2+1]
+                                   window, fft_backend))
+    # [..., F, N/2+1]
+    mags = stft_mag(x_padded, window, frame_len, hop, fft_backend)
     return _mel_from_mags(mags, fwd_weights)
 
 
 def mel_encode_batch(xb: torch.Tensor, num_mels: int, frame_len: int, hop: int,
                      fwd_weights: torch.Tensor,
-                     window: torch.Tensor | None = None) -> torch.Tensor:
+                     window: torch.Tensor | None = None,
+                     fft_backend: str = "auto") -> torch.Tensor:
     """Batched audio [B, L] -> log-mel [B, F, num_mels, 2]: one kernel launch
     each for the whole batch."""
     if xb.ndim != 2:
         raise ValueError(f"mel_encode_batch takes [B, L] (got {tuple(xb.shape)})")
-    return mel_encode(xb, num_mels, frame_len, hop, fwd_weights, window)
+    return mel_encode(xb, num_mels, frame_len, hop, fwd_weights, window,
+                      fft_backend)
 
 
 # id(inv_weights) -> (pinned weights, their version, (first, count, taps));
@@ -276,17 +280,19 @@ def mel_decode(logmel: torch.Tensor, frame_len: int, hop: int,
                inv_weights: torch.Tensor, n_iter: int,
                generator: torch.Generator | None = None,
                tune_mul: float = 1.0, tune_add: float = 0.0,
-               window: torch.Tensor | None = None, momentum: float = 0.0,
-               *, init=None) -> torch.Tensor:
+               window: torch.Tensor | None = None, fft_backend: str = "auto",
+               momentum: float = 0.0, *, init=None) -> torch.Tensor:
     """log-mel [..., F, num_mels, 2] -> audio [..., N + (F-1)*hop] via
     Griffin-Lim (reference mel/mel.go:142-152), with the un-normalised
     overlap-add amplitude of the reference. The initial signal is drawn from
     ``generator`` (ops/griffinlim.random_init) unless ``init`` is given;
-    ``momentum`` > 0 opts into fast Griffin-Lim."""
+    ``fft_backend`` as in ops/griffinlim.griffin_lim; ``momentum`` > 0 opts
+    into fast Griffin-Lim."""
     if 2 * inv_weights.shape[0] != frame_len:
         raise ValueError(f"inv_weights has {inv_weights.shape[0]} rows, "
                          f"frame_len={frame_len} needs {frame_len // 2}")
     mag = mel_to_magnitudes(logmel.contiguous(), inv_weights, tune_mul,
                             tune_add)
     return griffin_lim(mag, hop, n_iter, window, init=init,
-                       generator=generator, momentum=momentum)
+                       generator=generator, fft_backend=fft_backend,
+                       momentum=momentum)

@@ -12,13 +12,19 @@ path, converts to PCM-16 (ops/istft.py). On a CPU tensor each runs its plain
 PyTorch version: ``grow_half_planes``, ``dequantize_planes`` and the plain
 iSTFT, composed in the JAX program's order.
 
+``fft_backend`` takes the JAX package's names (ops/fftbackend.resolve). A
+size KE/KG do not take goes by the xla route (``torch.fft`` on the card),
+and ``mm`` by the matmul DFT (KN, KO): the decode then grows the planes
+(``grow_half_planes``; for PNG planes after KL, quantize.dequantize_raw)
+before the route's inverse.
+
 Layout: [..., frames, num_freqs, 2] channel-last, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
-from . import istft
+from . import fftbackend, istft, quantize
 from .quantize import dequantize_planes
 from .rfft_mag import stft_planes
 from .stft import map_frame_chunks, window_like
@@ -26,6 +32,7 @@ from .stft import map_frame_chunks, window_like
 
 def phase_encode(x_padded: torch.Tensor, num_freqs: int, frame_len: int,
                  hop: int, window: torch.Tensor | None = None,
+                 fft_backend: str = "auto",
                  frame_chunk: int | None = None) -> torch.Tensor:
     """Audio [..., L] -> phase spectrogram [..., F, num_freqs, 2]: (imag, real)
     of rfft bins 1..num_freqs of each Hann-windowed frame (reference
@@ -40,18 +47,19 @@ def phase_encode(x_padded: torch.Tensor, num_freqs: int, frame_len: int,
         return map_frame_chunks(
             x_padded, frame_len, hop, frame_chunk,
             lambda seg: stft_planes(seg, window, frame_len, hop, 1,
-                                    num_freqs))
-    return stft_planes(x_padded, window, frame_len, hop, 1, num_freqs)
+                                    num_freqs, fft_backend))
+    return stft_planes(x_padded, window, frame_len, hop, 1, num_freqs,
+                       fft_backend)
 
 
 def phase_encode_batch(xb: torch.Tensor, num_freqs: int, frame_len: int,
-                       hop: int, window: torch.Tensor | None = None
-                       ) -> torch.Tensor:
+                       hop: int, window: torch.Tensor | None = None,
+                       fft_backend: str = "auto") -> torch.Tensor:
     """Batched audio [B, L] -> phase spectrogram [B, F, num_freqs, 2]: one
     kernel launch for the whole batch."""
     if xb.ndim != 2:
         raise ValueError(f"phase_encode_batch takes [B, L] (got {tuple(xb.shape)})")
-    return phase_encode(xb, num_freqs, frame_len, hop, window)
+    return phase_encode(xb, num_freqs, frame_len, hop, window, fft_backend)
 
 
 def _grow(spec2: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -104,25 +112,40 @@ def phase_decode_plain(spec2: torch.Tensor, frame_len: int, hop: int,
                                          pcm16)
 
 
+def _synthesize(spec2: torch.Tensor, frame_len: int, window: torch.Tensor,
+                route: str, real_frames: int | None = None) -> torch.Tensor:
+    """grow + irfft x window of a spectrogram [..., F, nf, 2] -> frames_w
+    [..., F, frame_len] by ``route`` (ops/fftbackend.resolve): KG's
+    spectrogram mode for "mxu" on a CUDA tensor, else the half-spectrum
+    planes through that route's inverse."""
+    if route == "mxu" and spec2.device.type == "cuda":
+        *lead, frames, nf, _ = spec2.shape
+        return istft.launch_irfft_window(
+            istft.MODE_SPEC, spec2.contiguous(), (), frame_len, frames, nf,
+            window, tuple(lead), real_frames=real_frames)
+    re, im = grow_half_planes(spec2, frame_len // 2)
+    return istft.irfft_window(re, im, frame_len, window, real_frames, route)
+
+
 def phase_decode(spec2: torch.Tensor, frame_len: int, hop: int,
                  volume_boost: float = 0.0,
-                 window: torch.Tensor | None = None) -> torch.Tensor:
+                 window: torch.Tensor | None = None,
+                 fft_backend: str = "auto") -> torch.Tensor:
     """Phase spectrogram [..., F, num_freqs, 2] -> audio
     [..., N + (F-1)*hop]: grow, direct iSTFT with window-sum normalisation,
     then the volume boost when it is non-zero (reference
-    phase/phase.go:136-153)."""
+    phase/phase.go:136-153). ``fft_backend``: ``auto`` is exact on every
+    device, as the JAX program's ``auto`` -> ``xla``."""
     if spec2.ndim < 3 or spec2.shape[-1] != 2 or spec2.shape[-2] > frame_len // 2:
         raise ValueError(f"phase_decode: bad spectrogram shape "
                          f"{tuple(spec2.shape)} for frame_len {frame_len}")
-    if spec2.device.type == "cpu":
+    route = fftbackend.resolve(fft_backend, frame_len, spec2.device.type)
+    if spec2.device.type == "cpu" and route != "mm":
         return phase_decode_plain(spec2, frame_len, hop, volume_boost, window)
-    if spec2.dtype != torch.float32:
+    if spec2.device.type == "cuda" and spec2.dtype != torch.float32:
         raise ValueError("phase_decode: the CUDA kernels take float32")
     window = window_like(window, frame_len, spec2)
-    *lead, frames, nf, _ = spec2.shape
-    frames_w = istft.launch_irfft_window(
-        istft.MODE_SPEC, spec2.contiguous(), (), frame_len, frames, nf,
-        window, tuple(lead))
+    frames_w = _synthesize(spec2, frame_len, window, route)
     return istft.overlap_normalize(frames_w, hop, window, volume_boost)
 
 
@@ -145,11 +168,9 @@ def phase_synthesize(spec2: torch.Tensor, frame_len: int, hop: int,
             re, im, frame_len, window, real_frames), hop)
     if spec2.dtype != torch.float32:
         raise ValueError("phase_synthesize: the CUDA kernels take float32")
-    *lead, frames, nf, _ = spec2.shape
-    frames_w = istft.launch_irfft_window(
-        istft.MODE_SPEC, spec2.contiguous(), (), frame_len, frames, nf,
-        window, tuple(lead), real_frames=real_frames)
-    return istft.overlap_add(frames_w, hop)
+    route = fftbackend.resolve("auto", frame_len, "cuda")
+    return istft.overlap_add(_synthesize(spec2, frame_len, window, route,
+                                         real_frames), hop)
 
 
 def dequantize_decode_plain(planes: torch.Tensor, maxs, mins, max_val: int,
@@ -195,8 +216,18 @@ def dequantize_decode(planes: torch.Tensor, maxs, mins, max_val: int,
     if maxs.shape != tuple(lead) + (2,) or mins.shape != maxs.shape:
         raise ValueError(f"dequantize_decode: extrema {tuple(maxs.shape)}, "
                          f"{tuple(mins.shape)} for planes {tuple(planes.shape)}")
-    frames_w = istft.launch_irfft_window(
-        modes[planes.dtype], planes.contiguous(), (maxs, mins), frame_len,
-        frames, nf, window, tuple(lead), float(max_val), ihs_passes)
+    route = fftbackend.resolve("auto", frame_len, "cuda")
+    if route == "mxu":
+        frames_w = istft.launch_irfft_window(
+            modes[planes.dtype], planes.contiguous(), (maxs, mins), frame_len,
+            frames, nf, window, tuple(lead), float(max_val), ihs_passes)
+    else:
+        # KL row by row (its extrema are per channel), then the planes
+        rows = planes.reshape((-1, nf, frames, 2))
+        spec = torch.stack([quantize.dequantize_raw(
+            p, a, b, max_val, ihs_passes) for p, a, b in zip(
+                rows, maxs.reshape(-1, 2), mins.reshape(-1, 2))])
+        spec = spec.reshape(tuple(lead) + (nf, frames, 2)).transpose(-3, -2)
+        frames_w = _synthesize(spec, frame_len, window, route)
     return istft.overlap_normalize(frames_w, hop, window, volume_boost, pcm16)
 

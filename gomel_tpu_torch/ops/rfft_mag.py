@@ -10,13 +10,16 @@ pairs of bins first..first+count-1 instead, [..., F, count, 2]: the phase
 encode (gomel_tpu/ops/phase_ops.py:27) and, on framed input, rfft_planes.
 On a CUDA tensor each launches its hand-written kernel, which reads every
 frame straight from the signal; on a CPU tensor it runs its plain version.
+``backend`` picks the route first (ops/fftbackend.resolve): a size the
+kernels do not take goes by the xla route (``torch.fft`` on the card), and
+the name ``mm`` by the matmul DFT (ops/dft_mm, kernel KN).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import _cuda
+from . import _cuda, dft_mm, fftbackend
 from .stft import frame_signal, num_frames_of
 
 KERNEL = _cuda.Kernel("stft_mag", "gomel_tpu_torch/csrc/rfft_mag.cu",
@@ -24,13 +27,7 @@ KERNEL = _cuda.Kernel("stft_mag", "gomel_tpu_torch/csrc/rfft_mag.cu",
 PLANES_KERNEL = _cuda.Kernel("phase_encode",
                              "gomel_tpu_torch/csrc/phase_encode.cu",
                              "gomel_tpu/ops/phase_ops.py:27")
-
-
-def supported(n: int) -> bool:
-    """The kernel takes even n with n/2 a power of two, up to 16384 (the
-    two complex buffers must fit one block's shared memory)."""
-    m = n // 2
-    return n % 2 == 0 and 1 <= m <= 8192 and (m & (m - 1)) == 0
+supported = fftbackend.ct_supported     # the sizes the FFT kernels take
 
 
 def _twiddles_np(n: int) -> np.ndarray:
@@ -63,26 +60,30 @@ def stft_mag_plain(x: torch.Tensor, window: torch.Tensor | None, n: int,
 
 def _check(name: str, x: torch.Tensor, window: torch.Tensor | None,
            n: int) -> torch.device:
-    """Device, dtype, size and window checks of the CUDA frame kernels."""
+    """Device, dtype and window checks of the CUDA routes."""
     tensors = (x,) if window is None else (x, window)
     dev = _cuda.check_cuda(name, *tensors)
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel takes float32 tensors")
-    if not supported(n):
-        raise ValueError(f"{name}: n={n} unsupported (need even n, "
-                         f"n/2 a power of two, n <= 16384)")
     if window is not None and window.shape != (n,):
         raise ValueError(f"{name}: window shape {tuple(window.shape)} != ({n},)")
     return dev
 
 
 def stft_mag(x: torch.Tensor, window: torch.Tensor | None, n: int,
-             hop: int) -> torch.Tensor:
+             hop: int, backend: str = "auto", precision=None) -> torch.Tensor:
     """|rfft_n| of the hop-spaced frames of ``x`` [..., L], each multiplied by
-    ``window`` [n] (None: no window) -> [..., F, n/2 + 1]."""
+    ``window`` [n] (None: no window) -> [..., F, n/2 + 1]; ``precision``
+    applies to the ``mm`` route only."""
+    route = fftbackend.resolve(backend, n, x.device.type)
+    if route == "mm":
+        return dft_mm.stft_mag(x, n, hop, window, precision)
     if x.device.type == "cpu":
         return stft_mag_plain(x, window, n, hop)
     dev = _check("stft_mag", x, window, n)
+    if route == "xla":
+        fftbackend.XLA_ROUTE.launches += 1
+        return stft_mag_plain(x, window, n, hop)
     lead, length = x.shape[:-1], x.shape[-1]
     frames = num_frames_of(length, n, hop)
     batch = int(np.prod(lead, dtype=np.int64))
@@ -109,16 +110,24 @@ def stft_planes_plain(x: torch.Tensor, window: torch.Tensor | None, n: int,
 
 
 def stft_planes(x: torch.Tensor, window: torch.Tensor | None, n: int,
-                hop: int, first: int, count: int) -> torch.Tensor:
+                hop: int, first: int, count: int, backend: str = "auto",
+                precision=None) -> torch.Tensor:
     """(imag, real) of rfft_n bins ``first``..``first + count - 1`` of the
     hop-spaced frames of ``x`` [..., L], each multiplied by ``window`` [n]
-    (None: no window) -> [..., F, count, 2]."""
+    (None: no window) -> [..., F, count, 2]; ``precision`` applies to the
+    ``mm`` route only."""
     if not (0 <= first and count > 0 and first + count <= n // 2 + 1):
         raise ValueError(f"stft_planes: bins {first}..{first + count - 1} "
                          f"outside 0..{n // 2}")
+    route = fftbackend.resolve(backend, n, x.device.type)
+    if route == "mm":
+        return dft_mm.stft_pairs(x, n, hop, window, first, count, precision)
     if x.device.type == "cpu":
         return stft_planes_plain(x, window, n, hop, first, count)
     dev = _check("stft_planes", x, window, n)
+    if route == "xla":
+        fftbackend.XLA_ROUTE.launches += 1
+        return stft_planes_plain(x, window, n, hop, first, count)
     lead, length = x.shape[:-1], x.shape[-1]
     frames = num_frames_of(length, n, hop)
     batch = int(np.prod(lead, dtype=np.int64))

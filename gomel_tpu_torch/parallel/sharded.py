@@ -24,7 +24,8 @@ tensors, peer copies when two shards sit on different cards. Each shard's
 work runs the port's kernels on its device: KA (file ingest), KB + KC or KE
 (encode; K18's chunk loop when asked), KD / KF (file quantize), KL (file
 dequantize), KG with a real-frame count + KH without a window (decode), KI +
-KJ + KK (Griffin-Lim), and KM after every synthesis.
+KJ + KK (Griffin-Lim; KN + KO on the interior iterations with
+``interior_mm``), and KM after every synthesis.
 
 The host plan (``FrameShardPlan``, ``plan_frame_sharding``,
 ``pad_signal_for_plan``, ``pad_frames_for_plan``) is copied from the JAX
@@ -38,7 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import istft
+from ..ops import fftbackend, istft
 from ..ops.griffinlim import (gl_overlap_add, gl_project, random_init,
                               stream_generator)
 from ..ops.mel_ops import mel_encode, mel_to_magnitudes
@@ -255,9 +256,11 @@ def _frame_chunk(plan: FrameShardPlan, frame_chunk):
 # ---------------------------------------------------------------------------
 
 def sharded_stft_fn(mesh: Mesh, plan: FrameShardPlan,
-                    dtype: torch.dtype = torch.float32):
+                    dtype: torch.dtype = torch.float32,
+                    fft_backend: str = "auto"):
     """Sharded STFT: a Sharded [B, F_pad*hop] signal -> (re, im) planes,
-    each a Sharded [B, F_pad, N/2+1] (kernel KE with every bin)."""
+    each a Sharded [B, F_pad, N/2+1] (kernel KE with every bin, or the route
+    ``fft_backend`` names: ops/fftbackend.resolve)."""
     window = _PerDevice(hann_window(plan.frame_len), dtype)
     bins = plan.frame_len // 2 + 1
 
@@ -265,7 +268,7 @@ def sharded_stft_fn(mesh: Mesh, plan: FrameShardPlan,
         re, im = [], []
         for e in _local_signal_ext(x, plan):
             sp = stft_planes(e, window(e.device), plan.frame_len, plan.hop, 0,
-                             bins)
+                             bins, fft_backend)
             re.append(sp[..., 1].contiguous())
             im.append(sp[..., 0].contiguous())
         return Sharded(mesh, re), Sharded(mesh, im)
@@ -351,21 +354,26 @@ def sharded_griffin_lim_fn(mesh: Mesh, plan: FrameShardPlan, n_iter: int,
     (the building block of ``decode_resumable``); with ``pcm16`` the final
     iteration returns (Sharded int16, per-row finite flags [B]).
 
-    Every iteration is exact float32, which is what the JAX package
-    resolves off a TPU: ``interior_mm`` None or False. ``interior_mm=True``
-    (the tensor-core DFT of the interior iterations, K14) is not ported yet
-    and raises."""
-    if interior_mm:
-        raise NotImplementedError(
-            "interior_mm=True needs the tensor-core DFT of the interior "
-            "Griffin-Lim iterations (K14, gomel_tpu/ops/dft_mm.py), which is "
-            "not ported yet")
+    ``interior_mm`` pins the transforms as the JAX program does
+    (gomel_tpu/parallel/sharded.py:392-418): True runs every forward
+    transform as the matmul DFT at "default" (KN, bf16 operands on the
+    card, the window folded into its weights) and the interior inverses as
+    KO at "default", with the final inverse exact; False runs every
+    iteration exact (KJ, or the xla route); None resolves ``auto_lowp``,
+    which is exact on every device of the port."""
+    n, hop = plan.frame_len, plan.hop
+    if interior_mm is None:
+        interior_mm = fftbackend.resolve(
+            "auto_lowp", n, mesh.first_device.type) == "mm"
+    backend = "mm" if interior_mm else "auto"
+    fftbackend.resolve(backend, n, mesh.first_device.type)
     window = _PerDevice(hann_window(plan.frame_len), dtype)
     mom = float(momentum)
-    n, hop = plan.frame_len, plan.hop
 
-    def project(exts, mags):
-        return [gl_overlap_add(gl_project(e, m, window(e.device), n, hop), hop)
+    def project(exts, mags, final=False):
+        return [gl_overlap_add(gl_project(e, m, window(e.device), n, hop,
+                                          backend, final, hann_window(n)),
+                               hop)
                 for e, m in zip(exts, mags)]
 
     def fn(mag: Sharded, sig0):
@@ -392,8 +400,8 @@ def sharded_griffin_lim_fn(mesh: Mesh, plan: FrameShardPlan, n_iter: int,
                 exts = _local_overlap_add(sig_exts, mesh, plan, extend=True)
             _pull_right_halo(exts, mesh, plan)
         if final_iteration and n_iter >= 1:
-            outs = _local_overlap_add(project(exts, mags), mesh, plan,
-                                      pcm16=pcm16)
+            outs = _local_overlap_add(project(exts, mags, final=True), mesh,
+                                      plan, pcm16=pcm16)
             return _pcm16_result(outs, mesh) if pcm16 else Sharded(mesh, outs)
         sig = [e[:, :plan.chunk].contiguous() for e in exts]
         if pcm16:
@@ -411,10 +419,11 @@ def sharded_griffin_lim_fn(mesh: Mesh, plan: FrameShardPlan, n_iter: int,
 
 def sharded_phase_encode_fn(mesh: Mesh, plan: FrameShardPlan, num_freqs: int,
                             dtype: torch.dtype = torch.float32,
-                            frame_chunk=None):
+                            fft_backend: str = "auto", frame_chunk=None):
     """Sharded [B, F_pad*hop] audio -> Sharded [B, F_pad, num_freqs, 2]
-    phase spectrogram (reference phase/phase.go:41-70): kernel KE on each
-    shard's extended signal. ``frame_chunk`` (an int, or "auto" for
+    phase spectrogram (reference phase/phase.go:41-70): kernel KE (or the
+    route ``fft_backend`` names) on each shard's extended signal.
+    ``frame_chunk`` (an int, or "auto" for
     ops/stft.auto_frame_chunk of the shard's frame count) launches it once
     per chunk of frames, as the JAX program's default does; on the H100
     that was slower than one launch per shard (PERF.md, K18), hence None."""
@@ -424,7 +433,7 @@ def sharded_phase_encode_fn(mesh: Mesh, plan: FrameShardPlan, num_freqs: int,
     def fn(x: Sharded) -> Sharded:
         return Sharded(mesh, [
             phase_encode(e, num_freqs, plan.frame_len, plan.hop,
-                         window(e.device), frame_chunk=fc)
+                         window(e.device), fft_backend, frame_chunk=fc)
             for e in _local_signal_ext(x, plan)])
 
     return fn
@@ -461,11 +470,12 @@ def sharded_phase_decode_fn(mesh: Mesh, plan: FrameShardPlan,
 
 def sharded_mel_encode_fn(mesh: Mesh, plan: FrameShardPlan, num_mels: int,
                           fwd_weights, dtype: torch.dtype = torch.float32,
-                          frame_chunk=None):
+                          fft_backend: str = "auto", frame_chunk=None):
     """Sharded [B, F_pad*hop] audio -> Sharded [B, F_pad, num_mels, 2]
-    log-mel (reference mel/mel.go:46-74): kernels KB + KC on each shard's
-    extended signal (``frame_chunk`` as in sharded_phase_encode_fn). The
-    filterbank is replicated on every shard's device."""
+    log-mel (reference mel/mel.go:46-74): kernels KB (or the route
+    ``fft_backend`` names) + KC on each shard's extended signal
+    (``frame_chunk`` as in sharded_phase_encode_fn). The filterbank is
+    replicated on every shard's device."""
     window = _PerDevice(hann_window(plan.frame_len), dtype)
     fwd = _PerDevice(fwd_weights, dtype)
     fc = _frame_chunk(plan, frame_chunk)
@@ -473,7 +483,7 @@ def sharded_mel_encode_fn(mesh: Mesh, plan: FrameShardPlan, num_mels: int,
     def fn(x: Sharded) -> Sharded:
         return Sharded(mesh, [
             mel_encode(e, num_mels, plan.frame_len, plan.hop, fwd(e.device),
-                       window(e.device), frame_chunk=fc)
+                       window(e.device), fft_backend, frame_chunk=fc)
             for e in _local_signal_ext(x, plan)])
 
     return fn
@@ -505,7 +515,7 @@ def sharded_mel_decode_fn(mesh: Mesh, plan: FrameShardPlan, inv_weights,
     """Sharded [B, F_pad, num_mels, 2] log-mel + seed -> Sharded
     [B, F_pad*hop] audio by sharded Griffin-Lim from per-shard starts
     (reference mel/mel.go:142-152); with ``pcm16``, (Sharded int16, per-row
-    finite flags [B])."""
+    finite flags [B]). ``interior_mm`` as in sharded_griffin_lim_fn."""
     mags = sharded_mel_magnitudes_fn(mesh, inv_weights, tune_mul, tune_add,
                                      dtype)
     gl = sharded_griffin_lim_fn(mesh, plan, n_iter, dtype, momentum=momentum,

@@ -67,6 +67,13 @@ def test_pcm16_ingest_batch_bit_exact(cuda):
     (64, 16, (1, 2), 333, True),
     (4, 1, (), 9, True),
     (16384, 4096, (), 16384 * 3 + 7, True),   # > 48 KB shared memory
+    # mixed radix: n/2 = 1500 = 4 x 3 x 5^3, 127 (a prime: the generic
+    # pass), 8000 = 4^3 x 5^3, 539 = 7^2 x 11, 6 = 2 x 3
+    (3000, 750, (2,), 3000 + 750 * 7 + 3, True),
+    (254, 64, (), 2001, True),
+    (16000, 4000, (), 16000 * 2 + 5, False),
+    (1078, 256, (), 5001, True),
+    (12, 4, (3,), 101, True),
 ])
 def test_stft_mag_vs_plain(cuda, n, hop, lead, length, windowed):
     rng = np.random.default_rng(n)
@@ -91,11 +98,22 @@ def test_fftbackend_rfft_mag_vs_torch_fft(cuda):
 
 
 def test_stft_mag_rejects_unsupported(cuda):
-    x = torch.zeros(10000, device=cuda)
+    """float64 is refused; n = 3000 (n/2 not a power of two) runs KB's
+    mixed radix, and n = 514 (2 x 257: no n1 * n2 split with both factors
+    <= 128) goes by the xla route, each chosen by fftbackend.resolve and
+    within 1e-5 of the frame peak of the CPU path."""
+    x = torch.randn(10000, generator=torch.Generator().manual_seed(3))
     with pytest.raises(ValueError):
-        rfft_mag.stft_mag(x, None, 3000, 100)           # n/2 not a power of 2
-    with pytest.raises(ValueError):
-        rfft_mag.stft_mag(x.double(), None, 4096, 100)  # float64
+        rfft_mag.stft_mag(x.to(cuda).double(), None, 4096, 100)  # float64
+    for n, moved in ((3000, (0, 1)), (514, (1, 0))):
+        before = (fftbackend.XLA_ROUTE.launches, rfft_mag.KERNEL.launches)
+        out = rfft_mag.stft_mag(x.to(cuda), None, n, 100).cpu().double()
+        assert (fftbackend.XLA_ROUTE.launches - before[0],
+                rfft_mag.KERNEL.launches - before[1]) == moved
+        ref = rfft_mag.stft_mag_plain(x.double(), None, n, 100)
+        assert out.shape == ref.shape
+        assert bool(((out - ref).abs()
+                     <= 1e-5 * ref.amax(-1, keepdim=True)).all())
 
 
 @pytest.mark.parametrize("cfg", [MelConfig.cli_default(),
@@ -753,3 +771,221 @@ def test_longform_cuda_vs_cpu(cuda):
     wav_c = LongFormMel(mc, c).decode(logmel, seed=1, momentum=0.9)
     assert float((wav_g - wav_c).abs().max()) <= 1e-4 * float(
         wav_c.abs().max())
+
+
+# -- K14 and K19: the matmul DFT (KN, KO) and the xla route ------------------
+
+def _frame_peak_close(got, want, tol, dims=(-1,)):
+    """|got - want| <= tol * the peak of each frame of ``want`` (its values
+    over ``dims``)."""
+    got, want = got.cpu().double(), want.cpu().double()
+    assert got.shape == want.shape
+    peak = want.abs().amax(dim=dims, keepdim=True)
+    err = (got - want).abs()
+    assert bool((err <= tol * peak).all()), float((err / peak).max())
+
+
+@pytest.mark.parametrize("n,hop,lead,length", [
+    (4096, 1280, (2,), 1280 * 20 + 4095), (3000, 700, (), 3000 + 700 * 9 + 5),
+    (512, 128, (3,), 5001), (8192, 8192, (), 8192 * 3),   # framed: hop = n
+    (2, 1, (1, 2), 9)])
+@pytest.mark.parametrize("kind", ["planes", "mag", "pairs"])
+def test_dft_fwd_vs_plain(cuda, n, hop, lead, length, kind):
+    """KN in each mode against its plain version on the same card: the bf16
+    mode within 2e-5 of each frame's peak of the bf16-operand plain version
+    (summation order only) and within 1e-2 of float64; the float32 mode
+    within 1e-5 of float64 (KB's bound)."""
+    from gomel_tpu_torch.ops import dft_mm
+    rng = np.random.default_rng(n + hop)
+    x = torch.from_numpy(rng.standard_normal(lead + (length,))
+                         .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    first, count = (1, max(1, n // 3)) if kind == "pairs" else (0, 0)
+    kw = dict(kind=kind, first=first, count=count)
+    dims = (-2, -1) if kind == "pairs" else (-1,)
+    ref64 = dft_mm.dft_fwd_plain(x.cpu().double(), n, hop, win.cpu(), **kw)
+    for precision, tally in (("default", dft_mm.FWD_KERNEL),
+                             (None, dft_mm.FWD_F32_KERNEL)):
+        before = tally.launches
+        got = dft_mm._fwd(x, n, hop, win, precision, kind, first=first,
+                          count=count)
+        assert tally.launches == before + 1
+        got = got if isinstance(got, tuple) else (got,)
+        want64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+        if precision == "default":
+            want = dft_mm.dft_fwd_plain(x, n, hop, win, bf16_operands=True,
+                                        **kw)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                _frame_peak_close(g, w, 2e-5, dims)
+            for g, w in zip(got, want64):
+                _frame_peak_close(g, w, 1e-2, dims)
+        else:
+            for g, w in zip(got, want64):
+                _frame_peak_close(g, w, 1e-5, dims)
+
+
+@pytest.mark.parametrize("n,frames,lead,real", [
+    (4096, 11, (2,), None), (3000, 7, (), 4), (512, 17, (3,), 0),
+    (8192, 3, (), None), (2, 5, (1, 2), 2)])
+def test_dft_inv_vs_plain(cuda, n, frames, lead, real):
+    """KO in each mode against its plain version, with non-zero imag(DC)
+    and imag(Nyquist), which it must ignore, and a real-frame count: the
+    bf16 mode within 2e-5 of each frame's peak of the bf16-operand plain
+    version, the float32 mode within 1e-5 of float64."""
+    from gomel_tpu_torch.ops import dft_mm
+    rng = np.random.default_rng(n + frames)
+    shape = lead + (frames, n // 2 + 1)
+    re = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    im0 = im.clone()
+    im0[..., 0] = 0.0
+    im0[..., -1] = 0.0
+    ref64 = dft_mm.dft_inv_plain(re.double(), im0.double(), n, win,
+                                 real_frames=real)
+    re, im, win = re.to(cuda), im.to(cuda), win.to(cuda)
+    for precision, tally in (("default", dft_mm.INV_KERNEL),
+                             ("highest", dft_mm.INV_F32_KERNEL)):
+        before = tally.launches
+        got = dft_mm.istft_frames(re, im, n, win, precision, real)
+        assert tally.launches == before + 1
+        if real is not None:
+            assert not got[..., real:, :].any()
+        if precision == "default":
+            want = dft_mm.dft_inv_plain(re, im, n, win, real_frames=real,
+                                        bf16_operands=True)
+            _frame_peak_close(got, want, 2e-5)
+            _frame_peak_close(got, ref64, 1e-2)
+            low = dft_mm.istft_frames(re.bfloat16(), im.bfloat16(), n, win,
+                                      "default", real)
+            assert torch.equal(low, got)     # bf16 planes: the same operand
+        else:
+            _frame_peak_close(got, ref64, 1e-5)
+
+
+@pytest.mark.parametrize("n,hop,frames", [(4096, 1280, 9), (3000, 750, 6)])
+def test_dft_project_vs_plain(cuda, n, hop, frames):
+    """KN's Griffin-Lim projection: float32 planes (the final iteration)
+    within 1e-4 relative L2 per frame of the bf16-operand plain version (the
+    phase of a near-zero bin is rounding noise), and the bf16 planes of an
+    interior iteration within one bf16 rounding of those."""
+    from gomel_tpu_torch.ops import dft_mm
+    rng = np.random.default_rng(n)
+    sig = torch.from_numpy(rng.random(n + (frames - 1) * hop)
+                           .astype(np.float32)).to(cuda)
+    mag = torch.from_numpy((rng.random((frames, n // 2 + 1)) * 3)
+                           .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    yr, yi = dft_mm.gl_spectrum(sig, mag, n, hop, win, "default", final=True)
+    wr, wi = dft_mm.dft_fwd_plain(sig, n, hop, win, kind="project", mag=mag,
+                                  bf16_operands=True)
+    got, want = torch.cat([yr, yi], -1), torch.cat([wr, wi], -1)
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(rel.max()) <= 1e-4, float(rel.max())
+    lr, li = dft_mm.gl_spectrum(sig, mag, n, hop, win, "default")
+    assert lr.dtype == li.dtype == torch.bfloat16
+    low = torch.cat([lr, li], -1).float()
+    assert bool(((low - got).abs() <= 2.0 ** -8 * got.abs() + 1e-30).all())
+
+
+@pytest.mark.parametrize("n,hop,nf,routed", [(3000, 750, 1000, False),
+                                              (514, 128, 171, True)])
+def test_fft_sites_vs_plain(cuda, n, hop, nf, routed):
+    """Every FFT kernel site at a size n/2 that is not a power of two
+    matches its plain version: KB's and KE's sites within 1e-5 of the frame
+    peak, KG's (planes, spectrogram, uint8 and uint16 planes, with a
+    real-frame count) within 1e-5, KJ's within 1e-4 relative L2 per frame.
+    n = 3000 runs the kernels' mixed radix (their tallies move, the xla
+    route's does not); n = 514, which has no n1 * n2 split with both
+    factors <= 128, goes by the xla route (the other way round)."""
+    from gomel_tpu_torch.ops import griffinlim
+    frames = 9
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((2, n + (frames - 1) * hop))
+                         .astype(np.float32))
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    xc, wc = x.to(cuda), win.to(cuda)
+    kernels = (rfft_mag.KERNEL, rfft_mag.PLANES_KERNEL, istft.SYNTH_KERNEL,
+               istft.SYNTH_MASKED_KERNEL, griffinlim.PROJECT_KERNEL)
+    counts = [k.launches for k in kernels]
+    route = fftbackend.XLA_ROUTE.launches
+    _frame_peak_close(rfft_mag.stft_mag(xc, wc, n, hop),
+                      rfft_mag.stft_mag_plain(x, win, n, hop), 1e-5)
+    spec = phase_ops.phase_encode_batch(xc, nf, n, hop, wc)
+    spec_ref = rfft_mag.stft_planes_plain(x, win, n, hop, 1, nf)
+    peak = spec_ref.abs().amax(dim=(-2, -1), keepdim=True)
+    assert bool(((spec.cpu() - spec_ref).abs() <= 1e-5 * peak).all())
+    re, im = phase_ops.grow_half_planes(spec_ref, n // 2)
+    for real in (None, 4):
+        _frame_peak_close(istft.irfft_window(re.to(cuda), im.to(cuda), n, wc,
+                                             real),
+                          istft.irfft_window_plain(re, im, n, win, real), 1e-5)
+    sig = phase_ops.phase_decode(spec_ref.to(cuda), n, hop, 0.0, wc).cpu()
+    sig_ref = phase_ops.phase_decode_plain(spec_ref, n, hop, 0.0, win)
+    assert float((sig - sig_ref).abs().max()) <= 1e-5 * float(
+        sig_ref.abs().max())
+    syn = phase_ops.phase_synthesize(spec_ref.to(cuda), n, hop, wc, 5).cpu()
+    syn_ref = phase_ops.phase_synthesize(spec_ref, n, hop, win, 5)
+    assert float((syn - syn_ref).abs().max()) <= 1e-5 * float(
+        syn_ref.abs().max())
+    for max_val, dt in ((255, np.uint8), (65535, np.uint16)):
+        planes = torch.from_numpy(rng.integers(0, max_val + 1, (2, nf, frames,
+                                                                2), dtype=dt))
+        mx = torch.tensor([[3.0, 2.5], [1.0, 4.0]])
+        mn = torch.tensor([[-2.0, -3.5], [-1.0, 0.5]])
+        for ihs in (0, 2):
+            out = phase_ops.dequantize_decode(
+                planes.to(cuda), mx.to(cuda), mn.to(cuda), max_val, ihs, n,
+                hop, 0.0, wc).cpu()
+            ref = phase_ops.dequantize_decode_plain(planes, mx, mn, max_val,
+                                                    ihs, n, hop, 0.0, win)
+            assert float((out - ref).abs().max()) <= 1e-5 * float(
+                ref.abs().max())
+    mag = torch.from_numpy((rng.random((2, frames, n // 2 + 1)) * 3)
+                           .astype(np.float32))
+    fw = griffinlim.gl_project(xc, mag.to(cuda), wc, n, hop).cpu().double()
+    fw_ref = griffinlim.gl_project_plain(x.double(), mag.double(),
+                                         win.double(), n, hop)
+    rel = (fw - fw_ref).norm(dim=-1) / fw_ref.norm(dim=-1)
+    assert float(rel.max()) <= 1e-4
+    moved = sum(k.launches for k in kernels) - sum(counts)
+    assert (fftbackend.XLA_ROUTE.launches - route, moved) == (
+        (11, 0) if routed else (0, 11))
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.99])
+def test_mel_decode_mm_launches_and_converges(cuda, momentum):
+    """mel_decode(fft_backend="mm") at the CLI widths: KN and KO on each
+    interior iteration, KN + KG + KK on the final one, and a spectral
+    convergence within 1.05 x the exact route's + 1e-3 from one start."""
+    from gomel_tpu_torch.ops import dft_mm, griffinlim
+    cfg = MelConfig.cli_default()
+    rng = np.random.default_rng(32)
+    t = np.arange(48000 * 2) / 48000
+    x = 0.3 * np.sin(2 * np.pi * 330 * t) + 0.05 * np.sin(2 * np.pi * 1234 * t)
+    mel = Mel(cfg, device=cuda)
+    logmel = mel.encode(x)
+    frames = logmel.shape[0]
+    init = torch.from_numpy(rng.random(4096 + (frames - 1) * 1280)
+                            .astype(np.float32)).to(cuda)
+    tallies = (dft_mm.FWD_KERNEL, dft_mm.INV_KERNEL, istft.SYNTH_KERNEL,
+               griffinlim.OLA_KERNEL, griffinlim.PROJECT_KERNEL)
+    before = [k.launches for k in tallies]
+    mm = mel_ops.mel_decode(logmel, 4096, 1280, mel.inv_weights, 3,
+                            window=mel.window, fft_backend="mm", init=init,
+                            momentum=momentum)
+    assert [k.launches - b for k, b in zip(tallies, before)] == [3, 2, 1, 3, 0]
+    exact = mel_ops.mel_decode(logmel, 4096, 1280, mel.inv_weights, 3,
+                               window=mel.window, init=init,
+                               momentum=momentum)
+    target = mel_ops.mel_to_magnitudes_plain(logmel.cpu(),
+                                             mel.inv_weights.cpu()).double()
+    w64 = torch.from_numpy(hann_window(4096))
+
+    def sc(sig):
+        a = rfft_mag.stft_mag_plain(sig.cpu().double(), w64, 4096, 1280)
+        c = float((a * target).sum() / (target * target).sum())
+        return float((a - c * target).norm() / (abs(c) * target.norm()))
+
+    assert sc(mm) <= 1.05 * sc(exact) + 1e-3, (sc(mm), sc(exact))

@@ -23,6 +23,8 @@ from gomel_tpu.io import float16meta as jf16
 from gomel_tpu.io import imagecodec as jimg
 from gomel_tpu.io import pngcodec as jpng
 from gomel_tpu.io import wavcodec as jwav
+from gomel_tpu.ops import dft_mm as jdft
+from gomel_tpu.ops import mxu_fft as jmxu
 from gomel_tpu.ops import stft as jstft
 from gomel_tpu.parallel import batch as jbatch
 from gomel_tpu.parallel import sharded as jsharded
@@ -37,6 +39,8 @@ from gomel_tpu_torch.io import float16meta as tf16
 from gomel_tpu_torch.io import imagecodec as timg
 from gomel_tpu_torch.io import pngcodec as tpng
 from gomel_tpu_torch.io import wavcodec as twav
+from gomel_tpu_torch.ops import dft_mm as tdft
+from gomel_tpu_torch.ops import fftbackend as tfft
 from gomel_tpu_torch.ops import stft as tstft
 from gomel_tpu_torch.parallel import batch as tbatch
 from gomel_tpu_torch.parallel import sharded as tsharded
@@ -233,7 +237,8 @@ def test_port_imports_no_jax():
     code = ("import sys; import gomel_tpu_torch, gomel_tpu_torch.cli.tools, "
             "gomel_tpu_torch.cli.batch, gomel_tpu_torch.parallel, "
             "gomel_tpu_torch.io.flac, gomel_tpu_torch.io.dataset, "
-            "gomel_tpu_torch.ops.fftbackend, gomel_tpu_torch.ops.phase_ops; "
+            "gomel_tpu_torch.ops.fftbackend, gomel_tpu_torch.ops.phase_ops, "
+            "gomel_tpu_torch.ops.dft_mm; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'gomel_tpu' or m.startswith('gomel_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -496,3 +501,58 @@ def test_auto_frame_chunk_equal():
         assert tstft.auto_frame_chunk(n) == jstft.auto_frame_chunk(n)
         assert (tstft.auto_frame_chunk(n, 100, 7)
                 == jstft.auto_frame_chunk(n, 100, 7))
+
+
+@pytest.mark.parametrize("n", [2, 64, 256, 3000, 4096])
+def test_dft_mm_masters_equal(n):
+    """The copied float64 weight masters of the matmul DFT equal the JAX
+    module's bit for bit, folded with Hann (the cached identity path) and
+    with another window, and the inverse keeps imag(DC) = imag(Nyquist) = 0;
+    the size rule and MAX_N are the same."""
+    np.testing.assert_array_equal(tdft._fwd_np(n), jdft._fwd_np(n))
+    inv = tdft._inv_np(n)
+    np.testing.assert_array_equal(inv, jdft._inv_np(n))
+    half = n // 2 + 1
+    assert not inv[half].any() and not inv[-1].any()
+    np.testing.assert_array_equal(tdft._fold_fwd(n, tstft.hann_window(n)),
+                                  jdft._fold_fwd(n, jstft.hann_window(n)))
+    np.testing.assert_array_equal(tdft._fold_inv(n, tstft.hann_window(n)),
+                                  jdft._fold_inv(n, jstft.hann_window(n)))
+    w = np.random.default_rng(n).random(n)
+    np.testing.assert_array_equal(tdft._fold_fwd(n, w), jdft._fold_fwd(n, w))
+    np.testing.assert_array_equal(tdft._fold_inv(n, w), jdft._fold_inv(n, w))
+    assert tdft.MAX_N == jdft.MAX_N
+    for m in (n - 1, n, n + 1, 8192, 8193, 8194):
+        assert tdft.supported(m) == jdft.supported(m)
+
+
+def test_mxu_size_rule_equal():
+    """The copied split rule of the matrix-unit FFT (the ``mxu`` name's
+    sizes) equals the JAX module's, the same split or the same error."""
+    assert tfft._SPLIT_OVERRIDES == jmxu._SPLIT_OVERRIDES
+    for n in list(range(1, 700)) + [3000, 4096, 8192, 8194, 16384, 16386,
+                                    32768]:
+        assert tfft.mxu_supported(n) == jmxu.supported(n), n
+        if jmxu.supported(n):
+            assert tfft._split(n) == jmxu._split(n), n
+
+
+def test_fft_kernel_sizes_are_the_even_mxu_sizes():
+    """The hand FFT kernels take every even size the JAX package's TPU
+    gives its matrix-unit FFT, and "auto" sends exactly the other sizes to
+    the xla route on the card. Each such n/2 factors into primes below 128
+    (the kernels' direct-DFT radices) and fits two shared buffers."""
+    for n in list(range(1, 1200)) + [3000, 4094, 4096, 16000, 16384, 16386]:
+        even_mxu = n % 2 == 0 and jmxu.supported(n)
+        assert tfft.ct_supported(n) == even_mxu, n
+        if n % 2 == 0:
+            want = "mxu" if even_mxu else "xla"
+            assert tfft.resolve("auto", n, "cuda") == want, n
+        if even_mxu:
+            m, p = n // 2, 2
+            while m > 1:
+                while m % p:
+                    p += 1
+                assert p < 128, n
+                m //= p
+            assert n // 2 <= 8192

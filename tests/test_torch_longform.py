@@ -278,12 +278,76 @@ def test_sharded_griffin_lim_vs_jax(meshes, momentum, final, n_iter):
 
 
 def test_sharded_griffin_lim_interior_mm_not_ported(meshes):
-    _, tm = meshes
-    _, plan = _plans(21)
-    with pytest.raises(NotImplementedError, match="K14"):
-        tsh.sharded_griffin_lim_fn(tm, plan, 2, interior_mm=True)
-    for mm in (None, False):
-        tsh.sharded_griffin_lim_fn(tm, plan, 2, interior_mm=mm)
+    """interior_mm=True (K14, ported): every forward transform and the
+    interior inverses as the matmul DFT, the final inverse exact, with and
+    without momentum, within 1e-3 of the JAX program from the same start
+    (tests/test_longform.py:33-34); None and False are the exact program."""
+    jm, tm = meshes
+    jplan, plan = _plans(21)
+    rng = np.random.default_rng(17)
+    mag = rng.random((2, plan.n_frames_padded, 129)).astype(np.float32)
+    sig0 = rng.random((2, plan.sharded_signal_len)).astype(np.float32)
+    for momentum in (0.0, 0.9):
+        want = np.asarray(jsh.sharded_griffin_lim_fn(
+            jm, jplan, 3, momentum=momentum, interior_mm=True)(
+                jnp.asarray(mag), jnp.asarray(sig0)))
+        got = tsh.sharded_griffin_lim_fn(tm, plan, 3, momentum=momentum,
+                                         interior_mm=True)(
+            shard_array(mag, tm), shard_array(sig0, tm)).gather().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+    exact = [tsh.sharded_griffin_lim_fn(tm, plan, 2, interior_mm=mm)(
+        shard_array(mag, tm), shard_array(sig0, tm)).gather()
+        for mm in (None, False)]
+    assert torch.equal(exact[0], exact[1])
+    with pytest.raises(ValueError, match="does not support"):
+        tsh.sharded_griffin_lim_fn(tm, tsh.plan_frame_sharding(
+            21, 8194, 2048, 4), 2, interior_mm=True)
+
+
+def test_sharded_mel_decode_interior_mm_vs_jax(meshes, monkeypatch):
+    """sharded_mel_decode_fn(interior_mm=True) with the JAX program's
+    per-shard starts fed in: within 1e-3 of it."""
+    jm, tm = meshes
+    jplan, plan = _plans(21)
+    rng = np.random.default_rng(18)
+    logmel = (rng.standard_normal((2, plan.n_frames_padded, 24, 2)) - 3.0
+              ).astype(np.float32)
+    inv = Mel(MelConfig(num_mels=24, **CFG), device="cpu").inv_weights.numpy()
+    _feed_jax_starts(monkeypatch, jm)
+    want = np.asarray(jsh.sharded_mel_decode_fn(jm, jplan, inv, 2,
+                                                interior_mm=True)(
+        jnp.asarray(logmel), jax.random.PRNGKey(5)))
+    got = tsh.sharded_mel_decode_fn(tm, plan, inv, 2, interior_mm=True)(
+        shard_array(logmel, tm), 5).gather().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["mm", "xla"])
+def test_sharded_encodes_fft_backend_vs_jax(meshes, name):
+    """sharded_stft_fn, sharded_phase_encode_fn and sharded_mel_encode_fn
+    with an explicit fft_backend within 1e-4 of the JAX programs."""
+    jm, tm = meshes
+    jplan, plan = _plans(30)
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((2, plan.sharded_signal_len)).astype(np.float32)
+    jre, jim = jsh.sharded_stft_fn(jm, jplan, fft_backend=name)(
+        jnp.asarray(x))
+    tre, tim = tsh.sharded_stft_fn(tm, plan, fft_backend=name)(
+        shard_array(x, tm))
+    _peak_close(tre.gather().numpy(), np.asarray(jre), 1e-4)
+    _peak_close(tim.gather().numpy(), np.asarray(jim), 1e-4)
+    want = np.asarray(jsh.sharded_phase_encode_fn(
+        jm, jplan, 96, fft_backend=name, frame_chunk=None)(jnp.asarray(x)))
+    got = _run(tsh.sharded_phase_encode_fn(tm, plan, 96, fft_backend=name),
+               x, tm)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    fwd = Mel(MelConfig(num_mels=24, **CFG), device="cpu").fwd_weights.numpy()
+    want = np.asarray(jsh.sharded_mel_encode_fn(
+        jm, jplan, 24, fwd, fft_backend=name, frame_chunk=None)(
+            jnp.asarray(x)))
+    got = _run(tsh.sharded_mel_encode_fn(tm, plan, 24, fwd,
+                                         fft_backend=name), x, tm)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_sharded_mel_decode_vs_jax_from_jax_starts(meshes, monkeypatch):

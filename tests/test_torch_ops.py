@@ -132,8 +132,11 @@ def test_twiddles_are_rounded_float64():
     ref = np.exp(-2j * np.pi * np.arange(2048) / 4096)
     np.testing.assert_array_equal(tw[:, 0], ref.real.astype(np.float32))
     np.testing.assert_array_equal(tw[:, 1], ref.imag.astype(np.float32))
+    # the even sizes of the TPU's n1 * n2 split (both factors <= 128):
+    # 4094 = 46 x 89 and 3000 = 24 x 125 run the kernels' mixed radix
     assert trfft.supported(4096) and trfft.supported(4) and trfft.supported(16384)
-    assert not (trfft.supported(4094) or trfft.supported(32768)
+    assert trfft.supported(4094) and trfft.supported(3000)
+    assert not (trfft.supported(514) or trfft.supported(32768)
                 or trfft.supported(4097))
 
 
