@@ -11,7 +11,8 @@ the user's entry points (the ``tomel`` CLI, then ``tophase`` and
 ``fromphase``, on a 30 s 48 kHz WAV and, for the zero-stuff ingest, a short
 16 kHz WAV, then ``towav`` on the ``tomel`` PNG; then the four batch CLIs on
 a directory of 12 WAV and FLAC files of 2-45 s; then LongFormPhase and
-LongFormMel on a 30-minute WAV over four frame shards of the card) and holds
+LongFormMel on a 30-minute WAV over four frame shards of the card; then the
+streaming codecs on that signal) and holds
 their PNGs and WAVs against the port's CPU path and its single-file tools,
 checks that every kernel of each path was launched on it, and times each
 kernel against its plain version, its bound and, where one exists, the one
@@ -27,7 +28,14 @@ exact route, the phase codec with "mm", tomel/towav and Phase at resolut
 3000 and Phase at resolut 514 against the CPU, and (in 3e)
 sharded_mel_decode_fn(interior_mm=True) on the 30-minute file; phase 4 times
 KN and KO in each mode, one interior Griffin-Lim iteration on them against
-KJ, KB and KJ at n = 3000, and the xla route at n = 514.
+KJ, KB and KJ at n = 3000, and the xla route at n = 514. The Griffin-Lim
+start is drawn on the card by KP (Threefry-2x32, the JAX package's samples):
+phase 2g holds it bit for bit against its plain version at the bench shape
+(one key and row keys), the batch shape, one shard of the 30-minute file and
+ragged sizes, and against the known answers; towav, batch-towav and
+LongFormMel.to_wav_png count its launches; phase 3g streams the 30-minute
+signal in one-second pieces through StreamingPhase and StreamingMel (512
+frames a chunk) against Phase and Mel on the whole signal.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -182,7 +190,7 @@ def towav_split(png: str, out: str, dev: torch.device, runs: int
     from gomel_tpu_torch.core.framing import is_padded
     from gomel_tpu_torch.io import audio as audio_io
     from gomel_tpu_torch.io import imagecodec
-    from gomel_tpu_torch.ops import griffinlim, mel_ops
+    from gomel_tpu_torch.ops import griffinlim, mel_ops, prng
 
     steps: dict[str, list[float]] = {}
 
@@ -205,9 +213,8 @@ def towav_split(png: str, out: str, dev: torch.device, runs: int
             "PNG read", lambda: imagecodec.load_mel_image_raw(png, True))
         planes = step("H2D planes", lambda: torch.from_numpy(planes).to(dev))
         gl_len = c.resolut + (planes.shape[1] - 1) * c.window
-        init = step("init draw (CPU) + H2D", lambda: griffinlim.random_init(
-            (gl_len,), torch.Generator().manual_seed(a.seed),
-            torch.float32).to(dev))
+        init = step("GL start drawn on the card (KP)", lambda: prng.uniform(
+            prng.key(a.seed), (gl_len,), torch.float32, dev))
 
         def kernels():
             mag = mel_ops.mel_to_magnitudes(planes, m.inv_weights, c.tune_mul,
@@ -314,6 +321,15 @@ N_SHARDS = 4            # frame shards of that phase, all on one card
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+# instructions/s the card can dispatch (KP): 4 warp instructions a clock an SM,
+# the 128 lanes the float32 peak counts with a fused multiply-add as two
+# operations. The 64 int32 lanes an SM are no ceiling for KP: the compiler
+# sends its round adds to the FMA pipe (IMAD.IADD, tools/sass_opcodes.py)
+# beside the integer pipe's shifts and xors
+INSTR_RATE_S = FP32_FLOP_S / 2
+# KP's integer instructions a sample: 20 rounds of add, funnel shift, xor;
+# 12 key-schedule adds; the xor of the two words, the shift and the or
+THREEFRY_OPS = 20 * 3 + 12 + 3
 
 
 def bound(n_bytes: float, flops: float,
@@ -1019,7 +1035,8 @@ def longform_split(lp, lm, wav: str, pngs: dict, outs: dict, runs: int
         plan = lm._plan_for_frames(planes.shape[1])
         pg, _ = step(call, "pad + H2D planes", lambda: lm._prep_frames(
             planes.transpose(1, 0, 2)[None], plan, raw=True))
-        sig0 = step(call, "GL start drawn (CPU) + H2D",
+        sig0 = step(call, "GL start drawn on the card (KP, one launch a "
+                    "shard)",
                     lambda: sh.sharded_gl_noise_fn(lm.mesh, plan, 1)(1))
 
         def mel_device():
@@ -1051,8 +1068,8 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
     sharded_mel_decode_fn with interior_mm (KN, KO on the interior
     iterations) against the exact program by spectral convergence, and
     decode_resumable against decode; then the host-clock split of each
-    call, the cost of the CPU draw of the GL start, and K18's race (chunked
-    against unchunked encodes)."""
+    call, the time of the GL start's draw on the card (KP, one launch a
+    shard), and K18's race (chunked against unchunked encodes)."""
     from gomel_tpu_torch import (LongFormMel, LongFormPhase, Mel, MelConfig,
                                  Phase, PhaseConfig, make_mesh)
     from gomel_tpu_torch.core.framing import is_padded
@@ -1090,7 +1107,8 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
                "quantize_planes": "F", "irfft_window_masked": "G",
                "overlap_normalize": "H", "mel_to_magnitudes": "I",
                "gl_project": "J", "gl_overlap_add": "K",
-               "dequantize_raw": "L", "shard_epilogue": "M"}
+               "dequantize_raw": "L", "shard_epilogue": "M",
+               "threefry_uniform": "P"}
     runs = (
         ("LongFormPhase.to_phase_wav", lambda: lp.to_phase_wav(
             wav, pngs["phase"]), ("pcm16_ingest", "phase_encode",
@@ -1106,18 +1124,23 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
         ("LongFormMel.to_wav_png", lambda: lm.to_wav_png(
             pngs["mel"], outs["mel"], seed=1), (
                 "dequantize_raw", "mel_to_magnitudes", "gl_project",
-                "gl_overlap_add", "shard_epilogue")))
+                "gl_overlap_add", "shard_epilogue", "threefry_uniform")))
     seen = set()
     for label, fn, must in runs:
         _, counts = drive(f"{label}, {LONG_SECONDS / 60:g} min, {N_SHARDS} "
                           f"frame shards on one card (first call)",
                           lambda: (fn(), 0)[1], must)
         seen |= {letters[k] for k in counts if k in letters}
-    missing = sorted(set("ABCDEFGHIJKLM") - seen)
+        # the GL start: one KP launch a shard, on the mel decode alone
+        want_p = N_SHARDS if "threefry_uniform" in must else 0
+        if counts.get("threefry_uniform", 0) != want_p:
+            raise AssertionError(f"{label}: {counts.get('threefry_uniform', 0)}"
+                                 f" KP launches, expected {want_p}")
+    missing = sorted(set("ABCDEFGHIJKLMP") - seen)
     if missing:
         raise AssertionError(f"kernels never launched on the long-form "
                              f"paths: {['K' + m for m in missing]}")
-    log(f"long-form paths launched every kernel KA-KM "
+    log(f"long-form paths launched every kernel KA-KM and KP "
         f"({''.join(sorted(seen))})")
 
     sp = Phase(pcfg, device_quantize=True, device=dev)
@@ -1215,9 +1238,9 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
         torch.cuda.synchronize()
         draw.append(time.perf_counter() - t0)
     log(f"  GL start of the {LONG_SECONDS / 60:g}-minute file, {N_SHARDS} "
-        f"shards drawn on a CPU "
-        f"generator + H2D: {1e3 * float(np.median(draw)):.3f} ms (median of "
-        f"3)")
+        f"shards drawn on the card by KP (one launch a shard), host clock "
+        f"to the synchronise: {1e3 * float(np.median(draw)):.3f} ms (median "
+        f"of 3)")
 
     xg, _ = lp._prep_signal(pcm, plan, raw=True)
     xf = lp._pcm_convert(xg, 32768.0)
@@ -1296,7 +1319,8 @@ def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
         "batch-tomel": (batch_tomel, [src], "bm", ("pcm16_ingest_rows",
                         "stft_mag", "mel_log", "quantize_mel_plane_masked")),
         "batch-towav": (batch_towav, [path("bm_cuda"), "--seed", "1"], "bw",
-                        ("mel_to_magnitudes", "gl_project", "gl_overlap_add")),
+                        ("mel_to_magnitudes", "gl_project", "gl_overlap_add",
+                         "threefry_uniform")),
         "batch-tophase": (batch_tophase, [src], "bp", (
             "pcm16_ingest", "phase_encode", "quantize_planes_masked")),
         "batch-fromphase": (batch_fromphase, [path("bp_cuda")], "bf",
@@ -1304,10 +1328,16 @@ def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
     }
     first = {}
     for label, (tool, args, out, must) in runs.items():
-        first[label], _ = drive(
+        first[label], counts = drive(
             f"{label} --device cuda, {len(spec)} files (first call)",
             lambda: tool(args + ["--out-dir", path(out + "_cuda"),
                                  "--device", "cuda"]), must)
+        # one KP launch draws every row's start of a decode call
+        want_p = counts.get("mel_to_magnitudes", 0) \
+            if label == "batch-towav" else 0
+        if counts.get("threefry_uniform", 0) != want_p:
+            raise AssertionError(f"{label}: {counts.get('threefry_uniform', 0)}"
+                                 f" KP launches, expected {want_p}")
         if len(os.listdir(path(out + "_cuda"))) != len(spec):
             raise AssertionError(f"{label} wrote {os.listdir(path(out + '_cuda'))}")
 
@@ -1411,6 +1441,212 @@ def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
         f"{100 * share:.2f}%")
 
 
+def prng_kernel(dev: torch.device, errs: dict, gl_len: int) -> dict:
+    """Phase 2g: KP against its plain version, bit for bit, at the bench
+    shape ([2, gl_len] from one key and from two row keys), the batch shape
+    (4 row keys), one shard of the 30-minute mel decode ([1, chunk]) and
+    ragged sizes; the plain version on the CPU against the card; and the
+    Random123 known answers: on the host's block function, and through the
+    launch path on the three vectors' keys (the kernel's counter has a zero
+    high word by design, so the first vector's block is sample 0 of its key
+    and the other keys' samples are held to the host function). Returns
+    phase 4's closures and work counts."""
+    from gomel_tpu_torch.core.config import MelConfig
+    from gomel_tpu_torch.ops import prng
+
+    f32 = torch.float32
+    vectors = (((0, 0), (0, 0), (0x6b200159, 0x99ba4efe)),
+               ((0xffffffff, 0xffffffff), (0xffffffff, 0xffffffff),
+                (0x1cb996fc, 0xbb002be7)),
+               ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3),
+                (0xc4923a9c, 0x483df7a0)))
+    for k, counter, want in vectors:
+        if prng.threefry2x32(*k, *counter) != want:
+            raise AssertionError(f"threefry2x32{k + counter} is not {want}")
+        got = prng.uniform(np.array(k, np.uint32), (1024,), f32, dev)
+        bits = np.array([np.bitwise_xor(*prng.threefry2x32(*k, 0, j))
+                         for j in range(1024)], dtype=np.uint32)
+        ref = ((bits >> 9) | np.uint32(0x3F800000)).view(np.float32) \
+            - np.float32(1.0)
+        if not np.array_equal(got.cpu().numpy(), ref):
+            raise AssertionError(f"KP with key {k} differs from the host's "
+                                 f"block function")
+    log("KP threefry_uniform: the three Random123 known answers hold on the "
+        "host's block function; 1024 samples of each vector's key through "
+        "the launch path equal it bit for bit (sample 0 of key (0, 0) is the "
+        "first vector's block)")
+
+    chunk = long_plan(MelConfig.cli_default()).chunk
+    one = prng.key(SEED)
+    cases = ((f"bench, one key [{BATCH}, {gl_len}]", one, (BATCH, gl_len)),
+             (f"bench, {BATCH} row keys x [{gl_len}]",
+              prng.split_rows(one, BATCH), (gl_len,)),
+             (f"batch, 4 row keys x [{gl_len}]", prng.split_rows(one, 4),
+              (gl_len,)),
+             (f"one long-form shard [1, {chunk}]", prng.fold_in(one, 3),
+              (1, chunk)),
+             ("ragged [1]", one, (1,)),
+             ("ragged [12345]", prng.key(-7), (12345,)),
+             ("ragged, 3 row keys x [7, 111]", prng.split_rows(one, 3),
+              (7, 111)))
+    worst = 0.0
+    for label, keys, shape in cases:
+        got = prng.uniform(keys, shape, f32, dev)
+        want = prng.uniform_plain(keys, shape, f32, dev)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got - want).abs().max()))
+        inside = bool((got >= 0).all() and (got < 1).all())
+        log(f"KP threefry_uniform {label} -> {tuple(got.shape)}: bit-exact "
+            f"{torch.equal(got, want)}, in [0, 1) {inside}, mean "
+            f"{float(got.double().mean()):.6f}")
+        if not (torch.equal(got, want) and inside):
+            raise AssertionError(f"KP ({label}) differs from its plain version")
+    errs["threefry_uniform"] = worst
+    on_cpu = prng.uniform(prng.key(-7), (12345,), f32, "cpu")
+    if not torch.equal(on_cpu, prng.uniform(prng.key(-7), (12345,), f32,
+                                            dev).cpu()):
+        raise AssertionError("KP on the card differs from the CPU's draw")
+    log("KP threefry_uniform: the card's draw equals the CPU's bit for bit")
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shard_key = prng.fold_in(one, 3)
+
+    def entry(keys, shape):
+        samples = float(np.prod(shape))
+        return dict(
+            kernel=lambda: prng.uniform(keys, shape, f32, dev),
+            plain=lambda: prng.uniform_plain(keys, shape, f32, dev),
+            work=(4.0 * samples + 8.0, THREEFRY_OPS * samples, INSTR_RATE_S),
+            # another stream: the same distribution, not the same samples
+            library=lambda: torch.rand(shape, generator=g, device=dev))
+    return {"threefry_uniform": entry(one, (BATCH, gl_len)),
+            "threefry_uniform one shard": entry(shard_key, (1, chunk))}
+
+
+def streaming(drive, card: str, dev: torch.device) -> None:
+    """Phase 3g: StreamingPhase and StreamingMel at the CLI widths, 512
+    frames a chunk, on the 30-minute 48 kHz signal of phase 3e fed in
+    one-second pieces. The concatenated encode chunks against Phase.encode /
+    Mel.encode of the whole signal on the card, within 1e-5 of each frame's
+    peak (the log domain for mel); StreamingPhase.decode_iter of that
+    spectrogram against Phase.decode, within 2e-4 absolute on a unit-scale
+    signal; one launch of KE, KB + KC, KG + KH per chunk; audio-s/s of wall
+    and the peak device memory of each stream against the whole-file call."""
+    from gomel_tpu_torch import (Mel, MelConfig, Phase, PhaseConfig,
+                                 StreamingMel, StreamingPhase)
+    from gomel_tpu_torch.core.framing import num_frames, pad_length
+
+    cf = 512
+    n = int(SAMPLE_RATE * LONG_SECONDS)
+    x = long_pcm(n, dev).astype(np.float64) / 32768.0
+    pcfg, mcfg = PhaseConfig.cli_default(), MelConfig.cli_default()
+    frames = num_frames(pad_length(n, pcfg.window), pcfg.resolut, pcfg.window)
+    chunks = -(-frames // cf)
+    peaks: dict[str, float] = {}
+
+    def pieces():
+        return (x[i:i + SAMPLE_RATE] for i in range(0, n, SAMPLE_RATE))
+
+    def run(label, fn, must):
+        """``fn`` through ``drive`` with its peak device memory above what
+        was resident before it; returns (result, wall seconds, counts)."""
+        out = {}
+
+        def call():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out["value"] = fn()
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 1e6
+            return 0
+        seconds, counts = drive(label, call, must)
+        return out["value"], seconds, counts
+
+    def report(label, stream_s, whole_s, stream_label, whole_label):
+        log(f"  {label} on {card}: stream {LONG_SECONDS / stream_s:.1f} "
+            f"audio-s/s of wall ({stream_s:.3f} s), whole file "
+            f"{LONG_SECONDS / whole_s:.1f} ({whole_s:.3f} s); peak device "
+            f"memory above what was resident: stream "
+            f"{peaks[stream_label]:.1f} MB, whole file "
+            f"{peaks[whole_label]:.1f} MB")
+
+    def per_chunk(label, counts, names):
+        got = {k: counts.get(k, 0) for k in names}
+        if any(v != chunks for v in got.values()):
+            raise AssertionError(f"{label}: launches {got}, expected "
+                                 f"{chunks} of each (one per chunk)")
+
+    size = f"{LONG_SECONDS / 60:g} min in 1 s pieces, {cf} frames a chunk"
+    sp = StreamingPhase(pcfg, cf, device=dev)
+    whole_p = Phase(pcfg, device=dev)
+    label = f"StreamingPhase.encode_iter, {size}"
+    p_chunks, t_s, counts = run(label, lambda: list(sp.encode_iter(pieces())),
+                                ("phase_encode",))
+    per_chunk(label, counts, ("phase_encode",))
+    if len(p_chunks) != chunks or sum(len(c) for c in p_chunks) != frames:
+        raise AssertionError(f"{label}: {len(p_chunks)} chunks of "
+                             f"{sum(len(c) for c in p_chunks)} frames, "
+                             f"expected {chunks} of {frames}")
+    want, t_w, _ = run("Phase.encode, the whole signal",
+                       lambda: whole_p.encode(x), ("phase_encode",))
+    got = torch.from_numpy(np.concatenate(p_chunks)).to(dev)
+    rel, _ = frame_peak_err(got, want, want.abs().amax(dim=(-2, -1),
+                                                       keepdim=True))
+    log(f"streaming phase encode {tuple(got.shape)} vs Phase.encode: "
+        f"{rel:.3e} of the frame peak (bound 1e-5), bit-equal "
+        f"{torch.equal(got, want)}")
+    if not rel <= 1e-5:
+        raise AssertionError("the streaming phase encode is outside its bound")
+    report("phase encode", t_s, t_w, label, "Phase.encode, the whole signal")
+    del got
+
+    label = f"StreamingPhase.decode_iter, {size}"
+    blocks, t_s, counts = run(label, lambda: list(sp.decode_iter(p_chunks)),
+                              ("irfft_window_masked", "overlap_normalize"))
+    per_chunk(label, counts, ("irfft_window_masked", "overlap_normalize"))
+    sig_w, t_w, _ = run("Phase.decode, the whole spectrogram",
+                        lambda: whole_p.decode(want),
+                        ("irfft_window", "overlap_normalize"))
+    sig = np.concatenate(blocks)
+    ref = sig_w.cpu().numpy().astype(np.float64)
+    if sig.shape != ref.shape:
+        raise AssertionError(f"streaming decode {sig.shape} vs {ref.shape}")
+    err = float(np.abs(sig - ref).max())
+    m = min(n, len(sig))
+    corr = float(np.corrcoef(x[4096:m - 4096], sig[4096:m - 4096])[0, 1])
+    log(f"streaming phase decode {sig.shape} vs Phase.decode: max|d| "
+        f"{err:.3e} (bound 2e-4) on a signal of peak "
+        f"{float(np.abs(ref).max()):.3f}; correlation with the input "
+        f"{corr:.6f} (bound 0.99)")
+    if not (err <= 2e-4 and corr > 0.99):
+        raise AssertionError("the streaming phase decode is outside its bound")
+    report("phase decode", t_s, t_w, label,
+           "Phase.decode, the whole spectrogram")
+    del want, sig_w, p_chunks, blocks, sig, ref
+
+    sm = StreamingMel(mcfg, cf, device=dev)
+    whole_m = Mel(mcfg, device=dev)
+    label = f"StreamingMel.encode_iter, {size}"
+    m_chunks, t_s, counts = run(label, lambda: list(sm.encode_iter(pieces())),
+                                ("stft_mag", "mel_log"))
+    per_chunk(label, counts, ("stft_mag", "mel_log"))
+    want, t_w, _ = run("Mel.encode, the whole signal",
+                       lambda: whole_m.encode(x), ("stft_mag", "mel_log"))
+    got = torch.from_numpy(np.concatenate(m_chunks)).to(dev)
+    if got.shape != want.shape:
+        raise AssertionError(f"streaming mel {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    rel, _ = frame_peak_err(got, want, want.abs().amax(dim=(-2, -1),
+                                                       keepdim=True))
+    log(f"streaming mel encode {tuple(got.shape)} vs Mel.encode: {rel:.3e} of "
+        f"the frame's peak in the log domain (bound 1e-5), bit-equal "
+        f"{torch.equal(got, want)}")
+    if not rel <= 1e-5:
+        raise AssertionError("the streaming mel encode is outside its bound")
+    report("mel encode", t_s, t_w, label, "Mel.encode, the whole signal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1425,8 +1661,8 @@ def main() -> int:
     from gomel_tpu_torch.io import imagecodec, wavcodec
     from gomel_tpu_torch.io.pngcodec import read_png
     from gomel_tpu_torch.ops import (_cuda, dft_mm, fftbackend, griffinlim,
-                                     istft, mel_ops, phase_ops, quantize,
-                                     rfft_mag)
+                                     istft, mel_ops, phase_ops, prng,
+                                     quantize, rfft_mag)
     from gomel_tpu_torch.ops.stft import hann_window
 
     # the plain references run in full float32 (no TF32 anywhere)
@@ -1466,7 +1702,7 @@ def main() -> int:
                                    istft.SYNTH_MASKED_KERNEL,
                                    istft.SHARD_KERNEL, dft_mm.FWD_KERNEL,
                                    dft_mm.FWD_F32_KERNEL, dft_mm.INV_KERNEL,
-                                   dft_mm.INV_F32_KERNEL)}
+                                   dft_mm.INV_F32_KERNEL, prng.KERNEL)}
     # the kernels' tallies and the xla route's (torch.fft on the card, for
     # the sizes the hand FFT kernels do not take; not a kernel of the port)
     tallies = dict(kernels, xla_route=fftbackend.XLA_ROUTE)
@@ -1686,8 +1922,7 @@ def main() -> int:
         raise AssertionError("mel_to_magnitudes error > 1e-5 of the frame peak")
     mag = mel_ops.mel_to_magnitudes_plain(img, inv, mgc_max=mx, mgc_min=mn)
     gl_len = n_fft + (frames - 1) * hop
-    sig0 = griffinlim.random_init((BATCH, gl_len), torch.Generator().manual_seed(
-        SEED), f32).to(dev)
+    sig0 = prng.uniform(prng.key(SEED), (BATCH, gl_len), f32, dev)
     fw_j = {}
     kj_rel = []
     for label, sig in (("random init", sig0),
@@ -1822,6 +2057,9 @@ def main() -> int:
     route_k = (fft_size_checks(dev, x, 3000, 750, 1152, False)
                | fft_size_checks(dev, x, 514, 128, 200, True))
 
+    # -- phase 2g: KP, the Griffin-Lim start's Threefry draw ------------------
+    prng_k = prng_kernel(dev, errs, gl_len)
+
     # -- phase 3: the main path, tomel on a 30 s WAV ----------------------
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "speech.wav")
@@ -1926,10 +2164,11 @@ def main() -> int:
         t_wav, counts = drive(
             "towav --device cuda (first call)",
             lambda: towav(towav_args + ["-o", wav_g, "--device", "cuda"]),
-            ("mel_to_magnitudes", "gl_project", "gl_overlap_add"))
+            ("mel_to_magnitudes", "gl_project", "gl_overlap_add",
+             "threefry_uniform"))
         n_gl = cfg.griffin_lim_iterations
         want = {"mel_to_magnitudes": 1, "gl_project": n_gl,
-                "gl_overlap_add": n_gl}
+                "gl_overlap_add": n_gl, "threefry_uniform": 1}
         if {k: counts.get(k, 0) for k in want} != want:
             raise AssertionError(f"towav launches {counts}, expected {want}")
         if towav(towav_args + ["-o", wav_c, "--device", "cpu"]) != 0:
@@ -1980,6 +2219,9 @@ def main() -> int:
 
         # -- phase 3f: the mm Griffin-Lim, the mm phase codec, resolut 3000
         new_paths(tmp, drive, dev, wav, logmel_ref, inv, sig0, win, x, nf)
+
+        # -- phase 3g: the streaming codecs on the 30-minute signal ---------
+        streaming(drive, card, dev)
 
     # -- phase 4: times at the bench shape ---------------------------------
     log(f"timing on {card}: device ms per call (CUDA events over up to 20 "
@@ -2045,7 +2287,8 @@ def main() -> int:
         "quantize_planes_masked": lambda: quantize.quantize_planes_plain(
             spec4, 255, 0, frames4),
     }
-    for name, entry in (long_k | dft_k).items():
+    extra_k = long_k | dft_k | prng_k
+    for name, entry in extra_k.items():
         kernel_fns[name], plain_fns[name] = entry["kernel"], entry["plain"]
     times = {name: race(kernel_fns[name], plain_fns[name], name)
              for name in kernel_fns}
@@ -2100,7 +2343,7 @@ def main() -> int:
                "gl_project": lambda: torch.fft.irfft(spec_c, n=n_fft),
                "mel_log": lambda: torch.matmul(mags_ref, we),
                "mel_to_magnitudes": lambda: torch.matmul(mel_lin, inv_t)}
-    for name, entry in (long_k | dft_k).items():
+    for name, entry in extra_k.items():
         work[name] = entry["work"]
         if entry["library"] is not None:
             library[name] = entry["library"]
@@ -2110,7 +2353,8 @@ def main() -> int:
     for name in times:
         b_ms, b_by = bounds[name]
         log(f"  {name}: bound {b_ms:.4f} ms ({b_by}; "
-            f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.3f} GFLOP), "
+            f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.3f} G "
+            f"operations), "
             f"kernel at {100 * b_ms / times[name][0]:.1f}% of it; library "
             f"call {'none' if name not in library_ms else f'{library_ms[name]:.4f} ms'}")
 

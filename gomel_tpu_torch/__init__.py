@@ -8,7 +8,9 @@ by Griffin-Lim, ``towav``), the phase codec round trip (WAV or FLAC -> phase
 PNG -> WAV, ``tophase`` and ``fromphase``), their batched forms on one
 device (``parallel/``, the ``batch-*`` tools of ``cli/batch.py``) and the
 long-form frame-sharded codecs on one controller (``LongFormMel``,
-``LongFormPhase`` over a ``make_mesh`` grid of devices) so far.
+``LongFormPhase`` over a ``make_mesh`` grid of devices) and the streaming
+codecs for one device in bounded memory (``StreamingPhase``,
+``StreamingMel``) so far.
 """
 
 from .core.config import (ConfigError, FileNotLoadedError, GomelError,
@@ -18,10 +20,11 @@ from .parallel.mesh import Mesh, make_mesh
 from .pipelines.longform import LongFormMel, LongFormPhase
 from .pipelines.mel import Mel
 from .pipelines.phase import Phase
+from .pipelines.streaming import StreamingMel, StreamingPhase
 
 __version__ = "0.1.0"
 
-__all__ = ["Mel", "Phase", "LongFormMel", "LongFormPhase", "Mesh",
-           "make_mesh", "MelConfig", "PhaseConfig", "GomelError",
+__all__ = ["Mel", "Phase", "LongFormMel", "LongFormPhase", "StreamingPhase",
+           "StreamingMel", "Mesh", "make_mesh", "MelConfig", "PhaseConfig", "GomelError",
            "FileNotLoadedError", "UnsupportedSampleRateError", "ConfigError",
            "num_freqs_for_sample_rate", "pad_shift", "__version__"]

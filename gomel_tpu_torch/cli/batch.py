@@ -500,8 +500,9 @@ def batch_fromphase(argv: Optional[Sequence[str]] = None) -> int:
 
 def batch_towav(argv: Optional[Sequence[str]] = None) -> int:
     """Mel-PNG directory/file list -> WAVs via the batched Griffin-Lim
-    decoder (row r of each chunk starts from parallel.batch.row_start(seed,
-    r), deterministic per --seed)."""
+    decoder (row r of each chunk starts from the key
+    parallel.batch.row_keys(seed)[r], the JAX package's, deterministic per
+    --seed)."""
     p = argparse.ArgumentParser(prog="batch-towav")
     p.add_argument("inputs", nargs="+", help="mel PNG files or directories")
     _add_common_flags(p)

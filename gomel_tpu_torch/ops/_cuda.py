@@ -65,6 +65,7 @@ _SIGNATURES = {
                       _I64, _I64, _I64, _I32, _I32, _I32],
     "gomel_dft_inv": [_I32, _I32, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                       _I64, _I64],
+    "gomel_threefry_uniform": [_P, _P, _I64, _I64],
 }
 
 

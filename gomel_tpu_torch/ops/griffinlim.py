@@ -22,17 +22,17 @@ KK. On a CPU tensor each step runs its plain PyTorch version (the JAX
 program's order of operations, and the matmul DFT in full precision, as
 XLA's CPU backend runs it); on a CUDA tensor it launches its kernel.
 
-The random initial signal is drawn by :func:`random_init` on a CPU
-``torch.Generator`` and copied to the device, so a seed gives the same
-start on every device. It cannot reproduce the JAX PRNG's draw: tests pass
-``init=`` or replace :func:`random_init`.
+The random initial signal is drawn on the magnitudes' device from a
+Threefry key (ops/prng.uniform: kernel KP on a card, its plain version on
+the CPU): the samples ``jax.random.uniform`` draws from the same key, so a
+seed gives the JAX package's start on every device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import _cuda, dft_mm, fftbackend, istft
+from . import _cuda, dft_mm, fftbackend, istft, prng
 from .istft import overlap_add_plain
 from .quantize import pcm16_encode
 from .rfft_mag import _twiddles
@@ -77,23 +77,6 @@ def griffin_lim_magnitudes(linear2: torch.Tensor) -> torch.Tensor:
     |ch1[N/2-1]| (the ``undospectrum`` layout, mel/impl.go:386-408)."""
     return torch.cat([linear2[..., 0].abs(), linear2[..., -1:, 1].abs()],
                      dim=-1)
-
-
-def random_init(shape: tuple[int, ...], generator: torch.Generator | None,
-                dtype: torch.dtype) -> torch.Tensor:
-    """The initial signal: uniform [0, 1) (mel/mel.go:81-83), drawn on the
-    CPU from ``generator`` (None: PyTorch's default CPU generator)."""
-    return torch.rand(shape, generator=generator, dtype=dtype)
-
-
-def stream_generator(seed: int, stream: int) -> torch.Generator:
-    """A CPU generator for stream ``stream`` of a decode ``seed``, seeded by
-    numpy's SeedSequence of (seed mod 2^64, stream): streams are
-    independent and each depends on (seed, stream) alone (a batch row,
-    parallel/batch.row_start; a frame shard, parallel/sharded._shard_noise)."""
-    state = np.random.SeedSequence([int(seed) % (1 << 64), int(stream)])
-    return torch.Generator().manual_seed(
-        int(state.generate_state(1, np.uint64)[0]))
 
 
 def gl_project_plain(sig: torch.Tensor, mag_half: torch.Tensor,
@@ -234,7 +217,7 @@ def gl_overlap_add(frames_w: torch.Tensor, hop: int,
 
 
 def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
-                *, init=None, generator: torch.Generator | None = None,
+                *, init=None, key: np.ndarray | None = None,
                 fft_backend: str = "auto", momentum: float = 0.0,
                 pcm16: bool = False):
     """Iterative phase reconstruction (gomel_tpu/ops/griffinlim.py:98).
@@ -242,8 +225,13 @@ def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
     mag_half: [..., F, N/2 + 1] fixed half-spectrum magnitudes. Returns the
     signal [..., N + (F-1)*hop] in ``mag_half``'s dtype, or with ``pcm16``
     (int16 PCM, per-row all-finite flag). ``n_iter`` = 0 returns the
-    initial signal (mel/mel.go:85: the loop never runs). ``init`` overrides
-    the random initial signal; ``window`` is Hann when None.
+    initial signal (mel/mel.go:85: the loop never runs). The initial signal
+    is uniform [0, 1) drawn on ``mag_half``'s device from ``key``
+    (ops/prng.uniform): one key, uint32 [2] (ops/prng.key), draws the whole
+    [..., out_len] as ``jax.random.uniform(key, shape)`` does; a table of
+    row keys [B, 2] for magnitudes [B, F, N/2 + 1] draws row r from key r,
+    as the JAX package's batched decode does under ``vmap``. ``init``
+    overrides the draw; ``window`` is Hann when None.
 
     ``momentum`` 0.0 is the reference's plain Griffin-Lim; a value in
     (0, 1] runs fast Griffin-Lim in the signal domain, as the JAX package
@@ -271,8 +259,17 @@ def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
         sig = torch.as_tensor(init, dtype=dtype, device=dev)
         if tuple(sig.shape) != shape:
             raise ValueError(f"griffin_lim: init {tuple(sig.shape)} != {shape}")
+    elif key is None:
+        raise ValueError("griffin_lim: give the start's key (ops/prng.key) "
+                         "or init=")
+    elif np.ndim(key) == 2:
+        if tuple(lead) != (len(key),):
+            raise ValueError(f"griffin_lim: {len(key)} row keys for "
+                             f"magnitudes {tuple(mag_half.shape)}")
+        sig = prng.uniform(key, (out_len,), dtype, dev)
     else:
-        sig = random_init(shape, generator, dtype).to(dev)
+        sig = prng.uniform(key, shape, dtype, dev)
+
     def project(s, final=False):
         return gl_project(s, mag_half, window, n, hop, backend, final,
                           window_host)

@@ -278,14 +278,14 @@ def mel_to_magnitudes(src: torch.Tensor, inv_weights: torch.Tensor,
 
 def mel_decode(logmel: torch.Tensor, frame_len: int, hop: int,
                inv_weights: torch.Tensor, n_iter: int,
-               generator: torch.Generator | None = None,
+               key: np.ndarray | None = None,
                tune_mul: float = 1.0, tune_add: float = 0.0,
                window: torch.Tensor | None = None, fft_backend: str = "auto",
                momentum: float = 0.0, *, init=None) -> torch.Tensor:
     """log-mel [..., F, num_mels, 2] -> audio [..., N + (F-1)*hop] via
     Griffin-Lim (reference mel/mel.go:142-152), with the un-normalised
     overlap-add amplitude of the reference. The initial signal is drawn from
-    ``generator`` (ops/griffinlim.random_init) unless ``init`` is given;
+    ``key`` (ops/prng.key; ops/griffinlim.griffin_lim) unless ``init`` is given;
     ``fft_backend`` as in ops/griffinlim.griffin_lim; ``momentum`` > 0 opts
     into fast Griffin-Lim."""
     if 2 * inv_weights.shape[0] != frame_len:
@@ -294,5 +294,5 @@ def mel_decode(logmel: torch.Tensor, frame_len: int, hop: int,
     mag = mel_to_magnitudes(logmel.contiguous(), inv_weights, tune_mul,
                             tune_add)
     return griffin_lim(mag, hop, n_iter, window, init=init,
-                       generator=generator, fft_backend=fft_backend,
+                       key=key, fft_backend=fft_backend,
                        momentum=momentum)

@@ -14,11 +14,11 @@ The mesh of the JAX package (the 'data' axis, ``input_mode``,
 ``local_rows``, ``process_local``) waits for the multi-process slice.
 
 Griffin-Lim starts. The JAX package gives row r of every decode call the key
-``split(PRNGKey(seed), B)[r]``; the port cannot reproduce JAX's draws, so row
-r's start is uniform [0, 1) drawn on a CPU ``torch.Generator`` seeded from
-numpy's ``SeedSequence((seed, r))`` (:func:`row_start`): it depends on the
-seed and the row index alone, never on the batch size or the other rows, and
-is the same on every device.
+``split(PRNGKey(seed), B)[r]``, and so does the port (:func:`row_keys`,
+ops/prng.py): all rows' starts are one draw on the device (kernel KP on a
+card), row r from its own key, the samples the JAX package draws. A row's
+start depends on the seed and the row index alone, never on the batch size or
+the other rows, and is the same on every device.
 Each chunk of ``batch-towav`` reuses rows 0..B-1, as the JAX CLI reuses its
 keys.
 """
@@ -32,7 +32,8 @@ import torch
 
 from ..core.config import MelConfig, PhaseConfig
 from ..core.framing import pad_length
-from ..ops.griffinlim import griffin_lim, random_init, stream_generator
+from ..ops import prng
+from ..ops.griffinlim import griffin_lim
 from ..ops.mel_ops import mel_decode, mel_encode_batch, mel_to_magnitudes
 from ..ops.phase_ops import dequantize_decode, phase_decode, phase_encode_batch
 from ..ops.quantize import (pcm16_ingest_batch, quantize_mel_plane_batch,
@@ -115,20 +116,11 @@ def pad_batch_to_multiple(bucket: Bucket, multiple: int) -> Bucket:
 # Per-row Griffin-Lim starts
 # ---------------------------------------------------------------------------
 
-def row_start(seed: int, row: int, length: int,
-              dtype: torch.dtype) -> torch.Tensor:
-    """Row ``row``'s Griffin-Lim start for a decode ``seed``: uniform [0, 1)
-    [length], drawn on the CPU from a generator seeded by numpy's
-    SeedSequence of (seed mod 2^64, row), so rows draw independent streams
-    that depend on (seed, row) alone."""
-    return random_init((length,), stream_generator(seed, row), dtype)
-
-
-def row_starts(seed: int, rows: int, length: int,
-               dtype: torch.dtype) -> torch.Tensor:
-    """[rows, length]: :func:`row_start` of rows 0..rows-1."""
-    return torch.stack([row_start(seed, r, length, dtype)
-                        for r in range(rows)])
+def row_keys(seed: int, rows: int) -> np.ndarray:
+    """The Griffin-Lim keys of rows 0..rows-1 for a decode ``seed``, uint32
+    [rows, 2]: ``jax.random.split(PRNGKey(seed), rows)``, whose row r depends
+    on (seed, r) alone (gomel_tpu/parallel/batch.py:201-210)."""
+    return prng.split_rows(prng.key(seed), rows)
 
 
 def _rows(batch, dtype: torch.dtype | None, device: torch.device
@@ -217,30 +209,23 @@ class BatchedMel:
                                 m.fwd_weights, m.window)
         return quantize_mel_plane_batch(spec, 255, frames=frames)
 
-    def _starts(self, seed: int, rows: int, frames: int,
-                dtype: torch.dtype) -> torch.Tensor:
-        c = self.config
-        return row_starts(seed, rows, c.resolut + (frames - 1) * c.window,
-                          dtype).to(self.device)
-
     def decode(self, logmel_batch, seed: int = 0) -> torch.Tensor:
         """[B, F, num_mels, 2] -> [B, out_len] by Griffin-Lim, row r from
-        :func:`row_start` (seed, r)."""
+        the key :func:`row_keys` (seed)[r]."""
         c, m = self.config, self.mel
         lm = _rows(logmel_batch, self.dtype, self.device)
         m._check_mels(lm.shape[-2])
         return mel_decode(lm, c.resolut, c.window, m.inv_weights,
-                          c.griffin_lim_iterations, None, c.tune_mul,
-                          c.tune_add, m.window, momentum=self.gl_momentum,
-                          init=self._starts(seed, lm.shape[0], lm.shape[1],
-                                            self.dtype))
+                          c.griffin_lim_iterations,
+                          row_keys(seed, lm.shape[0]), c.tune_mul,
+                          c.tune_add, m.window, momentum=self.gl_momentum)
 
     def decode_quantized(self, img2_batch, mgc_max, mgc_min, seed: int = 0,
                          boost: float = 0.0, pcm16: bool = False):
         """uint8 PNG planes [B, mels, F, 2] + per-row extrema [B] ->
         [B, out_len] float32: dequantize, + ``boost`` in the log domain
         (mel/mel.go:218-221), Griffin-Lim (kernels KI, then KJ and KK per
-        iteration) from :func:`row_start` (seed, r) for row r. ``pcm16``
+        iteration) from the key :func:`row_keys` (seed)[r] for row r. ``pcm16``
         fuses the PCM-16 conversion and returns (int16 [B, out_len], per-row
         finite flags [B]): one bad row does not spoil its batch."""
         c, m = self.config, self.mel
@@ -250,8 +235,7 @@ class BatchedMel:
                                 float(boost), mgc_max, mgc_min)
         return griffin_lim(mag, c.window, c.griffin_lim_iterations,
                            m.window.to(torch.float32),
-                           init=self._starts(seed, planes.shape[0],
-                                             planes.shape[2], torch.float32),
+                           key=row_keys(seed, planes.shape[0]),
                            momentum=self.gl_momentum, pcm16=pcm16)
 
     def encode_buckets(self, utterances: Sequence[np.ndarray],

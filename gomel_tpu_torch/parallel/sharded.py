@@ -40,8 +40,8 @@ import numpy as np
 import torch
 
 from ..ops import fftbackend, istft
-from ..ops.griffinlim import (gl_overlap_add, gl_project, random_init,
-                              stream_generator)
+from ..ops import prng
+from ..ops.griffinlim import gl_overlap_add, gl_project
 from ..ops.mel_ops import mel_encode, mel_to_magnitudes
 from ..ops.phase_ops import phase_encode, phase_synthesize
 from ..ops.quantize import pcm16_encode
@@ -304,16 +304,18 @@ def sharded_istft_fn(mesh: Mesh, plan: FrameShardPlan,
 # ---------------------------------------------------------------------------
 
 def _shard_noise(seed: int, plan: FrameShardPlan, b_loc: int,
-                 dtype: torch.dtype, shard_id: int) -> torch.Tensor:
+                 dtype: torch.dtype, shard_id: int,
+                 device: torch.device) -> torch.Tensor:
     """Shard ``shard_id``'s Griffin-Lim start: uniform [0, 1) [b_loc,
-    chunk] drawn on the CPU from stream ``shard_id = data_index * n_frame +
-    frame_index`` of ``seed`` (ops/griffinlim.stream_generator). The SINGLE
-    definition shared by the ``noise_init`` path and
+    chunk] drawn on ``device`` (the shard's) from the key
+    ``fold_in(key(seed), shard_id)``, ``shard_id = data_index * n_frame +
+    frame_index``: the samples the JAX program draws on that shard
+    (gomel_tpu/parallel/sharded.py:308-316), one launch of kernel KP on a
+    card. The SINGLE definition shared by the ``noise_init`` path and
     :func:`sharded_gl_noise_fn`, so a resumable run reproduces the one-call
-    run bit for bit. The JAX program's per-shard PRNG draw cannot be
-    reproduced; any uniform start is parity-valid (mel/mel.go:81-83)."""
-    return random_init((b_loc, plan.chunk), stream_generator(seed, shard_id),
-                       dtype)
+    run bit for bit."""
+    return prng.uniform(prng.fold_in(prng.key(seed), shard_id),
+                        (b_loc, plan.chunk), dtype, device)
 
 
 def sharded_gl_noise_fn(mesh: Mesh, plan: FrameShardPlan, batch: int,
@@ -328,7 +330,7 @@ def sharded_gl_noise_fn(mesh: Mesh, plan: FrameShardPlan, batch: int,
 
     def fn(seed: int) -> Sharded:
         return Sharded(mesh, [
-            _shard_noise(seed, plan, b_loc, dtype, i).to(mesh.device(i))
+            _shard_noise(seed, plan, b_loc, dtype, i, mesh.device(i))
             for i in range(mesh.size)])
 
     return fn

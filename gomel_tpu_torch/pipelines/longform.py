@@ -353,7 +353,9 @@ class LongFormMel(_LongFormBase):
     def decode(self, logmel, seed: int = 0,
                momentum: float = 0.0) -> torch.Tensor:
         """[B, F, num_mels, 2] -> [B, out_len] via sharded Griffin-Lim from
-        per-shard starts drawn from ``seed`` (parallel/sharded._shard_noise).
+        per-shard starts, each drawn on its shard's device from the key
+        ``fold_in(key(seed), shard)`` (parallel/sharded._shard_noise): the
+        JAX package's starts for that seed on the same mesh shape.
         ``momentum`` > 0 opts into fast Griffin-Lim."""
         logmel = _as_array(logmel)
         plan = self._plan_for_frames(logmel.shape[1])

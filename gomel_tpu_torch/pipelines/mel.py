@@ -26,7 +26,7 @@ from ..core.filterbank import inverse_mel_weights, mel_weights
 from ..core.framing import is_padded, pad_length
 from ..io import audio as audio_io
 from ..io import imagecodec
-from ..ops import _cuda
+from ..ops import _cuda, prng
 from ..ops.griffinlim import griffin_lim
 from ..ops.mel_ops import mel_decode, mel_encode, mel_to_magnitudes
 from ..ops.quantize import pcm16_ingest, quantize_mel_plane
@@ -150,19 +150,17 @@ class Mel(torch.nn.Module):
                 f"MelConfig.cli_default() uses 192 mels, bare MelConfig() "
                 f"uses the NewMel default 160)")
 
-    @staticmethod
-    def _generator(seed: int) -> torch.Generator:
-        return torch.Generator().manual_seed(int(seed))
-
     def decode(self, logmel, seed: int = 0, momentum: float = 0.0
                ) -> torch.Tensor:
         """log-mel [..., F, num_mels, 2] -> audio [..., N + (F-1)*hop] on
         ``device``, by Griffin-Lim with ``config.griffin_lim_iterations``.
 
         The reference starts Griffin-Lim from unseeded global rand
-        (mel/mel.go:81-83); here the start is uniform [0, 1) drawn on the
-        CPU from ``seed`` (ops/griffinlim.random_init), the same on every
-        device. ``momentum`` > 0 opts into fast Griffin-Lim; 0.0 is exact
+        (mel/mel.go:81-83); here the start is uniform [0, 1) drawn on
+        ``device`` from the Threefry key of ``seed`` (ops/prng.key): the
+        samples the JAX package draws for that seed, on every device. A
+        [..., F, num_mels, 2] batch draws from the one key over its whole
+        shape. ``momentum`` > 0 opts into fast Griffin-Lim; 0.0 is exact
         reference behaviour."""
         c = self.config
         if not isinstance(logmel, torch.Tensor):
@@ -171,7 +169,7 @@ class Mel(torch.nn.Module):
         if logmel.ndim >= 2:
             self._check_mels(logmel.shape[-2])
         return mel_decode(logmel, c.resolut, c.window, self.inv_weights,
-                          c.griffin_lim_iterations, self._generator(seed),
+                          c.griffin_lim_iterations, prng.key(seed),
                           c.tune_mul, c.tune_add, self.window,
                           momentum=float(momentum))
 
@@ -194,7 +192,7 @@ class Mel(torch.nn.Module):
                                 mgc_max, mgc_min)
         return griffin_lim(mag, c.window, c.griffin_lim_iterations,
                            self.window.to(torch.float32),
-                           generator=self._generator(seed),
+                           key=prng.key(seed),
                            momentum=float(momentum), pcm16=True)
 
     # -- reference-layout API ------------------------------------------------

@@ -3,10 +3,10 @@ against the JAX package's, on the CPU.
 
 Seeded numpy inputs go through gomel_tpu's BatchedMel / BatchedPhase, its
 batch CLIs and its FLAC file paths, and through gomel_tpu_torch's, which run
-the kernels' plain versions on CPU tensors. The JAX PRNG cannot be
-reproduced, so Griffin-Lim rows start from the JAX package's draws:
-``parallel.batch.row_start`` is replaced by ``jax.random.uniform`` of
-``split(PRNGKey(seed), n)[row]`` (the same key for every n). Tolerances are
+the kernels' plain versions on CPU tensors. Griffin-Lim rows start from a
+seed on both sides: the port draws the JAX package's samples itself,
+``jax.random.uniform`` of ``split(PRNGKey(seed), n)[row]`` (the same key for
+every n; ``parallel.batch.row_keys``, ops/prng.py). Tolerances are
 stated at each comparison: the device quantizer truncates in float32 on both
 sides, so a pixel may flip by one step, rarely; the Griffin-Lim decodes are
 held to 2 LSB as tests/test_torch_meldecode.py holds ``towav``.
@@ -33,6 +33,7 @@ from gomel_tpu_torch.io import audio as taudio
 from gomel_tpu_torch.io import flac as tflac
 from gomel_tpu_torch.io import wavcodec
 from gomel_tpu_torch.io.pngcodec import read_png
+from gomel_tpu_torch.ops import prng
 from gomel_tpu_torch.parallel import batch as tbatch
 from gomel_tpu_torch.pipelines.mel import Mel
 from gomel_tpu_torch.pipelines.phase import Phase
@@ -71,17 +72,6 @@ def _utterances(lengths, seed, pcm=False):
 def _frames(bucket, window, resolut):
     return np.asarray([frames_for_padded(int(n), window, resolut)
                        for n in bucket.lengths], np.int32)
-
-
-@pytest.fixture
-def jax_starts(monkeypatch):
-    """Make the port's batch rows start from the JAX package's draws."""
-    def draw(seed, row, length, dtype):
-        key = jax.random.split(jax.random.PRNGKey(seed), row + 1)[row]
-        jd = jnp.float64 if dtype == torch.float64 else jnp.float32
-        return torch.from_numpy(np.array(jax.random.uniform(key, (length,),
-                                                            jd)))
-    monkeypatch.setattr(tbatch, "row_start", draw)
 
 
 # -- encode: the masked quantizers in the batch ------------------------------
@@ -215,8 +205,8 @@ def test_batched_phase_decode_quantized_vs_jax():
 
 
 @pytest.mark.parametrize("momentum,boost", [(0.0, 0.0), (0.99, 0.7)])
-def test_batched_mel_decode_quantized_vs_jax(jax_starts, momentum, boost):
-    """From the JAX package's per-row starts: PCM-16 within 2 LSB at < 5e-2
+def test_batched_mel_decode_quantized_vs_jax(momentum, boost):
+    """From the same seed, so the JAX package's per-row starts: PCM-16 within 2 LSB at < 5e-2
     differing, flags equal; float decode within 1e-4 relative L2."""
     cfg = dict(MEL, griffin_lim_iterations=3)
     utts = _utterances([5000] * 3, seed=5)
@@ -241,15 +231,19 @@ def test_batched_mel_decode_quantized_vs_jax(jax_starts, momentum, boost):
 
 def test_row_start_rule():
     """Row r's start depends on (seed, r) alone: the same for B = 1, 2 and 4,
-    different across rows and seeds."""
-    starts = {b: tbatch.row_starts(11, b, 3000, torch.float32)
+    different across rows and seeds, and the JAX package's row keys."""
+    for b in (1, 2, 4):
+        np.testing.assert_array_equal(
+            tbatch.row_keys(11, b),
+            np.asarray(jax.random.split(jax.random.PRNGKey(11), b)))
+    starts = {b: prng.uniform(tbatch.row_keys(11, b), (3000,))
               for b in (1, 2, 4)}
     for b in (2, 4):
         for r in range(min(b, 2)):
             assert torch.equal(starts[b][r], starts[2 if r else 1][r])
     assert torch.equal(starts[4][:2], starts[2])
     assert not torch.equal(starts[4][0], starts[4][1])
-    assert not torch.equal(tbatch.row_starts(12, 1, 3000, torch.float32)[0],
+    assert not torch.equal(prng.uniform(tbatch.row_keys(12, 1), (3000,))[0],
                            starts[1][0])
     # the decode draws them: row 0 decodes alike alone and in a batch of 4
     tb = tbatch.BatchedMel(MelConfig(**MEL), device="cpu")
@@ -260,6 +254,31 @@ def test_row_start_rule():
     one = tb.decode_quantized(img[:1], mx[:1], mn[:1], seed=2,
                               pcm16=True)[0]
     _near(four[0].numpy(), one[0].numpy(), step=1, rate=1e-3)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_mel_zero_iterations_is_the_jax_start(rows, dtype):
+    """With 0 iterations a batched decode returns its rows' starts: the JAX
+    package's for the same seed bit for bit, and row r the same whatever the
+    batch size."""
+    jd = jnp.float64 if dtype == torch.float64 else jnp.float32
+    cfg = dict(MEL, griffin_lim_iterations=0)
+    jb = jbatch.BatchedMel(JMelConfig(**cfg), dtype=jd)
+    tb = tbatch.BatchedMel(MelConfig(**cfg), dtype=dtype, device="cpu")
+    logmel = np.random.default_rng(8).uniform(-11.0, 2.0, (rows, 7, 24, 2))
+    want = np.asarray(jb.decode(logmel, seed=9))
+    got = tb.decode(logmel, seed=9)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tb.decode(logmel[:1], seed=9).numpy()[0], want[0])
+    if dtype == torch.float32:
+        img = np.zeros((rows, 24, 7, 2), np.uint8)
+        ext = np.ones(rows, np.float32)
+        np.testing.assert_array_equal(
+            tb.decode_quantized(img, ext, -ext, seed=9).numpy(),
+            np.asarray(jb.decode_quantized(img, ext, -ext, seed=9)))
 
 
 # -- the batch CLIs ---------------------------------------------------------
@@ -310,7 +329,7 @@ def _wavs_near(port_dir, jax_dir, names, step):
         _near(a, b, step=step, rate=5e-2)
 
 
-def test_batch_tomel_and_towav_vs_jax(mixed_dir, tmp_path, jax_starts):
+def test_batch_tomel_and_towav_vs_jax(mixed_dir, tmp_path):
     """batch-tomel on mixed WAV and FLAC (per-row 1/32768 and 1/65536), then
     batch-towav on its PNGs, against the JAX CLIs."""
     names = sorted(os.listdir(mixed_dir))

@@ -989,3 +989,119 @@ def test_mel_decode_mm_launches_and_converges(cuda, momentum):
         return float((a - c * target).norm() / (abs(c) * target.norm()))
 
     assert sc(mm) <= 1.05 * sc(exact) + 1e-3, (sc(mm), sc(exact))
+
+
+# -- KP (the Griffin-Lim start's Threefry draw) and the streaming codecs -----
+
+@pytest.mark.parametrize("rows,shape", [
+    (None, (1,)), (None, (12345,)), (None, (3, 777)), (None, (2, 70001)),
+    (1, (1001,)), (4, (4097,)), (3, (7, 111)), (70000, (3,))])
+def test_threefry_uniform_bit_exact(cuda, rows, shape):
+    """KP against its plain version on the card and on the CPU, one key and
+    row keys (more rows than the grid's second dimension holds), ragged
+    sizes: bit for bit, one launch a draw."""
+    from gomel_tpu_torch.ops import prng
+    one = prng.key(2 ** 32 + 11)
+    if rows is None:
+        keys = one
+    else:
+        # row keys without 70,000 host blocks: any uint32 words are keys
+        keys = np.random.default_rng(rows).integers(
+            0, 2 ** 32, size=(rows, 2), dtype=np.uint32)
+        keys[0] = prng.split_row(one, 0)
+    before = prng.KERNEL.launches
+    got = prng.uniform(keys, shape, torch.float32, cuda)
+    assert prng.KERNEL.launches == before + 1
+    assert got.device == cuda and got.dtype == torch.float32
+    assert torch.equal(got, prng.uniform_plain(keys, shape, torch.float32,
+                                               cuda))
+    assert torch.equal(got.cpu(), prng.uniform(keys, shape, torch.float32,
+                                               "cpu"))
+    assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+
+
+def test_threefry_uniform_known_answer_and_checks(cuda):
+    from gomel_tpu_torch.ops import prng
+    got = prng.uniform(np.zeros(2, np.uint32), (4,), torch.float32, cuda)
+    bits = np.array([0x6b200159 ^ 0x99ba4efe], np.uint32)
+    want = ((bits >> 9) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    assert got.cpu().numpy()[0] == want[0]
+    before = prng.KERNEL.launches
+    assert prng.uniform(prng.key(1), (0,), torch.float32, cuda).shape == (0,)
+    assert prng.KERNEL.launches == before        # nothing to draw: no launch
+    with pytest.raises(ValueError, match="float32"):
+        prng.uniform(prng.key(1), (4,), torch.float64, cuda)
+    with pytest.raises(ValueError, match="2\\^32"):
+        prng.uniform(prng.key(1), (2 ** 32,), torch.float32, cuda)
+
+
+def test_seeded_decodes_draw_on_the_card(cuda):
+    """Mel, BatchedMel and LongFormMel with 0 iterations return their starts:
+    drawn by KP on the card (1 launch a call, 1 a shard), equal to the CPU's
+    bit for bit."""
+    from gomel_tpu_torch import LongFormMel, make_mesh
+    from gomel_tpu_torch.ops import prng
+    from gomel_tpu_torch.parallel.batch import BatchedMel
+    mc = MelConfig(num_mels=64, window=320, resolut=1024, mel_fmax=8000.0,
+                   griffin_lim_iterations=0)
+    logmel = np.random.default_rng(31).uniform(
+        -11.0, 2.0, (2, 47, 64, 2)).astype(np.float32)
+    cpu = torch.device("cpu")
+    for make, args, launches in (
+            (lambda d: Mel(mc, device=d), (logmel[0],), 1),
+            (lambda d: BatchedMel(mc, device=d), (logmel,), 1),
+            (lambda d: LongFormMel(mc, make_mesh(data=1, frame=4,
+                                                 devices=[d] * 4)),
+             (logmel,), 4)):
+        before = prng.KERNEL.launches
+        on_card = make(cuda).decode(*args, seed=5)
+        assert prng.KERNEL.launches == before + launches
+        assert on_card.device.type == "cuda"
+        assert torch.equal(on_card.cpu(), make(cpu).decode(*args, seed=5))
+
+
+def test_streaming_cuda_vs_whole_and_cpu(cuda):
+    """StreamingPhase and StreamingMel on the card at the CLI widths, 24
+    frames a chunk, pieces of uneven sizes: the encodes within 1e-5 of each
+    frame's peak of Phase / Mel on the whole signal on the card (the mel
+    energies for mel), the decode within 2e-4 of Phase.decode, the CPU
+    stream within the same bounds; KE, KB + KC, KG + KH once a chunk."""
+    from gomel_tpu_torch import StreamingMel, StreamingPhase
+    rng = np.random.default_rng(32)
+    t = np.arange(3 * 48000 + 777) / 48000
+    x = 0.4 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal(t.shape)
+    pieces = np.array_split(x, 11)
+    pc, mc = PhaseConfig.cli_default(), MelConfig.cli_default()
+    sp = StreamingPhase(pc, 24, device=cuda)
+    before = rfft_mag.PLANES_KERNEL.launches
+    chunks = list(sp.encode_iter(pieces))
+    assert rfft_mag.PLANES_KERNEL.launches == before + len(chunks)
+    got = np.concatenate(chunks)
+    want = Phase(pc, device=cuda).encode(x)
+    _frame_peak_close(torch.from_numpy(got), want, 1e-5, (-2, -1))
+    on_cpu = StreamingPhase(pc, 24, device="cpu").encode(x)
+    _frame_peak_close(torch.from_numpy(got), torch.from_numpy(on_cpu), 1e-5,
+                      (-2, -1))
+
+    before = (istft.SYNTH_MASKED_KERNEL.launches, istft.OLA_KERNEL.launches)
+    blocks = list(sp.decode_iter(chunks))
+    assert len(blocks) == got.shape[0] // 24 + 1
+    assert istft.SYNTH_MASKED_KERNEL.launches == before[0] + len(blocks)
+    assert istft.OLA_KERNEL.launches == before[1] + len(blocks)
+    sig = np.concatenate(blocks)
+    ref = Phase(pc, device=cuda).decode(want).cpu().numpy()
+    assert sig.shape == ref.shape
+    assert float(np.abs(sig - ref).max()) <= 2e-4
+    sig_cpu = StreamingPhase(pc, 24, device="cpu").decode(got)
+    assert float(np.abs(sig - sig_cpu).max()) <= 2e-4
+
+    sm = StreamingMel(mc, 24, device=cuda)
+    before = (rfft_mag.KERNEL.launches, mel_ops.KERNEL.launches)
+    m_chunks = list(sm.encode_iter(pieces))
+    assert rfft_mag.KERNEL.launches == before[0] + len(m_chunks)
+    assert mel_ops.KERNEL.launches == before[1] + len(m_chunks)
+    mel = torch.from_numpy(np.concatenate(m_chunks))
+    _frame_peak_close(mel.exp(), Mel(mc, device=cuda).encode(x).exp(), 1e-5,
+                      (-2, -1))
+    _frame_peak_close(mel.exp(), torch.from_numpy(
+        StreamingMel(mc, 24, device="cpu").encode(x)).exp(), 1e-5, (-2, -1))

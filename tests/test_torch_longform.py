@@ -304,16 +304,15 @@ def test_sharded_griffin_lim_interior_mm_not_ported(meshes):
             21, 8194, 2048, 4), 2, interior_mm=True)
 
 
-def test_sharded_mel_decode_interior_mm_vs_jax(meshes, monkeypatch):
-    """sharded_mel_decode_fn(interior_mm=True) with the JAX program's
-    per-shard starts fed in: within 1e-3 of it."""
+def test_sharded_mel_decode_interior_mm_vs_jax(meshes):
+    """sharded_mel_decode_fn(interior_mm=True) from the same seed, so the
+    JAX program's per-shard starts: within 1e-3 of it."""
     jm, tm = meshes
     jplan, plan = _plans(21)
     rng = np.random.default_rng(18)
     logmel = (rng.standard_normal((2, plan.n_frames_padded, 24, 2)) - 3.0
               ).astype(np.float32)
     inv = Mel(MelConfig(num_mels=24, **CFG), device="cpu").inv_weights.numpy()
-    _feed_jax_starts(monkeypatch, jm)
     want = np.asarray(jsh.sharded_mel_decode_fn(jm, jplan, inv, 2,
                                                 interior_mm=True)(
         jnp.asarray(logmel), jax.random.PRNGKey(5)))
@@ -350,16 +349,15 @@ def test_sharded_encodes_fft_backend_vs_jax(meshes, name):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_sharded_mel_decode_vs_jax_from_jax_starts(meshes, monkeypatch):
-    """sharded_mel_decode_fn with the JAX program's per-shard starts fed in:
-    within 1e-3 of it."""
+def test_sharded_mel_decode_vs_jax_from_jax_starts(meshes):
+    """sharded_mel_decode_fn from the same seed, so the JAX program's
+    per-shard starts (the port draws them itself): within 1e-3 of it."""
     jm, tm = meshes
     jplan, plan = _plans(21)
     rng = np.random.default_rng(8)
     logmel = (rng.standard_normal((2, plan.n_frames_padded, 24, 2)) - 3.0
               ).astype(np.float32)
     inv = Mel(MelConfig(num_mels=24, **CFG), device="cpu").inv_weights.numpy()
-    _feed_jax_starts(monkeypatch, jm)
     want = np.asarray(jsh.sharded_mel_decode_fn(jm, jplan, inv, 2)(
         jnp.asarray(logmel), jax.random.PRNGKey(5)))
     got = tsh.sharded_mel_decode_fn(tm, plan, inv, 2)(
@@ -367,25 +365,36 @@ def test_sharded_mel_decode_vs_jax_from_jax_starts(meshes, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
 
 
-def _feed_jax_starts(monkeypatch, jm):
-    """Make the port's per-shard Griffin-Lim starts the JAX program's:
-    shard i's [b_loc, chunk] block of sharded_gl_noise_fn(PRNGKey(seed))."""
-    cache = {}
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_shard_starts_are_the_jax_draw(meshes, dtype):
+    """sharded_gl_noise_fn(seed) equals the JAX program's
+    sharded_gl_noise_fn(PRNGKey(seed)) on the same mesh shape bit for bit:
+    shard (d, f) draws [b_loc, chunk] from fold_in(key, d * n_frame + f)."""
+    jm, tm = meshes
+    jplan, plan = _plans(21)
+    jd = jnp.float64 if dtype == torch.float64 else jnp.float32
+    for seed, batch in ((5, 2), (-1, 4), (2 ** 32 + 3, 2)):
+        want = np.asarray(jsh.sharded_gl_noise_fn(jm, jplan, batch, jd)(
+            jax.random.PRNGKey(seed)))
+        got = tsh.sharded_gl_noise_fn(tm, plan, batch, dtype)(seed).gather()
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got.numpy(), want)
 
-    def draw(seed, plan, b_loc, dtype, shard_id):
-        key = (seed, plan, b_loc)
-        if key not in cache:
-            jplan = jsh.plan_frame_sharding(plan.n_frames, plan.frame_len,
-                                            plan.hop, plan.n_shards)
-            cache[key] = np.asarray(jsh.sharded_gl_noise_fn(
-                jm, jplan, b_loc * jm.shape["data"])(
-                    jax.random.PRNGKey(seed)))
-        d, f = divmod(shard_id, plan.n_shards)
-        block = cache[key][d * b_loc:(d + 1) * b_loc,
-                           f * plan.chunk:(f + 1) * plan.chunk]
-        return torch.from_numpy(np.array(block)).to(dtype)
 
-    monkeypatch.setattr(tsh, "_shard_noise", draw)
+def test_longform_mel_zero_iterations_is_the_jax_start(meshes):
+    """With 0 iterations LongFormMel.decode returns the per-shard starts:
+    the JAX package's for the same seed on the same mesh shape, bit for
+    bit, and decode_resumable's too."""
+    jm, tm = meshes
+    cfg = dict(num_mels=24, griffin_lim_iterations=0, **CFG)
+    jl = jlf.LongFormMel(JMelConfig(**cfg), jm)
+    tl = LongFormMel(MelConfig(**cfg), tm)
+    logmel = np.random.default_rng(21).uniform(
+        -11.0, 2.0, (3, 21, 24, 2)).astype(np.float32)
+    want = np.asarray(jl.decode(logmel, seed=6))
+    np.testing.assert_array_equal(tl.decode(logmel, seed=6).numpy(), want)
+    np.testing.assert_array_equal(
+        tl.decode_resumable(logmel, seed=6).numpy(), want)
 
 
 # -- the pipelines ---------------------------------------------------------
@@ -412,9 +421,9 @@ def test_longform_phase_roundtrip_vs_jax(meshes):
                                tl.decode(want).numpy(), atol=1e-6)
 
 
-def test_longform_mel_vs_jax(meshes, monkeypatch):
-    """LongFormMel encode within 1e-4; decode from the JAX program's starts
-    within 1e-3; an odd batch pads to the data axis and is trimmed."""
+def test_longform_mel_vs_jax(meshes):
+    """LongFormMel encode within 1e-4; decode from the same seed within
+    1e-3; an odd batch pads to the data axis and is trimmed."""
     jm, tm = meshes
     cfg = dict(num_mels=24, griffin_lim_iterations=2, **CFG)
     jl = jlf.LongFormMel(JMelConfig(**cfg), jm)
@@ -424,7 +433,6 @@ def test_longform_mel_vs_jax(meshes, monkeypatch):
     want = np.asarray(jl.encode(x))
     got = tl.encode(x).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    _feed_jax_starts(monkeypatch, jm)
     np.testing.assert_allclose(tl.decode(want, seed=2).numpy(),
                                np.asarray(jl.decode(want, seed=2)),
                                rtol=1e-3, atol=1e-3)
@@ -577,11 +585,10 @@ def cfg_y(cfg):
 
 @pytest.mark.parametrize("kind", ["wav", "flac"])
 @pytest.mark.parametrize("device_quantize", [True, False])
-def test_longform_mel_files_vs_jax(meshes, tmp_path, monkeypatch, kind,
-                                   device_quantize):
+def test_longform_mel_files_vs_jax(meshes, tmp_path, kind, device_quantize):
     """to_mel_wav / to_mel_flac PNGs within 1 step at < 2e-3 with equal
     metadata; to_wav_png of the JAX package's PNG (boost 1.0, GL-2) from
-    the JAX program's starts within 2 LSB at < 5e-2 differing (the JAX
+    the same seed within 2 LSB at < 5e-2 differing (the JAX
     package's float32 Griffin-Lim bound, tests/test_device_quantize_mel.py)."""
     jm, tm = meshes
     cfg = dict(num_mels=24, griffin_lim_iterations=2, volume_boost=1.0, **CFG)
@@ -595,7 +602,6 @@ def test_longform_mel_files_vs_jax(meshes, tmp_path, monkeypatch, kind,
     getattr(tl, enc)(audio, b)
     y = MelConfig(**cfg).y_reverse
     _png_near(a, b, lambda p: jimg.load_mel_image_raw(p, y))
-    _feed_jax_starts(monkeypatch, jm)
     wa, wb = str(tmp_path / "j.wav"), str(tmp_path / "t.wav")
     assert jl.to_wav_png(a, wa, seed=3) == tl.to_wav_png(a, wb, seed=3)
     _wav_near(wa, wb, 2)

@@ -3,10 +3,10 @@ PCM-16, ``towav``) against the JAX package, on the CPU.
 
 Seeded numpy inputs go through gomel_tpu's ops, Mel and towav and through
 gomel_tpu_torch's (which runs the kernels' plain versions on CPU tensors).
-The JAX PRNG cannot be reproduced, so Griffin-Lim starts from a given
-``init``, or the port's ``random_init`` is replaced by the JAX package's
-``jax.random.uniform(PRNGKey(seed), ...)`` draw. Tolerances are stated at
-each comparison.
+Griffin-Lim starts from a given ``init``, or from a seed: the port draws the
+JAX package's ``jax.random.uniform(PRNGKey(seed), ...)`` samples itself
+(ops/prng.py), so the seeded decodes are held against each other directly.
+Tolerances are stated at each comparison.
 """
 import os
 
@@ -30,6 +30,7 @@ from gomel_tpu_torch.cli import tools as ttools
 from gomel_tpu_torch.core.filterbank import inverse_mel_weights
 from gomel_tpu_torch.ops import griffinlim as tgl
 from gomel_tpu_torch.ops import mel_ops as tmel
+from gomel_tpu_torch.ops import prng
 from gomel_tpu_torch.ops import quantize as tq
 
 from test_mel import oracle_griffin_lim
@@ -57,18 +58,6 @@ def _logmel(frames, seed, cfg=CFG):
     """Log-mel values over the range a real file spans (about -11.5 to 3)."""
     rng = np.random.default_rng(seed)
     return rng.uniform(-11.5, 3.0, size=(frames, cfg.num_mels, 2))
-
-
-@pytest.fixture
-def jax_init(monkeypatch):
-    """Make the port draw the JAX package's initial signal for a seed."""
-    def use(seed):
-        def draw(shape, generator, dtype):
-            jd = jnp.float64 if dtype == torch.float64 else jnp.float32
-            return torch.from_numpy(np.array(
-                jax.random.uniform(jax.random.PRNGKey(seed), shape, jd)))
-        monkeypatch.setattr(tgl, "random_init", draw)
-    return use
 
 
 @pytest.fixture(scope="module")
@@ -338,17 +327,30 @@ def test_mel_decode_takes_batch_dims():
         one = tmel.mel_decode(logmel[r], CFG.resolut, CFG.window, inv, 2,
                               init=init[r], momentum=0.99)
         torch.testing.assert_close(both[r], one, rtol=0, atol=1e-12)
-    g = torch.Generator().manual_seed(5)
-    a = tmel.mel_decode(logmel, CFG.resolut, CFG.window, inv, 1, generator=g)
+    # one key draws over the whole [2, out_len]; a key per row draws each
+    # row from its own
+    a = tmel.mel_decode(logmel, CFG.resolut, CFG.window, inv, 1,
+                        key=prng.key(5))
     b = tmel.mel_decode(logmel, CFG.resolut, CFG.window, inv, 1,
-                        generator=torch.Generator().manual_seed(5))
+                        init=prng.uniform(prng.key(5), (2, out_len),
+                                          torch.float64))
     assert a.shape == (2, out_len) and torch.equal(a, b)
+    keys = prng.split_rows(prng.key(5), 2)
+    rows = tmel.mel_decode(logmel, CFG.resolut, CFG.window, inv, 1, key=keys)
+    for r in range(2):
+        one = tmel.mel_decode(logmel[r], CFG.resolut, CFG.window, inv, 1,
+                              key=keys[r])
+        torch.testing.assert_close(rows[r], one, rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="row keys"):
+        tmel.mel_decode(logmel, CFG.resolut, CFG.window, inv, 1,
+                        key=prng.split_rows(prng.key(5), 3))
+    with pytest.raises(ValueError, match="key"):
+        tmel.mel_decode(logmel, CFG.resolut, CFG.window, inv, 1)
 
 
 # -- Mel and the CLI -------------------------------------------------------------
 
-def test_decode_and_from_mel_f64_match_jax(jax_init):
-    jax_init(4)
+def test_decode_and_from_mel_f64_match_jax():
     x = _audio(0.5, seed=16)
     jm = JMel(JMelConfig.cli_default(), dtype=jnp.float64)
     tm = Mel(CFG, dtype=torch.float64, device="cpu")
@@ -361,6 +363,31 @@ def test_decode_and_from_mel_f64_match_jax(jax_init):
     ref_m = np.asarray(jm.decode(spec, seed=4, momentum=0.99))
     out_m = tm.decode(spec, seed=4, momentum=0.99)
     np.testing.assert_allclose(out_m.numpy(), ref_m, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seed", [0, 7, -3, 2 ** 32 + 3])
+def test_mel_zero_iterations_is_the_jax_start(dtype, seed):
+    """With 0 iterations the decode returns the start (mel/mel.go:85): the
+    port's equals the JAX package's for the same seed bit for bit, from
+    ``decode`` and through the PCM-16 file path's conversion."""
+    jd = jnp.float64 if dtype == torch.float64 else jnp.float32
+    spec = _logmel(3, 17)
+    jm = JMel(JMelConfig.cli_default(griffin_lim_iterations=0), dtype=jd)
+    tm = Mel(MelConfig.cli_default(griffin_lim_iterations=0), dtype=dtype,
+             device="cpu")
+    ref = np.asarray(jm.decode(spec, seed=seed))
+    out = tm.decode(spec, seed=seed)
+    assert out.dtype == dtype and ref.dtype == np.dtype(
+        "float64" if dtype == torch.float64 else "float32")
+    np.testing.assert_array_equal(out.numpy(), ref)
+    planes = np.zeros((CFG.num_mels, 3, 2), np.uint8)
+    pcm, finite = tm.decode_quantized_pcm16(planes, 1.0, -1.0, seed=seed)
+    start = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed),
+                                          ref.shape, jnp.float32))
+    assert bool(finite)
+    np.testing.assert_array_equal(
+        pcm.numpy(), np.asarray(jq.pcm16_encode(jnp.asarray(start))[0]))
 
 
 def test_from_numpy_carries_inverse_weights():
@@ -378,12 +405,10 @@ def test_from_numpy_carries_inverse_weights():
 
 @pytest.mark.parametrize("device_quantize,momentum", [
     (True, 0.0), (False, 0.0), (True, 0.99)])
-def test_to_wav_png_matches_jax(pngs, tmp_path, jax_init, device_quantize,
-                                momentum):
-    """The same PNG through both Mel.to_wav_png from the same initial signal,
-    float32 on both sides: at most 2 LSB at a differing-sample rate < 5e-2
-    (the bound of tests/test_device_quantize_mel.py:110-113)."""
-    jax_init(7)
+def test_to_wav_png_matches_jax(pngs, tmp_path, device_quantize, momentum):
+    """The same PNG through both Mel.to_wav_png from the same seed, float32
+    on both sides: at most 2 LSB at a differing-sample rate < 5e-2 (the
+    bound of tests/test_device_quantize_mel.py:110-113)."""
     png = pngs["--device-quantize" if device_quantize else "--host-quantize"]
     cfg = dict(volume_boost=1.5)
     a, b = str(tmp_path / "jax.wav"), str(tmp_path / "port.wav")
@@ -398,8 +423,7 @@ def test_to_wav_png_matches_jax(pngs, tmp_path, jax_init, device_quantize,
 
 
 @pytest.mark.parametrize("mode", ["--device-quantize", "--host-quantize"])
-def test_towav_cli_matches_jax(pngs, tmp_path, jax_init, mode):
-    jax_init(3)
+def test_towav_cli_matches_jax(pngs, tmp_path, mode):
     a, b = str(tmp_path / "jax.wav"), str(tmp_path / "port.wav")
     assert jtools.towav([pngs[mode], "44100", "-o", a, "--seed", "3", mode]) == 0
     assert ttools.main(["towav", pngs[mode], "44100", "-o", b, "--seed", "3",
