@@ -35,7 +35,10 @@ phase 2g holds it bit for bit against its plain version at the bench shape
 ragged sizes, and against the known answers; towav, batch-towav and
 LongFormMel.to_wav_png count its launches; phase 3g streams the 30-minute
 signal in one-second pieces through StreamingPhase and StreamingMel (512
-frames a chunk) against Phase and Mel on the whole signal.
+frames a chunk) against Phase and Mel on the whole signal. KB and KE run a
+register-resident FFT at every power-of-two n/2: phase 2 holds them at every
+such n from 4 to 16384, on the scalar-load route, at KE's bin ranges and for
+bench frames computed alone against the batch (fwd_core_checks).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -794,6 +797,81 @@ def fft_size_checks(dev: torch.device, x: torch.Tensor, n: int, hop: int,
             plain=lambda: griffinlim.gl_project_plain(sig, mag, win, n, hop),
             library=lambda: torch.fft.irfft(spec_c, n=n)),
     }
+
+
+def fwd_core_checks(dev: torch.device, x: torch.Tensor, win: torch.Tensor,
+                    n_fft: int, hop: int, nf: int) -> None:
+    """Phase 2, KB and KE's register-resident core at the card tests'
+    shapes: every power-of-two n from 4 to 16384 (3 rows, a frame count no
+    multiple of the frames a block) within 1e-5 of each frame's peak of
+    float64; the scalar-load route (hop 1279; a row length 3 past a
+    multiple of 4; a base 4 bytes off 16) bit-equal to the float4 route on
+    the same frames laid out one after another; KE's first/count at bin 0,
+    the Nyquist bin and every bin; bench frames computed alone bit-equal to
+    themselves inside the 2 x 1122-frame batch."""
+    from gomel_tpu_torch.ops import rfft_mag
+    from gomel_tpu_torch.ops.stft import frame_signal, hann_window
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    worst = 0.0
+    for n in (4 << i for i in range(13)):
+        plan = rfft_mag.fwd_plan(n)
+        h = max(1, n // 4)
+        frames = 2 * plan.frames_per_block + 3
+        xs = torch.randn((3, n + (frames - 1) * h + 1), generator=g,
+                         device=dev)
+        w = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
+        x64, w64 = xs.double(), w.double()
+        full = rfft_mag.stft_planes_plain(x64, w64, n, h, 0, n // 2 + 1)
+        peak = full.abs().amax(dim=(-2, -1), keepdim=True)
+        checks = [(rfft_mag.stft_mag(xs, w, n, h),
+                   rfft_mag.stft_mag_plain(x64, w64, n, h))]
+        for first, count in ((1, n // 2), (0, 1), (n // 2, 1),
+                             (0, n // 2 + 1)):
+            checks.append((rfft_mag.stft_planes(xs, w, n, h, first, count),
+                           full[..., first:first + count, :]))
+        for got, want in checks:
+            p = peak if got.dim() == 4 else want.amax(dim=-1, keepdim=True)
+            rel = float(((got.double() - want).abs() / p).max())
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                raise AssertionError(f"register core n {n}: {rel:.3e} of the "
+                                     f"frame peak > 1e-5")
+    routes = 0
+    for h, extra in ((1279, 0), (1280, 3)):
+        xs = torch.randn((2, n_fft + 6 * h + extra), generator=g, device=dev)
+        laid = frame_signal(xs, n_fft, h).contiguous().reshape(2, -1)
+        off = torch.cat([torch.zeros(1, device=dev), laid.reshape(-1)])[1:]
+        same = (torch.equal(rfft_mag.stft_mag(xs, win, n_fft, h),
+                            rfft_mag.stft_mag(laid, win, n_fft, n_fft))
+                and torch.equal(
+                    rfft_mag.stft_planes(xs, win, n_fft, h, 1, nf),
+                    rfft_mag.stft_planes(laid, win, n_fft, n_fft, 1, nf))
+                and torch.equal(rfft_mag.stft_mag(off, win, n_fft, n_fft),
+                                rfft_mag.stft_mag(laid.reshape(-1), win,
+                                                  n_fft, n_fft)))
+        if not same:
+            raise AssertionError(f"register core: the scalar route (hop {h}, "
+                                 f"row + {extra}) differs from the float4 "
+                                 f"route")
+        routes += 1
+    mags = rfft_mag.stft_mag(x, win, n_fft, hop)
+    pairs = rfft_mag.stft_planes(x, win, n_fft, hop, 1, nf)
+    frames = mags.shape[1]
+    for b, f in ((0, 0), (1, 700), (1, frames - 1)):
+        one = x[b, f * hop:f * hop + n_fft].contiguous()
+        if not (torch.equal(rfft_mag.stft_mag(one, win, n_fft, hop)[0],
+                            mags[b, f])
+                and torch.equal(rfft_mag.stft_planes(one, win, n_fft, hop, 1,
+                                                     nf)[0], pairs[b, f])):
+            raise AssertionError(f"register core: frame ({b}, {f}) alone "
+                                 f"differs from it in the batch")
+    torch.cuda.synchronize()
+    log(f"KB/KE register core: n 4..16384 (3 rows, frames past a block "
+        f"multiple; KE bins 1..n/2, 0, n/2 and all) worst {worst:.3e} of the "
+        f"frame peak vs float64 (bound 1e-5); scalar route bit-equal to "
+        f"float4 route ({routes} shapes + a 4-byte offset base); 3 bench "
+        f"frames alone bit-equal to the {mags.shape[0] * frames}-frame batch")
 
 
 def spectral_convergence_t(sig: torch.Tensor, target: torch.Tensor,
@@ -1839,6 +1917,7 @@ def main() -> int:
         f"of frame peak")
     if not bool((d_e <= 1e-5 * peak).all()):
         raise AssertionError("phase_encode error > 1e-5 of the frame peak")
+    fwd_core_checks(dev, x, win, n_fft, hop, nf)
 
     img_p, mx_p, mn_p = quantize.quantize_planes_batch(spec_ref, 255, 0)
     ref_p = quantize.quantize_planes_plain(spec_ref, 255, 0)

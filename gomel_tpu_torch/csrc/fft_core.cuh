@@ -1,9 +1,15 @@
-// The float32 FFT body shared by the frame kernels KB (rfft_mag.cu), KE
-// (phase_encode.cu) and KG (phase_decode.cu).
+// The float32 FFT bodies of the frame kernels KB (rfft_mag.cu), KE
+// (phase_encode.cu), KG (phase_decode.cu) and KJ (griffinlim.cu).
 //
-// An n-point real transform runs as an m = n/2 point complex transform in one
-// thread block's shared memory (complex_fft: radix-2 Stockham when m is a
-// power of two, mixed radix over m's prime factors otherwise):
+// Two cores. KB and KE run the register-resident forward core at the end of
+// this file (fwd_frame_pow2) whenever m = n/2 is a power of two from 2 to
+// 8192; KG and KJ, and KB/KE at the other sizes, run the shared-memory core
+// below.
+//
+// The shared-memory core: an n-point real transform runs as an m = n/2
+// point complex transform in one thread block's shared memory (complex_fft:
+// radix-2 Stockham when m is a power of two, mixed radix over m's prime
+// factors otherwise):
 //   - forward: the n real samples, read as m complex values
 //     z[k] = x[2k] + i x[2k+1], go through complex_fft<false>; real_split_bin
 //     then forms the rfft bins
@@ -17,6 +23,8 @@
 //
 // All arithmetic is float32 on the CUDA cores: no tensor cores, no TF32.
 #pragma once
+
+#include <utility>
 
 #include "common.cuh"
 
@@ -256,4 +264,364 @@ __device__ __forceinline__ float2 inverse_split_bin(float2 p, float2 q,
   const float di = p.y + q.y;
   // conj(w) (dr + i di) = (w.x dr + w.y di) + i (w.x di - w.y dr); times i
   return make_float2(ar - (w.x * di - w.y * dr), ai + (w.x * dr + w.y * di));
+}
+
+// ---------------------------------------------------------------------------
+// The register-resident forward core: KB and KE at every power-of-two m.
+//
+// What bounds a frame FFT on Hopper is neither the float32 rate nor device
+// memory but shared-memory traffic and the latency of each step between
+// block-wide barriers: the radix-2 core above moves every point through
+// shared memory log2 m times, one barrier each. Here each thread holds
+// kRegPoints = 16 complex points in registers and does whole radix-R
+// sub-transforms (R = 2..16) there, so m = 2048 = 8 x 16 x 16 takes 3
+// passes and 2 exchanges through shared memory.
+//   - Plan (FwdPlan, a kernel for each m; the wrapper passes the same plan,
+//     ops/rfft_mag.fwd_plan, and launch_pow2_frames checks that it does):
+//     T = m/16 threads a frame (1 below m = 16), 128/T frames
+//     a block while T < 128; radix 8, then 16s, then what is left (m <= 8:
+//     one pass of radix m). `radices` packs log2 of each radix, 4 bits a
+//     pass, the first pass in the low bits.
+//   - The first pass reads the frame straight from the signal into
+//     registers. A thread takes butterflies 2 th and 2 th + 1, so each load
+//     is one 16-byte float4 (two complex points) of signal and one of window
+//     when the frame's address allows it (vec), else four scalar loads of
+//     the same values; the window multiplies in registers.
+//   - A Stockham pass (ns = product of the earlier radices, radix R):
+//     butterfly j takes a[j + t m/R] (t < R) times exp(-2 pi i t k / (ns R)),
+//     k = j mod ns, and writes its R-point DFT to a[(j - k) R + k + s ns].
+//     Its twiddles come from a per-pass table the host computes in float64
+//     and rounds to float32, t-major so a warp's loads coalesce (never from
+//     sincosf); they are loaded before the pass's shared-memory reads, so
+//     their latency hides behind the reads and the barrier. Inside a thread
+//     the DFT is radix-2 decimation in frequency with the 16th roots as
+//     exact constants.
+//   - One shared buffer a frame: m float2 (16 KB at n = 4096), point i at
+//     swz(i), an XOR swizzle under which every pass's 8-byte accesses hit 16
+//     distinct bank pairs in each half-warp for m >= 512. A pass reads its
+//     points, meets a barrier, computes, then writes in place and meets a
+//     second barrier.
+//   - The last pass leaves Z in natural order for the kernel's epilogue,
+//     which takes the bins in pairs (split_pair: k and m - k from one read
+//     of Z[k], Z[m - k] and tw[k]).
+// A frame's result depends only on its samples, the window and m: not on the
+// load route, the frame's slot in its block or the grid. kInverse conjugates
+// every root (an unscaled inverse transform), for the inverse kernels.
+
+constexpr int kRegPoints = 16;     // complex points a thread holds
+constexpr int kBlockThreads = 128;  // a block's threads while a frame takes fewer
+
+__host__ __device__ constexpr int log2_of(int v) {
+  int r = 0;
+  while ((1 << r) < v) ++r;
+  return r;
+}
+
+// The plan for m = 2^kLogM, as ops/rfft_mag.fwd_plan computes it.
+template <int kLogM>
+struct FwdPlan {
+  static constexpr int m = 1 << kLogM;
+  static constexpr int points = m < kRegPoints ? m : kRegPoints;
+  static constexpr int threads = m / points;  // a frame
+  static constexpr int frames_per_block =
+      threads < kBlockThreads ? kBlockThreads / threads : 1;
+  // log2 of pass p's radix, 0 past the last pass
+  __host__ __device__ static constexpr int pass_log(int p) {
+    if (m < kRegPoints) return p == 0 ? kLogM : 0;
+    constexpr int lp = log2_of(kRegPoints);
+    const int q = kLogM - (lp - 1);
+    if (p == 0) return lp - 1;
+    if (p <= q / lp) return lp;
+    return p == q / lp + 1 ? q % lp : 0;
+  }
+  // the kernels' `radices` argument: pass_log of each pass, 4 bits a pass
+  __host__ __device__ static constexpr int code() {
+    int c = 0;
+    for (int p = 0; p < 4; ++p) c |= pass_log(p) << (4 * p);
+    return c;
+  }
+};
+
+// The float2 slot of complex point i in a frame's buffer. swz is linear over
+// XOR, so for a point a + c whose compile-time part c shares no bit with a,
+// slot(a + c) = swz(a) ^ swz(c) (at, below).
+__host__ __device__ constexpr int swz(int i) { return i ^ ((i >> 4) & 15); }
+
+// The buffer entry of point a + c, given sa = swz(a), for a c with no bit in
+// common with a: swz(a) ^ swz(c). With c known at compile time (an unrolled
+// loop's index) its bits above 3 become an immediate offset of the access
+// and the rest a low-bit XOR.
+__device__ __forceinline__ float2& at(float2* z, int sa, int c) {
+  const int sc = swz(c);
+  return z[(sa ^ (sc & 15)) + (sc & ~15)];
+}
+
+// cos and sin of 2 pi e / 16 for 0 < e < 8, e != 4 (the roots a radix-16
+// decimation-in-frequency DFT multiplies by), as float literals.
+__device__ __forceinline__ float cos16(int e) {
+  switch (e) {
+    case 1: return 0.923879532511286756f;
+    case 2: return 0.707106781186547524f;
+    case 3: return 0.382683432365089772f;
+    case 5: return -0.382683432365089772f;
+    case 6: return -0.707106781186547524f;
+    default: return -0.923879532511286756f;  // e = 7
+  }
+}
+
+__device__ __forceinline__ float sin16(int e) {
+  switch (e) {
+    case 1: case 7: return 0.382683432365089772f;
+    case 2: case 6: return 0.707106781186547524f;
+    default: return 0.923879532511286756f;  // e = 3, 5
+  }
+}
+
+// z * exp(-2 pi i e / 16) (kInverse: exp(+2 pi i e / 16)), 0 <= e < 8.
+template <bool kInverse>
+__device__ __forceinline__ float2 rot16(float2 z, int e) {
+  if (e == 0) return z;
+  if (e == 4) return kInverse ? make_float2(-z.y, z.x) : make_float2(z.y, -z.x);
+  const float c = cos16(e);
+  const float s = kInverse ? sin16(e) : -sin16(e);
+  return make_float2(z.x * c - z.y * s, z.x * s + z.y * c);
+}
+
+// One radix-2 decimation-in-frequency stage over blocks of 2 kHalf, then
+// the stages below it.
+template <int R, int kHalf, bool kInverse>
+__device__ __forceinline__ void dif_stages(float2* v) {
+#pragma unroll
+  for (int g = 0; g < R; g += 2 * kHalf) {
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const float2 a = v[g + i];
+      const float2 b = v[g + i + kHalf];
+      v[g + i] = make_float2(a.x + b.x, a.y + b.y);
+      v[g + i + kHalf] = rot16<kInverse>(make_float2(a.x - b.x, a.y - b.y),
+                                         i * (8 / kHalf));
+    }
+  }
+  if constexpr (kHalf > 1) dif_stages<R, kHalf / 2, kInverse>(v);
+}
+
+// R-point DFT of v[0..R) in registers, radix-2 decimation in frequency:
+// X[s] ends in v[bitrev<R>(s)].
+template <int R, bool kInverse>
+__device__ __forceinline__ void dft_regs(float2* v) {
+  dif_stages<R, R / 2, kInverse>(v);
+}
+
+template <int R>
+__host__ __device__ constexpr int bitrev(int s) {
+  int r = 0;
+  for (int b = 1; b < R; b <<= 1) {
+    r = (r << 1) | (s & 1);
+    s >>= 1;
+  }
+  return r;
+}
+
+// Write a butterfly's DFT (v as dft_regs leaves it) to points a + s kNs,
+// sa = swz(a).
+template <int R, int kNs>
+__device__ __forceinline__ void store_dft(float2* z, const float2* v, int sa) {
+#pragma unroll
+  for (int s = 0; s < R; ++s) at(z, sa, s * kNs) = v[bitrev<R>(s)];
+}
+
+// Samples off..off+3 of a frame times the window (if any): two complex
+// points. The vector and scalar routes load the same values.
+__device__ __forceinline__ float4 load_pair(const float* __restrict__ src,
+                                            const float* __restrict__ window,
+                                            int off, bool vec) {
+  float4 x, w;
+  if (vec) {
+    x = __ldg(reinterpret_cast<const float4*>(src + off));
+  } else {
+    x = make_float4(__ldg(src + off), __ldg(src + off + 1),
+                    __ldg(src + off + 2), __ldg(src + off + 3));
+  }
+  if (window == nullptr) return x;
+  if (vec) {
+    w = __ldg(reinterpret_cast<const float4*>(window + off));
+  } else {
+    w = make_float4(__ldg(window + off), __ldg(window + off + 1),
+                    __ldg(window + off + 2), __ldg(window + off + 3));
+  }
+  return make_float4(x.x * w.x, x.y * w.y, x.z * w.z, x.w * w.w);
+}
+
+// The first pass (ns = 1, no twiddles), from the signal: B = 2 butterflies
+// 2 th and 2 th + 1, whose point t is the float4 at z[2 th + t m/R]; or
+// B = 1 (the only pass, R = m), whose points 2c and 2c + 1 are the float4 at
+// z[2c]. A slot past the last frame (valid false) loads nothing.
+template <int R, int B, int M, bool kInverse>
+__device__ __forceinline__ void first_pass(float2* z,
+                                           const float* __restrict__ src,
+                                           const float* __restrict__ window,
+                                           bool vec, bool valid, int th) {
+  float2 v[R * B];
+#pragma unroll
+  for (int c = 0; c < R * B / 2; ++c) {
+    const int off = B == 2 ? 4 * th + 2 * c * (M / R) : 4 * c;
+    const float4 q = valid ? load_pair(src, window, off, vec)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (B == 2) {
+      v[c] = make_float2(q.x, q.y);
+      v[R + c] = make_float2(q.z, q.w);
+    } else {
+      v[2 * c] = make_float2(q.x, q.y);
+      v[2 * c + 1] = make_float2(q.z, q.w);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    dft_regs<R, kInverse>(&v[u * R]);
+    store_dft<R, 1>(z, &v[u * R], swz((B * th + u) * R));
+  }
+  __syncthreads();
+}
+
+// A later pass of radix R after passes of product kNs, for m = M with T
+// threads a frame: butterflies th + u T, u < 16/R. twp: this pass's table,
+// twp[(t - 1) kNs + k] = exp(-2 pi i t k / (kNs R)).
+template <int R, int M, int kNs, int T, bool kInverse>
+__device__ __forceinline__ void reg_pass(float2* z,
+                                         const float2* __restrict__ twp,
+                                         int th) {
+  constexpr int B = kRegPoints / R;
+  constexpr int kStride = M / R;
+  float2 w[B][R];  // w[u][0] unused
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int k = (th + u * T) & (kNs - 1);
+#pragma unroll
+    for (int t = 1; t < R; ++t) {
+      w[u][t] = __ldg(&twp[(t - 1) * kNs + k]);
+      if (kInverse) w[u][t].y = -w[u][t].y;
+    }
+  }
+  float2 v[kRegPoints];
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int sj = swz(th + u * T);  // j < kStride: no bit of t kStride
+#pragma unroll
+    for (int t = 0; t < R; ++t) v[u * R + t] = at(z, sj, t * kStride);
+  }
+  __syncthreads();  // every point read before any is overwritten
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int j = th + u * T;
+    const int k = j & (kNs - 1);
+#pragma unroll
+    for (int t = 1; t < R; ++t) {
+      const float2 a = v[u * R + t];
+      const float2 c = w[u][t];
+      v[u * R + t] = make_float2(a.x * c.x - a.y * c.y, a.x * c.y + a.y * c.x);
+    }
+    dft_regs<R, kInverse>(&v[u * R]);
+    // (j - k) R + k has no bit in s kNs's range
+    store_dft<R, kNs>(z, &v[u * R], swz((j - k) * R + k));
+  }
+  __syncthreads();
+}
+
+// Passes kPass, kPass + 1, ... of m = 2^kLogM, after passes of product kNs.
+template <int kLogM, int kPass, int kNs, bool kInverse>
+__device__ __forceinline__ void later_passes(float2* z,
+                                             const float2* __restrict__ twp,
+                                             int th) {
+  using Plan = FwdPlan<kLogM>;
+  constexpr int r = Plan::pass_log(kPass);
+  if constexpr (kPass < 4 && r > 0) {
+    reg_pass<1 << r, Plan::m, kNs, Plan::threads, kInverse>(z, twp, th);
+    later_passes<kLogM, kPass + 1, (kNs << r), kInverse>(
+        z, twp + ((1 << r) - 1) * kNs, th);
+  }
+}
+
+// The forward transform of one frame (thread th of its T) into z, Z in
+// natural order. Every thread of the block calls it: it holds the barriers.
+template <int kLogM>
+__device__ __forceinline__ void fwd_frame_pow2(
+    float2* z, const float* __restrict__ src, const float* __restrict__ window,
+    bool vec, bool valid, const float2* __restrict__ twp, int th) {
+  using Plan = FwdPlan<kLogM>;
+  constexpr int r0 = 1 << Plan::pass_log(0);
+  first_pass<r0, (Plan::m >= kRegPoints ? 2 : 1), Plan::m, false>(
+      z, src, window, vec, valid, th);
+  later_passes<kLogM, 1, r0, false>(z, twp, th);
+}
+
+// rfft bins k and m - k (0 < k <= m/2) from Z in a frame's buffer: one read
+// of Z[k], Z[m-k] and tw[k] serves both, since tw[m-k] = -conj tw[k]. With
+// E = (Z[k] + conj Z[m-k]) / 2 and O = -i (Z[k] - conj Z[m-k]) / 2,
+// X[k] = E + tw[k] O and X[m-k] = conj(E - tw[k] O).
+__device__ __forceinline__ void split_pair(const float2* z,
+                                           const float2* __restrict__ tw,
+                                           int k, int m, float2& xk,
+                                           float2& xmk) {
+  const float2 p = z[swz(k)];
+  const float2 q = z[swz(m - k)];
+  const float er = 0.5f * (p.x + q.x);
+  const float ei = 0.5f * (p.y - q.y);
+  const float orr = 0.5f * (p.y + q.y);
+  const float oi = -0.5f * (p.x - q.x);
+  const float2 w = __ldg(&tw[k]);
+  const float a = orr * w.x - oi * w.y;
+  const float b = orr * w.y + oi * w.x;
+  xk = make_float2(er + a, ei + b);
+  xmk = make_float2(er - a, b - ei);
+}
+
+// Whether every frame's first sample, and the window, sit on a 16-byte
+// boundary: the float4 route of first_pass.
+inline bool frames_vec_aligned(const void* x, const void* window,
+                               long long batch_stride, long long hop) {
+  return hop % 4 == 0 && batch_stride % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(window) % 16 == 0;
+}
+
+// f(std::integral_constant<int, L>{}) for m = 2^L, 1 <= L <= 13 (n = 4 ...
+// 16384); cudaErrorInvalidValue for any other m.
+template <typename F, int... Ls>
+int with_log_m(int m, F f, std::integer_sequence<int, Ls...>) {
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  (void)((m == (2 << Ls) ? (rc = f(std::integral_constant<int, Ls + 1>{}), true)
+                         : false) || ...);
+  return rc;
+}
+
+template <typename F>
+int with_log_m(int m, F f) {
+  return with_log_m(m, f, std::make_integer_sequence<int, 13>{});
+}
+
+// Launch the power-of-two frame kernel of m = 2^kLogM: FwdPlan's frames a
+// block, m float2 of dynamic shared memory a frame. The wrapper's plan
+// (radices, threads, frames_per_block: ops/rfft_mag.fwd_plan, whose per-pass
+// twiddle table the kernel reads) must equal FwdPlan's; otherwise nothing
+// launches and cudaErrorInvalidValue returns.
+template <int kLogM, typename Kernel, typename... Args>
+int launch_pow2_frames(Kernel kernel, long long total, int radices,
+                       int threads, int frames_per_block, cudaStream_t stream,
+                       Args... args) {
+  using Plan = FwdPlan<kLogM>;
+  if (radices != Plan::code() || threads != Plan::threads ||
+      frames_per_block != Plan::frames_per_block) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(Plan::frames_per_block) * Plan::m *
+                      sizeof(float2);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const long long blocks =
+      (total + Plan::frames_per_block - 1) / Plan::frames_per_block;
+  kernel<<<static_cast<unsigned>(blocks),
+           Plan::threads * Plan::frames_per_block, smem, stream>>>(args...);
+  return gomel_status();
 }

@@ -39,9 +39,10 @@ _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "gomel_pcm16_ingest": [_P, _P, _I64, _I64, _I64, _I32, _F32, _P, _I32,
                            _I32],
-    "gomel_stft_mag": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64],
-    "gomel_stft_planes": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32,
-                          _I32],
+    "gomel_stft_mag": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                       _I32, _I32, _I32],
+    "gomel_stft_planes": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                          _I32, _I32, _I32, _I32, _I32],
     "gomel_mel_log": [_P, _P, _P, _P, _P, _I64, _I64, _I64],
     "gomel_quantize_mel": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32,
                            _F32],

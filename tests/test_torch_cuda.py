@@ -19,7 +19,7 @@ from gomel_tpu_torch.core.config import PAD_SHIFT_TABLE, MelConfig, PhaseConfig
 from gomel_tpu_torch.core.filterbank import mel_weights
 from gomel_tpu_torch.ops import (fftbackend, istft, mel_ops, phase_ops,
                                  quantize, rfft_mag)
-from gomel_tpu_torch.ops.stft import hann_window
+from gomel_tpu_torch.ops.stft import frame_signal, hann_window
 from gomel_tpu_torch.pipelines.mel import Mel
 from gomel_tpu_torch.pipelines.phase import Phase
 
@@ -87,6 +87,106 @@ def test_stft_mag_vs_plain(cuda, n, hop, lead, length, windowed):
     # float32 FFT against float64: 1e-5 of each frame's peak
     err = (out.cpu().double() - ref).abs()
     assert bool((err <= 1e-5 * ref.amax(dim=-1, keepdim=True)).all())
+
+
+POW2_SIZES = [4 << i for i in range(13)]     # n = 4 ... 16384: the register core
+
+
+def _peak_close(got, want, dims, tol=1e-5):
+    err = (got.cpu().double() - want).abs()
+    peak = want.abs().amax(dim=dims, keepdim=True)
+    assert bool((err <= tol * peak).all()), float((err / peak).max())
+
+
+@pytest.mark.parametrize("n", POW2_SIZES)
+def test_fwd_core_every_pow2_size(cuda, n):
+    """KB and KE run the register-resident core at every power-of-two n/2:
+    3 rows whose frame count is no multiple of the frames a block, within
+    1e-5 of each frame's peak of float64, one launch each."""
+    plan = rfft_mag.fwd_plan(n)
+    hop = max(1, n // 4)
+    frames = 2 * plan.frames_per_block + 3
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal(
+        (3, n + (frames - 1) * hop + 1)).astype(np.float32))
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    assert (3 * frames) % plan.frames_per_block or plan.frames_per_block == 1
+    before = (rfft_mag.KERNEL.launches, rfft_mag.PLANES_KERNEL.launches)
+    mags = rfft_mag.stft_mag(x.to(cuda), win.to(cuda), n, hop)
+    pairs = rfft_mag.stft_planes(x.to(cuda), win.to(cuda), n, hop, 1, n // 2)
+    assert (rfft_mag.KERNEL.launches, rfft_mag.PLANES_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    _peak_close(mags, rfft_mag.stft_mag_plain(x.double(), win.double(), n,
+                                              hop), (-1,))
+    _peak_close(pairs, rfft_mag.stft_planes_plain(x.double(), win.double(), n,
+                                                  hop, 1, n // 2), (-2, -1))
+
+
+@pytest.mark.parametrize("n,hop,lead,extra", [
+    (4096, 1279, (2,), 0),      # hop not a multiple of 4
+    (4096, 1280, (2,), 3),      # row length not a multiple of 4
+    (512, 130, (3,), 1), (64, 6, (), 2), (4, 3, (2,), 1)])
+def test_fwd_core_scalar_route_equals_vector_route(cuda, n, hop, lead, extra):
+    """Frames whose addresses rule out float4 loads (the scalar route) give
+    the bits the float4 route gives for the same frames laid out one after
+    another (hop = n), and so does a signal starting 4 bytes off 16."""
+    rng = np.random.default_rng(n + hop)
+    frames = 7
+    x = torch.from_numpy(rng.standard_normal(
+        lead + (n + (frames - 1) * hop + extra,)).astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    laid = frame_signal(x, n, hop).contiguous().reshape(lead + (-1,))
+    for scalar, vector in (
+            (rfft_mag.stft_mag(x, win, n, hop),
+             rfft_mag.stft_mag(laid, win, n, n)),
+            (rfft_mag.stft_planes(x, win, n, hop, 0, n // 2 + 1),
+             rfft_mag.stft_planes(laid, win, n, n, 0, n // 2 + 1))):
+        assert scalar.shape == vector.shape
+        assert torch.equal(scalar, vector)
+    flat = torch.cat([torch.zeros(1, device=cuda), laid.reshape(-1)])[1:]
+    assert flat.data_ptr() % 16 == 4
+    assert torch.equal(rfft_mag.stft_mag(flat, win, n, n),
+                       rfft_mag.stft_mag(laid.reshape(-1), win, n, n))
+
+
+@pytest.mark.parametrize("n", [4, 16, 512, 4096])
+def test_fwd_core_bin_ranges(cuda, n):
+    """KE's first/count at bin 0, at the Nyquist bin and over every bin,
+    against float64 (1e-5 of each frame's peak of the full spectrum)."""
+    rng = np.random.default_rng(n)
+    hop = max(1, n // 2)
+    x = torch.from_numpy(rng.standard_normal((2, n + 9 * hop)).astype(
+        np.float32))
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    full = rfft_mag.stft_planes_plain(x.double(), win.double(), n, hop, 0,
+                                      n // 2 + 1)
+    peak = full.abs().amax(dim=(-2, -1), keepdim=True)
+    for first, count in ((0, 1), (n // 2, 1), (0, n // 2 + 1),
+                         (max(0, n // 2 - 2), min(3, n // 2 + 1))):
+        got = rfft_mag.stft_planes(x.to(cuda), win.to(cuda), n, hop, first,
+                                   count).cpu().double()
+        want = full[..., first:first + count, :]
+        assert got.shape == want.shape
+        assert bool(((got - want).abs() <= 1e-5 * peak).all())
+    nyq = rfft_mag.stft_planes(x.to(cuda), win.to(cuda), n, hop, n // 2, 1)
+    assert not nyq[..., 0].any()             # Im of the Nyquist bin is 0
+
+
+def test_fwd_core_frame_alone_equals_frame_in_batch(cuda):
+    """A frame computed alone equals, bit for bit, the same frame inside
+    the bench batch of 2 x 1122 = 2244 frames (KB and KE)."""
+    n, hop, frames = 4096, 1280, 1122
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy((rng.standard_normal((2, n + (frames - 1) * hop))
+                          * 0.2).astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    mags = rfft_mag.stft_mag(x, win, n, hop)
+    pairs = rfft_mag.stft_planes(x, win, n, hop, 1, 1536)
+    for b, f in ((0, 0), (1, 700), (1, frames - 1)):
+        one = x[b, f * hop:f * hop + n].contiguous()
+        assert torch.equal(rfft_mag.stft_mag(one, win, n, hop)[0], mags[b, f])
+        assert torch.equal(rfft_mag.stft_planes(one, win, n, hop, 1, 1536)[0],
+                           pairs[b, f])
 
 
 def test_fftbackend_rfft_mag_vs_torch_fft(cuda):
