@@ -38,7 +38,10 @@ signal in one-second pieces through StreamingPhase and StreamingMel (512
 frames a chunk) against Phase and Mel on the whole signal. KB and KE run a
 register-resident FFT at every power-of-two n/2: phase 2 holds them at every
 such n from 4 to 16384, on the scalar-load route, at KE's bin ranges and for
-bench frames computed alone against the batch (fwd_core_checks).
+bench frames computed alone against the batch (fwd_core_checks). KG and KJ
+run the same core's inverse at those sizes: phase 2 holds KG on planes with
+and without the window and with real-frame counts, KJ, and bench frames
+computed alone against the batch (inv_core_checks).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -872,6 +875,78 @@ def fwd_core_checks(dev: torch.device, x: torch.Tensor, win: torch.Tensor,
         f"frame peak vs float64 (bound 1e-5); scalar route bit-equal to "
         f"float4 route ({routes} shapes + a 4-byte offset base); 3 bench "
         f"frames alone bit-equal to the {mags.shape[0] * frames}-frame batch")
+
+
+def inv_core_checks(dev: torch.device, x: torch.Tensor, win: torch.Tensor,
+                    n_fft: int, hop: int) -> None:
+    """Phase 2, KG and KJ's register-resident inverse at the card tests'
+    shapes: every power-of-two n from 4 to 16384 (3 rows, a frame count no
+    multiple of the frames a block), KG on planes with and without the
+    window within 1e-5 of each unwindowed frame's peak of float64, with
+    real-frame counts 0, partial and all (masked frames exact zeros, the
+    rest bit-equal to the unmasked launch), KJ within 1e-4 relative L2 a
+    frame of float64; bench frames computed alone bit-equal to themselves
+    inside the 2 x 1122-frame batch (KG planes, KJ)."""
+    from gomel_tpu_torch.ops import griffinlim, istft, rfft_mag
+    from gomel_tpu_torch.ops.stft import hann_window
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    worst_g = worst_j = 0.0
+    for n in (4 << i for i in range(13)):
+        plan = rfft_mag.fwd_plan(n)
+        frames = 2 * plan.frames_per_block + 3
+        re, im = (torch.randn((3, frames, n // 2 + 1), generator=g,
+                              device=dev) for _ in range(2))
+        w = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
+        ref = istft.irfft_window_plain(re.double(), im.double(), n, None)
+        peak = ref.abs().amax(-1, keepdim=True)
+        for wc in (None, w):
+            out = istft.irfft_window(re, im, n, wc)
+            want = ref if wc is None else ref * wc.double()
+            rel = frame_peak_err(out, want, peak)[0]
+            worst_g = max(worst_g, rel)
+            ok = rel <= 1e-5
+            for real in (0, frames // 2, frames):
+                got = istft.irfft_window(re, im, n, wc, real)
+                ok = ok and torch.equal(got[:, :real], out[:, :real]) and not \
+                    bool(got[:, real:].any())
+            if not ok:
+                raise AssertionError(f"inverse core KG n {n}: {rel:.3e} of the "
+                                     f"frame peak, or a masked launch wrong")
+        h = max(1, n // 4)
+        sig = torch.rand((3, n + (frames - 1) * h), generator=g, device=dev)
+        sig[0, :n] = 0.0
+        mag = torch.rand((3, frames, n // 2 + 1), generator=g, device=dev) * 3
+        rel = rel_l2(griffinlim.gl_project(sig, mag, w, n, h),
+                     griffinlim.gl_project_plain(sig.double(), mag.double(),
+                                                 w.double(), n, h))
+        worst_j = max(worst_j, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"inverse core KJ n {n}: relative L2 "
+                                 f"{rel:.3e} > 1e-4")
+    frames = (x.shape[1] - n_fft) // hop + 1
+    x = x[:, :n_fft + (frames - 1) * hop].contiguous()
+    re, im = (torch.randn((2, frames, n_fft // 2 + 1), generator=g,
+                          device=dev) for _ in range(2))
+    mag = torch.rand((2, frames, n_fft // 2 + 1), generator=g, device=dev)
+    synth = istft.irfft_window(re, im, n_fft, win)
+    proj = griffinlim.gl_project(x, mag, win, n_fft, hop)
+    for b, f in ((0, 0), (1, 700), (1, frames - 1)):
+        one = x[b, f * hop:f * hop + n_fft]
+        if not (torch.equal(istft.irfft_window(re[b, f:f + 1], im[b, f:f + 1],
+                                               n_fft, win)[0], synth[b, f])
+                and torch.equal(griffinlim.gl_project(
+                    one, mag[b, f:f + 1], win, n_fft, hop)[0], proj[b, f])):
+            raise AssertionError(f"inverse core: frame ({b}, {f}) alone "
+                                 f"differs from it in the batch")
+    torch.cuda.synchronize()
+    log(f"KG/KJ register inverse core: n 4..16384 (3 rows, frames past a "
+        f"block multiple; KG planes with and without the window, real frames "
+        f"0, half and all) KG worst {worst_g:.3e} of the frame peak vs "
+        f"float64 (bound 1e-5), KJ worst relative L2 {worst_j:.3e} (bound "
+        f"1e-4); masked frames zero, the rest bit-equal to the unmasked "
+        f"launch; 3 bench frames alone bit-equal to the "
+        f"{2 * frames}-frame batch (KG, KJ)")
 
 
 def spectral_convergence_t(sig: torch.Tensor, target: torch.Tensor,
@@ -1918,6 +1993,7 @@ def main() -> int:
     if not bool((d_e <= 1e-5 * peak).all()):
         raise AssertionError("phase_encode error > 1e-5 of the frame peak")
     fwd_core_checks(dev, x, win, n_fft, hop, nf)
+    inv_core_checks(dev, x, win, n_fft, hop)
 
     img_p, mx_p, mn_p = quantize.quantize_planes_batch(spec_ref, 255, 0)
     ref_p = quantize.quantize_planes_plain(spec_ref, 255, 0)

@@ -1,10 +1,10 @@
 // The float32 FFT bodies of the frame kernels KB (rfft_mag.cu), KE
 // (phase_encode.cu), KG (phase_decode.cu) and KJ (griffinlim.cu).
 //
-// Two cores. KB and KE run the register-resident forward core at the end of
-// this file (fwd_frame_pow2) whenever m = n/2 is a power of two from 2 to
-// 8192; KG and KJ, and KB/KE at the other sizes, run the shared-memory core
-// below.
+// Two cores. Whenever m = n/2 is a power of two from 2 to 8192 the four run
+// the register-resident core at the end of this file: KB and KE its forward
+// transform (fwd_frame_pow2), KG its inverse (inv_frame_pow2), KJ both. At
+// the other sizes they run the shared-memory core below.
 //
 // The shared-memory core: an n-point real transform runs as an m = n/2
 // point complex transform in one thread block's shared memory (complex_fft:
@@ -198,10 +198,10 @@ __device__ __forceinline__ float2* mixed_radix_fft(
   return a;
 }
 
-// The m-point complex FFT of the frame kernels: radix-2 Stockham (kPow2, m a
-// power of two) or mixed radix. Each frame kernel is built in both forms and
-// its entry point launches the one m needs (launch_frames), so the radix-2
-// form keeps its own register count, and with it its occupancy.
+// The m-point complex FFT of the shared-memory frame kernels: mixed radix,
+// which their entry points launch for an m that is not a power of two
+// (launch_frames), or radix-2 Stockham (kPow2), the form the register core
+// replaced, which only tools/profile_fft.py's race still builds.
 template <bool kInverse, bool kPow2>
 __device__ __forceinline__ float2* complex_fft(float2* a, float2* b,
                                                const float2* __restrict__ tw,
@@ -212,9 +212,8 @@ __device__ __forceinline__ float2* complex_fft(float2* a, float2* b,
 
 inline bool is_pow2(int m) { return (m & (m - 1)) == 0; }
 
-// Launch a frame kernel (the form for m: pow2 or mixed radix) with one block
-// a frame, m/2 threads clamped to [32, 256] and smem bytes of dynamic shared
-// memory.
+// Launch a shared-memory frame kernel with one block a frame, m/2 threads
+// clamped to [32, 256] and smem bytes of dynamic shared memory.
 template <typename Kernel, typename... Args>
 void launch_frames(Kernel kernel, long long blocks, int m, size_t smem,
                    cudaStream_t stream, Args... args) {
@@ -333,6 +332,12 @@ struct FwdPlan {
     if (p == 0) return lp - 1;
     if (p <= q / lp) return lp;
     return p == q / lp + 1 ? q % lp : 0;
+  }
+  // the number of passes (at most 4)
+  __host__ __device__ static constexpr int num_passes() {
+    int p = 0;
+    while (p < 4 && pass_log(p) > 0) ++p;
+    return p;
   }
   // the kernels' `radices` argument: pass_log of each pass, 4 bits a pass
   __host__ __device__ static constexpr int code() {
@@ -573,6 +578,133 @@ __device__ __forceinline__ void split_pair(const float2* z,
   const float b = orr * w.y + oi * w.x;
   xk = make_float2(er + a, ei + b);
   xmk = make_float2(er - a, b - ei);
+}
+
+// ---------------------------------------------------------------------------
+// The register-resident inverse core: KG and KJ at every power-of-two m.
+//
+// The same plan (FwdPlan), passes and per-pass twiddle table as the forward
+// core, with every root conjugated (kInverse): an unscaled inverse transform
+// of Z in natural order in the frame's swizzled buffer. The kernel's
+// prologue puts Z there (2 Z[k] and 2 Z[m - k] from the bins k and m - k,
+// inverse_split_bin; the factor 2 is folded into the 1/n scale) and meets a
+// barrier; then
+//   - the first pass (ns = 1) reads the buffer, not the signal, and has no
+//     twiddles (and no table row);
+//   - each pass takes butterflies j = th + u T (u < points / R), reads
+//     a[j + t m/R], and does the R-point DFT in registers;
+//   - a pass before the last writes a[(j - k) R + k + s ns] in place between
+//     two barriers, as the forward passes do;
+//   - the last pass has ns = m/R, so k = j and its outputs are the points
+//     j + s m/R: it stores them straight from registers to device memory,
+//     consecutive threads on consecutive float2 (coalesced), with no barrier
+//     and no shared read after it. Point i holds output samples 2i and
+//     2i + 1; each is scaled by 1/n, then multiplied by its window sample
+//     (__fmul_rn, in that order; no window: no multiply).
+// At n = 4096: 3 passes and 4 barriers after the prologue's, against the
+// radix-2 core's 11 passes through two buffers.
+
+// One pass of the inverse core: radix R after passes of product kNs
+// (kNs = 1: the first pass), m = M, T threads a frame. kLast: the last pass
+// (kNs = M/R), which stores to dst (null: nothing; zero: zeros) as above.
+template <int R, int M, int kNs, int T, bool kLast>
+__device__ __forceinline__ void inv_pass(float2* z,
+                                         const float2* __restrict__ twp,
+                                         int th, float2* __restrict__ dst,
+                                         const float2* __restrict__ w2,
+                                         float inv_n, bool zero) {
+  constexpr int kPoints = M < kRegPoints ? M : kRegPoints;
+  constexpr int B = kPoints / R;
+  constexpr int kStride = M / R;
+  static_assert(!kLast || kNs == kStride, "the last pass has ns = m/R");
+  float2 w[B][R];  // w[u][0] unused
+  if constexpr (kNs > 1) {
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int k = (th + u * T) & (kNs - 1);
+#pragma unroll
+      for (int t = 1; t < R; ++t) {
+        w[u][t] = __ldg(&twp[(t - 1) * kNs + k]);
+        w[u][t].y = -w[u][t].y;
+      }
+    }
+  }
+  float2 v[kPoints];
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int sj = swz(th + u * T);  // j < kStride: no bit of t kStride
+#pragma unroll
+    for (int t = 0; t < R; ++t) v[u * R + t] = at(z, sj, t * kStride);
+  }
+  if constexpr (!kLast) __syncthreads();  // every point read before a write
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int j = th + u * T;
+    const int k = j & (kNs - 1);
+    if constexpr (kNs > 1) {
+#pragma unroll
+      for (int t = 1; t < R; ++t) {
+        const float2 a = v[u * R + t];
+        const float2 c = w[u][t];
+        v[u * R + t] =
+            make_float2(a.x * c.x - a.y * c.y, a.x * c.y + a.y * c.x);
+      }
+    }
+    dft_regs<R, true>(&v[u * R]);
+    if constexpr (kLast) {
+      if (dst != nullptr) {
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+          const int i = j + s * kNs;
+          const float2 y = v[u * R + bitrev<R>(s)];
+          float x0 = __fmul_rn(y.x, inv_n);
+          float x1 = __fmul_rn(y.y, inv_n);
+          if (w2 != nullptr) {
+            const float2 wi = __ldg(&w2[i]);
+            x0 = __fmul_rn(x0, wi.x);
+            x1 = __fmul_rn(x1, wi.y);
+          }
+          dst[i] = zero ? make_float2(0.0f, 0.0f) : make_float2(x0, x1);
+        }
+      }
+    } else {
+      // (j - k) R + k has no bit in s kNs's range
+      store_dft<R, kNs>(z, &v[u * R], swz((j - k) * R + k));
+    }
+  }
+  if constexpr (!kLast) __syncthreads();
+}
+
+// Passes kPass, kPass + 1, ... of the inverse of m = 2^kLogM, after passes
+// of product kNs; twp points at pass kPass's table (pass 0 has none).
+template <int kLogM, int kPass, int kNs>
+__device__ __forceinline__ void inv_passes(float2* z,
+                                           const float2* __restrict__ twp,
+                                           int th, float2* __restrict__ dst,
+                                           const float2* __restrict__ w2,
+                                           float inv_n, bool zero) {
+  using Plan = FwdPlan<kLogM>;
+  constexpr int r = Plan::pass_log(kPass);
+  constexpr bool kLast = kPass == Plan::num_passes() - 1;
+  inv_pass<1 << r, Plan::m, kNs, Plan::threads, kLast>(z, twp, th, dst, w2,
+                                                       inv_n, zero);
+  if constexpr (!kLast) {
+    inv_passes<kLogM, kPass + 1, (kNs << r)>(
+        z, kPass == 0 ? twp : twp + ((1 << r) - 1) * kNs, th, dst, w2, inv_n,
+        zero);
+  }
+}
+
+// The inverse transform of one frame (thread th of its T) from Z in natural
+// order in z (the kernel's prologue, then a barrier): point i of the result,
+// times 1/n and the window pair w2[i] (null: no window), into dst[i]; zeros
+// when zero; nothing when dst is null. Every thread of the block calls it:
+// it holds the barriers.
+template <int kLogM>
+__device__ __forceinline__ void inv_frame_pow2(
+    float2* z, const float2* __restrict__ twp, int th, float2* __restrict__ dst,
+    const float2* __restrict__ w2, float inv_n, bool zero) {
+  inv_passes<kLogM, 0, 1>(z, twp, th, dst, w2, inv_n, zero);
 }
 
 // Whether every frame's first sample, and the window, sit on a 16-byte

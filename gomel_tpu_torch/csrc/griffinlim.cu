@@ -1,19 +1,25 @@
 // KJ and KK: one Griffin-Lim iteration, from signal to signal.
 //
-// KJ: the projection, one thread block per frame. Replaces the body of
+// KJ: the projection of each frame. Replaces the body of
 //   gomel_tpu/ops/griffinlim.py:98 griffin_lim up to its overlap-add
 //   (:171-195; K13): frame_signal x window -> rfft -> unit phase (angle 0 ->
 //   unit 1, and 1/a times, not a division, :178-181) x the fixed magnitudes
 //   -> irfft x window, into frames_w [B*F, n] float32.
-//   The frame is read straight from the signal with the window on the way
-//   (fft_core.cuh load_frame, as KB), an n/2-point Stockham FFT gives Z, and
-//   one pass then takes each pair of bins (k, n/2 - k): real_split_bin forms
-//   X[k] and X[n/2 - k], the unit phase and the magnitude give Y, the
-//   imaginary parts of DC and Nyquist are dropped (irfft ignores them), and
-//   inverse_split_bin (KG's) forms 2 Z'[k] and 2 Z'[n/2 - k] into the other
-//   shared buffer. The inverse Stockham FFT (conjugated twiddles) follows,
-//   scaled by 1/n and multiplied by the window on the way out. Two buffers
-//   of n/2 float2, 32 KB at n = 4096. Every iteration runs in exact float32
+//   When n/2 is a power of two the frame runs on fft_core.cuh's register
+//   core, in one swizzled buffer of n/2 float2 (16 KB at n = 4096):
+//   fwd_frame_pow2 reads the frame straight from the signal with the window
+//   (float4 loads where the addresses allow), giving Z; then each thread
+//   takes pairs of bins (k, n/2 - k) in place: split_pair gives X[k] and
+//   X[n/2 - k] from one read of its two slots, project_bin the unit phase
+//   times mag[k] and mag[n/2 - k] (DC and Nyquist from Z[0], their imaginary
+//   parts dropped: irfft ignores them), and inverse_split_bin (KG's) forms
+//   2 Z'[k] and 2 Z'[n/2 - k] (tw[n/2 - k] = -conj tw[k], from the same
+//   load), written back to the same two slots. The pairs are disjoint, so
+//   one barrier follows, then inv_frame_pow2: the inverse passes, the last
+//   storing straight to frames_w scaled by 1/n and times the window. Other
+//   sizes run the shared-memory mixed radix: the frame loaded by
+//   load_frame, the transforms by complex_fft through two buffers of n/2
+//   float2. Every iteration runs in exact float32
 //   on the CUDA cores, as the JAX package's does off the TPU (its bf16 DFT,
 //   dft_mm.py, is selected only by a TPU backend).
 //   The unit phase rounds each step as the JAX program does
@@ -32,9 +38,15 @@
 // Bound: at the bench shape (2 x 1122 frames of 4096) KJ reads the signal
 // (~11.5 MB once, neighbouring frames in L2) and 18 MB of magnitudes and
 // writes 37 MB of frames_w, and KK reads them back: ~20 us of memory
-// together at 3.35 TB/s. KJ's 22 barrier-separated radix-2 passes (two
-// transforms) bound it, as they bind KB and KG; fusing KK into KJ (each
-// frame adding into its neighbours' samples) needs atomics or a second pass.
+// together at 3.35 TB/s. KJ does two transforms a frame, so what holds it
+// above its byte bound is what holds KB (rfft_mag.cu): instruction issue and
+// the latency between barriers, 10 in all at n = 4096 (5 forward, 1 after
+// the projection, 4 inverse) against the radix-2 core's 24, in a 128-thread
+// block with one 16 KB buffer. Fusing KK into KJ (each frame adding into its
+// neighbours' samples) needs atomics or a second pass.
+// tools/profile_fft.py races it against the radix-2 form below
+// (gl_project_kernel<true>, which the port no longer launches) and splits
+// its time by ablation; PERF.md has the numbers.
 #include <math.h>
 
 #include "fft_core.cuh"
@@ -43,6 +55,67 @@
 
 namespace {
 
+// The power-of-two form for m = 2^kLogM: FwdPlan's threads a frame and
+// frames a block, m float2 of shared memory a frame.
+template <int kLogM>
+__global__ void __launch_bounds__(FwdPlan<kLogM>::threads *
+                                  FwdPlan<kLogM>::frames_per_block)
+gl_project_pow2_kernel(const float* __restrict__ sig,
+                       const float* __restrict__ mag,
+                       const float* __restrict__ window,
+                       const float2* __restrict__ tw,
+                       const float2* __restrict__ twp,
+                       float2* __restrict__ out, long long total, int frames,
+                       long long length, long long hop, bool vec,
+                       float inv_n) {
+  using Plan = FwdPlan<kLogM>;
+  constexpr int m = Plan::m;
+  constexpr int threads = Plan::threads;
+  extern __shared__ float2 sbuf[];
+  const int slot = threadIdx.x / threads;
+  const int th = threadIdx.x - slot * threads;
+  const long long frame =
+      static_cast<long long>(blockIdx.x) * Plan::frames_per_block + slot;
+  const bool valid = frame < total;
+  const long long bi = frame / frames;
+  const long long fi = frame - bi * frames;
+  float2* z = sbuf + slot * m;
+  fwd_frame_pow2<kLogM>(z, valid ? sig + bi * length + fi * hop : sig, window,
+                        vec, valid, twp, th);
+  if (valid) {
+    const float* mg = mag + frame * (m + 1);
+    for (int k = th; k <= m / 2; k += threads) {
+      float2 xk, xq;
+      if (k == 0) {  // DC and Nyquist from Z[0]
+        const float2 z0 = z[0];
+        xk = make_float2(z0.x + z0.y, 0.0f);
+        xq = make_float2(z0.x - z0.y, 0.0f);
+      } else {
+        split_pair(z, tw, k, m, xk, xq);
+      }
+      const float mk = mg[k], mq = mg[m - k];
+      xk = project_bin(xk, mk);
+      xq = project_bin(xq, mq);
+      if (k == 0) {
+        xk.y = 0.0f;
+        xq.y = 0.0f;
+      }
+      const float2 w = __ldg(&tw[k]);
+      z[swz(k)] = inverse_split_bin(xk, xq, w);
+      if (k > 0 && 2 * k != m) {
+        z[swz(m - k)] = inverse_split_bin(xq, xk, make_float2(-w.x, w.y));
+      }
+    }
+  }
+  __syncthreads();
+  inv_frame_pow2<kLogM>(z, twp, th, valid ? out + frame * m : nullptr,
+                        reinterpret_cast<const float2*>(window), inv_n, false);
+}
+
+// The shared-memory form: one block a frame, two complex buffers of m.
+// kPow2 = false (mixed radix) is the port's route when n/2 is not a power of
+// two; kPow2 = true, the radix-2 Stockham form that the register core
+// replaced, is kept for tools/profile_fft.py's race.
 template <bool kPow2>
 __global__ void gl_project_kernel(const float* __restrict__ sig,
                                   const float* __restrict__ mag,
@@ -120,22 +193,40 @@ __global__ void gl_overlap_add_kernel(const float* __restrict__ frames_w,
 // float32 [batch*frames, n/2 + 1]; window: float32 [n] (8-byte aligned);
 // tw: float2 [n/2]; out: float32 [batch*frames, n]. n must be an even size
 // of the TPU's n1 * n2 split (ops/fftbackend.ct_supported; the wrapper
-// checks).
+// checks). When n/2 is a power of two, tw_pass, radices, threads and
+// frames_per_block are the wrapper's plan (ops/rfft_mag.fwd_plan) and its
+// per-pass twiddle table, which the kernel checks as KB's does; otherwise
+// they are ignored.
 GOMEL_API int gomel_gl_project(const void* sig, const void* mag,
-                               const void* window, const void* tw, void* out,
+                               const void* window, const void* tw,
+                               const void* tw_pass, void* out,
                                long long batch, long long frames,
                                long long length, long long hop, long long n,
+                               int radices, int threads, int frames_per_block,
                                int device, void* stream) {
   cudaSetDevice(device);
   const int m = static_cast<int>(n / 2);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const float inv_n = 1.0f / static_cast<float>(n);
+  if (is_pow2(m) && m >= 2) {
+    const bool vec = frames_vec_aligned(sig, window, length, hop);
+    return with_log_m(m, [&](auto log_m) {
+      constexpr int kL = decltype(log_m)::value;
+      return launch_pow2_frames<kL>(
+          gl_project_pow2_kernel<kL>, batch * frames, radices, threads,
+          frames_per_block, s, static_cast<const float*>(sig),
+          static_cast<const float*>(mag), static_cast<const float*>(window),
+          static_cast<const float2*>(tw), static_cast<const float2*>(tw_pass),
+          static_cast<float2*>(out), batch * frames, static_cast<int>(frames),
+          length, hop, vec, inv_n);
+    });
+  }
   const size_t smem = 2 * static_cast<size_t>(m) * sizeof(float2);
-  launch_frames(
-      is_pow2(m) ? gl_project_kernel<true> : gl_project_kernel<false>,
-      batch * frames, m, smem, static_cast<cudaStream_t>(stream),
-      static_cast<const float*>(sig), static_cast<const float*>(mag),
-      static_cast<const float*>(window), static_cast<const float2*>(tw),
-      static_cast<float2*>(out), static_cast<int>(frames), length, hop, m,
-      1.0f / static_cast<float>(n));
+  launch_frames(gl_project_kernel<false>, batch * frames, m, smem, s,
+                static_cast<const float*>(sig), static_cast<const float*>(mag),
+                static_cast<const float*>(window),
+                static_cast<const float2*>(tw), static_cast<float2*>(out),
+                static_cast<int>(frames), length, hop, m, inv_n);
   return gomel_status();
 }
 

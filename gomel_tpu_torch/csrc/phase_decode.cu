@@ -1,7 +1,7 @@
 // KG and KH: the phase decode, from spectrum (or quantized PNG planes) to
 // normalised audio (or PCM-16).
 //
-// KG: dequantize + grow + inverse rFFT x window, one thread block per frame.
+// KG: dequantize + grow + inverse rFFT x window, frame by frame.
 //   Replaces gomel_tpu/ops/quantize.py:51 dequantize_planes and :201
 //   dequantize_planes_batch (K7), gomel_tpu/ops/phase_ops.py:117
 //   grow_half_planes (K8), and the irfft x window of gomel_tpu/ops/istft.py:137
@@ -16,10 +16,16 @@
 //   for planes the rescale is (v / max_val) * (max - min) + min, then
 //   ihs_passes x sinhf (quantize.py:56-59). The imaginary parts of DC and
 //   Nyquist are ignored, as numpy's irfft ignores them.
-//   Transform: the inverse real split (fft_core.cuh inverse_split_bin, Z
-//   formed in place two bins per thread) into an n/2-point inverse Stockham
-//   FFT with conjugated twiddles, scaled by 1/n and multiplied by the window
-//   on the way out into frames_w [B*F, n] float32.
+//   Transform, when n/2 is a power of two: the prologue takes the bins in
+//   pairs (k, n/2 - k), loads X[k] and X[n/2 - k] straight from the source
+//   and writes 2 Z[k] and 2 Z[n/2 - k] (fft_core.cuh inverse_split_bin) into
+//   the frame's swizzled buffer of n/2 float2 (16 KB at n = 4096); after one
+//   barrier the register core's inverse (inv_frame_pow2) runs its passes
+//   with conjugated twiddles and its last pass stores frames_w [B*F, n]
+//   float32 straight from registers, scaled by 1/n and multiplied by the
+//   window. Other sizes: the half spectrum into shared memory, the inverse
+//   real split in place two bins per thread, then the shared-memory mixed
+//   radix with the same scale and window on the way out.
 //
 // KH: overlap-add + window-sum normalisation + volume boost (+ PCM-16).
 //   Replaces gomel_tpu/ops/istft.py:22 overlap_add, :41 window_sum, :189
@@ -41,8 +47,10 @@
 // with its frame mask, as the sharded decode builds it, sharded.py:487-501):
 // in every mode, a frame at or past ``real_frames`` of its row writes zeros,
 // as jnp.where(mask, frames_w, 0) gives; the mask of a shard is always a
-// prefix of its frames, so a count carries it. The block returns before
-// its first barrier, so a masked frame costs one pass of stores.
+// prefix of its frames, so a count carries it. A block whose frames are all
+// masked stores its zeros and returns before any barrier; in a block that
+// holds several frames (n < 4096) and a live one, a masked frame loads
+// nothing but keeps its slot through every barrier and stores zeros.
 //
 // Rounding: the JAX program rounds every product and sum on its own; nvcc
 // would fuse a multiply feeding an add into one FMA, so those steps use
@@ -52,10 +60,15 @@
 // FFT rounding.
 //
 // Bound: at the phase path's 2 x 1122 frames of 4096, KG writes 36.8 MB of
-// frames_w and KH reads it back (~22 us at 3.35 TB/s together); KG's 11
-// barrier-separated passes, as KB's, bound it. KG's column read of the
-// [nf, F, 2] planes is strided by F (uncoalesced); transposing through
-// shared memory, or fusing KH into KG, is later work.
+// frames_w and KH reads it back (~22 us at 3.35 TB/s together). As for KB,
+// what holds KG above its byte bound is instruction issue and barrier
+// latency: 5 barriers at n = 4096 (the prologue's, then 2 a pass before the
+// last) against the radix-2 form's 13. KG's column read of the [nf, F, 2]
+// planes is strided by F (each 2-byte load takes its own 32-byte sector);
+// transposing it needs another layout or several frames a block, and fusing
+// KH into KG is later work. tools/profile_fft.py races KG against the
+// radix-2 form below (irfft_window_kernel<mode, true>, which the port no
+// longer launches) and splits its time by ablation; PERF.md has the numbers.
 #include <math.h>
 
 #include "fft_core.cuh"
@@ -102,6 +115,104 @@ __device__ __forceinline__ float2 load_bin(const void* __restrict__ src,
       dequantize(c1, max_val, __fsub_rn(ext.y, ext.w), ext.w, ihs_passes));
 }
 
+// Bin k (0 <= k <= m) of frame (bi, fi)'s half spectrum X, as the prologue
+// rules above give it (imaginary parts of DC and Nyquist zero).
+template <int kMode>
+__device__ __forceinline__ float2 half_bin(const void* __restrict__ src,
+                                           const float* __restrict__ aux0,
+                                           long long frame, long long bi,
+                                           long long fi, int k, int m,
+                                           int frames, int nf, float max_val,
+                                           float4 ext, int ihs_passes) {
+  float re = 0.0f;
+  float im = 0.0f;
+  if constexpr (kMode == kPlanes) {
+    re = static_cast<const float*>(src)[frame * (m + 1) + k];
+    im = aux0[frame * (m + 1) + k];
+  } else {
+    if (k > 0) {
+      const int j = min(k - 1, nf - 1);
+      const float2 v = load_bin<kMode>(src, bi, fi, j, frames, nf, max_val,
+                                       ext, ihs_passes);
+      re = v.y;
+      im = v.x;
+    }
+  }
+  if (k == 0 || k == m) im = 0.0f;
+  return make_float2(re, im);
+}
+
+// The power-of-two form for m = 2^kLogM: FwdPlan's threads a frame and
+// frames a block, m float2 of shared memory a frame.
+template <int kMode, int kLogM>
+__global__ void __launch_bounds__(FwdPlan<kLogM>::threads *
+                                  FwdPlan<kLogM>::frames_per_block)
+irfft_window_pow2_kernel(const void* __restrict__ src,
+                         const float* __restrict__ aux0,
+                         const float* __restrict__ aux1,
+                         const float* __restrict__ window,
+                         const float2* __restrict__ tw,
+                         const float2* __restrict__ twp,
+                         float2* __restrict__ out, long long total, int frames,
+                         int real_frames, int nf, float max_val,
+                         int ihs_passes, float inv_n) {
+  using Plan = FwdPlan<kLogM>;
+  constexpr int m = Plan::m;
+  constexpr int threads = Plan::threads;
+  extern __shared__ float2 sbuf[];
+  const int slot = threadIdx.x / threads;
+  const int th = threadIdx.x - slot * threads;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * Plan::frames_per_block;
+  const long long frame = first + slot;
+  const bool valid = frame < total;
+  const long long bi = frame / frames;
+  const long long fi = frame - bi * frames;
+  const bool masked = fi >= real_frames;
+  // block-uniform: a live frame is the block's first, or the first frame of
+  // a later row that starts inside the block
+  const long long last =
+      min(first + Plan::frames_per_block, total) - 1;
+  const long long row0 = first / frames;
+  const bool live = first - row0 * frames < real_frames ||
+                    (real_frames > 0 && (row0 + 1) * frames <= last);
+  float2* dst = valid ? out + frame * m : nullptr;
+  if (!live) {
+    if (dst != nullptr) {
+      for (int i = th; i < m; i += threads) dst[i] = make_float2(0.0f, 0.0f);
+    }
+    return;
+  }
+  float2* z = sbuf + slot * m;
+  if (valid && !masked) {
+    float4 ext = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (kMode == kQuant8 || kMode == kQuant16) {
+      ext = make_float4(aux0[2 * bi], aux0[2 * bi + 1], aux1[2 * bi],
+                        aux1[2 * bi + 1]);
+    }
+    // 2 Z[k] and 2 Z[m - k] from X[k] and X[m - k]: disjoint pairs
+    for (int k = th; k <= m / 2; k += threads) {
+      const float2 p = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames,
+                                       nf, max_val, ext, ihs_passes);
+      const float2 q = half_bin<kMode>(src, aux0, frame, bi, fi, m - k, m,
+                                       frames, nf, max_val, ext, ihs_passes);
+      const float2 w = __ldg(&tw[k]);
+      z[swz(k)] = inverse_split_bin(p, q, w);
+      if (k > 0 && 2 * k != m) {
+        z[swz(m - k)] = inverse_split_bin(q, p, make_float2(-w.x, w.y));
+      }
+    }
+  }
+  __syncthreads();
+  inv_frame_pow2<kLogM>(z, twp, th, dst,
+                        reinterpret_cast<const float2*>(window), inv_n,
+                        masked);
+}
+
+// The shared-memory form: one block a frame. kPow2 = false (mixed radix) is
+// the port's route when n/2 is not a power of two; kPow2 = true, the radix-2
+// Stockham form that the register core replaced, is kept for
+// tools/profile_fft.py's race.
 template <int kMode, bool kPow2>
 __global__ void irfft_window_kernel(const void* __restrict__ src,
                                     const float* __restrict__ aux0,
@@ -131,22 +242,8 @@ __global__ void irfft_window_kernel(const void* __restrict__ src,
                       aux1[2 * bi + 1]);
   }
   for (int k = threadIdx.x; k <= m; k += blockDim.x) {
-    float re = 0.0f;
-    float im = 0.0f;
-    if constexpr (kMode == kPlanes) {
-      re = static_cast<const float*>(src)[frame * (m + 1) + k];
-      im = aux0[frame * (m + 1) + k];
-    } else {
-      if (k > 0) {
-        const int j = min(k - 1, nf - 1);
-        const float2 v = load_bin<kMode>(src, bi, fi, j, frames, nf, max_val,
-                                         ext, ihs_passes);
-        re = v.y;
-        im = v.x;
-      }
-    }
-    if (k == 0 || k == m) im = 0.0f;
-    a[k] = make_float2(re, im);
+    a[k] = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames, nf,
+                           max_val, ext, ihs_passes);
   }
   __syncthreads();
 
@@ -203,15 +300,25 @@ __global__ void overlap_normalize_kernel(
 
 template <int kMode>
 int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
-                        const float* window, const float2* tw, float2* out,
-                        long long blocks, int frames, int real_frames, int nf,
-                        int m, float max_val, int ihs_passes, cudaStream_t s) {
+                        const float* window, const float2* tw,
+                        const float2* twp, float2* out, long long total,
+                        int frames, int real_frames, int nf, int m,
+                        float max_val, int ihs_passes, int radices,
+                        int threads, int frames_per_block, cudaStream_t s) {
+  const float inv_n = 1.0f / static_cast<float>(2 * m);
+  if (is_pow2(m) && m >= 2) {
+    return with_log_m(m, [&](auto log_m) {
+      constexpr int kL = decltype(log_m)::value;
+      return launch_pow2_frames<kL>(
+          irfft_window_pow2_kernel<kMode, kL>, total, radices, threads,
+          frames_per_block, s, src, aux0, aux1, window, tw, twp, out, total,
+          frames, real_frames, nf, max_val, ihs_passes, inv_n);
+    });
+  }
   const size_t smem = (2 * static_cast<size_t>(m) + 1) * sizeof(float2);
-  launch_frames(is_pow2(m) ? irfft_window_kernel<kMode, true>
-                           : irfft_window_kernel<kMode, false>,
-                blocks, m, smem, s, src, aux0, aux1, window, tw, out, frames,
-                real_frames, nf, m, max_val, ihs_passes,
-                1.0f / static_cast<float>(2 * m));
+  launch_frames(irfft_window_kernel<kMode, false>, total, m, smem, s, src,
+                aux0, aux1, window, tw, out, frames, real_frames, nf, m,
+                max_val, ihs_passes, inv_n);
   return gomel_status();
 }
 
@@ -224,38 +331,52 @@ int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
 // window: float32 [n] or null; tw: float2 [n/2]; out: float32
 // [batch*frames, n]; frames at or past real_frames (0..frames) of each row
 // write zeros. n must be an even size of the TPU's n1 * n2 split
-// (ops/fftbackend.ct_supported; the wrapper checks).
+// (ops/fftbackend.ct_supported; the wrapper checks). When n/2 is a power of
+// two, tw_pass, radices, threads and frames_per_block are the wrapper's plan
+// (ops/rfft_mag.fwd_plan) and its per-pass twiddle table, which the kernel
+// checks as KB's does; otherwise they are ignored.
 GOMEL_API int gomel_irfft_window(int mode, const void* src, const void* aux0,
                                  const void* aux1, const void* window,
-                                 const void* tw, void* out, long long batch,
-                                 long long frames, long long real_frames,
-                                 long long nf, long long n, float max_val,
-                                 int ihs_passes, int device, void* stream) {
+                                 const void* tw, const void* tw_pass,
+                                 void* out, long long batch, long long frames,
+                                 long long real_frames, long long nf,
+                                 long long n, float max_val, int ihs_passes,
+                                 int radices, int threads,
+                                 int frames_per_block, int device,
+                                 void* stream) {
   cudaSetDevice(device);
   const int m = static_cast<int>(n / 2);
-  const long long blocks = batch * frames;
+  const long long total = batch * frames;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a0 = static_cast<const float*>(aux0);
   const float* a1 = static_cast<const float*>(aux1);
   const float* w = static_cast<const float*>(window);
   const float2* t = static_cast<const float2*>(tw);
+  const float2* tp = static_cast<const float2*>(tw_pass);
   float2* o = static_cast<float2*>(out);
   const int f = static_cast<int>(frames);
   const int r = static_cast<int>(real_frames);
   const int k = static_cast<int>(nf);
   switch (mode) {
     case kPlanes:
-      return launch_irfft_window<kPlanes>(src, a0, a1, w, t, o, blocks, f, r, k,
-                                          m, max_val, ihs_passes, s);
+      return launch_irfft_window<kPlanes>(src, a0, a1, w, t, tp, o, total, f,
+                                          r, k, m, max_val, ihs_passes,
+                                          radices, threads, frames_per_block,
+                                          s);
     case kSpec:
-      return launch_irfft_window<kSpec>(src, a0, a1, w, t, o, blocks, f, r, k, m,
-                                        max_val, ihs_passes, s);
+      return launch_irfft_window<kSpec>(src, a0, a1, w, t, tp, o, total, f, r,
+                                        k, m, max_val, ihs_passes, radices,
+                                        threads, frames_per_block, s);
     case kQuant8:
-      return launch_irfft_window<kQuant8>(src, a0, a1, w, t, o, blocks, f, r, k,
-                                          m, max_val, ihs_passes, s);
+      return launch_irfft_window<kQuant8>(src, a0, a1, w, t, tp, o, total, f,
+                                          r, k, m, max_val, ihs_passes,
+                                          radices, threads, frames_per_block,
+                                          s);
     case kQuant16:
-      return launch_irfft_window<kQuant16>(src, a0, a1, w, t, o, blocks, f, r, k,
-                                           m, max_val, ihs_passes, s);
+      return launch_irfft_window<kQuant16>(src, a0, a1, w, t, tp, o, total, f,
+                                           r, k, m, max_val, ihs_passes,
+                                           radices, threads, frames_per_block,
+                                           s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

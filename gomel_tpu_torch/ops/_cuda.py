@@ -48,13 +48,14 @@ _SIGNATURES = {
                            _F32],
     "gomel_quantize_planes": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32,
                               _F32, _I32],
-    "gomel_irfft_window": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                           _I64, _F32, _I32],
+    "gomel_irfft_window": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                           _I64, _I64, _F32, _I32, _I32, _I32, _I32],
     "gomel_overlap_normalize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                 _I32, _F32, _F32],
     "gomel_mel_to_mag": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                          _I64, _I64, _F32, _F32, _F32, _F32],
-    "gomel_gl_project": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64],
+    "gomel_gl_project": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                         _I32, _I32, _I32],
     "gomel_gl_overlap_add": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                              _F32],
     "gomel_dequantize_raw": [_P, _P, _P, _P, _I64, _I32, _I32, _F32, _I32,

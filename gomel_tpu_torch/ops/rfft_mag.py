@@ -13,7 +13,9 @@ frame straight from the signal; on a CPU tensor it runs its plain version.
 When n/2 is a power of two the kernels run the register-resident forward
 core (csrc/fft_core.cuh, fwd_frame_pow2) on the plan :func:`fwd_plan` gives
 and the per-pass twiddles of :func:`_pass_twiddles_np`; the other sizes run
-the shared-memory mixed radix.
+the shared-memory mixed radix. The inverse kernels KG (ops/istft.py) and KJ
+(ops/griffinlim.py) run the same core's inverse on the same plan and
+tables (:func:`_core_args`).
 ``backend`` picks the route first (ops/fftbackend.resolve): a size the
 kernels do not take goes by the xla route (``torch.fft`` on the card), and
 the name ``mm`` by the matmul DFT (ops/dft_mm, kernel KN).
@@ -68,15 +70,15 @@ class FwdPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def fwd_plan(n: int, points: int = REG_POINTS) -> FwdPlan:
-    """The plan of the register-resident forward core for an n whose half
-    m is a power of two (n = 4 ... 16384): 16 complex points a thread, so
-    m/16 threads a frame (1 below m = 16) and 128 threads a block while a
-    frame takes fewer; a first pass of radix 8 (its float4 loads cover two
-    butterflies), then radix 16 while it fits, then what is left (m <= 8:
-    one pass of radix m). The kernels hold the same plan at compile time
-    (FwdPlan in csrc/fft_core.cuh) and refuse a launch whose plan differs;
-    ``points`` other than REG_POINTS is for builds of the core with another
-    kRegPoints (tools/profile_fft.py)."""
+    """The plan of the register-resident core (both directions) for an n
+    whose half m is a power of two (n = 4 ... 16384): 16 complex points a
+    thread, so m/16 threads a frame (1 below m = 16) and 128 threads a
+    block while a frame takes fewer; a first pass of radix 8 (its float4
+    loads cover two butterflies), then radix 16 while it fits, then what is
+    left (m <= 8: one pass of radix m). The kernels hold the same plan at
+    compile time (FwdPlan in csrc/fft_core.cuh) and refuse a launch whose
+    plan differs; ``points`` other than REG_POINTS is for builds of the
+    core with another kRegPoints (tools/profile_fft.py)."""
     m = n // 2
     if n % 2 or m < 2 or m & (m - 1):
         raise ValueError(f"fwd_plan: n/2 = {n / 2} is not a power of two >= 2")
@@ -128,9 +130,10 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 
 def _core_args(n: int, device: torch.device) -> tuple:
-    """The kernels' (tw_pass, radices, threads, frames_per_block): the
-    register core's per-pass table and plan when n/2 is a power of two,
-    nothing for the mixed radix."""
+    """The FFT kernels' (tw_pass, radices, threads, frames_per_block), KB,
+    KE, KG and KJ alike: the register core's per-pass table (the inverse
+    conjugates its roots) and plan when n/2 is a power of two, nothing for
+    the mixed radix."""
     m = n // 2
     if m < 2 or m & (m - 1):
         return None, 0, 0, 0

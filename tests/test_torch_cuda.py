@@ -189,6 +189,81 @@ def test_fwd_core_frame_alone_equals_frame_in_batch(cuda):
                            pairs[b, f])
 
 
+# -- the inverse register core: KG and KJ at every power-of-two n ----------
+
+@pytest.mark.parametrize("n", [4 << i for i in range(13)])
+def test_inv_core_every_pow2_size(cuda, n):
+    """KG (planes, with and without the window, real-frame counts 0, partial
+    and all) and KJ run the register core's inverse at every power-of-two
+    n/2, on 3 rows whose frame count is no multiple of the frames a block:
+    KG within 1e-5 of each (unwindowed) frame's peak of float64, its masked
+    frames exact zeros and the rest bit-equal to the unmasked launch; KJ
+    within 1e-4 relative L2 a frame of float64; one launch each."""
+    from gomel_tpu_torch.ops import griffinlim
+    plan = rfft_mag.fwd_plan(n)
+    frames = 2 * plan.frames_per_block + 3
+    assert (3 * frames) % plan.frames_per_block or plan.frames_per_block == 1
+    rng = np.random.default_rng(n + 1)
+    re, im = (torch.from_numpy(rng.standard_normal(
+        (3, frames, n // 2 + 1)).astype(np.float32)) for _ in range(2))
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    ref = istft.irfft_window_plain(re.double(), im.double(), n, None)
+    peak = ref.abs().amax(-1, keepdim=True)
+    for w in (None, win):
+        wc = None if w is None else w.to(cuda)
+        before = istft.SYNTH_KERNEL.launches
+        out = istft.irfft_window(re.to(cuda), im.to(cuda), n, wc)
+        assert istft.SYNTH_KERNEL.launches == before + 1
+        want = ref if w is None else ref * w.double()
+        assert bool(((out.cpu().double() - want).abs() <= 1e-5 * peak).all())
+        for real in (0, frames // 2, frames):
+            before = istft.SYNTH_MASKED_KERNEL.launches
+            got = istft.irfft_window(re.to(cuda), im.to(cuda), n, wc, real)
+            assert istft.SYNTH_MASKED_KERNEL.launches == before + 1
+            assert torch.equal(got[:, :real], out[:, :real])
+            assert not got[:, real:].any()
+    hop = max(1, n // 4)
+    sig = torch.from_numpy(rng.random((3, n + (frames - 1) * hop))
+                           .astype(np.float32))
+    sig[0, :n] = 0.0                             # a silent frame: unit phase 1
+    mag = torch.from_numpy((rng.random((3, frames, n // 2 + 1)) * 3)
+                           .astype(np.float32))
+    before = griffinlim.PROJECT_KERNEL.launches
+    out = griffinlim.gl_project(sig.to(cuda), mag.to(cuda), win.to(cuda), n,
+                                hop).cpu().double()
+    assert griffinlim.PROJECT_KERNEL.launches == before + 1
+    ref = griffinlim.gl_project_plain(sig.double(), mag.double(), win.double(),
+                                      n, hop)
+    rel = (out - ref).norm(dim=-1) / ref.norm(dim=-1)
+    assert float(rel.max()) <= 1e-4, float(rel.max())
+
+
+@pytest.mark.parametrize("n,frames", [(4096, 1122), (256, 37)])
+def test_inv_core_frame_alone_equals_frame_in_batch(cuda, n, frames):
+    """A frame computed alone equals, bit for bit, the same frame inside a
+    batch of 2 rows (KG on planes, KJ), at the bench shape (one frame a
+    block) and where a block holds several frames."""
+    from gomel_tpu_torch.ops import griffinlim
+    hop = n * 5 // 16
+    rng = np.random.default_rng(n + 43)
+    re, im = (torch.from_numpy(rng.standard_normal(
+        (2, frames, n // 2 + 1)).astype(np.float32)).to(cuda)
+        for _ in range(2))
+    sig = torch.from_numpy((rng.standard_normal((2, n + (frames - 1) * hop))
+                            * 0.2).astype(np.float32)).to(cuda)
+    mag = torch.from_numpy((rng.random((2, frames, n // 2 + 1)) * 3)
+                           .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    synth = istft.irfft_window(re, im, n, win)
+    proj = griffinlim.gl_project(sig, mag, win, n, hop)
+    for b, f in ((0, 0), (1, frames // 2 + 1), (1, frames - 1)):
+        assert torch.equal(istft.irfft_window(re[b, f:f + 1], im[b, f:f + 1],
+                                              n, win)[0], synth[b, f])
+        one = sig[b, f * hop:f * hop + n]
+        assert torch.equal(griffinlim.gl_project(one, mag[b, f:f + 1], win, n,
+                                                 hop)[0], proj[b, f])
+
+
 def test_fftbackend_rfft_mag_vs_torch_fft(cuda):
     x = torch.randn(5, 7, 2048, generator=torch.Generator().manual_seed(0))
     out = fftbackend.rfft_mag(x.to(cuda), 2048).cpu().double()

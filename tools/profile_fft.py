@@ -1,40 +1,60 @@
-"""The forward FFT kernels KB and KE: the register-resident core against the
-radix-2 form it replaced, and where the core spends its time, by ablation.
+"""The FFT kernels' register-resident core against the radix-2 form it
+replaced, and where the core spends its time, by ablation: the forward
+kernels KB and KE, and the inverse kernels KJ (Griffin-Lim projection) and
+KG (phase synthesis).
 
     python3 tools/profile_fft.py [--iters 20]
 
-Needs one NVIDIA GPU and nvcc. Builds gomel_tpu_torch/csrc/rfft_mag.cu and
-phase_encode.cu (with fft_core.cuh) as shipped, plus one entry point each
-that launches the earlier radix-2 Stockham form still in those files
-(stft_mag_kernel<true>, stft_planes_kernel<true>: log2(n/2) passes through
-two shared buffers, one barrier each, one block a frame), and in variants
-that each take work out of the register core. Then, on one card and in
-turns (radix-2, core, core, radix-2), times both forms of KB (magnitudes)
-and KE (bins 1..1536 as (im, re)) at the bench shape of chip_smoke.py (2 x
-1122 frames of 4096, hop 1280, Hann) and at one shard of its 30-minute
-long-form file (1 x 16,875 frames), beside ``torch.fft.rfft`` of the same
-frames laid out in memory and the byte bound (the signal, window and output
-each moved once at 3.35 TB/s). The variants' outputs are wrong by
-construction, only their times mean anything:
+Needs one NVIDIA GPU and nvcc. Builds gomel_tpu_torch/csrc/rfft_mag.cu,
+phase_encode.cu, griffinlim.cu and phase_decode.cu (with fft_core.cuh) as
+shipped, plus one entry point each that launches the earlier radix-2
+Stockham form still in those files (stft_mag_kernel<true>,
+stft_planes_kernel<true>, gl_project_kernel<true>, irfft_window_kernel<mode,
+true>: log2(n/2) passes through two shared buffers, one barrier each, one
+block a frame), and in variants that each take work out of the register
+core. Then, on one card and in turns (radix-2, core, core, radix-2), times
+both forms at the bench shape of chip_smoke.py (2 x 1122 frames of 4096,
+hop 1280, Hann) and at one shard of its 30-minute long-form file (1 x 16,875
+frames): KB (magnitudes) and KE (bins 1..1536 as (im, re)) beside
+``torch.fft.rfft`` of the same frames laid out in memory; KJ beside
+``torch.fft.irfft`` of laid-out spectra (half its work) and ``rfft`` +
+``irfft`` (two calls); KG on uint8 PNG planes (the bench's fromphase
+decode) and, at the shard, on the spectrogram with its real-frame count
+(the long-form decode's masked synthesis), beside ``torch.fft.irfft``. Each
+row has the byte bound (each input and output moved once at 3.35 TB/s). The
+variants' outputs are wrong by construction, only their times mean
+anything:
 
-  shipped         the kernels as the port builds them
-  load_only       the first pass's loads and shared-memory writes (no DFT),
-                  no later pass, the epilogue's arithmetic but no store
-  transform_only  no device-memory reads (registers from the thread index),
-                  every pass and the epilogue's arithmetic, no store
-  store_only      no loads, DFTs or later passes: the first pass writes
-                  index values, the epilogue reads, splits and stores
-  no_passes       everything but the passes after the first
-  min_blocks_8    __launch_bounds__ asking for 8 blocks an SM (64 registers)
-  points_8        8 complex points a thread: radices 4, 8, 8, 8 at n = 4096,
-                  256 threads a frame (its own plan and twiddle table)
-  signal_ldcs     the signal loaded with the streaming cache hint (__ldcs)
+  shipped             the kernels as the port builds them
+  load_only           KB/KE: the first pass's loads and shared-memory writes
+                      (no DFT), no later pass, the epilogue's arithmetic but
+                      no store
+  transform_only      KB/KE: no device-memory reads (registers from the
+                      thread index), every pass and the epilogue's
+                      arithmetic, no store
+  store_only          KB/KE: no loads, DFTs or later passes: the first pass
+                      writes index values, the epilogue reads, splits and
+                      stores
+  no_passes           KB/KE: everything but the passes after the first
+  min_blocks_8        KB/KE: __launch_bounds__ asking for 8 blocks an SM
+  points_8            KB/KE: 8 complex points a thread: radices 4, 8, 8, 8
+                      at n = 4096, 256 threads a frame (its own plan)
+  signal_ldcs         KB/KE: the signal loaded with the streaming hint
+  inv_load_only       KJ/KG: everything before the inverse passes (KG: the
+                      prologue's loads, pair split and shared writes; KJ: the
+                      forward transform, the magnitudes and the projection),
+                      no inverse pass and no store
+  inv_transform_only  KJ/KG: no signal, magnitude or spectrum reads (values
+                      from the thread index), every pass, no store
+  inv_store_only      KJ/KG: no such reads, no forward passes, no DFTs: the
+                      inverse's last pass alone reads the buffer and stores
 
 Prints the card's name and power limit, ptxas's registers, shared memory
-and spills of each kernel, and one line per measurement: device ms per call
-(CUDA events over calls queued behind a sleep kernel, chip_smoke.cuda_ms,
-lower of two runs). The same numbers go to chiprun_out/profile_fft.json.
-Imports nothing of JAX.
+and spills of each kernel at n = 4096 and of the radix-2 forms, and one line
+per measurement: device ms per call (CUDA events over calls queued behind a
+sleep kernel, chip_smoke.cuda_ms, lower of two runs). The same numbers, and
+ptxas's lines for every kernel, go to chiprun_out/profile_fft.json. Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -57,7 +77,10 @@ from gomel_tpu_torch.ops.stft import frame_signal, hann_window  # noqa: E402
 
 N, HOP, NF = 4096, 1280, 1536
 SHAPES = {"bench": (2, 1122), "shard": (1, 16875)}
-SOURCES = ("fft_core.cuh", "rfft_mag.cu", "phase_encode.cu")
+SHARD_REAL = 16872          # the last shard's real frames (67,497 in all)
+FWD = ("rfft_mag.cu", "phase_encode.cu")
+INV = ("griffinlim.cu", "phase_decode.cu")
+SOURCES = ("fft_core.cuh",) + FWD + INV
 
 # the earlier radix-2 form, launched from an entry point added to each file
 _RADIX2 = {
@@ -93,6 +116,64 @@ GOMEL_API int prof_radix2_stft_planes(const void* x, const void* window,
   return gomel_status();
 }
 """,
+    "griffinlim.cu": """
+GOMEL_API int prof_radix2_gl_project(const void* sig, const void* mag,
+    const void* window, const void* tw, void* out, long long batch,
+    long long frames, long long length, long long hop, long long n,
+    int device, void* stream) {
+  cudaSetDevice(device);
+  const int m = static_cast<int>(n / 2);
+  launch_frames(gl_project_kernel<true>, batch * frames, m,
+                2 * static_cast<size_t>(m) * sizeof(float2),
+                static_cast<cudaStream_t>(stream),
+                static_cast<const float*>(sig), static_cast<const float*>(mag),
+                static_cast<const float*>(window),
+                static_cast<const float2*>(tw), static_cast<float2*>(out),
+                static_cast<int>(frames), length, hop, m,
+                1.0f / static_cast<float>(n));
+  return gomel_status();
+}
+""",
+    "phase_decode.cu": """
+template <int kMode>
+static void prof_radix2_launch(const void* src, const void* aux0,
+    const void* aux1, const void* window, const void* tw, void* out,
+    long long total, int frames, int real_frames, int nf, int m,
+    float max_val, int ihs_passes, cudaStream_t s) {
+  launch_frames(irfft_window_kernel<kMode, true>, total, m,
+                (2 * static_cast<size_t>(m) + 1) * sizeof(float2), s, src,
+                static_cast<const float*>(aux0),
+                static_cast<const float*>(aux1),
+                static_cast<const float*>(window),
+                static_cast<const float2*>(tw), static_cast<float2*>(out),
+                frames, real_frames, nf, m, max_val, ihs_passes,
+                1.0f / static_cast<float>(2 * m));
+}
+
+GOMEL_API int prof_radix2_irfft_window(int mode, const void* src,
+    const void* aux0, const void* aux1, const void* window, const void* tw,
+    void* out, long long batch, long long frames, long long real_frames,
+    long long nf, long long n, float max_val, int ihs_passes, int device,
+    void* stream) {
+  cudaSetDevice(device);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int m = static_cast<int>(n / 2);
+  const int f = static_cast<int>(frames), r = static_cast<int>(real_frames);
+  const int k = static_cast<int>(nf);
+  if (mode == kSpec) {
+    prof_radix2_launch<kSpec>(src, aux0, aux1, window, tw, out,
+                              batch * frames, f, r, k, m, max_val, ihs_passes,
+                              s);
+  } else if (mode == kQuant8) {
+    prof_radix2_launch<kQuant8>(src, aux0, aux1, window, tw, out,
+                                batch * frames, f, r, k, m, max_val,
+                                ihs_passes, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return gomel_status();
+}
+""",
 }
 
 # (file, text, replacement) edits; a text not found exactly once fails
@@ -118,41 +199,71 @@ _NO_STORE = [
      "    }",
      "    if (__float_as_uint(a.x + b.x) == 0xdeadbeefu) dst[k - first] = a;"),
 ]
+# the inverse kernels: no reads of the magnitudes (KJ) or spectrum (KG)
+_INV_NO_LOAD = [
+    ("griffinlim.cu", "const float mk = mg[k], mq = mg[m - k];",
+     "const float mk = 1.0f + k, mq = 2.0f + th;"),
+    ("phase_decode.cu",
+     "      const float2 p = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames,\n"
+     "                                       nf, max_val, ext, ihs_passes);\n"
+     "      const float2 q = half_bin<kMode>(src, aux0, frame, bi, fi, m - k, m,\n"
+     "                                       frames, nf, max_val, ext, ihs_passes);",
+     "      const float2 p = make_float2(k, th), q = make_float2(th, ext.x + k);"),
+]
+_INV_CALL = "  inv_passes<kLogM, 0, 1>(z, twp, th, dst, w2, inv_n, zero);"
+_INV_NO_PASSES = ("fft_core.cuh", _INV_CALL,
+                  "  if (dst != nullptr && __float_as_uint(z[swz(th)].x) == "
+                  "0xdeadbeefu) dst[th] = z[th];")
+_INV_LAST_ONLY = ("fft_core.cuh", _INV_CALL, """\
+  using P = FwdPlan<kLogM>;
+  constexpr int kR = 1 << P::pass_log(P::num_passes() - 1);
+  inv_pass<kR, P::m, P::m / kR, P::threads, true>(z, twp, th, dst, w2, inv_n,
+                                                  zero);""")
+_INV_NO_DFT = ("fft_core.cuh", "    dft_regs<R, true>(&v[u * R]);", "")
+_INV_NO_STORE = ("fft_core.cuh",
+                 "dst[i] = zero ? make_float2(0.0f, 0.0f) : make_float2(x0, x1);",
+                 "if (__float_as_uint(x0 + x1) == 0xdeadbeefu) dst[i] = y;")
 
 
 def _min_blocks(n: int) -> list[tuple[str, str, str]]:
     """__launch_bounds__ asking for n blocks an SM (a register cap)."""
     old = "FwdPlan<kLogM>::frames_per_block)"
-    return [(f, old, old[:-1] + f", {n})")
-            for f in ("rfft_mag.cu", "phase_encode.cu")]
+    return [(f, old, old[:-1] + f", {n})") for f in FWD]
 
 
 _P8 = ("fft_core.cuh", "constexpr int kRegPoints = 16;",
        "constexpr int kRegPoints = 8;")
-# name -> (complex points a thread, edits)
+# name -> (complex points a thread, edits, the sources built)
 VARIANTS = {
-    "shipped": (16, []),
-    "load_only": (16, [_NO_DFT1, _NO_PASSES, *_NO_STORE]),
-    "transform_only": (16, [_NO_LOAD, *_NO_STORE]),
-    "store_only": (16, [_NO_LOAD, _NO_DFT1, _NO_PASSES]),
-    "no_passes": (16, [_NO_PASSES]),
-    "min_blocks_8": (16, _min_blocks(8)),
-    "points_8": (8, [_P8]),
+    "shipped": (16, [], FWD + INV),
+    "load_only": (16, [_NO_DFT1, _NO_PASSES, *_NO_STORE], FWD),
+    "transform_only": (16, [_NO_LOAD, *_NO_STORE], FWD),
+    "store_only": (16, [_NO_LOAD, _NO_DFT1, _NO_PASSES], FWD),
+    "no_passes": (16, [_NO_PASSES], FWD),
+    "min_blocks_8": (16, _min_blocks(8), FWD),
+    "points_8": (16 // 2, [_P8], FWD),
     "signal_ldcs": (16, [("fft_core.cuh",
                           "x = __ldg(reinterpret_cast<const float4*>(src + off));",
-                          "x = __ldcs(reinterpret_cast<const float4*>(src + off));")]),
+                          "x = __ldcs(reinterpret_cast<const float4*>(src + off));")],
+                    FWD),
+    "inv_load_only": (16, [_INV_NO_PASSES], INV),
+    "inv_transform_only": (16, [_NO_LOAD, *_INV_NO_LOAD, _INV_NO_STORE], INV),
+    "inv_store_only": (16, [_NO_LOAD, _NO_DFT1, _NO_PASSES, *_INV_NO_LOAD,
+                            _INV_LAST_ONLY, _INV_NO_DFT], INV),
 }
+# the kernels each group of sources holds
+KINDS = {FWD: ("KB", "KE"), INV: ("KJ", "KG")}
 
 
 def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
-    """One nvcc per variant (both kernels' sources into one library), all
-    started together; returns the loaded libraries with ptxas's report."""
+    """One nvcc per variant (its sources into one library), all started
+    together; returns the loaded libraries with ptxas's report."""
     texts = {}
     for name in SOURCES:
         with open(os.path.join(_cuda.CSRC_DIR, name)) as f:
             texts[name] = f.read()
     jobs = {}
-    for variant, (_, edits) in VARIANTS.items():
+    for variant, (_, edits, units) in VARIANTS.items():
         d = os.path.join(work, variant)
         os.makedirs(d, exist_ok=True)
         files = dict(texts)
@@ -168,11 +279,20 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
                 f.write(text)
         lib = os.path.join(d, "lib.so")
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I",
-               _cuda.CSRC_DIR, "-o", lib, os.path.join(d, "rfft_mag.cu"),
-               os.path.join(d, "phase_encode.cu")]
+               _cuda.CSRC_DIR, "-o", lib, *(os.path.join(d, u) for u in units)]
         log = open(os.path.join(d, "build.log"), "w")
         jobs[variant] = (subprocess.Popen(cmd, stdout=log,
                                           stderr=subprocess.STDOUT), lib, log)
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    radix2 = {
+        "prof_radix2_stft_mag": [p, p, p, p, i64, i64, i64, i64, i64],
+        "prof_radix2_stft_planes": [p, p, p, p, i64, i64, i64, i64, i64, i32,
+                                    i32],
+        "prof_radix2_gl_project": [p, p, p, p, p, i64, i64, i64, i64, i64],
+        "prof_radix2_irfft_window": [i32, p, p, p, p, p, p, i64, i64, i64,
+                                     i64, i64, f32, i32],
+    }
     libs = {}
     for variant, (proc, lib, log) in jobs.items():
         proc.wait()
@@ -182,16 +302,19 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {variant}:\n{report}")
         handle = ctypes.CDLL(lib)
-        for symbol in ("gomel_stft_mag", "gomel_stft_planes"):
-            fn = getattr(handle, symbol)
-            fn.argtypes = [*_cuda._SIGNATURES[symbol], ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        handle.prof_radix2_stft_mag.argtypes = [p, p, p, p, i64, i64, i64,
-                                                i64, i64, i32, p]
-        handle.prof_radix2_stft_planes.argtypes = [p, p, p, p, i64, i64, i64,
-                                                   i64, i64, i32, i32, i32, p]
+        units = VARIANTS[variant][2]
+        symbols = ([("gomel_stft_mag", "gomel_stft_planes")] if FWD[0] in units
+                   else []) + ([("gomel_gl_project", "gomel_irfft_window")]
+                               if INV[0] in units else [])
+        for pair in symbols:
+            for symbol in pair:
+                fn = getattr(handle, symbol)
+                fn.argtypes = [*_cuda._SIGNATURES[symbol], i32, p]
+                fn.restype = i32
+        for symbol, args in radix2.items():
+            if hasattr(handle, symbol):
+                getattr(handle, symbol).argtypes = [*args, i32, p]
+                getattr(handle, symbol).restype = i32
         libs[variant] = (handle, report)
     return libs
 
@@ -211,6 +334,12 @@ def ptxas_lines(report: str) -> list[str]:
             out.append(f"{entry}: {m.group(0).strip()}; {spill}")
             entry = None
     return out
+
+
+def _at_n(line: str) -> bool:
+    """A ptxas line of a register-core kernel at n = N, or of a radix-2
+    form (the shared-memory kernels built with kPow2 true)."""
+    return f"Li{N.bit_length() - 2}E" in line or "Lb1E" in line
 
 
 def main(argv=None) -> int:
@@ -237,12 +366,13 @@ def main(argv=None) -> int:
                 stdout=f, check=True, timeout=120)
     ptxas = ptxas_lines(libs["shipped"][1])
     for line in ptxas:
-        print(f"  ptxas {line}")
+        if _at_n(line):
+            print(f"  ptxas {line}")
     for variant, (_, report) in libs.items():
         if variant != "shipped":
             for line in ptxas_lines(report):
-                if "pow2" in line and f"ILi{N.bit_length() - 2}E" in line:
-                    print(f"  ptxas, {variant}: {line.split(': ', 1)[1]}")
+                if "pow2" in line and _at_n(line):
+                    print(f"  ptxas, {variant}: {line}")
     plan = rfft_mag.fwd_plan(N)
     print(f"  plan n {N}: radices {plan.radices}, {plan.threads} threads a "
           f"frame, {plan.frames_per_block} frames a block, "
@@ -250,7 +380,7 @@ def main(argv=None) -> int:
     win = torch.tensor(hann_window(N), dtype=torch.float32, device=dev)
     tw = rfft_mag._twiddles(N, dev)
     plans = {}
-    for points in {p for p, _ in VARIANTS.values()}:
+    for points in {v[0] for v in VARIANTS.values()}:
         pl = rfft_mag.fwd_plan(N, points)
         table = torch.from_numpy(rfft_mag._pass_twiddles_np(N, points)).to(dev)
         plans[points] = (table, pl.code, pl.threads, pl.frames_per_block)
@@ -264,24 +394,54 @@ def main(argv=None) -> int:
                                else f"{k} {v}" for k, v in row.items()),
               flush=True)
 
+    def peak_rel(a, b):
+        """max |a - b| / b's frame peak."""
+        peak = b.abs().amax(dim=tuple(range(2, b.dim())), keepdim=True)
+        return float(((a - b).abs() / peak.clamp_min(1e-30)).max())
+
     for shape, (batch, frames) in SHAPES.items():
         length = N + (frames - 1) * HOP
         x = torch.rand((batch, length), generator=g, device=dev) - 0.5
         mag = torch.empty((batch, frames, N // 2 + 1), device=dev)
         pairs = torch.empty((batch, frames, NF, 2), device=dev)
+        fw = torch.empty((batch, frames, N), device=dev)
         common = (batch, frames, length, HOP, N)
+        target = torch.rand((batch, frames, N // 2 + 1), generator=g,
+                            device=dev) * 3
+        if shape == "bench":        # the fromphase decode: uint8 PNG planes
+            mode, real = 2, frames
+            src = torch.randint(0, 256, (batch, NF, frames, 2), generator=g,
+                                device=dev, dtype=torch.uint8)
+            aux = (torch.tensor([[41.5, 37.25]] * batch, device=dev),
+                   torch.tensor([[-40.75, -38.5]] * batch, device=dev))
+            max_val = 255.0
+        else:                       # the long-form decode's masked synthesis
+            mode, real = 1, SHARD_REAL
+            src = torch.randn((batch, frames, NF, 2), generator=g, device=dev)
+            aux, max_val = (), 0.0
+        aux_ptrs = [t.data_ptr() for t in aux] + [None] * (2 - len(aux))
+        kg_args = (src.data_ptr(), *aux_ptrs, win.data_ptr(), tw.data_ptr())
+        kg_dims = (batch, frames, real, NF, N, max_val, 0)
 
         def core(lib, kind, points=16):
             table, code, threads, per_block = plans[points]
-            tw_pass = table.data_ptr()
+            tw_pass, plan_args = table.data_ptr(), (code, threads, per_block)
             if kind == "KB":
                 return lambda: lib.gomel_stft_mag(
                     x.data_ptr(), win.data_ptr(), tw.data_ptr(), tw_pass,
-                    mag.data_ptr(), *common, code, threads, per_block,
-                    dev.index, stream)
-            return lambda: lib.gomel_stft_planes(
-                x.data_ptr(), win.data_ptr(), tw.data_ptr(), tw_pass,
-                pairs.data_ptr(), *common, 1, NF, code, threads, per_block,
+                    mag.data_ptr(), *common, *plan_args, dev.index, stream)
+            if kind == "KE":
+                return lambda: lib.gomel_stft_planes(
+                    x.data_ptr(), win.data_ptr(), tw.data_ptr(), tw_pass,
+                    pairs.data_ptr(), *common, 1, NF, *plan_args, dev.index,
+                    stream)
+            if kind == "KJ":
+                return lambda: lib.gomel_gl_project(
+                    x.data_ptr(), target.data_ptr(), win.data_ptr(),
+                    tw.data_ptr(), tw_pass, fw.data_ptr(), *common,
+                    *plan_args, dev.index, stream)
+            return lambda: lib.gomel_irfft_window(
+                mode, *kg_args, tw_pass, fw.data_ptr(), *kg_dims, *plan_args,
                 dev.index, stream)
 
         def radix2(lib, kind):
@@ -289,15 +449,33 @@ def main(argv=None) -> int:
                 return lambda: lib.prof_radix2_stft_mag(
                     x.data_ptr(), win.data_ptr(), tw.data_ptr(),
                     mag.data_ptr(), *common, dev.index, stream)
-            return lambda: lib.prof_radix2_stft_planes(
-                x.data_ptr(), win.data_ptr(), tw.data_ptr(),
-                pairs.data_ptr(), *common, 1, NF, dev.index, stream)
+            if kind == "KE":
+                return lambda: lib.prof_radix2_stft_planes(
+                    x.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                    pairs.data_ptr(), *common, 1, NF, dev.index, stream)
+            if kind == "KJ":
+                return lambda: lib.prof_radix2_gl_project(
+                    x.data_ptr(), target.data_ptr(), win.data_ptr(),
+                    tw.data_ptr(), fw.data_ptr(), *common, dev.index, stream)
+            return lambda: lib.prof_radix2_irfft_window(
+                mode, *kg_args, fw.data_ptr(), *kg_dims, dev.index, stream)
 
-        shipped = libs["shipped"][0]
         framed = (frame_signal(x, N, HOP) * win).contiguous()
-        lib_ms = min(chip_smoke.cuda_ms(lambda: torch.fft.rfft(framed, dim=-1),
-                                        args.iters) for _ in range(2))
-        for kind, out in (("KB", mag), ("KE", pairs)):
+        spec = torch.complex(torch.randn_like(target), torch.randn_like(target))
+        rfft_ms = min(chip_smoke.cuda_ms(lambda: torch.fft.rfft(framed, dim=-1),
+                                         args.iters) for _ in range(2))
+        irfft_ms = min(chip_smoke.cuda_ms(lambda: torch.fft.irfft(spec, n=N),
+                                          args.iters) for _ in range(2))
+        both_ms = min(chip_smoke.cuda_ms(lambda: torch.fft.irfft(
+            torch.fft.rfft(framed, dim=-1), n=N), args.iters)
+            for _ in range(2))
+        inputs = {"KB": (x, win), "KE": (x, win), "KJ": (x, target, win),
+                  "KG": (src, *aux, win)}
+        library = {"KB": {"rfft_ms": rfft_ms}, "KE": {"rfft_ms": rfft_ms},
+                   "KJ": {"irfft_ms": irfft_ms, "rfft_irfft_ms": both_ms},
+                   "KG": {"irfft_ms": irfft_ms}}
+        shipped = libs["shipped"][0]
+        for kind, out in (("KB", mag), ("KE", pairs), ("KJ", fw), ("KG", fw)):
             new_fn, old_fn = core(shipped, kind), radix2(shipped, kind)
             for fn in (new_fn, old_fn):
                 if fn() != 0:
@@ -306,25 +484,33 @@ def main(argv=None) -> int:
             new_out = out.clone()
             old_fn()
             torch.cuda.synchronize()
-            peak = out.abs().amax(dim=tuple(range(2, out.dim())), keepdim=True)
-            rel = float(((new_out - out).abs() / peak).max())
-            if rel > 1e-5:
+            if kind == "KJ":
+                rel, limit = chip_smoke.rel_l2(new_out, out), 1e-4
+            else:
+                rel, limit = peak_rel(new_out, out), 1e-5
+            if rel > limit:
                 raise AssertionError(f"{kind} {shape}: core against radix-2 "
-                                     f"{rel:.3e} of the frame peak")
+                                     f"{rel:.3e} > {limit}")
+            if kind == "KG" and real < frames and new_out[:, real:].any():
+                raise AssertionError(f"KG {shape}: masked frames not zero")
             new_ms, old_ms = chip_smoke.race(new_fn, old_fn, kind, args.iters)
-            b_ms = chip_smoke.bound(chip_smoke.nbytes(x, win, out), 0.0)[0]
+            b_ms = chip_smoke.bound(chip_smoke.nbytes(*inputs[kind], out),
+                                    0.0)[0]
+            lib_ms = library[kind]
+            first_lib = next(iter(lib_ms.values()))
             record(kernel=kind, shape=shape, frames=batch * frames,
                    core_ms=new_ms, radix2_ms=old_ms, speedup=old_ms / new_ms,
-                   bound_ms=b_ms, bound_share=b_ms / new_ms,
-                   rfft_ms=lib_ms, core_vs_rfft=new_ms / lib_ms,
+                   bound_ms=b_ms, bound_share=b_ms / new_ms, **lib_ms,
+                   core_vs_library=new_ms / first_lib,
                    core_vs_radix2_rel_err=rel)
             if shape != "bench":
                 continue
             base = new_ms
             for variant, (lib, _) in libs.items():
-                if variant == "shipped":
+                points, _, units = VARIANTS[variant]
+                if variant == "shipped" or kind not in KINDS[units]:
                     continue
-                fn = core(lib, kind, VARIANTS[variant][0])
+                fn = core(lib, kind, points)
                 if fn() != 0:
                     raise RuntimeError(f"{kind} {variant}: launch failed")
                 ms = min(chip_smoke.cuda_ms(fn, args.iters) for _ in range(2))
