@@ -17,9 +17,11 @@ their PNGs and WAVs against the port's CPU path and its single-file tools,
 checks that every kernel of each path was launched on it, and times each
 kernel against its plain version, its bound and, where one exists, the one
 PyTorch call of the same function, each batch CLI against the single-file
-tool, and each long-form call step by step. This slice's phases: 2f holds
-the matmul DFT's kernels KN and KO (bf16 and float32 modes, every epilogue)
-against their plain versions at the bench shape and at ragged shapes, the
+tool, and each long-form call step by step. Phase 2f holds the matmul
+DFT's kernels KN and KO (bf16 and float32 modes, every epilogue) against
+their plain versions at the bench shape and at ragged shapes, KO reading
+KN's padded bf16 planes in place against contiguous copies, and a frame
+alone against the batch, bit for bit; it also holds the
 FFT kernels' mixed radix at n = 3000 at every site, and the xla route
 (torch.fft for a size without the TPU's n1 * n2 split, which the TPU also
 gives its library FFT) at n = 514 at every site; 3f drives
@@ -27,8 +29,10 @@ mel_decode(fft_backend="mm") at GL-2 and recommended_gl(64) against the
 exact route, the phase codec with "mm", tomel/towav and Phase at resolut
 3000 and Phase at resolut 514 against the CPU, and (in 3e)
 sharded_mel_decode_fn(interior_mm=True) on the 30-minute file; phase 4 times
-KN and KO in each mode, one interior Griffin-Lim iteration on them against
-KJ, KB and KJ at n = 3000, and the xla route at n = 514. The Griffin-Lim
+KN and KO in each mode beside torch.matmul on the same operands and on
+operands padded to aligned widths, one interior Griffin-Lim iteration on
+them against KJ, KB and KJ at n = 3000, and the xla route at n = 514. The
+Griffin-Lim
 start is drawn on the card by KP (Threefry-2x32, the JAX package's samples):
 phase 2g holds it bit for bit against its plain version at the bench shape
 (one key and row keys), the batch shape, one shard of the 30-minute file and
@@ -655,6 +659,29 @@ def dft_kernels(dev: torch.device, errs: dict, x: torch.Tensor,
         f"{one_rounding}")
     if proj > 1e-4 or not one_rounding:
         raise AssertionError("KN projection epilogue outside its bound")
+    # KO reads KN's bf16 planes (views of rows padded to 8 bins) in place;
+    # a frame alone gives the batch's bits in each mode
+    in_place = dft_mm.istft_frames(lr, li, n, win, "default")
+    copied = dft_mm.istft_frames(lr.contiguous(), li.contiguous(), n, win,
+                                 "default")
+    alone = {}
+    for precision, mode in (("default", "bf16"), (None, "f32")):
+        br, bi = dft_mm.stft(sig0, n, hop, win, precision)
+        f = br.shape[-2] // 3
+        one = dft_mm.stft(sig0[1, f * hop:f * hop + n].contiguous(), n, n,
+                          win, precision)
+        frames_b = dft_mm.istft_frames(br, bi, n, win, precision)
+        one_b = dft_mm.istft_frames(br[1, f:f + 1], bi[1, f:f + 1], n, win,
+                                    precision)
+        alone[mode] = (torch.equal(one[0][0], br[1, f])
+                       and torch.equal(one[1][0], bi[1, f])
+                       and torch.equal(one_b[0], frames_b[1, f]))
+    torch.cuda.synchronize()
+    log(f"KO on KN's padded bf16 planes in place, bit-equal to contiguous "
+        f"copies: {torch.equal(in_place, copied)}; a frame alone bit-equal "
+        f"to the batch's (KN, KO): {alone}")
+    if not torch.equal(in_place, copied) or not all(alone.values()):
+        raise AssertionError("KN/KO: padded planes or a frame alone differ")
 
     # phase 4: the main-path calls of each mode at the bench shape, with the
     # host window (a tensor window is copied to the host on every call,
@@ -662,10 +689,6 @@ def dft_kernels(dev: torch.device, errs: dict, x: torch.Tensor,
     win_np = hann_window(n)
     rows = yr.shape[0] * yr.shape[1]
     half = n // 2 + 1
-    fwd16 = dft_mm._weights("fwd", n, win_np, "bf16", dev)
-    fwd32 = dft_mm._weights("fwd", n, win_np, "f32", dev)
-    inv16 = dft_mm._weights("inv", n, win_np, "bf16", dev)
-    inv32 = dft_mm._weights("inv", n, win_np, "f32", dev)
     frames32 = (frame_signal(sig0, n, hop) * win).reshape(rows, n)
     frames16 = frames32.to(torch.bfloat16)
     w_f16 = dft_mm._weights("fwd", n, win_np, torch.float32, dev).to(
@@ -676,8 +699,21 @@ def dft_kernels(dev: torch.device, errs: dict, x: torch.Tensor,
     w_i16 = dft_mm._weights("inv", n, win_np, torch.float32, dev).to(
         torch.bfloat16)
     w_i32 = dft_mm._weights("inv", n, win_np, torch.float32, dev)
+    # the second yardstick: the same products with the 4098-wide dimension
+    # padded with zeros to an aligned width (4224 forward columns, a
+    # contraction of 4128), where cuBLAS may take faster kernels
+    cols_a, depth_a = -(-2 * half // 128) * 128, -(-2 * half // 32) * 32
+    w_f32a = torch.zeros((n, cols_a), device=dev)
+    w_f32a[:, :2 * half] = w_f32
+    z32a = torch.zeros((rows, depth_a), device=dev)
+    z32a[:, :2 * half] = z32
+    w_i32a = torch.zeros((depth_a, n), device=dev)
+    w_i32a[:2 * half] = w_i32
+    w_f16a, z16a, w_i16a = (t.to(torch.bfloat16)
+                            for t in (w_f32a, z32a, w_i32a))
     products = 2.0 * rows * n * 2 * half
     sig_frames = nbytes(sig0)
+    weights = float(n * 2 * half)     # each direction's weights, unpadded
     return {
         "dft_fwd_bf16": dict(
             kernel=lambda: dft_mm.gl_spectrum(sig0, mag, n, hop, win_np,
@@ -685,26 +721,30 @@ def dft_kernels(dev: torch.device, errs: dict, x: torch.Tensor,
             plain=lambda: dft_mm.dft_fwd_plain(sig0, n, hop, win_np,
                                                kind="project", mag=mag,
                                                bf16_operands=True),
-            work=(sig_frames + nbytes(mag, fwd16, lr, li), products,
-                  BF16_FLOP_S),
-            library=lambda: torch.matmul(frames16, w_f16)),
+            work=(sig_frames + nbytes(mag) + 2.0 * weights
+                  + 4.0 * rows * half, products, BF16_FLOP_S),
+            library=lambda: torch.matmul(frames16, w_f16),
+            aligned=lambda: torch.matmul(frames16, w_f16a)),
         "dft_fwd_f32": dict(
             kernel=lambda: dft_mm.stft(x, n, hop, win_np),
             plain=lambda: dft_mm.dft_fwd_plain(x, n, hop, win_np),
-            work=(nbytes(x, fwd32, yr, yi), products),
-            library=lambda: torch.matmul(frames32, w_f32)),
+            work=(nbytes(x, yr, yi) + 4.0 * weights, products),
+            library=lambda: torch.matmul(frames32, w_f32),
+            aligned=lambda: torch.matmul(frames32, w_f32a)),
         "dft_inv_bf16": dict(
             kernel=lambda: dft_mm.istft_frames(lr, li, n, win_np, "default"),
             plain=lambda: dft_mm.dft_inv_plain(lr, li, n, win_np,
                                                bf16_operands=True),
-            work=(nbytes(lr, li, inv16) + 4.0 * rows * n, products,
-                  BF16_FLOP_S),
-            library=lambda: torch.matmul(z16, w_i16)),
+            work=(4.0 * rows * half + 2.0 * weights + 4.0 * rows * n,
+                  products, BF16_FLOP_S),
+            library=lambda: torch.matmul(z16, w_i16),
+            aligned=lambda: torch.matmul(z16a, w_i16a)),
         "dft_inv_f32": dict(
             kernel=lambda: dft_mm.istft_frames(yr, yi, n, win_np),
             plain=lambda: dft_mm.dft_inv_plain(yr, yi, n, win_np),
-            work=(nbytes(yr, yi, inv32) + 4.0 * rows * n, products),
-            library=lambda: torch.matmul(z32, w_i32)),
+            work=(nbytes(yr, yi) + 4.0 * weights + 4.0 * rows * n, products),
+            library=lambda: torch.matmul(z32, w_i32),
+            aligned=lambda: torch.matmul(z32a, w_i32a)),
     }
 
 
@@ -2504,6 +2544,11 @@ def main() -> int:
             library[name] = entry["library"]
     library_ms = {name: min(cuda_ms(fn), cuda_ms(fn))
                   for name, fn in library.items()}
+    for name, entry in dft_k.items():
+        aligned = min(cuda_ms(entry["aligned"]), cuda_ms(entry["aligned"]))
+        log(f"  {name}: torch.matmul on the same operands "
+            f"{library_ms[name]:.4f} ms, on operands padded to aligned "
+            f"widths {aligned:.4f} ms; kernel {times[name][0]:.4f} ms")
     bounds = {name: bound(*w) for name, w in work.items()}
     for name in times:
         b_ms, b_by = bounds[name]

@@ -63,10 +63,11 @@ _SIGNATURES = {
     "gomel_shard_epilogue": [_P, _I64, _P, _I64, _I64, _P, _I64, _I64, _I64,
                              _I64, _I32, _F32, _F32, _P, _F32, _P, _I64, _P,
                              _P, _P, _I64, _I64],
-    "gomel_dft_fwd": [_I32, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I64,
-                      _I64, _I64, _I64, _I32, _I32, _I32],
-    "gomel_dft_inv": [_I32, _I32, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                      _I64, _I64],
+    "gomel_dft_weight_map": [_P, _P, _I32, _I64, _I64],
+    "gomel_dft_fwd": [_I32, _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64,
+                      _I64, _I64, _I64, _I64, _I64, _I32, _I32, _I32],
+    "gomel_dft_inv": [_I32, _I32, _P, _P, _I64, _P, _P, _I64, _I64, _I64,
+                      _I64, _I64, _I64],
     "gomel_threefry_uniform": [_P, _P, _I64, _I64],
 }
 

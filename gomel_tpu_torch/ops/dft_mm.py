@@ -13,20 +13,24 @@ it by tests/test_torch_host.py.
 DEFAULT matmul is on a TPU. On a CPU tensor every function runs its plain
 version, a ``torch.matmul`` against the master cast to the input's dtype, as
 the JAX module runs on XLA's CPU backend, where every precision is exact. On
-a CUDA tensor "default" launches the kernels' bf16 mode (``mma.sync`` on the
+a CUDA tensor "default" launches the kernels' bf16 mode (``wgmma`` on the
 tensor cores) and the other three their float32 mode (a SIMT float32
 product: the card has no 3-pass bf16 product, so "high" is exact there).
 
-The weights for the kernels are laid out on the host (interleaved
-(re, im) columns, padded to the tiles: csrc/dft_mm.cu) and cached per
-(direction, n, window, mode, device), the window keyed by its host values
-as the JAX module folds a host window: at n = 4096 one direction takes
-34.6 MB in bf16, 69.2 MB in float32.
+The weights for the kernels are laid out on the host (:func:`_kernel_layout`:
+KN's interleaved (re, im) columns, KO's re block then im block, padded to
+the tiles and stages, the bf16 contraction permuted within each 16 as the
+kernel's register fragments read it: csrc/dft_mm.cu) and cached with their
+TMA tensor map per (direction, n, window, mode, device), the window keyed by
+its host values as the JAX module folds a host window: at n = 4096 one
+direction takes 34.6 MB in bf16, 69.2 MB in float32.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import hashlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,7 +52,16 @@ INV_F32_KERNEL = _cuda.Kernel("dft_inv_f32", _SRC,
 
 # KN's epilogues (csrc/dft_mm.cu)
 _EPILOGUES = {"planes": 0, "mag": 1, "pairs": 2, "project": 3}
-_TILE, _DEPTH = 128, 32     # output tile width, k-depth multiple
+# csrc/dft_mm.cu's tile: 128 x 128 outputs; stage depth 64 (bf16 mode) or
+# 32 (float32 mode); a fresh accumulator every 64 of the bf16 contraction
+TILE = 128
+DEPTH = {"bf16": 64, "f32": 32}
+PROMOTE = 64
+# the bf16 contraction within each 16: position p of the layout holds sample
+# PERM16[p], so the wgmma fragment's k = 2t, 2t+1, 2t+8, 2t+9 are samples
+# 4t .. 4t+3, adjacent in the A stage
+PERM16 = np.array([0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15])
+LOW_ALIGN = 8    # bins a row of KN's bf16 planes is padded to (16 bytes)
 
 
 def supported(n: int) -> bool:
@@ -130,30 +143,55 @@ def _round_up(v: int, m: int) -> int:
 
 
 def _kernel_layout(direction: str, master: np.ndarray, n: int,
-                   bf16: bool) -> torch.Tensor:
-    """The master as a kernel reads it: one row per output column, each a
-    run of the contraction, rows padded to the tile width and runs to the
-    k-depth with zeros. KN's columns interleave (cos k, -sin k); KO's
-    contraction interleaves (re k, im k). float64 -> float32 (-> bf16)."""
+                   bf16: bool) -> np.ndarray:
+    """The master as the kernel's TMA reads it, float64 -> float32 (the bf16
+    mode rounds it to bf16 on its way to the card). KN's output columns
+    interleave (cos k, -sin k); KO's contraction is the re block then the im
+    block, each zero-padded to a multiple of the stage depth; columns are
+    padded to the tile. bf16 mode: [columns, depth], the contraction
+    contiguous and permuted within each 16 by ``PERM16``; float32 mode:
+    [depth, columns]."""
     half = n // 2 + 1
+    d = DEPTH["bf16" if bf16 else "f32"]
     m32 = master.astype(np.float32)
-    if direction == "fwd":        # master [n, 2h] -> [cols, n]
-        w = np.zeros((_round_up(2 * half, _TILE), _round_up(n, _DEPTH)),
-                     np.float32)
-        w[0:2 * half:2, :n] = m32[:, :half].T
-        w[1:2 * half:2, :n] = m32[:, half:].T
-    else:                         # master [2h, n] -> [n, 2h]
-        w = np.zeros((_round_up(n, _TILE), _round_up(2 * half, _DEPTH)),
-                     np.float32)
-        w[:n, 0:2 * half:2] = m32[:half].T
-        w[:n, 1:2 * half:2] = m32[half:].T
-    t = torch.from_numpy(w)
-    return t.to(torch.bfloat16) if bf16 else t
+    if direction == "fwd":        # master [n, 2h] -> [depth, cols]
+        w = np.zeros((_round_up(n, d), _round_up(2 * half, TILE)), np.float32)
+        w[:n, 0:2 * half:2] = m32[:, :half]
+        w[:n, 1:2 * half:2] = m32[:, half:]
+    else:                         # master [2h, n] -> [depth, cols]
+        kh = _round_up(half, d)
+        w = np.zeros((2 * kh, _round_up(n, TILE)), np.float32)
+        w[:half, :n] = m32[:half]
+        w[kh:kh + half, :n] = m32[half:]
+    if not bf16:
+        return w
+    cols, depth = w.shape[1], w.shape[0]
+    return np.ascontiguousarray(
+        w.T.reshape(cols, depth // 16, 16)[:, :, PERM16].reshape(cols, depth))
+
+
+class KernelWeights(NamedTuple):
+    """A kernel weight layout on the card and its TMA tensor map."""
+    w: torch.Tensor          # bf16 [cols, depth] or float32 [depth, cols]
+    tmap: ctypes.Array       # 128 bytes: csrc/dft_mm.cu gomel_dft_weight_map
+    depth: int               # the padded contraction
+    cols: int                # the padded output columns
+
+
+def _kernel_weights(direction: str, master: np.ndarray, n: int, bf16: bool,
+                    device: torch.device) -> KernelWeights:
+    w = torch.from_numpy(_kernel_layout(direction, master, n, bf16))
+    w = (w.to(torch.bfloat16) if bf16 else w).to(device)
+    tmap = ctypes.create_string_buffer(128)
+    _cuda.launch("gomel_dft_weight_map", device, ctypes.addressof(tmap),
+                 w.data_ptr(), int(bf16), w.shape[0], w.shape[1])
+    depth, cols = (w.shape[1], w.shape[0]) if bf16 else w.shape
+    return KernelWeights(w, tmap, int(depth), int(cols))
 
 
 # (direction, n, window key, kind, device) -> weights; at most 8 entries
 # (~0.55 GB at n = 4096 if all were float32 kernel layouts)
-_WEIGHTS: dict[tuple, torch.Tensor] = {}
+_WEIGHTS: dict[tuple, torch.Tensor | KernelWeights] = {}
 _WEIGHTS_MAX = 8
 
 
@@ -169,12 +207,12 @@ def _window_key(window_np: np.ndarray | None, n: int):
         np.ascontiguousarray(window_np, np.float64).tobytes()).hexdigest()
 
 
-def _weights(direction: str, n: int, window, kind,
-             device: torch.device) -> torch.Tensor:
+def _weights(direction: str, n: int, window, kind, device: torch.device):
     """The weights of ``direction`` on ``device``: for ``kind`` a dtype, the
     master cast to it (the plain versions); "bf16" or "f32", the kernels'
-    layout. ``window`` is None, a host array, or a tensor, which is copied
-    to the host on every call (pass the host array where there is one)."""
+    layout with its tensor map (:class:`KernelWeights`, CUDA only).
+    ``window`` is None, a host array, or a tensor, which is copied to the
+    host on every call (pass the host array where there is one)."""
     if isinstance(window, torch.Tensor):
         window = window.detach().to("cpu", torch.float64).numpy()
     key = (direction, n, _window_key(window, n), kind, device)
@@ -183,10 +221,9 @@ def _weights(direction: str, n: int, window, kind,
         return w
     master = _master(direction, n, window)
     if isinstance(kind, torch.dtype):
-        w = torch.from_numpy(master).to(kind)
+        w = torch.from_numpy(master).to(kind).to(device)
     else:
-        w = _kernel_layout(direction, master, n, kind == "bf16")
-    w = w.to(device)
+        w = _kernel_weights(direction, master, n, kind == "bf16", device)
     if len(_WEIGHTS) >= _WEIGHTS_MAX:
         _WEIGHTS.clear()
     _WEIGHTS[key] = w
@@ -269,21 +306,34 @@ def _launch_fwd(x: torch.Tensor, n: int, hop: int, window, bf16: bool,
     low = kind == "project" and bf16 and not final
     f32 = torch.float32
     out1 = None
+    ld_low = _round_up(half, LOW_ALIGN)
     if kind == "pairs":
         out0 = torch.empty(lead + (frames, count, 2), dtype=f32, device=dev)
     elif kind == "mag":
         out0 = torch.empty(shape, dtype=f32, device=dev)
+    elif low:    # rows padded to 16 bytes, so KO copies them 16 at a time
+        out0, out1 = (torch.empty(lead + (frames, ld_low),
+                                  dtype=torch.bfloat16, device=dev)
+                      for _ in range(2))
     else:
-        dt = torch.bfloat16 if low else f32
-        out0 = torch.empty(shape, dtype=dt, device=dev)
-        out1 = torch.empty(shape, dtype=dt, device=dev)
+        out0 = torch.empty(shape, dtype=f32, device=dev)
+        out1 = torch.empty(shape, dtype=f32, device=dev)
+    # the bf16 mode reads a bf16 copy of the signal in 16-byte aligned rows
+    # (half the bytes of float32) when every frame starts 16 bytes in
+    x_low = torch.empty((batch, _round_up(length, LOW_ALIGN)),
+                        dtype=torch.bfloat16, device=dev) if (
+        bf16 and hop % LOW_ALIGN == 0) else None
     if batch * frames > 0:
         _cuda.launch("gomel_dft_fwd", dev, int(bf16), x.data_ptr(),
-                     wt.data_ptr(), None if mag is None else mag.data_ptr(),
+                     None if x_low is None else x_low.data_ptr(),
+                     ctypes.addressof(wt.tmap),
+                     None if mag is None else mag.data_ptr(),
                      out0.data_ptr(), None if out1 is None else out1.data_ptr(),
-                     int(low), batch, frames, length, hop, n, wt.shape[1],
-                     wt.shape[0], _EPILOGUES[kind], first, count)
+                     int(low), ld_low, batch, frames, length, hop, n,
+                     wt.depth, wt.cols, _EPILOGUES[kind], first, count)
         (FWD_KERNEL if bf16 else FWD_F32_KERNEL).launches += 1
+    if low:
+        return out0[..., :half], out1[..., :half]
     return out0 if out1 is None else (out0, out1)
 
 
@@ -330,7 +380,8 @@ def gl_spectrum(sig: torch.Tensor, mag_half: torch.Tensor, n: int, hop: int,
     ``sig`` [..., L] -> rfft -> unit phase x ``mag_half`` [..., F, n/2+1],
     as (re, im) planes. On the card in the bf16 mode the planes of an
     interior iteration (``final`` False) are bf16: they only feed the bf16
-    inverse."""
+    inverse, and are views of rows padded to 8 bins, which
+    :func:`istft_frames` reads in place."""
     return _fwd(sig, n, hop, window, precision, "project", mag=mag_half,
                 final=final)
 
@@ -341,7 +392,9 @@ def istft_frames(re: torch.Tensor, im: torch.Tensor, n: int, window=None,
     """Half-spectrum planes [..., F, n/2+1] -> irfft_n x window [..., F, n]
     (imag(DC), imag(Nyquist) ignored); frames at or past ``real_frames`` are
     zeros. KO on a CUDA tensor (float32 planes, or bf16 planes in the bf16
-    mode)."""
+    mode). The planes' rows may lie any stride apart (the views
+    :func:`gl_spectrum` returns); bf16 planes whose rows are not 16-byte
+    aligned are copied into padded rows first."""
     _check_n(n)
     if re.shape != im.shape or re.shape[-1] != n // 2 + 1:
         raise ValueError(f"istft_frames: planes {tuple(re.shape)}, "
@@ -350,8 +403,14 @@ def istft_frames(re: torch.Tensor, im: torch.Tensor, n: int, window=None,
     bf16 = _low(precision, re.device)
     if re.device.type == "cpu":
         return dft_inv_plain(re, im, n, window, real_frames=real_frames)
-    re, im = re.contiguous(), im.contiguous()
-    dev = _cuda.check_cuda("dft_inv", re, im)
+    ld = _row_stride(re)
+    if ld is None or _row_stride(im) != ld:
+        re, im = re.contiguous(), im.contiguous()
+        ld = n // 2 + 1
+    dev = re.device
+    if dev.type != "cuda" or im.device != dev:
+        raise ValueError(f"dft_inv: expected planes on one CUDA device, got "
+                         f"{re.device}, {im.device}")
     planes_bf16 = re.dtype == torch.bfloat16
     if re.dtype != im.dtype or re.dtype not in (torch.float32,
                                                 torch.bfloat16) or (
@@ -367,12 +426,44 @@ def istft_frames(re: torch.Tensor, im: torch.Tensor, n: int, window=None,
     out = torch.empty(tuple(lead) + (frames, n), dtype=torch.float32,
                       device=dev)
     if rows > 0:
+        if planes_bf16 and (ld % LOW_ALIGN or any(
+                t.data_ptr() % 16 for t in (re, im))):
+            re, im, ld = (*(_padded_rows(t, rows) for t in (re, im)),
+                          _round_up(n // 2 + 1, LOW_ALIGN))
         _cuda.launch("gomel_dft_inv", dev, int(bf16), int(planes_bf16),
-                     re.data_ptr(), im.data_ptr(), wt.data_ptr(),
-                     out.data_ptr(), rows, frames,
+                     re.data_ptr(), im.data_ptr(), ld,
+                     ctypes.addressof(wt.tmap), out.data_ptr(), rows, frames,
                      frames if real_frames is None else real_frames, n,
-                     wt.shape[1], wt.shape[0])
+                     wt.depth, wt.cols)
         (INV_KERNEL if bf16 else INV_F32_KERNEL).launches += 1
+    return out
+
+
+def _row_stride(t: torch.Tensor) -> int | None:
+    """The distance in elements between the rows of ``t`` [..., rows, bins]
+    when its bins are contiguous and its rows lie one stride apart (a
+    contiguous tensor, or a view of the first bins of padded rows); None
+    otherwise."""
+    if t.dim() < 2 or t.stride(-1) != 1:
+        return None
+    if t.is_contiguous():
+        return t.shape[-1]
+    ld, span = t.stride(-2), t.stride(-2) * t.shape[-2]
+    if t.shape[-2] < 2 or ld < t.shape[-1]:
+        return None
+    for size, stride in zip(reversed(t.shape[:-2]), reversed(t.stride()[:-2])):
+        if size != 1 and stride != span:
+            return None
+        span *= size
+    return ld
+
+
+def _padded_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """bf16 planes as rows padded to ``LOW_ALIGN`` bins (16 bytes)."""
+    half = t.shape[-1]
+    out = torch.zeros((rows, _round_up(half, LOW_ALIGN)), dtype=t.dtype,
+                      device=t.device)
+    out[:, :half] = t.reshape(rows, half)
     return out
 
 

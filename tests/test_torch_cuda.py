@@ -963,13 +963,19 @@ def _frame_peak_close(got, want, tol, dims=(-1,)):
 @pytest.mark.parametrize("n,hop,lead,length", [
     (4096, 1280, (2,), 1280 * 20 + 4095), (3000, 700, (), 3000 + 700 * 9 + 5),
     (512, 128, (3,), 5001), (8192, 8192, (), 8192 * 3),   # framed: hop = n
-    (2, 1, (1, 2), 9)])
+    (2, 1, (1, 2), 9),
+    # rows that are not a multiple of the 128-row tile, length % 4 of 0-3
+    (512, 512, (), 512), (64, 16, (1,), 64 + 16 * 62 + 2),
+    (4096, 1280, (5,), 4096 + 1280 * 12 + 1),
+    (4096, 1280, (2,), 4096 + 1280 * 1121 + 3)])
 @pytest.mark.parametrize("kind", ["planes", "mag", "pairs"])
 def test_dft_fwd_vs_plain(cuda, n, hop, lead, length, kind):
     """KN in each mode against its plain version on the same card: the bf16
     mode within 2e-5 of each frame's peak of the bf16-operand plain version
     (summation order only) and within 1e-2 of float64; the float32 mode
-    within 1e-5 of float64 (KB's bound)."""
+    within 1e-5 of float64 (KB's bound). Rows 1, 63, 65, 2244 and every
+    length % 4 (the bf16 signal copy where hop % 8 == 0, the float32
+    signal's 16-byte and 4-byte copies elsewhere)."""
     from gomel_tpu_torch.ops import dft_mm
     rng = np.random.default_rng(n + hop)
     x = torch.from_numpy(rng.standard_normal(lead + (length,))
@@ -1002,12 +1008,16 @@ def test_dft_fwd_vs_plain(cuda, n, hop, lead, length, kind):
 
 @pytest.mark.parametrize("n,frames,lead,real", [
     (4096, 11, (2,), None), (3000, 7, (), 4), (512, 17, (3,), 0),
-    (8192, 3, (), None), (2, 5, (1, 2), 2)])
+    (8192, 3, (), None), (2, 5, (1, 2), 2),
+    # rows 1, 63, 65, 2244; real-frame counts 0, partial and full
+    (512, 1, (), 1), (3000, 63, (), 40), (64, 13, (5,), 13),
+    (4096, 1122, (2,), 0), (4096, 1122, (2,), 561), (4096, 1122, (2,), 1122)])
 def test_dft_inv_vs_plain(cuda, n, frames, lead, real):
     """KO in each mode against its plain version, with non-zero imag(DC)
     and imag(Nyquist), which it must ignore, and a real-frame count: the
     bf16 mode within 2e-5 of each frame's peak of the bf16-operand plain
-    version, the float32 mode within 1e-5 of float64."""
+    version, the float32 mode within 1e-5 of float64; bf16 planes, copied
+    into rows padded to 8 bins, give the float32 planes' bits."""
     from gomel_tpu_torch.ops import dft_mm
     rng = np.random.default_rng(n + frames)
     shape = lead + (frames, n // 2 + 1)
@@ -1037,6 +1047,61 @@ def test_dft_inv_vs_plain(cuda, n, frames, lead, real):
             assert torch.equal(low, got)     # bf16 planes: the same operand
         else:
             _frame_peak_close(got, ref64, 1e-5)
+
+
+@pytest.mark.parametrize("n,hop,frames", [(4096, 1280, 1122), (512, 96, 65),
+                                          (3000, 1500, 3)])
+def test_dft_bf16_planes_in_place(cuda, n, hop, frames):
+    """KN's interior projection writes bf16 planes as views of rows padded
+    to 8 bins, and KO reads them in place: the frames equal those from
+    contiguous copies of the same planes bit for bit, within 2e-5 of the
+    bf16-operand plain version, with real-frame counts 0, partial and
+    full."""
+    from gomel_tpu_torch.ops import dft_mm
+    rng = np.random.default_rng(n + frames)
+    sig = torch.from_numpy(rng.random((2, n + (frames - 1) * hop))
+                           .astype(np.float32)).to(cuda)
+    mag = torch.from_numpy((rng.random((2, frames, n // 2 + 1)) * 3)
+                           .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    lr, li = dft_mm.gl_spectrum(sig, mag, n, hop, win, "default")
+    assert lr.shape == mag.shape and not lr.is_contiguous()
+    assert lr.stride(-2) % dft_mm.LOW_ALIGN == 0
+    for real in (0, frames // 2, frames):
+        got = dft_mm.istft_frames(lr, li, n, win, "default", real)
+        same = dft_mm.istft_frames(lr.contiguous(), li.contiguous(), n, win,
+                                   "default", real)
+        assert torch.equal(got, same)
+        assert not got[..., real:, :].any()
+        want = dft_mm.dft_inv_plain(lr, li, n, win, real_frames=real,
+                                    bf16_operands=True)
+        if real:
+            _frame_peak_close(got[..., :real, :], want[..., :real, :], 2e-5)
+
+
+@pytest.mark.parametrize("precision", ["default", None])
+@pytest.mark.parametrize("n,hop", [(4096, 1280), (3000, 700), (512, 100)])
+def test_dft_frame_alone_matches_batch(cuda, n, hop, precision):
+    """A frame alone gives the same bits as the same frame inside a batch of
+    600 rows (another tile and row of it), in each mode: KN on the frame
+    read as framed input against the batch's row, KO on its planes alone
+    against the batch's frames."""
+    from gomel_tpu_torch.ops import dft_mm
+    frames = 300
+    rng = np.random.default_rng(n + hop)
+    x = torch.from_numpy(rng.standard_normal((2, n + (frames - 1) * hop))
+                         .astype(np.float32)).to(cuda)
+    win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
+    re, im = dft_mm.stft(x, n, hop, win, precision)
+    for b, f in ((0, 0), (1, 37), (1, frames - 1)):
+        frame = x[b, f * hop:f * hop + n].contiguous()
+        r1, i1 = dft_mm.stft(frame, n, n, win, precision)
+        assert torch.equal(r1[0], re[b, f]) and torch.equal(i1[0], im[b, f])
+    back = dft_mm.istft_frames(re, im, n, win, precision)
+    for b, f in ((0, 0), (1, 37), (1, frames - 1)):
+        one = dft_mm.istft_frames(re[b, f:f + 1], im[b, f:f + 1], n, win,
+                                  precision)
+        assert torch.equal(one[0], back[b, f])
 
 
 @pytest.mark.parametrize("n,hop,frames", [(4096, 1280, 9), (3000, 750, 6)])
