@@ -17,7 +17,12 @@ their PNGs and WAVs against the port's CPU path and its single-file tools,
 checks that every kernel of each path was launched on it, and times each
 kernel against its plain version, its bound and, where one exists, the one
 PyTorch call of the same function, each batch CLI against the single-file
-tool, and each long-form call step by step. Phase 2f holds the matmul
+tool, and each long-form call step by step. KH and KM walk hop-rows, 4
+samples a thread where the shapes allow: phase 2b holds KH on that vector
+path and on its scalar path (an odd hop), phase 2e KH's plain overlap-add
+at one long-form shard and KM's modes on both paths (a shard start 2
+samples on), and phase 4 also times KH's overlap-add at the shard and KM's
+momentum step, each beside its bound. Phase 2f holds the matmul
 DFT's kernels KN and KO (bf16 and float32 modes, every epilogue) against
 their plain versions at the bench shape and at ragged shapes, KO reading
 KN's padded bf16 planes in place against contiguous copies, and a frame
@@ -354,6 +359,14 @@ def nbytes(*tensors) -> float:
     return float(sum(t.numel() * t.element_size() for t in tensors))
 
 
+def vector_path(*extents, tensors=()) -> bool:
+    """The path KH's and KM's entry points take (csrc/overlap_add.cuh
+    ola_vector): 4 samples a thread when every extent is a multiple of 4
+    and every tensor starts on 16 bytes, else one."""
+    return (all(e % 4 == 0 for e in extents)
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def fft_ops(n: int) -> float:
     """Operations of one real FFT of n points (the usual 2.5 n log2 n)."""
     return 2.5 * n * math.log2(n)
@@ -435,17 +448,37 @@ def longform_kernels(dev: torch.device, errs: dict) -> dict:
                                  f"outside its bound")
     fw_last = istft.launch_irfft_window(istft.MODE_SPEC, spec, (), n, f_loc,
                                         nf, win, (1,), real_frames=real)
+    # KH without a window (the shard's plain overlap-add) on its vector path
+    if not vector_path(n, hop, tensors=(fw_last,)):
+        raise AssertionError("KH at the shard shape is not on its vector path")
     sig_ext = istft.overlap_add(fw_last, hop)
     left = istft.overlap_add(full, hop)
+    torch.cuda.synchronize()
+    if not (torch.equal(sig_ext, istft.overlap_add_plain(fw_last, hop))
+            and torch.equal(left, istft.overlap_add_plain(full, hop))):
+        raise AssertionError("overlap_add (shard) differs from its plain "
+                             "version")
+    log(f"KH overlap_add {tuple(fw_last.shape)} -> {tuple(sig_ext.shape)} "
+        f"({real} and {f_loc} real frames), vector path: bit-exact")
     recv = left[:, chunk:]
     t_prev = torch.rand((1, chunk), generator=g, device=dev)
     decode = dict(window=win, hop=hop, start=last * chunk,
                   n_frames=plan.n_frames)
+    # a start 2 samples on (not a multiple of 4, nor of hop) takes the
+    # scalar path
+    shifted = dict(decode, start=last * chunk + 2)
+    extents = (hop, sig_ext.shape[1], chunk, recv.stride(0), chunk)
+    if vector_path(*extents, shifted["start"] % hop) or not vector_path(
+            *extents, decode["start"] % hop, tensors=(sig_ext, recv, t_prev)):
+        raise AssertionError("KM's path choice")
     errs["shard_epilogue"] = 0.0
     for label, kw in (
             ("decode, boost 1.5, PCM-16", dict(decode, volume_boost=1.5,
                                                 pcm16=True)),
             ("decode, float32", decode),
+            ("decode, start + 2 (scalar path), PCM-16",
+             dict(shifted, pcm16=True)),
+            ("decode, start + 2 (scalar path), float32", shifted),
             ("GL momentum 0.99, extended carry",
              dict(t_prev=t_prev, momentum=0.99, extend=True)),
             ("GL final, PCM-16", dict(pcm16=True)),
@@ -464,8 +497,8 @@ def longform_kernels(dev: torch.device, errs: dict) -> dict:
                 errs["shard_epilogue"] = max(errs["shard_epilogue"], float(
                     (a[..., :chunk] - b[..., :chunk]).abs().max()))
     log(f"KM shard_epilogue [1, {chunk} + {halo}] (shard {last}, {real} real "
-        f"frames): decode with and without boost, float32 and PCM-16, GL "
-        f"momentum and final: bit-exact")
+        f"frames): decode with and without boost, float32 and PCM-16, on the "
+        f"vector and the scalar path, GL momentum and final: bit-exact")
 
     prefix = istft._window_table(win, hop)[1]
     spec_c = torch.complex(re, im)
@@ -491,6 +524,27 @@ def longform_kernels(dev: torch.device, errs: dict) -> dict:
             plain=lambda: istft.shard_epilogue_plain(sig_ext, recv, chunk,
                                                      pcm16=True, **decode),
             work=(nbytes(sig_ext, recv, prefix) + 2.0 * chunk, 8.0 * chunk),
+            library=None),
+        # timed beside the rows above: KH's plain overlap-add at the shard
+        # (276 MB read, 86 MB written), with F.fold's overlap-add of the same
+        # frames, and KM's momentum step
+        "overlap_normalize (shard overlap-add)": dict(
+            kernel=lambda: istft.overlap_add(fw_last, hop),
+            plain=lambda: istft.overlap_add_plain(fw_last, hop),
+            work=(nbytes(fw_last, sig_ext),
+                  float(sig_ext.numel()) * -(-n // hop)),
+            library=lambda: torch.nn.functional.fold(
+                fw_last.transpose(1, 2), (1, sig_ext.shape[-1]), (1, n),
+                stride=(1, hop))),
+        "shard_epilogue (momentum)": dict(
+            kernel=lambda: istft.shard_epilogue(
+                sig_ext, recv, chunk, t_prev=t_prev, momentum=0.99,
+                extend=True),
+            plain=lambda: istft.shard_epilogue_plain(
+                sig_ext, recv, chunk, t_prev=t_prev, momentum=0.99,
+                extend=True),
+            work=(nbytes(sig_ext[:, :chunk], recv, t_prev) + 8.0 * chunk,
+                  4.0 * chunk),
             library=None),
     }
 
@@ -2093,6 +2147,23 @@ def main() -> int:
     errs["overlap_normalize"] = float((sig_k - sig_r).abs().max())
     log(f"KH overlap_normalize -> {tuple(sig_k.shape)}: float32 and PCM-16 "
         f"bit-exact, finite {ok_k.tolist()}")
+    # the scalar path: the same frames at an odd hop (the vector path needs n
+    # and hop multiples of 4)
+    if vector_path(n_fft, hop - 1) or not vector_path(n_fft, hop,
+                                                      tensors=(fw_ref,)):
+        raise AssertionError("KH's path choice")
+    pcm_s, ok_s = istft.overlap_normalize(fw_ref, hop - 1, win, pcm16=True)
+    pcm_sr, ok_sr = istft.overlap_normalize_plain(fw_ref, hop - 1, win,
+                                                  pcm16=True)
+    sig_s = istft.overlap_normalize(fw_ref, hop - 1, win, 1.5)
+    sig_sr = istft.overlap_normalize_plain(fw_ref, hop - 1, win, 1.5)
+    torch.cuda.synchronize()
+    if not (torch.equal(pcm_s, pcm_sr) and torch.equal(ok_s, ok_sr)
+            and torch.equal(sig_s, sig_sr)):
+        raise AssertionError("overlap_normalize (scalar path) differs from "
+                             "its plain version")
+    log(f"KH overlap_normalize, hop {hop - 1} (scalar path) -> "
+        f"{tuple(sig_s.shape)}: float32 with boost 1.5 and PCM-16 bit-exact")
 
     # -- phase 2c: the mel decode's kernels, bench shape ---------------------
     # sources: phase 2's log-mel and its uint8 planes (KD)

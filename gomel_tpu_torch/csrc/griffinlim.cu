@@ -28,7 +28,8 @@
 //
 // KK: the overlap-add of frames_w, with no window-sum normalisation
 //   (reference mel/mel.go:127-132; gomel_tpu/ops/griffinlim.py:196), through
-//   KH's one-owner-per-sample body (overlap_add.cuh). Its epilogue is one of:
+//   overlap_add.cuh's one-thread-a-sample body (ola_sum). Its epilogue is
+//   one of:
 //   the signal t (float32); the momentum step of an interior fast-Griffin-Lim
 //   iteration (:201-204), writing t and c = t + m * (t - t_prev) rounded
 //   step by step in that order; or, for the final iteration of a file

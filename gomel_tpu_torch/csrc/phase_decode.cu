@@ -30,18 +30,23 @@
 // KH: overlap-add + window-sum normalisation + volume boost (+ PCM-16).
 //   Replaces gomel_tpu/ops/istft.py:22 overlap_add, :41 window_sum, :189
 //   normalize_by_window_sum, the boost of gomel_tpu/ops/phase_ops.py:157 and
-//   gomel_tpu/ops/quantize.py:124 pcm16_encode (K9, K11). One thread per
-//   output sample t, so every sample has one owner: no atomics, and the
-//   result is deterministic. It sums the K = ceil(n/hop) frames covering t
-//   with k ascending (frame i - k for hop-row i, istft.py:35-37; the body
-//   is overlap_add.cuh's, shared with KK in griffinlim.cu), takes the
-//   window sum from a [K, hop] prefix table the host builds as window_sum
-//   does (head, periodic middle, tail; istft.py:51-72), normalises with the
-//   three branches of istft.py:202-207 (sig / threshold in the fade), then
-//   multiplies by the boost when it is non-zero, and writes float32 or, as
-//   pcm16_encode does, clears the finite flag on a non-finite value, clips to
-//   [-1, 1], rintf(x * 32768) (round half to even), saturates and stores int16
-//   (NaN stores 0, as the JAX program's conversion gives).
+//   gomel_tpu/ops/quantize.py:124 pcm16_encode (K9, K11). Every output
+//   sample has one owner: no atomics, and the result is deterministic. It
+//   sums the K = ceil(n/hop) frames covering t with k ascending (frame i - k
+//   for hop-row i, istft.py:35-37), takes the window sum from a [K, hop]
+//   prefix table the host builds as window_sum does (head, periodic middle,
+//   tail; istft.py:51-72), normalises with the three branches of
+//   istft.py:202-207 (sig / threshold in the fade), then multiplies by the
+//   boost when it is non-zero, and writes float32 or, as pcm16_encode does,
+//   clears the finite flag on a non-finite value, clips to [-1, 1],
+//   rintf(x * 32768) (round half to even), saturates and stores int16 (NaN
+//   stores 0, as the JAX program's conversion gives). Without a table it is
+//   the plain overlap-add (the long-form shard's sig_ext, K10). Bound: bytes
+//   (frames_w read once, the output written once). Design: the hop-row walk
+//   of overlap_add.cuh, no division a sample; 4 adjacent samples a thread
+//   (float4 taps and stores, 8-byte PCM-16 stores) when n and hop are
+//   multiples of 4 and the pointers 16-byte aligned (the entry point's
+//   choice, overlap_add.cuh ola_vector), else one.
 //
 // Real-frame count (K10, gomel_tpu/ops/istft.py:75 chunked_irfft_overlap_add
 // with its frame mask, as the sharded decode builds it, sharded.py:487-501):
@@ -273,29 +278,106 @@ __global__ void irfft_window_kernel(const void* __restrict__ src,
   }
 }
 
-__global__ void overlap_normalize_kernel(
+// KH on the hop-row walk (overlap_add.cuh): a thread owns kV adjacent
+// columns c of a hop-row and walks hop-rows i. Tap k reads frame i - k at
+// columns k * hop + c .. + kV - 1 (kV = 4: one float4, since n and hop are
+// multiples of 4 on the vector path, so a group is wholly inside or wholly
+// outside col < n); the taps whose column lies in the frame, k < kc, are
+// counted once a column group, and the frame bounds give each hop-row its
+// range k_lo <= k < k_hi, so the middle hop-rows check nothing a tap. The
+// taps are loaded 4 at a time before they are added. A tap outside the
+// frames or past col < n is skipped rather than added as 0.0f: the sum
+// starts at +0.0f and a rounded add never turns it into -0.0f, so adding
+// +0.0f would change no bit.
+template <int kV>
+__global__ void __launch_bounds__(kOlaMaxThreads) overlap_normalize_kernel(
     const float* __restrict__ frames_w, const float* __restrict__ table,
     float* __restrict__ out_f, int16_t* __restrict__ out_pcm,
     int* __restrict__ finite, long long length, int frames, int n, int hop,
     int taps, int short_form, float threshold, float boost) {
+  OlaThread w;
+  if (!ola_thread<kV>(hop, w)) return;
   const long long b = blockIdx.y;
   const float* src = frames_w + b * frames * static_cast<long long>(n);
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       t < length; t += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long i = t / hop;
-    const int c = static_cast<int>(t - i * hop);
-    const float acc = ola_sum(src, i, c, frames, n, hop, taps);
-    float y = acc;
-    if (table != nullptr) {
-      const float ws = window_sum_at(table, i, c, frames, taps, hop, short_form);
-      y = ws > threshold ? __fdiv_rn(acc, ws)
-                         : (ws > 1e-21f ? __fdiv_rn(acc, threshold) : acc);
+  const long long rows = static_cast<long long>(frames) + taps - 1;
+  const long long mid_lo = short_form ? 0 : taps - 1;
+  const long long mid_hi = short_form ? 0 : frames;
+  const long long back = n - hop;     // from tap k's element to tap k + 1's
+  const long long t_step = w.step * hop;
+  const long long src_step = w.step * n;
+  bool bad = false;
+  for (int g = w.group; g < w.groups; g += blockDim.x) {
+    const int c = g * kV;
+    int kc = 0;
+    while (kc < taps && kc * hop + c < n) ++kc;
+    Lanes<kV> full = {};
+    if (table != nullptr && mid_lo < mid_hi) {
+      full = load_lanes<kV>(table + static_cast<long long>(taps - 1) * hop + c);
     }
-    if (boost != 0.0f) y = __fmul_rn(y, boost);
-    if (!isfinite(y)) finite[b] = 0;
-    if (out_f != nullptr) out_f[b * length + t] = y;
-    if (out_pcm != nullptr) out_pcm[b * length + t] = pcm16_sample(y);
+    long long t = w.row * hop + c;
+    long long at = w.row * n + c;     // tap 0: frame i, column c
+    for (long long i = w.row; i < rows; i += w.step, t += t_step,
+                   at += src_step) {
+      if (t >= length) continue;      // the last hop-row's tail
+      const int k_lo = i >= frames ? static_cast<int>(i - (frames - 1)) : 0;
+      const int k_hi = i + 1 < kc ? static_cast<int>(i + 1) : kc;
+      Lanes<kV> acc;
+#pragma unroll
+      for (int l = 0; l < kV; ++l) acc.v[l] = 0.0f;
+      for (int k = k_lo; k < k_hi; k += 4) {
+        Lanes<kV> v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (k + u < k_hi) v[u] = load_lanes<kV>(src + at - (k + u) * back);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (k + u < k_hi) {
+#pragma unroll
+            for (int l = 0; l < kV; ++l) {
+              acc.v[l] = __fadd_rn(acc.v[l], v[u].v[l]);
+            }
+          }
+        }
+      }
+      Lanes<kV> y = acc;
+      if (table != nullptr) {
+        const Lanes<kV> ws = window_sum_lanes<kV>(
+            table, i, c, full, mid_lo, mid_hi, frames, taps, hop, short_form);
+#pragma unroll
+        for (int l = 0; l < kV; ++l) {
+          y.v[l] = normalize_sample(acc.v[l], ws.v[l], threshold);
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < kV; ++l) {
+        if (boost != 0.0f) y.v[l] = __fmul_rn(y.v[l], boost);
+        bad |= !isfinite(y.v[l]);
+      }
+      if (out_f != nullptr) store_lanes<kV>(out_f + b * length + t, y);
+      if (out_pcm != nullptr) store_pcm16<kV>(out_pcm + b * length + t, y);
+    }
   }
+  if (bad) finite[b] = 0;
+}
+
+template <int kV>
+int launch_overlap_normalize(const float* frames_w, const float* table,
+                             float* out_f, int16_t* out_pcm, int* finite,
+                             long long batch, int frames, int n, int hop,
+                             int taps, int short_form, float threshold,
+                             float boost, int device, cudaStream_t s) {
+  const long long length = n + static_cast<long long>(frames - 1) * hop;
+  const int groups = hop / kV;
+  const int threads = ola_threads(groups);
+  const unsigned blocks =
+      ola_blocks(overlap_normalize_kernel<kV>, threads, groups,
+                 static_cast<long long>(frames) + taps - 1, batch, device);
+  overlap_normalize_kernel<kV><<<dim3(blocks, static_cast<unsigned>(batch)),
+                                 threads, 0, s>>>(
+      frames_w, table, out_f, out_pcm, finite, length, frames, n, hop, taps,
+      short_form, threshold, boost);
+  return gomel_status();
 }
 
 template <int kMode>
@@ -387,7 +469,9 @@ GOMEL_API int gomel_irfft_window(int mode, const void* src, const void* aux0,
 // [batch, length] or null; out_pcm: int16 [batch, length] or null; finite:
 // int32 [batch], set to 1 by the caller; row b's is cleared on any
 // non-finite output of that row.
-// length = n + (frames - 1) * hop.
+// length = n + (frames - 1) * hop. The vector path (4 samples a thread)
+// when n and hop are multiples of 4 and every pointer is 16-byte aligned,
+// else the scalar path. batch <= 65535.
 GOMEL_API int gomel_overlap_normalize(const void* frames_w, const void* table,
                                       void* out_f, void* out_pcm, void* finite,
                                       long long batch, long long frames,
@@ -395,18 +479,24 @@ GOMEL_API int gomel_overlap_normalize(const void* frames_w, const void* table,
                                       int short_form, float threshold,
                                       float boost, int device, void* stream) {
   cudaSetDevice(device);
-  const long long length = n + (frames - 1) * hop;
+  if (hop < 1 || n < 1 || frames < 1 || batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int taps = static_cast<int>((n + hop - 1) / hop);
-  const int threads = 256;
-  long long bx = (length + threads - 1) / threads;
-  if (bx > 65535) bx = 65535;
-  overlap_normalize_kernel<<<dim3(static_cast<unsigned>(bx),
-                                  static_cast<unsigned>(batch)),
-                             threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(frames_w), static_cast<const float*>(table),
-      static_cast<float*>(out_f), static_cast<int16_t*>(out_pcm),
-      static_cast<int*>(finite), length, static_cast<int>(frames),
-      static_cast<int>(n), static_cast<int>(hop), taps, short_form, threshold,
-      boost);
-  return gomel_status();
+  const float* src = static_cast<const float*>(frames_w);
+  const float* tb = static_cast<const float*>(table);
+  float* of = static_cast<float*>(out_f);
+  int16_t* op = static_cast<int16_t*>(out_pcm);
+  int* fin = static_cast<int*>(finite);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int f = static_cast<int>(frames), nn = static_cast<int>(n);
+  const int h = static_cast<int>(hop);
+  if (ola_vector({n, hop}, {src, tb, of, op})) {
+    return launch_overlap_normalize<4>(src, tb, of, op, fin, batch, f, nn, h,
+                                       taps, short_form, threshold, boost,
+                                       device, s);
+  }
+  return launch_overlap_normalize<1>(src, tb, of, op, fin, batch, f, nn, h,
+                                     taps, short_form, threshold, boost,
+                                     device, s);
 }

@@ -90,6 +90,17 @@ def load_wav_any(path: str, mono: str = "mean", raw_pcm16: bool = False
     return _to_mono(_to_float(audio), mono), int(sr)
 
 
+def load_wav_pcm16(path: str, mono: str = "mean"):
+    """RAW-only variant of :func:`load_wav_any`: (int16, sr) or None when
+    the file needs the float path (it decodes the file either way; a caller
+    that would fall back to :func:`load_wav` should take
+    :func:`load_wav_any`, which decodes once)."""
+    buf, sr = load_wav_any(path, mono=mono, raw_pcm16=True)
+    if buf.dtype != np.int16:
+        return None
+    return buf, sr
+
+
 def load_flac_any(path: str, mono: str = "mean", scaling: str = "phase",
                   raw_pcm16: bool = False) -> tuple[np.ndarray, int]:
     """FLAC counterpart of :func:`load_wav_any`. For the float fallback

@@ -6,8 +6,9 @@ normalisation, the Griffin-Lim momentum step or PCM-16).
 
 Counterpart of ``gomel_tpu/ops/istft.py`` (reference phase/phase.go:93-133):
 ``overlap_add``, ``window_sum``, ``normalize_by_window_sum``,
-``istft_direct_planes`` and ``chunked_irfft_overlap_add``, and of the halo
-add and normalisation of gomel_tpu/parallel/sharded.py (``shard_epilogue``).
+``istft_direct_planes``, ``istft_direct`` and ``chunked_irfft_overlap_add``,
+and of the halo add and normalisation of gomel_tpu/parallel/sharded.py
+(``shard_epilogue``).
 On a CPU tensor each runs its plain PyTorch version (the JAX program's order
 of operations, so float32 results match it bit for bit where the JAX
 program is exact); on a CUDA tensor ``irfft_window`` launches KG (or, by
@@ -22,6 +23,11 @@ float64, which the JAX program does not), so the kernel's window sum, and
 the 0.5 * max threshold taken from the same table, equal the JAX program's
 bit for bit. ``window_sum`` and ``normalize_by_window_sum`` are plain
 PyTorch on any device.
+
+KH and KM walk hop-rows (csrc/overlap_add.cuh): a thread owns 4 adjacent
+samples of a hop-row on the vector path, which the kernels' entry points
+take when the shapes are multiples of 4 and the pointers 16-byte aligned,
+and one sample on the scalar path otherwise; both give the same bits.
 """
 from __future__ import annotations
 
@@ -358,6 +364,16 @@ def istft_direct_planes(re: torch.Tensor, im: torch.Tensor, hop: int,
                                           backend=fft_backend), hop, window)
 
 
+def istft_direct(half_spec: torch.Tensor, hop: int, window,
+                 fft_backend: str = "auto") -> torch.Tensor:
+    """Complex-input wrapper over :func:`istft_direct_planes`
+    (gomel_tpu/ops/istft.py:182): half spectrum [..., F, N/2 + 1] -> signal
+    [..., N + (F-1)*hop]."""
+    return istft_direct_planes(half_spec.real.contiguous(),
+                               half_spec.imag.contiguous(), hop, window,
+                               fft_backend)
+
+
 def _window_sum_span(prefix: torch.Tensor, n_frames: int, hop: int,
                      start: int, length: int) -> torch.Tensor:
     """Samples ``start .. start + length - 1`` of the window sum of
@@ -448,6 +464,8 @@ def shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,
                          "[B, chunk] and no window or PCM-16")
     if window is not None and (hop < 1 or n_frames < 1):
         raise ValueError(f"shard_epilogue: hop {hop}, {n_frames} frames")
+    if start < 0:
+        raise ValueError(f"shard_epilogue: start {start} < 0")
     if sig_ext.device.type == "cpu":
         return shard_epilogue_plain(
             sig_ext, recv, chunk, window=window, hop=hop, start=start,

@@ -1,10 +1,10 @@
 """Hann window, frame gathering and frame chunking.
 
 Counterpart of ``gomel_tpu/ops/stft.py`` (``hann_window``, ``frame_signal``,
-``auto_frame_chunk``, ``map_frame_chunks``). On the card the frames are
-never gathered: the STFT kernels read them straight from the signal
-(ops/rfft_mag.py). ``frame_signal`` serves the plain versions, as a strided
-view that copies nothing.
+``stft``, ``auto_frame_chunk``, ``map_frame_chunks``). On the card the
+frames are never gathered: the STFT kernels read them straight from the
+signal (ops/rfft_mag.py). ``frame_signal`` serves the plain versions, as a
+strided view that copies nothing.
 """
 from __future__ import annotations
 
@@ -49,6 +49,21 @@ def window_like(window, frame_len: int, like: torch.Tensor) -> torch.Tensor:
     if window is None:
         window = hann_window(frame_len)
     return torch.as_tensor(window, dtype=like.dtype, device=like.device)
+
+
+def stft(x: torch.Tensor, frame_len: int, hop: int,
+         window=None) -> torch.Tensor:
+    """Real STFT: x [..., L] -> complex [..., F, frame_len//2 + 1], the rfft
+    bins of the hop-spaced frames times ``window`` ([frame_len] array or
+    tensor; None: Hann), as gomel_tpu/ops/stft.py:57 ``stft``. On a CUDA
+    tensor the bins come from the forward FFT kernel KE
+    (ops/rfft_mag.stft_planes: the hand kernels for every size
+    ops/fftbackend.ct_supported takes, the xla route for the rest)."""
+    from .rfft_mag import stft_planes
+    window = window_like(window, frame_len, x)
+    pairs = stft_planes(x.contiguous(), window, frame_len, hop, 0,
+                        frame_len // 2 + 1)
+    return torch.complex(pairs[..., 1], pairs[..., 0])
 
 
 def auto_frame_chunk(n_frames: int, threshold: int = 3072,

@@ -444,15 +444,16 @@ def sharded_phase_encode_fn(mesh: Mesh, plan: FrameShardPlan, num_freqs: int,
 def sharded_phase_decode_fn(mesh: Mesh, plan: FrameShardPlan,
                             volume_boost: float = 0.0,
                             dtype: torch.dtype = torch.float32,
-                            pcm16: bool = False):
+                            frame_chunk="auto", *, pcm16: bool = False):
     """Sharded [B, F_pad, num_freqs, 2] -> Sharded [B, F_pad*hop] audio
     (reference phase/phase.go:136-153): per shard KG (grow + irfft x window,
     pad frames zero) and KH's un-normalised overlap-add, then KM's halo add,
     global window-sum normalisation and boost; with ``pcm16``, (Sharded
-    int16, per-row finite flags [B]). The JAX program's ``frame_chunk``
-    (per-chunk synthesis with a carried tail, ops/istft.
-    chunked_irfft_overlap_add) has no counterpart: one owner per output
-    sample needs neither."""
+    int16, per-row finite flags [B]). ``frame_chunk`` is taken in the JAX
+    program's place and has no effect: its per-chunk synthesis with a
+    carried tail (ops/istft.chunked_irfft_overlap_add) bounds on-chip
+    memory, and one owner per output sample needs neither."""
+    del frame_chunk
     window = _PerDevice(hann_window(plan.frame_len), dtype)
 
     def fn(spec2: Sharded):

@@ -610,8 +610,16 @@ def test_dequantize_decode_vs_plain(cuda, hdr, ihs):
 
 @pytest.mark.parametrize("n,hop,frames,boost", [
     (4096, 1280, 40, 0.0), (4096, 1280, 2, 0.0), (4096, 1280, 4, 1.5),
-    (1024, 1024, 5, 0.0), (1000, 300, 13, -2.0)])
+    (1024, 1024, 5, 0.0), (1000, 300, 13, -2.0),
+    # the shapes of tests/test_torch_ola_plan.py: one frame, the short
+    # window-sum form, n < hop, hop not a multiple of 4 and n % 4 == 2
+    # (scalar path), hop 1 (32 hop-rows a block), hop 4 with 64 taps
+    (4096, 1280, 1, 0.0), (64, 16, 3, -2.0), (256, 320, 6, 0.0),
+    (4096, 1279, 9, 0.0), (514, 128, 20, 0.0), (6, 1, 9, 0.5),
+    (256, 4, 70, 0.0)])
 def test_overlap_normalize_bit_exact(cuda, n, hop, frames, boost):
+    """KH against its plain versions bit for bit, on the vector path
+    (n and hop multiples of 4) and the scalar path."""
     rng = np.random.default_rng(n + frames)
     fw = torch.from_numpy((rng.standard_normal((2, frames, n)) * 0.3)
                           .astype(np.float32)).to(cuda)
@@ -861,23 +869,29 @@ def test_irfft_window_real_frames(cuda, mode, real):
     assert not out[:, real:].any()
 
 
-@pytest.mark.parametrize("start_shard,n_frames", [(0, 40), (1, 40), (3, 40),
-                                                  (2, 9), (1, 3)])
+@pytest.mark.parametrize("start_shard,n_frames,offset,hop", [
+    (0, 40, 0, 1280), (1, 40, 0, 1280), (3, 40, 0, 1280), (2, 9, 0, 1280),
+    (1, 3, 0, 1280),
+    # a start past shard * chunk that is not a multiple of hop (vector:
+    # 640; scalar: 2, 1283), and hop not a multiple of 4 (scalar)
+    (1, 40, 640, 1280), (1, 40, 2, 1280), (2, 40, 1283, 1280),
+    (1, 40, 0, 1279)])
 @pytest.mark.parametrize("pcm16,boost", [(False, 0.0), (True, 1.5)])
-def test_shard_epilogue_decode_bit_exact(cuda, start_shard, n_frames, pcm16,
-                                         boost):
+def test_shard_epilogue_decode_bit_exact(cuda, start_shard, n_frames, offset,
+                                         hop, pcm16, boost):
     """KM's decode mode (halo add, global window sum at the global sample,
     threshold, boost, float32 or PCM-16) equals its plain version bit for
-    bit, on shards inside, at the end of and past the real frames."""
-    n, hop, f_loc = 4096, 1280, 12
+    bit, on shards inside, at the end of and past the real frames, on the
+    vector and the scalar path."""
+    n, f_loc = 4096, 12
     chunk, halo = f_loc * hop, n - hop
-    rng = np.random.default_rng(23 + start_shard)
+    rng = np.random.default_rng(23 + start_shard + offset)
     sig = torch.from_numpy((rng.standard_normal((2, chunk + halo)) * 0.3)
                            .astype(np.float32)).to(cuda)
     recv = None if start_shard == 0 else torch.from_numpy(
         (rng.standard_normal((2, halo)) * 0.3).astype(np.float32)).to(cuda)
     win = torch.from_numpy(hann_window(n).astype(np.float32)).to(cuda)
-    kw = dict(window=win, hop=hop, start=start_shard * chunk,
+    kw = dict(window=win, hop=hop, start=start_shard * chunk + offset,
               n_frames=n_frames, volume_boost=boost, pcm16=pcm16)
     before = istft.SHARD_KERNEL.launches
     got = istft.shard_epilogue(sig, recv, chunk, **kw)
@@ -890,12 +904,14 @@ def test_shard_epilogue_decode_bit_exact(cuda, start_shard, n_frames, pcm16,
 @pytest.mark.parametrize("momentum,pcm16,extend", [
     (0.99, False, True), (0.0, False, True), (0.0, True, False),
     (0.0, False, False)])
-def test_shard_epilogue_gl_bit_exact(cuda, momentum, pcm16, extend):
+@pytest.mark.parametrize("chunk", [5 * 320, 5 * 320 + 1])
+def test_shard_epilogue_gl_bit_exact(cuda, momentum, pcm16, extend, chunk):
     """KM's Griffin-Lim modes: the momentum step (c, t) into an extended
     carry, the plain interior carry, and the final iteration's float32 or
     PCM-16, each bit-exact against the plain version (the halo columns of
-    an extended carry are the caller's to fill and are not compared)."""
-    chunk, halo = 5 * 320, 1024 - 320
+    an extended carry are the caller's to fill and are not compared), on
+    the vector path and, with an odd chunk, the scalar path."""
+    halo = 1024 - 320
     rng = np.random.default_rng(24)
     sig = torch.from_numpy(rng.standard_normal((3, chunk + halo))
                            .astype(np.float32)).to(cuda)

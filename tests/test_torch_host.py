@@ -124,6 +124,31 @@ def test_wav_read_equal(tmp_path):
         taudio.load_wav(str(tmp_path / "missing.wav"))
 
 
+@pytest.mark.parametrize("mono", ["mean", "left"])
+def test_load_wav_pcm16_equal(tmp_path, mono):
+    """io/audio.load_wav_pcm16 (gomel_tpu/io/audio.py:100): (int16, rate)
+    for a 16-bit file, mono and stereo, None for a file that needs the
+    float path (three channels averaged), exactly as the original."""
+    rng = np.random.default_rng(2)
+    for name, buf, rate in (
+            ("m16", rng.integers(-32768, 32768, 3001, dtype=np.int16), 16000),
+            ("s16", rng.integers(-32768, 32768, (2001, 2), dtype=np.int16),
+             48000),
+            ("c3", rng.integers(-32768, 32768, (999, 3), dtype=np.int16),
+             22050)):
+        path = str(tmp_path / f"{name}.wav")
+        jwav.write_wav(path, buf, rate)
+        got, want = taudio.load_wav_pcm16(path, mono), \
+            jaudio.load_wav_pcm16(path, mono)
+        if want is None:
+            assert got is None and name == "c3" and mono == "mean"
+            continue
+        assert got[1] == want[1] == rate and got[0].dtype == want[0].dtype
+        np.testing.assert_array_equal(got[0], want[0])
+    with pytest.raises(tcfg.FileNotLoadedError):
+        taudio.load_wav_pcm16(str(tmp_path / "missing.wav"))
+
+
 def test_mel_image_codec_equal(tmp_path):
     rng = np.random.default_rng(2)
     spec = rng.standard_normal((23, 40, 2)) * 3.0 - 2.0

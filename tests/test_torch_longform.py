@@ -9,6 +9,7 @@ tests/test_torch_cuda.py and chip_smoke.py. Each tolerance is stated where
 it is checked.
 """
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -26,11 +27,13 @@ from gomel_tpu.ops import mel_ops as jmel
 from gomel_tpu.ops import phase_ops as jphase
 from gomel_tpu.ops import quantize as jquant
 from gomel_tpu.ops import stft as jstft
+import gomel_tpu.parallel as jparallel
 from gomel_tpu.parallel import mesh as jmesh_mod
 from gomel_tpu.parallel import sharded as jsh
 from gomel_tpu.pipelines import longform as jlf
 from gomel_tpu_torch import (LongFormMel, LongFormPhase, MelConfig,
                              PhaseConfig, make_mesh)
+import gomel_tpu_torch.parallel as tparallel
 from gomel_tpu_torch.io import flac as tflac
 from gomel_tpu_torch.io import wavcodec
 from gomel_tpu_torch.io.pngcodec import read_png
@@ -69,6 +72,61 @@ def _peak_close(got, want, tol):
     assert got.shape == want.shape
     err = np.abs(got - want).max()
     assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+# the JAX package's parallel names that are multi-process or JAX-sharding
+# helpers: the multi-process slice, not the one-controller port
+LATER = {"data_sharding", "batch_frame_sharding", "replicated",
+         "initialize_multihost", "is_multihost", "data_group_for_process",
+         "host_to_global", "local_rows_to_global",
+         "process_local_batch_multiple", "local_rows"}
+# gomel_tpu/parallel/__init__.py:30-43, the frame-sharded programs
+SHARDED = ("FrameShardPlan", "plan_frame_sharding", "pad_signal_for_plan",
+           "pad_frames_for_plan", "sharded_stft_fn", "sharded_istft_fn",
+           "sharded_gl_noise_fn", "sharded_griffin_lim_fn",
+           "sharded_mel_encode_fn", "sharded_mel_decode_fn",
+           "sharded_phase_encode_fn", "sharded_phase_decode_fn")
+PLAN_FIELDS = ("frame_len", "hop", "n_shards", "n_frames", "n_frames_padded",
+               "out_len", "halo", "frames_per_shard", "chunk",
+               "sharded_signal_len")
+
+
+def test_parallel_exports_the_frame_sharded_programs():
+    """Every name of gomel_tpu.parallel.__all__ but the multi-process and
+    JAX-sharding helpers is in gomel_tpu_torch.parallel.__all__ and
+    importable from it; the frame-sharded ones are parallel/sharded.py's,
+    each taking the JAX function's parameters in the JAX order (the port
+    adds ``pcm16`` after them)."""
+    want = set(jparallel.__all__) - LATER
+    assert want <= set(tparallel.__all__)
+    for name in want:
+        assert getattr(tparallel, name) is not None
+    for name in SHARDED:
+        assert name in want
+        assert getattr(tparallel, name) is getattr(tsh, name)
+        jp = list(inspect.signature(getattr(jparallel, name)).parameters)
+        tp = list(inspect.signature(getattr(tparallel, name)).parameters)
+        assert tp[:len(jp)] == jp and set(tp[len(jp):]) <= {"pcm16"}, name
+
+
+@pytest.mark.parametrize("frames,frame_len,hop,shards", [
+    (67497, 4096, 1280, 4), (9, 256, 64, 4), (1, 64, 16, 3)])
+def test_parallel_plan_and_pads_vs_jax(frames, frame_len, hop, shards):
+    """The plan and the two pads through the package names equal the JAX
+    package's, field by field and sample by sample."""
+    got = tparallel.plan_frame_sharding(frames, frame_len, hop, shards)
+    want = jparallel.plan_frame_sharding(frames, frame_len, hop, shards)
+    assert [getattr(got, f) for f in PLAN_FIELDS] == [
+        getattr(want, f) for f in PLAN_FIELDS]
+    rng = np.random.default_rng(frames)
+    x = rng.standard_normal((2, frame_len + (frames - 1) * hop))
+    np.testing.assert_array_equal(
+        tparallel.pad_signal_for_plan(torch.from_numpy(x), got).numpy(),
+        np.asarray(jparallel.pad_signal_for_plan(jnp.asarray(x), want)))
+    spec = rng.standard_normal((2, frames, 5, 2))
+    np.testing.assert_array_equal(
+        tparallel.pad_frames_for_plan(torch.from_numpy(spec), got).numpy(),
+        np.asarray(jparallel.pad_frames_for_plan(jnp.asarray(spec), want)))
 
 
 # -- the global threshold ------------------------------------------------------
@@ -248,6 +306,9 @@ def test_sharded_phase_decode_vs_jax(meshes, boost, f):
         jnp.asarray(spec)))
     got = _run(tsh.sharded_phase_decode_fn(tm, plan, boost), spec, tm)
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+    # frame_chunk in the JAX position changes nothing (float audio still)
+    np.testing.assert_array_equal(_run(tsh.sharded_phase_decode_fn(
+        tm, plan, boost, torch.float32, 4), spec, tm), got)
     pcm, finite = tsh.sharded_phase_decode_fn(tm, plan, boost, pcm16=True)(
         shard_array(spec, tm))
     assert finite.tolist() == [True, True]

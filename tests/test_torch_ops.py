@@ -454,6 +454,57 @@ def test_phase_decode_vs_jax(dt, boost):
     np.testing.assert_array_equal(b[1].numpy(), out)
 
 
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("n,hop,window", [(4096, 1280, "hann"),
+                                          (512, 128, "rand"),
+                                          (3000, 750, None)])
+def test_stft_complex_vs_jax(dt, n, hop, window):
+    """ops/stft.stft, the complex STFT (gomel_tpu/ops/stft.py:57): within
+    1e-5 of each frame's peak of the JAX function in float32 (two float32
+    FFTs), 1e-12 in float64; a row of a batch equals the row alone."""
+    np_dt, _, _ = DTYPES[dt]
+    rng = np.random.default_rng(n + hop)
+    x = rng.standard_normal((2, n + 6 * hop + 13)).astype(np_dt)
+    w = {"hann": jstft.hann_window(n).astype(np_dt), None: None,
+         "rand": rng.uniform(0.1, 1.0, n).astype(np_dt)}[window]
+    ref = np.asarray(jstft.stft(jnp.asarray(x[1]), n, hop,
+                                None if w is None else jnp.asarray(w)))
+    out = tstft.stft(torch.from_numpy(x), n, hop, w).numpy()
+    assert out.shape == (2,) + ref.shape and out.dtype == ref.dtype
+    peak = np.abs(ref).max(axis=-1, keepdims=True)
+    tol = 1e-5 if dt == "f32" else 1e-12
+    assert (np.abs(out[1] - ref) <= tol * peak).all()
+    np.testing.assert_array_equal(
+        tstft.stft(torch.from_numpy(x[1]), n, hop, w).numpy(), out[1])
+    with pytest.raises(ValueError, match="too short"):
+        tstft.stft(torch.zeros(n - 1), n, hop)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("n,hop,frames", [(1024, 320, 9), (512, 128, 3),
+                                          (4096, 1280, 1)])
+def test_istft_direct_vs_jax(dt, n, hop, frames):
+    """ops/istft.istft_direct, the complex-input iSTFT
+    (gomel_tpu/ops/istft.py:182), against the JAX function: 1e-5 of the
+    peak in float32 (two float32 irffts), 1e-12 in float64."""
+    np_dt, _, _ = DTYPES[dt]
+    rng = np.random.default_rng(n + frames)
+    spec = (rng.standard_normal((frames, n // 2 + 1))
+            + 1j * rng.standard_normal((frames, n // 2 + 1))).astype(
+        np.complex64 if dt == "f32" else np.complex128)
+    win = jstft.hann_window(n).astype(np_dt)
+    ref = np.asarray(jistft.istft_direct(jnp.asarray(spec), hop, win))
+    out = tistft.istft_direct(torch.from_numpy(spec), hop, win).numpy()
+    assert out.shape == ref.shape == (n + (frames - 1) * hop,)
+    assert out.dtype == np_dt
+    tol = 1e-12 if dt == "f64" else 1e-5
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=tol * float(np.abs(ref).max()))
+    np.testing.assert_array_equal(out, tistft.istft_direct_planes(
+        torch.from_numpy(spec.real.copy()), torch.from_numpy(spec.imag.copy()),
+        hop, win).numpy())
+
+
 def test_dequantize_decode_is_dequantize_then_decode():
     rng = np.random.default_rng(14)
     img = rng.integers(0, 256, size=(1536, 9, 2)).astype(np.uint8)
