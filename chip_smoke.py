@@ -50,7 +50,14 @@ such n from 4 to 16384, on the scalar-load route, at KE's bin ranges and for
 bench frames computed alone against the batch (fwd_core_checks). KG and KJ
 run the same core's inverse at those sizes: phase 2 holds KG on planes with
 and without the window and with real-frame counts, KJ, and bench frames
-computed alone against the batch (inv_core_checks).
+computed alone against the batch (inv_core_checks). On KB's power-of-two
+route the mel encode is one fused launch (KB's transform with KC's band sum
+in its epilogue): phase 2 holds it bit-equal to KB followed by KC at the
+bench shape (also with a NaN frame), and KC within 1e-5 of its plain
+version in the log domain at n = 4096 and 3000; the mel encode paths
+(tomel, batch-tomel, the long-form shards, the stream) must launch it, the
+stream once a chunk and neither KB nor KC alone. Phase 2e also holds KL
+bit-equal on a shard's planes read one byte off 16-byte alignment.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -411,12 +418,25 @@ def longform_kernels(dev: torch.device, errs: dict) -> dict:
              torch.tensor([-1.75, -2.0], device=dev))
     d16 = quantize.dequantize_raw(p16, *small, 65535, 2, 0.5)
     r16 = quantize.dequantize_raw_plain(p16, *small, 65535, 2, 0.5)
+    # the same planes one byte off a 16-byte boundary (KL's scalar head and
+    # stores), and the uint16 planes one element off
+    off = torch.empty(planes.numel() + 1, dtype=torch.uint8, device=dev)
+    off[1:].copy_(planes.reshape(-1))
+    off8 = off[1:].reshape(planes.shape)
+    off16 = torch.empty(p16.numel() + 1, dtype=torch.uint16, device=dev)
+    off16[1:].copy_(p16.reshape(-1))
+    off16 = off16[1:].reshape(p16.shape)
     torch.cuda.synchronize()
-    if not torch.equal(spec, spec_ref):
+    if not (torch.equal(spec, spec_ref) and torch.equal(
+            quantize.dequantize_raw(off8, maxs, mins, 255), spec_ref)
+            and torch.equal(quantize.dequantize_raw(off16, *small, 65535),
+                            quantize.dequantize_raw_plain(p16, *small,
+                                                          65535))):
         raise AssertionError("dequantize_raw differs from its plain version")
     rel16 = float(((d16 - r16).abs() / r16.abs().clamp_min(1e-6)).max())
     errs["dequantize_raw"] = float((d16 - r16).abs().max())
-    log(f"KL dequantize_raw u8 {tuple(planes.shape)}: bit-exact; u16 with 2 "
+    log(f"KL dequantize_raw u8 {tuple(planes.shape)}: bit-exact, also one "
+        f"byte off 16 (u16: one element off); u16 with 2 "
         f"sinh passes and boost 0.5 {tuple(p16.shape)}: max|d| "
         f"{errs['dequantize_raw']:.3e}, relative {rel16:.3e} (bound 1e-6)")
     if rel16 > 1e-6:
@@ -1350,6 +1370,7 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
     outs = {"phase": path("p.wav"), "mel": path("m.wav"),
             "split": path("split.wav")}
     letters = {"pcm16_ingest": "A", "stft_mag": "B", "mel_log": "C",
+               "stft_mel_log": "BC",
                "quantize_mel_plane": "D", "phase_encode": "E",
                "quantize_planes": "F", "irfft_window_masked": "G",
                "overlap_normalize": "H", "mel_to_magnitudes": "I",
@@ -1366,7 +1387,7 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
                                             "overlap_normalize",
                                             "shard_epilogue")),
         ("LongFormMel.to_mel_wav", lambda: lm.to_mel_wav(
-            wav, pngs["mel"]), ("pcm16_ingest", "stft_mag", "mel_log",
+            wav, pngs["mel"]), ("pcm16_ingest", "stft_mel_log",
                                 "quantize_mel_plane")),
         ("LongFormMel.to_wav_png", lambda: lm.to_wav_png(
             pngs["mel"], outs["mel"], seed=1), (
@@ -1377,7 +1398,7 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
         _, counts = drive(f"{label}, {LONG_SECONDS / 60:g} min, {N_SHARDS} "
                           f"frame shards on one card (first call)",
                           lambda: (fn(), 0)[1], must)
-        seen |= {letters[k] for k in counts if k in letters}
+        seen |= {c for k in counts if k in letters for c in letters[k]}
         # the GL start: one KP launch a shard, on the mel decode alone
         want_p = N_SHARDS if "threefry_uniform" in must else 0
         if counts.get("threefry_uniform", 0) != want_p:
@@ -1564,7 +1585,7 @@ def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
 
     runs = {
         "batch-tomel": (batch_tomel, [src], "bm", ("pcm16_ingest_rows",
-                        "stft_mag", "mel_log", "quantize_mel_plane_masked")),
+                        "stft_mel_log", "quantize_mel_plane_masked")),
         "batch-towav": (batch_towav, [path("bm_cuda"), "--seed", "1"], "bw",
                         ("mel_to_magnitudes", "gl_project", "gl_overlap_add",
                          "threefry_uniform")),
@@ -1777,7 +1798,8 @@ def streaming(drive, card: str, dev: torch.device) -> None:
     Mel.encode of the whole signal on the card, within 1e-5 of each frame's
     peak (the log domain for mel); StreamingPhase.decode_iter of that
     spectrogram against Phase.decode, within 2e-4 absolute on a unit-scale
-    signal; one launch of KE, KB + KC, KG + KH per chunk; audio-s/s of wall
+    signal; one launch of KE, of the fused KB + KC (and none of KB or KC
+    alone), of KG + KH per chunk; audio-s/s of wall
     and the peak device memory of each stream against the whole-file call."""
     from gomel_tpu_torch import (Mel, MelConfig, Phase, PhaseConfig,
                                  StreamingMel, StreamingPhase)
@@ -1876,10 +1898,13 @@ def streaming(drive, card: str, dev: torch.device) -> None:
     whole_m = Mel(mcfg, device=dev)
     label = f"StreamingMel.encode_iter, {size}"
     m_chunks, t_s, counts = run(label, lambda: list(sm.encode_iter(pieces())),
-                                ("stft_mag", "mel_log"))
-    per_chunk(label, counts, ("stft_mag", "mel_log"))
+                                ("stft_mel_log",))
+    per_chunk(label, counts, ("stft_mel_log",))
+    if counts.get("stft_mag", 0) or counts.get("mel_log", 0):
+        raise AssertionError(f"{label}: standalone KB or KC launched "
+                             f"({counts}); the fused launch runs each chunk")
     want, t_w, _ = run("Mel.encode, the whole signal",
-                       lambda: whole_m.encode(x), ("stft_mag", "mel_log"))
+                       lambda: whole_m.encode(x), ("stft_mel_log",))
     got = torch.from_numpy(np.concatenate(m_chunks)).to(dev)
     if got.shape != want.shape:
         raise AssertionError(f"streaming mel {tuple(got.shape)} vs "
@@ -1935,7 +1960,8 @@ def main() -> int:
     padded = pad_length(length, hop)
     rng = np.random.default_rng(SEED)
     kernels = {k.name: k for k in (quantize.INGEST_KERNEL, rfft_mag.KERNEL,
-                                   mel_ops.KERNEL, quantize.QUANTIZE_KERNEL,
+                                   mel_ops.KERNEL, mel_ops.FUSED_KERNEL,
+                                   quantize.QUANTIZE_KERNEL,
                                    rfft_mag.PLANES_KERNEL,
                                    quantize.PLANES_KERNEL,
                                    istft.SYNTH_KERNEL, istft.OLA_KERNEL,
@@ -2035,6 +2061,39 @@ def main() -> int:
         f"bound 1e-5), {float(d_log.max()):.3e} overall")
     if errs["mel_log"] > 1e-5:
         raise AssertionError(f"mel_log error {errs['mel_log']:.3e} > 1e-5")
+    # KC at n = 3000 (the mixed radix's magnitudes, 1501 bins a row)
+    win3k = torch.tensor(hann_window(3000), dtype=f32, device=dev)
+    fwd3k = torch.tensor(mel_weights(1500, cfg.num_mels, cfg.mel_fmin,
+                                     cfg.mel_fmax), dtype=f32, device=dev)
+    mags3k = rfft_mag.stft_mag_plain(x, win3k, 3000, 750)
+    ref3k = mel_ops.mel_from_mags_plain(mags3k, fwd3k)
+    got3k = mel_ops._mel_from_mags(mags3k, fwd3k)
+    torch.cuda.synchronize()
+    d3k = float((got3k - ref3k).abs()[ref3k > math.log(1e-4)].max())
+    log(f"KC mel_log at n = 3000 -> {tuple(got3k.shape)}: max|d log| "
+        f"{d3k:.3e} where plain mel > 1e-4 (bound 1e-5)")
+    if d3k > 1e-5:
+        raise AssertionError(f"mel_log error at n = 3000 {d3k:.3e} > 1e-5")
+    errs["mel_log"] = max(errs["mel_log"], d3k)
+    # the fused KB + KC launch: KB followed by KC bit for bit, NaN frames too
+    xn = x.clone()
+    xn[1, 7 * hop + 100] = float("nan")
+    fused = mel_ops.stft_mel_log(x, win, n_fft, hop, fwd)
+    fused_n = mel_ops.stft_mel_log(xn, win, n_fft, hop, fwd)
+    two_n = mel_ops._mel_from_mags(rfft_mag.stft_mag(xn, win, n_fft, hop), fwd)
+    torch.cuda.synchronize()
+    if not (torch.equal(fused, mel_ops._mel_from_mags(mags, fwd))
+            and torch.equal(fused_n.isnan(), two_n.isnan())
+            and bool(fused_n.isnan().any())
+            and torch.equal(fused_n.nan_to_num(0.0), two_n.nan_to_num(0.0))):
+        raise AssertionError("the fused KB + KC launch differs from KB "
+                             "followed by KC")
+    fused_ref = mel_ops.stft_mel_log_plain(x, win, n_fft, hop, fwd)
+    errs["stft_mel_log"] = float((fused - fused_ref).abs()[
+        fused_ref > math.log(1e-4)].max())
+    log(f"fused KB + KC stft_mel_log -> {tuple(fused.shape)}: bit-equal to "
+        f"KB then KC (also with a NaN frame); max|d log| against the plain "
+        f"versions {errs['stft_mel_log']:.3e} where plain mel > 1e-4")
 
     img, mx, mn = quantize.quantize_mel_plane_batch(logmel_ref)
     img_ref, mx_ref, mn_ref = quantize.quantize_mel_plane_plain(logmel_ref)
@@ -2334,7 +2393,7 @@ def main() -> int:
         png_cpu = os.path.join(tmp, "cpu.png")
         drive("tomel --device cuda (first call)",
               lambda: tomel([wav, "--device", "cuda", "-o", png_gpu]),
-              ("pcm16_ingest", "stft_mag", "mel_log", "quantize_mel_plane"))
+              ("pcm16_ingest", "stft_mel_log", "quantize_mel_plane"))
         if tomel([wav, "--device", "cpu", "-o", png_cpu]) != 0:
             raise AssertionError("tomel on cpu failed")
         a = read_png(png_gpu).astype(np.int64)
@@ -2498,6 +2557,7 @@ def main() -> int:
                                                             padded),
         "stft_mag": lambda: rfft_mag.stft_mag(x, win, n_fft, hop),
         "mel_log": lambda: mel_ops._mel_from_mags(mags_ref, fwd),
+        "stft_mel_log": lambda: mel_ops.stft_mel_log(x, win, n_fft, hop, fwd),
         "quantize_mel_plane": lambda: quantize.quantize_mel_plane_batch(
             logmel_ref),
         "phase_encode": lambda: phase_ops.phase_encode_batch(x, nf, n_fft, hop,
@@ -2528,6 +2588,8 @@ def main() -> int:
             pcm, f32, 32768.0, padded, batched=True),
         "stft_mag": lambda: rfft_mag.stft_mag_plain(x, win, n_fft, hop),
         "mel_log": lambda: mel_ops.mel_from_mags_plain(mags_ref, fwd),
+        "stft_mel_log": lambda: mel_ops.stft_mel_log_plain(x, win, n_fft, hop,
+                                                           fwd),
         "quantize_mel_plane": lambda: quantize.quantize_mel_plane_plain(
             logmel_ref),
         "phase_encode": lambda: rfft_mag.stft_planes_plain(x, win, n_fft, hop,
@@ -2568,12 +2630,16 @@ def main() -> int:
     taps = -(-n_fft // hop)
     f2 = BATCH * frames
     we = mel_ops._extended_weights(fwd)[0]
-    nnz = float((we != 0).sum())
+    # KC's terms a frame: the band table's spans (W_ext's non-zero spans)
+    slots, band_w, _ = mel_ops._mel_band_table(fwd)
+    nnz = 2.0 * float(slots[:, 1][slots[:, 2] >= 0].sum())
+    kb_ops = fft_ops(n_fft) + n_fft + 3 * (n_fft // 2 + 1)
     work = {
         "pcm16_ingest": (nbytes(pcm, x), float(x.numel())),
-        "stft_mag": (nbytes(x, win, mags_ref),
-                     f2 * (fft_ops(n_fft) + n_fft + 3 * (n_fft // 2 + 1))),
-        "mel_log": (nbytes(mags_ref, we, logmel_ref),
+        "stft_mag": (nbytes(x, win, mags_ref), f2 * kb_ops),
+        "stft_mel_log": (nbytes(x, win, slots, band_w, logmel_ref),
+                         f2 * (kb_ops + 2 * nnz + 2 * cfg.num_mels)),
+        "mel_log": (nbytes(mags_ref, slots, band_w, logmel_ref),
                     f2 * (2 * nnz + 2 * cfg.num_mels)),
         "quantize_mel_plane": (nbytes(logmel_ref, img, mx, mn),
                                6.0 * logmel_ref.numel()),

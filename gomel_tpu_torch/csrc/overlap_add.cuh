@@ -13,8 +13,6 @@
 #include <math.h>
 
 #include <initializer_list>
-#include <mutex>
-#include <vector>
 
 #include "common.cuh"
 
@@ -187,10 +185,6 @@ inline int ola_threads(int groups) {
   return t > kOlaMaxThreads ? kOlaMaxThreads : t;
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // The path of a launch: the vector path (kV = 4) when every extent given is
 // a multiple of 4, so no group of 4 straddles a hop-row, a frame's end or a
 // row of an input or output, and every pointer (null ones pass) is 16-byte
@@ -206,37 +200,6 @@ inline bool ola_vector(std::initializer_list<long long> extents,
   return true;
 }
 
-// SMs x the kernel's resident blocks an SM at ``threads`` a block, asked of
-// the runtime once for each (device, kernel, block size) and kept: neither
-// changes, and the two queries would cost every launch microseconds. A
-// failed query is not kept: its error stays for the launch's status.
-inline long long ola_resident(const void* kernel, int threads, int device) {
-  struct Seen {
-    const void* kernel;
-    int threads, device;
-    long long blocks;
-  };
-  static std::mutex lock;
-  static std::vector<Seen> seen;
-  const std::lock_guard<std::mutex> hold(lock);
-  for (const Seen& s : seen) {
-    if (s.kernel == kernel && s.threads == threads && s.device == device) {
-      return s.blocks;
-    }
-  }
-  int sms = 0, per_sm = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    0) != cudaSuccess ||
-      sms < 1 || per_sm < 1) {
-    return 1;
-  }
-  const long long blocks = static_cast<long long>(sms) * per_sm;
-  seen.push_back({kernel, threads, device, blocks});
-  return blocks;
-}
-
 // Blocks along the hop-rows of each batch row: as many as the card holds at
 // once (SMs x the kernel's resident blocks an SM), shared by the batch rows,
 // and no more than the walk has passes. Each block then walks rows x,
@@ -247,7 +210,8 @@ inline unsigned ola_blocks(Kernel kernel, int threads, int groups,
   const int per_pass = groups < threads ? threads / groups : 1;
   const long long passes = (rows + per_pass - 1) / per_pass;
   long long blocks =
-      ola_resident(reinterpret_cast<const void*>(kernel), threads, device) /
+      resident_blocks(reinterpret_cast<const void*>(kernel), threads, 0,
+                      device) /
       (batch > 0 ? batch : 1);
   if (blocks > passes) blocks = passes;
   return static_cast<unsigned>(blocks > 0 ? blocks : 1);

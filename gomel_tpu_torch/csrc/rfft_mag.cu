@@ -36,7 +36,22 @@
 // halved by pairing bins.
 // tools/profile_fft.py races it against the radix-2 form below and splits
 // its time by ablation; PERF.md has the numbers.
+//
+// The fused KB + KC launch (stft_mel_log_pow2_kernel, gomel_stft_mel_log):
+// the mel encode's route when n/2 is a power of two (ops/mel_ops.fused_route).
+// The same FFT, then an epilogue that keeps the magnitudes in shared memory
+// and runs KC's band sum there (mel_bands.cuh), writing only the log-mel:
+// the 18.4 MB of magnitudes at the bench shape are neither written nor read
+// back, so the launch's byte bound is the signal in and the log-mel out
+// (11.5 + 3.4 MB, 0.0045 ms). The split reads Z[k] and Z[m - k], which the
+// magnitudes would overwrite: each thread computes its bins' magnitudes
+// into registers (9 pairs at most), a barrier, then they go into the
+// frame's own buffer (m + 1 floats of its 2m), so the shared memory a block
+// and hence KB's occupancy stay as they are. The magnitudes are the very
+// expressions KB stores, and the band sum is KC's, so the log-mel equals
+// KB followed by KC bit for bit.
 #include "fft_core.cuh"
+#include "mel_bands.cuh"
 
 namespace {
 
@@ -79,6 +94,70 @@ stft_mag_pow2_kernel(const float* __restrict__ x,
     dst[k] = sqrtf(a.x * a.x + a.y * a.y);
     if (2 * k != m) dst[m - k] = sqrtf(b.x * b.x + b.y * b.y);
   }
+}
+
+// The fused KB + KC launch for m = 2^kLogM: KB's transform and split, the
+// magnitudes into the frame's buffer, then the block's band sums over its
+// frames into out [total, table.cols].
+template <int kLogM>
+__global__ void __launch_bounds__(FwdPlan<kLogM>::threads *
+                                  FwdPlan<kLogM>::frames_per_block)
+stft_mel_log_pow2_kernel(const float* __restrict__ x,
+                         const float* __restrict__ window,
+                         const float2* __restrict__ tw,
+                         const float2* __restrict__ twp, MelTable table,
+                         float* __restrict__ out, long long total, int frames,
+                         long long batch_stride, long long hop, bool vec) {
+  using Plan = FwdPlan<kLogM>;
+  constexpr int m = Plan::m;
+  constexpr int threads = Plan::threads;
+  constexpr int kPairs = m / 2 / threads + 1;  // bins k = th + i threads <= m/2
+  extern __shared__ float2 sbuf[];
+  const int slot = threadIdx.x / threads;
+  const int th = threadIdx.x - slot * threads;
+  const long long first = static_cast<long long>(blockIdx.x) *
+                          Plan::frames_per_block;
+  const long long frame = first + slot;
+  const bool valid = frame < total;
+  const long long bi = frame / frames;
+  const long long fi = frame - bi * frames;
+  float2* z = sbuf + slot * m;
+  fwd_frame_pow2<kLogM>(z, valid ? x + bi * batch_stride + fi * hop : x,
+                        window, vec, valid, twp, th);
+  float mag_k[kPairs], mag_mk[kPairs];
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int k = th + i * threads;
+    if (k <= m / 2) {
+      float2 a, b;
+      if (k == 0) {  // DC and Nyquist from Z[0]
+        const float2 z0 = z[0];
+        a = make_float2(z0.x + z0.y, 0.0f);
+        b = make_float2(z0.x - z0.y, 0.0f);
+      } else {
+        split_pair(z, tw, k, m, a, b);
+      }
+      mag_k[i] = sqrtf(a.x * a.x + a.y * a.y);
+      mag_mk[i] = sqrtf(b.x * b.x + b.y * b.y);
+    }
+  }
+  __syncthreads();  // every Z read before the magnitudes overwrite it
+  float* mag = reinterpret_cast<float*>(z);
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int k = th + i * threads;
+    if (k <= m / 2) {
+      mag[k] = mag_k[i];
+      if (2 * k != m) mag[m - k] = mag_mk[i];
+    }
+  }
+  __syncthreads();
+  const long long left = total - first;
+  mel_band_sums<false, 1>(reinterpret_cast<const float*>(sbuf), 2 * m,
+                          left < Plan::frames_per_block
+                              ? static_cast<int>(left)
+                              : Plan::frames_per_block,
+                          table, out + first * table.cols);
 }
 
 // The shared-memory form: one block a frame, two complex buffers of m.
@@ -142,4 +221,39 @@ GOMEL_API int gomel_stft_mag(const void* x, const void* window, const void* tw,
                 static_cast<const float2*>(tw), static_cast<float*>(out),
                 static_cast<int>(frames), batch_stride, hop, m);
   return gomel_status();
+}
+
+// The fused KB + KC launch, for n/2 a power of two (2 ... 8192): x, window,
+// tw, tw_pass and the plan as gomel_stft_mag; slots, weights, groups: the
+// band table of ops/mel_ops.mel_band_plan (groups a multiple of 4); out:
+// float32 [batch*frames, cols], cols = 2M. cudaErrorInvalidValue at any
+// other n (there is no fallback: the wrapper raises).
+GOMEL_API int gomel_stft_mel_log(const void* x, const void* window,
+                                 const void* tw, const void* tw_pass,
+                                 const void* slots, const void* weights,
+                                 int groups, void* out, long long cols,
+                                 long long batch, long long frames,
+                                 long long batch_stride, long long hop,
+                                 long long n, int radices, int threads,
+                                 int frames_per_block, int device,
+                                 void* stream) {
+  cudaSetDevice(device);
+  const int m = static_cast<int>(n / 2);
+  if (!(is_pow2(m) && m >= 2) || groups % kMelWarps != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const MelTable table{static_cast<const int4*>(slots),
+                       static_cast<const float*>(weights), groups,
+                       static_cast<int>(cols)};
+  const bool vec = frames_vec_aligned(x, window, batch_stride, hop);
+  return with_log_m(m, [&](auto log_m) {
+    constexpr int kL = decltype(log_m)::value;
+    return launch_pow2_frames<kL>(
+        stft_mel_log_pow2_kernel<kL>, batch * frames, radices, threads,
+        frames_per_block, static_cast<cudaStream_t>(stream),
+        static_cast<const float*>(x), static_cast<const float*>(window),
+        static_cast<const float2*>(tw), static_cast<const float2*>(tw_pass),
+        table, static_cast<float*>(out), batch * frames,
+        static_cast<int>(frames), batch_stride, hop, vec);
+  });
 }

@@ -1,7 +1,10 @@
 """Mel spectrogram codec: the encode's filterbank + log is kernel KC
-(csrc/mel_log.cu), the decode's dequantize + exp + inverse filterbank +
-magnitudes is kernel KI (csrc/mel_decode.cu), and its Griffin-Lim is
-kernels KJ and KK (ops/griffinlim.py).
+(csrc/mel_log.cu, on magnitudes in device memory) or, where KB's
+power-of-two kernel takes the transform, the fused KB + KC launch
+(csrc/rfft_mag.cu ``gomel_stft_mel_log``), both on the band table of
+:func:`mel_band_plan` (csrc/mel_bands.cuh); the decode's dequantize + exp +
+inverse filterbank + magnitudes is kernel KI (csrc/mel_decode.cu), and its
+Griffin-Lim is kernels KJ and KK (ops/griffinlim.py).
 
 Counterpart of ``gomel_tpu/ops/mel_ops.py``. Encode (reference
 mel/mel.go:46-74): for real input ``|S[j]|`` (ch0) and ``|S[N-j-1]| =
@@ -15,57 +18,152 @@ Layout: [..., frames, num_mels, 2] channel-last, as in the JAX package.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from . import _cuda
+from . import _cuda, fftbackend, rfft_mag
 from .griffinlim import griffin_lim, griffin_lim_magnitudes
 from .quantize import dequantize_mel_plane
-from .rfft_mag import stft_mag
-from .stft import map_frame_chunks, window_like
+from .rfft_mag import stft_mag, stft_mag_plain
+from .stft import map_frame_chunks, num_frames_of, window_like
 
 KERNEL = _cuda.Kernel("mel_log", "gomel_tpu_torch/csrc/mel_log.cu",
                       "gomel_tpu/ops/mel_ops.py:98")
+FUSED_KERNEL = _cuda.Kernel("stft_mel_log", "gomel_tpu_torch/csrc/rfft_mag.cu",
+                            "gomel_tpu/ops/mxu_fft.py:140 + "
+                            "gomel_tpu/ops/mel_ops.py:98")
 MAG_KERNEL = _cuda.Kernel("mel_to_magnitudes",
                           "gomel_tpu_torch/csrc/mel_decode.cu",
                           "gomel_tpu/ops/mel_ops.py:152")
 
-# id(weights) -> (pinned weights, their version, (W_ext, lo, hi)); the source
-# tensor is kept in the value so its id cannot be recycled, and its version
-# counter (bumped by every in-place write, unlike the JAX package's immutable
-# arrays) invalidates the entry; one entry per filterbank in use
+# the band table's groups: 16 bands a group (a warp's 32 lanes, two
+# channels a band), balanced over 4 warps (csrc/mel_bands.cuh kMelBands,
+# kMelWarps)
+KC_BANDS = 16
+KC_WARPS = 4
+
+
+class MelBandPlan(NamedTuple):
+    """The band table of KC and the fused launch (csrc/mel_bands.cuh)."""
+    slots: np.ndarray     # int32 [groups * 16, 4]: lo, width, column, offset
+    weights: np.ndarray   # float32, each group's weights t-major
+    groups: int           # a multiple of KC_WARPS
+
+
+def band_spans(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Each row's first non-zero column and the width of its span up to the
+    last (0, 0 for an all-zero row): for [M, N/2] forward weights, each
+    band's bins."""
+    nz = w != 0
+    any_nz = nz.any(axis=1)
+    lo = np.where(any_nz, nz.argmax(axis=1), 0)
+    hi = np.where(any_nz, w.shape[1] - nz[:, ::-1].argmax(axis=1), 0)
+    return lo, hi - lo
+
+
+def mel_band_plan(w: np.ndarray) -> MelBandPlan:
+    """[M, N/2] forward weights -> the packed band table. Bands sorted by
+    span width (stable) are cut into groups of 16; the groups, padded with
+    empty ones to a multiple of 4, are dealt to 4 warps, widest first, each
+    to the warp with the least work so far among those with room (a
+    group's work is its widest span), and warp w's k-th group sits at
+    position w + 4 k. Slot i of the group at position p is band b's
+    {lo, width, 2 b, base + i} (empty: {0, 0, -1, 0}), with its weights
+    w[b, lo + t] at base + 16 t + i, zero past its width; base runs over the
+    positions in order. Column 2b + 1, band b one bin up, reads the same
+    weights from bin lo + 1."""
+    w = np.asarray(w, dtype=np.float32)
+    lo, width = band_spans(w)
+    order = np.argsort(width, kind="stable")
+    bands = [order[i:i + KC_BANDS] for i in range(0, len(order), KC_BANDS)]
+    groups = -(-len(bands) // KC_WARPS) * KC_WARPS
+    bands += [order[:0]] * (groups - len(bands))
+    cost = [int(width[g].max()) if len(g) else 0 for g in bands]
+    per_warp = groups // KC_WARPS
+    dealt: list[list[int]] = [[] for _ in range(KC_WARPS)]
+    load = [0] * KC_WARPS
+    for g in sorted(range(groups), key=lambda i: -cost[i]):
+        warp = min((v for v in range(KC_WARPS) if len(dealt[v]) < per_warp),
+                   key=lambda v: (load[v], v))
+        dealt[warp].append(g)
+        load[warp] += cost[g]
+    slots = np.zeros((groups * KC_BANDS, 4), np.int32)
+    slots[:, 2] = -1
+    chunks, base = [], 0
+    for p in range(groups):
+        gi = dealt[p % KC_WARPS][p // KC_WARPS]
+        block = np.zeros((cost[gi], KC_BANDS), np.float32)
+        for i, b in enumerate(bands[gi]):
+            block[:width[b], i] = w[b, lo[b]:lo[b] + width[b]]
+            slots[p * KC_BANDS + i] = (lo[b], width[b], 2 * b, base + i)
+        chunks.append(block.reshape(-1))
+        base += block.size
+    weights = (np.concatenate(chunks) if base else np.zeros(1, np.float32))
+    return MelBandPlan(slots, weights, groups)
+
+
+# id(weights) -> (pinned weights, their version, value), one entry per
+# filterbank in use: W_ext and its spans, KC's band table, and (below) KI's
 _EXT_WEIGHT_CACHE: dict[int, tuple[torch.Tensor, int, tuple]] = {}
+_BAND_PLAN_CACHE: dict[int, tuple[torch.Tensor, int, tuple]] = {}
 _EXT_WEIGHT_CACHE_MAX = 16
 
 
-def _extended_weights(fwd_weights: torch.Tensor):
-    """[M, N/2] weights -> memoized (W_ext [N/2+1, 2M], lo [2M], hi [2M]) on
-    the weights' device. Column 2j holds band j on bins [0, N/2), column
-    2j+1 the same band one bin up. [lo[c], hi[c]) spans column c's
-    non-zeros (lo = hi = 0 for an all-zero column): the kernel sums only
-    those bins."""
-    entry = _EXT_WEIGHT_CACHE.get(id(fwd_weights))
-    if (entry is not None and entry[0] is fwd_weights
-            and entry[1] == fwd_weights._version):
+def _memoized(cache: dict, weights: torch.Tensor, make):
+    """``make(weights as numpy)``, kept in ``cache`` for these weights. The
+    source tensor is kept in the entry so its id cannot be recycled, and its
+    version counter (bumped by every in-place write, unlike the JAX
+    package's immutable arrays) invalidates the entry."""
+    entry = cache.get(id(weights))
+    if (entry is not None and entry[0] is weights
+            and entry[1] == weights._version):
         return entry[2]
-    w = fwd_weights.detach().cpu().numpy()
+    value = make(weights.detach().cpu().numpy())
+    if len(cache) >= _EXT_WEIGHT_CACHE_MAX:
+        cache.clear()
+    cache[id(weights)] = (weights, weights._version, value)
+    return value
+
+
+def extended_weights_np(w: np.ndarray) -> np.ndarray:
+    """[M, N/2] weights -> W_ext [N/2+1, 2M]: column 2j holds band j on
+    bins [0, N/2), column 2j+1 the same band one bin up."""
     num_mels, n_bins = w.shape
     we = np.zeros((n_bins + 1, 2 * num_mels), dtype=w.dtype)
     we[:-1, 0::2] = w.T
     we[1:, 1::2] = w.T
-    nz = we != 0
-    any_nz = nz.any(axis=0)
-    lo = np.where(any_nz, nz.argmax(axis=0), 0)
-    hi = np.where(any_nz, n_bins + 1 - nz[::-1].argmax(axis=0), 0)
-    dev = fwd_weights.device
-    value = (torch.from_numpy(we).to(dev),
-             torch.from_numpy(lo.astype(np.int32)).to(dev),
-             torch.from_numpy(hi.astype(np.int32)).to(dev))
-    if len(_EXT_WEIGHT_CACHE) >= _EXT_WEIGHT_CACHE_MAX:
-        _EXT_WEIGHT_CACHE.clear()
-    _EXT_WEIGHT_CACHE[id(fwd_weights)] = (fwd_weights, fwd_weights._version,
-                                          value)
-    return value
+    return we
+
+
+def _extended_weights(fwd_weights: torch.Tensor) -> tuple:
+    """Memoized (W_ext, lo, hi) on the weights' device: the plain version's
+    dense product, and [lo[c], hi[c]) the span of column c's non-zeros (lo =
+    hi = 0 for an all-zero column), the bins the kernels sum."""
+    def make(w):
+        lo, width = band_spans(w)
+        lo2 = np.stack([lo, lo + (width > 0)], axis=1).reshape(-1)
+        dev = fwd_weights.device
+        return (torch.from_numpy(extended_weights_np(w)).to(dev),
+                torch.from_numpy(lo2.astype(np.int32)).to(dev),
+                torch.from_numpy((lo2 + np.repeat(width, 2)).astype(np.int32))
+                .to(dev))
+    return _memoized(_EXT_WEIGHT_CACHE, fwd_weights, make)
+
+
+def _mel_band_table(fwd_weights: torch.Tensor) -> tuple:
+    """Memoized (slots, weights, groups) of :func:`mel_band_plan` on the
+    weights' device (float32 weights only: the kernels' type)."""
+    if fwd_weights.dtype != torch.float32:
+        raise ValueError("mel_log: the CUDA kernels take float32 weights")
+
+    def make(w):
+        plan = mel_band_plan(w)
+        dev = fwd_weights.device
+        return (torch.from_numpy(plan.slots).to(dev),
+                torch.from_numpy(plan.weights).to(dev), plan.groups)
+    return _memoized(_BAND_PLAN_CACHE, fwd_weights, make)
 
 
 def spectral_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -86,11 +184,11 @@ def _mel_from_mags(mags: torch.Tensor, fwd_weights: torch.Tensor) -> torch.Tenso
     """|rfft| [..., N/2+1] -> log-mel [..., num_mels, 2]."""
     if mags.device.type == "cpu":
         return mel_from_mags_plain(mags, fwd_weights)
-    we, lo, hi = _extended_weights(fwd_weights)
-    dev = _cuda.check_cuda("mel_log", mags, we)
-    if mags.dtype != torch.float32 or we.dtype != torch.float32:
+    slots, weights, groups = _mel_band_table(fwd_weights)
+    dev = _cuda.check_cuda("mel_log", mags, slots, weights)
+    if mags.dtype != torch.float32:
         raise ValueError("mel_log: the CUDA kernel takes float32 tensors")
-    bins, cols = we.shape
+    bins, cols = fwd_weights.shape[1] + 1, 2 * fwd_weights.shape[0]
     if mags.shape[-1] != bins:
         raise ValueError(f"mel_log: {mags.shape[-1]} bins, weights expect {bins}")
     rows = mags.numel() // bins
@@ -98,10 +196,64 @@ def _mel_from_mags(mags: torch.Tensor, fwd_weights: torch.Tensor) -> torch.Tenso
                       device=dev)
     if rows == 0:
         return out
-    _cuda.launch("gomel_mel_log", dev, mags.data_ptr(), we.data_ptr(),
-                 lo.data_ptr(), hi.data_ptr(), out.data_ptr(), rows, bins,
-                 cols)
+    _cuda.launch("gomel_mel_log", dev, mags.data_ptr(), slots.data_ptr(),
+                 weights.data_ptr(), groups, weights.numel(), out.data_ptr(),
+                 rows, bins, cols)
     KERNEL.launches += 1
+    return out
+
+
+def fused_route(n: int, backend: str, device_type: str) -> bool:
+    """Whether the mel encode of an n-point transform runs the fused KB + KC
+    launch: on a CUDA tensor whose transform resolves to the hand kernels
+    (ops/fftbackend.resolve: "mxu") at an n whose half is a power of two,
+    where KB runs its register-resident kernel. Never on the CPU."""
+    if device_type != "cuda":
+        return False
+    m = n // 2
+    return (fftbackend.resolve(backend, n, device_type) == "mxu"
+            and n % 2 == 0 and m >= 2 and m & (m - 1) == 0)
+
+
+def stft_mel_log_plain(x: torch.Tensor, window: torch.Tensor | None, n: int,
+                       hop: int, fwd_weights: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the fused launch: KB's plain version, then
+    KC's."""
+    return mel_from_mags_plain(stft_mag_plain(x, window, n, hop), fwd_weights)
+
+
+def stft_mel_log(x: torch.Tensor, window: torch.Tensor | None, n: int,
+                 hop: int, fwd_weights: torch.Tensor) -> torch.Tensor:
+    """The log-mel [..., F, M, 2] of the hop-spaced frames of ``x`` [..., L]
+    times ``window``, in one launch (KB's transform with KC's band sum in
+    its epilogue) when n/2 is a power of two; raises at any other n on a
+    CUDA tensor. The plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return stft_mel_log_plain(x, window, n, hop, fwd_weights)
+    m = n // 2
+    if n % 2 or m < 2 or m & (m - 1):
+        raise ValueError(f"stft_mel_log: n/2 = {n / 2} is not a power of two")
+    if 2 * fwd_weights.shape[1] != n:
+        raise ValueError(f"stft_mel_log: weights {tuple(fwd_weights.shape)} "
+                         f"do not match n={n}")
+    dev = rfft_mag._check("stft_mel_log", x, window, n)
+    slots, weights, groups = _mel_band_table(fwd_weights)
+    _cuda.check_cuda("stft_mel_log", x, slots, weights)
+    lead, length = x.shape[:-1], x.shape[-1]
+    frames = num_frames_of(length, n, hop)
+    batch = int(np.prod(lead, dtype=np.int64))
+    mels = fwd_weights.shape[0]
+    out = torch.empty(lead + (frames, mels, 2), dtype=torch.float32,
+                      device=dev)
+    if batch == 0 or frames == 0:
+        return out
+    win_ptr = None if window is None else window.data_ptr()
+    tw_pass, *plan = rfft_mag._core_args(n, dev)
+    _cuda.launch("gomel_stft_mel_log", dev, x.data_ptr(), win_ptr,
+                 rfft_mag._twiddles(n, dev).data_ptr(), tw_pass,
+                 slots.data_ptr(), weights.data_ptr(), groups, out.data_ptr(),
+                 2 * mels, batch, frames, length, hop, n, *plan)
+    FUSED_KERNEL.launches += 1
     return out
 
 
@@ -115,7 +267,10 @@ def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
     fwd_weights: [num_mels, N/2] filterbank matrix (core.filterbank.mel_weights).
     window: [frame_len] analysis window, Hann when None.
     fft_backend: the transform's route (ops/fftbackend.resolve); ``auto`` is
-    KB on the card, or the xla route for a size KB does not take.
+    KB on the card, or the xla route for a size KB does not take. Where
+    :func:`fused_route` holds (and the signal is float32) one fused KB + KC
+    launch runs instead of KB then KC, with the same bits; it raises if it
+    fails, with no fallback to the two launches.
     frame_chunk: launch the kernels once per chunk of that many frames
     (ops/stft.map_frame_chunks); the frames are independent, so the result
     is the same.
@@ -129,6 +284,9 @@ def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
             x_padded, frame_len, hop, frame_chunk,
             lambda seg: mel_encode(seg, num_mels, frame_len, hop, fwd_weights,
                                    window, fft_backend))
+    if (fused_route(frame_len, fft_backend, x_padded.device.type)
+            and x_padded.dtype == torch.float32):
+        return stft_mel_log(x_padded, window, frame_len, hop, fwd_weights)
     # [..., F, N/2+1]
     mags = stft_mag(x_padded, window, frame_len, hop, fft_backend)
     return _mel_from_mags(mags, fwd_weights)
@@ -146,8 +304,7 @@ def mel_encode_batch(xb: torch.Tensor, num_mels: int, frame_len: int, hop: int,
                       fft_backend)
 
 
-# id(inv_weights) -> (pinned weights, their version, (first, count, taps));
-# as _EXT_WEIGHT_CACHE
+# id(inv_weights) -> (pinned weights, their version, (first, count, taps))
 _BAND_CACHE: dict[int, tuple[torch.Tensor, int, tuple]] = {}
 
 
@@ -156,28 +313,17 @@ def _band_table(inv_weights: torch.Tensor):
     of its non-zero run (int32 [N/2]), the run's length (int32 [N/2]) and
     its weights as float32 [N/2, max run], zero-padded. Runs are contiguous
     (core/filterbank.inverse_mel_weights fills one branch per bin)."""
-    entry = _BAND_CACHE.get(id(inv_weights))
-    if (entry is not None and entry[0] is inv_weights
-            and entry[1] == inv_weights._version):
-        return entry[2]
-    u = inv_weights.detach().cpu().numpy()
-    nz = u != 0
-    any_nz = nz.any(axis=1)
-    first = np.where(any_nz, nz.argmax(axis=1), 0)
-    last = np.where(any_nz, u.shape[1] - nz[:, ::-1].argmax(axis=1), 0)
-    count = last - first
-    t = np.arange(max(1, int(count.max())))
-    idx = np.minimum(first[:, None] + t, u.shape[1] - 1)
-    taps = np.where(t < count[:, None], np.take_along_axis(u, idx, axis=1),
-                    0.0).astype(np.float32)
-    dev = inv_weights.device
-    value = (torch.from_numpy(first.astype(np.int32)).to(dev),
-             torch.from_numpy(count.astype(np.int32)).to(dev),
-             torch.from_numpy(taps).to(dev))
-    if len(_BAND_CACHE) >= _EXT_WEIGHT_CACHE_MAX:
-        _BAND_CACHE.clear()
-    _BAND_CACHE[id(inv_weights)] = (inv_weights, inv_weights._version, value)
-    return value
+    def make(u):
+        first, count = band_spans(u)
+        t = np.arange(max(1, int(count.max())))
+        idx = np.minimum(first[:, None] + t, u.shape[1] - 1)
+        taps = np.where(t < count[:, None], np.take_along_axis(u, idx, axis=1),
+                        0.0).astype(np.float32)
+        dev = inv_weights.device
+        return (torch.from_numpy(first.astype(np.int32)).to(dev),
+                torch.from_numpy(count.astype(np.int32)).to(dev),
+                torch.from_numpy(taps).to(dev))
+    return _memoized(_BAND_CACHE, inv_weights, make)
 
 
 def spectral_denormalize(x: torch.Tensor) -> torch.Tensor:

@@ -292,7 +292,8 @@ def test_stft_mag_rejects_unsupported(cuda):
 
 
 @pytest.mark.parametrize("cfg", [MelConfig.cli_default(),
-                                 MelConfig(num_mels=40, resolut=512, window=128)])
+                                 MelConfig(num_mels=40, resolut=512, window=128),
+                                 MelConfig(resolut=3000, window=750)])
 def test_mel_log_vs_plain(cuda, cfg):
     rng = np.random.default_rng(1)
     mags = torch.from_numpy(
@@ -304,6 +305,91 @@ def test_mel_log_vs_plain(cuda, cfg):
     assert out.shape == ref.shape == (2, 37, cfg.num_mels, 2)
     live = ref > math.log(1e-4)
     assert float((out.double() - ref).abs()[live].max()) <= 1e-5
+
+
+def _nan_frames(x, n, hop, frames):
+    """x with NaNs in the samples of the given frames."""
+    x = x.clone()
+    for b, f in frames:
+        x[b, f * hop + n // 3] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("n,hop,mels,length", [
+    (4096, 1280, 192, 48000), (8192, 2048, 128, 40000), (512, 128, 40, 9001),
+    (64, 16, 8, 1500), (16, 4, 4, 203), (16384, 4096, 64, 50000)])
+def test_stft_mel_log_equals_kb_then_kc(cuda, n, hop, mels, length):
+    """The fused launch is KB followed by KC bit for bit, NaN frames too,
+    and mel_encode takes it (one fused launch, neither KB nor KC)."""
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(rng.standard_normal((3, length)).astype(np.float32))
+    x = _nan_frames(x, n, hop, [(1, 0), (2, 3)]).to(cuda)
+    win = torch.tensor(hann_window(n), dtype=torch.float32, device=cuda)
+    fwd = torch.tensor(mel_weights(n // 2, mels, 0.0, 8000.0),
+                       dtype=torch.float32, device=cuda)
+    want = mel_ops._mel_from_mags(rfft_mag.stft_mag(x, win, n, hop), fwd)
+    before = (mel_ops.FUSED_KERNEL.launches, mel_ops.KERNEL.launches,
+              rfft_mag.KERNEL.launches)
+    got = mel_ops.mel_encode(x, mels, n, hop, fwd, win)
+    assert (mel_ops.FUSED_KERNEL.launches - before[0],
+            mel_ops.KERNEL.launches - before[1],
+            rfft_mag.KERNEL.launches - before[2]) == (1, 0, 0)
+    assert got.shape == want.shape
+    assert bool(got[1, 0].isnan().any()) and bool(got[2, 3].isnan().any())
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    ref = mel_ops.mel_from_mags_plain(
+        rfft_mag.stft_mag_plain(x.double(), win.double(), n, hop),
+        fwd.double())
+    # against float64: the mel values within 1e-5 of their frame's peak
+    e_got, e_ref = got.double().exp(), ref.exp()
+    peak = e_ref.nan_to_num(0.0).amax(dim=(-2, -1), keepdim=True)
+    ok = ((e_got - e_ref).abs() <= 1e-5 * peak) | ref.isnan()
+    assert bool(ok.all())
+
+
+def test_stft_mel_log_routes(cuda):
+    """Where the fused launch does not run: the mixed radix (n = 3000) and
+    the mm route go through KB's site and KC; the fused wrapper raises at
+    an n it does not take, with no fallback."""
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(rng.standard_normal((2, 12000)).astype(np.float32))
+    x = x.to(cuda)
+    fwd = torch.tensor(mel_weights(1500, 80, 0.0, 8000.0),
+                       dtype=torch.float32, device=cuda)
+    before = (mel_ops.FUSED_KERNEL.launches, mel_ops.KERNEL.launches)
+    got = mel_ops.mel_encode(x, 80, 3000, 750, fwd)
+    assert (mel_ops.FUSED_KERNEL.launches - before[0],
+            mel_ops.KERNEL.launches - before[1]) == (0, 1)
+    win = torch.tensor(hann_window(3000), dtype=torch.float32, device=cuda)
+    assert torch.equal(got, mel_ops._mel_from_mags(
+        rfft_mag.stft_mag(x, win, 3000, 750), fwd))
+    with pytest.raises(ValueError, match="power of two"):
+        mel_ops.stft_mel_log(x, win, 3000, 750, fwd)
+    fwd4 = torch.tensor(mel_weights(2048, 64, 0.0, 8000.0),
+                        dtype=torch.float32, device=cuda)
+    before = mel_ops.FUSED_KERNEL.launches
+    mel_ops.mel_encode(x, 64, 4096, 1024, fwd4, fft_backend="mm")
+    assert mel_ops.FUSED_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 2049 + 5])
+def test_mel_log_offset_views(cuda, offset):
+    """KC on magnitudes that start at any 4-byte boundary (a view into a
+    larger tensor) gives the bits of a contiguous copy, and a frame alone
+    the bits of the batch."""
+    cfg = MelConfig.cli_default()
+    rng = np.random.default_rng(42)
+    bins = cfg.n_bins + 1
+    flat = torch.from_numpy((rng.standard_normal(offset + 37 * bins) ** 2 * 50)
+                            .astype(np.float32)).to(cuda)
+    mags = flat[offset:].reshape(37, bins)
+    fwd = torch.tensor(mel_weights(cfg.n_bins, cfg.num_mels, cfg.mel_fmin,
+                                   cfg.mel_fmax), dtype=torch.float32,
+                       device=cuda)
+    out = mel_ops._mel_from_mags(mags, fwd)
+    assert torch.equal(out, mel_ops._mel_from_mags(mags.clone(), fwd))
+    assert torch.equal(out[5], mel_ops._mel_from_mags(mags[5:6], fwd)[0])
 
 
 @pytest.mark.parametrize("shape", [(37, 45, 2), (1, 1, 2), (3, 70, 33, 2)])
@@ -833,6 +919,27 @@ def test_dequantize_raw_vs_plain(cuda, dtype, max_val, ext, passes, boost):
                                 max_val)
 
 
+@pytest.mark.parametrize("dtype,max_val", [(np.uint8, 255),
+                                           (np.uint16, 65535)])
+@pytest.mark.parametrize("offset,n", [(0, 4099), (1, 4097), (2, 35),
+                                      (3, 4096), (5, 7), (7, 100003)])
+def test_dequantize_raw_offset_views(cuda, dtype, max_val, offset, n):
+    """KL on views that start anywhere (its scalar head and tail, and the
+    scalar stores where the head leaves the output unaligned) equals its
+    plain version bit for bit, per-channel and scalar extrema."""
+    rng = np.random.default_rng(21)
+    flat = torch.from_numpy(rng.integers(0, max_val + 1, offset + n + 3,
+                                         dtype=dtype)).to(cuda)
+    for ext in (1, 2):
+        img = flat[offset:offset + n - n % ext].reshape(-1, ext) if ext == 2 \
+            else flat[offset:offset + n]
+        maxs = torch.tensor([2.0, 1.25])[:ext].reshape((2,) if ext == 2 else ())
+        mins = torch.tensor([-1.75, -0.5])[:ext].reshape((2,) if ext == 2 else ())
+        out = quantize.dequantize_raw(img, maxs, mins, max_val, 0, 0.5)
+        ref = quantize.dequantize_raw_plain(img, maxs, mins, max_val, 0, 0.5)
+        assert torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("mode", ["planes", "spec", "quant8"])
 @pytest.mark.parametrize("real", [0, 7, 23])
 def test_irfft_window_real_frames(cuda, mode, real):
@@ -1321,7 +1428,8 @@ def test_streaming_cuda_vs_whole_and_cpu(cuda):
     frames a chunk, pieces of uneven sizes: the encodes within 1e-5 of each
     frame's peak of Phase / Mel on the whole signal on the card (the mel
     energies for mel), the decode within 2e-4 of Phase.decode, the CPU
-    stream within the same bounds; KE, KB + KC, KG + KH once a chunk."""
+    stream within the same bounds; KE, the fused KB + KC (and neither KB
+    nor KC alone), KG + KH once a chunk."""
     from gomel_tpu_torch import StreamingMel, StreamingPhase
     rng = np.random.default_rng(32)
     t = np.arange(3 * 48000 + 777) / 48000
@@ -1352,10 +1460,11 @@ def test_streaming_cuda_vs_whole_and_cpu(cuda):
     assert float(np.abs(sig - sig_cpu).max()) <= 2e-4
 
     sm = StreamingMel(mc, 24, device=cuda)
-    before = (rfft_mag.KERNEL.launches, mel_ops.KERNEL.launches)
+    before = (mel_ops.FUSED_KERNEL.launches, rfft_mag.KERNEL.launches,
+              mel_ops.KERNEL.launches)
     m_chunks = list(sm.encode_iter(pieces))
-    assert rfft_mag.KERNEL.launches == before[0] + len(m_chunks)
-    assert mel_ops.KERNEL.launches == before[1] + len(m_chunks)
+    assert mel_ops.FUSED_KERNEL.launches == before[0] + len(m_chunks)
+    assert (rfft_mag.KERNEL.launches, mel_ops.KERNEL.launches) == before[1:]
     mel = torch.from_numpy(np.concatenate(m_chunks))
     _frame_peak_close(mel.exp(), Mel(mc, device=cuda).encode(x).exp(), 1e-5,
                       (-2, -1))
