@@ -57,7 +57,14 @@ bench shape (also with a NaN frame), and KC within 1e-5 of its plain
 version in the log domain at n = 4096 and 3000; the mel encode paths
 (tomel, batch-tomel, the long-form shards, the stream) must launch it, the
 stream once a chunk and neither KB nor KC alone. Phase 2e also holds KL
-bit-equal on a shard's planes read one byte off 16-byte alignment.
+bit-equal on a shard's planes read one byte off 16-byte alignment. KF runs
+pass 1 on a grid sized to the card with one fold of the partials a row, and
+KI on runs of frames: phase 2b holds KF bit-equal also at an odd nf and on
+a base one float past 16 bytes (its scalar paths), phase 2c holds KI
+bit-equal to the form it replaced (tools/quant_earlier.cu, built beside the
+kernels) in both modes, with tune and boost and at the resolut 3000 widths,
+phase 2e holds KF and KD at the long-form gathered shapes ([67500, 1536, 2]
+and [67500, 192, 2]), and phase 4 times them there.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -392,8 +399,9 @@ def longform_kernels(dev: torch.device, errs: dict) -> dict:
     """Phase 2e: KL, KG with its real-frame count (counts 0, partial and
     full) and KM's three modes against their plain versions, at the shapes
     of the last shard of the 30-minute long-form phase decode (PNG planes
-    [1, F_loc, 1536, 2]); returns phase 4's closures and work counts."""
-    from gomel_tpu_torch.core.config import PhaseConfig
+    [1, F_loc, 1536, 2]), and KF and KD at the 30-minute file's gathered
+    shapes; returns phase 4's closures and work counts."""
+    from gomel_tpu_torch.core.config import MelConfig, PhaseConfig
     from gomel_tpu_torch.ops import istft, phase_ops, quantize
     from gomel_tpu_torch.ops.stft import hann_window
     from gomel_tpu_torch.parallel import sharded as sh
@@ -520,9 +528,40 @@ def longform_kernels(dev: torch.device, errs: dict) -> dict:
         f"frames): decode with and without boost, float32 and PCM-16, on the "
         f"vector and the scalar path, GL momentum and final: bit-exact")
 
+    # KF and KD at the long-form gathered shapes: the 30-minute file's
+    # phase spectrogram [67500, 1536, 2] and log-mel [67500, 192, 2]
+    # (pipelines/longform.py _write_spec; frames padded to the shards)
+    mcfg = MelConfig.cli_default()
+    long_spec = torch.randn((plan.n_frames_padded, nf, 2), generator=g,
+                            device=dev) * 40.0
+    long_mel = torch.randn((plan.n_frames_padded, mcfg.num_mels, 2),
+                           generator=g, device=dev) - 4.0
+    long_p = quantize.quantize_planes(long_spec, 255)
+    long_m = quantize.quantize_mel_plane(long_mel)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(
+            long_p, quantize.quantize_planes_plain(long_spec, 255)))
+            and all(torch.equal(a, b) for a, b in zip(
+                long_m, quantize.quantize_mel_plane_plain(long_mel)))):
+        raise AssertionError("quantize_planes or quantize_mel_plane at the "
+                             "long-form shape differs from its plain version")
+    log(f"KF quantize_planes {tuple(long_spec.shape)} and KD "
+        f"quantize_mel_plane {tuple(long_mel.shape)} (the long-form gathered "
+        f"shapes): bit-exact")
+
     prefix = istft._window_table(win, hop)[1]
     spec_c = torch.complex(re, im)
     return {
+        "quantize_planes (long form)": dict(
+            kernel=lambda: quantize.quantize_planes(long_spec, 255),
+            plain=lambda: quantize.quantize_planes_plain(long_spec, 255),
+            work=(nbytes(long_spec, *long_p), 6.0 * long_spec.numel()),
+            library=None),
+        "quantize_mel_plane (long form)": dict(
+            kernel=lambda: quantize.quantize_mel_plane(long_mel),
+            plain=lambda: quantize.quantize_mel_plane_plain(long_mel),
+            work=(nbytes(long_mel, *long_m), 6.0 * long_mel.numel()),
+            library=None),
         "dequantize_raw": dict(
             kernel=lambda: quantize.dequantize_raw(planes, maxs, mins, 255),
             plain=lambda: quantize.dequantize_raw_plain(planes, maxs, mins,
@@ -1946,6 +1985,9 @@ def main() -> int:
     log(card)
     log(f"torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    from tools import profile_quant
+    earlier_job = profile_quant.start_earlier(
+        os.path.join(_cuda.BUILD_DIR, "quant_earlier"))
     build_s = _cuda.build()
     _cuda.library()
     log(f"kernel build: {build_s:.2f} s (0 = library already current)")
@@ -1959,7 +2001,9 @@ def main() -> int:
     length = int(SAMPLE_RATE * SECONDS)
     padded = pad_length(length, hop)
     rng = np.random.default_rng(SEED)
-    kernels = {k.name: k for k in (quantize.INGEST_KERNEL, rfft_mag.KERNEL,
+    kernels = {k.name: k for k in (quantize.INGEST_KERNEL,
+                                   quantize.INGEST_ZERO_STUFF_KERNEL,
+                                   rfft_mag.KERNEL,
                                    mel_ops.KERNEL, mel_ops.FUSED_KERNEL,
                                    quantize.QUANTIZE_KERNEL,
                                    rfft_mag.PLANES_KERNEL,
@@ -2124,6 +2168,7 @@ def main() -> int:
     if not torch.equal(x16, x16_ref):
         raise AssertionError("pcm16_ingest (zero-stuff) differs from its "
                              "plain version")
+    errs["pcm16_ingest zero-stuff"] = float((x16 - x16_ref).abs().max())
     log(f"KA pcm16_ingest zp={zp} zs={zs} [{BATCH}, {n16}] -> "
         f"{tuple(x16.shape)}: bit-exact")
 
@@ -2166,6 +2211,23 @@ def main() -> int:
         f" extrema max|d| {ext_i:.3e}")
     if int(d_i.max()) > 1 or flips_i >= 2e-3:
         raise AssertionError("quantize_planes (ihs 2) outside its bound")
+    # KF's scalar paths: an odd nf (pass 2's float loads; pass 1's rows end
+    # mid-quad) and a base one float past 16 bytes (pass 1's odd head)
+    flat = torch.empty(spec_ref.numel() + 1, device=dev)
+    flat[1:].copy_(spec_ref.reshape(-1))
+    for label, src in (("nf - 1 bins", spec_ref[:, :, :nf - 1].contiguous()),
+                       ("a base 4 bytes past 16",
+                        flat[1:].view(spec_ref.shape))):
+        for max_val in (255, 65535):
+            got_s = quantize.quantize_planes_batch(src, max_val, 0)
+            ref_s = quantize.quantize_planes_plain(src, max_val, 0)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got_s, ref_s)):
+                raise AssertionError(f"quantize_planes ({label}, max_val "
+                                     f"{max_val}) differs from its plain "
+                                     f"version")
+        log(f"KF quantize_planes, {label} {tuple(src.shape)}: uint8 and "
+            f"uint16 bit-exact")
 
     fw = istft.launch_irfft_window(istft.MODE_QUANT8, img_p, (mx_p, mn_p),
                                    n_fft, frames, nf, win, (BATCH,), 255.0, 0)
@@ -2245,6 +2307,40 @@ def main() -> int:
             f"(bound 1e-5)")
     if max(ki_rel) > 1e-5:
         raise AssertionError("mel_to_magnitudes error > 1e-5 of the frame peak")
+    # the frame-run KI against the block-a-frame form it replaced, bit for
+    # bit: both modes, tune and boost, the resolut 3000 widths (1500 bins,
+    # 160 mels); 1122 frames are not a whole number of runs
+    old_ki = profile_quant.earlier(earlier_job)
+    cfg3k = MelConfig(resolut=3000, window=750)
+    inv3k = torch.tensor(inverse_mel_weights(cfg3k.n_bins, cfg3k.num_mels,
+                                             cfg3k.mel_fmin, cfg3k.mel_fmax),
+                         dtype=f32, device=dev)
+    log3k = torch.from_numpy(np.random.default_rng(SEED + 3).uniform(
+        -11.5, 3.0, (BATCH, frames,
+                     cfg3k.num_mels, 2)).astype(np.float32)).to(dev)
+    img3k, mx3k, mn3k = quantize.quantize_mel_plane_batch(log3k)
+    for label, src, u, kw in (
+            ("uint8 planes", img, inv, dict(mgc_max=mx, mgc_min=mn)),
+            ("float log-mel", logmel_ref, inv, {}),
+            ("uint8, tune (1.5, 0.25), boost 1.5", img, inv,
+             dict(mgc_max=mx, mgc_min=mn, tune_mul=1.5, tune_add=0.25,
+                  boost=1.5)),
+            ("float, resolut 3000, tune (0.75, -0.5), boost -0.5", log3k,
+             inv3k, dict(tune_mul=0.75, tune_add=-0.5, boost=-0.5)),
+            ("uint8, resolut 3000", img3k, inv3k,
+             dict(mgc_max=mx3k, mgc_min=mn3k))):
+        got = mel_ops.mel_to_magnitudes(src, u, **kw)
+        old = profile_quant.old_mel_to_magnitudes(old_ki, src, u, **kw)
+        ref = mel_ops.mel_to_magnitudes_plain(src, u, **kw)
+        torch.cuda.synchronize()
+        rel = float(((got - ref).abs() / ref.amax(dim=-1, keepdim=True))
+                    .max())
+        log(f"KI mel_to_magnitudes ({label}) -> {tuple(got.shape)}: "
+            f"bit-equal to the earlier form {torch.equal(got, old)}; / frame "
+            f"peak {rel:.3e} (bound 1e-5)")
+        if not torch.equal(got, old) or rel > 1e-5:
+            raise AssertionError(f"mel_to_magnitudes ({label}) differs from "
+                                 f"the earlier form or its plain version")
     mag = mel_ops.mel_to_magnitudes_plain(img, inv, mgc_max=mx, mgc_min=mn)
     gl_len = n_fft + (frames - 1) * hop
     sig0 = prng.uniform(prng.key(SEED), (BATCH, gl_len), f32, dev)

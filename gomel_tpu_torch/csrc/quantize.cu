@@ -1,6 +1,6 @@
 // KD: mel PNG quantizer — per-row global min/max, trunc(255 * norm), transpose.
 // KF: phase PNG quantizer — the same with per-channel extrema, an asinh
-//     prologue and uint8 or uint16 planes (below).
+//     prologue and uint8 or uint16 planes, on passes of its own (below).
 //
 // Replaces gomel_tpu/ops/quantize.py:63 quantize_mel_plane and :211
 // quantize_mel_plane_batch (K4), with or without ``frames``, the masked form
@@ -227,29 +227,78 @@ namespace {
 // and the mask and NaN rules are KD's, per channel). Input
 // [B, F, nf, 2] float32; output [B, nf, F, 2] uint8 (max_val 255) or uint16
 // (HDR, max_val 65535), plus each row's per-channel maxs [B, 2] and
-// mins [B, 2]. KD's two passes, with three changes: the extrema are per
-// channel; ``ihs_passes`` x asinhf is applied to every value before both the
-// extrema and the quantize (recomputed in pass 2 rather than stored: the
-// spectrogram is read twice either way); the planes are 8 or 16 bits.
+// mins [B, 2]. ``ihs_passes`` x asinhf is applied to every value before both
+// the extrema and the quantize (recomputed in pass 2 rather than stored: the
+// spectrogram is read twice either way).
 //
 // Numerics: JAX's op order (quantize.py:39-47): asinh passes, subtract,
 // divide by the range, multiply by max_val, truncate, clip; a range <= 0
-// pins norm at 0.5. No multiply feeds an add, so no fused multiply-add can
-// form. Without IHS the planes equal the plain version's bit for bit; with
-// it they can differ where asinhf and the plain version's asinh differ in
-// the last bit and a truncation sits on that boundary.
+// pins norm at 0.5 (KD's quantize_one). No multiply feeds an add, so no
+// fused multiply-add can form. Without IHS the planes equal the plain
+// version's bit for bit; with it they can differ where asinhf and the plain
+// version's asinh differ in the last bit and a truncation sits on that
+// boundary. The extrema are exact, so any order of the reduction and of the
+// fold gives the same bits.
 //
-// Bound: device memory, as KD: it reads the float32 spectrogram twice
-// (13.8 MB per row at the phase CLI width) and writes a quarter (uint8) or
-// half (uint16) of that, through the same shared-memory transpose.
+// Bound: device memory. One read of the input and one write of the planes:
+// 27.6 + 6.9 MB at the bench shape [2, 1122, 1536, 2], 0.0103 ms at
+// 3.35 TB/s; the two passes read the input twice, but at that size the
+// second read can come from the 50 MB L2. Design, against the form it
+// replaced (64 pass-1 blocks a row, one 8-byte load a loop trip; every
+// pass-2 block folding all of its row's partials; 64-byte warp stores):
+//   pass 1  a grid sized to the card: the SMs x the kernel's resident blocks
+//           (common.cuh resident_blocks), shared by the rows, but no more
+//           blocks a row than give each thread one trip of kPlanesUnroll
+//           quads. A row is a head of up to 3 floats to the first 16-byte
+//           boundary, quads of 4 floats (two bins' (re, im): a float4, a
+//           warp's load 512 contiguous bytes, kPlanesUnroll of them in
+//           flight a thread, a grid stride apart) and a tail of up to 3
+//           floats; the head and tail go one float a thread. Float i of a
+//           row is channel i % 2, so an odd head swaps the quads' channels.
+//           Any 4-byte aligned base, any nf and a masked count that ends
+//           mid-quad take this one path. Each block writes its partial
+//           extrema, and the last block of a row to finish (a per-row
+//           ticket, atomicInc after __threadfence) folds the row's partials
+//           once into mx, mn; the ticket wraps to 0 for the next call.
+//   pass 2  tiles of kTileF = 64 frames x kTileK = 64 bins, 256 threads:
+//           lane j takes bins (2j, 2j + 1) and 4 consecutive frames of two
+//           4-frame groups, 8 float4 loads in flight (warp-contiguous 512
+//           bytes each) where the base is 16-byte aligned and nf even, else 4
+//           float loads each; it quantizes them, packs each bin's 4 pixels
+//           into one 8- or 16-byte shared-memory store ([bin][frame], the
+//           4-frame slots swizzled by bin / 2 so no two lanes of a phase
+//           share a bank), and after the barrier a warp stores one bin's 64
+//           frames as 4-byte words: 128 contiguous bytes a store instruction
+//           for uint8 (two pixels a lane, where the bin's row starts on an
+//           even pixel; else one uchar2 a lane) and uint16 (one ushort2 a
+//           lane, two instructions).
+// What is left (tools/profile_quant.py): pass 1 alone runs at the one-read
+// byte rate and a build whose pass 2 stores bytes of the input in place of
+// pixels runs near the two-pass floor; the rest is pass 2's per-value
+// arithmetic (the IEEE division), kept as it is so the bits stay JAX's.
+
+constexpr int kPlanesThreads = 256;
+constexpr int kPlanesUnroll = 4;  // pass 1: quads a thread has in flight
+constexpr int kTileF = 64;        // pass 2: frames a tile
+constexpr int kGroups = kTileF / 32;  // 4-frame groups a lane
+static_assert(kTileF % 64 == 0, "the swizzle needs 16 slots a bin row");
+constexpr int kTileK = 64;        // pass 2: bins a tile (32 lanes x a pair)
 
 __device__ __forceinline__ float ihs_forward(float v, int passes) {
   for (int p = 0; p < passes; ++p) v = asinhf(v);
   return v;
 }
 
+// e = (max ch 0, max ch 1, min ch 0, min ch 1)
+__device__ __forceinline__ void fold_pair(float4& e, float c0, float c1) {
+  e.x = max_nan(e.x, c0);
+  e.y = max_nan(e.y, c1);
+  e.z = min_nan(e.z, c0);
+  e.w = min_nan(e.w, c1);
+}
+
 __device__ __forceinline__ void block_minmax4(float4& e) {
-  // e = (mx0, mx1, mn0, mn1) reduced over the block, result in warp 0
+  // e reduced over the block, result in warp 0
   __shared__ float4 s_e[32];
   warp_minmax(e.x, e.z);
   warp_minmax(e.y, e.w);
@@ -266,134 +315,298 @@ __device__ __forceinline__ void block_minmax4(float4& e) {
   }
 }
 
-__global__ void minmax_planes_partial_kernel(const float2* __restrict__ x,
-                                             long long n,
-                                             const int* __restrict__ frames,
-                                             int n_frames, long long bins,
-                                             int parts, int ihs_passes,
-                                             float4* __restrict__ partial) {
+// Pass 1: grid (parts, batch). row_floats = F * nf * 2; tickets: uint32
+// [batch], 0 before the launch and again after it.
+__global__ void __launch_bounds__(kPlanesThreads)
+planes_minmax_kernel(const float* __restrict__ x, long long row_floats,
+                     const int* __restrict__ frames, int n_frames,
+                     long long frame_floats, int ihs_passes,
+                     float4* __restrict__ partial,
+                     unsigned* __restrict__ tickets,
+                     float2* __restrict__ mx_out, float2* __restrict__ mn_out) {
+  __shared__ bool s_last;
   const int b = blockIdx.y;
-  const float2* src = x + static_cast<long long>(b) * n;
+  const int parts = gridDim.x;
+  const float* src = x + static_cast<long long>(b) * row_floats;
   float lo, hi;
-  const long long count = masked_count(frames, b, n, n_frames, bins, lo, hi);
+  const long long count = masked_count(frames, b, row_floats, n_frames,
+                                       frame_floats, lo, hi);
   float4 e = make_float4(lo, lo, hi, hi);
-  const long long step = static_cast<long long>(parts) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < count; i += step) {
-    const float2 v = src[i];
-    const float a = ihs_forward(v.x, ihs_passes);
-    const float c = ihs_forward(v.y, ihs_passes);
-    e.x = max_nan(e.x, a);
-    e.y = max_nan(e.y, c);
-    e.z = min_nan(e.z, a);
-    e.w = min_nan(e.w, c);
-  }
-  block_minmax4(e);
-  if (threadIdx.x == 0) partial[static_cast<long long>(b) * parts + blockIdx.x] = e;
-}
-
-template <typename T2>
-__global__ void quantize_planes_kernel(const float2* __restrict__ x,
-                                       const float4* __restrict__ partial,
-                                       int parts, T2* __restrict__ out,
-                                       float2* __restrict__ mx_out,
-                                       float2* __restrict__ mn_out, int frames,
-                                       int bins, float max_val, int ihs_passes) {
-  using E = decltype(T2::x);
-  __shared__ float s_ext[4];
-  __shared__ unsigned tile[kTile][kTile + 1];
-  const int b = blockIdx.z;
-
-  if (threadIdx.y == 0) {
-    float4 e = make_float4(-INFINITY, -INFINITY, INFINITY, INFINITY);
-    for (int p = threadIdx.x; p < parts; p += kTile) {
-      const float4 q = partial[static_cast<long long>(b) * parts + p];
-      e.x = max_nan(e.x, q.x);
-      e.y = max_nan(e.y, q.y);
-      e.z = min_nan(e.z, q.z);
-      e.w = min_nan(e.w, q.w);
+  const long long to_16 =
+      ((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / 4;
+  const long long head = to_16 < count ? to_16 : count;
+  const long long quads = (count - head) / 4;
+  const bool swap = head & 1;  // the quads start on channel 1
+  const float4* q4 = reinterpret_cast<const float4*>(src + head);
+  const long long stride = static_cast<long long>(parts) * blockDim.x;
+  for (long long q0 = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+       q0 < quads; q0 += kPlanesUnroll * stride) {
+    float4 v[kPlanesUnroll];
+#pragma unroll
+    for (int u = 0; u < kPlanesUnroll; ++u) {
+      const long long q = q0 + u * stride;
+      if (q < quads) v[u] = q4[q];
     }
-    warp_minmax(e.x, e.z);
-    warp_minmax(e.y, e.w);
-    if (threadIdx.x == 0) {
-      s_ext[0] = e.x;
-      s_ext[1] = e.y;
-      s_ext[2] = e.z;
-      s_ext[3] = e.w;
-      if (blockIdx.x == 0 && blockIdx.y == 0) {
-        mx_out[b] = make_float2(e.x, e.y);
-        mn_out[b] = make_float2(e.z, e.w);
+#pragma unroll
+    for (int u = 0; u < kPlanesUnroll; ++u) {
+      if (q0 + u * stride < quads) {
+        const float a = ihs_forward(v[u].x, ihs_passes);
+        const float c = ihs_forward(v[u].y, ihs_passes);
+        const float d = ihs_forward(v[u].z, ihs_passes);
+        const float f = ihs_forward(v[u].w, ihs_passes);
+        if (swap) {
+          fold_pair(e, c, a);
+          fold_pair(e, f, d);
+        } else {
+          fold_pair(e, a, c);
+          fold_pair(e, d, f);
+        }
       }
     }
   }
+  // the head (threads 0-2 of block 0) and the tail (threads 4-6)
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const int t = threadIdx.x;
+    const long long i = t < 4 ? t : head + 4 * quads + (t - 4);
+    if (t < 4 ? i < head : i < count) {
+      const float v = ihs_forward(src[i], ihs_passes);
+      if (i & 1) {
+        e.y = max_nan(e.y, v);
+        e.w = min_nan(e.w, v);
+      } else {
+        e.x = max_nan(e.x, v);
+        e.z = min_nan(e.z, v);
+      }
+    }
+  }
+  block_minmax4(e);
+  if (threadIdx.x == 0) {
+    partial[static_cast<long long>(b) * parts + blockIdx.x] = e;
+    __threadfence();
+    s_last = atomicInc(&tickets[b], static_cast<unsigned>(parts - 1)) ==
+             static_cast<unsigned>(parts - 1);
+  }
   __syncthreads();
-  const float mn0 = s_ext[2];
-  const float mn1 = s_ext[3];
-  const float rng0 = s_ext[0] - mn0;
-  const float rng1 = s_ext[1] - mn1;
+  if (!s_last) return;
+  // the row's last block: fold its partials once (from L2: other blocks
+  // wrote them)
+  e = make_float4(-INFINITY, -INFINITY, INFINITY, INFINITY);
+  for (int p = threadIdx.x; p < parts; p += blockDim.x) {
+    const float4 q = __ldcg(partial + static_cast<long long>(b) * parts + p);
+    e.x = max_nan(e.x, q.x);
+    e.y = max_nan(e.y, q.y);
+    e.z = min_nan(e.z, q.z);
+    e.w = min_nan(e.w, q.w);
+  }
+  block_minmax4(e);
+  if (threadIdx.x == 0) {
+    mx_out[b] = make_float2(e.x, e.y);
+    mn_out[b] = make_float2(e.z, e.w);
+  }
+}
 
-  const int f0 = blockIdx.x * kTile;
-  const int k0 = blockIdx.y * kTile;
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    const int f = f0 + j;
-    const int k = k0 + threadIdx.x;
-    if (f < frames && k < bins) {
-      const float2 v = x[(static_cast<long long>(b) * frames + f) * bins + k];
-      tile[j][threadIdx.x] =
-          quantize_one(ihs_forward(v.x, ihs_passes), mn0, rng0, max_val) |
-          (quantize_one(ihs_forward(v.y, ihs_passes), mn1, rng1, max_val) << 16);
+// One pixel: channel 0 in the low half, channel 1 in the high half.
+template <int kShift>
+__device__ __forceinline__ unsigned planes_pixel(float v0, float v1, float mn0,
+                                                 float rng0, float mn1,
+                                                 float rng1, float max_val,
+                                                 int ihs_passes) {
+  return quantize_one(ihs_forward(v0, ihs_passes), mn0, rng0, max_val) |
+         (quantize_one(ihs_forward(v1, ihs_passes), mn1, rng1, max_val)
+          << kShift);
+}
+
+// Pass 2: grid (ceil(F / 64), ceil(nf / 64), batch), 256 threads. kPix: 2
+// (uint8 pixels) or 4 (uint16); kVec: 16-byte loads (x 16-byte aligned, nf
+// even).
+template <int kPix, bool kVec>
+__global__ void __launch_bounds__(kPlanesThreads)
+planes_quantize_kernel(const float* __restrict__ x,
+                       const float2* __restrict__ mx_in,
+                       const float2* __restrict__ mn_in, void* __restrict__ out,
+                       int frames, int bins, float max_val, int ihs_passes) {
+  constexpr int kShift = 4 * kPix;       // channel 1's bits in a pixel
+  constexpr int kRowBytes = kTileF * kPix;
+  constexpr int kSlot = 4 * kPix;        // 4 frames of one bin
+  __shared__ __align__(16) unsigned char tile[kTileK * kRowBytes];
+  const int b = blockIdx.z;
+  const int f0 = blockIdx.x * kTileF;
+  const int k0 = blockIdx.y * kTileK;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = k0 + 2 * lane;
+
+  float4 v[kGroups][4];
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int f = f0 + 4 * (warp + 8 * gi) + i;
+      v[gi][i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (f < frames && k < bins) {
+        const float* p = x + 2 * ((static_cast<long long>(b) * frames + f) *
+                                      bins + k);
+        if constexpr (kVec) {
+          v[gi][i] = *reinterpret_cast<const float4*>(p);
+        } else {
+          v[gi][i].x = p[0];
+          v[gi][i].y = p[1];
+          if (k + 1 < bins) {
+            v[gi][i].z = p[2];
+            v[gi][i].w = p[3];
+          }
+        }
+      }
+    }
+  }
+  const float2 mx = mx_in[b];
+  const float2 mn = mn_in[b];
+  const float mn0 = mn.x;
+  const float mn1 = mn.y;
+  const float rng0 = mx.x - mn0;
+  const float rng1 = mx.y - mn1;
+  const int swz = lane & 15;  // rows 2 lane and 2 lane + 1
+#pragma unroll
+  for (int gi = 0; gi < kGroups; ++gi) {
+    const int slot = (warp + 8 * gi) ^ swz;
+    unsigned p0[4], p1[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p0[i] = planes_pixel<kShift>(v[gi][i].x, v[gi][i].y, mn0, rng0, mn1,
+                                   rng1, max_val, ihs_passes);
+      p1[i] = planes_pixel<kShift>(v[gi][i].z, v[gi][i].w, mn0, rng0, mn1,
+                                   rng1, max_val, ihs_passes);
+    }
+    unsigned char* r0 = tile + (2 * lane) * kRowBytes + slot * kSlot;
+    unsigned char* r1 = r0 + kRowBytes;
+    if constexpr (kPix == 2) {
+      *reinterpret_cast<uint2*>(r0) =
+          make_uint2(p0[0] | (p0[1] << 16), p0[2] | (p0[3] << 16));
+      *reinterpret_cast<uint2*>(r1) =
+          make_uint2(p1[0] | (p1[1] << 16), p1[2] | (p1[3] << 16));
+    } else {
+      *reinterpret_cast<uint4*>(r0) = make_uint4(p0[0], p0[1], p0[2], p0[3]);
+      *reinterpret_cast<uint4*>(r1) = make_uint4(p1[0], p1[1], p1[2], p1[3]);
     }
   }
   __syncthreads();
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    const int k = k0 + j;
-    const int f = f0 + threadIdx.x;
-    if (f < frames && k < bins) {
-      const unsigned t = tile[threadIdx.x][j];
-      T2 o;
-      o.x = static_cast<E>(t & 0xffffu);
-      o.y = static_cast<E>(t >> 16);
-      out[(static_cast<long long>(b) * bins + k) * frames + f] = o;
+
+  // warp w stores bins w, w + 8, ...: one bin's kTileF frames, 4 bytes a
+  // lane
+  for (int r = warp; r < kTileK && k0 + r < bins; r += 8) {
+    const long long p0 =
+        (static_cast<long long>(b) * bins + k0 + r) * frames + f0;
+    const unsigned char* row = tile + r * kRowBytes;
+    const int s = (r >> 1) & 15;
+    if constexpr (kPix == 2) {
+#pragma unroll
+      for (int h = 0; h < kTileF / 64; ++h) {
+        const int f = 2 * lane + 64 * h;
+        const unsigned w = *reinterpret_cast<const unsigned*>(
+            row + ((f >> 2) ^ s) * kSlot + (f & 3) * kPix);
+        unsigned short* o = static_cast<unsigned short*>(out) + p0 + f;
+        if ((p0 & 1) == 0 && f0 + f + 1 < frames) {
+          *reinterpret_cast<unsigned*>(o) = w;
+        } else {
+          if (f0 + f < frames) o[0] = static_cast<unsigned short>(w & 0xffffu);
+          if (f0 + f + 1 < frames) o[1] = static_cast<unsigned short>(w >> 16);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < kTileF / 32; ++h) {
+        const int f = lane + 32 * h;
+        if (f0 + f < frames) {
+          static_cast<unsigned*>(out)[p0 + f] =
+              *reinterpret_cast<const unsigned*>(
+                  row + ((f >> 2) ^ s) * kSlot + (f & 3) * kPix);
+        }
+      }
     }
   }
+}
+
+template <int kPix>
+void launch_planes_quantize(const dim3& grid, bool vec, const float* x,
+                            const float2* mx, const float2* mn, void* out,
+                            int frames, int bins, float max_val,
+                            int ihs_passes, cudaStream_t s) {
+  auto kernel = vec ? planes_quantize_kernel<kPix, true>
+                    : planes_quantize_kernel<kPix, false>;
+  kernel<<<grid, kPlanesThreads, 0, s>>>(x, mx, mn, out, frames, bins,
+                                         max_val, ihs_passes);
 }
 
 }  // namespace
 
-// x: float32 [batch, frames, bins, 2]; true_frames: int32 [batch] (masked
-// form) or null (unmasked); partial: float32 scratch [batch, parts, 4]; out:
+// Pass 1's blocks a row: the card's resident blocks shared by the rows, at
+// most one trip of kPlanesUnroll quads a thread over a whole row, at least 1.
+static long long planes_parts(long long batch, long long row_floats,
+                              int device) {
+  const long long resident = resident_blocks(
+      reinterpret_cast<const void*>(planes_minmax_kernel), kPlanesThreads, 0,
+      device);
+  long long parts = (resident + batch - 1) / batch;
+  const long long per_block = static_cast<long long>(kPlanesThreads) *
+                              kPlanesUnroll;
+  const long long usable = (row_floats / 4 + per_block - 1) / per_block;
+  if (parts > usable) parts = usable;
+  return parts > 0 ? parts : 1;
+}
+
+// parts: host int64 [1], set to pass 1's blocks a row of
+// gomel_quantize_planes at this shape on ``device`` (its partials' scratch
+// is [batch, parts, 4] floats). Launches nothing; the stream is unused.
+GOMEL_API int gomel_quantize_planes_parts(long long batch, long long frames,
+                                          long long bins, void* parts,
+                                          int device, void* stream) {
+  (void)stream;
+  cudaSetDevice(device);
+  *static_cast<long long*>(parts) =
+      planes_parts(batch, frames * bins * 2, device);
+  return gomel_status();
+}
+
+// x: float32 [batch, frames, bins, 2], any 4-byte aligned start;
+// true_frames: int32 [batch] (masked form) or null (unmasked); partial:
+// float32 scratch [batch, parts, 4], parts from gomel_quantize_planes_parts;
+// tickets: uint32 [batch], all 0 (and 0 again when the call has run); out:
 // [batch, bins, frames, 2] uint8 (max_val <= 255) or uint16; mx, mn: float32
 // [batch, 2].
 GOMEL_API int gomel_quantize_planes(const void* x, const void* true_frames,
-                                    void* partial, void* out, void* mx,
-                                    void* mn, long long batch,
+                                    void* partial, void* tickets, void* out,
+                                    void* mx, void* mn, long long batch,
                                     long long frames, long long bins,
-                                    int parts, float max_val, int ihs_passes,
-                                    int device, void* stream) {
+                                    int parts, float max_val,
+                                    int ihs_passes, int device, void* stream) {
   cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  minmax_planes_partial_kernel<<<dim3(parts, static_cast<unsigned>(batch)), 256,
-                                 0, s>>>(
-      static_cast<const float2*>(x), frames * bins,
-      static_cast<const int*>(true_frames), static_cast<int>(frames), bins,
-      parts, ihs_passes, static_cast<float4*>(partial));
+  const float* src = static_cast<const float*>(x);
+  const long long row_floats = frames * bins * 2;
+  planes_minmax_kernel<<<dim3(static_cast<unsigned>(parts),
+                              static_cast<unsigned>(batch)),
+                         kPlanesThreads, 0, s>>>(
+      src, row_floats, static_cast<const int*>(true_frames),
+      static_cast<int>(frames), bins * 2, ihs_passes,
+      static_cast<float4*>(partial), static_cast<unsigned*>(tickets),
+      static_cast<float2*>(mx), static_cast<float2*>(mn));
   const int err = gomel_status();
   if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>((frames + kTile - 1) / kTile),
-                  static_cast<unsigned>((bins + kTile - 1) / kTile),
+  const dim3 grid(static_cast<unsigned>((frames + kTileF - 1) / kTileF),
+                  static_cast<unsigned>((bins + kTileK - 1) / kTileK),
                   static_cast<unsigned>(batch));
-  const float4* part = static_cast<const float4*>(partial);
-  const float2* src = static_cast<const float2*>(x);
+  const bool vec = aligned16(src) && bins % 2 == 0;
+  const float2* mx2 = static_cast<const float2*>(mx);
+  const float2* mn2 = static_cast<const float2*>(mn);
   if (max_val > 255.0f) {
-    quantize_planes_kernel<ushort2><<<grid, dim3(kTile, kRows), 0, s>>>(
-        src, part, parts, static_cast<ushort2*>(out), static_cast<float2*>(mx),
-        static_cast<float2*>(mn), static_cast<int>(frames),
-        static_cast<int>(bins), max_val, ihs_passes);
+    launch_planes_quantize<4>(grid, vec, src, mx2, mn2, out,
+                              static_cast<int>(frames), static_cast<int>(bins),
+                              max_val, ihs_passes, s);
   } else {
-    quantize_planes_kernel<uchar2><<<grid, dim3(kTile, kRows), 0, s>>>(
-        src, part, parts, static_cast<uchar2*>(out), static_cast<float2*>(mx),
-        static_cast<float2*>(mn), static_cast<int>(frames),
-        static_cast<int>(bins), max_val, ihs_passes);
+    launch_planes_quantize<2>(grid, vec, src, mx2, mn2, out,
+                              static_cast<int>(frames), static_cast<int>(bins),
+                              max_val, ihs_passes, s);
   }
   return gomel_status();
 }

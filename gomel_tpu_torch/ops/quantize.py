@@ -28,6 +28,8 @@ float32 input.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -37,6 +39,11 @@ from .resample import zero_stuff_upsample
 
 INGEST_KERNEL = _cuda.Kernel("pcm16_ingest", "gomel_tpu_torch/csrc/ingest.cu",
                              "gomel_tpu/ops/quantize.py:105")
+# KA's zero-stuff form: a tally of its own beside INGEST_KERNEL's (or
+# INGEST_ROWS_KERNEL's), which counts the same launch
+INGEST_ZERO_STUFF_KERNEL = _cuda.Kernel("pcm16_ingest zero-stuff",
+                                        "gomel_tpu_torch/csrc/ingest.cu",
+                                        "gomel_tpu/ops/resample.py:17")
 INGEST_ROWS_KERNEL = _cuda.Kernel("pcm16_ingest_rows",
                                   "gomel_tpu_torch/csrc/ingest.cu",
                                   "gomel_tpu/parallel/batch.py:289")
@@ -56,8 +63,22 @@ DEQUANTIZE_RAW_KERNEL = _cuda.Kernel("dequantize_raw",
                                      "gomel_tpu_torch/csrc/dequantize.cu",
                                      "gomel_tpu/ops/quantize.py:88")
 
-# pass-1 blocks per row of the quantizer's min/max reduction
+# pass-1 blocks per row of KD's min/max reduction
 _MINMAX_PARTS = 64
+
+# (device index, stream) -> uint32 tickets of KF's per-row fold, zero
+# between calls: each call's last block of a row wraps its ticket back to 0,
+# and calls on one stream run in order
+_PLANES_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _planes_tickets(dev: torch.device, rows: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    tickets = _PLANES_TICKETS.get(key)
+    if tickets is None or tickets.numel() < rows:
+        tickets = torch.zeros(max(rows, 64), dtype=torch.int32, device=dev)
+        _PLANES_TICKETS[key] = tickets
+    return tickets
 
 
 def pcm16_ingest_plain(pcm: torch.Tensor, dtype: torch.dtype, scale,
@@ -121,6 +142,8 @@ def _ingest(pcm: torch.Tensor, dtype: torch.dtype, scale, pad_to: int,
                  rows, n_in, n_out, channels, 0.0 if per_row else float(scale),
                  tensors[1].data_ptr() if per_row else None, zp, zs)
     (INGEST_ROWS_KERNEL if per_row else INGEST_KERNEL).launches += 1
+    if zp > 0:
+        INGEST_ZERO_STUFF_KERNEL.launches += 1
     return out
 
 
@@ -286,13 +309,18 @@ def _quantize_planes(spec2: torch.Tensor, max_val: int, ihs_passes: int,
     img2 = torch.empty(lead + (bins, n_frames, 2), dtype=dtype, device=dev)
     maxs = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
     mins = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
-    partial = torch.empty((batch, _MINMAX_PARTS, 4), dtype=torch.float32,
+    # pass 1's blocks a row: the card's resident blocks shared by the rows
+    parts = ctypes.c_longlong()
+    _cuda.launch("gomel_quantize_planes_parts", dev, batch, n_frames, bins,
+                 ctypes.addressof(parts))
+    partial = torch.empty((batch, parts.value, 4), dtype=torch.float32,
                           device=dev)
     _cuda.launch("gomel_quantize_planes", dev, spec2.data_ptr(),
                  None if true_frames is None else true_frames.data_ptr(),
-                 partial.data_ptr(), img2.data_ptr(), maxs.data_ptr(),
-                 mins.data_ptr(), batch, n_frames, bins, _MINMAX_PARTS,
-                 float(max_val), int(ihs_passes))
+                 partial.data_ptr(), _planes_tickets(dev, batch).data_ptr(),
+                 img2.data_ptr(), maxs.data_ptr(), mins.data_ptr(), batch,
+                 n_frames, bins, parts.value, float(max_val),
+                 int(ihs_passes))
     (PLANES_KERNEL if true_frames is None
      else PLANES_MASKED_KERNEL).launches += 1
     return img2, maxs, mins

@@ -10,6 +10,7 @@ multiples of the kernels' tiles, several FFT sizes); chip_smoke.py covers the
 main path's full shapes.
 """
 import math
+import os
 
 import numpy as np
 import pytest
@@ -430,10 +431,14 @@ def test_mel_encode_cuda_vs_cpu(cuda):
 def test_pcm16_ingest_zero_stuff_bit_exact(cuda, sr, shape):
     zp, zs = PAD_SHIFT_TABLE[sr]
     pcm = _pcm(shape, seed=sr)
-    before = quantize.INGEST_KERNEL.launches
+    before = (quantize.INGEST_KERNEL.launches,
+              quantize.INGEST_ZERO_STUFF_KERNEL.launches)
     out = quantize.pcm16_ingest(pcm.to(cuda), torch.float32, 32768.0, 7001,
                                 zp, zs)
-    assert quantize.INGEST_KERNEL.launches == before + 1
+    # the zero-stuff form's own tally counts the launch with KA's
+    assert (quantize.INGEST_KERNEL.launches,
+            quantize.INGEST_ZERO_STUFF_KERNEL.launches) == (
+                before[0] + 1, before[1] + (zp > 0))
     ref = quantize.pcm16_ingest_plain(pcm, torch.float32, 32768.0, 7001,
                                       zp=zp, zs=zs)
     assert torch.equal(out.cpu(), ref)
@@ -487,7 +492,8 @@ def test_fftbackend_planes_vs_torch_fft(cuda):
 
 @pytest.mark.parametrize("shape,max_val", [
     ((37, 45, 2), 255), ((2, 70, 33, 2), 255), ((3, 19, 65, 2), 65535),
-    ((1, 1, 2), 255)])
+    ((1, 1, 2), 255), ((2, 1122, 1536, 2), 255), ((2, 1122, 1536, 2), 65535),
+    ((3, 131, 97, 2), 255), ((2, 129, 64, 2), 65535), ((1, 4001, 130, 2), 255)])
 def test_quantize_planes_bit_exact(cuda, shape, max_val):
     rng = np.random.default_rng(3)
     spec = torch.from_numpy((rng.standard_normal(shape) * 40).astype(np.float32))
@@ -513,6 +519,38 @@ def test_quantize_planes_ihs_within_one_step(cuda, max_val):
     assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
     torch.testing.assert_close(mx, ref[1], rtol=2e-7, atol=0)
     torch.testing.assert_close(mn, ref[2], rtol=2e-7, atol=0)
+
+
+@pytest.mark.parametrize("max_val", [255, 65535])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(2, 67, 96, 2), (3, 41, 37, 2)])
+def test_quantize_planes_offset_views(cuda, shape, offset, max_val):
+    """A base 4, 8 or 12 bytes past a 16-byte boundary (pass 1's head
+    swaps the quads' channels at an odd offset; pass 2 takes float loads),
+    even and odd nf, bit-equal to the plain version."""
+    spec = _spec(shape, 20 + offset)
+    flat = torch.empty(spec.numel() + offset, device=cuda)
+    flat[offset:].copy_(spec.reshape(-1).to(cuda))
+    view = flat[offset:].view(shape)
+    assert view.data_ptr() % 16 == 4 * offset
+    got = quantize.quantize_planes_batch(view, max_val, 0)
+    ref = quantize.quantize_planes_plain(spec, max_val, 0)
+    assert all(_equal(g, r) for g, r in zip(got, ref))
+
+
+def test_quantize_planes_calls_in_turn(cuda):
+    """The per-row fold's tickets return to 0 after every call: calls of
+    other batch sizes, grids and masks in turn keep giving the plain
+    version's bits."""
+    for seed, shape, frames in ((1, (4, 300, 64, 2), [300, 7, 0, 200]),
+                                (2, (1, 2000, 96, 2), None),
+                                (3, (6, 50, 33, 2), [50, 1, 2, 3, 49, 0]),
+                                (4, (4, 300, 64, 2), None)):
+        spec = _spec(shape, seed)
+        got = quantize.quantize_planes_batch(spec.to(cuda), 255, 0, frames)
+        ref = quantize.quantize_planes_plain(
+            spec, 255, 0, None if frames is None else torch.tensor(frames))
+        assert all(_equal(g, r) for g, r in zip(got, ref))
 
 
 def test_quantize_planes_degenerate_channel(cuda):
@@ -598,6 +636,25 @@ def test_quantize_planes_masked_matches_plain(cuda, max_val, ihs):
         assert torch.equal(torch.isnan(got[1].cpu()), torch.isnan(ref[1]))
     assert got[1].cpu()[2].tolist() == [-3.4028234663852886e38] * 2
     assert bool((got[0][2].cpu() == max_val // 2).all())
+
+
+@pytest.mark.parametrize("bins,offset", [(64, 0), (64, 1), (65, 3), (1536, 0)])
+def test_quantize_planes_masked_views(cuda, bins, offset):
+    """Masked rows with counts 0, partial, full and past F, a NaN in a
+    counted frame (row 3) and in a pad frame (row 1), on even and odd nf and
+    a base off 16 bytes (a count that ends mid-quad)."""
+    spec = _masked_spec(14, bins) * 10
+    flat = torch.empty(spec.numel() + offset, device=cuda)
+    flat[offset:].copy_(spec.reshape(-1).to(cuda))
+    view = flat[offset:].view(spec.shape)
+    for max_val in (255, 65535):
+        got = quantize.quantize_planes_batch(view, max_val, 0,
+                                             frames=_MASK_FRAMES)
+        ref = quantize.quantize_planes_plain(spec, max_val, 0,
+                                             torch.tensor(_MASK_FRAMES))
+        assert all(_equal(g, r) for g, r in zip(got, ref))
+        assert bool(torch.isnan(got[1][3].cpu())[0])
+        assert not bool(torch.isnan(got[1][1].cpu()).any())
 
 
 def test_pcm16_ingest_per_row_scales_bit_exact(cuda):
@@ -794,6 +851,58 @@ def test_mel_to_magnitudes_vs_plain(cuda, cfg, quantized, tune):
     # float32 exp and products in another order: 1e-5 of each frame's peak
     peak = ref.amax(dim=-1, keepdim=True)
     assert bool(((out - ref).abs() <= 1e-5 * peak).all())
+
+
+@pytest.fixture(scope="module")
+def earlier_ki():
+    """The earlier KI (tools/quant_earlier.cu), built for these tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from gomel_tpu_torch.ops import _cuda
+    from tools import profile_quant
+    return profile_quant.earlier(profile_quant.start_earlier(
+        os.path.join(_cuda.BUILD_DIR, "test_earlier")))
+
+
+@pytest.mark.parametrize("cfg,frames,tune,boost", [
+    (MelConfig.cli_default(), 1122, (1.0, 0.0), 0.0),
+    (MelConfig.cli_default(), 37, (1.5, 0.25), 1.5),
+    (MelConfig.cli_default(), 1, (1.0, 0.0), -0.5),
+    (MelConfig.cli_default(), 5, (1.0, 0.0), 0.0),
+    (MelConfig(resolut=3000, window=750), 61, (1.0, 0.0), 0.0),
+    (MelConfig(resolut=3000, window=750), 9, (0.75, -0.5), 2.0),
+    (MelConfig(num_mels=40, resolut=512, window=128), 23, (1.0, 0.0), 0.0),
+    (MelConfig(num_mels=512), 13, (1.0, 0.0), 0.5),
+    (MelConfig(num_mels=128, resolut=16384, window=4096), 10, (1.0, 0.0), 0.0)])
+@pytest.mark.parametrize("quantized", [True, False])
+def test_mel_to_magnitudes_equals_earlier(cuda, earlier_ki, cfg, frames, tune,
+                                          boost, quantized):
+    """The frame-run KI bit-equal to the block-a-frame form it replaced,
+    and within 1e-5 of each frame's peak of the plain version: CLI widths,
+    resolut 3000 (1500 bins, 160 mels), 3 taps a bin (512 mels), 8192 bins
+    (several sweeps), runs cut short (F not a multiple of the run, F = 1,
+    F below one run), tune and boost."""
+    from tools.profile_quant import old_mel_to_magnitudes
+    rng = np.random.default_rng(frames + cfg.num_mels)
+    inv = _inv(cfg).to(cuda)
+    if quantized:
+        src = torch.from_numpy(rng.integers(0, 256, (2, cfg.num_mels, frames,
+                                                     2), dtype=np.uint8))
+        ext = dict(mgc_max=torch.tensor([2.5, 0.75], device=cuda),
+                   mgc_min=torch.tensor([-11.0, -9.5], device=cuda))
+    else:
+        src = torch.from_numpy(rng.uniform(-11.5, 3.0, (2, frames,
+                                                        cfg.num_mels, 2))
+                               .astype(np.float32))
+        ext = {}
+    src = src.to(cuda)
+    got = mel_ops.mel_to_magnitudes(src, inv, *tune, boost=boost, **ext)
+    old = old_mel_to_magnitudes(earlier_ki, src, inv, *tune, boost=boost,
+                                **ext)
+    ref = mel_ops.mel_to_magnitudes_plain(src, inv, *tune, boost=boost, **ext)
+    assert torch.equal(got, old)
+    peak = ref.amax(dim=-1, keepdim=True)
+    assert bool(((got - ref).abs() <= 1e-5 * peak).all())
 
 
 @pytest.mark.parametrize("n,hop,lead,frames", [
