@@ -64,7 +64,15 @@ a base one float past 16 bytes (its scalar paths), phase 2c holds KI
 bit-equal to the form it replaced (tools/quant_earlier.cu, built beside the
 kernels) in both modes, with tune and boost and at the resolut 3000 widths,
 phase 2e holds KF and KD at the long-form gathered shapes ([67500, 1536, 2]
-and [67500, 192, 2]), and phase 4 times them there.
+and [67500, 192, 2]), and phase 4 times them there. KD runs KF's two passes
+with one global max and min a row: phase 2 holds it bit-equal also on a
+base one float past 16 bytes and at an odd mel count (its scalar paths),
+phase 2d masked with NaN rows, phase 2e at the long-form shape. KP draws 4
+samples a thread on a grid of the card's resident blocks: phase 2g also
+holds it on a table of 3 keys x 1001 samples (rows off 16 bytes, heads and
+tails).
+Phase 4 prints each kernel's time beside the one PERF.md last recorded
+(EARLIER_MS).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
@@ -359,6 +367,27 @@ INSTR_RATE_S = FP32_FLOP_S / 2
 # KP's integer instructions a sample: 20 rounds of add, funnel shift, xor;
 # 12 key-schedule adds; the xor of the two words, the shift and the or
 THREEFRY_OPS = 20 * 3 + 12 + 3
+
+
+# each kernel's phase-4 device ms as PERF.md recorded it before KD's and
+# KP's redesign (NVIDIA H100 80GB HBM3, 700.00 W; the last run PERF.md
+# names for each), printed beside this run's to read the controls off
+EARLIER_MS = {
+    "pcm16_ingest": 0.0086, "pcm16_ingest zero-stuff": 0.0160,
+    "pcm16_ingest_rows": 0.0169, "stft_mag": 0.0256, "mel_log": 0.0143,
+    "stft_mel_log": 0.0304, "quantize_mel_plane": 0.0125,
+    "quantize_mel_plane_masked": 0.0128,
+    "quantize_mel_plane (long form)": 0.6949, "phase_encode": 0.0258,
+    "quantize_planes": 0.0322, "quantize_planes_masked": 0.0521,
+    "quantize_planes (long form)": 0.6365, "irfft_window": 0.0453,
+    "irfft_window_masked": 0.2016, "overlap_normalize": 0.0211,
+    "overlap_normalize (shard overlap-add)": 0.1245,
+    "mel_to_magnitudes": 0.0146, "gl_project": 0.0528,
+    "gl_overlap_add": 0.0254, "dequantize_raw": 0.1019,
+    "shard_epilogue": 0.0669, "shard_epilogue (momentum)": 0.1257,
+    "dft_fwd_bf16": 0.2970, "dft_fwd_f32": 2.0040, "dft_inv_bf16": 0.2719,
+    "dft_inv_f32": 2.1178, "threefry_uniform": 0.0130,
+    "threefry_uniform one shard": 0.0752}
 
 
 def bound(n_bytes: float, flops: float,
@@ -1795,7 +1824,9 @@ def prng_kernel(dev: torch.device, errs: dict, gl_len: int) -> dict:
              ("ragged [1]", one, (1,)),
              ("ragged [12345]", prng.key(-7), (12345,)),
              ("ragged, 3 row keys x [7, 111]", prng.split_rows(one, 3),
-              (7, 111)))
+              (7, 111)),
+             ("3 row keys x [1001] (rows off 16 bytes, heads and tails)",
+              prng.split_rows(one, 3), (1001,)))
     worst = 0.0
     for label, keys, shape in cases:
         got = prng.uniform(keys, shape, f32, dev)
@@ -2149,6 +2180,22 @@ def main() -> int:
         (img.int() - img_ref.int()).abs().max())
     log(f"KD quantize_mel_plane -> {tuple(img.shape)}: bit-exact, extrema "
         f"{mx.tolist()} / {mn.tolist()}")
+    # KD's scalar paths: a base one float past 16 bytes (pass 1's head and
+    # channel swap, pass 2's float loads) and an odd mel count
+    flat = torch.empty(logmel_ref.numel() + 1, device=dev)
+    flat[1:].copy_(logmel_ref.reshape(-1))
+    for label, src in (
+            ("a base one float past 16 bytes",
+             flat[1:].view(logmel_ref.shape)),
+            (f"{cfg.num_mels - 1} mels",
+             logmel_ref[..., 1:, :].contiguous())):
+        got = quantize.quantize_mel_plane_batch(src)
+        ref = quantize.quantize_mel_plane_plain(src)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"quantize_mel_plane on {label} differs "
+                                 f"from its plain version")
+        log(f"KD quantize_mel_plane {tuple(src.shape)}, {label}: bit-exact")
 
     # -- phase 2b: the phase codec's kernels, bench shape --------------------
     pcfg = PhaseConfig.cli_default()
@@ -2719,6 +2766,10 @@ def main() -> int:
     for name, (k_ms, p_ms) in times.items():
         log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; wrapper "
             f"enqueue {host_us(kernel_fns[name]):.1f} us")
+    for name, (k_ms, _) in times.items():
+        if name in EARLIER_MS:
+            log(f"  {name}: {k_ms:.4f} ms against {EARLIER_MS[name]:.4f} "
+                f"recorded in PERF.md, ratio {k_ms / EARLIER_MS[name]:.3f}")
 
     # bound_ms: bytes each input read once and each output written once, and
     # operations, at the timed inputs; library_ms: one PyTorch call of the

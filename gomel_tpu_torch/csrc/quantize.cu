@@ -1,42 +1,93 @@
-// KD: mel PNG quantizer — per-row global min/max, trunc(255 * norm), transpose.
+// KD: mel PNG quantizer — per-row GLOBAL extrema (one max and one min over
+//     both channels), trunc(255 * norm), transpose to uint8 planes.
 // KF: phase PNG quantizer — the same with per-channel extrema, an asinh
-//     prologue and uint8 or uint16 planes, on passes of its own (below).
+//     prologue and uint8 or uint16 planes.
+// Both run the one two-pass design below; a compile-time flag (kGlobal)
+// picks KD's global extrema or KF's per-channel ones.
 //
-// Replaces gomel_tpu/ops/quantize.py:63 quantize_mel_plane and :211
-// quantize_mel_plane_batch (K4), with or without ``frames``, the masked form
-// being :176 _quantize_mel_masked. Input [B, F, M, 2] float32 and, for the
-// masked form, frames [B] int32; output [B, M, F, 2] uint8 plus each row's
-// max and min.
+// KD replaces gomel_tpu/ops/quantize.py:63 quantize_mel_plane and :211
+// quantize_mel_plane_batch (K4), the masked form being :176
+// _quantize_mel_masked: input [B, F, M, 2] float32 (and frames [B] int32),
+// output [B, M, F, 2] uint8 plus each row's max [B] and min [B].
+// KF replaces gomel_tpu/ops/quantize.py:30 quantize_planes and :185
+// quantize_planes_batch (K6), the masked form being :164
+// _quantize_planes_masked (the asinh passes come before the mask): input
+// [B, F, nf, 2] float32, output [B, nf, F, 2] uint8 (max_val 255) or uint16
+// (HDR, max_val 65535), plus each row's per-channel maxs [B, 2] and mins
+// [B, 2]. ``ihs_passes`` x asinhf is applied to every value before both the
+// extrema and the quantize (recomputed in pass 2 rather than stored: the
+// spectrogram is read twice either way); KD has none.
 //
 // Masked form (length-bucketed batches): row b's extrema come from its first
-// f = min(max(frames[b], 0), F) frames only, which are the first f*M*2 floats
-// of the row, so pass 1 just reduces a shorter row. Pass 2 quantizes all F
-// frames with those extrema (pad frames clip), as the JAX program does. JAX
-// takes the extrema of where(mask, x, -+FLT_MAX), so a row with pad frames
-// (frames[b] < F) starts its reduction from the -+FLT_MAX sentinels instead
-// of -+inf: a row with frames = 0 gives max -FLT_MAX and min +FLT_MAX, a
-// negative range, and every pixel 127.
+// f = min(max(frames[b], 0), F) frames only, which are the first f * X * 2
+// floats of the row, so pass 1 just reduces a shorter row. Pass 2 quantizes
+// all F frames with those extrema (pad frames clip), as the JAX program does.
+// JAX takes the extrema of where(mask, x, -+FLT_MAX), so a row with pad
+// frames (frames[b] < F) starts its reduction from the -+FLT_MAX sentinels
+// instead of -+inf: a row with frames = 0 gives max -FLT_MAX and min
+// +FLT_MAX, a negative range, and every pixel the midpoint.
 //
 // NaN: the extrema propagate NaN, as JAX's max and min do (fmaxf would drop
-// it). A NaN in a counted frame makes the row's (channel's, for KF) range NaN,
-// which pins norm at 0.5: every pixel 127 (or 32767). A NaN in a pad frame
-// never reaches the extrema.
+// it). A NaN in a counted frame makes the row's (KF: the channel's) range
+// NaN, which pins norm at 0.5: every pixel 127 (or 32767). A NaN in a pad
+// frame never reaches the extrema. KD's fold merges the two channels'
+// extrema with the same NaN-propagating max and min, so its rules are KF's
+// per-channel rules, merged.
 //
-// Numerics follow the JAX program exactly (quantize.py:72-74): subtract,
-// divide by the range (never a reciprocal multiply), multiply by max_val,
-// truncate, clip to [0, max_val]; a range <= 0 pins norm at 0.5. No fused
-// multiply-add can form (no add follows a multiply), and division is IEEE,
-// so the planes equal the JAX program's bit for bit on the same input. The
-// extrema are exact, so any reduction order gives the same values: the
-// result is deterministic.
+// Numerics follow the JAX program exactly (quantize.py:39-47, :72-74):
+// subtract, divide by the range (never a reciprocal multiply), multiply by
+// max_val, truncate, clip to [0, max_val]; a range <= 0 pins norm at 0.5.
+// No fused multiply-add can form (no add follows a multiply), and division
+// is IEEE, so without IHS the planes equal the plain version's bit for bit;
+// with it they can differ where asinhf and the plain version's asinh differ
+// in the last bit and a truncation sits on that boundary. The extrema are
+// exact, so any order of the reduction and of the fold gives the same bits.
 //
-// Bound: device memory. It reads the float32 spectrogram twice (3.4 MB per
-// row at the mel path's shape) and writes a quarter of that. Design: pass 1
-// reduces each row in `parts` blocks to partial extrema; pass 2 runs 32x32
-// (frame, mel) tiles, each block first folding its row's partials (a few
-// hundred bytes, from L2) into the final extrema, then quantizing with
-// coalesced float2 loads and writing the transposed uint8 pairs through a
-// shared-memory tile, so both the loads and the stores coalesce.
+// Bound: device memory. One read of the input and one write of the planes:
+// KF 27.6 + 6.9 MB at the bench shape [2, 1122, 1536, 2], 0.0103 ms at
+// 3.35 TB/s; KD 3.45 + 0.86 MB at [2, 1122, 192, 2], 0.0013 ms. The two
+// passes read the input twice; at the bench shapes the second read can come
+// from the 50 MB L2, at the long-form shapes (KD 103.7 MB, KF 829 MB) it
+// cannot. Design, against the form both replaced (64 pass-1 blocks a row,
+// one 4- or 8-byte load a loop trip; every pass-2 block folding all of its
+// row's partials; 64-byte warp stores):
+//   pass 1  a grid sized to the card: the SMs x the kernel's resident blocks
+//           (common.cuh resident_blocks), shared by the rows, but no more
+//           blocks a row than give each thread one trip of kPlanesUnroll
+//           quads. A row is a head of up to 3 floats to the first 16-byte
+//           boundary, quads of 4 floats (two bins' (re, im): a float4, a
+//           warp's load 512 contiguous bytes, kPlanesUnroll of them in
+//           flight a thread, a grid stride apart) and a tail of up to 3
+//           floats; the head and tail go one float a thread. Float i of a
+//           row is channel i % 2, so an odd head swaps the quads' channels.
+//           Any 4-byte aligned base, any X and a masked count that ends
+//           mid-quad take this one path. Each block writes its partial
+//           extrema, and the last block of a row to finish (a per-row
+//           ticket, atomicInc after __threadfence) folds the row's partials
+//           once into mx, mn (KD: and the two channels into one); the ticket
+//           wraps to 0 for the next call.
+//   pass 2  tiles of kTileF = 32 frames x kTileK = 64 bins, 256 threads:
+//           warp w takes the tile's 4-frame group w (and w + 8 of a 64-frame
+//           tile, tools/profile_quant.py's tile_64 build), lane j its bins
+//           (2j, 2j + 1): 4 16-byte loads in flight a group (warp-contiguous
+//           512 bytes each) where the base is 16-byte aligned and X even,
+//           else 4 float loads each; it quantizes them, packs each bin's 4
+//           pixels into one 8- or 16-byte shared-memory store ([bin][frame],
+//           the 4-frame slots swizzled by bin / 2 so no two lanes of a phase
+//           share a bank), and after the barrier a warp stores 4-byte words
+//           of the tile's bin rows: uint8 rows are 64 bytes (two pixels a
+//           lane where the row starts on an even pixel, else one uchar2 a
+//           lane), two rows an instruction; uint16 rows 128 bytes (one
+//           ushort2 a lane), one row an instruction. 32 frames and not 64
+//           (KF's earlier tile): twice the blocks, 6 and not 5 resident an
+//           SM, and faster at every shape measured, KD's bench grid (108
+//           tiles of 64 frames, under the 132 SMs) and KF's long form alike
+//           (tools/profile_quant.py).
+// What is left (tools/profile_quant.py): pass 1 alone runs near the
+// one-read byte rate and a build whose pass 2 stores bytes of the input in
+// place of pixels runs near the two-pass floor; the rest is pass 2's
+// per-value arithmetic (the IEEE division), kept as it is so the bits stay
+// JAX's.
 #include <float.h>
 #include <math.h>
 
@@ -44,8 +95,10 @@
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kRows = 8;
+constexpr int kPlanesThreads = 256;
+constexpr int kPlanesUnroll = 4;  // pass 1: quads a thread has in flight
+constexpr int kTileF = 32;        // pass 2: frames a tile (32 or 64)
+constexpr int kTileK = 64;        // pass 2: bins a tile (32 lanes x a pair)
 
 // NaN-propagating max and min (JAX semantics): one max.NaN / min.NaN
 // instruction each (sm_80 and later); equal to fmaxf / fminf (max.f32,
@@ -86,41 +139,6 @@ __device__ __forceinline__ long long masked_count(const int* frames, int b,
   return f > 0 ? static_cast<long long>(f) * frame_elems : 0;
 }
 
-__global__ void minmax_partial_kernel(const float* __restrict__ x, long long n,
-                                      const int* __restrict__ frames,
-                                      int n_frames, long long frame_elems,
-                                      int parts, float2* __restrict__ partial) {
-  __shared__ float s_mx[32];
-  __shared__ float s_mn[32];
-  const int b = blockIdx.y;
-  const float* src = x + static_cast<long long>(b) * n;
-  float mx, mn;
-  const long long count = masked_count(frames, b, n, n_frames, frame_elems, mx,
-                                       mn);
-  const long long step = static_cast<long long>(parts) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < count; i += step) {
-    const float v = src[i];
-    mx = max_nan(mx, v);
-    mn = min_nan(mn, v);
-  }
-  warp_minmax(mx, mn);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_mx[warp] = mx;
-    s_mn[warp] = mn;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int warps = blockDim.x >> 5;
-    mx = lane < warps ? s_mx[lane] : -INFINITY;
-    mn = lane < warps ? s_mn[lane] : INFINITY;
-    warp_minmax(mx, mn);
-    if (lane == 0) partial[static_cast<long long>(b) * parts + blockIdx.x] = make_float2(mx, mn);
-  }
-}
-
 __device__ __forceinline__ unsigned quantize_one(float v, float mn, float rng,
                                                  float max_val) {
   const float norm = (rng > 0.0f) ? (v - mn) / rng : 0.5f;
@@ -128,161 +146,6 @@ __device__ __forceinline__ unsigned quantize_one(float v, float mn, float rng,
   q = fminf(fmaxf(q, 0.0f), max_val);
   return static_cast<unsigned>(q);
 }
-
-__global__ void quantize_mel_kernel(const float2* __restrict__ x,
-                                    const float2* __restrict__ partial,
-                                    int parts, uchar2* __restrict__ out,
-                                    float* __restrict__ mx_out,
-                                    float* __restrict__ mn_out, int frames,
-                                    int mels, float max_val) {
-  __shared__ float s_ext[2];
-  __shared__ unsigned short tile[kTile][kTile + 1];
-  const int b = blockIdx.z;
-
-  if (threadIdx.y == 0) {
-    float mx = -INFINITY;
-    float mn = INFINITY;
-    for (int p = threadIdx.x; p < parts; p += kTile) {
-      const float2 e = partial[static_cast<long long>(b) * parts + p];
-      mx = max_nan(mx, e.x);
-      mn = min_nan(mn, e.y);
-    }
-    warp_minmax(mx, mn);
-    if (threadIdx.x == 0) {
-      s_ext[0] = mx;
-      s_ext[1] = mn;
-      if (blockIdx.x == 0 && blockIdx.y == 0) {
-        mx_out[b] = mx;
-        mn_out[b] = mn;
-      }
-    }
-  }
-  __syncthreads();
-  const float mx = s_ext[0];
-  const float mn = s_ext[1];
-  const float rng = mx - mn;
-
-  const int f0 = blockIdx.x * kTile;
-  const int m0 = blockIdx.y * kTile;
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    const int f = f0 + j;
-    const int m = m0 + threadIdx.x;
-    if (f < frames && m < mels) {
-      const float2 v = x[(static_cast<long long>(b) * frames + f) * mels + m];
-      tile[j][threadIdx.x] = static_cast<unsigned short>(
-          quantize_one(v.x, mn, rng, max_val) |
-          (quantize_one(v.y, mn, rng, max_val) << 8));
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.y; j < kTile; j += kRows) {
-    const int m = m0 + j;
-    const int f = f0 + threadIdx.x;
-    if (f < frames && m < mels) {
-      const unsigned short t = tile[threadIdx.x][j];
-      out[(static_cast<long long>(b) * mels + m) * frames + f] =
-          make_uchar2(static_cast<unsigned char>(t & 0xff),
-                      static_cast<unsigned char>(t >> 8));
-    }
-  }
-}
-
-}  // namespace
-
-// x: float32 [batch, frames, mels, 2]; true_frames: int32 [batch] (masked
-// form) or null (unmasked); partial: float32 scratch [batch, parts, 2]; out:
-// uint8 [batch, mels, frames, 2]; mx, mn: float32 [batch].
-GOMEL_API int gomel_quantize_mel(const void* x, const void* true_frames,
-                                 void* partial, void* out, void* mx, void* mn,
-                                 long long batch, long long frames,
-                                 long long mels, int parts, float max_val,
-                                 int device, void* stream) {
-  cudaSetDevice(device);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = frames * mels * 2;
-  minmax_partial_kernel<<<dim3(parts, static_cast<unsigned>(batch)), 256, 0, s>>>(
-      static_cast<const float*>(x), n, static_cast<const int*>(true_frames),
-      static_cast<int>(frames), mels * 2, parts, static_cast<float2*>(partial));
-  const int err = gomel_status();
-  if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>((frames + kTile - 1) / kTile),
-                  static_cast<unsigned>((mels + kTile - 1) / kTile),
-                  static_cast<unsigned>(batch));
-  quantize_mel_kernel<<<grid, dim3(kTile, kRows), 0, s>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(partial), parts,
-      static_cast<uchar2*>(out), static_cast<float*>(mx),
-      static_cast<float*>(mn), static_cast<int>(frames),
-      static_cast<int>(mels), max_val);
-  return gomel_status();
-}
-
-namespace {
-
-// ---------------------------------------------------------------------------
-// KF: phase PNG quantizer.
-//
-// Replaces gomel_tpu/ops/quantize.py:30 quantize_planes and :185
-// quantize_planes_batch (K6), with or without ``frames``, the masked form
-// being :164 _quantize_planes_masked (the asinh passes come before the mask,
-// and the mask and NaN rules are KD's, per channel). Input
-// [B, F, nf, 2] float32; output [B, nf, F, 2] uint8 (max_val 255) or uint16
-// (HDR, max_val 65535), plus each row's per-channel maxs [B, 2] and
-// mins [B, 2]. ``ihs_passes`` x asinhf is applied to every value before both
-// the extrema and the quantize (recomputed in pass 2 rather than stored: the
-// spectrogram is read twice either way).
-//
-// Numerics: JAX's op order (quantize.py:39-47): asinh passes, subtract,
-// divide by the range, multiply by max_val, truncate, clip; a range <= 0
-// pins norm at 0.5 (KD's quantize_one). No multiply feeds an add, so no
-// fused multiply-add can form. Without IHS the planes equal the plain
-// version's bit for bit; with it they can differ where asinhf and the plain
-// version's asinh differ in the last bit and a truncation sits on that
-// boundary. The extrema are exact, so any order of the reduction and of the
-// fold gives the same bits.
-//
-// Bound: device memory. One read of the input and one write of the planes:
-// 27.6 + 6.9 MB at the bench shape [2, 1122, 1536, 2], 0.0103 ms at
-// 3.35 TB/s; the two passes read the input twice, but at that size the
-// second read can come from the 50 MB L2. Design, against the form it
-// replaced (64 pass-1 blocks a row, one 8-byte load a loop trip; every
-// pass-2 block folding all of its row's partials; 64-byte warp stores):
-//   pass 1  a grid sized to the card: the SMs x the kernel's resident blocks
-//           (common.cuh resident_blocks), shared by the rows, but no more
-//           blocks a row than give each thread one trip of kPlanesUnroll
-//           quads. A row is a head of up to 3 floats to the first 16-byte
-//           boundary, quads of 4 floats (two bins' (re, im): a float4, a
-//           warp's load 512 contiguous bytes, kPlanesUnroll of them in
-//           flight a thread, a grid stride apart) and a tail of up to 3
-//           floats; the head and tail go one float a thread. Float i of a
-//           row is channel i % 2, so an odd head swaps the quads' channels.
-//           Any 4-byte aligned base, any nf and a masked count that ends
-//           mid-quad take this one path. Each block writes its partial
-//           extrema, and the last block of a row to finish (a per-row
-//           ticket, atomicInc after __threadfence) folds the row's partials
-//           once into mx, mn; the ticket wraps to 0 for the next call.
-//   pass 2  tiles of kTileF = 64 frames x kTileK = 64 bins, 256 threads:
-//           lane j takes bins (2j, 2j + 1) and 4 consecutive frames of two
-//           4-frame groups, 8 float4 loads in flight (warp-contiguous 512
-//           bytes each) where the base is 16-byte aligned and nf even, else 4
-//           float loads each; it quantizes them, packs each bin's 4 pixels
-//           into one 8- or 16-byte shared-memory store ([bin][frame], the
-//           4-frame slots swizzled by bin / 2 so no two lanes of a phase
-//           share a bank), and after the barrier a warp stores one bin's 64
-//           frames as 4-byte words: 128 contiguous bytes a store instruction
-//           for uint8 (two pixels a lane, where the bin's row starts on an
-//           even pixel; else one uchar2 a lane) and uint16 (one ushort2 a
-//           lane, two instructions).
-// What is left (tools/profile_quant.py): pass 1 alone runs at the one-read
-// byte rate and a build whose pass 2 stores bytes of the input in place of
-// pixels runs near the two-pass floor; the rest is pass 2's per-value
-// arithmetic (the IEEE division), kept as it is so the bits stay JAX's.
-
-constexpr int kPlanesThreads = 256;
-constexpr int kPlanesUnroll = 4;  // pass 1: quads a thread has in flight
-constexpr int kTileF = 64;        // pass 2: frames a tile
-constexpr int kGroups = kTileF / 32;  // 4-frame groups a lane
-static_assert(kTileF % 64 == 0, "the swizzle needs 16 slots a bin row");
-constexpr int kTileK = 64;        // pass 2: bins a tile (32 lanes x a pair)
 
 __device__ __forceinline__ float ihs_forward(float v, int passes) {
   for (int p = 0; p < passes; ++p) v = asinhf(v);
@@ -315,15 +178,17 @@ __device__ __forceinline__ void block_minmax4(float4& e) {
   }
 }
 
-// Pass 1: grid (parts, batch). row_floats = F * nf * 2; tickets: uint32
-// [batch], 0 before the launch and again after it.
+// Pass 1: grid (parts, batch). row_floats = F * X * 2; tickets: uint32
+// [batch], 0 before the launch and again after it. mx_out, mn_out: float32
+// [batch] (kGlobal) or [batch, 2].
+template <bool kGlobal>
 __global__ void __launch_bounds__(kPlanesThreads)
 planes_minmax_kernel(const float* __restrict__ x, long long row_floats,
                      const int* __restrict__ frames, int n_frames,
                      long long frame_floats, int ihs_passes,
                      float4* __restrict__ partial,
                      unsigned* __restrict__ tickets,
-                     float2* __restrict__ mx_out, float2* __restrict__ mn_out) {
+                     float* __restrict__ mx_out, float* __restrict__ mn_out) {
   __shared__ bool s_last;
   const int b = blockIdx.y;
   const int parts = gridDim.x;
@@ -401,8 +266,13 @@ planes_minmax_kernel(const float* __restrict__ x, long long row_floats,
   }
   block_minmax4(e);
   if (threadIdx.x == 0) {
-    mx_out[b] = make_float2(e.x, e.y);
-    mn_out[b] = make_float2(e.z, e.w);
+    if constexpr (kGlobal) {
+      mx_out[b] = max_nan(e.x, e.y);
+      mn_out[b] = min_nan(e.z, e.w);
+    } else {
+      reinterpret_cast<float2*>(mx_out)[b] = make_float2(e.x, e.y);
+      reinterpret_cast<float2*>(mn_out)[b] = make_float2(e.z, e.w);
+    }
   }
 }
 
@@ -417,18 +287,24 @@ __device__ __forceinline__ unsigned planes_pixel(float v0, float v1, float mn0,
           << kShift);
 }
 
-// Pass 2: grid (ceil(F / 64), ceil(nf / 64), batch), 256 threads. kPix: 2
-// (uint8 pixels) or 4 (uint16); kVec: 16-byte loads (x 16-byte aligned, nf
-// even).
-template <int kPix, bool kVec>
+// Pass 2: grid (ceil(F / kTileF), ceil(X / 64), batch), 256 threads. kPix: 2
+// (uint8 pixels) or 4 (uint16); kVec: 16-byte loads (x 16-byte aligned, X
+// even); kGlobal: one range for both channels (KD).
+template <int kPix, bool kVec, bool kGlobal>
 __global__ void __launch_bounds__(kPlanesThreads)
 planes_quantize_kernel(const float* __restrict__ x,
-                       const float2* __restrict__ mx_in,
-                       const float2* __restrict__ mn_in, void* __restrict__ out,
+                       const float* __restrict__ mx_in,
+                       const float* __restrict__ mn_in, void* __restrict__ out,
                        int frames, int bins, float max_val, int ihs_passes) {
+  constexpr int kGroups = kTileF / 32;   // 4-frame groups a warp
+  constexpr int kSlots = kTileF / 4;     // 4-frame slots a bin row
   constexpr int kShift = 4 * kPix;       // channel 1's bits in a pixel
   constexpr int kRowBytes = kTileF * kPix;
   constexpr int kSlot = 4 * kPix;        // 4 frames of one bin
+  constexpr int kWords = kRowBytes / 4;  // 4-byte words a bin row
+  constexpr int kLanes = kWords < 32 ? kWords : 32;  // lanes a bin row
+  constexpr int kBins = 32 / kLanes;     // bin rows a warp's store
+  static_assert(kTileF == 32 || kTileF == 64, "32- or 64-frame tiles");
   __shared__ __align__(16) unsigned char tile[kTileK * kRowBytes];
   const int b = blockIdx.z;
   const int f0 = blockIdx.x * kTileF;
@@ -460,13 +336,23 @@ planes_quantize_kernel(const float* __restrict__ x,
       }
     }
   }
-  const float2 mx = mx_in[b];
-  const float2 mn = mn_in[b];
-  const float mn0 = mn.x;
-  const float mn1 = mn.y;
-  const float rng0 = mx.x - mn0;
-  const float rng1 = mx.y - mn1;
-  const int swz = lane & 15;  // rows 2 lane and 2 lane + 1
+  float mn0, mn1, rng0, rng1;
+  if constexpr (kGlobal) {
+    mn0 = mn1 = mn_in[b];
+    rng0 = rng1 = mx_in[b] - mn0;
+  } else {
+    const float2 mx = reinterpret_cast<const float2*>(mx_in)[b];
+    const float2 mn = reinterpret_cast<const float2*>(mn_in)[b];
+    mn0 = mn.x;
+    mn1 = mn.y;
+    rng0 = mx.x - mn0;
+    rng1 = mx.y - mn1;
+  }
+  const int swz = lane & (kSlots - 1);  // rows 2 lane and 2 lane + 1
+  // uint8 rows of 64 bytes: a lane's two rows lie 16 banks apart and lanes
+  // l and l + 8 share a swizzle, so lanes 8-15 of a half-warp write their
+  // odd row first
+  const bool odd_first = kRowBytes == 64 && (lane & kSlots);
 #pragma unroll
   for (int gi = 0; gi < kGroups; ++gi) {
     const int slot = (warp + 8 * gi) ^ swz;
@@ -481,10 +367,10 @@ planes_quantize_kernel(const float* __restrict__ x,
     unsigned char* r0 = tile + (2 * lane) * kRowBytes + slot * kSlot;
     unsigned char* r1 = r0 + kRowBytes;
     if constexpr (kPix == 2) {
-      *reinterpret_cast<uint2*>(r0) =
-          make_uint2(p0[0] | (p0[1] << 16), p0[2] | (p0[3] << 16));
-      *reinterpret_cast<uint2*>(r1) =
-          make_uint2(p1[0] | (p1[1] << 16), p1[2] | (p1[3] << 16));
+      const uint2 w0 = make_uint2(p0[0] | (p0[1] << 16), p0[2] | (p0[3] << 16));
+      const uint2 w1 = make_uint2(p1[0] | (p1[1] << 16), p1[2] | (p1[3] << 16));
+      *reinterpret_cast<uint2*>(odd_first ? r1 : r0) = odd_first ? w1 : w0;
+      *reinterpret_cast<uint2*>(odd_first ? r0 : r1) = odd_first ? w0 : w1;
     } else {
       *reinterpret_cast<uint4*>(r0) = make_uint4(p0[0], p0[1], p0[2], p0[3]);
       *reinterpret_cast<uint4*>(r1) = make_uint4(p1[0], p1[1], p1[2], p1[3]);
@@ -492,17 +378,19 @@ planes_quantize_kernel(const float* __restrict__ x,
   }
   __syncthreads();
 
-  // warp w stores bins w, w + 8, ...: one bin's kTileF frames, 4 bytes a
-  // lane
-  for (int r = warp; r < kTileK && k0 + r < bins; r += 8) {
+  // a warp stores kBins bin rows an instruction, a 4-byte word a lane: warp
+  // w takes bins kBins w + lane / kLanes, then 8 kBins on
+  const int wl = lane % kLanes;
+  for (int r = kBins * warp + lane / kLanes; r < kTileK && k0 + r < bins;
+       r += 8 * kBins) {
     const long long p0 =
         (static_cast<long long>(b) * bins + k0 + r) * frames + f0;
     const unsigned char* row = tile + r * kRowBytes;
-    const int s = (r >> 1) & 15;
-    if constexpr (kPix == 2) {
+    const int s = (r >> 1) & (kSlots - 1);
 #pragma unroll
-      for (int h = 0; h < kTileF / 64; ++h) {
-        const int f = 2 * lane + 64 * h;
+    for (int h = 0; h < kWords / kLanes; ++h) {
+      if constexpr (kPix == 2) {
+        const int f = 2 * (wl + kLanes * h);
         const unsigned w = *reinterpret_cast<const unsigned*>(
             row + ((f >> 2) ^ s) * kSlot + (f & 3) * kPix);
         unsigned short* o = static_cast<unsigned short*>(out) + p0 + f;
@@ -512,11 +400,8 @@ planes_quantize_kernel(const float* __restrict__ x,
           if (f0 + f < frames) o[0] = static_cast<unsigned short>(w & 0xffffu);
           if (f0 + f + 1 < frames) o[1] = static_cast<unsigned short>(w >> 16);
         }
-      }
-    } else {
-#pragma unroll
-      for (int h = 0; h < kTileF / 32; ++h) {
-        const int f = lane + 32 * h;
+      } else {
+        const int f = wl + kLanes * h;
         if (f0 + f < frames) {
           static_cast<unsigned*>(out)[p0 + f] =
               *reinterpret_cast<const unsigned*>(
@@ -527,32 +412,99 @@ planes_quantize_kernel(const float* __restrict__ x,
   }
 }
 
-template <int kPix>
-void launch_planes_quantize(const dim3& grid, bool vec, const float* x,
-                            const float2* mx, const float2* mn, void* out,
-                            int frames, int bins, float max_val,
+template <int kPix, bool kGlobal>
+void launch_planes_quantize(long long batch, long long frames, long long bins,
+                            bool vec, const float* x, const float* mx,
+                            const float* mn, void* out, float max_val,
                             int ihs_passes, cudaStream_t s) {
-  auto kernel = vec ? planes_quantize_kernel<kPix, true>
-                    : planes_quantize_kernel<kPix, false>;
-  kernel<<<grid, kPlanesThreads, 0, s>>>(x, mx, mn, out, frames, bins,
-                                         max_val, ihs_passes);
+  const dim3 grid(static_cast<unsigned>((frames + kTileF - 1) / kTileF),
+                  static_cast<unsigned>((bins + kTileK - 1) / kTileK),
+                  static_cast<unsigned>(batch));
+  auto kernel = vec ? planes_quantize_kernel<kPix, true, kGlobal>
+                    : planes_quantize_kernel<kPix, false, kGlobal>;
+  kernel<<<grid, kPlanesThreads, 0, s>>>(x, mx, mn, out,
+                                         static_cast<int>(frames),
+                                         static_cast<int>(bins), max_val,
+                                         ihs_passes);
 }
-
-}  // namespace
 
 // Pass 1's blocks a row: the card's resident blocks shared by the rows, at
 // most one trip of kPlanesUnroll quads a thread over a whole row, at least 1.
-static long long planes_parts(long long batch, long long row_floats,
-                              int device) {
+template <bool kGlobal>
+long long planes_parts(long long batch, long long row_floats, int device) {
   const long long resident = resident_blocks(
-      reinterpret_cast<const void*>(planes_minmax_kernel), kPlanesThreads, 0,
-      device);
+      reinterpret_cast<const void*>(planes_minmax_kernel<kGlobal>),
+      kPlanesThreads, 0, device);
   long long parts = (resident + batch - 1) / batch;
   const long long per_block = static_cast<long long>(kPlanesThreads) *
                               kPlanesUnroll;
   const long long usable = (row_floats / 4 + per_block - 1) / per_block;
   if (parts > usable) parts = usable;
   return parts > 0 ? parts : 1;
+}
+
+// Both passes of KD (kGlobal) or KF on one stream.
+template <bool kGlobal>
+int quantize_two_pass(const void* x, const void* true_frames, void* partial,
+                      void* tickets, void* out, void* mx, void* mn,
+                      long long batch, long long frames, long long bins,
+                      int parts, float max_val, int ihs_passes, int device,
+                      void* stream) {
+  cudaSetDevice(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* src = static_cast<const float*>(x);
+  float* mx_f = static_cast<float*>(mx);
+  float* mn_f = static_cast<float*>(mn);
+  planes_minmax_kernel<kGlobal><<<dim3(static_cast<unsigned>(parts),
+                                       static_cast<unsigned>(batch)),
+                                  kPlanesThreads, 0, s>>>(
+      src, frames * bins * 2, static_cast<const int*>(true_frames),
+      static_cast<int>(frames), bins * 2, ihs_passes,
+      static_cast<float4*>(partial), static_cast<unsigned*>(tickets), mx_f,
+      mn_f);
+  const int err = gomel_status();
+  if (err != 0) return err;
+  const bool vec = aligned16(src) && bins % 2 == 0;
+  if constexpr (!kGlobal) {  // KD's planes are uint8 only
+    if (max_val > 255.0f) {
+      launch_planes_quantize<4, false>(batch, frames, bins, vec, src, mx_f,
+                                       mn_f, out, max_val, ihs_passes, s);
+      return gomel_status();
+    }
+  }
+  launch_planes_quantize<2, kGlobal>(batch, frames, bins, vec, src, mx_f,
+                                     mn_f, out, max_val, ihs_passes, s);
+  return gomel_status();
+}
+
+}  // namespace
+
+// parts: host int64 [1], set to pass 1's blocks a row of gomel_quantize_mel
+// at this shape on ``device`` (its partials' scratch is [batch, parts, 4]
+// floats). Launches nothing; the stream is unused.
+GOMEL_API int gomel_quantize_mel_parts(long long batch, long long frames,
+                                       long long mels, void* parts, int device,
+                                       void* stream) {
+  (void)stream;
+  cudaSetDevice(device);
+  *static_cast<long long*>(parts) =
+      planes_parts<true>(batch, frames * mels * 2, device);
+  return gomel_status();
+}
+
+// KD. x: float32 [batch, frames, mels, 2], any 4-byte aligned start;
+// true_frames: int32 [batch] (masked form) or null (unmasked); partial:
+// float32 scratch [batch, parts, 4], parts from gomel_quantize_mel_parts;
+// tickets: uint32 [batch], all 0 (and 0 again when the call has run); out:
+// uint8 [batch, mels, frames, 2] (max_val <= 255); mx, mn: float32 [batch].
+GOMEL_API int gomel_quantize_mel(const void* x, const void* true_frames,
+                                 void* partial, void* tickets, void* out,
+                                 void* mx, void* mn, long long batch,
+                                 long long frames, long long mels, int parts,
+                                 float max_val, int device, void* stream) {
+  return quantize_two_pass<true>(x, true_frames, partial, tickets, out, mx,
+                                 mn, batch, frames, mels, parts, max_val, 0,
+                                 device, stream);
 }
 
 // parts: host int64 [1], set to pass 1's blocks a row of
@@ -564,11 +516,11 @@ GOMEL_API int gomel_quantize_planes_parts(long long batch, long long frames,
   (void)stream;
   cudaSetDevice(device);
   *static_cast<long long*>(parts) =
-      planes_parts(batch, frames * bins * 2, device);
+      planes_parts<false>(batch, frames * bins * 2, device);
   return gomel_status();
 }
 
-// x: float32 [batch, frames, bins, 2], any 4-byte aligned start;
+// KF. x: float32 [batch, frames, bins, 2], any 4-byte aligned start;
 // true_frames: int32 [batch] (masked form) or null (unmasked); partial:
 // float32 scratch [batch, parts, 4], parts from gomel_quantize_planes_parts;
 // tickets: uint32 [batch], all 0 (and 0 again when the call has run); out:
@@ -580,33 +532,7 @@ GOMEL_API int gomel_quantize_planes(const void* x, const void* true_frames,
                                     long long frames, long long bins,
                                     int parts, float max_val,
                                     int ihs_passes, int device, void* stream) {
-  cudaSetDevice(device);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* src = static_cast<const float*>(x);
-  const long long row_floats = frames * bins * 2;
-  planes_minmax_kernel<<<dim3(static_cast<unsigned>(parts),
-                              static_cast<unsigned>(batch)),
-                         kPlanesThreads, 0, s>>>(
-      src, row_floats, static_cast<const int*>(true_frames),
-      static_cast<int>(frames), bins * 2, ihs_passes,
-      static_cast<float4*>(partial), static_cast<unsigned*>(tickets),
-      static_cast<float2*>(mx), static_cast<float2*>(mn));
-  const int err = gomel_status();
-  if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>((frames + kTileF - 1) / kTileF),
-                  static_cast<unsigned>((bins + kTileK - 1) / kTileK),
-                  static_cast<unsigned>(batch));
-  const bool vec = aligned16(src) && bins % 2 == 0;
-  const float2* mx2 = static_cast<const float2*>(mx);
-  const float2* mn2 = static_cast<const float2*>(mn);
-  if (max_val > 255.0f) {
-    launch_planes_quantize<4>(grid, vec, src, mx2, mn2, out,
-                              static_cast<int>(frames), static_cast<int>(bins),
-                              max_val, ihs_passes, s);
-  } else {
-    launch_planes_quantize<2>(grid, vec, src, mx2, mn2, out,
-                              static_cast<int>(frames), static_cast<int>(bins),
-                              max_val, ihs_passes, s);
-  }
-  return gomel_status();
+  return quantize_two_pass<false>(x, true_frames, partial, tickets, out, mx,
+                                  mn, batch, frames, bins, parts, max_val,
+                                  ihs_passes, device, stream);
 }

@@ -46,8 +46,9 @@ _SIGNATURES = {
     "gomel_stft_mel_log": [_P, _P, _P, _P, _P, _P, _I32, _P, _I64, _I64,
                            _I64, _I64, _I64, _I64, _I32, _I32, _I32],
     "gomel_mel_log": [_P, _P, _P, _I32, _I64, _P, _I64, _I64, _I64],
-    "gomel_quantize_mel": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32,
-                           _F32],
+    "gomel_quantize_mel": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                           _I32, _F32],
+    "gomel_quantize_mel_parts": [_I64, _I64, _I64, _P],
     "gomel_quantize_planes": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                               _I32, _F32, _I32],
     "gomel_quantize_planes_parts": [_I64, _I64, _I64, _P],

@@ -171,7 +171,7 @@ def uniform_plain(keys, shape, dtype: torch.dtype = torch.float32,
 
 
 def uniform(keys, shape, dtype: torch.dtype = torch.float32,
-            device: torch.device | str = "cpu") -> torch.Tensor:
+            device: torch.device | str = "cuda") -> torch.Tensor:
     """Uniform [0, 1) samples, the bits of ``jax.random.uniform``.
 
     ``keys`` uint32 [2] is one key: the result has ``shape``, element ``i``
@@ -182,8 +182,10 @@ def uniform(keys, shape, dtype: torch.dtype = torch.float32,
     counter's high word is 0; more raises ValueError.
 
     The samples are made on ``device``: kernel KP in one launch on a CUDA
-    device (float32 only), the plain version on the CPU."""
-    device = torch.device(device)
+    device (float32 only), the plain version on the CPU. ``device`` defaults
+    to the card, as ``jax.random.uniform`` draws on the default (accelerator)
+    device; without one it raises RuntimeError: pass ``device="cpu"``."""
+    device = _cuda.require_device(device, "uniform")
     if device.type == "cpu":
         return uniform_plain(keys, shape, dtype, device)
     table, out_shape, per_key = _check(keys, shape, dtype)

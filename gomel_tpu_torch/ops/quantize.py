@@ -20,6 +20,9 @@ prologue of kernel KG (ops/istft.py) or KI (ops/mel_ops.py) and the
 epilogue of kernel KH or KK (ops/griffinlim.py), and these functions are
 those kernels' plain versions.
 
+KD and KF are one two-pass design (csrc/quantize.cu): KD takes one global
+max and min a row over both channels, KF one a channel.
+
 Byte parity: the host writer quantizes in float64, these in float32; the
 truncation can flip one step where the two roundings straddle an integer
 (rare; gomel_tpu/ops/quantize.py:10-14). KA and KD, and KF without IHS,
@@ -63,12 +66,9 @@ DEQUANTIZE_RAW_KERNEL = _cuda.Kernel("dequantize_raw",
                                      "gomel_tpu_torch/csrc/dequantize.cu",
                                      "gomel_tpu/ops/quantize.py:88")
 
-# pass-1 blocks per row of KD's min/max reduction
-_MINMAX_PARTS = 64
-
-# (device index, stream) -> uint32 tickets of KF's per-row fold, zero
-# between calls: each call's last block of a row wraps its ticket back to 0,
-# and calls on one stream run in order
+# (device index, stream) -> uint32 tickets of KD's and KF's per-row fold,
+# zero between calls: each call's last block of a row wraps its ticket back
+# to 0, and calls on one stream run in order, so KD and KF share them
 _PLANES_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -233,13 +233,18 @@ def _quantize(spec2: torch.Tensor, max_val: int, batched: bool, frames=None):
                        device=dev)
     mx = torch.empty(lead, dtype=torch.float32, device=dev)
     mn = torch.empty(lead, dtype=torch.float32, device=dev)
-    partial = torch.empty((batch, _MINMAX_PARTS, 2), dtype=torch.float32,
+    # KF's two passes with global extrema: pass 1's blocks a row are the
+    # card's resident blocks shared by the rows
+    parts = ctypes.c_longlong()
+    _cuda.launch("gomel_quantize_mel_parts", dev, batch, n_frames, mels,
+                 ctypes.addressof(parts))
+    partial = torch.empty((batch, parts.value, 4), dtype=torch.float32,
                           device=dev)
     _cuda.launch("gomel_quantize_mel", dev, spec2.data_ptr(),
                  None if true_frames is None else true_frames.data_ptr(),
-                 partial.data_ptr(), img2.data_ptr(), mx.data_ptr(),
-                 mn.data_ptr(), batch, n_frames, mels, _MINMAX_PARTS,
-                 float(max_val))
+                 partial.data_ptr(), _planes_tickets(dev, batch).data_ptr(),
+                 img2.data_ptr(), mx.data_ptr(), mn.data_ptr(), batch,
+                 n_frames, mels, parts.value, float(max_val))
     (QUANTIZE_KERNEL if true_frames is None
      else QUANTIZE_MASKED_KERNEL).launches += 1
     return img2, mx, mn

@@ -236,15 +236,15 @@ def test_row_start_rule():
         np.testing.assert_array_equal(
             tbatch.row_keys(11, b),
             np.asarray(jax.random.split(jax.random.PRNGKey(11), b)))
-    starts = {b: prng.uniform(tbatch.row_keys(11, b), (3000,))
+    starts = {b: prng.uniform(tbatch.row_keys(11, b), (3000,), device="cpu")
               for b in (1, 2, 4)}
     for b in (2, 4):
         for r in range(min(b, 2)):
             assert torch.equal(starts[b][r], starts[2 if r else 1][r])
     assert torch.equal(starts[4][:2], starts[2])
     assert not torch.equal(starts[4][0], starts[4][1])
-    assert not torch.equal(prng.uniform(tbatch.row_keys(12, 1), (3000,))[0],
-                           starts[1][0])
+    assert not torch.equal(prng.uniform(tbatch.row_keys(12, 1), (3000,),
+                                        device="cpu")[0], starts[1][0])
     # the decode draws them: row 0 decodes alike alone and in a batch of 4
     tb = tbatch.BatchedMel(MelConfig(**MEL), device="cpu")
     xb = np.stack(_utterances([4000] * 4, seed=6))

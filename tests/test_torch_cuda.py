@@ -393,7 +393,9 @@ def test_mel_log_offset_views(cuda, offset):
     assert torch.equal(out[5], mel_ops._mel_from_mags(mags[5:6], fwd)[0])
 
 
-@pytest.mark.parametrize("shape", [(37, 45, 2), (1, 1, 2), (3, 70, 33, 2)])
+@pytest.mark.parametrize("shape", [(37, 45, 2), (1, 1, 2), (3, 70, 33, 2),
+                                   (2, 1122, 192, 2), (4, 1122, 192, 2),
+                                   (2, 131, 97, 2), (1, 4001, 192, 2)])
 def test_quantize_mel_plane_bit_exact(cuda, shape):
     rng = np.random.default_rng(2)
     spec = torch.from_numpy((rng.standard_normal(shape) * 3 - 4).astype(np.float32))
@@ -403,6 +405,47 @@ def test_quantize_mel_plane_bit_exact(cuda, shape):
     ref = quantize.quantize_mel_plane_plain(spec)
     assert torch.equal(img.cpu(), ref[0])
     assert torch.equal(mx.cpu(), ref[1]) and torch.equal(mn.cpu(), ref[2])
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(2, 67, 192, 2), (3, 41, 37, 2),
+                                   (1, 300, 193, 2)])
+def test_quantize_mel_plane_offset_views(cuda, shape, offset):
+    """KD on KF's passes from a base 4, 8 or 12 bytes past a 16-byte
+    boundary (pass 1's head swaps the quads' channels at an odd offset;
+    pass 2 takes float loads), at even and odd mel counts: bit-equal to the
+    plain version, one launch a call."""
+    spec = _spec(shape, 30 + offset)
+    flat = torch.empty(spec.numel() + offset, device=cuda)
+    flat[offset:].copy_(spec.reshape(-1).to(cuda))
+    view = flat[offset:].view(shape)
+    assert view.data_ptr() % 16 == 4 * offset
+    before = quantize.QUANTIZE_KERNEL.launches
+    got = quantize.quantize_mel_plane_batch(view)
+    assert quantize.QUANTIZE_KERNEL.launches == before + 1
+    ref = quantize.quantize_mel_plane_plain(spec)
+    assert all(_equal(g, r) for g, r in zip(got, ref))
+
+
+def test_quantize_mel_and_planes_share_tickets(cuda):
+    """KD and KF on one stream share the per-row fold's tickets: calls of
+    both in turn, masked and not, of other batch sizes, keep giving the
+    plain versions' bits."""
+    for seed, shape, frames in ((1, (4, 300, 64, 2), [300, 7, 0, 200]),
+                                (2, (1, 2000, 192, 2), None),
+                                (3, (6, 50, 33, 2), [50, 1, 2, 3, 49, 0]),
+                                (4, (4, 300, 64, 2), None)):
+        spec = _spec(shape, seed)
+        tf = None if frames is None else torch.tensor(frames)
+        for _ in range(2):
+            got = quantize.quantize_mel_plane_batch(spec.to(cuda), 255,
+                                                    frames)
+            ref = quantize.quantize_mel_plane_plain(spec, 255, tf)
+            assert all(_equal(g, r) for g, r in zip(got, ref))
+            got = quantize.quantize_planes_batch(spec.to(cuda), 255, 0,
+                                                 frames)
+            ref = quantize.quantize_planes_plain(spec, 255, 0, tf)
+            assert all(_equal(g, r) for g, r in zip(got, ref))
 
 
 def test_quantize_mel_plane_degenerate_range(cuda):
@@ -1467,11 +1510,15 @@ def test_mel_decode_mm_launches_and_converges(cuda, momentum):
 
 @pytest.mark.parametrize("rows,shape", [
     (None, (1,)), (None, (12345,)), (None, (3, 777)), (None, (2, 70001)),
-    (1, (1001,)), (4, (4097,)), (3, (7, 111)), (70000, (3,))])
+    (1, (1001,)), (4, (4097,)), (3, (7, 111)), (70000, (3,)), (3, (1001,)),
+    (5, (1000,)), (5, (1002,)), (5, (1003,)), (70000, (5,)),
+    (None, (2, 1438976))])
 def test_threefry_uniform_bit_exact(cuda, rows, shape):
     """KP against its plain version on the card and on the CPU, one key and
     row keys (more rows than the grid's second dimension holds), ragged
-    sizes: bit for bit, one launch a draw."""
+    sizes (samples a key of every residue mod 4, so rows start off 16
+    bytes and end in a tail), the bench shape: bit for bit, one launch a
+    draw."""
     from gomel_tpu_torch.ops import prng
     one = prng.key(2 ** 32 + 11)
     if rows is None:

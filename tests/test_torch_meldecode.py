@@ -333,7 +333,7 @@ def test_mel_decode_takes_batch_dims():
                         key=prng.key(5))
     b = tmel.mel_decode(logmel, CFG.resolut, CFG.window, inv, 1,
                         init=prng.uniform(prng.key(5), (2, out_len),
-                                          torch.float64))
+                                          torch.float64, "cpu"))
     assert a.shape == (2, out_len) and torch.equal(a, b)
     keys = prng.split_rows(prng.key(5), 2)
     rows = tmel.mel_decode(logmel, CFG.resolut, CFG.window, inv, 1, key=keys)

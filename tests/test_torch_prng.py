@@ -107,10 +107,12 @@ def test_row_keys_match_jit_vmap(rows, dtype, jdtype):
     keys = jax.random.split(jax.random.PRNGKey(3), rows)
     want = np.asarray(jax.jit(jax.vmap(
         lambda k: jax.random.uniform(k, (555,), jdtype)))(keys))
-    got = prng.uniform(prng.split_rows(prng.key(3), rows), (555,), dtype)
+    got = prng.uniform(prng.split_rows(prng.key(3), rows), (555,), dtype,
+                       "cpu")
     assert got.shape == (rows, 555)
     np.testing.assert_array_equal(got.numpy(), want)
-    two_d = prng.uniform(prng.split_rows(prng.key(3), rows), (5, 111), dtype)
+    two_d = prng.uniform(prng.split_rows(prng.key(3), rows), (5, 111), dtype,
+                         "cpu")
     np.testing.assert_array_equal(two_d.numpy().reshape(rows, 555), want)
 
 
@@ -120,25 +122,27 @@ def test_folded_key_draw_matches_jax():
         want = np.asarray(jax.random.uniform(
             jax.random.fold_in(jax.random.PRNGKey(9), shard), (2, 320),
             jnp.float32))
-        got = prng.uniform(prng.fold_in(prng.key(9), shard), (2, 320))
+        got = prng.uniform(prng.fold_in(prng.key(9), shard), (2, 320),
+                           device="cpu")
         np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_uniform_checks_its_arguments():
     k = prng.key(1)
-    assert prng.uniform(k, (0,)).shape == (0,)
-    assert prng.uniform(k, ()).shape == ()
-    assert prng.uniform(prng.split_rows(k, 2), (0,)).shape == (2, 0)
+    assert prng.uniform(k, (0,), device="cpu").shape == (0,)
+    assert prng.uniform(k, (), device="cpu").shape == ()
+    assert prng.uniform(prng.split_rows(k, 2), (0,),
+                        device="cpu").shape == (2, 0)
     with pytest.raises(ValueError, match="2\\^32"):
-        prng.uniform(k, (2 ** 32,))
+        prng.uniform(k, (2 ** 32,), device="cpu")
     with pytest.raises(ValueError, match="2\\^32"):
         prng.uniform(k, (2 ** 16, 2 ** 16), device="meta")
     with pytest.raises(ValueError, match="keys"):
-        prng.uniform(np.zeros(2, np.int32), (4,))
+        prng.uniform(np.zeros(2, np.int32), (4,), device="cpu")
     with pytest.raises(ValueError, match="keys"):
-        prng.uniform(np.zeros((2, 3), np.uint32), (4,))
+        prng.uniform(np.zeros((2, 3), np.uint32), (4,), device="cpu")
     with pytest.raises(ValueError, match="dtype"):
-        prng.uniform(k, (4,), torch.float16)
+        prng.uniform(k, (4,), torch.float16, device="cpu")
     # a device that is neither the CPU nor CUDA gets no plain fallback
     with pytest.raises(ValueError, match="neither"):
         prng.uniform(k, (4,), device="meta")
@@ -147,6 +151,20 @@ def test_uniform_checks_its_arguments():
 def test_uniform_on_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")
-    with pytest.raises((RuntimeError, AssertionError)):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         prng.uniform(prng.key(1), (4,), device="cuda")
+    assert prng.KERNEL.launches == 0
+
+
+def test_uniform_defaults_to_the_card():
+    """Like jax.random.uniform, the draw goes to the accelerator unless the
+    caller names another device; without a card that is a clear error from
+    the port's own check, which names the CPU's spelling, not one from
+    inside torch's CUDA calls."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        prng.uniform(prng.key(1), (4,))
+    with pytest.raises(RuntimeError, match="uniform: device 'cuda'"):
+        prng.uniform(prng.split_rows(prng.key(1), 2), (3,), torch.float32)
     assert prng.KERNEL.launches == 0

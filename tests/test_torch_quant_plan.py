@@ -1,14 +1,17 @@
-"""The index plans of kernels KF and KI, replayed on the CPU.
+"""The index plans of kernels KD, KF and KI, replayed on the CPU.
 
-KF (csrc/quantize.cu) runs pass 1 on a grid sized to the card (the SMs x the
-kernel's resident blocks, shared by the rows, no more blocks a row than one
-trip of kPlanesUnroll quads a thread can use): a row is a head of up to 3
-floats to the first 16-byte boundary, float4 quads a grid stride apart and a
-tail of up to 3 floats, float i of a row being channel i % 2; the last
-block of a row folds its partials once. Pass 2 runs 64-frame x 64-bin tiles:
-lane j loads bins (2j, 2j + 1) of 4 consecutive frames of two groups, packs
-each bin's 4 pixels into one swizzled shared-memory slot, and a warp stores
-one bin's 64 frames, 4 bytes a lane. KI (csrc/mel_decode.cu) runs
+KD and KF (csrc/quantize.cu) are one two-pass design; KD folds the two
+channels' extrema into one global max and min a row. Pass 1 runs on a grid
+sized to the card (the SMs x the kernel's resident blocks, shared by the
+rows, no more blocks a row than one trip of kPlanesUnroll quads a thread
+can use): a row is a head of up to 3 floats to the first 16-byte boundary,
+float4 quads a grid stride apart and a tail of up to 3 floats, float i of a
+row being channel i % 2; the last block of a row folds its partials once.
+Pass 2 runs 32-frame x 64-bin tiles: warp w loads the tile's 4-frame group
+w, lane j its bins (2j, 2j + 1), packs each bin's 4 pixels into one
+swizzled shared-memory slot, and a warp stores 4-byte words of the bin
+rows: two 64-byte rows an instruction for uint8, one 128-byte row for
+uint16. KI (csrc/mel_decode.cu) runs
 persistent blocks over runs of kMelRun frames of one batch row: each block
 stages the band table once in shared memory as planes a bin wide, reads a
 run's [T, 2] sub-image of each mel row (or its T x 2M floats) into one of
@@ -65,12 +68,12 @@ LONG = (1, 67500, 1536)
 
 
 def test_constants_are_the_designs():
-    """The plans below are the sources': KF's 256-thread blocks, 4 quads in
-    flight, 64 x 64 tiles of 32 bin pairs x 8 warps (two 4-frame groups a
-    warp); KI's 256-thread blocks, runs of 4 frames (2 warps a frame),
-    chunks of 128 outputs (4 a lane), a float a store."""
-    assert (THREADS, UNROLL, TILE_F, TILE_K) == (256, 4, 64, 64)
-    assert TILE_K == 2 * 32 and TILE_F == 4 * 2 * (THREADS // 32)
+    """The plans below are the sources': KD's and KF's 256-thread blocks, 4
+    quads in flight, 32 x 64 tiles of 32 bin pairs x 8 warps (a 4-frame
+    group a warp); KI's 256-thread blocks, runs of 4 frames (2 warps a
+    frame), chunks of 128 outputs (4 a lane), a float a store."""
+    assert (THREADS, UNROLL, TILE_F, TILE_K) == (256, 4, 32, 64)
+    assert TILE_K == 2 * 32 and TILE_F == 4 * (THREADS // 32)
     assert (MAG_THREADS, RUN, CHUNK) == (256, 4, 128)
     assert WARPS % RUN == 0 and CHUNK % 128 == 0
 
@@ -224,7 +227,7 @@ def test_fold_tickets_wrap():
         assert len(last) == 1 and ticket == 0
 
 
-# -- KF pass 2 ---------------------------------------------------------------
+# -- pass 2 (KD and KF) --------------------------------------------------------
 
 def pass2_loads(b, bx, by, frames, bins):
     """(frame, bin) of every float2 the block's threads load."""
@@ -232,13 +235,12 @@ def pass2_loads(b, bx, by, frames, bins):
     for warp in range(THREADS // 32):
         for lane in range(32):
             k = by * TILE_K + 2 * lane
-            for gi in range(2):
-                for i in range(4):
-                    f = bx * TILE_F + 4 * (warp + 8 * gi) + i
-                    if f < frames and k < bins:
-                        out.append((f, k))
-                        if k + 1 < bins:
-                            out.append((f, k + 1))
+            for i in range(4):
+                f = bx * TILE_F + 4 * warp + i
+                if f < frames and k < bins:
+                    out.append((f, k))
+                    if k + 1 < bins:
+                        out.append((f, k + 1))
     return out
 
 
@@ -271,137 +273,251 @@ def _banks(addrs, width):
     return [(a // 4 + w) % 32 for a in addrs for w in range(width // 4)]
 
 
+def pass2_geometry(pix):
+    """(row bytes, slot bytes, 4-frame slots a row, 4-byte words a row,
+    rows a warp's store) of a tile."""
+    row_bytes = TILE_F * pix
+    words = row_bytes // 4
+    return row_bytes, 4 * pix, TILE_F // 4, words, 32 // words
+
+
+def pass2_tile_writes(pix):
+    """{byte address: (bin row, frame)} of every pixel the block's loads
+    write into the tile, and each half-warp's (uint8) or quarter-warp's
+    (uint16) addresses per store instruction, in the kernel's order (the
+    odd row first in lanes 8-15 of a half-warp where rows are 64 bytes)."""
+    row_bytes, slot, slots, _, _ = pass2_geometry(pix)
+    tile, phases = {}, []
+    for warp in range(THREADS // 32):
+        first, second = [], []
+        for lane in range(32):
+            odd_first = pix == 2 and bool(lane & slots)
+            rows = (2 * lane + 1, 2 * lane) if odd_first \
+                else (2 * lane, 2 * lane + 1)
+            for n, r in enumerate(rows):
+                base = r * row_bytes + (warp ^ (lane & (slots - 1))) * slot
+                (first if n == 0 else second).append(base)
+                for i in range(4):
+                    assert base + i * pix not in tile
+                    tile[base + i * pix] = (r, 4 * warp + i)
+        phase = 128 // slot
+        for addrs in (first, second):
+            phases += [addrs[p0:p0 + phase] for p0 in range(0, 32, phase)]
+    return tile, phases
+
+
 @pytest.mark.parametrize("pix", [2, 4])
 def test_pass2_transpose_swizzle(pix):
     """The packed slots written by the loads are the slots the stores read
-    (each pixel of the 64 x 64 tile lands once and is read back at its own
+    (each pixel of the 32 x 64 tile lands once and is read back at its own
     (bin, frame)), and no phase of a shared-memory access has two lanes on
-    one bank: 8-byte writes in half-warps (uint8), 16-byte in quarter-warps
-    (uint16), 4-byte reads by the whole warp."""
-    row_bytes, slot = TILE_F * pix, 4 * pix
-    tile = {}
-    for warp in range(THREADS // 32):
-        for gi in range(2):
-            g = warp + 8 * gi
-            addrs = []
-            for lane in range(32):
-                swz = lane & 15
-                for r in (2 * lane, 2 * lane + 1):
-                    base = r * row_bytes + (g ^ swz) * slot
-                    for i in range(4):
-                        key = base + i * pix
-                        assert key not in tile
-                        tile[key] = (r, 4 * g + i)
-                addrs.append(2 * lane * row_bytes + (g ^ swz) * slot)
-            phase = 128 // slot
-            for p0 in range(0, 32, phase):
-                banks = _banks(addrs[p0:p0 + phase], slot)
-                assert len(banks) == len(set(banks))
+    one bank: 8-byte writes in half-warps (uint8: 64-byte rows, so lanes
+    8-15 write their odd row first), 16-byte in quarter-warps (uint16),
+    4-byte reads by the whole warp (uint8: two rows an instruction)."""
+    row_bytes, slot, slots, words, per = pass2_geometry(pix)
+    tile, phases = pass2_tile_writes(pix)
     assert len(tile) == TILE_F * TILE_K
-    for r in range(TILE_K):
-        s = (r >> 1) & 15
-        reads = []
-        for lane in range(32):
-            if pix == 2:
-                f = 2 * lane
-                a = r * row_bytes + ((f >> 2) ^ s) * slot + (f & 3) * pix
-                assert tile[a] == (r, f) and tile[a + 2] == (r, f + 1)
+    for addrs in phases:
+        banks = _banks(addrs, slot)
+        assert len(banks) == len(set(banks))
+    for warp in range(THREADS // 32):
+        for it in range(TILE_K // (8 * per)):
+            reads = []
+            for lane in range(32):
+                r = per * warp + lane // words + 8 * per * it
+                s_ = (r >> 1) & (slots - 1)
+                wl = lane % words
+                f = 2 * wl if pix == 2 else wl
+                a = r * row_bytes + ((f >> 2) ^ s_) * slot + (f & 3) * pix
+                assert tile[a] == (r, f)
+                if pix == 2:
+                    assert tile[a + 2] == (r, f + 1)
                 reads.append(a)
-            else:
-                for h in range(2):
-                    f = lane + 32 * h
-                    a = r * row_bytes + ((f >> 2) ^ s) * slot + (f & 3) * pix
-                    assert tile[a] == (r, f)
-                    if h == 0:
-                        reads.append(a)
-        banks = _banks(reads, 4)
-        assert len(banks) == len(set(banks)) == 32
+            banks = _banks(reads, 4)
+            assert len(banks) == len(set(banks)) == 32
 
 
-@pytest.mark.parametrize("pix", [2, 4])
-@pytest.mark.parametrize("shape", [(2, 131, 97), (1, 64, 64), (3, 7, 5),
-                                   (1, 1122, 70)])
-def test_pass2_stores_write_each_pixel_once(shape, pix):
-    """Every output pixel once: uint8 two pixels in one 4-byte store where
-    the bin's row starts on an even pixel and both frames exist, else one
-    uchar2 each (odd F gives rows of both parities); uint16 one ushort2 a
-    lane; a warp's store is 32 lanes x 4 contiguous bytes."""
-    batch, frames, bins = shape
+def pass2_store_hits(batch, frames, bins, pix):
+    """Output pixels written by pass 2's stores (a count each), and the
+    byte addresses of each warp store instruction whose 32 lanes all took
+    the 4-byte path."""
+    _, _, _, words, per = pass2_geometry(pix)
     hits = np.zeros(batch * bins * frames, np.int64)
-    wide = 0
+    full = []
     for b in range(batch):
         for bx in range(-(-frames // TILE_F)):
             for by in range(-(-bins // TILE_K)):
                 f0, k0 = bx * TILE_F, by * TILE_K
-                for r in range(TILE_K):
-                    if k0 + r >= bins:
-                        break
-                    p0 = (b * bins + k0 + r) * frames + f0
-                    addrs = []
-                    for lane in range(32):
-                        if pix == 2:
-                            f = 2 * lane
-                            if p0 % 2 == 0 and f0 + f + 1 < frames:
-                                hits[p0 + f: p0 + f + 2] += 1
-                                assert (2 * (p0 + f)) % 4 == 0
-                                addrs.append(2 * (p0 + f))
-                                wide += 1
-                            else:
-                                for d in (0, 1):
-                                    if f0 + f + d < frames:
-                                        hits[p0 + f + d] += 1
-                        else:
-                            for h in range(2):
-                                f = lane + 32 * h
-                                if f0 + f < frames:
-                                    hits[p0 + f] += 1
-                    if len(addrs) == 32:
-                        assert addrs == list(range(addrs[0], addrs[0] + 128, 4))
-    assert (hits == 1).all()
-    if pix == 2 and frames % 2 == 0 and frames >= 2:
-        assert wide > 0
+                for warp in range(THREADS // 32):
+                    for it in range(TILE_K // (8 * per)):
+                        addrs = []
+                        for lane in range(32):
+                            r = per * warp + lane // words + 8 * per * it
+                            if k0 + r >= bins:
+                                continue
+                            p0 = (b * bins + k0 + r) * frames + f0
+                            wl = lane % words
+                            if pix == 2:
+                                f = 2 * wl
+                                if p0 % 2 == 0 and f0 + f + 1 < frames:
+                                    hits[p0 + f: p0 + f + 2] += 1
+                                    assert (2 * (p0 + f)) % 4 == 0
+                                    addrs.append(2 * (p0 + f))
+                                else:
+                                    for d in (0, 1):
+                                        if f0 + f + d < frames:
+                                            hits[p0 + f + d] += 1
+                            elif f0 + wl < frames:
+                                hits[p0 + wl] += 1
+                                addrs.append(4 * (p0 + wl))
+                        if len(addrs) == 32:
+                            full.append(addrs)
+    return hits, full
 
 
-@pytest.mark.parametrize("shape,max_val", [((2, 131, 97), 255),
-                                           ((1, 70, 66), 65535)])
-def test_pass2_moves_the_plain_pixels(shape, max_val):
-    """The loads, the pixel packing, the swizzled slots and the stores put
-    the plain version's pixel (f, k) at output (k, f): the whole data path
-    of pass 2 on the plain version's values."""
+@pytest.mark.parametrize("pix", [2, 4])
+@pytest.mark.parametrize("shape", [(2, 131, 97), (1, 64, 64), (3, 7, 5),
+                                   (1, 1122, 70), (2, 131, 192), (1, 70, 193),
+                                   (2, 97, 37)])
+def test_pass2_stores_write_each_pixel_once(shape, pix):
+    """Every output pixel once, at KF's and KD's widths (192 and odd mel
+    counts): uint8 two pixels in one 4-byte store where the bin's row
+    starts on an even pixel and both frames exist, else one uchar2 each
+    (odd F gives rows of both parities); uint16 one ushort2 a lane; a
+    warp's full store is 128 contiguous bytes of one bin row (uint16) or
+    64 of each of two (uint8)."""
     batch, frames, bins = shape
-    pix = 4 if max_val > 255 else 2
-    spec = torch.from_numpy((np.random.default_rng(5).standard_normal(
-        (batch, frames, bins, 2)) * 20).astype(np.float32))
-    ref = quantize.quantize_planes_plain(spec, max_val)[0].numpy()
-    q = ref.astype(np.uint32)                       # [B, nf, F, 2]
-    pixels = q[..., 0] | (q[..., 1] << (4 * pix))    # [B, nf, F]
-    out = np.zeros((batch, bins, frames), np.uint32)
-    row_bytes, slot = TILE_F * pix, 4 * pix
+    hits, full = pass2_store_hits(batch, frames, bins, pix)
+    assert (hits == 1).all()
+    for addrs in full:
+        for part in ((addrs,) if pix == 4 else (addrs[:16], addrs[16:])):
+            assert part == list(range(part[0], part[0] + 4 * len(part), 4))
+    if frames % 2 == 0 and frames >= 2 and bins >= 2:
+        assert full
+
+
+def pass2_output(pixels, pix):
+    """pass 2's data path (loads, packed swizzled slots, stores) on integer
+    pixels [B, X, F] laid out as the plain version's planes: the planes the
+    stores leave, [B, X, F]."""
+    batch, bins, frames = pixels.shape
+    row_bytes, slot, slots, _, _ = pass2_geometry(pix)
+    tile_map, _ = pass2_tile_writes(pix)
+    out = np.zeros_like(pixels)
     for b in range(batch):
         for bx in range(-(-frames // TILE_F)):
             for by in range(-(-bins // TILE_K)):
                 f0, k0 = bx * TILE_F, by * TILE_K
                 tile = {}
-                for warp in range(THREADS // 32):
-                    for lane in range(32):
-                        for gi in range(2):
-                            g = warp + 8 * gi
-                            for i in range(4):
-                                f = f0 + 4 * g + i
-                                for d in (0, 1):
-                                    k = k0 + 2 * lane + d
-                                    if f < frames and k < bins:
-                                        a = ((2 * lane + d) * row_bytes
-                                             + (g ^ (lane & 15)) * slot
-                                             + i * pix)
-                                        tile[a] = pixels[b, k, f]
+                for a, (r, fl) in tile_map.items():
+                    if f0 + fl < frames and k0 + r < bins and a % pix == 0:
+                        tile[a] = pixels[b, k0 + r, f0 + fl]
                 for r in range(min(TILE_K, bins - k0)):
-                    s = (r >> 1) & 15
+                    s_ = (r >> 1) & (slots - 1)
                     for fl in range(min(TILE_F, frames - f0)):
-                        a = r * row_bytes + ((fl >> 2) ^ s) * slot \
+                        a = r * row_bytes + ((fl >> 2) ^ s_) * slot \
                             + (fl & 3) * pix
                         out[b, k0 + r, f0 + fl] = tile[a]
-    np.testing.assert_array_equal(out, pixels)
+    return out
+
+
+@pytest.mark.parametrize("shape,max_val,mel", [
+    ((2, 131, 97), 255, False), ((1, 70, 66), 65535, False),
+    ((1, 200, 192), 255, True), ((2, 131, 97), 255, True),
+    ((1, 70, 193), 255, True)])
+def test_pass2_moves_the_plain_pixels(shape, max_val, mel):
+    """The loads, the pixel packing, the swizzled slots and the stores put
+    the plain version's pixel (f, k) at output (k, f): the whole data path
+    of pass 2 on the plain version's values, KF's (a range a channel) and
+    KD's (``mel``: one range a row; the bench's 192 mels, odd counts)."""
+    batch, frames, bins = shape
+    pix = 4 if max_val > 255 else 2
+    spec = torch.from_numpy((np.random.default_rng(5).standard_normal(
+        (batch, frames, bins, 2)) * 20).astype(np.float32))
+    ref = (quantize.quantize_mel_plane_plain(spec) if mel else
+           quantize.quantize_planes_plain(spec, max_val))[0].numpy()
+    q = ref.astype(np.uint32)                       # [B, nf, F, 2]
+    pixels = q[..., 0] | (q[..., 1] << (4 * pix))    # [B, nf, F]
+    np.testing.assert_array_equal(pass2_output(pixels, pix), pixels)
+
+
+# -- KD: KF's passes with global extrema ---------------------------------------
+
+MEL_BENCH = (2, 1122, 192)
+MEL_MASKED = (4, 1122, 192)
+
+
+def kd_extrema(spec, frames, offset):
+    """KD's pass 1 replayed: each row's counted floats (quads, head, tail
+    as pass1_cover walks them from a base ``offset`` floats past 16 bytes),
+    per channel from the masked start, then the fold's merge of the two
+    channels by NaN-propagating max and min."""
+    batch, n_frames, mels, _ = spec.shape
+    row = n_frames * mels * 2
+    parts = planes_parts(batch, row)
+    flat = spec.reshape(batch, -1)
+    mx = np.empty(batch, np.float32)
+    mn = np.empty(batch, np.float32)
+    for b in range(batch):
+        count, lo, hi = masked_count(row, n_frames, 2 * mels,
+                                     None if frames is None else frames[b])
+        cover, heads, tails, _ = pass1_cover(count, 4096 + 4 * offset, parts)
+        assert (cover == 1).all()
+        idx = np.concatenate([heads, len(heads) + np.arange(4 * cover.size),
+                              tails]).astype(np.int64)
+        ch_mx, ch_mn = [], []
+        for c in range(2):
+            vals = flat[b, idx[idx % 2 == c]]
+            ch_mx.append(np.maximum.reduce(np.append(vals, lo).astype(
+                np.float32)))
+            ch_mn.append(np.minimum.reduce(np.append(vals, hi).astype(
+                np.float32)))
+        mx[b] = np.maximum(ch_mx[0], ch_mx[1])
+        mn[b] = np.minimum(ch_mn[0], ch_mn[1])
+    return mx, mn
+
+
+@pytest.mark.parametrize("shape,frames,offset", [
+    (MEL_BENCH, None, 0), (MEL_BENCH, None, 1),
+    (MEL_MASKED, [1122, 843, 562, 0], 0), (MEL_MASKED, [1122, 843, 562, 0], 1),
+    ((3, 41, 37), None, 1), ((3, 41, 37), [41, 17, 0], 3),
+    ((3, 41, 37), [0, 0, 0], 2), ((2, 5, 3), [1, 9], 2)])
+@pytest.mark.parametrize("nan", [None, "counted", "pad"])
+def test_kd_global_fold_is_the_plain_extrema(shape, frames, offset, nan):
+    """KD's extrema on KF's pass-1 plan with the channels merged in the
+    fold: the plain version's max and min bit for bit at the bench, masked
+    and odd shapes, frames 0, partial and full, a base one float (or 2, 3)
+    off 16 bytes; a NaN in a counted frame makes the row's extrema NaN and
+    every pixel 127, one in a pad frame is ignored; frames 0 give the
+    -+FLT_MAX sentinels and every pixel 127."""
+    batch, n_frames, mels = shape
+    rng = np.random.default_rng(sum(shape) + offset)
+    spec = (rng.standard_normal((batch, n_frames, mels, 2)) * 3 - 4).astype(
+        np.float32)
+    nan_row = None
+    if nan == "counted":
+        nan_row = 0 if frames is None or frames[0] > 0 else None
+        if nan_row is not None:
+            spec[0, 0, mels - 1, 1] = np.nan
+    elif nan == "pad" and frames is not None:
+        b = next((i for i, f in enumerate(frames) if f < n_frames), None)
+        if b is not None:
+            spec[b, n_frames - 1, 0, 0] = np.nan
+    mx, mn = kd_extrema(spec, frames, offset)
+    tf = None if frames is None else torch.tensor(frames)
+    img, ref_mx, ref_mn = quantize.quantize_mel_plane_plain(
+        torch.from_numpy(spec), 255, tf)
+    np.testing.assert_array_equal(mx, ref_mx.numpy().reshape(batch))
+    np.testing.assert_array_equal(mn, ref_mn.numpy().reshape(batch))
+    if nan_row is not None:
+        assert np.isnan(mx[nan_row]) and bool((img[nan_row] == 127).all())
+    if nan == "pad":
+        assert not np.isnan(mx).any()
+    for b, f in enumerate(frames or []):
+        if f <= 0:
+            big = np.finfo(np.float32).max
+            assert (mx[b], mn[b]) == (-big, big)
+            assert bool((img[b] == 127).all())
 
 
 # -- KI ------------------------------------------------------------------------

@@ -1,21 +1,23 @@
-"""KF (the phase PNG quantizer) and KI (the mel decode front end) against the
-forms they replaced, and where their time goes, by ablation; KD's time at
-the long-form shape beside them.
+"""KD (the mel PNG quantizer), KF (the phase PNG quantizer) and KI (the mel
+decode front end) against the forms they replaced, and where their time
+goes, by ablation.
 
     python3 tools/profile_quant.py [--iters 20]
 
-Needs one NVIDIA GPU and nvcc. Builds gomel_tpu_torch/csrc/quantize.cu (KD,
-KF) and mel_decode.cu (KI) as shipped, tools/quant_earlier.cu (the earlier
-KF and KI, as they shipped before their redesign), and once more for each
-ablation, with that ablation's edits of the sources (VARIANTS):
+Needs one NVIDIA GPU and nvcc. Builds gomel_tpu_torch/csrc/quantize.cu (KD
+and KF, one two-pass design) and mel_decode.cu (KI) as shipped,
+tools/quant_earlier.cu (the earlier KD, KF and KI, as they shipped before
+their redesign), and once more for each ablation, with that ablation's
+edits of the sources (VARIANTS; the quantize.cu ones act on KD and KF
+alike):
 
-  kf_pass1_only     KF's entry point returns after pass 1 (the grid sized to
+  pass1_only        the entry points return after pass 1 (the grid sized to
                     the card, the quads, the fold once a row)
-  kf_pass2_only     KF without pass 1: pass 2 alone, on the true extrema
-  kf_parts_64       pass 1 held to 64 blocks a row, the earlier grid
-  kf_tile_128       pass 2 in tiles of 128 frames (4 groups a lane), not 64
-  kf_min_blocks_6   pass 2 held to 40 registers, 6 blocks an SM, not 5
-  kf_copy_only      pass 2 stores each value's top byte in place of its
+  pass2_only        without pass 1: pass 2 alone, on the true extrema
+  parts_64          pass 1 held to 64 blocks a row, the earlier grid
+  tile_64           pass 2 in 64-frame tiles (two 4-frame groups a warp),
+                    KF's tile before this revision, not 32
+  copy_only         pass 2 stores each value's top byte in place of its
                     quantized pixel: no asinh, division or clip (the bytes'
                     achievable time)
   ki_run_1/2/8      KI's runs of 1, 2 or 8 frames (shipped: 4)
@@ -43,21 +45,24 @@ Then, on one card and in turns (old, new, new, old; chip_smoke.race):
   KF HDR         the bench spectrogram, uint16
   KF IHS 2       the bench spectrogram, uint8, 2 asinh passes
   KF long form   one gathered 30-minute spectrogram [67500, 1536, 2]
+  KD bench       the bench signal's log-mel [2, 1122, 192, 2]
+  KD masked      [4, 1122, 192, 2] (the bench rows twice), frames [1122,
+                 843, 562, 0]
+  KD long form   a 30-minute log-mel [67500, 192, 2]
   KI uint8       the bench signal's uint8 planes [2, 192, 1122, 2] (KD's)
   KI float       its log-mel [2, 1122, 192, 2]
   KI long-form shard  one shard of the 30-minute mel decode over 4 frame
                  shards: log-mel [1, 16875, 192, 2] (the bench log-mel's
                  frames repeated), the CLI's tune
-  KD long form   a 30-minute log-mel [67500, 192, 2] (new and old are the
-                 same code: a measurement, no race)
 
 each as new, old and every variant of its kernel, with its byte bound (each
 input read once, each output written once, at 3.35 TB/s) and share of it.
-New and old (and the exact variants: kf_parts_64, the tile and register
-variants, KI's runs, its L1 table and its 16-byte stores) are held
+New and old (and the exact variants: parts_64, tile_64, KI's runs, its L1
+table, its 16-byte stores and its register cap) are held
 bit-equal before they are timed. Each case
 also times torch's zero_ of the new form's output (the achievable rate of
-the output's bytes). At the bench
+the output's bytes), and each KD case torch.aminmax over the rows (the
+extrema alone: pass 1's yardstick, not the same function). At the bench
 shape KF is also timed behind a 256 MB write that evicts its input from L2
 (pass 2 alone too): the write's own time is taken off. Prints the card's
 name and power limit, ptxas's registers and spills, the occupancy query's
@@ -90,9 +95,10 @@ from gomel_tpu_torch.ops import _cuda, mel_ops  # noqa: E402
 OLD = os.path.join(HERE, "tools", "quant_earlier.cu")
 SOURCES = ("quantize.cu", "mel_decode.cu")
 LONG_FRAMES = 67500               # the 30-minute file's frames, padded
+OLD_PARTS = 64                    # the earlier forms' pass-1 blocks a row
 
 _PASS1_RETURN = ("  if (err != 0) return err;\n"
-                 "  const dim3 grid(static_cast<unsigned>((frames + kTileF")
+                 "  const bool vec = aligned16(src) && bins % 2 == 0;")
 
 
 def _ki_run(t: int):
@@ -179,21 +185,16 @@ _KI_TABLE_L1 = [
 # name -> the edits (file, old text, new text)
 VARIANTS = {
     "shipped": [],
-    "kf_pass1_only": [("quantize.cu", _PASS1_RETURN,
-                       _PASS1_RETURN.replace("if (err != 0)", "if (true)"))],
-    "kf_pass2_only": [("quantize.cu", "  planes_minmax_kernel<<<dim3(",
-                       "  if (false) planes_minmax_kernel<<<dim3(")],
-    "kf_parts_64": [("quantize.cu",
-                     "  long long parts = (resident + batch - 1) / batch;",
-                     "  long long parts = 64;")],
-    "kf_tile_128": [("quantize.cu", "constexpr int kTileF = 64;",
-                     "constexpr int kTileF = 128;")],
-    "kf_min_blocks_6": [("quantize.cu",
-                         "__global__ void __launch_bounds__(kPlanesThreads)\n"
-                         "planes_quantize_kernel(",
-                         "__global__ void __launch_bounds__(kPlanesThreads, 6)"
-                         "\nplanes_quantize_kernel(")],
-    "kf_copy_only": [("quantize.cu",
+    "pass1_only": [("quantize.cu", _PASS1_RETURN,
+                    _PASS1_RETURN.replace("if (err != 0)", "if (true)"))],
+    "pass2_only": [("quantize.cu", "  planes_minmax_kernel<kGlobal><<<dim3(",
+                    "  if (false) planes_minmax_kernel<kGlobal><<<dim3(")],
+    "parts_64": [("quantize.cu",
+                  "  long long parts = (resident + batch - 1) / batch;",
+                  "  long long parts = 64;")],
+    "tile_64": [("quantize.cu", "constexpr int kTileF = 32;",
+                 "constexpr int kTileF = 64;")],
+    "copy_only": [("quantize.cu",
                       "  return quantize_one(ihs_forward(v0, ihs_passes), mn0, "
                       "rng0, max_val) |\n"
                       "         (quantize_one(ihs_forward(v1, ihs_passes), "
@@ -214,7 +215,7 @@ VARIANTS = {
     "ki_no_prologue": [("mel_decode.cu", "    run_prologue<kMode>(src,",
                         "    if (false) run_prologue<kMode>(src,")],
 }
-EXACT = ("kf_parts_64", "kf_tile_128", "kf_min_blocks_6", "ki_run_1",
+EXACT = ("parts_64", "tile_64", "ki_run_1",
          "ki_run_2", "ki_run_8", "ki_vec_stores", "ki_table_l1",
          "ki_no_register_cap")
 
@@ -223,13 +224,17 @@ EXACT = ("kf_parts_64", "kf_tile_128", "kf_min_blocks_6", "ki_run_1",
 _OCCUPANCY = {
     "quantize.cu": """
 GOMEL_API int prof_occupancy_quant(int* out) {
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], planes_minmax_kernel,
-                                                kPlanesThreads, 0);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], planes_quantize_kernel<2, true>, kPlanesThreads, 0);
+      &out[0], planes_minmax_kernel<false>, kPlanesThreads, 0);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], planes_quantize_kernel<4, true>, kPlanesThreads, 0);
+      &out[1], planes_quantize_kernel<2, true, false>, kPlanesThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], planes_quantize_kernel<4, true, false>, kPlanesThreads, 0);
   cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[4], planes_minmax_kernel<true>, kPlanesThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[5], planes_quantize_kernel<2, true, true>, kPlanesThreads, 0);
   return gomel_status();
 }
 """,
@@ -249,6 +254,8 @@ GOMEL_API int prof_occupancy_mag(int* out, int mels) {
 _OLD_SIGNATURES = {
     "prof_old_quantize_planes": [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int],
+    "prof_old_quantize_mel": [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
+    + [ctypes.c_int, ctypes.c_float],
     "prof_old_mel_to_mag": _cuda._SIGNATURES["gomel_mel_to_mag"],
 }
 
@@ -260,7 +267,7 @@ def _bind(handle: ctypes.CDLL, symbol: str, args: list) -> None:
 
 
 def start_earlier(work: str) -> tuple[subprocess.Popen, str, str]:
-    """Start nvcc on tools/quant_earlier.cu (the earlier KF and KI) into
+    """Start nvcc on tools/quant_earlier.cu (the earlier KD, KF and KI) into
     ``work``; returns (process, library path, log path) for
     :func:`earlier`."""
     os.makedirs(work, exist_ok=True)
@@ -359,7 +366,8 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
             raise RuntimeError(f"nvcc failed for {variant}:\n{report}")
         handle = ctypes.CDLL(lib)
         for symbol in ("gomel_quantize_planes", "gomel_quantize_planes_parts",
-                       "gomel_quantize_mel", "gomel_mel_to_mag"):
+                       "gomel_quantize_mel", "gomel_quantize_mel_parts",
+                       "gomel_mel_to_mag"):
             _bind(handle, symbol, _cuda._SIGNATURES[symbol])
         handle.prof_occupancy_quant.argtypes = [ctypes.c_void_p]
         handle.prof_occupancy_mag.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -371,14 +379,15 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
 
 
 def occupancy(lib, mels: int) -> dict[str, int]:
-    """Blocks an SM the occupancy query gives for KF's two passes (256
-    threads) and KI (256 threads, its run's shared memory at ``mels``), and
-    the card's SMs."""
-    out = (ctypes.c_int * 4)()
+    """Blocks an SM the occupancy query gives for KF's and KD's two passes
+    (256 threads) and KI (256 threads, its run's shared memory at
+    ``mels``), and the card's SMs."""
+    out = (ctypes.c_int * 6)()
     if lib.prof_occupancy_quant(out) != 0:
         raise RuntimeError("occupancy query failed")
     got = {"KF pass 1": out[0], "KF pass 2 uint8": out[1],
-           "KF pass 2 uint16": out[2], "SMs": out[3]}
+           "KF pass 2 uint16": out[2], "SMs": out[3], "KD pass 1": out[4],
+           "KD pass 2": out[5]}
     if lib.prof_occupancy_mag(out, mels) != 0:
         raise RuntimeError("occupancy query failed")
     got["KI"] = out[0]
@@ -404,7 +413,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     libs = build(os.path.join(_cuda.BUILD_DIR, "profile_quant"))
     keys = ("planes_", "mel_to_mag", "quantize_planes_kernel",
-            "minmax_planes_partial")
+            "minmax_planes_partial", "minmax_partial", "quantize_mel_kernel",
+            "threefry")
     ptxas = {v: [line for line in ptxas_lines(report)
                  if any(k in line for k in keys)]
              for v, (_, report) in libs.items()}
@@ -458,7 +468,7 @@ def main(argv=None) -> int:
         tf = (None if frames is None else
               torch.tensor(frames, dtype=torch.int32, device=dev))
         # the true extrema in every output's extrema, so a build without
-        # pass 1 (kf_pass2_only) quantizes with them, as the real call does
+        # pass 1 (pass2_only) quantizes with them, as the real call does
         true_ext = torch.stack(quantize.quantize_planes_plain(
             src, max_val, ihs, tf)[1:])
         outs = {}
@@ -470,13 +480,11 @@ def main(argv=None) -> int:
             outs[(id(lib), kind)] = (img2, ext)
             fr = None if tf is None else tf.data_ptr()
             if kind == "old":
-                part = torch.empty((batch, quantize._MINMAX_PARTS, 4),
-                                   device=dev)
+                part = torch.empty((batch, OLD_PARTS, 4), device=dev)
                 return lambda: lib.prof_old_quantize_planes(
                     src.data_ptr(), fr, part.data_ptr(), img2.data_ptr(),
                     ext[0].data_ptr(), ext[1].data_ptr(), batch, n_frames,
-                    bins, quantize._MINMAX_PARTS, float(max_val), ihs,
-                    dev.index, stream)
+                    bins, OLD_PARTS, float(max_val), ihs, dev.index, stream)
             n = ctypes.c_longlong()
             if lib.gomel_quantize_planes_parts(batch, n_frames, bins,
                                                ctypes.addressof(n), dev.index,
@@ -499,6 +507,44 @@ def main(argv=None) -> int:
                                 0.0)[0]
         floor_ms = chip_smoke.bound(4.0 * (counted + src.numel()) + out_b,
                                     0.0)[0]
+        return make, outs, b_ms, floor_ms
+
+    def kd_case(src, frames=None):
+        """new / old / variant launchers of KD on ``src`` [B, F, M, 2]."""
+        batch, n_frames, mels = src.shape[0], src.shape[1], src.shape[2]
+        tf = (None if frames is None else
+              torch.tensor(frames, dtype=torch.int32, device=dev))
+        true_ext = torch.stack(quantize.quantize_mel_plane_plain(
+            src, 255, tf)[1:])
+        outs = {}
+
+        def make(lib, kind):
+            img2 = torch.empty((batch, mels, n_frames, 2), dtype=torch.uint8,
+                               device=dev)
+            ext = true_ext.clone()
+            outs[(id(lib), kind)] = (img2, ext)
+            fr = None if tf is None else tf.data_ptr()
+            if kind == "old":
+                part = torch.empty((batch, OLD_PARTS, 2), device=dev)
+                return lambda: lib.prof_old_quantize_mel(
+                    src.data_ptr(), fr, part.data_ptr(), img2.data_ptr(),
+                    ext[0].data_ptr(), ext[1].data_ptr(), batch, n_frames,
+                    mels, OLD_PARTS, 255.0, dev.index, stream)
+            n = ctypes.c_longlong()
+            if lib.gomel_quantize_mel_parts(batch, n_frames, mels,
+                                            ctypes.addressof(n), dev.index,
+                                            stream) != 0:
+                raise RuntimeError("gomel_quantize_mel_parts failed")
+            part = torch.empty((batch, n.value, 4), device=dev)
+            return lambda: lib.gomel_quantize_mel(
+                src.data_ptr(), fr, part.data_ptr(), tickets.data_ptr(),
+                img2.data_ptr(), ext[0].data_ptr(), ext[1].data_ptr(), batch,
+                n_frames, mels, n.value, 255.0, dev.index, stream)
+        counted = src.numel() if frames is None else sum(
+            min(max(f, 0), n_frames) for f in frames) * mels * 2
+        b_ms = chip_smoke.bound(5.0 * src.numel() + 8.0 * batch, 0.0)[0]
+        floor_ms = chip_smoke.bound(4.0 * (counted + src.numel())
+                                    + src.numel(), 0.0)[0]
         return make, outs, b_ms, floor_ms
 
     def ki_case(quantized, src=None, tune=(1.0, 0.0)):
@@ -537,8 +583,11 @@ def main(argv=None) -> int:
     reps = -(-shard // (logmel.shape[0] * logmel.shape[1]))
     long_mel_shard = logmel.reshape(-1, cfg.num_mels, 2).repeat(
         reps, 1, 1)[None, :shard].contiguous()
-    kf_vars = ("kf_pass1_only", "kf_pass2_only", "kf_parts_64",
-               "kf_tile_128", "kf_min_blocks_6", "kf_copy_only")
+    kf_vars = kd_vars = ("pass1_only", "pass2_only", "parts_64", "tile_64",
+                         "copy_only")
+    logmel4 = torch.cat([logmel, logmel])
+    long_mel = torch.randn((1, LONG_FRAMES, cfg.num_mels, 2), generator=g,
+                           device=dev) - 4.0
     ki_vars = ("ki_run_1", "ki_run_2", "ki_run_8", "ki_vec_stores",
                "ki_table_l1", "ki_no_register_cap", "ki_copy_only",
                "ki_no_prologue")
@@ -546,9 +595,13 @@ def main(argv=None) -> int:
         "KF bench": (lambda: kf_case(spec, 255, 0), kf_vars),
         "KF masked": (lambda: kf_case(spec4, 255, 0, [1122, 843, 562, 0]),
                       kf_vars),
-        "KF HDR": (lambda: kf_case(spec, 65535, 0), ("kf_parts_64",)),
-        "KF IHS 2": (lambda: kf_case(spec, 255, 2), ("kf_parts_64",)),
+        "KF HDR": (lambda: kf_case(spec, 65535, 0), ("parts_64", "tile_64")),
+        "KF IHS 2": (lambda: kf_case(spec, 255, 2), ("parts_64", "tile_64")),
         "KF long form": (lambda: kf_case(long_spec, 255, 0), kf_vars),
+        "KD bench": (lambda: kd_case(logmel), kd_vars),
+        "KD masked": (lambda: kd_case(logmel4, [1122, 843, 562, 0]),
+                      kd_vars),
+        "KD long form": (lambda: kd_case(long_mel), kd_vars),
         "KI uint8": (lambda: ki_case(True), ki_vars),
         "KI float": (lambda: ki_case(False), ki_vars),
         "KI long-form shard": (
@@ -556,6 +609,8 @@ def main(argv=None) -> int:
                             (cfg.tune_mul, cfg.tune_add)),
             ("ki_run_2", "ki_run_8", "ki_copy_only")),
     }
+    setup_src = {"KD bench": logmel, "KD masked": logmel4,
+                 "KD long form": long_mel}
     flush = torch.empty(64 * 1024 * 1024, device=dev)   # 256 MB
 
     def after_flush(fn):
@@ -595,6 +650,15 @@ def main(argv=None) -> int:
         record(case=label, variant="torch zero_ of the output", ms=fill_ms,
                bound_share=chip_smoke.bound(chip_smoke.nbytes(fill), 0.0)[0]
                / fill_ms)
+        if label.startswith("KD"):
+            rows_in = setup_src[label].reshape(setup_src[label].shape[0], -1)
+            am_ms = min(chip_smoke.cuda_ms(
+                lambda: torch.aminmax(rows_in, dim=1), args.iters)
+                for _ in range(2))
+            record(case=label, variant="torch.aminmax over the rows "
+                   "(the extrema alone)", ms=am_ms,
+                   bound_share=chip_smoke.bound(chip_smoke.nbytes(rows_in),
+                                                0.0)[0] / am_ms)
         for variant, fn in fns.items():
             ms = timed(fn)
             record(case=label, variant=variant, ms=ms,
@@ -603,19 +667,10 @@ def main(argv=None) -> int:
         if label == "KF bench":
             for name, fn in (("new, input evicted from L2", new_fn),
                              ("old, input evicted from L2", old_fn),
-                             ("kf_pass2_only, input evicted from L2",
-                              fns["kf_pass2_only"])):
+                             ("pass2_only, input evicted from L2",
+                              fns["pass2_only"])):
                 ms = timed(after_flush(fn)) - flush_ms
                 record(case=label, variant=name, ms=ms, bound_share=b_ms / ms)
-    # KD at the long-form shape: the long-form mel encode's quantize
-    long_mel = torch.randn((LONG_FRAMES, cfg.num_mels, 2), generator=g,
-                           device=dev) - 4.0
-    kd = lambda: quantize.quantize_mel_plane(long_mel)  # noqa: E731
-    kd_out = kd()
-    kd_ms = min(chip_smoke.cuda_ms(kd, args.iters) for _ in range(2))
-    kd_b = chip_smoke.bound(chip_smoke.nbytes(long_mel, *kd_out), 0.0)[0]
-    record(case="KD long form", ms=kd_ms, bound_ms=kd_b,
-           bound_share=kd_b / kd_ms)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "profile_quant.json"),
               "w") as f:

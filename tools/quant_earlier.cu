@@ -1,10 +1,18 @@
-// The forms of KF (the phase PNG quantizer) and KI (the mel decode front
-// end) that the port shipped before their Hopper redesign, for
-// tools/profile_quant.py's race, chip_smoke.py's bit-equality check of the
-// new KI and tests/test_torch_cuda.py. Built only by tools/profile_quant.py,
-// never into the port's library. The code is gomel_tpu_torch/csrc/quantize.cu
-// and mel_decode.cu as they were, entry points renamed:
+// The forms of KD (the mel PNG quantizer), KF (the phase PNG quantizer) and
+// KI (the mel decode front end) that the port shipped before their Hopper
+// redesign, for tools/profile_quant.py's race, chip_smoke.py's bit-equality
+// check of the new KI and tests/test_torch_cuda.py. Built only by
+// tools/profile_quant.py, never into the port's library. The code is
+// gomel_tpu_torch/csrc/quantize.cu and mel_decode.cu as they were, entry
+// points renamed:
 //
+//   prof_old_quantize_mel     KD before: pass 1 in 64 blocks a row of 256
+//                             threads, one 4-byte load a loop trip; pass 2
+//                             in 32-frame x 32-mel tiles of 32 x 8 threads,
+//                             each block first folding all 64 of its row's
+//                             partials, one float2 load and, after a
+//                             shared-memory transpose, one uchar2 store a
+//                             thread (a warp's store 64 bytes).
 //   prof_old_quantize_planes  KF before: pass 1 in 64 blocks a row of 256
 //                             threads, one 8-byte float2 load a loop trip;
 //                             pass 2 in 32-frame x 32-bin tiles of 32 x 8
@@ -120,6 +128,99 @@ __global__ void minmax_planes_partial_kernel(const float2* __restrict__ x,
   }
   block_minmax4(e);
   if (threadIdx.x == 0) partial[static_cast<long long>(b) * parts + blockIdx.x] = e;
+}
+
+__global__ void minmax_partial_kernel(const float* __restrict__ x, long long n,
+                                      const int* __restrict__ frames,
+                                      int n_frames, long long frame_elems,
+                                      int parts, float2* __restrict__ partial) {
+  __shared__ float s_mx[32];
+  __shared__ float s_mn[32];
+  const int b = blockIdx.y;
+  const float* src = x + static_cast<long long>(b) * n;
+  float mx, mn;
+  const long long count = masked_count(frames, b, n, n_frames, frame_elems, mx,
+                                       mn);
+  const long long step = static_cast<long long>(parts) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < count; i += step) {
+    const float v = src[i];
+    mx = max_nan(mx, v);
+    mn = min_nan(mn, v);
+  }
+  warp_minmax(mx, mn);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_mx[warp] = mx;
+    s_mn[warp] = mn;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x >> 5;
+    mx = lane < warps ? s_mx[lane] : -INFINITY;
+    mn = lane < warps ? s_mn[lane] : INFINITY;
+    warp_minmax(mx, mn);
+    if (lane == 0) partial[static_cast<long long>(b) * parts + blockIdx.x] = make_float2(mx, mn);
+  }
+}
+
+__global__ void quantize_mel_kernel(const float2* __restrict__ x,
+                                    const float2* __restrict__ partial,
+                                    int parts, uchar2* __restrict__ out,
+                                    float* __restrict__ mx_out,
+                                    float* __restrict__ mn_out, int frames,
+                                    int mels, float max_val) {
+  __shared__ float s_ext[2];
+  __shared__ unsigned short tile[kTile][kTile + 1];
+  const int b = blockIdx.z;
+
+  if (threadIdx.y == 0) {
+    float mx = -INFINITY;
+    float mn = INFINITY;
+    for (int p = threadIdx.x; p < parts; p += kTile) {
+      const float2 e = partial[static_cast<long long>(b) * parts + p];
+      mx = max_nan(mx, e.x);
+      mn = min_nan(mn, e.y);
+    }
+    warp_minmax(mx, mn);
+    if (threadIdx.x == 0) {
+      s_ext[0] = mx;
+      s_ext[1] = mn;
+      if (blockIdx.x == 0 && blockIdx.y == 0) {
+        mx_out[b] = mx;
+        mn_out[b] = mn;
+      }
+    }
+  }
+  __syncthreads();
+  const float mx = s_ext[0];
+  const float mn = s_ext[1];
+  const float rng = mx - mn;
+
+  const int f0 = blockIdx.x * kTile;
+  const int m0 = blockIdx.y * kTile;
+  for (int j = threadIdx.y; j < kTile; j += kRows) {
+    const int f = f0 + j;
+    const int m = m0 + threadIdx.x;
+    if (f < frames && m < mels) {
+      const float2 v = x[(static_cast<long long>(b) * frames + f) * mels + m];
+      tile[j][threadIdx.x] = static_cast<unsigned short>(
+          quantize_one(v.x, mn, rng, max_val) |
+          (quantize_one(v.y, mn, rng, max_val) << 8));
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < kTile; j += kRows) {
+    const int m = m0 + j;
+    const int f = f0 + threadIdx.x;
+    if (f < frames && m < mels) {
+      const unsigned short t = tile[threadIdx.x][j];
+      out[(static_cast<long long>(b) * mels + m) * frames + f] =
+          make_uchar2(static_cast<unsigned char>(t & 0xff),
+                      static_cast<unsigned char>(t >> 8));
+    }
+  }
 }
 
 template <typename T2>
@@ -259,6 +360,34 @@ int launch(const void* src, const float* mx, const float* mn, const int* first,
 }
 
 }  // namespace
+
+// x: float32 [batch, frames, mels, 2]; true_frames: int32 [batch] (masked
+// form) or null (unmasked); partial: float32 scratch [batch, parts, 2]; out:
+// uint8 [batch, mels, frames, 2]; mx, mn: float32 [batch].
+GOMEL_API int prof_old_quantize_mel(const void* x, const void* true_frames,
+                                    void* partial, void* out, void* mx,
+                                    void* mn, long long batch,
+                                    long long frames, long long mels,
+                                    int parts, float max_val, int device,
+                                    void* stream) {
+  cudaSetDevice(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = frames * mels * 2;
+  minmax_partial_kernel<<<dim3(parts, static_cast<unsigned>(batch)), 256, 0, s>>>(
+      static_cast<const float*>(x), n, static_cast<const int*>(true_frames),
+      static_cast<int>(frames), mels * 2, parts, static_cast<float2*>(partial));
+  const int err = gomel_status();
+  if (err != 0) return err;
+  const dim3 grid(static_cast<unsigned>((frames + kTile - 1) / kTile),
+                  static_cast<unsigned>((mels + kTile - 1) / kTile),
+                  static_cast<unsigned>(batch));
+  quantize_mel_kernel<<<grid, dim3(kTile, kRows), 0, s>>>(
+      static_cast<const float2*>(x), static_cast<const float2*>(partial), parts,
+      static_cast<uchar2*>(out), static_cast<float*>(mx),
+      static_cast<float*>(mn), static_cast<int>(frames),
+      static_cast<int>(mels), max_val);
+  return gomel_status();
+}
 
 GOMEL_API int prof_old_quantize_planes(const void* x, const void* true_frames,
                                     void* partial, void* out, void* mx,
