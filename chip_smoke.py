@@ -50,7 +50,12 @@ such n from 4 to 16384, on the scalar-load route, at KE's bin ranges and for
 bench frames computed alone against the batch (fwd_core_checks). KG and KJ
 run the same core's inverse at those sizes: phase 2 holds KG on planes with
 and without the window and with real-frame counts, KJ, and bench frames
-computed alone against the batch (inv_core_checks). On KB's power-of-two
+computed alone against the batch (inv_core_checks). KB and KJ run a
+mixed-radix register core where n/2 is not a power of two: phase 2 holds
+them at n = 6 ... 12000 (prime and generic-pass sizes too) against float64,
+KB's scalar-load route and a frame alone against the batch
+(mixed_core_checks); phase 4 times them at n = 3000 beside the rows PERF.md
+recorded before (EARLIER_MS), with KE and KG there. On KB's power-of-two
 route the mel encode is one fused launch (KB's transform with KC's band sum
 in its epilogue): phase 2 holds it bit-equal to KB followed by KC at the
 bench shape (also with a NaN frame), and KC within 1e-5 of its plain
@@ -370,7 +375,8 @@ THREEFRY_OPS = 20 * 3 + 12 + 3
 
 
 # each kernel's phase-4 device ms as PERF.md recorded it before KD's and
-# KP's redesign (NVIDIA H100 80GB HBM3, 700.00 W; the last run PERF.md
+# KP's redesign, and KB's and KJ's n = 3000 rows before the mixed-radix
+# register core (NVIDIA H100 80GB HBM3, 700.00 W; the last run PERF.md
 # names for each), printed beside this run's to read the controls off
 EARLIER_MS = {
     "pcm16_ingest": 0.0086, "pcm16_ingest zero-stuff": 0.0160,
@@ -387,7 +393,9 @@ EARLIER_MS = {
     "shard_epilogue": 0.0669, "shard_epilogue (momentum)": 0.1257,
     "dft_fwd_bf16": 0.2970, "dft_fwd_f32": 2.0040, "dft_inv_bf16": 0.2719,
     "dft_inv_f32": 2.1178, "threefry_uniform": 0.0130,
-    "threefry_uniform one shard": 0.0752}
+    "threefry_uniform one shard": 0.0752,
+    "mixed radix stft_mag (KB's site)": 0.1197,
+    "mixed radix gl_project (KJ's site)": 0.2333}
 
 
 def bound(n_bytes: float, flops: float,
@@ -894,14 +902,16 @@ def fft_size_checks(dev: torch.device, x: torch.Tensor, n: int, hop: int,
                     nf: int, routed: bool) -> dict:
     """Phase 2f, K19's repair: every FFT kernel site at a size n whose half
     is not a power of two, on the route fftbackend.resolve picks: n = 3000
-    (24 x 125 on the TPU's split) runs the kernels' mixed radix, so their
-    tallies move and the xla route's does not; n = 514 (2 x 257, no split:
+    (24 x 125 on the TPU's split) runs the kernels' mixed radix (KB and KJ
+    the mixed-radix register core, KE and KG the shared-memory one), so
+    their tallies move and the xla route's does not; n = 514 (2 x 257, no split:
     the TPU's library FFT) goes by the xla route (``routed``), the other way
     round. KB's and KE's sites within 1e-5 of each frame's peak of their
     plain versions, KG's (planes with and without a real-frame count, the
     spectrogram, uint8 and uint16 planes with and without IHS, the masked
     synthesis) within 1e-5, KJ's within 1e-4 relative L2 per frame.
-    Returns phase 4's rows of the size."""
+    Returns phase 4's rows of the size (with KE's and KG's where the hand
+    kernels run it), each with its work for the bound."""
     from gomel_tpu_torch.ops import (fftbackend, griffinlim, istft,
                                      phase_ops, rfft_mag)
     from gomel_tpu_torch.ops.stft import frame_signal, hann_window
@@ -972,16 +982,36 @@ def fft_size_checks(dev: torch.device, x: torch.Tensor, n: int, hop: int,
                              f"expected {want}")
     frames_c = (frame_signal(x, n, hop) * win).contiguous()
     spec_c = torch.complex(re, im)
-    return {
+    f2 = x.shape[0] * frames
+    fw = griffinlim.gl_project_plain(sig, mag, win, n, hop)
+    synth = istft.irfft_window_plain(re, im, n, win)
+    rows = {
         f"{what} stft_mag (KB's site)": dict(
             n=n, kernel=lambda: rfft_mag.stft_mag(x, win, n, hop),
             plain=lambda: rfft_mag.stft_mag_plain(x, win, n, hop),
-            library=lambda: torch.fft.rfft(frames_c, dim=-1)),
+            library=lambda: torch.fft.rfft(frames_c, dim=-1),
+            work=(nbytes(x, win, mags),
+                  f2 * (fft_ops(n) + n + 3 * (n // 2 + 1)))),
         f"{what} gl_project (KJ's site)": dict(
             n=n, kernel=lambda: griffinlim.gl_project(sig, mag, win, n, hop),
             plain=lambda: griffinlim.gl_project_plain(sig, mag, win, n, hop),
-            library=lambda: torch.fft.irfft(spec_c, n=n)),
+            library=lambda: torch.fft.irfft(spec_c, n=n),
+            work=(nbytes(sig, mag, win, fw),
+                  f2 * (2 * fft_ops(n) + 2 * n + 12 * (n // 2 + 1)))),
     }
+    if not routed:   # KE and KG, still on the shared-memory mixed radix
+        rows[f"{what} phase_encode (KE's site)"] = dict(
+            n=n, kernel=lambda: phase_ops.phase_encode_batch(x, nf, n, hop,
+                                                             win),
+            plain=lambda: rfft_mag.stft_planes_plain(x, win, n, hop, 1, nf),
+            library=lambda: torch.fft.rfft(frames_c, dim=-1),
+            work=(nbytes(x, win, spec), f2 * (fft_ops(n) + n)))
+        rows[f"{what} irfft_window (KG's site)"] = dict(
+            n=n, kernel=lambda: istft.irfft_window(re, im, n, win),
+            plain=lambda: istft.irfft_window_plain(re, im, n, win),
+            library=lambda: torch.fft.irfft(spec_c, n=n),
+            work=(nbytes(re, im, win, synth), f2 * (fft_ops(n) + n)))
+    return rows
 
 
 def fwd_core_checks(dev: torch.device, x: torch.Tensor, win: torch.Tensor,
@@ -1129,6 +1159,73 @@ def inv_core_checks(dev: torch.device, x: torch.Tensor, win: torch.Tensor,
         f"1e-4); masked frames zero, the rest bit-equal to the unmasked "
         f"launch; 3 bench frames alone bit-equal to the "
         f"{2 * frames}-frame batch (KG, KJ)")
+
+
+# the sizes of the mixed-radix register core's sweep: those of its CPU replay
+# (tests/test_torch_fft_mixed_plan.py), among them a prime m (254) and two
+# generic primes (4094 = 2 x 23 x 89)
+MIXED_SIZES = (6, 254, 400, 960, 1200, 2400, 3000, 4094, 6000, 12000)
+
+
+def mixed_core_checks(dev: torch.device) -> None:
+    """Phase 2, KB and KJ's mixed-radix register core (csrc/fft_core.cuh,
+    fwd_frame_mixed and inv_frame_mixed) at MIXED_SIZES: 3 rows, a frame
+    count no multiple of the frames a block, the last row quiet; KB within
+    1e-5 of each frame's peak of float64 with and without the window, KJ
+    within 1e-4 relative L2 a frame of float64 (row 0's first frame
+    silent); KB's scalar-load route (the same rows from a base 4 bytes off
+    16) bit-equal to its vector route; a frame alone bit-equal to itself
+    inside the batch (KB and KJ)."""
+    from gomel_tpu_torch.ops import griffinlim, rfft_mag
+    from gomel_tpu_torch.ops.stft import hann_window
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    worst_b = worst_j = 0.0
+    plans = []
+    for n in MIXED_SIZES:
+        plan = rfft_mag.mixed_plan(n)
+        plans.append(f"{n}: {'x'.join(map(str, plan.radices))}")
+        frames = 2 * plan.frames_per_block + 3
+        h = max(4, n // 16 * 4)
+        xs = torch.randn((3, n + (frames - 1) * h), generator=g, device=dev)
+        xs[2] *= 1e-3
+        w = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
+        mags = {}
+        for wc in (w, None):
+            mags[wc is None] = rfft_mag.stft_mag(xs, wc, n, h)
+            want = rfft_mag.stft_mag_plain(
+                xs.double(), None if wc is None else wc.double(), n, h)
+            rel = frame_peak_err(mags[wc is None], want,
+                                 want.amax(-1, keepdim=True))[0]
+            worst_b = max(worst_b, rel)
+            if rel > 1e-5:
+                raise AssertionError(f"mixed core KB n {n}: {rel:.3e} of the "
+                                     f"frame peak > 1e-5")
+        off = torch.cat([torch.zeros(1, device=dev), xs.reshape(-1)])[1:]
+        one = xs[1, h:h + n].contiguous()
+        same = (torch.equal(rfft_mag.stft_mag(off.reshape(xs.shape), w, n, h),
+                            mags[False])
+                and torch.equal(rfft_mag.stft_mag(one, w, n, h)[0],
+                                mags[False][1, 1]))
+        sig = torch.rand((3, n + (frames - 1) * h), generator=g, device=dev)
+        sig[0, :n] = 0.0
+        mag = torch.rand((3, frames, n // 2 + 1), generator=g, device=dev) * 3
+        proj = griffinlim.gl_project(sig, mag, w, n, h)
+        rel = rel_l2(proj, griffinlim.gl_project_plain(
+            sig.double(), mag.double(), w.double(), n, h))
+        worst_j = max(worst_j, rel)
+        alone = griffinlim.gl_project(sig[2, 2 * h:2 * h + n].contiguous(),
+                                      mag[2, 2:3], w, n, h)[0]
+        if rel > 1e-4 or not same or not torch.equal(alone, proj[2, 2]):
+            raise AssertionError(f"mixed core n {n}: KJ relative L2 "
+                                 f"{rel:.3e} (bound 1e-4), or the scalar "
+                                 f"route or a frame alone differs")
+    torch.cuda.synchronize()
+    log(f"KB/KJ mixed-radix register core: n {', '.join(plans)} (3 rows, "
+        f"frames past a block multiple): KB worst {worst_b:.3e} of the frame "
+        f"peak vs float64 (bound 1e-5), KJ worst relative L2 {worst_j:.3e} "
+        f"(bound 1e-4); KB's scalar route bit-equal to its vector route; a "
+        f"frame alone bit-equal to the batch's (KB, KJ)")
 
 
 def spectral_convergence_t(sig: torch.Tensor, target: torch.Tensor,
@@ -2239,6 +2336,7 @@ def main() -> int:
         raise AssertionError("phase_encode error > 1e-5 of the frame peak")
     fwd_core_checks(dev, x, win, n_fft, hop, nf)
     inv_core_checks(dev, x, win, n_fft, hop)
+    mixed_core_checks(dev)
 
     img_p, mx_p, mn_p = quantize.quantize_planes_batch(spec_ref, 255, 0)
     ref_p = quantize.quantize_planes_plain(spec_ref, 255, 0)
@@ -2816,10 +2914,22 @@ def main() -> int:
     spec_c = torch.complex(*halves)
     mel_lin = logmel_ref.transpose(-1, -2).contiguous()
     inv_t = inv.t().contiguous()
+    # KK's overlap-add as one F.fold of the frames (the same sums in
+    # another order)
+    fw_cols = fw_gl.transpose(1, 2)
+
+    def fold():
+        return torch.nn.functional.fold(fw_cols, (1, gl_len), (1, n_fft),
+                                        stride=(1, hop)).reshape(BATCH, gl_len)
+
+    fold_d = float((fold() - griffinlim.gl_overlap_add(fw_gl, hop)).abs().max())
+    log(f"  gl_overlap_add's library call, F.fold of the frames: max|d| "
+        f"{fold_d:.3e} against KK")
     library = {"stft_mag": lambda: torch.fft.rfft(frames_kb, dim=-1),
                "phase_encode": lambda: torch.fft.rfft(frames_kb, dim=-1),
                "irfft_window": lambda: torch.fft.irfft(spec_c, n=n_fft),
                "gl_project": lambda: torch.fft.irfft(spec_c, n=n_fft),
+               "gl_overlap_add": fold,
                "mel_log": lambda: torch.matmul(mags_ref, we),
                "mel_to_magnitudes": lambda: torch.matmul(mel_lin, inv_t)}
     for name, entry in extra_k.items():
@@ -2957,9 +3067,15 @@ def main() -> int:
     for name, entry in route_k.items():
         k_ms, p_ms = race(entry["kernel"], entry["plain"], name)
         lib = min(cuda_ms(entry["library"]), cuda_ms(entry["library"]))
+        b_ms, b_by = bound(*entry["work"])
+        earlier = (f"; {EARLIER_MS[name]:.4f} recorded in PERF.md, ratio "
+                   f"{k_ms / EARLIER_MS[name]:.3f}" if name in EARLIER_MS
+                   else "")
         log(f"  {name}, n {entry['n']}, [{BATCH}, {x.shape[1]}]: "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, its torch.fft call alone "
-            f"{lib:.4f} ms")
+            f"{lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+            f"{entry['work'][0] / 1e6:.1f} MB, {entry['work'][1] / 1e9:.3f} G "
+            f"operations), kernel at {100 * b_ms / k_ms:.1f}% of it{earlier}")
     log(f"  xla route calls on the main-path drives: "
         f"{launches['xla_route']} (all sites)")
 

@@ -1,10 +1,12 @@
 // The float32 FFT bodies of the frame kernels KB (rfft_mag.cu), KE
 // (phase_encode.cu), KG (phase_decode.cu) and KJ (griffinlim.cu).
 //
-// Two cores. Whenever m = n/2 is a power of two from 2 to 8192 the four run
-// the register-resident core at the end of this file: KB and KE its forward
+// Three cores. Whenever m = n/2 is a power of two from 2 to 8192 the four
+// run the register-resident core further down: KB and KE its forward
 // transform (fwd_frame_pow2), KG its inverse (inv_frame_pow2), KJ both. At
-// the other sizes they run the shared-memory core below.
+// the other sizes KB and KJ run the mixed-radix register core after it
+// (fwd_frame_mixed, inv_frame_mixed), KE and KG the shared-memory core
+// below, which tools/profile_fft.py also races against the other two.
 //
 // The shared-memory core: an n-point real transform runs as an m = n/2
 // point complex transform in one thread block's shared memory (complex_fft:
@@ -563,21 +565,24 @@ __device__ __forceinline__ void fwd_frame_pow2(
 // of Z[k], Z[m-k] and tw[k] serves both, since tw[m-k] = -conj tw[k]. With
 // E = (Z[k] + conj Z[m-k]) / 2 and O = -i (Z[k] - conj Z[m-k]) / 2,
 // X[k] = E + tw[k] O and X[m-k] = conj(E - tw[k] O).
-__device__ __forceinline__ void split_pair(const float2* z,
-                                           const float2* __restrict__ tw,
-                                           int k, int m, float2& xk,
-                                           float2& xmk) {
-  const float2 p = z[swz(k)];
-  const float2 q = z[swz(m - k)];
+__device__ __forceinline__ void split_values(float2 p, float2 q, float2 w,
+                                             float2& xk, float2& xmk) {
   const float er = 0.5f * (p.x + q.x);
   const float ei = 0.5f * (p.y - q.y);
   const float orr = 0.5f * (p.y + q.y);
   const float oi = -0.5f * (p.x - q.x);
-  const float2 w = __ldg(&tw[k]);
   const float a = orr * w.x - oi * w.y;
   const float b = orr * w.y + oi * w.x;
   xk = make_float2(er + a, ei + b);
   xmk = make_float2(er - a, b - ei);
+}
+
+// The same from a swizzled buffer (the power-of-two core's).
+__device__ __forceinline__ void split_pair(const float2* z,
+                                           const float2* __restrict__ tw,
+                                           int k, int m, float2& xk,
+                                           float2& xmk) {
+  split_values(z[swz(k)], z[swz(m - k)], __ldg(&tw[k]), xk, xmk);
 }
 
 // ---------------------------------------------------------------------------
@@ -705,6 +710,619 @@ __device__ __forceinline__ void inv_frame_pow2(
     float2* z, const float2* __restrict__ twp, int th, float2* __restrict__ dst,
     const float2* __restrict__ w2, float inv_n, bool zero) {
   inv_passes<kLogM, 0, 1>(z, twp, th, dst, w2, inv_n, zero);
+}
+
+// ---------------------------------------------------------------------------
+// The mixed-radix register core: KB and KJ whenever m = n/2 is not a power
+// of two (n = 3000 and every other size ops/fftbackend.ct_supported takes).
+//
+// The shared-memory mixed radix above spends, per point and pass, a dense
+// r x r product with roots loaded from the table, a runtime `%` and a
+// strided twiddle load, ping-pongs between two buffers, and leaves 40-85%
+// of its 256-thread block idle in each pass's second round (m = 1500: five
+// passes of 300-500 butterflies). This core runs in-place Cooley-Tukey on
+// one shared buffer of m float2 a frame, a butterfly's R points in
+// registers, on a plan the host computes (ops/rfft_mag.mixed_plan) and the
+// kernel reads at run time (MixedPlan, by value; make_mixed_plan checks it
+// and derives the rest):
+//   - Each of a frame's T threads does P/R butterflies of every register
+//     pass (P = m/T points; each register radix R divides P): no thread
+//     idles. m = 1500 is 15 x 10 x 10 with P = 30, T = 50: three passes,
+//     one barrier each.
+//   - The butterflies are known at compile time (dft_mixed): radix 2, 4, 8
+//     and 16 the power-of-two core's (no multiply beyond +-i and the 16th
+//     roots), 3, 5 and 7 the symmetric forms with their roots as float32
+//     literals (2 x 2 and 3 x 3 real products a component for 5 and 7
+//     instead of 25 and 49 complex ones), the composites (6, 10, 12, 14, 15)
+//     as prime-factor nests of those, whose index maps need no twiddle.
+//     Nothing above 16: the kernel's registers are those of its largest
+//     butterfly, and radix 20, 24 and 30 (which dft_mixed also builds) take
+//     them from 64 to 128 and cost 20-35% of the time, the pass they save
+//     included (tools/profile_fft.py).
+//   - Forward: decimation in time, in place. Pass p (radix R, ns the
+//     product of the earlier radices) takes butterfly b = g ns + k at
+//     points g ns R + k + t ns, multiplies point t by exp(-2 pi i t k /
+//     (ns R)) from its table row, (t - 1) ns + k, read contiguously, and
+//     writes its R-point DFT back to the same points: butterflies are
+//     disjoint, so a pass needs no barrier between its reads and writes.
+//     The first pass reads butterfly j's samples j + t m/R_0 straight from
+//     the signal (consecutive threads, consecutive points; 8-byte loads
+//     where frames_vec_aligned holds, else scalar ones of the same values)
+//     and writes them at rev(j) R_0 + s: the digit reversal DIT needs costs
+//     nothing but the store's address. Z ends in natural order.
+//   - Inverse (KJ): decimation in frequency, the forward's steps undone in
+//     reverse order with conjugated roots (an unscaled inverse); its last
+//     pass reads rev(j) R_0 + s and stores the frame's points
+//     j + t m/R_0 to device memory, times 1/n and the window.
+//   - j / ns and the digits of rev(j) are multiplies by the host's magic
+//     numbers (exact for j, ns < 2^14): no `/` or `%` by a runtime value.
+//   - A factor of m no register radix takes (a prime from 11 to 127, or a
+//     small one that does not divide P) runs a generic pass: a thread an
+//     output, the sum over the R inputs with roots from the pass's table of
+//     ns R roots. Outputs overwrite inputs other threads still read, so a
+//     generic pass after the first writes to a second buffer of m (the
+//     plan's frame stride is then 2m); the first reads the signal, the
+//     inverse's last writes the frame. n = 254 (m = 127) and n = 4094
+//     (23 x 89) run only such passes.
+//   - Frames a block: the plan's, up to 256 threads, as many as keep the
+//     most threads resident (m = 1500: 3; m = 200: 12), so small sizes
+//     share a block.
+// A frame's result depends only on its samples, the window and the plan:
+// not on the load route, its slot in the block or the grid.
+
+constexpr int kMixedMaxPasses = 8;
+constexpr int kMixedBlockThreads = 256;
+constexpr int kMixedMaxPoints = 64;
+
+#define GOMEL_MIXED_RADICES(X) \
+  X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(10) X(12) X(14) X(15) X(16)
+
+inline bool mixed_register_radix(int r) {
+  switch (r) {
+#define GOMEL_MIXED_CASE(R) case R:
+    GOMEL_MIXED_RADICES(GOMEL_MIXED_CASE)
+#undef GOMEL_MIXED_CASE
+    return true;
+    default:
+      return false;
+  }
+}
+
+// A frame's transform as the kernels read it: ops/rfft_mag.mixed_plan's
+// radices, points, threads and frames a block, and what make_mixed_plan
+// derives from them.
+struct MixedPlan {
+  int m;             // complex points a frame, n/2
+  int passes;
+  int points;        // a thread, P = m / threads
+  int threads;       // a frame
+  int frames;        // a block
+  int frame_stride;  // float2 of shared memory a frame: m, or 2m (generic)
+  int radix[kMixedMaxPasses];
+  int ns[kMixedMaxPasses];     // the product of the earlier radices
+  int table[kMixedMaxPasses];  // the pass's offset in tw_pass
+  bool reg[kMixedMaxPasses];   // a register pass, else a generic one
+  unsigned long long magic_r[kMixedMaxPasses];     // ceil(2^32 / radix)
+  unsigned long long magic_ns[kMixedMaxPasses];    // ceil(2^32 / ns)
+  unsigned long long magic_span[kMixedMaxPasses];  // ceil(2^32 / (ns radix))
+  unsigned long long magic_stride0;                // ceil(2^32 / (m / radix[0]))
+};
+
+// x / d for 0 <= x < 2^14 and 1 <= d < 2^14, from magic = ceil(2^32 / d):
+// x magic / 2^32 exceeds x / d by less than x / 2^32 < 1 / d.
+__host__ __device__ __forceinline__ int div_magic(int x,
+                                                  unsigned long long magic) {
+  return static_cast<int>((static_cast<unsigned long long>(x) * magic) >> 32);
+}
+
+inline unsigned long long magic_of(int d) {
+  return ((1ull << 32) + d - 1) / d;
+}
+
+// The plan of m from the wrapper's radices (8 bits a pass, the first in the
+// low bits), threads a frame and frames a block; false (the launch refuses
+// it) unless the radices multiply to m, there are at most kMixedMaxPasses,
+// points = m / threads is a whole number up to kMixedMaxPoints, every
+// register radix divides it, and the block has at most kMixedBlockThreads
+// threads and fits shared memory. A pass is a register pass when its radix
+// is one of GOMEL_MIXED_RADICES and divides points; its table row then holds
+// (radix - 1) ns twiddles (none in the first pass), else the ns radix roots
+// (ops/rfft_mag._mixed_twiddles_np lays them out the same way).
+inline bool make_mixed_plan(int m, long long radices, int threads, int frames,
+                            MixedPlan* pl) {
+  if (m < 2 || m >= (1 << 14) || threads < 1 || frames < 1 ||
+      m % threads != 0 || threads * frames > kMixedBlockThreads) {
+    return false;
+  }
+  pl->m = m;
+  pl->threads = threads;
+  pl->frames = frames;
+  pl->points = m / threads;
+  pl->frame_stride = m;
+  if (pl->points > kMixedMaxPoints) return false;
+  int ns = 1, table = 0, p = 0;
+  for (; p < kMixedMaxPasses; ++p) {
+    const int r = static_cast<int>((radices >> (8 * p)) & 255);
+    if (r == 0) break;
+    if (r < 2 || (m / ns) % r != 0) return false;
+    const bool reg = mixed_register_radix(r) && pl->points % r == 0;
+    pl->radix[p] = r;
+    pl->ns[p] = ns;
+    pl->table[p] = table;
+    pl->reg[p] = reg;
+    pl->magic_r[p] = magic_of(r);
+    pl->magic_ns[p] = magic_of(ns);
+    pl->magic_span[p] = magic_of(ns * r);
+    if (!reg && p > 0) pl->frame_stride = 2 * m;
+    table += reg ? (p == 0 ? 0 : (r - 1) * ns) : ns * r;
+    ns *= r;
+  }
+  if (p == 0 || ns != m ||
+      (p < kMixedMaxPasses && (radices >> (8 * p)) != 0) ||
+      static_cast<size_t>(frames) * pl->frame_stride * sizeof(float2) >
+          232448) {
+    return false;
+  }
+  pl->passes = p;
+  pl->magic_stride0 = magic_of(m / pl->radix[0]);
+  return true;
+}
+
+// cos and sin of 2 pi r / R for R = 3, 5, 7 and 0 < r <= (R - 1) / 2: the
+// float32 roundings of the float64 values, as the host's tables round them.
+__device__ __forceinline__ float cos_prime(int R, int r) {
+  switch (R * 4 + r) {
+    case 13: return -0.5f;         // R 3, r 1
+    case 21: return 0.309017f;     // R 5, r 1
+    case 22: return -0.809017f;    // R 5, r 2
+    case 29: return 0.6234898f;    // R 7, r 1
+    case 30: return -0.22252093f;  // R 7, r 2
+    default: return -0.90096885f;  // R 7, r 3
+  }
+}
+
+__device__ __forceinline__ float sin_prime(int R, int r) {
+  switch (R * 4 + r) {
+    case 13: return 0.8660254f;
+    case 21: return 0.95105654f;
+    case 22: return 0.58778524f;
+    case 29: return 0.7818315f;
+    case 30: return 0.9749279f;
+    default: return 0.43388373f;
+  }
+}
+
+// R-point DFT of v[0..R) in registers for an odd prime R (3, 5, 7), in
+// natural order: with a_j = v_j + v_{R-j}, b_j = v_j - v_{R-j},
+// X[s] = v_0 + sum_j cos(2 pi j s / R) a_j - i sum_j sin(2 pi j s / R) b_j
+// and X[R-s] the same with + i (kInverse: the two swapped).
+template <int R, bool kInverse>
+__device__ __forceinline__ void dft_prime(float2* v) {
+  constexpr int H = (R - 1) / 2;
+  float2 a[H], b[H];
+  const float2 x0 = v[0];
+  float2 sum = x0;
+#pragma unroll
+  for (int j = 1; j <= H; ++j) {
+    a[j - 1] = make_float2(v[j].x + v[R - j].x, v[j].y + v[R - j].y);
+    b[j - 1] = make_float2(v[j].x - v[R - j].x, v[j].y - v[R - j].y);
+    sum = make_float2(sum.x + a[j - 1].x, sum.y + a[j - 1].y);
+  }
+  v[0] = sum;
+#pragma unroll
+  for (int s = 1; s <= H; ++s) {
+    float2 re = x0;
+    float2 im = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      const int r = (j * s) % R;  // cos(2 pi r / R) = cos(2 pi (R - r) / R)
+      const int e = r <= H ? r : R - r;
+      const float c = cos_prime(R, e);
+      const float sn = r <= H ? sin_prime(R, e) : -sin_prime(R, e);
+      re = make_float2(re.x + c * a[j - 1].x, re.y + c * a[j - 1].y);
+      im = make_float2(im.x + sn * b[j - 1].x, im.y + sn * b[j - 1].y);
+    }
+    const float2 lo = make_float2(re.x + im.y, re.y - im.x);  // re - i im
+    const float2 hi = make_float2(re.x - im.y, re.y + im.x);  // re + i im
+    v[s] = kInverse ? hi : lo;
+    v[R - s] = kInverse ? lo : hi;
+  }
+}
+
+// The first factor A of a register radix R = A B in the prime-factor nest:
+// its power of two, else 3, else 5 (B = R / A is coprime to A).
+template <int R>
+__host__ __device__ constexpr int mixed_first_factor() {
+  if (R % 2 == 0) {
+    int a = 1;
+    while (R % (2 * a) == 0) a *= 2;
+    return a;
+  }
+  return R % 3 == 0 ? 3 : 5;
+}
+
+// Where dft_mixed<R> leaves X[s]: the power-of-two DFTs in bit-reversed
+// order, the primes in natural order, a nest R = A B at
+// (s mod A) B + out_pos<B>(s mod B).
+template <int R>
+__host__ __device__ constexpr int out_pos(int s) {
+  if constexpr ((R & (R - 1)) == 0) {
+    return bitrev<R>(s);
+  } else if constexpr (R == 3 || R == 5 || R == 7) {
+    return s;
+  } else {
+    constexpr int A = mixed_first_factor<R>();
+    constexpr int B = R / A;
+    return (s % A) * B + out_pos<B>(s % B);
+  }
+}
+
+// R-point DFT of v[0..R) in registers for R in GOMEL_MIXED_RADICES; X[s]
+// ends in v[out_pos<R>(s)]. A composite R = A B with A, B coprime runs the
+// prime-factor (Good-Thomas) nest: input n = (B n1 + A n2) mod R, an A-point
+// DFT over n1 for each n2, then a B-point DFT over n2 for each k1; output
+// s = k1 mod A, k2 mod B by the Chinese remainders, so no twiddle between
+// the two.
+template <int R, bool kInverse>
+__device__ __forceinline__ void dft_mixed(float2* v) {
+  if constexpr ((R & (R - 1)) == 0) {
+    dft_regs<R, kInverse>(v);
+  } else if constexpr (R == 3 || R == 5 || R == 7) {
+    dft_prime<R, kInverse>(v);
+  } else {
+    constexpr int A = mixed_first_factor<R>();
+    constexpr int B = R / A;
+    float2 y[R];
+#pragma unroll
+    for (int n2 = 0; n2 < B; ++n2) {
+#pragma unroll
+      for (int n1 = 0; n1 < A; ++n1) y[n2 * A + n1] = v[(B * n1 + A * n2) % R];
+      dft_mixed<A, kInverse>(&y[n2 * A]);
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) {
+#pragma unroll
+      for (int n2 = 0; n2 < B; ++n2) v[k1 * B + n2] = y[n2 * A + out_pos<A>(k1)];
+      dft_mixed<B, kInverse>(&v[k1 * B]);
+    }
+  }
+}
+
+// a * b (kConj: a * conj b).
+template <bool kConj>
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  if (kConj) b.y = -b.y;
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// Complex point i of a frame (samples 2i and 2i + 1) times the window pair,
+// if any: one 8-byte load each when vec, else two scalar loads of the same
+// values.
+__device__ __forceinline__ float2 load_point(const float* __restrict__ src,
+                                             const float* __restrict__ window,
+                                             int i, bool vec) {
+  float2 x, w;
+  if (vec) {
+    x = __ldg(reinterpret_cast<const float2*>(src) + i);
+  } else {
+    x = make_float2(__ldg(src + 2 * i), __ldg(src + 2 * i + 1));
+  }
+  if (window == nullptr) return x;
+  if (vec) {
+    w = __ldg(reinterpret_cast<const float2*>(window) + i);
+  } else {
+    w = make_float2(__ldg(window + 2 * i), __ldg(window + 2 * i + 1));
+  }
+  return make_float2(x.x * w.x, x.y * w.y);
+}
+
+// Point i of the inverse's result into dst[i]: times 1/n, then the window
+// pair w2[i] (null: no window), each step rounded (__fmul_rn).
+__device__ __forceinline__ void store_inverse(float2* __restrict__ dst,
+                                              const float2* __restrict__ w2,
+                                              int i, float2 y, float inv_n) {
+  float x0 = __fmul_rn(y.x, inv_n);
+  float x1 = __fmul_rn(y.y, inv_n);
+  if (w2 != nullptr) {
+    const float2 wi = __ldg(&w2[i]);
+    x0 = __fmul_rn(x0, wi.x);
+    x1 = __fmul_rn(x1, wi.y);
+  }
+  dst[i] = make_float2(x0, x1);
+}
+
+// What the forward's first pass reads: the frame's samples from the signal
+// (src, window, vec) or, for a slot past the last frame, zeros.
+struct FrameSource {
+  const float* src;
+  const float* window;
+  bool vec;
+  bool valid;
+  __device__ __forceinline__ float2 point(int i) const {
+    return valid ? load_point(src, window, i, vec) : make_float2(0.0f, 0.0f);
+  }
+};
+
+// rev(j) for 0 <= j < m / R_0: the digits of j (R_{P-1} the least
+// significant, R_1 the most) in reverse order (R_1 the least significant).
+// Decimation in time leaves the samples j + t m/R_0 of butterfly j of the
+// first pass at points rev(j) R_0 + t.
+__device__ __forceinline__ int mixed_rev(int j, const MixedPlan& pl) {
+  int q = 0;
+  for (int p = pl.passes - 1; p >= 1; --p) {
+    const int r = pl.radix[p];
+    const int hi = div_magic(j, pl.magic_r[p]);
+    q = q * r + (j - hi * r);
+    j = hi;
+  }
+  return q;
+}
+
+// The forward's first pass, radix R: butterflies j = th + u T (u < P/R)
+// from the signal's points j + t m/R, their DFTs to points rev(j) R + s.
+template <int R>
+__device__ __forceinline__ void mixed_first_pass(float2* z,
+                                                 const MixedPlan& pl, int th,
+                                                 const FrameSource& in) {
+  const int nb = pl.points / R;
+  const int stride = pl.m / R;
+  for (int u = 0; u < nb; ++u) {
+    const int j = th + u * pl.threads;
+    float2 v[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) v[t] = in.point(j + t * stride);
+    dft_mixed<R, false>(v);
+    float2* a = z + mixed_rev(j, pl) * R;
+#pragma unroll
+    for (int s = 0; s < R; ++s) a[s] = v[out_pos<R>(s)];
+  }
+  __syncthreads();
+}
+
+// Pass p >= 1 of radix R in place: butterflies b = th + u T = g ns + k at
+// points g ns R + k + t ns. Forward: twiddle exp(-2 pi i t k / (ns R)) from
+// twp[(t - 1) ns + k], then the DFT. kInverse undoes that: the conjugate
+// DFT, then the conjugate twiddle.
+template <int R, bool kInverse>
+__device__ __forceinline__ void mixed_pass(float2* z, const MixedPlan& pl,
+                                           int p,
+                                           const float2* __restrict__ twp,
+                                           int th) {
+  const int nb = pl.points / R;
+  const int ns = pl.ns[p];
+  const unsigned long long magic = pl.magic_ns[p];
+  for (int u = 0; u < nb; ++u) {
+    const int b = th + u * pl.threads;
+    const int g = div_magic(b, magic);
+    const int k = b - g * ns;
+    float2* a = z + g * ns * R + k;
+    float2 v[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) v[t] = a[t * ns];
+    if constexpr (!kInverse) {
+#pragma unroll
+      for (int t = 1; t < R; ++t) {
+        v[t] = cmul<false>(v[t], __ldg(&twp[(t - 1) * ns + k]));
+      }
+      dft_mixed<R, false>(v);
+#pragma unroll
+      for (int s = 0; s < R; ++s) a[s * ns] = v[out_pos<R>(s)];
+    } else {
+      dft_mixed<R, true>(v);
+      a[0] = v[out_pos<R>(0)];
+#pragma unroll
+      for (int t = 1; t < R; ++t) {
+        a[t * ns] = cmul<true>(v[out_pos<R>(t)], __ldg(&twp[(t - 1) * ns + k]));
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The inverse's last pass, radix R: butterflies j = th + u T (u < P/R) from
+// points rev(j) R + s, their conjugate DFTs to the frame's points
+// j + t m/R in dst (null: nothing), times 1/n and the window.
+template <int R>
+__device__ __forceinline__ void mixed_last_pass(
+    const float2* z, const MixedPlan& pl, int th, float2* __restrict__ dst,
+    const float2* __restrict__ w2, float inv_n) {
+  if (dst == nullptr) return;
+  const int nb = pl.points / R;
+  const int stride = pl.m / R;
+  for (int u = 0; u < nb; ++u) {
+    const int j = th + u * pl.threads;
+    const float2* a = z + mixed_rev(j, pl) * R;
+    float2 v[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) v[s] = a[s];
+    dft_mixed<R, true>(v);
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      store_inverse(dst, w2, j + t * stride, v[out_pos<R>(t)], inv_n);
+    }
+  }
+}
+
+// The generic passes: a thread an output, u < P; roots[i] =
+// exp(-2 pi i i / (ns R)) (conjugated in the inverse), walked by adding the
+// output's exponent step modulo ns R.
+//
+// The forward's first pass when it is generic: output o = s m/R + j of
+// butterfly j, sum_t x[j + t m/R] exp(-2 pi i t s / R), to point
+// rev(j) R + s.
+__device__ __forceinline__ void mixed_generic_first(
+    float2* z, const MixedPlan& pl, int th, const FrameSource& in,
+    const float2* __restrict__ roots) {
+  const int R = pl.radix[0];
+  const int stride = pl.m / R;
+  for (int u = 0; u < pl.points; ++u) {
+    const int o = th + u * pl.threads;
+    const int s = div_magic(o, pl.magic_stride0);
+    const int j = o - s * stride;
+    float re = 0.0f, im = 0.0f;
+    int idx = 0;
+    for (int t = 0; t < R; ++t) {
+      const float2 w = __ldg(&roots[idx]);
+      const float2 x = in.point(j + t * stride);
+      re += x.x * w.x - x.y * w.y;
+      im += x.x * w.y + x.y * w.x;
+      idx += s;
+      if (idx >= R) idx -= R;
+    }
+    z[mixed_rev(j, pl) * R + s] = make_float2(re, im);
+  }
+  __syncthreads();
+}
+
+// Generic pass p >= 1 from z into out (the frame's other buffer): output
+// i = g ns R + d ns + k. Forward (d = s): sum_t z[g ns R + k + t ns]
+// exp(-2 pi i t (k + s ns) / (ns R)). Inverse (d = t): sum_s
+// z[g ns R + k + s ns] exp(+2 pi i t (k + s ns) / (ns R)).
+template <bool kInverse>
+__device__ __forceinline__ void mixed_generic_pass(
+    const float2* __restrict__ z, float2* __restrict__ out,
+    const MixedPlan& pl, int p, const float2* __restrict__ roots, int th) {
+  const int R = pl.radix[p];
+  const int ns = pl.ns[p];
+  const int span = ns * R;
+  for (int u = 0; u < pl.points; ++u) {
+    const int i = th + u * pl.threads;
+    const int g = div_magic(i, pl.magic_span[p]);
+    const int e = i - g * span;
+    const int d = div_magic(e, pl.magic_ns[p]);
+    const int k = e - d * ns;
+    const float2* a = z + g * span + k;
+    int idx = kInverse ? d * k : 0;
+    const int step = kInverse ? d * ns : e;
+    float re = 0.0f, im = 0.0f;
+    for (int c = 0; c < R; ++c) {
+      const float2 w = cmul<kInverse>(a[c * ns], __ldg(&roots[idx]));
+      re += w.x;
+      im += w.y;
+      idx += step;
+      if (idx >= span) idx -= span;
+    }
+    out[i] = make_float2(re, im);
+  }
+  __syncthreads();
+}
+
+// The inverse's last pass when it is generic: the frame's point
+// i = t m/R + j, sum_s z[rev(j) R + s] exp(+2 pi i t s / R), into dst
+// (null: nothing), times 1/n and the window.
+__device__ __forceinline__ void mixed_generic_last(
+    const float2* z, const MixedPlan& pl, int th,
+    const float2* __restrict__ roots, float2* __restrict__ dst,
+    const float2* __restrict__ w2, float inv_n) {
+  if (dst == nullptr) return;
+  const int R = pl.radix[0];
+  const int stride = pl.m / R;
+  for (int u = 0; u < pl.points; ++u) {
+    const int i = th + u * pl.threads;
+    const int t = div_magic(i, pl.magic_stride0);
+    const int j = i - t * stride;
+    const float2* a = z + mixed_rev(j, pl) * R;
+    float re = 0.0f, im = 0.0f;
+    int idx = 0;
+    for (int s = 0; s < R; ++s) {
+      const float2 w = cmul<true>(a[s], __ldg(&roots[idx]));
+      re += w.x;
+      im += w.y;
+      idx += t;
+      if (idx >= R) idx -= R;
+    }
+    store_inverse(dst, w2, i, make_float2(re, im), inv_n);
+  }
+}
+
+// The forward transform of one frame (thread th of its T) in z (and, after
+// a generic pass, z + m): returns the buffer that holds Z in natural order.
+// Every thread of the block calls it: it holds the barriers.
+__device__ __forceinline__ float2* fwd_frame_mixed(
+    float2* z, const FrameSource& in, const float2* __restrict__ twp,
+    const MixedPlan& pl, int th) {
+  if (pl.reg[0]) {
+    switch (pl.radix[0]) {
+#define GOMEL_MIXED_FIRST(R) \
+  case R: mixed_first_pass<R>(z, pl, th, in); break;
+      GOMEL_MIXED_RADICES(GOMEL_MIXED_FIRST)
+#undef GOMEL_MIXED_FIRST
+    }
+  } else {
+    mixed_generic_first(z, pl, th, in, twp + pl.table[0]);
+  }
+  float2* other = z + pl.m;
+  for (int p = 1; p < pl.passes; ++p) {
+    const float2* tp = twp + pl.table[p];
+    if (pl.reg[p]) {
+      switch (pl.radix[p]) {
+#define GOMEL_MIXED_FWD(R) \
+  case R: mixed_pass<R, false>(z, pl, p, tp, th); break;
+        GOMEL_MIXED_RADICES(GOMEL_MIXED_FWD)
+#undef GOMEL_MIXED_FWD
+      }
+    } else {
+      mixed_generic_pass<false>(z, other, pl, p, tp, th);
+      float2* t = z;
+      z = other;
+      other = t;
+    }
+  }
+  return z;
+}
+
+// The inverse transform of one frame (thread th of its T) from Z in natural
+// order in z, other the frame's second buffer (used only after a generic
+// pass): point i of the result, times 1/n and the window pair w2[i] (null:
+// no window), into dst[i]; nothing when dst is null. Every thread of the
+// block calls it.
+__device__ __forceinline__ void inv_frame_mixed(
+    float2* z, float2* other, const float2* __restrict__ twp,
+    const MixedPlan& pl, int th, float2* __restrict__ dst,
+    const float2* __restrict__ w2, float inv_n) {
+  for (int p = pl.passes - 1; p >= 1; --p) {
+    const float2* tp = twp + pl.table[p];
+    if (pl.reg[p]) {
+      switch (pl.radix[p]) {
+#define GOMEL_MIXED_INV(R) \
+  case R: mixed_pass<R, true>(z, pl, p, tp, th); break;
+        GOMEL_MIXED_RADICES(GOMEL_MIXED_INV)
+#undef GOMEL_MIXED_INV
+      }
+    } else {
+      mixed_generic_pass<true>(z, other, pl, p, tp, th);
+      float2* t = z;
+      z = other;
+      other = t;
+    }
+  }
+  if (pl.reg[0]) {
+    switch (pl.radix[0]) {
+#define GOMEL_MIXED_LAST(R) \
+  case R: mixed_last_pass<R>(z, pl, th, dst, w2, inv_n); break;
+      GOMEL_MIXED_RADICES(GOMEL_MIXED_LAST)
+#undef GOMEL_MIXED_LAST
+    }
+  } else {
+    mixed_generic_last(z, pl, th, twp + pl.table[0], dst, w2, inv_n);
+  }
+}
+
+// Launch a mixed-core frame kernel on plan pl: pl.frames frames a block of
+// pl.threads each, pl.frame_stride float2 of dynamic shared memory a frame.
+template <typename Kernel, typename... Args>
+int launch_mixed_frames(Kernel kernel, long long total, const MixedPlan& pl,
+                        cudaStream_t stream, Args... args) {
+  const size_t smem =
+      static_cast<size_t>(pl.frames) * pl.frame_stride * sizeof(float2);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const long long blocks = (total + pl.frames - 1) / pl.frames;
+  kernel<<<static_cast<unsigned>(blocks), pl.threads * pl.frames, smem,
+           stream>>>(args...);
+  return gomel_status();
 }
 
 // Whether every frame's first sample, and the window, sit on a 16-byte

@@ -17,9 +17,11 @@
 //   load), written back to the same two slots. The pairs are disjoint, so
 //   one barrier follows, then inv_frame_pow2: the inverse passes, the last
 //   storing straight to frames_w scaled by 1/n and times the window. Other
-//   sizes run the shared-memory mixed radix: the frame loaded by
-//   load_frame, the transforms by complex_fft through two buffers of n/2
-//   float2. Every iteration runs in exact float32
+//   sizes run the same steps on the core's mixed-radix form (fwd_frame_mixed,
+//   inv_frame_mixed; the buffer unswizzled): n = 3000 three passes each way
+//   (radices 15, 10, 10; 50 threads a frame, 3 frames a block), against ten
+//   through two buffers in the shared-memory mixed radix it replaced.
+//   Every iteration runs in exact float32
 //   on the CUDA cores, as the JAX package's does off the TPU (its bf16 DFT,
 //   dft_mm.py, is selected only by a TPU backend).
 //   The unit phase rounds each step as the JAX program does
@@ -47,7 +49,9 @@
 // neighbours' samples) needs atomics or a second pass.
 // tools/profile_fft.py races it against the radix-2 form below
 // (gl_project_kernel<true>, which the port no longer launches) and splits
-// its time by ablation; PERF.md has the numbers.
+// its time by ablation; PERF.md has the numbers. At n = 3000 (the mixed
+// core) the bound is 0.024 ms (80 MB moved); KJ reaches about 28% of it,
+// held where KB is (rfft_mag.cu).
 #include <math.h>
 
 #include "fft_core.cuh"
@@ -55,6 +59,26 @@
 #include "unit_phase.cuh"
 
 namespace {
+
+// KJ's projection of bins k and m - k (0 <= k <= m/2) of a frame, X[k] = xk
+// and X[m - k] = xq (k = 0: DC and Nyquist), onto the magnitudes mg: the
+// unit phase times mg[k] and mg[m - k] (DC's and Nyquist's imaginary parts
+// dropped: irfft ignores them), then 2 Z'[k] into zk and 2 Z'[m - k] into
+// zq (tw[m - k] = -conj tw[k] = -conj w).
+__device__ __forceinline__ void project_pair(float2 xk, float2 xq, float2 w,
+                                             const float* __restrict__ mg,
+                                             int k, int m, float2& zk,
+                                             float2& zq) {
+  const float mk = mg[k], mq = mg[m - k];
+  xk = project_bin(xk, mk);
+  xq = project_bin(xq, mq);
+  if (k == 0) {
+    xk.y = 0.0f;
+    xq.y = 0.0f;
+  }
+  zk = inverse_split_bin(xk, xq, w);
+  zq = inverse_split_bin(xq, xk, make_float2(-w.x, w.y));
+}
 
 // The power-of-two form for m = 2^kLogM: FwdPlan's threads a frame and
 // frames a block, m float2 of shared memory a frame.
@@ -94,18 +118,10 @@ gl_project_pow2_kernel(const float* __restrict__ sig,
       } else {
         split_pair(z, tw, k, m, xk, xq);
       }
-      const float mk = mg[k], mq = mg[m - k];
-      xk = project_bin(xk, mk);
-      xq = project_bin(xq, mq);
-      if (k == 0) {
-        xk.y = 0.0f;
-        xq.y = 0.0f;
-      }
-      const float2 w = __ldg(&tw[k]);
-      z[swz(k)] = inverse_split_bin(xk, xq, w);
-      if (k > 0 && 2 * k != m) {
-        z[swz(m - k)] = inverse_split_bin(xq, xk, make_float2(-w.x, w.y));
-      }
+      float2 zk, zq;
+      project_pair(xk, xq, __ldg(&tw[k]), mg, k, m, zk, zq);
+      z[swz(k)] = zk;
+      if (k > 0 && 2 * k != m) z[swz(m - k)] = zq;
     }
   }
   __syncthreads();
@@ -113,10 +129,62 @@ gl_project_pow2_kernel(const float* __restrict__ sig,
                         reinterpret_cast<const float2*>(window), inv_n, false);
 }
 
+// The mixed-radix form (n/2 not a power of two) on plan pl: the mixed
+// core's forward in the frame's buffer, the projection of bins k and m - k
+// in pairs (unswizzled: z[k]), a barrier, the mixed core's inverse, its
+// last pass storing to out times 1/n and the window.
+__global__ void __launch_bounds__(kMixedBlockThreads)
+gl_project_mixed_kernel(const float* __restrict__ sig,
+                        const float* __restrict__ mag,
+                        const float* __restrict__ window,
+                        const float2* __restrict__ tw,
+                        const float2* __restrict__ twp,
+                        float2* __restrict__ out,
+                        const __grid_constant__ MixedPlan pl, long long total,
+                        int frames, long long length, long long hop, bool vec,
+                        float inv_n) {
+  extern __shared__ float2 sbuf[];
+  const int m = pl.m;
+  const int threads = pl.threads;
+  const int slot = threadIdx.x / threads;
+  const int th = threadIdx.x - slot * threads;
+  const long long frame = static_cast<long long>(blockIdx.x) * pl.frames + slot;
+  const bool valid = frame < total;
+  const long long bi = frame / frames;
+  const long long fi = frame - bi * frames;
+  const FrameSource in{valid ? sig + bi * length + fi * hop : sig, window, vec,
+                       valid};
+  float2* buf = sbuf + slot * pl.frame_stride;
+  float2* z = fwd_frame_mixed(buf, in, twp, pl, th);
+  if (valid) {
+    const float* mg = mag + frame * (m + 1);
+    for (int k = th; k <= m / 2; k += threads) {
+      float2 xk, xq;
+      const float2 w = __ldg(&tw[k]);
+      if (k == 0) {  // DC and Nyquist from Z[0]
+        const float2 z0 = z[0];
+        xk = make_float2(z0.x + z0.y, 0.0f);
+        xq = make_float2(z0.x - z0.y, 0.0f);
+      } else {
+        split_values(z[k], z[m - k], w, xk, xq);
+      }
+      float2 zk, zq;
+      project_pair(xk, xq, w, mg, k, m, zk, zq);
+      z[k] = zk;
+      if (k > 0 && 2 * k != m) z[m - k] = zq;
+    }
+  }
+  __syncthreads();
+  inv_frame_mixed(z, z == buf ? buf + m : buf, twp, pl, th,
+                  valid ? out + frame * m : nullptr,
+                  reinterpret_cast<const float2*>(window), inv_n);
+}
+
 // The shared-memory form: one block a frame, two complex buffers of m.
-// kPow2 = false (mixed radix) is the port's route when n/2 is not a power of
-// two; kPow2 = true, the radix-2 Stockham form that the register core
-// replaced, is kept for tools/profile_fft.py's race.
+// Neither is the port's route any more: kPow2 = false (the mixed radix the
+// mixed-radix register core replaced) and kPow2 = true (the radix-2
+// Stockham form the power-of-two core replaced) are kept for
+// tools/profile_fft.py's races.
 template <bool kPow2>
 __global__ void gl_project_kernel(const float* __restrict__ sig,
                                   const float* __restrict__ mag,
@@ -194,41 +262,45 @@ __global__ void gl_overlap_add_kernel(const float* __restrict__ frames_w,
 // float32 [batch*frames, n/2 + 1]; window: float32 [n] (8-byte aligned);
 // tw: float2 [n/2]; out: float32 [batch*frames, n]. n must be an even size
 // of the TPU's n1 * n2 split (ops/fftbackend.ct_supported; the wrapper
-// checks). When n/2 is a power of two, tw_pass, radices, threads and
-// frames_per_block are the wrapper's plan (ops/rfft_mag.fwd_plan) and its
-// per-pass twiddle table, which the kernel checks as KB's does; otherwise
-// they are ignored.
+// checks). tw_pass, radices, threads and frames_per_block are the wrapper's
+// plan and its per-pass twiddle table (ops/rfft_mag.fwd_plan when n/2 is a
+// power of two, else ops/rfft_mag.mixed_plan), which the kernel checks as
+// KB's does.
 GOMEL_API int gomel_gl_project(const void* sig, const void* mag,
                                const void* window, const void* tw,
                                const void* tw_pass, void* out,
                                long long batch, long long frames,
                                long long length, long long hop, long long n,
-                               int radices, int threads, int frames_per_block,
-                               int device, void* stream) {
+                               long long radices, int threads,
+                               int frames_per_block, int device,
+                               void* stream) {
   cudaSetDevice(device);
   const int m = static_cast<int>(n / 2);
   const auto s = static_cast<cudaStream_t>(stream);
   const float inv_n = 1.0f / static_cast<float>(n);
+  const bool vec = frames_vec_aligned(sig, window, length, hop);
   if (is_pow2(m) && m >= 2) {
-    const bool vec = frames_vec_aligned(sig, window, length, hop);
     return with_log_m(m, [&](auto log_m) {
       constexpr int kL = decltype(log_m)::value;
       return launch_pow2_frames<kL>(
-          gl_project_pow2_kernel<kL>, batch * frames, radices, threads,
-          frames_per_block, s, static_cast<const float*>(sig),
-          static_cast<const float*>(mag), static_cast<const float*>(window),
-          static_cast<const float2*>(tw), static_cast<const float2*>(tw_pass),
-          static_cast<float2*>(out), batch * frames, static_cast<int>(frames),
-          length, hop, vec, inv_n);
+          gl_project_pow2_kernel<kL>, batch * frames,
+          static_cast<int>(radices), threads, frames_per_block, s,
+          static_cast<const float*>(sig), static_cast<const float*>(mag),
+          static_cast<const float*>(window), static_cast<const float2*>(tw),
+          static_cast<const float2*>(tw_pass), static_cast<float2*>(out),
+          batch * frames, static_cast<int>(frames), length, hop, vec, inv_n);
     });
   }
-  const size_t smem = 2 * static_cast<size_t>(m) * sizeof(float2);
-  launch_frames(gl_project_kernel<false>, batch * frames, m, smem, s,
-                static_cast<const float*>(sig), static_cast<const float*>(mag),
-                static_cast<const float*>(window),
-                static_cast<const float2*>(tw), static_cast<float2*>(out),
-                static_cast<int>(frames), length, hop, m, inv_n);
-  return gomel_status();
+  MixedPlan pl;
+  if (!make_mixed_plan(m, radices, threads, frames_per_block, &pl)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_mixed_frames(
+      gl_project_mixed_kernel, batch * frames, pl, s, static_cast<const float*>(sig),
+      static_cast<const float*>(mag), static_cast<const float*>(window),
+      static_cast<const float2*>(tw), static_cast<const float2*>(tw_pass),
+      static_cast<float2*>(out), pl, batch * frames, static_cast<int>(frames),
+      length, hop, vec, inv_n);
 }
 
 // frames_w: float32 [batch, frames, n]; t_prev: float32 [batch, length] or

@@ -5,7 +5,8 @@
 // gomel_tpu/ops/fftbackend.py:65). On the TPU the FFT was a Cooley-Tukey split
 // into two 32x128 dense matmuls on the matrix unit; on Hopper, when n/2 is a
 // power of two, it is the register-resident forward core of fft_core.cuh
-// (fwd_frame_pow2), else the shared-memory mixed radix (n = 3000).
+// (fwd_frame_pow2), else its mixed-radix register core (fwd_frame_mixed;
+// n = 3000: radices 15, 10, 10, 50 threads a frame, 3 frames a block).
 //
 // Precision: all arithmetic is float32 on the CUDA cores. No tensor cores and
 // no TF32: an FFT below full float32 precision is catastrophic after the log
@@ -35,7 +36,12 @@
 // each pass's barrier, conflict-free exchanges, and the epilogue's reads
 // halved by pairing bins.
 // tools/profile_fft.py races it against the radix-2 form below and splits
-// its time by ablation; PERF.md has the numbers.
+// its time by ablation; PERF.md has the numbers. At n = 3000 (2 x 1917
+// frames, the mixed core) the bound is 0.0103 ms (11.5 MB in, 23 MB out);
+// the core reaches about 20% of it: its 64 registers and n/2 float2 of
+// shared memory a frame let about 900 threads reside an SM, and the
+// latency between its barriers shows (bank conflicts cost 3-7%, scalar
+// loads nothing; the profile tool's ablations).
 //
 // The fused KB + KC launch (stft_mel_log_pow2_kernel, gomel_stft_mel_log):
 // the mel encode's route when n/2 is a power of two (ops/mel_ops.fused_route).
@@ -54,6 +60,13 @@
 #include "mel_bands.cuh"
 
 namespace {
+
+// |X[k]| and |X[m - k]| of a frame into dst (k = m - k: once).
+__device__ __forceinline__ void store_mag_pair(float* __restrict__ dst, int k,
+                                               int m, float2 a, float2 b) {
+  dst[k] = sqrtf(a.x * a.x + a.y * a.y);
+  if (2 * k != m) dst[m - k] = sqrtf(b.x * b.x + b.y * b.y);
+}
 
 // The power-of-two form for m = 2^kLogM: FwdPlan's threads a frame and
 // frames a block, m float2 of shared memory a frame.
@@ -91,8 +104,7 @@ stft_mag_pow2_kernel(const float* __restrict__ x,
     } else {
       split_pair(z, tw, k, m, a, b);
     }
-    dst[k] = sqrtf(a.x * a.x + a.y * a.y);
-    if (2 * k != m) dst[m - k] = sqrtf(b.x * b.x + b.y * b.y);
+    store_mag_pair(dst, k, m, a, b);
   }
 }
 
@@ -160,10 +172,50 @@ stft_mel_log_pow2_kernel(const float* __restrict__ x,
                           table, out + first * table.cols);
 }
 
+// The mixed-radix form (n/2 not a power of two) on plan pl: pl.frames
+// frames a block of pl.threads each, pl.frame_stride float2 of shared
+// memory a frame (fft_core.cuh).
+__global__ void __launch_bounds__(kMixedBlockThreads)
+stft_mag_mixed_kernel(const float* __restrict__ x,
+                      const float* __restrict__ window,
+                      const float2* __restrict__ tw,
+                      const float2* __restrict__ twp, float* __restrict__ out,
+                      const __grid_constant__ MixedPlan pl, long long total,
+                      int frames, long long batch_stride, long long hop,
+                      bool vec) {
+  extern __shared__ float2 sbuf[];
+  const int m = pl.m;
+  const int threads = pl.threads;
+  const int slot = threadIdx.x / threads;
+  const int th = threadIdx.x - slot * threads;
+  const long long frame = static_cast<long long>(blockIdx.x) * pl.frames + slot;
+  const bool valid = frame < total;
+  const long long bi = frame / frames;
+  const long long fi = frame - bi * frames;
+  const FrameSource in{valid ? x + bi * batch_stride + fi * hop : x, window,
+                       vec, valid};
+  const float2* z =
+      fwd_frame_mixed(sbuf + slot * pl.frame_stride, in, twp, pl, th);
+  if (!valid) return;
+  float* dst = out + frame * (m + 1);
+  for (int k = th; k <= m / 2; k += threads) {
+    float2 a, b;
+    if (k == 0) {  // DC and Nyquist from Z[0]
+      const float2 z0 = z[0];
+      a = make_float2(z0.x + z0.y, 0.0f);
+      b = make_float2(z0.x - z0.y, 0.0f);
+    } else {
+      split_values(z[k], z[m - k], __ldg(&tw[k]), a, b);
+    }
+    store_mag_pair(dst, k, m, a, b);
+  }
+}
+
 // The shared-memory form: one block a frame, two complex buffers of m.
-// kPow2 = false (mixed radix) is the port's route when n/2 is not a power of
-// two; kPow2 = true, the radix-2 Stockham form that the register core
-// replaced, is kept for tools/profile_fft.py's race.
+// Neither is the port's route any more: kPow2 = false (the mixed radix the
+// mixed-radix register core replaced) and kPow2 = true (the radix-2
+// Stockham form the power-of-two core replaced) are kept for
+// tools/profile_fft.py's races.
 template <bool kPow2>
 __global__ void stft_mag_kernel(const float* __restrict__ x,
                                 const float* __restrict__ window,
@@ -190,37 +242,41 @@ __global__ void stft_mag_kernel(const float* __restrict__ x,
 // x: float32 signal, frame (b, f) starting at x + b*batch_stride + f*hop;
 // window: float32 [n] or null; tw: float2 [n/2]; out: float32
 // [batch*frames, n/2 + 1]. n must be an even size of the TPU's n1 * n2 split
-// (ops/fftbackend.ct_supported; the wrapper checks). When n/2 is a power of
-// two, tw_pass, radices, threads and frames_per_block are the wrapper's plan
-// (ops/rfft_mag.fwd_plan) and its per-pass twiddle table; otherwise they are
-// ignored.
+// (ops/fftbackend.ct_supported; the wrapper checks). tw_pass, radices,
+// threads and frames_per_block are the wrapper's plan and its per-pass
+// twiddle table: ops/rfft_mag.fwd_plan when n/2 is a power of two,
+// ops/rfft_mag.mixed_plan otherwise. A plan the kernel refuses launches
+// nothing and returns cudaErrorInvalidValue.
 GOMEL_API int gomel_stft_mag(const void* x, const void* window, const void* tw,
                              const void* tw_pass, void* out, long long batch,
                              long long frames, long long batch_stride,
-                             long long hop, long long n, int radices,
+                             long long hop, long long n, long long radices,
                              int threads, int frames_per_block, int device,
                              void* stream) {
   cudaSetDevice(device);
   const int m = static_cast<int>(n / 2);
   const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = frames_vec_aligned(x, window, batch_stride, hop);
   if (is_pow2(m) && m >= 2) {
-    const bool vec = frames_vec_aligned(x, window, batch_stride, hop);
     return with_log_m(m, [&](auto log_m) {
       constexpr int kL = decltype(log_m)::value;
       return launch_pow2_frames<kL>(
-          stft_mag_pow2_kernel<kL>, batch * frames, radices, threads,
-          frames_per_block, s, static_cast<const float*>(x),
+          stft_mag_pow2_kernel<kL>, batch * frames, static_cast<int>(radices),
+          threads, frames_per_block, s, static_cast<const float*>(x),
           static_cast<const float*>(window), static_cast<const float2*>(tw),
           static_cast<const float2*>(tw_pass), static_cast<float*>(out),
           batch * frames, static_cast<int>(frames), batch_stride, hop, vec);
     });
   }
-  const size_t smem = 2 * static_cast<size_t>(m) * sizeof(float2);
-  launch_frames(stft_mag_kernel<false>, batch * frames, m, smem, s,
-                static_cast<const float*>(x), static_cast<const float*>(window),
-                static_cast<const float2*>(tw), static_cast<float*>(out),
-                static_cast<int>(frames), batch_stride, hop, m);
-  return gomel_status();
+  MixedPlan pl;
+  if (!make_mixed_plan(m, radices, threads, frames_per_block, &pl)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_mixed_frames(
+      stft_mag_mixed_kernel, batch * frames, pl, s, static_cast<const float*>(x),
+      static_cast<const float*>(window), static_cast<const float2*>(tw),
+      static_cast<const float2*>(tw_pass), static_cast<float*>(out), pl,
+      batch * frames, static_cast<int>(frames), batch_stride, hop, vec);
 }
 
 // The fused KB + KC launch, for n/2 a power of two (2 ... 8192): x, window,

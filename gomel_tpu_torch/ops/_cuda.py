@@ -40,7 +40,7 @@ _SIGNATURES = {
     "gomel_pcm16_ingest": [_P, _P, _I64, _I64, _I64, _I32, _F32, _P, _I32,
                            _I32],
     "gomel_stft_mag": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                       _I32, _I32, _I32],
+                       _I64, _I32, _I32],
     "gomel_stft_planes": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                           _I32, _I32, _I32, _I32, _I32],
     "gomel_stft_mel_log": [_P, _P, _P, _P, _P, _P, _I32, _P, _I64, _I64,
@@ -59,7 +59,7 @@ _SIGNATURES = {
     "gomel_mel_to_mag": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                          _I64, _I64, _F32, _F32, _F32, _F32],
     "gomel_gl_project": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                         _I32, _I32, _I32],
+                         _I64, _I32, _I32],
     "gomel_gl_overlap_add": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                              _F32],
     "gomel_dequantize_raw": [_P, _P, _P, _P, _I64, _I32, _I32, _F32, _I32,

@@ -35,7 +35,7 @@ import torch
 from . import _cuda, dft_mm, fftbackend, istft, prng
 from .istft import overlap_add_plain
 from .quantize import pcm16_encode
-from .rfft_mag import _core_args, _twiddles
+from .rfft_mag import _fft_args, _twiddles
 from .stft import frame_signal, hann_window, window_like
 
 PROJECT_KERNEL = _cuda.Kernel("gl_project", "gomel_tpu_torch/csrc/griffinlim.cu",
@@ -140,7 +140,7 @@ def gl_project(sig: torch.Tensor, mag_half: torch.Tensor,
                       device=dev)
     if batch * frames == 0:
         return out
-    tw_pass, *plan = _core_args(n, dev)
+    tw_pass, *plan = _fft_args(n, dev)
     _cuda.launch("gomel_gl_project", dev, sig.data_ptr(), mag_half.data_ptr(),
                  window.data_ptr(), _twiddles(n, dev).data_ptr(), tw_pass,
                  out.data_ptr(), batch, frames, sig.shape[-1], hop, n, *plan)

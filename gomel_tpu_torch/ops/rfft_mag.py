@@ -12,10 +12,13 @@ On a CUDA tensor each launches its hand-written kernel, which reads every
 frame straight from the signal; on a CPU tensor it runs its plain version.
 When n/2 is a power of two the kernels run the register-resident forward
 core (csrc/fft_core.cuh, fwd_frame_pow2) on the plan :func:`fwd_plan` gives
-and the per-pass twiddles of :func:`_pass_twiddles_np`; the other sizes run
+and the per-pass twiddles of :func:`_pass_twiddles_np`. At the other sizes
+KB runs the mixed-radix register core (fwd_frame_mixed) on the plan
+:func:`mixed_plan` gives and the table of :func:`_mixed_twiddles_np`, and KE
 the shared-memory mixed radix. The inverse kernels KG (ops/istft.py) and KJ
-(ops/griffinlim.py) run the same core's inverse on the same plan and
-tables (:func:`_core_args`).
+(ops/griffinlim.py) run the same cores' inverses on the same plans and
+tables (:func:`_core_args`; KB and KJ: :func:`_fft_args`), KG the
+shared-memory mixed radix at the other sizes.
 ``backend`` picks the route first (ops/fftbackend.resolve): a size the
 kernels do not take goes by the xla route (``torch.fft`` on the card), and
 the name ``mm`` by the matmul DFT (ops/dft_mm, kernel KN).
@@ -113,15 +116,164 @@ def _pass_twiddles_np(n: int, points: int = REG_POINTS) -> np.ndarray:
     return np.concatenate(rows).astype(np.float32)
 
 
+# the mixed-radix register core (csrc/fft_core.cuh, MixedPlan): the radices
+# it computes in registers (2^a 3^b 5^c 7^d up to 16: small DFTs with
+# literal roots, composites as prime-factor nests; radix 20, 24 and 30 cost
+# the kernels 128 registers instead of 64 and 20-35% of their time,
+# tools/profile_fft.py), the most complex points a thread does a pass, the
+# threads a block may have, the most passes a plan may have (the radices go
+# 8 bits a pass into one int64), and the registers ptxas gives the kernels
+MIXED_RADICES = (2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 15, 16)
+MIXED_MAX_POINTS = 64
+MIXED_BLOCK_THREADS = 256
+MIXED_MAX_PASSES = 8
+MIXED_REGISTERS = 64
+MAX_SMEM_BYTES = 232_448    # dynamic shared memory a block can have
+SM_SMEM_BYTES = 233_472     # shared memory an SM (each block reserves 1 KB)
+_WIDE_COST = 0.6    # a plan's cost of more than 32 points a thread
+
+
+class MixedPlan(NamedTuple):
+    """How KB and KJ run an n-point transform when n/2 is not a power of
+    two."""
+    radices: tuple[int, ...]    # of the passes, the first first
+    points: int                 # complex points a thread does a pass
+    threads: int                # a frame: n/2 = threads x points
+    frames_per_block: int
+    smem_bytes: int             # dynamic shared memory a block
+    # each pass: in registers (its radix one of the build's MIXED_RADICES,
+    # dividing points), else a generic shared-memory pass, a thread an
+    # output
+    in_registers: tuple[bool, ...]
+
+    @property
+    def code(self) -> int:
+        """Each radix in 8 bits, the first pass in the low bits: the
+        kernels' ``radices`` argument."""
+        return sum(r << (8 * i) for i, r in enumerate(self.radices))
+
+
+def _frames_per_block(threads: int, stride: int) -> int:
+    """The frames a block of the mixed core that keep the most threads
+    resident on an SM, the larger on a tie: a block's threads at most
+    MIXED_BLOCK_THREADS, its shared memory (stride float2 a frame) at most
+    MAX_SMEM_BYTES; an SM holds SM_SMEM_BYTES of shared memory (1 KB of it
+    a block), 65,536 registers (MIXED_REGISTERS a thread, whole warps), 64
+    warps and 32 blocks."""
+    best = (0, 1)
+    for frames in range(1, max(1, MIXED_BLOCK_THREADS // threads) + 1):
+        smem = frames * stride * 8
+        if smem > MAX_SMEM_BYTES:
+            break
+        warps = -(-threads * frames // 32)
+        blocks = min(32, SM_SMEM_BYTES // (smem + 1024), 64 // warps,
+                     65_536 // (MIXED_REGISTERS * 32 * warps))
+        best = max(best, (blocks * threads * frames, frames))
+    return best[1]
+
+
+def _divisors(m: int) -> list[int]:
+    return [d for d in range(1, m + 1) if m % d == 0]
+
+
+@functools.lru_cache(maxsize=None)
+def mixed_plan(n: int, radices: tuple[int, ...] = MIXED_RADICES) -> MixedPlan:
+    """The plan of the mixed-radix register core (both directions) for an n
+    that the FFT kernels take (``supported``) whose half m is not a power of
+    two. For each count of points a thread, P (a divisor of m up to
+    MIXED_MAX_POINTS, leaving at most MIXED_BLOCK_THREADS threads a frame),
+    m is split into radices at the least cost: 1 a register pass (a radix
+    of MIXED_RADICES that divides P, so every thread of the frame does P/R
+    butterflies of every such pass), 1 + R/4 a generic pass (any other
+    factor R, up to 127: one thread an output, R reads of shared memory
+    each), and _WIDE_COST more for P above 32. The cheapest P wins (the
+    smaller on a tie). The register passes go first, from the largest
+    radix down, the generic passes last. Frames a block:
+    :func:`_frames_per_block`. m = 1500 (n = 3000) is 15 x 10 x 10 with 30
+    points a thread, 50 threads a frame and 3 frames a block; no m takes
+    more passes than the one-prime-a-pass route the core
+    replaced. ``radices`` other than MIXED_RADICES is for builds of the core
+    with other register radices (tools/profile_fft.py)."""
+    m = n // 2
+    if n % 2 or m < 2 or not m & (m - 1) or not supported(n):
+        raise ValueError(f"mixed_plan: n = {n} is not a size of the mixed "
+                         f"core (even, n/2 not a power of two, split n1 x n2 "
+                         f"<= 128)")
+    best = None
+    for points in _divisors(m):
+        if points > MIXED_MAX_POINTS or m // points > MIXED_BLOCK_THREADS:
+            continue
+        regs = {r for r in radices if points % r == 0}
+
+        @functools.lru_cache(maxsize=None)
+        def split(rest: int) -> tuple[float, tuple[int, ...]]:
+            if rest == 1:
+                return 0.0, ()
+            options = []
+            for r in range(2, min(rest, 127) + 1):
+                if rest % r == 0:
+                    cost, tail = split(rest // r)
+                    options.append((cost + (1.0 if r in regs else 1 + r / 4),
+                                    (r,) + tail))
+            return min(options)
+
+        cost, factors = split(m)
+        cost += _WIDE_COST if points > 32 else 0.0
+        if best is None or (cost, points) < best[:2]:
+            best = (cost, points, factors)
+    _, points, split_m = best
+    regs = sorted((r for r in split_m if r in radices and points % r == 0),
+                  reverse=True)
+    generic = sorted(r for r in split_m if r not in regs)
+    threads = m // points
+    # a generic pass after the first writes a second buffer of m
+    stride = 2 * m if generic and (regs or len(generic) > 1) else m
+    per_block = _frames_per_block(threads, stride)
+    plan = MixedPlan(tuple(regs + generic), points, threads, per_block,
+                     per_block * stride * 8,
+                     (True,) * len(regs) + (False,) * len(generic))
+    if len(plan.radices) > MIXED_MAX_PASSES:
+        raise ValueError(f"mixed_plan: n = {n} needs {len(plan.radices)} "
+                         f"passes")
+    return plan
+
+
+def _mixed_twiddles_np(n: int,
+                       radices: tuple[int, ...] = MIXED_RADICES) -> np.ndarray:
+    """The per-pass table of :func:`mixed_plan`'s passes, one after another:
+    a register pass after the first (radix R after passes of product ns)
+    has exp(-2 pi i t k / (ns R)) at (t - 1) ns + k (1 <= t < R, k < ns),
+    the first none; a generic pass has the ns R roots exp(-2 pi i j /
+    (ns R)), j < ns R. Computed in float64 and rounded to float32, as
+    interleaved (re, im) pairs; one zero pair when the table is empty."""
+    plan = mixed_plan(n, radices)
+    ns, rows = 1, []
+    for p, r in enumerate(plan.radices):
+        if plan.in_registers[p]:
+            if p > 0:
+                t = np.arange(1, r, dtype=np.float64)[:, None]
+                k = np.arange(ns, dtype=np.float64)[None, :]
+                ang = (-2.0 * np.pi * (t * k) / (ns * r)).reshape(-1)
+                rows.append(np.stack([np.cos(ang), np.sin(ang)], axis=-1))
+        else:
+            ang = -2.0 * np.pi * np.arange(ns * r, dtype=np.float64) / (ns * r)
+            rows.append(np.stack([np.cos(ang), np.sin(ang)], axis=-1))
+        ns *= r
+    if not rows:
+        return np.zeros((1, 2), np.float32)
+    return np.concatenate(rows).astype(np.float32)
+
+
 # (kind, n, device) -> a table on that device, uploaded once
 _TABLES: dict[tuple[str, int, torch.device], torch.Tensor] = {}
+_MAKERS = {"tw": _twiddles_np, "pass": _pass_twiddles_np,
+           "mixed": _mixed_twiddles_np}
 
 
 def _table(kind: str, n: int, device: torch.device) -> torch.Tensor:
     key = (kind, n, device)
     if key not in _TABLES:
-        make = _twiddles_np if kind == "tw" else _pass_twiddles_np
-        _TABLES[key] = torch.from_numpy(make(n)).to(device)
+        _TABLES[key] = torch.from_numpy(_MAKERS[kind](n)).to(device)
     return _TABLES[key]
 
 
@@ -133,12 +285,24 @@ def _core_args(n: int, device: torch.device) -> tuple:
     """The FFT kernels' (tw_pass, radices, threads, frames_per_block), KB,
     KE, KG and KJ alike: the register core's per-pass table (the inverse
     conjugates its roots) and plan when n/2 is a power of two, nothing for
-    the mixed radix."""
+    the shared-memory mixed radix (KE and KG at the other sizes)."""
     m = n // 2
     if m < 2 or m & (m - 1):
         return None, 0, 0, 0
     plan = fwd_plan(n)
     return (_table("pass", n, device).data_ptr(), plan.code, plan.threads,
+            plan.frames_per_block)
+
+
+def _fft_args(n: int, device: torch.device) -> tuple:
+    """KB's and KJ's (tw_pass, radices, threads, frames_per_block): the
+    power-of-two core's as :func:`_core_args`, else the mixed-radix
+    register core's plan (:func:`mixed_plan`) and its per-pass table."""
+    m = n // 2
+    if m >= 2 and not m & (m - 1):
+        return _core_args(n, device)
+    plan = mixed_plan(n)
+    return (_table("mixed", n, device).data_ptr(), plan.code, plan.threads,
             plan.frames_per_block)
 
 
@@ -185,7 +349,7 @@ def stft_mag(x: torch.Tensor, window: torch.Tensor | None, n: int,
     if batch == 0:
         return out
     win_ptr = None if window is None else window.data_ptr()
-    tw_pass, *plan = _core_args(n, dev)
+    tw_pass, *plan = _fft_args(n, dev)
     _cuda.launch("gomel_stft_mag", dev, x.data_ptr(), win_ptr,
                  _twiddles(n, dev).data_ptr(), tw_pass, out.data_ptr(), batch,
                  frames, length, hop, n, *plan)

@@ -123,6 +123,72 @@ def test_fwd_core_every_pow2_size(cuda, n):
                                                   hop, 1, n // 2), (-2, -1))
 
 
+MIXED_SIZES = [6, 254, 400, 960, 1200, 2400, 3000, 4094, 6000, 12000]
+
+
+@pytest.mark.parametrize("n", MIXED_SIZES)
+def test_mixed_core_sizes(cuda, n):
+    """KB and KJ run the mixed-radix register core where n/2 is not a power
+    of two (a prime m at 254, generic passes at 4094): 3 rows whose frame
+    count is no multiple of the frames a block, one launch each, KB within
+    1e-5 of each frame's peak of float64 (the last row quiet), KJ within
+    1e-4 relative L2 a frame; KB's scalar-load route (a base 4 bytes off
+    16) bit-equal to its vector route; a frame alone bit-equal to itself in
+    the batch."""
+    from gomel_tpu_torch.ops import griffinlim
+    plan = rfft_mag.mixed_plan(n)
+    hop = max(4, n // 16 * 4)
+    frames = 2 * plan.frames_per_block + 3
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, n + (frames - 1) * hop)).astype(np.float32)
+    x[2] *= 1e-3
+    x = torch.from_numpy(x)
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    sig = torch.from_numpy(rng.random(x.shape).astype(np.float32))
+    sig[0, :n] = 0.0
+    mag = torch.from_numpy(
+        (rng.random((3, frames, n // 2 + 1)) * 3).astype(np.float32))
+    before = (rfft_mag.KERNEL.launches, griffinlim.PROJECT_KERNEL.launches)
+    mags = rfft_mag.stft_mag(x.to(cuda), win.to(cuda), n, hop)
+    proj = griffinlim.gl_project(sig.to(cuda), mag.to(cuda), win.to(cuda), n,
+                                 hop)
+    assert (rfft_mag.KERNEL.launches, griffinlim.PROJECT_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    _peak_close(mags, rfft_mag.stft_mag_plain(x.double(), win.double(), n,
+                                              hop), (-1,))
+    ref = griffinlim.gl_project_plain(sig.double(), mag.double(),
+                                      win.double(), n, hop)
+    rel = (proj.cpu().double() - ref).norm(dim=-1) / ref.norm(dim=-1)
+    assert float(rel.max()) <= 1e-4
+    off = torch.cat([torch.zeros(1), x.reshape(-1)]).to(cuda)[1:]
+    assert torch.equal(rfft_mag.stft_mag(off.reshape(x.shape), win.to(cuda),
+                                         n, hop), mags)
+    one = x[1, hop:hop + n].contiguous().to(cuda)
+    assert torch.equal(rfft_mag.stft_mag(one, win.to(cuda), n, hop)[0],
+                       mags[1, 1])
+    alone = griffinlim.gl_project(sig[2, 2 * hop:2 * hop + n].to(cuda),
+                                  mag[2, 2:3].to(cuda), win.to(cuda), n, hop)
+    assert torch.equal(alone[0], proj[2, 2])
+
+
+def test_mixed_core_refuses_a_wrong_plan(cuda):
+    """A plan the kernel does not take (radices that do not multiply to n/2,
+    threads that do not divide it, a block over 256 threads) launches
+    nothing and raises: there is no fallback."""
+    from gomel_tpu_torch.ops import _cuda
+    n, hop = 3000, 750
+    x = torch.randn((1, n + 4 * hop), device=cuda)
+    out = torch.empty((1, 5, n // 2 + 1), device=cuda)
+    tw = rfft_mag._twiddles(n, cuda)
+    tw_pass, code, threads, per_block = rfft_mag._fft_args(n, cuda)
+    for bad in ((code + 1, threads, per_block), (code, threads + 1, per_block),
+                (code, threads, 256 // threads + 1)):
+        with pytest.raises(RuntimeError):
+            _cuda.launch("gomel_stft_mag", cuda, x.data_ptr(), None,
+                         tw.data_ptr(), tw_pass, out.data_ptr(), 1, 5,
+                         x.shape[1], hop, n, *bad)
+
+
 @pytest.mark.parametrize("n,hop,lead,extra", [
     (4096, 1279, (2,), 0),      # hop not a multiple of 4
     (4096, 1280, (2,), 3),      # row length not a multiple of 4
@@ -275,7 +341,7 @@ def test_fftbackend_rfft_mag_vs_torch_fft(cuda):
 
 def test_stft_mag_rejects_unsupported(cuda):
     """float64 is refused; n = 3000 (n/2 not a power of two) runs KB's
-    mixed radix, and n = 514 (2 x 257: no n1 * n2 split with both factors
+    mixed-radix register core, and n = 514 (2 x 257: no n1 * n2 split with both factors
     <= 128) goes by the xla route, each chosen by fftbackend.resolve and
     within 1e-5 of the frame peak of the CPU path."""
     x = torch.randn(10000, generator=torch.Generator().manual_seed(3))

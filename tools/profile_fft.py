@@ -49,10 +49,33 @@ anything:
   inv_store_only      KJ/KG: no such reads, no forward passes, no DFTs: the
                       inverse's last pass alone reads the buffer and stores
 
+The mixed-radix register core (KB and KJ where n/2 is not a power of two)
+is raced the same way against the shared-memory mixed radix it replaced
+(stft_mag_kernel<false>, gl_project_kernel<false>, launched only by the
+tool) at n = 400, 1200, 3000 and 6000, hop n/4, on the bench signal (2 rows
+of 30 s at 48 kHz), beside ``torch.fft.rfft`` / ``irfft`` (and KJ's
+``rfft`` + ``irfft``) of the same frames, with its ablations:
+
+  mixed_dense         the R x R product in place of each compile-time
+                      butterfly, its roots constants of a table (the
+                      earlier core's arithmetic in the new layout)
+  mixed_scalar        the frames read by scalar loads (never 8-byte)
+  mixed_radix30       register radices 20, 24 and 30 too (their own
+                      plans: fewer passes, more registers)
+  mixed_min_blocks_3  __launch_bounds__ asking for 3 blocks of 256 threads
+                      an SM (a register cap of 85; the shipped build has 64)
+  mixed_unroll_2      the butterfly loops unrolled by 2 (two butterflies'
+                      loads in flight)
+  mixed_linear_banks  every pass's shared accesses at j + t m/R, free of
+                      bank conflicts and of the digit reversal (the wrong
+                      points: what the conflicts cost)
+  one frame a block   the shipped build with frames_per_block 1
+
 Prints the card's name and power limit, ptxas's registers, shared memory
-and spills of each kernel at n = 4096 and of the radix-2 forms, and one line
-per measurement: device ms per call (CUDA events over calls queued behind a
-sleep kernel, chip_smoke.cuda_ms, lower of two runs). The same numbers, and
+and spills of each kernel at n = 4096, of the radix-2 forms and of the
+mixed kernels, and one line per measurement: device ms per call (CUDA
+events over calls queued behind a sleep kernel, chip_smoke.cuda_ms, lower
+of two runs; ``--mixed-only``: the mixed section alone). The same numbers, and
 ptxas's lines for every kernel, go to chiprun_out/profile_fft.json. Imports
 nothing of JAX.
 """
@@ -80,7 +103,10 @@ SHAPES = {"bench": (2, 1122), "shard": (1, 16875)}
 SHARD_REAL = 16872          # the last shard's real frames (67,497 in all)
 FWD = ("rfft_mag.cu", "phase_encode.cu")
 INV = ("griffinlim.cu", "phase_decode.cu")
+MIX = ("rfft_mag.cu", "griffinlim.cu")      # KB and KJ: the mixed core
 SOURCES = ("fft_core.cuh",) + FWD + INV
+MIXED_N = (400, 1200, 3000, 6000)
+RADIX30 = rfft_mag.MIXED_RADICES + (20, 24, 30)
 
 # the earlier radix-2 form, launched from an entry point added to each file
 _RADIX2 = {
@@ -176,6 +202,120 @@ GOMEL_API int prof_radix2_irfft_window(int mode, const void* src,
 """,
 }
 
+# the shared-memory mixed radix the mixed-radix register core replaced
+_RADIX2["rfft_mag.cu"] += """
+GOMEL_API int prof_mixed_old_stft_mag(const void* x, const void* window,
+    const void* tw, void* out, long long batch, long long frames,
+    long long batch_stride, long long hop, long long n, int device,
+    void* stream) {
+  cudaSetDevice(device);
+  const int m = static_cast<int>(n / 2);
+  launch_frames(stft_mag_kernel<false>, batch * frames, m,
+                2 * static_cast<size_t>(m) * sizeof(float2),
+                static_cast<cudaStream_t>(stream),
+                static_cast<const float*>(x), static_cast<const float*>(window),
+                static_cast<const float2*>(tw), static_cast<float*>(out),
+                static_cast<int>(frames), batch_stride, hop, m);
+  return gomel_status();
+}
+"""
+_RADIX2["griffinlim.cu"] += """
+GOMEL_API int prof_mixed_old_gl_project(const void* sig, const void* mag,
+    const void* window, const void* tw, void* out, long long batch,
+    long long frames, long long length, long long hop, long long n,
+    int device, void* stream) {
+  cudaSetDevice(device);
+  const int m = static_cast<int>(n / 2);
+  launch_frames(gl_project_kernel<false>, batch * frames, m,
+                2 * static_cast<size_t>(m) * sizeof(float2),
+                static_cast<cudaStream_t>(stream),
+                static_cast<const float*>(sig), static_cast<const float*>(mag),
+                static_cast<const float*>(window),
+                static_cast<const float2*>(tw), static_cast<float2*>(out),
+                static_cast<int>(frames), length, hop, m,
+                1.0f / static_cast<float>(n));
+  return gomel_status();
+}
+"""
+
+
+def _dense_roots() -> str:
+    """A constant table of exp(-2 pi i r / R), r < R, for every register
+    radix R (float32 roundings), and dft_mixed as the R x R product with
+    them, its outputs where the shipped butterfly leaves them."""
+    import numpy as np
+    rows = []
+    for r in range(31):
+        ang = -2.0 * np.pi * np.arange(30) / max(r, 1)
+        vals = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+        rows.append("{" + ", ".join(f"{{{float(a)!r}f, {float(b)!r}f}}"
+                                    for a, b in vals) + "}")
+    return ("static __constant__ float2 kDenseRoots[31][30] = {\n" +
+            ",\n".join(rows) + "};\n\n" + """
+template <int R, bool kInverse>
+__device__ __forceinline__ void dft_mixed(float2* v) {
+  float2 x[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) x[t] = v[t];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    float re = 0.0f, im = 0.0f;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      float2 w = kDenseRoots[R][(t * s) % R];
+      if (kInverse) w.y = -w.y;
+      re += x[t].x * w.x - x[t].y * w.y;
+      im += x[t].x * w.y + x[t].y * w.x;
+    }
+    v[out_pos<R>(s)] = make_float2(re, im);
+  }
+}
+
+""")
+
+
+_MIXED_DFT = ("template <int R, bool kInverse>\n"
+              "__device__ __forceinline__ void dft_mixed(float2* v) {")
+_MIXED_DENSE = ("fft_core.cuh", _MIXED_DFT, None)   # filled in by build()
+_MIXED_SCALAR = [
+    ("rfft_mag.cu", "const auto s = static_cast<cudaStream_t>(stream);\n"
+     "  const bool vec = frames_vec_aligned(x, window, batch_stride, hop);",
+     "const auto s = static_cast<cudaStream_t>(stream);\n"
+     "  const bool vec = false;"),
+    ("griffinlim.cu",
+     "const bool vec = frames_vec_aligned(sig, window, length, hop);",
+     "const bool vec = false;"),
+]
+_MIXED_RADIX30 = ("fft_core.cuh", "X(15) X(16)", "X(15) X(16) X(20) X(24) X(30)")
+_MIXED_MIN_BLOCKS = [(f, "__launch_bounds__(kMixedBlockThreads)",
+                      "__launch_bounds__(kMixedBlockThreads, 3)") for f in MIX]
+# every pass's shared-memory accesses at j + t m/R, the earlier core's
+# conflict-free read pattern (the wrong points: a timing of the same work
+# with no bank conflicts and no digit reversal)
+_MIXED_LINEAR = [
+    ("fft_core.cuh", "    float2* a = z + mixed_rev(j, pl) * R;\n#pragma unroll\n"
+     "    for (int s = 0; s < R; ++s) a[s] = v[out_pos<R>(s)];",
+     "#pragma unroll\n"
+     "    for (int s = 0; s < R; ++s) z[j + s * stride] = v[out_pos<R>(s)];"),
+    ("fft_core.cuh", "    float2* a = z + g * ns * R + k;",
+     "    float2* a = z + b + 0 * g;"),
+    ("fft_core.cuh", "v[t] = a[t * ns];", "v[t] = a[t * (pl.m / R)];"),
+    ("fft_core.cuh", "a[s * ns] = v[out_pos<R>(s)];",
+     "a[s * (pl.m / R)] = v[out_pos<R>(s)];"),
+    ("fft_core.cuh", "        a[t * ns] = cmul<true>(",
+     "        a[t * (pl.m / R)] = cmul<true>("),
+    ("fft_core.cuh", "    const float2* a = z + mixed_rev(j, pl) * R;\n    float2 v[R];\n"
+     "#pragma unroll\n    for (int s = 0; s < R; ++s) v[s] = a[s];",
+     "    float2 v[R];\n#pragma unroll\n"
+     "    for (int s = 0; s < R; ++s) v[s] = z[j + s * stride];"),
+]
+_MIXED_UNROLL = [("fft_core.cuh", loop, "#pragma unroll 2\n" + loop) for loop in (
+    "  for (int u = 0; u < nb; ++u) {\n    const int j = th + u * pl.threads;\n"
+    "    float2 v[R];",
+    "  for (int u = 0; u < nb; ++u) {\n    const int b = th + u * pl.threads;",
+    "  for (int u = 0; u < nb; ++u) {\n    const int j = th + u * pl.threads;\n"
+    "    const float2* a = z + mixed_rev(j, pl) * R;")]
+
 # (file, text, replacement) edits; a text not found exactly once fails
 _NO_LOAD = ("fft_core.cuh", "valid ? load_pair(src, window, off, vec)",
             "valid ? make_float4(th, c, off, 1.0f)")
@@ -187,11 +327,11 @@ _NO_PASSES = ("fft_core.cuh", "  later_passes<kLogM, 1, r0, false>(z, twp, th);"
               "")
 _NO_STORE = [
     ("rfft_mag.cu",
-     "    dst[k] = sqrtf(a.x * a.x + a.y * a.y);\n"
-     "    if (2 * k != m) dst[m - k] = sqrtf(b.x * b.x + b.y * b.y);",
-     "    const float g = sqrtf(a.x * a.x + a.y * a.y) +\n"
-     "                    sqrtf(b.x * b.x + b.y * b.y);\n"
-     "    if (__float_as_uint(g) == 0xdeadbeefu) dst[k] = g;"),
+     "  dst[k] = sqrtf(a.x * a.x + a.y * a.y);\n"
+     "  if (2 * k != m) dst[m - k] = sqrtf(b.x * b.x + b.y * b.y);",
+     "  const float g = sqrtf(a.x * a.x + a.y * a.y) +\n"
+     "                  sqrtf(b.x * b.x + b.y * b.y);\n"
+     "  if (__float_as_uint(g) == 0xdeadbeefu) dst[k] = g;"),
     ("phase_encode.cu",
      "    if (k >= first && k <= last) dst[k - first] = make_float2(a.y, a.x);\n"
      "    if (2 * k != m && m - k >= first && m - k <= last) {\n"
@@ -202,7 +342,7 @@ _NO_STORE = [
 # the inverse kernels: no reads of the magnitudes (KJ) or spectrum (KG)
 _INV_NO_LOAD = [
     ("griffinlim.cu", "const float mk = mg[k], mq = mg[m - k];",
-     "const float mk = 1.0f + k, mq = 2.0f + th;"),
+     "const float mk = 1.0f + k, mq = 2.0f + m;"),
     ("phase_decode.cu",
      "      const float2 p = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames,\n"
      "                                       nf, max_val, ext, ihs_passes);\n"
@@ -226,9 +366,12 @@ _INV_NO_STORE = ("fft_core.cuh",
 
 
 def _min_blocks(n: int) -> list[tuple[str, str, str]]:
-    """__launch_bounds__ asking for n blocks an SM (a register cap)."""
-    old = "FwdPlan<kLogM>::frames_per_block)"
-    return [(f, old, old[:-1] + f", {n})") for f in FWD]
+    """__launch_bounds__ asking for n blocks an SM (a register cap) of KB's
+    and KE's kernels (not the fused KB + KC launch beside KB's)."""
+    old = "FwdPlan<kLogM>::frames_per_block)\n"
+    return [(f, old + k, old[:-2] + f", {n})\n" + k)
+            for f, k in zip(FWD, ("stft_mag_pow2_kernel(",
+                                  "stft_planes_pow2_kernel("))]
 
 
 _P8 = ("fft_core.cuh", "constexpr int kRegPoints = 16;",
@@ -250,9 +393,15 @@ VARIANTS = {
     "inv_transform_only": (16, [_NO_LOAD, *_INV_NO_LOAD, _INV_NO_STORE], INV),
     "inv_store_only": (16, [_NO_LOAD, _NO_DFT1, _NO_PASSES, *_INV_NO_LOAD,
                             _INV_LAST_ONLY, _INV_NO_DFT], INV),
+    "mixed_dense": (16, [_MIXED_DENSE], MIX),
+    "mixed_scalar": (16, _MIXED_SCALAR, MIX),
+    "mixed_radix30": (16, [_MIXED_RADIX30], MIX),
+    "mixed_min_blocks_3": (16, _MIXED_MIN_BLOCKS, MIX),
+    "mixed_unroll_2": (16, _MIXED_UNROLL, MIX),
+    "mixed_linear_banks": (16, _MIXED_LINEAR, MIX),
 }
 # the kernels each group of sources holds
-KINDS = {FWD: ("KB", "KE"), INV: ("KJ", "KG")}
+KINDS = {FWD: ("KB", "KE"), INV: ("KJ", "KG"), MIX: ()}
 
 
 def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
@@ -268,6 +417,9 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
         os.makedirs(d, exist_ok=True)
         files = dict(texts)
         for name, old, new in edits:
+            if new is None:     # the dense butterfly before the shipped one
+                new = _dense_roots() + old.replace("dft_mixed(",
+                                                   "dft_mixed_nested(")
             if files[name].count(old) != 1:
                 raise RuntimeError(f"variant {variant}: {old!r} is not in "
                                    f"{name} exactly once")
@@ -292,6 +444,8 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
         "prof_radix2_gl_project": [p, p, p, p, p, i64, i64, i64, i64, i64],
         "prof_radix2_irfft_window": [i32, p, p, p, p, p, p, i64, i64, i64,
                                      i64, i64, f32, i32],
+        "prof_mixed_old_stft_mag": [p, p, p, p, i64, i64, i64, i64, i64],
+        "prof_mixed_old_gl_project": [p, p, p, p, p, i64, i64, i64, i64, i64],
     }
     libs = {}
     for variant, (proc, lib, log) in jobs.items():
@@ -303,10 +457,10 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
             raise RuntimeError(f"nvcc failed for {variant}:\n{report}")
         handle = ctypes.CDLL(lib)
         units = VARIANTS[variant][2]
-        symbols = ([("gomel_stft_mag", "gomel_stft_planes")] if FWD[0] in units
-                   else []) + ([("gomel_gl_project", "gomel_irfft_window")]
-                               if INV[0] in units else [])
-        for pair in symbols:
+        symbols = [s for s in ("gomel_stft_mag", "gomel_stft_planes",
+                               "gomel_gl_project", "gomel_irfft_window")
+                   if hasattr(handle, s)]
+        for pair in [symbols]:
             for symbol in pair:
                 fn = getattr(handle, symbol)
                 fn.argtypes = [*_cuda._SIGNATURES[symbol], i32, p]
@@ -342,9 +496,114 @@ def _at_n(line: str) -> bool:
     return f"Li{N.bit_length() - 2}E" in line or "Lb1E" in line
 
 
+def mixed_race(libs, dev, iters: int, record) -> None:
+    """The mixed-radix register core against the shared-memory mixed radix
+    it replaced, KB and KJ at MIXED_N on the bench signal, beside
+    torch.fft, and the mixed ablations."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    length = 1_440_000 + 2 * 1280          # the bench rows, padded
+    x = torch.rand((2, length), generator=g, device=dev) - 0.5
+    shipped = libs["shipped"][0]
+    for n in MIXED_N:
+        hop = n // 4
+        frames = (length - n) // hop + 1
+        sig = x[:, :n + (frames - 1) * hop].contiguous()
+        win = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
+        tw = rfft_mag._twiddles(n, dev)
+        mag = torch.empty((2, frames, n // 2 + 1), device=dev)
+        target = torch.rand((2, frames, n // 2 + 1), generator=g,
+                            device=dev) * 3
+        fw = torch.empty((2, frames, n), device=dev)
+        plans = {}
+        for name, radices in (("shipped", rfft_mag.MIXED_RADICES),
+                              ("radix30", RADIX30)):
+            pl = rfft_mag.mixed_plan(n, radices)
+            table = torch.from_numpy(rfft_mag._mixed_twiddles_np(
+                n, radices)).to(dev)
+            plans[name] = (pl, table)
+
+        def kb(lib, plan="shipped", per_block=None):
+            pl, table = plans[plan]
+            return lambda: lib.gomel_stft_mag(
+                x.data_ptr(), win.data_ptr(), tw.data_ptr(), table.data_ptr(),
+                mag.data_ptr(), 2, frames, length, hop, n, pl.code,
+                pl.threads, per_block or pl.frames_per_block, dev.index,
+                stream)
+
+        def kj(lib, plan="shipped", per_block=None):
+            pl, table = plans[plan]
+            return lambda: lib.gomel_gl_project(
+                sig.data_ptr(), target.data_ptr(), win.data_ptr(),
+                tw.data_ptr(), table.data_ptr(), fw.data_ptr(), 2, frames,
+                sig.shape[1], hop, n, pl.code, pl.threads,
+                per_block or pl.frames_per_block, dev.index, stream)
+
+        old = {"KB": lambda: shipped.prof_mixed_old_stft_mag(
+                   x.data_ptr(), win.data_ptr(), tw.data_ptr(), mag.data_ptr(),
+                   2, frames, length, hop, n, dev.index, stream),
+               "KJ": lambda: shipped.prof_mixed_old_gl_project(
+                   sig.data_ptr(), target.data_ptr(), win.data_ptr(),
+                   tw.data_ptr(), fw.data_ptr(), 2, frames, sig.shape[1], hop,
+                   n, dev.index, stream)}
+        framed = (frame_signal(x, n, hop) * win).contiguous()
+        spec = torch.fft.rfft(framed, dim=-1)
+        lib_ms = {
+            "KB": {"rfft_ms": min(chip_smoke.cuda_ms(
+                lambda: torch.fft.rfft(framed, dim=-1), iters)
+                for _ in range(2))},
+            "KJ": {"irfft_ms": min(chip_smoke.cuda_ms(
+                lambda: torch.fft.irfft(spec, n=n), iters) for _ in range(2)),
+                   "rfft_irfft_ms": min(chip_smoke.cuda_ms(
+                       lambda: torch.fft.irfft(torch.fft.rfft(
+                           framed, dim=-1), n=n), iters) for _ in range(2))}}
+        inputs = {"KB": (x, win, mag), "KJ": (sig, target, win, fw)}
+        for kind, make, out in (("KB", kb, mag), ("KJ", kj, fw)):
+            new_fn, old_fn = make(shipped), old[kind]
+            for fn in (new_fn, old_fn):
+                if fn() != 0:
+                    raise RuntimeError(f"{kind} n {n}: launch failed")
+            torch.cuda.synchronize()
+            new_out = out.clone()
+            old_fn()
+            torch.cuda.synchronize()
+            rel = (chip_smoke.rel_l2(new_out, out) if kind == "KJ" else float(
+                ((new_out - out).abs() / out.abs().amax(-1, keepdim=True)
+                 .clamp_min(1e-30)).max()))
+            if rel > (1e-4 if kind == "KJ" else 1e-5):
+                raise AssertionError(f"{kind} n {n}: the mixed core against "
+                                     f"the earlier form {rel:.3e}")
+            new_ms, old_ms = chip_smoke.race(new_fn, old_fn, kind, iters)
+            b_ms = chip_smoke.bound(chip_smoke.nbytes(*inputs[kind]), 0.0)[0]
+            pl = plans["shipped"][0]
+            record(kernel=kind, n=n, frames=2 * frames,
+                   plan=f"{'x'.join(map(str, pl.radices))} P {pl.points} "
+                        f"T {pl.threads} F {pl.frames_per_block}",
+                   mixed_core_ms=new_ms, earlier_ms=old_ms,
+                   speedup=old_ms / new_ms, bound_ms=b_ms,
+                   bound_share=b_ms / new_ms, **lib_ms[kind],
+                   core_vs_library=new_ms / next(iter(lib_ms[kind].values())),
+                   core_vs_earlier_rel_err=rel)
+            runs = {"one frame a block": make(shipped, per_block=1)}
+            for variant in ("mixed_dense", "mixed_scalar", "mixed_radix30",
+                            "mixed_min_blocks_3", "mixed_unroll_2",
+                            "mixed_linear_banks"):
+                runs[variant] = make(libs[variant][0], "radix30" if variant
+                                     == "mixed_radix30" else "shipped")
+            for variant, fn in runs.items():
+                if fn() != 0:
+                    raise RuntimeError(f"{kind} n {n} {variant}: launch "
+                                       f"failed")
+                ms = min(chip_smoke.cuda_ms(fn, iters) for _ in range(2))
+                record(kernel=kind, n=n, variant=variant, ms=ms,
+                       share_of_shipped=ms / new_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--mixed-only", action="store_true",
+                    help="only the mixed-radix section")
     ap.add_argument("--sass", action="store_true",
                     help="also write the shipped build's SASS (cuobjdump) to "
                          "chiprun_out/profile_fft.sass")
@@ -369,10 +628,10 @@ def main(argv=None) -> int:
         if _at_n(line):
             print(f"  ptxas {line}")
     for variant, (_, report) in libs.items():
-        if variant != "shipped":
-            for line in ptxas_lines(report):
-                if "pow2" in line and _at_n(line):
-                    print(f"  ptxas, {variant}: {line}")
+        for line in ptxas_lines(report):
+            if "mixed" in line or (variant != "shipped" and "pow2" in line
+                                   and _at_n(line)):
+                print(f"  ptxas, {variant}: {line}")
     plan = rfft_mag.fwd_plan(N)
     print(f"  plan n {N}: radices {plan.radices}, {plan.threads} threads a "
           f"frame, {plan.frames_per_block} frames a block, "
@@ -399,7 +658,7 @@ def main(argv=None) -> int:
         peak = b.abs().amax(dim=tuple(range(2, b.dim())), keepdim=True)
         return float(((a - b).abs() / peak.clamp_min(1e-30)).max())
 
-    for shape, (batch, frames) in SHAPES.items():
+    for shape, (batch, frames) in ({} if args.mixed_only else SHAPES).items():
         length = N + (frames - 1) * HOP
         x = torch.rand((batch, length), generator=g, device=dev) - 0.5
         mag = torch.empty((batch, frames, N // 2 + 1), device=dev)
@@ -516,6 +775,7 @@ def main(argv=None) -> int:
                 ms = min(chip_smoke.cuda_ms(fn, args.iters) for _ in range(2))
                 record(kernel=kind, shape=shape, variant=variant, ms=ms,
                        share_of_shipped=ms / base)
+    mixed_race(libs, dev, args.iters, record)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "profile_fft.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptxas, "plan": plan._asdict(),
