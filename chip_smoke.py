@@ -50,12 +50,13 @@ such n from 4 to 16384, on the scalar-load route, at KE's bin ranges and for
 bench frames computed alone against the batch (fwd_core_checks). KG and KJ
 run the same core's inverse at those sizes: phase 2 holds KG on planes with
 and without the window and with real-frame counts, KJ, and bench frames
-computed alone against the batch (inv_core_checks). KB and KJ run a
-mixed-radix register core where n/2 is not a power of two: phase 2 holds
+computed alone against the batch (inv_core_checks). KB, KE, KG and KJ run
+a mixed-radix register core where n/2 is not a power of two: phase 2 holds
 them at n = 6 ... 12000 (prime and generic-pass sizes too) against float64,
-KB's scalar-load route and a frame alone against the batch
+KG in its four source modes and with a real-frame count (masked frames
+zeros), KB's and KE's scalar-load route and a frame alone against the batch
 (mixed_core_checks); phase 4 times them at n = 3000 beside the rows PERF.md
-recorded before (EARLIER_MS), with KE and KG there. On KB's power-of-two
+recorded before (EARLIER_MS). On KB's power-of-two
 route the mel encode is one fused launch (KB's transform with KC's band sum
 in its epilogue): phase 2 holds it bit-equal to KB followed by KC at the
 bench shape (also with a NaN frame), and KC within 1e-5 of its plain
@@ -375,9 +376,10 @@ THREEFRY_OPS = 20 * 3 + 12 + 3
 
 
 # each kernel's phase-4 device ms as PERF.md recorded it before KD's and
-# KP's redesign, and KB's and KJ's n = 3000 rows before the mixed-radix
-# register core (NVIDIA H100 80GB HBM3, 700.00 W; the last run PERF.md
-# names for each), printed beside this run's to read the controls off
+# KP's redesign, and the n = 3000 rows before the mixed-radix register core
+# took them (KB's and KJ's, then KE's and KG's; NVIDIA H100 80GB HBM3,
+# 700.00 W; the last run PERF.md names for each), printed beside this run's
+# to read the controls off
 EARLIER_MS = {
     "pcm16_ingest": 0.0086, "pcm16_ingest zero-stuff": 0.0160,
     "pcm16_ingest_rows": 0.0169, "stft_mag": 0.0256, "mel_log": 0.0143,
@@ -395,7 +397,9 @@ EARLIER_MS = {
     "dft_inv_f32": 2.1178, "threefry_uniform": 0.0130,
     "threefry_uniform one shard": 0.0752,
     "mixed radix stft_mag (KB's site)": 0.1197,
-    "mixed radix gl_project (KJ's site)": 0.2333}
+    "mixed radix gl_project (KJ's site)": 0.2333,
+    "mixed radix phase_encode (KE's site)": 0.1255,
+    "mixed radix irfft_window (KG's site)": 0.1262}
 
 
 def bound(n_bytes: float, flops: float,
@@ -902,14 +906,14 @@ def fft_size_checks(dev: torch.device, x: torch.Tensor, n: int, hop: int,
                     nf: int, routed: bool) -> dict:
     """Phase 2f, K19's repair: every FFT kernel site at a size n whose half
     is not a power of two, on the route fftbackend.resolve picks: n = 3000
-    (24 x 125 on the TPU's split) runs the kernels' mixed radix (KB and KJ
-    the mixed-radix register core, KE and KG the shared-memory one), so
-    their tallies move and the xla route's does not; n = 514 (2 x 257, no split:
-    the TPU's library FFT) goes by the xla route (``routed``), the other way
-    round. KB's and KE's sites within 1e-5 of each frame's peak of their
-    plain versions, KG's (planes with and without a real-frame count, the
-    spectrogram, uint8 and uint16 planes with and without IHS, the masked
-    synthesis) within 1e-5, KJ's within 1e-4 relative L2 per frame.
+    (24 x 125 on the TPU's split) runs the kernels' mixed-radix register
+    core, so their tallies move and the xla route's does not; n = 514
+    (2 x 257, no split: the TPU's library FFT) goes by the xla route
+    (``routed``), the other way round. KB's and KE's sites within 1e-5 of
+    each frame's peak of their plain versions, KG's (planes with and
+    without a real-frame count, the spectrogram, uint8 and uint16 planes
+    with and without IHS, the masked synthesis) within 1e-5, KJ's within
+    1e-4 relative L2 per frame.
     Returns phase 4's rows of the size (with KE's and KG's where the hand
     kernels run it), each with its work for the bound."""
     from gomel_tpu_torch.ops import (fftbackend, griffinlim, istft,
@@ -999,7 +1003,7 @@ def fft_size_checks(dev: torch.device, x: torch.Tensor, n: int, hop: int,
             work=(nbytes(sig, mag, win, fw),
                   f2 * (2 * fft_ops(n) + 2 * n + 12 * (n // 2 + 1)))),
     }
-    if not routed:   # KE and KG, still on the shared-memory mixed radix
+    if not routed:
         rows[f"{what} phase_encode (KE's site)"] = dict(
             n=n, kernel=lambda: phase_ops.phase_encode_batch(x, nf, n, hop,
                                                              win),
@@ -1168,25 +1172,34 @@ MIXED_SIZES = (6, 254, 400, 960, 1200, 2400, 3000, 4094, 6000, 12000)
 
 
 def mixed_core_checks(dev: torch.device) -> None:
-    """Phase 2, KB and KJ's mixed-radix register core (csrc/fft_core.cuh,
-    fwd_frame_mixed and inv_frame_mixed) at MIXED_SIZES: 3 rows, a frame
-    count no multiple of the frames a block, the last row quiet; KB within
-    1e-5 of each frame's peak of float64 with and without the window, KJ
-    within 1e-4 relative L2 a frame of float64 (row 0's first frame
-    silent); KB's scalar-load route (the same rows from a base 4 bytes off
-    16) bit-equal to its vector route; a frame alone bit-equal to itself
-    inside the batch (KB and KJ)."""
-    from gomel_tpu_torch.ops import griffinlim, rfft_mag
-    from gomel_tpu_torch.ops.stft import hann_window
+    """Phase 2, the mixed-radix register core (csrc/fft_core.cuh,
+    fwd_frame_mixed and inv_frame_mixed) of KB, KE, KG and KJ at
+    MIXED_SIZES: 3 rows, a frame count no multiple of the frames a block,
+    the last row quiet; KB within 1e-5 of each frame's peak of float64 with
+    and without the window, KE's bins 1..nf with the window and 0..n/2 of
+    framed input without within 1e-5, KG on planes, the spectrogram and
+    uint8 and uint16 PNG planes (IHS 2) within 1e-5 of each frame's peak and,
+    with a real-frame count whose live frames start a block's second row,
+    its masked frames exact zeros and the rest bit-equal to the unmasked
+    launch; KJ within 1e-4 relative L2 a frame of float64 (row 0's first
+    frame silent); KB's and KE's scalar-load route (the same rows from a
+    base 4 bytes off 16) bit-equal to their vector route; a frame alone
+    bit-equal to itself inside the batch (KB, KE, KG and KJ)."""
+    from gomel_tpu_torch.ops import (griffinlim, istft, phase_ops, quantize,
+                                     rfft_mag)
+    from gomel_tpu_torch.ops.stft import frame_signal, hann_window
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
-    worst_b = worst_j = 0.0
+    rng = np.random.default_rng(SEED + 11)
+    worst_b = worst_e = worst_g = worst_j = 0.0
     plans = []
     for n in MIXED_SIZES:
+        m = n // 2
         plan = rfft_mag.mixed_plan(n)
         plans.append(f"{n}: {'x'.join(map(str, plan.radices))}")
         frames = 2 * plan.frames_per_block + 3
         h = max(4, n // 16 * 4)
+        nf = max(1, m * 768 // 1000)
         xs = torch.randn((3, n + (frames - 1) * h), generator=g, device=dev)
         xs[2] *= 1e-3
         w = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
@@ -1201,15 +1214,35 @@ def mixed_core_checks(dev: torch.device) -> None:
             if rel > 1e-5:
                 raise AssertionError(f"mixed core KB n {n}: {rel:.3e} of the "
                                      f"frame peak > 1e-5")
+        pairs = rfft_mag.stft_planes(xs, w, n, h, 1, nf)
+        laid = frame_signal(xs, n, h).contiguous().reshape(3, -1)
+        for got, (xr, wr, hr, first, count) in (
+                (pairs, (xs, w, h, 1, nf)),
+                (rfft_mag.stft_planes(laid, None, n, n, 0, m + 1),
+                 (laid, None, n, 0, m + 1))):
+            full = rfft_mag.stft_planes_plain(
+                xr.double(), None if wr is None else wr.double(), n, hr, 0,
+                m + 1)
+            rel = frame_peak_err(got, full[..., first:first + count, :],
+                                 full.abs().amax((-2, -1), keepdim=True))[0]
+            worst_e = max(worst_e, rel)
+            if rel > 1e-5:
+                raise AssertionError(f"mixed core KE n {n} bins {first}.."
+                                     f"{first + count - 1}: {rel:.3e} of the "
+                                     f"frame peak > 1e-5")
         off = torch.cat([torch.zeros(1, device=dev), xs.reshape(-1)])[1:]
         one = xs[1, h:h + n].contiguous()
         same = (torch.equal(rfft_mag.stft_mag(off.reshape(xs.shape), w, n, h),
                             mags[False])
                 and torch.equal(rfft_mag.stft_mag(one, w, n, h)[0],
-                                mags[False][1, 1]))
+                                mags[False][1, 1])
+                and torch.equal(rfft_mag.stft_planes(off.reshape(xs.shape), w,
+                                                     n, h, 1, nf), pairs)
+                and torch.equal(rfft_mag.stft_planes(one, w, n, h, 1, nf)[0],
+                                pairs[1, 1]))
         sig = torch.rand((3, n + (frames - 1) * h), generator=g, device=dev)
         sig[0, :n] = 0.0
-        mag = torch.rand((3, frames, n // 2 + 1), generator=g, device=dev) * 3
+        mag = torch.rand((3, frames, m + 1), generator=g, device=dev) * 3
         proj = griffinlim.gl_project(sig, mag, w, n, h)
         rel = rel_l2(proj, griffinlim.gl_project_plain(
             sig.double(), mag.double(), w.double(), n, h))
@@ -1220,12 +1253,55 @@ def mixed_core_checks(dev: torch.device) -> None:
             raise AssertionError(f"mixed core n {n}: KJ relative L2 "
                                  f"{rel:.3e} (bound 1e-4), or the scalar "
                                  f"route or a frame alone differs")
+        # KG: each source mode, unmasked and with a real-frame count
+        re, im = (torch.randn((3, frames, m + 1), generator=g, device=dev)
+                  for _ in range(2))
+        spec = torch.randn((3, frames, nf, 2), generator=g, device=dev) * 20
+        mx = torch.tensor([[3.0, 2.5], [1.0, 4.0], [2.0, 2.0]], device=dev)
+        mn = torch.tensor([[-2.0, -3.5], [-1.0, 0.5], [-1.0, -1.0]],
+                          device=dev)
+        sources = [(istft.MODE_PLANES, re, (im,), 0.0, 0, (re, im)),
+                   (istft.MODE_SPEC, spec, (), 0.0, 0,
+                    phase_ops.grow_half_planes(spec.double(), m))]
+        for mode, dt, max_val, ihs in (
+                (istft.MODE_QUANT8, np.uint8, 255, 0),
+                (istft.MODE_QUANT16, np.uint16, 65535, 2)):
+            planes = torch.from_numpy(rng.integers(
+                0, max_val + 1, (3, nf, frames, 2), dtype=dt)).to(dev)
+            deq = quantize.dequantize_planes_batch(planes, mx, mn, max_val,
+                                                   ihs)
+            sources.append((mode, planes, (mx, mn), float(max_val), ihs,
+                            phase_ops.grow_half_planes(deq.double(), m)))
+        real = 1 if plan.frames_per_block > 1 else frames // 2
+        for mode, src, aux, max_val, ihs, (re64, im64) in sources:
+            args = (mode, src, aux, n, frames, nf, w, (3,), max_val, ihs)
+            out = istft.launch_irfft_window(*args)
+            masked = istft.launch_irfft_window(*args, real_frames=real)
+            want = istft.irfft_window_plain(re64.double(), im64.double(), n,
+                                            None)
+            rel = frame_peak_err(out, want * w.double(),
+                                 want.abs().amax(-1, keepdim=True))[0]
+            worst_g = max(worst_g, rel)
+            if (rel > 1e-5 or not torch.equal(masked[:, :real],
+                                              out[:, :real])
+                    or bool(masked[:, real:].any())):
+                raise AssertionError(f"mixed core KG n {n} mode {mode}: "
+                                     f"{rel:.3e} of the frame peak (bound "
+                                     f"1e-5), or a masked launch wrong")
+            if mode == istft.MODE_PLANES and not torch.equal(
+                    istft.irfft_window(re[2, 2:3], im[2, 2:3], n, w)[0],
+                    out[2, 2]):
+                raise AssertionError(f"mixed core KG n {n}: a frame alone "
+                                     f"differs from it in the batch")
     torch.cuda.synchronize()
-    log(f"KB/KJ mixed-radix register core: n {', '.join(plans)} (3 rows, "
-        f"frames past a block multiple): KB worst {worst_b:.3e} of the frame "
-        f"peak vs float64 (bound 1e-5), KJ worst relative L2 {worst_j:.3e} "
-        f"(bound 1e-4); KB's scalar route bit-equal to its vector route; a "
-        f"frame alone bit-equal to the batch's (KB, KJ)")
+    log(f"KB/KE/KG/KJ mixed-radix register core: n {', '.join(plans)} (3 "
+        f"rows, frames past a block multiple): KB worst {worst_b:.3e}, KE "
+        f"{worst_e:.3e}, KG (planes, spectrogram, uint8, uint16 IHS 2) "
+        f"{worst_g:.3e} of the frame peak vs float64 (bound 1e-5), KJ worst "
+        f"relative L2 {worst_j:.3e} (bound 1e-4); KG's masked frames zero "
+        f"and the rest bit-equal to the unmasked launch; KB's and KE's "
+        f"scalar route bit-equal to their vector route; a frame alone "
+        f"bit-equal to the batch's (KB, KE, KG, KJ)")
 
 
 def spectral_convergence_t(sig: torch.Tensor, target: torch.Tensor,

@@ -1,27 +1,31 @@
 // The float32 FFT bodies of the frame kernels KB (rfft_mag.cu), KE
 // (phase_encode.cu), KG (phase_decode.cu) and KJ (griffinlim.cu).
 //
-// Three cores. Whenever m = n/2 is a power of two from 2 to 8192 the four
-// run the register-resident core further down: KB and KE its forward
-// transform (fwd_frame_pow2), KG its inverse (inv_frame_pow2), KJ both. At
-// the other sizes KB and KJ run the mixed-radix register core after it
-// (fwd_frame_mixed, inv_frame_mixed), KE and KG the shared-memory core
-// below, which tools/profile_fft.py also races against the other two.
+// Two register-resident cores, each kernel in the same role on both:
+// KB and KE run the forward transform, KG the inverse, KJ both. Whenever
+// m = n/2 is a power of two from 2 to 8192 that is the power-of-two core
+// (fwd_frame_pow2, inv_frame_pow2: a kernel for each m, the plan fixed at
+// compile time); at every other size the FFT kernels take
+// (ops/fftbackend.ct_supported) it is the mixed-radix core after it
+// (fwd_frame_mixed, inv_frame_mixed: one kernel, the plan read at run
+// time). The shared-memory forms they replaced (radix-2 Stockham and a
+// mixed radix over m's prime factors, one block a frame) are in
+// tools/fft_earlier.cuh, which only tools/profile_fft.py builds.
 //
-// The shared-memory core: an n-point real transform runs as an m = n/2
-// point complex transform in one thread block's shared memory (complex_fft:
-// radix-2 Stockham when m is a power of two, mixed radix over m's prime
-// factors otherwise):
+// Both treat an n-point real transform as an m-point complex one:
 //   - forward: the n real samples, read as m complex values
-//     z[k] = x[2k] + i x[2k+1], go through complex_fft<false>; real_split_bin
-//     then forms the rfft bins
+//     z[k] = x[2k] + i x[2k+1], give Z in natural order; the kernel's
+//     epilogue forms the rfft bins
 //       X[k] = (Z[k] + conj Z[m-k]) / 2 - i tw[k] (Z[k] - conj Z[m-k]) / 2
-//     for 0 < k < m, X[0] = Re Z0 + Im Z0, X[m] = Re Z0 - Im Z0;
-//   - inverse (KG, KJ): inverse_split_bin forms Z from the half spectrum,
-//     and complex_fft<true> (conjugated twiddles) gives z, whose real and
-//     imaginary parts are the even and odd output samples.
-// Twiddles come from a table the host computes in float64 and rounds to
-// float32: tw[j] = exp(-2 pi i j / n), j < n/2 (ops/rfft_mag.py).
+//     for 0 < k < m, k and m - k from one read (split_values), and
+//     X[0] = Re Z0 + Im Z0, X[m] = Re Z0 - Im Z0;
+//   - inverse (KG, KJ): the kernel's prologue forms 2 Z[k] and 2 Z[m - k]
+//     from the half spectrum (inverse_split_bin), and the core's unscaled
+//     inverse (conjugated roots) gives z, whose real and imaginary parts are
+//     the even and odd output samples, times 1/n.
+// Twiddles come from tables the host computes in float64 and rounds to
+// float32 (tw[j] = exp(-2 pi i j / n), j < n/2, and each core's per-pass
+// table; ops/rfft_mag.py), never from sincosf.
 //
 // All arithmetic is float32 on the CUDA cores: no tensor cores, no TF32.
 #pragma once
@@ -30,228 +34,7 @@
 
 #include "common.cuh"
 
-// Copy one frame of n real samples into shared memory (as m packed complex
-// values), multiplied by the window on the way when there is one.
-__device__ __forceinline__ void load_frame(float* __restrict__ af,
-                                           const float* __restrict__ src,
-                                           const float* __restrict__ window,
-                                           int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float v = src[i];
-    if (window != nullptr) v *= window[i];
-    af[i] = v;
-  }
-  __syncthreads();
-}
-
-// Stockham radix-2 over the m complex values in a, ping-ponging with b:
-// pass with sub-transform size ns (1, 2, ..., m/2). Returns the buffer that
-// holds the result, in natural order. kInverse uses conjugated twiddles
-// (an unscaled inverse transform).
-template <bool kInverse>
-__device__ __forceinline__ float2* stockham_fft(float2* a, float2* b,
-                                                const float2* __restrict__ tw,
-                                                int m) {
-  const int half = m / 2;
-  for (int ns = 1; ns < m; ns <<= 1) {
-    const int tw_stride = m / ns;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int k = j & (ns - 1);
-      float2 w = tw[k * tw_stride];  // exp(-2 pi i k / (2 ns))
-      if (kInverse) w.y = -w.y;
-      const float2 u = a[j];
-      const float2 v = a[j + half];
-      const float vr = v.x * w.x - v.y * w.y;
-      const float vi = v.x * w.y + v.y * w.x;
-      const int idx = ((j - k) << 1) + k;
-      b[idx] = make_float2(u.x + vr, u.y + vi);
-      b[idx + ns] = make_float2(u.x - vr, u.y - vi);
-    }
-    __syncthreads();
-    float2* t = a;
-    a = b;
-    b = t;
-  }
-  return a;
-}
-
-// exp(-2 pi i j / n) for 0 <= j < n = 2m, from the half-circle table tw
-// (j >= m: -tw[j - m]).
-__device__ __forceinline__ float2 twiddle_at(const float2* __restrict__ tw,
-                                             int j, int m) {
-  if (j < m) return tw[j];
-  const float2 w = tw[j - m];
-  return make_float2(-w.x, -w.y);
-}
-
-// exp(-2 pi i j / n), conjugated for an inverse transform.
-template <bool kInverse>
-__device__ __forceinline__ float2 root_at(const float2* __restrict__ tw, int j,
-                                          int m) {
-  float2 w = twiddle_at(tw, j, m);
-  if (kInverse) w.y = -w.y;
-  return w;
-}
-
-// One Stockham pass of radix r over the m complex values in a, into b; ns is
-// the product of the radices of the passes before it. Butterfly j < m/r
-// takes a[j + t*m/r] (t < r) times the twiddle exp(-2 pi i t k / (ns r)),
-// k = j mod ns, and writes their r-point DFT to b[(j - k) r + k + s ns]
-// (s < r). kR > 0 is a radix known at compile time: one thread a butterfly,
-// the r inputs in registers. kR = 0 takes any r (the primes above 7): one
-// thread an output, b[i] = sum_t a[...] exp(-2 pi i t (s ns + k) / (ns r)),
-// the pass's twiddle folded into the DFT's roots.
-template <bool kInverse, int kR>
-__device__ __forceinline__ void radix_pass(const float2* __restrict__ a,
-                                           float2* __restrict__ b,
-                                           const float2* __restrict__ tw,
-                                           int m, int ns, int r) {
-  const int stride = m / r;
-  const int step = 2 * m / (ns * r);  // table entries per 1/(ns r) turn
-  if constexpr (kR > 0) {
-    float2 root[kR];  // exp(-2 pi i c / r)
-#pragma unroll
-    for (int c = 0; c < kR; ++c) {
-      root[c] = root_at<kInverse>(tw, c * ns * step, m);
-    }
-    for (int j = threadIdx.x; j < stride; j += blockDim.x) {
-      const int k = j % ns;
-      float2 v[kR];
-#pragma unroll
-      for (int t = 0; t < kR; ++t) {
-        const float2 u = a[j + t * stride];
-        if (t == 0) {
-          v[t] = u;
-        } else {
-          const float2 w = root_at<kInverse>(tw, t * k * step, m);  // < 2m
-          v[t] = make_float2(u.x * w.x - u.y * w.y, u.x * w.y + u.y * w.x);
-        }
-      }
-      float2* dst = b + (j - k) * kR + k;
-#pragma unroll
-      for (int s = 0; s < kR; ++s) {
-        float re = 0.0f;
-        float im = 0.0f;
-#pragma unroll
-        for (int t = 0; t < kR; ++t) {
-          const float2 w = root[(t * s) % kR];
-          re += v[t].x * w.x - v[t].y * w.y;
-          im += v[t].x * w.y + v[t].y * w.x;
-        }
-        dst[s * ns] = make_float2(re, im);
-      }
-    }
-  } else {
-    const int span = ns * r;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const int q = i / span;
-      const int e = i - q * span;  // s*ns + k
-      const int k = e % ns;
-      const float2* src = a + q * ns + k;
-      const int inc = e * step;  // < 2m
-      int j = 0;
-      float re = 0.0f;
-      float im = 0.0f;
-      for (int t = 0; t < r; ++t) {
-        const float2 w = root_at<kInverse>(tw, j, m);
-        const float2 v = src[t * stride];
-        re += v.x * w.x - v.y * w.y;
-        im += v.x * w.y + v.y * w.x;
-        j += inc;
-        if (j >= 2 * m) j -= 2 * m;
-      }
-      b[i] = make_float2(re, im);
-    }
-  }
-}
-
-// Mixed-radix Stockham over the m complex values in a, for an m that is not
-// a power of two: one radix_pass a factor of m, radix 4 while 4 divides
-// what is left, then 2, 3, 5, 7, then any prime (the sizes the wrappers
-// pass have every prime factor below 128, as the TPU's n = n1 * n2 split
-// with both factors <= 128 implies). Returns the buffer that holds the
-// result, in natural order; kInverse conjugates the roots (an unscaled
-// inverse).
-template <bool kInverse>
-__device__ __forceinline__ float2* mixed_radix_fft(
-    float2* a, float2* b, const float2* __restrict__ tw, int m) {
-  int rest = m;
-  for (int ns = 1; ns < m;) {
-    int r = 4;
-    if (rest % 4 != 0) {
-      r = 2;
-      while (rest % r != 0) ++r;  // the smallest prime factor left
-    }
-    switch (r) {
-      case 2: radix_pass<kInverse, 2>(a, b, tw, m, ns, r); break;
-      case 3: radix_pass<kInverse, 3>(a, b, tw, m, ns, r); break;
-      case 4: radix_pass<kInverse, 4>(a, b, tw, m, ns, r); break;
-      case 5: radix_pass<kInverse, 5>(a, b, tw, m, ns, r); break;
-      case 7: radix_pass<kInverse, 7>(a, b, tw, m, ns, r); break;
-      default: radix_pass<kInverse, 0>(a, b, tw, m, ns, r); break;
-    }
-    __syncthreads();
-    float2* t = a;
-    a = b;
-    b = t;
-    rest /= r;
-    ns *= r;
-  }
-  return a;
-}
-
-// The m-point complex FFT of the shared-memory frame kernels: mixed radix,
-// which their entry points launch for an m that is not a power of two
-// (launch_frames), or radix-2 Stockham (kPow2), the form the register core
-// replaced, which only tools/profile_fft.py's race still builds.
-template <bool kInverse, bool kPow2>
-__device__ __forceinline__ float2* complex_fft(float2* a, float2* b,
-                                               const float2* __restrict__ tw,
-                                               int m) {
-  if constexpr (kPow2) return stockham_fft<kInverse>(a, b, tw, m);
-  return mixed_radix_fft<kInverse>(a, b, tw, m);
-}
-
 inline bool is_pow2(int m) { return (m & (m - 1)) == 0; }
-
-// Launch a shared-memory frame kernel with one block a frame, m/2 threads
-// clamped to [32, 256] and smem bytes of dynamic shared memory.
-template <typename Kernel, typename... Args>
-void launch_frames(Kernel kernel, long long blocks, int m, size_t smem,
-                   cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  int threads = m / 2;
-  if (threads > 256) threads = 256;
-  if (threads < 32) threads = 32;
-  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(args...);
-}
-
-// rfft bin k (0 <= k <= m) as (re, im) from the forward transform Z in z.
-__device__ __forceinline__ float2 real_split_bin(const float2* z,
-                                                 const float2* __restrict__ tw,
-                                                 int k, int m) {
-  float re, im;
-  if (k == 0 || k == m) {
-    const float2 z0 = z[0];
-    re = (k == 0) ? z0.x + z0.y : z0.x - z0.y;
-    im = 0.0f;
-  } else {
-    const float2 p = z[k];
-    const float2 q = z[m - k];
-    // even part E = (p + conj q) / 2, odd part O = -i (p - conj q) / 2
-    const float er = 0.5f * (p.x + q.x);
-    const float ei = 0.5f * (p.y - q.y);
-    const float orr = 0.5f * (p.y + q.y);
-    const float oi = -0.5f * (p.x - q.x);
-    const float2 w = tw[k];
-    re = er + (orr * w.x - oi * w.y);
-    im = ei + (orr * w.y + oi * w.x);
-  }
-  return make_float2(re, im);
-}
 
 // Inverse of the real split for bin k of the half spectrum P = X[k],
 // Q = X[m-k] (X[m] for k = 0), whose DC and Nyquist imaginary parts are
@@ -272,11 +55,11 @@ __device__ __forceinline__ float2 inverse_split_bin(float2 p, float2 q,
 //
 // What bounds a frame FFT on Hopper is neither the float32 rate nor device
 // memory but shared-memory traffic and the latency of each step between
-// block-wide barriers: the radix-2 core above moves every point through
-// shared memory log2 m times, one barrier each. Here each thread holds
-// kRegPoints = 16 complex points in registers and does whole radix-R
-// sub-transforms (R = 2..16) there, so m = 2048 = 8 x 16 x 16 takes 3
-// passes and 2 exchanges through shared memory.
+// block-wide barriers: the radix-2 core it replaced (tools/fft_earlier.cuh)
+// moved every point through shared memory log2 m times, one barrier each.
+// Here each thread holds kRegPoints = 16 complex points in registers and
+// does whole radix-R sub-transforms (R = 2..16) there, so m = 2048 =
+// 8 x 16 x 16 takes 3 passes and 2 exchanges through shared memory.
 //   - Plan (FwdPlan, a kernel for each m; the wrapper passes the same plan,
 //     ops/rfft_mag.fwd_plan, and launch_pow2_frames checks that it does):
 //     T = m/16 threads a frame (1 below m = 16), 128/T frames
@@ -713,18 +496,19 @@ __device__ __forceinline__ void inv_frame_pow2(
 }
 
 // ---------------------------------------------------------------------------
-// The mixed-radix register core: KB and KJ whenever m = n/2 is not a power
-// of two (n = 3000 and every other size ops/fftbackend.ct_supported takes).
+// The mixed-radix register core: KB, KE, KG and KJ whenever m = n/2 is not a
+// power of two (n = 3000 and every other size ops/fftbackend.ct_supported
+// takes).
 //
-// The shared-memory mixed radix above spends, per point and pass, a dense
-// r x r product with roots loaded from the table, a runtime `%` and a
-// strided twiddle load, ping-pongs between two buffers, and leaves 40-85%
-// of its 256-thread block idle in each pass's second round (m = 1500: five
-// passes of 300-500 butterflies). This core runs in-place Cooley-Tukey on
-// one shared buffer of m float2 a frame, a butterfly's R points in
-// registers, on a plan the host computes (ops/rfft_mag.mixed_plan) and the
-// kernel reads at run time (MixedPlan, by value; make_mixed_plan checks it
-// and derives the rest):
+// The shared-memory mixed radix it replaced (tools/fft_earlier.cuh) spent,
+// per point and pass, a dense r x r product with roots loaded from the
+// table, a runtime `%` and a strided twiddle load, ping-ponged between two
+// buffers, and left 40-85% of its 256-thread block idle in each pass's
+// second round (m = 1500: five passes of 300-500 butterflies). This core
+// runs in-place Cooley-Tukey on one shared buffer of m float2 a frame, a
+// butterfly's R points in registers, on a plan the host computes
+// (ops/rfft_mag.mixed_plan) and the kernel reads at run time (MixedPlan, by
+// value; make_mixed_plan checks it and derives the rest):
 //   - Each of a frame's T threads does P/R butterflies of every register
 //     pass (P = m/T points; each register radix R divides P): no thread
 //     idles. m = 1500 is 15 x 10 x 10 with P = 30, T = 50: three passes,
@@ -750,7 +534,7 @@ __device__ __forceinline__ void inv_frame_pow2(
 //     where frames_vec_aligned holds, else scalar ones of the same values)
 //     and writes them at rev(j) R_0 + s: the digit reversal DIT needs costs
 //     nothing but the store's address. Z ends in natural order.
-//   - Inverse (KJ): decimation in frequency, the forward's steps undone in
+//   - Inverse (KG, KJ): decimation in frequency, the forward's steps undone in
 //     reverse order with conjugated roots (an unscaled inverse); its last
 //     pass reads rev(j) R_0 + s and stores the frame's points
 //     j + t m/R_0 to device memory, times 1/n and the window.

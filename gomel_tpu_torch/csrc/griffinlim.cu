@@ -47,10 +47,9 @@
 // the projection, 4 inverse) against the radix-2 core's 24, in a 128-thread
 // block with one 16 KB buffer. Fusing KK into KJ (each frame adding into its
 // neighbours' samples) needs atomics or a second pass.
-// tools/profile_fft.py races it against the radix-2 form below
-// (gl_project_kernel<true>, which the port no longer launches) and splits
-// its time by ablation; PERF.md has the numbers. At n = 3000 (the mixed
-// core) the bound is 0.024 ms (80 MB moved); KJ reaches about 28% of it,
+// tools/profile_fft.py races it against the shared-memory forms it replaced
+// (tools/fft_earlier.cuh) and splits its time by ablation; PERF.md has the
+// numbers. At n = 3000 (the mixed core) the bound is 0.024 ms (80 MB moved); KJ reaches about 28% of it,
 // held where KB is (rfft_mag.cu).
 #include <math.h>
 
@@ -178,55 +177,6 @@ gl_project_mixed_kernel(const float* __restrict__ sig,
   inv_frame_mixed(z, z == buf ? buf + m : buf, twp, pl, th,
                   valid ? out + frame * m : nullptr,
                   reinterpret_cast<const float2*>(window), inv_n);
-}
-
-// The shared-memory form: one block a frame, two complex buffers of m.
-// Neither is the port's route any more: kPow2 = false (the mixed radix the
-// mixed-radix register core replaced) and kPow2 = true (the radix-2
-// Stockham form the power-of-two core replaced) are kept for
-// tools/profile_fft.py's races.
-template <bool kPow2>
-__global__ void gl_project_kernel(const float* __restrict__ sig,
-                                  const float* __restrict__ mag,
-                                  const float* __restrict__ window,
-                                  const float2* __restrict__ tw,
-                                  float2* __restrict__ out, int frames,
-                                  long long length, long long hop, int m,
-                                  float inv_n) {
-  extern __shared__ float2 smem[];
-  float2* a = smem;
-  float2* b = smem + m;
-  const long long frame = blockIdx.x;
-  const long long bi = frame / frames;
-  const long long fi = frame - bi * frames;
-  load_frame(reinterpret_cast<float*>(a), sig + bi * length + fi * hop,
-             window, 2 * m);
-  float2* z = complex_fft<false, kPow2>(a, b, tw, m);
-  float2* y = (z == a) ? b : a;
-
-  const float* mg = mag + frame * (m + 1);
-  for (int k = threadIdx.x; k <= m / 2; k += blockDim.x) {
-    const int q = m - k;
-    float2 xk = project_bin(real_split_bin(z, tw, k, m), mg[k]);
-    float2 xq = project_bin(real_split_bin(z, tw, q, m), mg[q]);
-    if (k == 0) {  // DC and Nyquist
-      xk.y = 0.0f;
-      xq.y = 0.0f;
-    }
-    y[k] = inverse_split_bin(xk, xq, tw[k]);
-    if (k > 0 && k < q) y[q] = inverse_split_bin(xq, xk, tw[q]);
-  }
-  __syncthreads();
-
-  const float2* r = complex_fft<true, kPow2>(y, z, tw, m);
-  const float2* w2 = reinterpret_cast<const float2*>(window);
-  float2* dst = out + frame * m;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const float2 v = r[i];
-    const float2 w = w2[i];
-    dst[i] = make_float2(__fmul_rn(__fmul_rn(v.x, inv_n), w.x),
-                         __fmul_rn(__fmul_rn(v.y, inv_n), w.y));
-  }
 }
 
 __global__ void gl_overlap_add_kernel(const float* __restrict__ frames_w,

@@ -16,16 +16,18 @@
 //   for planes the rescale is (v / max_val) * (max - min) + min, then
 //   ihs_passes x sinhf (quantize.py:56-59). The imaginary parts of DC and
 //   Nyquist are ignored, as numpy's irfft ignores them.
-//   Transform, when n/2 is a power of two: the prologue takes the bins in
-//   pairs (k, n/2 - k), loads X[k] and X[n/2 - k] straight from the source
-//   and writes 2 Z[k] and 2 Z[n/2 - k] (fft_core.cuh inverse_split_bin) into
-//   the frame's swizzled buffer of n/2 float2 (16 KB at n = 4096); after one
-//   barrier the register core's inverse (inv_frame_pow2) runs its passes
-//   with conjugated twiddles and its last pass stores frames_w [B*F, n]
-//   float32 straight from registers, scaled by 1/n and multiplied by the
-//   window. Other sizes: the half spectrum into shared memory, the inverse
-//   real split in place two bins per thread, then the shared-memory mixed
-//   radix with the same scale and window on the way out.
+//   Transform: the prologue (load_spectrum) takes the bins in pairs
+//   (k, n/2 - k), loads X[k] and X[n/2 - k] straight from the source and
+//   writes 2 Z[k] and 2 Z[n/2 - k] (fft_core.cuh inverse_split_bin) into the
+//   frame's buffer of n/2 float2 (16 KB at n = 4096); after one barrier a
+//   register core's inverse runs its passes with conjugated twiddles and its
+//   last pass stores frames_w [B*F, n] float32 straight from registers,
+//   scaled by 1/n and multiplied by the window (__fmul_rn, in that order).
+//   When n/2 is a power of two that is the power-of-two core
+//   (inv_frame_pow2, the buffer swizzled), else the mixed-radix core
+//   (inv_frame_mixed, the buffer in natural order, two of n/2 after a
+//   generic pass; n = 3000: radices 15, 10, 10, 50 threads a frame, 3
+//   frames a block).
 //
 // KH: overlap-add + window-sum normalisation + volume boost (+ PCM-16).
 //   Replaces gomel_tpu/ops/istft.py:22 overlap_add, :41 window_sum, :189
@@ -54,8 +56,9 @@
 // as jnp.where(mask, frames_w, 0) gives; the mask of a shard is always a
 // prefix of its frames, so a count carries it. A block whose frames are all
 // masked stores its zeros and returns before any barrier; in a block that
-// holds several frames (n < 4096) and a live one, a masked frame loads
-// nothing but keeps its slot through every barrier and stores zeros.
+// holds several frames (n < 4096, and every mixed-radix plan but one frame
+// a block) and a live one, a masked frame loads nothing but keeps its slot
+// through every barrier and stores zeros.
 //
 // Rounding: the JAX program rounds every product and sum on its own; nvcc
 // would fuse a multiply feeding an add into one FMA, so those steps use
@@ -72,8 +75,8 @@
 // planes is strided by F (each 2-byte load takes its own 32-byte sector);
 // transposing it needs another layout or several frames a block, and fusing
 // KH into KG is later work. tools/profile_fft.py races KG against the
-// radix-2 form below (irfft_window_kernel<mode, true>, which the port no
-// longer launches) and splits its time by ablation; PERF.md has the numbers.
+// shared-memory forms it replaced (tools/fft_earlier.cuh) and splits its
+// time by ablation; PERF.md has the numbers.
 #include <math.h>
 
 #include "fft_core.cuh"
@@ -147,6 +150,47 @@ __device__ __forceinline__ float2 half_bin(const void* __restrict__ src,
   return make_float2(re, im);
 }
 
+// The prologue of both forms: 2 Z[k] and 2 Z[m - k] of frame (bi, fi) from
+// X[k] and X[m - k] for k = th, th + threads, ... <= m/2 (disjoint pairs),
+// into z (kSwz: the power-of-two core's swizzled buffer, else natural
+// order).
+template <int kMode, bool kSwz>
+__device__ __forceinline__ void load_spectrum(
+    float2* z, const void* __restrict__ src, const float* __restrict__ aux0,
+    const float* __restrict__ aux1, const float2* __restrict__ tw,
+    long long frame, long long bi, long long fi, int m, int th, int threads,
+    int frames, int nf, float max_val, int ihs_passes) {
+  float4 ext = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (kMode == kQuant8 || kMode == kQuant16) {
+    ext = make_float4(aux0[2 * bi], aux0[2 * bi + 1], aux1[2 * bi],
+                      aux1[2 * bi + 1]);
+  }
+  for (int k = th; k <= m / 2; k += threads) {
+    const float2 p = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames,
+                                     nf, max_val, ext, ihs_passes);
+    const float2 q = half_bin<kMode>(src, aux0, frame, bi, fi, m - k, m,
+                                     frames, nf, max_val, ext, ihs_passes);
+    const float2 w = __ldg(&tw[k]);
+    z[kSwz ? swz(k) : k] = inverse_split_bin(p, q, w);
+    if (k > 0 && 2 * k != m) {
+      z[kSwz ? swz(m - k) : m - k] =
+          inverse_split_bin(q, p, make_float2(-w.x, w.y));
+    }
+  }
+}
+
+// Whether the block of frames first..first + per_block - 1 (of total) holds
+// a frame before real_frames of its row: its first, or the first frame of a
+// later row that starts inside the block. Block-uniform.
+__device__ __forceinline__ bool block_live(long long first, int per_block,
+                                           long long total, int frames,
+                                           int real_frames) {
+  const long long last = min(first + per_block, total) - 1;
+  const long long row0 = first / frames;
+  return first - row0 * frames < real_frames ||
+         (real_frames > 0 && (row0 + 1) * frames <= last);
+}
+
 // The power-of-two form for m = 2^kLogM: FwdPlan's threads a frame and
 // frames a block, m float2 of shared memory a frame.
 template <int kMode, int kLogM>
@@ -174,15 +218,9 @@ irfft_window_pow2_kernel(const void* __restrict__ src,
   const long long bi = frame / frames;
   const long long fi = frame - bi * frames;
   const bool masked = fi >= real_frames;
-  // block-uniform: a live frame is the block's first, or the first frame of
-  // a later row that starts inside the block
-  const long long last =
-      min(first + Plan::frames_per_block, total) - 1;
-  const long long row0 = first / frames;
-  const bool live = first - row0 * frames < real_frames ||
-                    (real_frames > 0 && (row0 + 1) * frames <= last);
   float2* dst = valid ? out + frame * m : nullptr;
-  if (!live) {
+  if (!block_live(first, Plan::frames_per_block, total, frames,
+                  real_frames)) {
     if (dst != nullptr) {
       for (int i = th; i < m; i += threads) dst[i] = make_float2(0.0f, 0.0f);
     }
@@ -190,23 +228,8 @@ irfft_window_pow2_kernel(const void* __restrict__ src,
   }
   float2* z = sbuf + slot * m;
   if (valid && !masked) {
-    float4 ext = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if constexpr (kMode == kQuant8 || kMode == kQuant16) {
-      ext = make_float4(aux0[2 * bi], aux0[2 * bi + 1], aux1[2 * bi],
-                        aux1[2 * bi + 1]);
-    }
-    // 2 Z[k] and 2 Z[m - k] from X[k] and X[m - k]: disjoint pairs
-    for (int k = th; k <= m / 2; k += threads) {
-      const float2 p = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames,
-                                       nf, max_val, ext, ihs_passes);
-      const float2 q = half_bin<kMode>(src, aux0, frame, bi, fi, m - k, m,
-                                       frames, nf, max_val, ext, ihs_passes);
-      const float2 w = __ldg(&tw[k]);
-      z[swz(k)] = inverse_split_bin(p, q, w);
-      if (k > 0 && 2 * k != m) {
-        z[swz(m - k)] = inverse_split_bin(q, p, make_float2(-w.x, w.y));
-      }
-    }
+    load_spectrum<kMode, true>(z, src, aux0, aux1, tw, frame, bi, fi, m, th,
+                               threads, frames, nf, max_val, ihs_passes);
   }
   __syncthreads();
   inv_frame_pow2<kLogM>(z, twp, th, dst,
@@ -214,68 +237,47 @@ irfft_window_pow2_kernel(const void* __restrict__ src,
                         masked);
 }
 
-// The shared-memory form: one block a frame. kPow2 = false (mixed radix) is
-// the port's route when n/2 is not a power of two; kPow2 = true, the radix-2
-// Stockham form that the register core replaced, is kept for
-// tools/profile_fft.py's race.
-template <int kMode, bool kPow2>
-__global__ void irfft_window_kernel(const void* __restrict__ src,
-                                    const float* __restrict__ aux0,
-                                    const float* __restrict__ aux1,
-                                    const float* __restrict__ window,
-                                    const float2* __restrict__ tw,
-                                    float2* __restrict__ out, int frames,
-                                    int real_frames, int nf, int m,
-                                    float max_val, int ihs_passes,
-                                    float inv_n) {
-  extern __shared__ float2 smem[];
-  float2* a = smem;          // m + 1: the half spectrum X, then Z in place
-  float2* b = smem + m + 1;  // m: the Stockham partner buffer
-  const long long frame = blockIdx.x;
+// The mixed-radix form (n/2 not a power of two) on plan pl: pl.frames
+// frames a block of pl.threads each, pl.frame_stride float2 of shared
+// memory a frame. A masked frame stores its zeros first (a block with no
+// live frame then returns); in a live block it keeps its slot at every
+// barrier of the core, which stores nothing for it (dst null).
+template <int kMode>
+__global__ void __launch_bounds__(kMixedBlockThreads)
+irfft_window_mixed_kernel(const void* __restrict__ src,
+                          const float* __restrict__ aux0,
+                          const float* __restrict__ aux1,
+                          const float* __restrict__ window,
+                          const float2* __restrict__ tw,
+                          const float2* __restrict__ twp,
+                          float2* __restrict__ out,
+                          const __grid_constant__ MixedPlan pl,
+                          long long total, int frames, int real_frames,
+                          int nf, float max_val, int ihs_passes, float inv_n) {
+  extern __shared__ float2 sbuf[];
+  const int m = pl.m;
+  const int threads = pl.threads;
+  const int slot = threadIdx.x / threads;
+  const int th = threadIdx.x - slot * threads;
+  const long long first = static_cast<long long>(blockIdx.x) * pl.frames;
+  const long long frame = first + slot;
+  const bool valid = frame < total;
   const long long bi = frame / frames;
   const long long fi = frame - bi * frames;
-  if (fi >= real_frames) {  // block-uniform: no barrier is skipped
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      out[frame * m + i] = make_float2(0.0f, 0.0f);
-    }
-    return;
+  const bool masked = fi >= real_frames;
+  float2* dst = valid ? out + frame * m : nullptr;
+  if (masked && dst != nullptr) {
+    for (int i = th; i < m; i += threads) dst[i] = make_float2(0.0f, 0.0f);
   }
-
-  float4 ext = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if constexpr (kMode == kQuant8 || kMode == kQuant16) {
-    ext = make_float4(aux0[2 * bi], aux0[2 * bi + 1], aux1[2 * bi],
-                      aux1[2 * bi + 1]);
-  }
-  for (int k = threadIdx.x; k <= m; k += blockDim.x) {
-    a[k] = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames, nf,
-                           max_val, ext, ihs_passes);
+  if (!block_live(first, pl.frames, total, frames, real_frames)) return;
+  float2* buf = sbuf + slot * pl.frame_stride;
+  if (valid && !masked) {
+    load_spectrum<kMode, false>(buf, src, aux0, aux1, tw, frame, bi, fi, m,
+                                th, threads, frames, nf, max_val, ihs_passes);
   }
   __syncthreads();
-
-  // 2 Z[k] and 2 Z[m - k] from X[k], X[m - k]: disjoint pairs, in place
-  for (int k = threadIdx.x; k <= m / 2; k += blockDim.x) {
-    const float2 p = a[k];
-    const float2 q = a[m - k];
-    const float2 zk = inverse_split_bin(p, q, tw[k]);
-    if (k > 0) a[m - k] = inverse_split_bin(q, p, tw[m - k]);
-    a[k] = zk;
-  }
-  __syncthreads();
-
-  const float2* z = complex_fft<true, kPow2>(a, b, tw, m);
-  const float2* w2 = reinterpret_cast<const float2*>(window);
-  float2* dst = out + frame * m;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const float2 v = z[i];
-    float x0 = __fmul_rn(v.x, inv_n);
-    float x1 = __fmul_rn(v.y, inv_n);
-    if (w2 != nullptr) {
-      const float2 w = w2[i];
-      x0 = __fmul_rn(x0, w.x);
-      x1 = __fmul_rn(x1, w.y);
-    }
-    dst[i] = make_float2(x0, x1);
-  }
+  inv_frame_mixed(buf, buf + m, twp, pl, th, masked ? nullptr : dst,
+                  reinterpret_cast<const float2*>(window), inv_n);
 }
 
 // KH on the hop-row walk (overlap_add.cuh): a thread owns kV adjacent
@@ -385,23 +387,27 @@ int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
                         const float* window, const float2* tw,
                         const float2* twp, float2* out, long long total,
                         int frames, int real_frames, int nf, int m,
-                        float max_val, int ihs_passes, int radices,
+                        float max_val, int ihs_passes, long long radices,
                         int threads, int frames_per_block, cudaStream_t s) {
   const float inv_n = 1.0f / static_cast<float>(2 * m);
   if (is_pow2(m) && m >= 2) {
     return with_log_m(m, [&](auto log_m) {
       constexpr int kL = decltype(log_m)::value;
       return launch_pow2_frames<kL>(
-          irfft_window_pow2_kernel<kMode, kL>, total, radices, threads,
-          frames_per_block, s, src, aux0, aux1, window, tw, twp, out, total,
-          frames, real_frames, nf, max_val, ihs_passes, inv_n);
+          irfft_window_pow2_kernel<kMode, kL>, total,
+          static_cast<int>(radices), threads, frames_per_block, s, src, aux0,
+          aux1, window, tw, twp, out, total, frames, real_frames, nf, max_val,
+          ihs_passes, inv_n);
     });
   }
-  const size_t smem = (2 * static_cast<size_t>(m) + 1) * sizeof(float2);
-  launch_frames(irfft_window_kernel<kMode, false>, total, m, smem, s, src,
-                aux0, aux1, window, tw, out, frames, real_frames, nf, m,
-                max_val, ihs_passes, inv_n);
-  return gomel_status();
+  MixedPlan pl;
+  if (!make_mixed_plan(m, radices, threads, frames_per_block, &pl)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_mixed_frames(irfft_window_mixed_kernel<kMode>, total, pl, s,
+                             src, aux0, aux1, window, tw, twp, out, pl, total,
+                             frames, real_frames, nf, max_val, ihs_passes,
+                             inv_n);
 }
 
 }  // namespace
@@ -413,17 +419,18 @@ int launch_irfft_window(const void* src, const float* aux0, const float* aux1,
 // window: float32 [n] or null; tw: float2 [n/2]; out: float32
 // [batch*frames, n]; frames at or past real_frames (0..frames) of each row
 // write zeros. n must be an even size of the TPU's n1 * n2 split
-// (ops/fftbackend.ct_supported; the wrapper checks). When n/2 is a power of
-// two, tw_pass, radices, threads and frames_per_block are the wrapper's plan
-// (ops/rfft_mag.fwd_plan) and its per-pass twiddle table, which the kernel
-// checks as KB's does; otherwise they are ignored.
+// (ops/fftbackend.ct_supported; the wrapper checks). tw_pass, radices,
+// threads and frames_per_block are the wrapper's plan and its per-pass
+// twiddle table (ops/rfft_mag.fwd_plan when n/2 is a power of two, else
+// ops/rfft_mag.mixed_plan), which the kernel checks as KB's does: a plan it
+// refuses launches nothing and returns cudaErrorInvalidValue.
 GOMEL_API int gomel_irfft_window(int mode, const void* src, const void* aux0,
                                  const void* aux1, const void* window,
                                  const void* tw, const void* tw_pass,
                                  void* out, long long batch, long long frames,
                                  long long real_frames, long long nf,
                                  long long n, float max_val, int ihs_passes,
-                                 int radices, int threads,
+                                 long long radices, int threads,
                                  int frames_per_block, int device,
                                  void* stream) {
   cudaSetDevice(device);

@@ -35,9 +35,9 @@
 // pass loaded straight from the signal as float4, twiddles loaded ahead of
 // each pass's barrier, conflict-free exchanges, and the epilogue's reads
 // halved by pairing bins.
-// tools/profile_fft.py races it against the radix-2 form below and splits
-// its time by ablation; PERF.md has the numbers. At n = 3000 (2 x 1917
-// frames, the mixed core) the bound is 0.0103 ms (11.5 MB in, 23 MB out);
+// tools/profile_fft.py races it against the shared-memory forms it replaced
+// (tools/fft_earlier.cuh) and splits its time by ablation; PERF.md has the
+// numbers. At n = 3000 (2 x 1917 frames, the mixed core) the bound is 0.0103 ms (11.5 MB in, 23 MB out);
 // the core reaches about 20% of it: its 64 registers and n/2 float2 of
 // shared memory a frame let about 900 threads reside an SM, and the
 // latency between its barriers shows (bank conflicts cost 3-7%, scalar
@@ -208,32 +208,6 @@ stft_mag_mixed_kernel(const float* __restrict__ x,
       split_values(z[k], z[m - k], __ldg(&tw[k]), a, b);
     }
     store_mag_pair(dst, k, m, a, b);
-  }
-}
-
-// The shared-memory form: one block a frame, two complex buffers of m.
-// Neither is the port's route any more: kPow2 = false (the mixed radix the
-// mixed-radix register core replaced) and kPow2 = true (the radix-2
-// Stockham form the power-of-two core replaced) are kept for
-// tools/profile_fft.py's races.
-template <bool kPow2>
-__global__ void stft_mag_kernel(const float* __restrict__ x,
-                                const float* __restrict__ window,
-                                const float2* __restrict__ tw,
-                                float* __restrict__ out, int frames,
-                                long long batch_stride, long long hop, int m) {
-  extern __shared__ float2 smem[];
-  const long long frame = blockIdx.x;
-  const long long bi = frame / frames;
-  const long long fi = frame - bi * frames;
-  load_frame(reinterpret_cast<float*>(smem), x + bi * batch_stride + fi * hop,
-             window, 2 * m);
-  const float2* z = complex_fft<false, kPow2>(smem, smem + m, tw, m);
-
-  float* dst = out + frame * (m + 1);
-  for (int k = threadIdx.x; k <= m; k += blockDim.x) {
-    const float2 v = real_split_bin(z, tw, k, m);
-    dst[k] = sqrtf(v.x * v.x + v.y * v.y);
   }
 }
 

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "gomel_stft_mag": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                        _I64, _I32, _I32],
     "gomel_stft_planes": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                          _I32, _I32, _I32, _I32, _I32],
+                          _I32, _I32, _I64, _I32, _I32],
     "gomel_stft_mel_log": [_P, _P, _P, _P, _P, _P, _I32, _P, _I64, _I64,
                            _I64, _I64, _I64, _I64, _I32, _I32, _I32],
     "gomel_mel_log": [_P, _P, _P, _I32, _I64, _P, _I64, _I64, _I64],
@@ -53,7 +53,7 @@ _SIGNATURES = {
                               _I32, _F32, _I32],
     "gomel_quantize_planes_parts": [_I64, _I64, _I64, _P],
     "gomel_irfft_window": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                           _I64, _I64, _F32, _I32, _I32, _I32, _I32],
+                           _I64, _I64, _F32, _I32, _I64, _I32, _I32],
     "gomel_overlap_normalize": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                 _I32, _F32, _F32],
     "gomel_mel_to_mag": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,

@@ -36,7 +36,7 @@ import torch
 
 from . import _cuda, dft_mm, fftbackend
 from .quantize import pcm16_encode
-from .rfft_mag import _core_args, _twiddles, supported
+from .rfft_mag import _fft_args, _twiddles, supported
 
 SYNTH_KERNEL = _cuda.Kernel("irfft_window",
                             "gomel_tpu_torch/csrc/phase_decode.cu",
@@ -205,7 +205,7 @@ def launch_irfft_window(mode: int, src: torch.Tensor,
     if batch * frames == 0:
         return out
     ptrs = [t.data_ptr() for t in aux] + [None] * (2 - len(aux))
-    tw_pass, *plan = _core_args(n, dev)
+    tw_pass, *plan = _fft_args(n, dev)
     _cuda.launch("gomel_irfft_window", dev, mode, src.data_ptr(), *ptrs,
                  None if window is None else window.data_ptr(),
                  _twiddles(n, dev).data_ptr(), tw_pass, out.data_ptr(), batch,

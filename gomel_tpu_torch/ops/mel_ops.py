@@ -248,7 +248,7 @@ def stft_mel_log(x: torch.Tensor, window: torch.Tensor | None, n: int,
     if batch == 0 or frames == 0:
         return out
     win_ptr = None if window is None else window.data_ptr()
-    tw_pass, *plan = rfft_mag._core_args(n, dev)
+    tw_pass, *plan = rfft_mag._fft_args(n, dev)
     _cuda.launch("gomel_stft_mel_log", dev, x.data_ptr(), win_ptr,
                  rfft_mag._twiddles(n, dev).data_ptr(), tw_pass,
                  slots.data_ptr(), weights.data_ptr(), groups, out.data_ptr(),

@@ -12,13 +12,12 @@ On a CUDA tensor each launches its hand-written kernel, which reads every
 frame straight from the signal; on a CPU tensor it runs its plain version.
 When n/2 is a power of two the kernels run the register-resident forward
 core (csrc/fft_core.cuh, fwd_frame_pow2) on the plan :func:`fwd_plan` gives
-and the per-pass twiddles of :func:`_pass_twiddles_np`. At the other sizes
-KB runs the mixed-radix register core (fwd_frame_mixed) on the plan
-:func:`mixed_plan` gives and the table of :func:`_mixed_twiddles_np`, and KE
-the shared-memory mixed radix. The inverse kernels KG (ops/istft.py) and KJ
-(ops/griffinlim.py) run the same cores' inverses on the same plans and
-tables (:func:`_core_args`; KB and KJ: :func:`_fft_args`), KG the
-shared-memory mixed radix at the other sizes.
+and the per-pass twiddles of :func:`_pass_twiddles_np`; at the other sizes
+the mixed-radix register core (fwd_frame_mixed) on the plan
+:func:`mixed_plan` gives and the table of :func:`_mixed_twiddles_np`. The
+inverse kernels KG (ops/istft.py) and KJ (ops/griffinlim.py) run the same
+cores' inverses on the same plans and tables; :func:`_fft_args` hands all
+four the plan and table of their size.
 ``backend`` picks the route first (ops/fftbackend.resolve): a size the
 kernels do not take goes by the xla route (``torch.fft`` on the card), and
 the name ``mm`` by the matmul DFT (ops/dft_mm, kernel KN).
@@ -57,7 +56,8 @@ BLOCK_THREADS = 128
 
 
 class FwdPlan(NamedTuple):
-    """How KB and KE run an n-point transform when n/2 is a power of two."""
+    """How the FFT kernels (KB, KE, KG, KJ) run an n-point transform when
+    n/2 is a power of two."""
     radices: tuple[int, ...]    # of the Stockham passes, the first first
     threads: int                # a frame: n/2 = threads x points a thread
     frames_per_block: int
@@ -134,8 +134,8 @@ _WIDE_COST = 0.6    # a plan's cost of more than 32 points a thread
 
 
 class MixedPlan(NamedTuple):
-    """How KB and KJ run an n-point transform when n/2 is not a power of
-    two."""
+    """How the FFT kernels (KB, KE, KG, KJ) run an n-point transform when
+    n/2 is not a power of two."""
     radices: tuple[int, ...]    # of the passes, the first first
     points: int                 # complex points a thread does a pass
     threads: int                # a frame: n/2 = threads x points
@@ -281,28 +281,19 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     return _table("tw", n, device)
 
 
-def _core_args(n: int, device: torch.device) -> tuple:
-    """The FFT kernels' (tw_pass, radices, threads, frames_per_block), KB,
-    KE, KG and KJ alike: the register core's per-pass table (the inverse
-    conjugates its roots) and plan when n/2 is a power of two, nothing for
-    the shared-memory mixed radix (KE and KG at the other sizes)."""
-    m = n // 2
-    if m < 2 or m & (m - 1):
-        return None, 0, 0, 0
-    plan = fwd_plan(n)
-    return (_table("pass", n, device).data_ptr(), plan.code, plan.threads,
-            plan.frames_per_block)
-
-
 def _fft_args(n: int, device: torch.device) -> tuple:
-    """KB's and KJ's (tw_pass, radices, threads, frames_per_block): the
-    power-of-two core's as :func:`_core_args`, else the mixed-radix
-    register core's plan (:func:`mixed_plan`) and its per-pass table."""
+    """The FFT kernels' (tw_pass, radices, threads, frames_per_block), KB,
+    KE, KG and KJ alike (the inverse conjugates the table's roots): the
+    power-of-two core's plan (:func:`fwd_plan`) and per-pass table when n/2
+    is a power of two, else the mixed-radix register core's
+    (:func:`mixed_plan`, which raises for a size the kernels do not
+    take)."""
     m = n // 2
     if m >= 2 and not m & (m - 1):
-        return _core_args(n, device)
-    plan = mixed_plan(n)
-    return (_table("mixed", n, device).data_ptr(), plan.code, plan.threads,
+        plan, kind = fwd_plan(n), "pass"
+    else:
+        plan, kind = mixed_plan(n), "mixed"
+    return (_table(kind, n, device).data_ptr(), plan.code, plan.threads,
             plan.frames_per_block)
 
 
@@ -394,7 +385,7 @@ def stft_planes(x: torch.Tensor, window: torch.Tensor | None, n: int,
     if batch == 0:
         return out
     win_ptr = None if window is None else window.data_ptr()
-    tw_pass, *plan = _core_args(n, dev)
+    tw_pass, *plan = _fft_args(n, dev)
     _cuda.launch("gomel_stft_planes", dev, x.data_ptr(), win_ptr,
                  _twiddles(n, dev).data_ptr(), tw_pass, out.data_ptr(), batch,
                  frames, length, hop, n, first, count, *plan)

@@ -126,19 +126,48 @@ def test_fwd_core_every_pow2_size(cuda, n):
 MIXED_SIZES = [6, 254, 400, 960, 1200, 2400, 3000, 4094, 6000, 12000]
 
 
+def _kg_modes(rng, frames, n, nf):
+    """KG's four sources for 3 rows of ``frames`` frames: (mode, source,
+    extrema, max_val, IHS passes) and the float64 half-spectrum planes of
+    each, as irfft_window_plain takes them."""
+    m = n // 2
+    re, im = (torch.from_numpy(rng.standard_normal(
+        (3, frames, m + 1)).astype(np.float32)) for _ in range(2))
+    spec = torch.from_numpy((rng.standard_normal((3, frames, nf, 2))
+                             * 20).astype(np.float32))
+    mx = torch.tensor([[3.0, 2.5], [1.0, 4.0], [2.0, 2.0]])
+    mn = torch.tensor([[-2.0, -3.5], [-1.0, 0.5], [-1.0, -1.0]])
+    out = [(istft.MODE_PLANES, re, (im,), 0.0, 0, (re.double(), im.double())),
+           (istft.MODE_SPEC, spec, (), 0.0, 0,
+            phase_ops.grow_half_planes(spec.double(), m))]
+    for mode, dt, max_val, ihs in ((istft.MODE_QUANT8, np.uint8, 255, 0),
+                                   (istft.MODE_QUANT16, np.uint16, 65535, 2)):
+        planes = torch.from_numpy(rng.integers(0, max_val + 1,
+                                               (3, nf, frames, 2), dtype=dt))
+        deq = quantize.dequantize_planes_batch(planes, mx, mn, max_val, ihs)
+        out.append((mode, planes, (mx, mn), float(max_val), ihs,
+                    phase_ops.grow_half_planes(deq.double(), m)))
+    return out
+
+
 @pytest.mark.parametrize("n", MIXED_SIZES)
 def test_mixed_core_sizes(cuda, n):
-    """KB and KJ run the mixed-radix register core where n/2 is not a power
-    of two (a prime m at 254, generic passes at 4094): 3 rows whose frame
-    count is no multiple of the frames a block, one launch each, KB within
-    1e-5 of each frame's peak of float64 (the last row quiet), KJ within
-    1e-4 relative L2 a frame; KB's scalar-load route (a base 4 bytes off
-    16) bit-equal to its vector route; a frame alone bit-equal to itself in
-    the batch."""
+    """KB, KE, KG and KJ run the mixed-radix register core where n/2 is not
+    a power of two (a prime m at 254, generic passes at 4094): 3 rows whose
+    frame count is no multiple of the frames a block, one launch each; KB
+    and KE (bins 1..nf with the window, 0..n/2 of framed input without)
+    within 1e-5 of each frame's peak of float64 (the last row quiet); KG in
+    its four source modes within 1e-5 of each frame's peak of float64, and
+    with a real-frame count (blocks straddling rows) its masked frames exact
+    zeros and the rest bit-equal to the unmasked launch; KJ within 1e-4
+    relative L2 a frame; KB's and KE's scalar-load route (a base 4 bytes
+    off 16) bit-equal to their vector route; a frame alone bit-equal to
+    itself in the batch (KB, KE, KG, KJ)."""
     from gomel_tpu_torch.ops import griffinlim
     plan = rfft_mag.mixed_plan(n)
     hop = max(4, n // 16 * 4)
     frames = 2 * plan.frames_per_block + 3
+    nf = max(1, n // 2 * 768 // 1000)
     rng = np.random.default_rng(n)
     x = rng.standard_normal((3, n + (frames - 1) * hop)).astype(np.float32)
     x[2] *= 1e-3
@@ -148,37 +177,112 @@ def test_mixed_core_sizes(cuda, n):
     sig[0, :n] = 0.0
     mag = torch.from_numpy(
         (rng.random((3, frames, n // 2 + 1)) * 3).astype(np.float32))
-    before = (rfft_mag.KERNEL.launches, griffinlim.PROJECT_KERNEL.launches)
+    kinds = (rfft_mag.KERNEL, rfft_mag.PLANES_KERNEL,
+             griffinlim.PROJECT_KERNEL)
+    before = [k.launches for k in kinds]
     mags = rfft_mag.stft_mag(x.to(cuda), win.to(cuda), n, hop)
+    pairs = rfft_mag.stft_planes(x.to(cuda), win.to(cuda), n, hop, 1, nf)
     proj = griffinlim.gl_project(sig.to(cuda), mag.to(cuda), win.to(cuda), n,
                                  hop)
-    assert (rfft_mag.KERNEL.launches, griffinlim.PROJECT_KERNEL.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [k.launches - b for k, b in zip(kinds, before)] == [1, 1, 1]
     _peak_close(mags, rfft_mag.stft_mag_plain(x.double(), win.double(), n,
                                               hop), (-1,))
+    full = rfft_mag.stft_planes_plain(x.double(), win.double(), n, hop, 0,
+                                      n // 2 + 1)
+    peak = full.abs().amax(dim=(-2, -1), keepdim=True)
+    assert bool(((pairs.cpu().double() - full[..., 1:1 + nf, :]).abs()
+                 <= 1e-5 * peak).all())
+    laid = frame_signal(x, n, hop).contiguous()
+    every = rfft_mag.stft_planes(laid.reshape(3, -1).to(cuda), None, n, n, 0,
+                                 n // 2 + 1)
+    _peak_close(every, rfft_mag.stft_planes_plain(
+        laid.reshape(3, -1).double(), None, n, n, 0, n // 2 + 1), (-2, -1))
     ref = griffinlim.gl_project_plain(sig.double(), mag.double(),
                                       win.double(), n, hop)
     rel = (proj.cpu().double() - ref).norm(dim=-1) / ref.norm(dim=-1)
     assert float(rel.max()) <= 1e-4
     off = torch.cat([torch.zeros(1), x.reshape(-1)]).to(cuda)[1:]
+    assert off.data_ptr() % 16 == 4
     assert torch.equal(rfft_mag.stft_mag(off.reshape(x.shape), win.to(cuda),
                                          n, hop), mags)
+    assert torch.equal(rfft_mag.stft_planes(off.reshape(x.shape),
+                                            win.to(cuda), n, hop, 1, nf),
+                       pairs)
     one = x[1, hop:hop + n].contiguous().to(cuda)
     assert torch.equal(rfft_mag.stft_mag(one, win.to(cuda), n, hop)[0],
                        mags[1, 1])
+    assert torch.equal(rfft_mag.stft_planes(one, win.to(cuda), n, hop, 1,
+                                            nf)[0], pairs[1, 1])
     alone = griffinlim.gl_project(sig[2, 2 * hop:2 * hop + n].to(cuda),
                                   mag[2, 2:3].to(cuda), win.to(cuda), n, hop)
     assert torch.equal(alone[0], proj[2, 2])
+    real = 1 if plan.frames_per_block > 1 else frames // 2
+    for mode, src, aux, max_val, ihs, (re64, im64) in _kg_modes(
+            rng, frames, n, nf):
+        args = (mode, src.to(cuda), tuple(a.to(cuda) for a in aux), n,
+                frames, nf, win.to(cuda), (3,), max_val, ihs)
+        before = (istft.SYNTH_KERNEL.launches,
+                  istft.SYNTH_MASKED_KERNEL.launches)
+        out = istft.launch_irfft_window(*args)
+        masked = istft.launch_irfft_window(*args, real_frames=real)
+        assert (istft.SYNTH_KERNEL.launches - before[0],
+                istft.SYNTH_MASKED_KERNEL.launches - before[1]) == (1, 1)
+        want = istft.irfft_window_plain(re64, im64, n, None)
+        peak_g = want.abs().amax(-1, keepdim=True)
+        assert bool(((out.cpu().double() - want * win.double()).abs()
+                     <= 1e-5 * peak_g).all()), mode
+        assert torch.equal(masked[:, :real], out[:, :real])
+        assert not masked[:, real:].any()
+        if mode == istft.MODE_PLANES:
+            lone = istft.irfft_window(src[2, 2:3].to(cuda),
+                                      aux[0][2, 2:3].to(cuda), n,
+                                      win.to(cuda))
+            assert torch.equal(lone[0], out[2, 2])
+
+
+@pytest.mark.parametrize("n", [486, 1458, 4374])
+def test_mixed_core_plans_of_five_to_seven_passes(cuda, n):
+    """Plans of 5, 6 and 7 passes (radices 8 bits a pass: 40 to 56 bits)
+    reach all four kernels whole: KB, KE and KG within 1e-5 of each frame's
+    peak of float64, KJ within 1e-4 relative L2 a frame."""
+    from gomel_tpu_torch.ops import griffinlim
+    plan = rfft_mag.mixed_plan(n)
+    assert plan.code >= 1 << 32 and 5 <= len(plan.radices) <= 7
+    hop, frames = n // 4, 2 * plan.frames_per_block + 1
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, n + (frames - 1) * hop)).astype(np.float32))
+    win = torch.from_numpy(hann_window(n).astype(np.float32))
+    xc, wc = x.to(cuda), win.to(cuda)
+    _peak_close(rfft_mag.stft_mag(xc, wc, n, hop), rfft_mag.stft_mag_plain(
+        x.double(), win.double(), n, hop), (-1,))
+    _peak_close(rfft_mag.stft_planes(xc, wc, n, hop, 0, n // 2 + 1),
+                rfft_mag.stft_planes_plain(x.double(), win.double(), n, hop,
+                                           0, n // 2 + 1), (-2, -1))
+    re, im = (torch.from_numpy(rng.standard_normal(
+        (2, frames, n // 2 + 1)).astype(np.float32)) for _ in range(2))
+    _peak_close(istft.irfft_window(re.to(cuda), im.to(cuda), n),
+                istft.irfft_window_plain(re.double(), im.double(), n, None),
+                (-1,))
+    mag = torch.from_numpy((rng.random((2, frames, n // 2 + 1)) * 3)
+                           .astype(np.float32))
+    ref = griffinlim.gl_project_plain(x.double(), mag.double(), win.double(),
+                                      n, hop)
+    got = griffinlim.gl_project(xc, mag.to(cuda), wc, n, hop).cpu().double()
+    assert float(((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max()) <= 1e-4
 
 
 def test_mixed_core_refuses_a_wrong_plan(cuda):
-    """A plan the kernel does not take (radices that do not multiply to n/2,
+    """A plan the kernels do not take (radices that do not multiply to n/2,
     threads that do not divide it, a block over 256 threads) launches
-    nothing and raises: there is no fallback."""
+    nothing and raises, in KB, KE and KG alike: there is no fallback."""
     from gomel_tpu_torch.ops import _cuda
     n, hop = 3000, 750
     x = torch.randn((1, n + 4 * hop), device=cuda)
     out = torch.empty((1, 5, n // 2 + 1), device=cuda)
+    pairs = torch.empty((1, 5, n // 2 + 1, 2), device=cuda)
+    re = torch.randn((1, 5, n // 2 + 1), device=cuda)
+    frames_w = torch.empty((1, 5, n), device=cuda)
     tw = rfft_mag._twiddles(n, cuda)
     tw_pass, code, threads, per_block = rfft_mag._fft_args(n, cuda)
     for bad in ((code + 1, threads, per_block), (code, threads + 1, per_block),
@@ -187,6 +291,15 @@ def test_mixed_core_refuses_a_wrong_plan(cuda):
             _cuda.launch("gomel_stft_mag", cuda, x.data_ptr(), None,
                          tw.data_ptr(), tw_pass, out.data_ptr(), 1, 5,
                          x.shape[1], hop, n, *bad)
+        with pytest.raises(RuntimeError):
+            _cuda.launch("gomel_stft_planes", cuda, x.data_ptr(), None,
+                         tw.data_ptr(), tw_pass, pairs.data_ptr(), 1, 5,
+                         x.shape[1], hop, n, 0, n // 2 + 1, *bad)
+        with pytest.raises(RuntimeError):
+            _cuda.launch("gomel_irfft_window", cuda, istft.MODE_PLANES,
+                         re.data_ptr(), re.data_ptr(), None, None,
+                         tw.data_ptr(), tw_pass, frames_w.data_ptr(), 1, 5,
+                         5, n // 2 + 1, n, 0.0, 0, *bad)
 
 
 @pytest.mark.parametrize("n,hop,lead,extra", [

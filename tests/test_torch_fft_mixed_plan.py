@@ -1,4 +1,5 @@
-"""The mixed-radix register core of kernels KB and KJ, replayed on the CPU.
+"""The mixed-radix register core of kernels KB, KE, KG and KJ, replayed on
+the CPU.
 
 csrc/fft_core.cuh (fwd_frame_mixed, inv_frame_mixed) runs every n whose half
 m is not a power of two on the plan ``ops/rfft_mag.mixed_plan`` gives and the
@@ -12,13 +13,16 @@ the compile-time butterflies (the power-of-two DFTs with the 16th roots,
 the symmetric 3-, 5- and 7-point forms with their float32 literal roots,
 the prime-factor nests of the composites), the generic passes (a thread an
 output, roots from the pass's table of ns R roots, a second buffer after
-the first pass), the split of bins k and m - k, KJ's projection and the
-inverse's decimation in frequency, whose last pass stores the frame's
-points j + t m/R_0 times 1/n and the window. Each is held to
-``np.fft.rfft`` / ``gl_project_plain`` in float64 (the card tests' bounds:
-1e-5 of each frame's peak, 1e-4 relative L2 a frame). Each pass must write
-every point once; every plan must fit a block and take no more passes than
-the one-prime-a-pass route the core replaced. No JAX.
+the first pass), the split of bins k and m - k, KJ's projection, KE's
+epilogue (the pairs (k, m - k) that hold a bin of its range), KG's prologue
+(2 Z[k] and 2 Z[m - k] from the bins its source mode gives) and its frame
+mask over the blocks of the plan, and the inverse's decimation in
+frequency, whose last pass stores the frame's points j + t m/R_0 times 1/n
+and the window. Each is held to ``np.fft.rfft``, ``stft_planes_plain``,
+``irfft_window_plain`` or ``gl_project_plain`` in float64 (the card tests'
+bounds: 1e-5 of each frame's peak, 1e-4 relative L2 a frame). Each pass
+must write every point once; every plan must fit a block and take no more
+passes than the one-prime-a-pass route the core replaced. No JAX.
 """
 import os
 import re
@@ -28,7 +32,8 @@ import pytest
 
 import torch
 
-from gomel_tpu_torch.ops import griffinlim, rfft_mag
+from gomel_tpu_torch.ops import (griffinlim, istft, phase_ops, quantize,
+                                 rfft_mag)
 from gomel_tpu_torch.ops.fftbackend import ct_supported
 from gomel_tpu_torch.ops.stft import frame_signal, hann_window
 
@@ -400,6 +405,108 @@ def gl_replay(frames: np.ndarray, mag: np.ndarray, window, n: int):
     return inverse(out, window, n)[0]
 
 
+def store_planes(z: np.ndarray, n: int, first: int, count: int):
+    """KE's epilogue (phase_encode.cu store_planes): each thread th of the
+    frame's T walks k = (lo // T) T + th, ... <= hi, takes the pairs
+    (k, m - k) from lo on (k = 0: DC and Nyquist), splits them (split) and
+    stores (Im, Re) of each member in first..first+count-1. Returns the
+    planes [F, count, 2] and how often each bin was stored."""
+    m = n // 2
+    threads = rfft_mag.mixed_plan(n).threads
+    re, im = split(z, n)
+    last = first + count - 1
+    lo = max(0, min(first, m - last))
+    hi = min(m // 2, max(last, m - first))
+    out = np.full((z.shape[0], count, 2), np.nan, F32)
+    hits = np.zeros(count, int)
+    for th in range(threads):
+        for k in range((lo // threads) * threads + th, hi + 1, threads):
+            if k < lo:
+                continue
+            for b in (k, m - k) if 2 * k != m else (k,):
+                if first <= b <= last:
+                    out[:, b - first, 0], out[:, b - first, 1] = (
+                        im[:, b], re[:, b])
+                    hits[b - first] += 1
+    return out, hits
+
+
+def half_bins(src, mode: str, n: int, ext=None, max_val=0, ihs=0):
+    """half_bin<kMode> (phase_decode.cu) for k = 0..m in float32: the
+    planes' bins as they are, or (spectrogram, PNG planes) bin k > 0 from
+    stored bin min(k - 1, nf - 1), real part channel 1 and imaginary part
+    channel 0, the PNG planes' values rescaled step by step and through
+    ihs sinh passes; DC's and Nyquist's imaginary parts zero."""
+    m = n // 2
+    if mode == "planes":
+        re, im = (a.astype(F32).copy() for a in src)
+    else:
+        if mode == "spec":
+            chans = src.astype(F32)                          # [F, nf, 2]
+        else:
+            q = src.astype(F32).transpose(1, 0, 2)           # [F, nf, 2]
+            mx, mn = ext
+            with np.errstate(over="ignore"):
+                chans = (q / F32(max_val)) * (mx - mn).astype(F32) + mn
+                for _ in range(ihs):
+                    chans = np.sinh(chans).astype(F32)
+        j = np.minimum(np.arange(m + 1) - 1, chans.shape[1] - 1)
+        re, im = chans[:, j, 1].copy(), chans[:, j, 0].copy()
+        re[:, 0] = im[:, 0] = 0.0
+    im[:, 0] = im[:, m] = 0.0
+    return re, im
+
+
+def load_spectrum(re: np.ndarray, im: np.ndarray, n: int) -> np.ndarray:
+    """KG's prologue (load_spectrum): for k = 0..m/2, P = X[k] and
+    Q = X[m - k] give 2 Z[k] = inverse_split_bin(P, Q, tw[k]) and, for
+    0 < k != m - k, 2 Z[m - k] from (Q, P, -conj tw[k]), in natural order.
+    Each point is written once."""
+    m = n // 2
+    k = np.arange(m // 2 + 1)
+    w = rfft_mag._twiddles_np(n)[k]
+    zr, zi = inverse_split(re[:, k], im[:, k], re[:, m - k], im[:, m - k], w)
+    out = np.full((re.shape[0], m), np.nan, C64)
+    out[:, k] = zr + 1j * zi
+    mirror = (k > 0) & (2 * k != m)
+    wm = np.stack([-w[:, 0], w[:, 1]], axis=-1)
+    yr, yi = inverse_split(re[:, m - k], im[:, m - k], re[:, k], im[:, k], wm)
+    out[:, m - k[mirror]] = (yr + 1j * yi)[:, mirror]
+    assert not np.isnan(out).any()
+    return out
+
+
+def masked_launch(frames_out: np.ndarray, frames: int, real: int,
+                  per_block: int):
+    """KG's blocks over frames_out [B * F, n] (each frame as the unmasked
+    launch computes it) with a real-frame count: a block holding no frame
+    before ``real`` of its row (block_live) stores zeros and returns; in a
+    live block a masked frame stores zeros, the others their frame. Returns
+    the result, the count of stores of each frame, and the blocks found
+    live only through a later row's first frame."""
+    total = frames_out.shape[0]
+    out = np.full_like(frames_out, np.nan)
+    stores = np.zeros(total, int)
+    by_next_row = 0
+    for first in range(0, total, per_block):
+        last = min(first + per_block, total) - 1
+        row0 = first // frames
+        head = first - row0 * frames < real
+        live = head or (real > 0 and (row0 + 1) * frames <= last)
+        by_next_row += live and not head
+        for frame in range(first, first + per_block):
+            if frame >= total:
+                continue
+            masked = frame % frames >= real
+            if masked:
+                out[frame] = 0.0
+                stores[frame] += 1
+            elif live:
+                out[frame] = frames_out[frame]
+                stores[frame] += 1
+    return out, stores, by_next_row
+
+
 def test_every_size_has_a_plan():
     """Every even n from 6 to 16384 whose half is not a power of two and
     that the FFT kernels take has a plan: its radices multiply to n/2 in at
@@ -562,3 +669,100 @@ def test_gl_replay_matches_float64_plain(n):
         torch.from_numpy(win.astype(F32)).double(), n, hop).numpy()
     rel = np.linalg.norm(got - ref, axis=-1) / np.linalg.norm(ref, axis=-1)
     assert float(rel.max()) <= 1e-4, float(rel.max())
+
+
+@pytest.mark.parametrize("bins", ["phase", "all"])
+@pytest.mark.parametrize("n", SIZES)
+def test_ke_replay_matches_float64_planes(n, bins):
+    """KE on the mixed core: the forward replay and the bin-range pair
+    epilogue in float32 within 1e-5 of each frame's peak of
+    stft_planes_plain in float64, for the phase encode's bins 1..nf with the
+    window and for rfft_planes' bins 0..n/2 of framed input (hop n, no
+    window); every bin of the range stored once."""
+    m = n // 2
+    rng = np.random.default_rng(n + 11)
+    if bins == "phase":
+        hop, first, count, win = max(1, n // 4), 1, max(1, m * 768 // 1000), \
+            hann_window(n)
+    else:
+        hop, first, count, win = n, 0, m + 1, None
+    x = rng.standard_normal(n + 2 * hop).astype(F32)
+    framed = frame_signal(torch.from_numpy(x), n, hop).numpy()
+    framed[2] *= F32(1e-3)
+    z, _ = forward(framed, win, n)
+    got, hits = store_planes(z, n, first, count)
+    assert np.array_equal(hits, np.ones(count, int))
+    x64 = torch.from_numpy(framed.reshape(-1).astype(np.float64))
+    ref = rfft_mag.stft_planes_plain(
+        x64, None if win is None else torch.from_numpy(
+            win.astype(F32)).double(), n, n, first, count).numpy()
+    peak = np.abs(rfft_mag.stft_planes_plain(
+        x64, None if win is None else torch.from_numpy(
+            win.astype(F32)).double(), n, n, 0, m + 1).numpy()).max(
+        axis=(-2, -1), keepdims=True)
+    assert float((np.abs(got - ref) / peak).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["planes", "spec", "quant8", "quant16"])
+@pytest.mark.parametrize("n", SIZES)
+def test_kg_replay_matches_float64_plain(n, mode):
+    """KG on the mixed core: half_bin of each source mode, the pair
+    prologue and the inverse replay (times 1/n and the window) in float32
+    within 1e-5 of each frame's peak of irfft_window_plain in float64 on
+    the planes, grown spectrogram or dequantized PNG planes (IHS 2 on the
+    uint16 planes); the DC and Nyquist imaginary parts the planes carry are
+    ignored."""
+    m, frames = n // 2, 3
+    rng = np.random.default_rng(n + 13)
+    win = hann_window(n)
+    ext, max_val, ihs = None, 0, 0
+    nf = max(1, m * 3 // 4)
+    if mode == "planes":
+        src = (rng.standard_normal((frames, m + 1)).astype(F32),
+               rng.standard_normal((frames, m + 1)).astype(F32))
+        re64, im64 = (torch.from_numpy(a).double() for a in src)
+    elif mode == "spec":
+        src = (rng.standard_normal((frames, nf, 2)) * 20).astype(F32)
+        re64, im64 = phase_ops.grow_half_planes(
+            torch.from_numpy(src).double(), m)
+    else:
+        max_val, dt = (255, np.uint8) if mode == "quant8" else \
+            (65535, np.uint16)
+        ihs = 0 if mode == "quant8" else 2
+        src = rng.integers(0, max_val + 1, (nf, frames, 2), dtype=dt)
+        ext = (np.array([3.0, 2.5], F32), np.array([-2.0, -1.5], F32))
+        spec = quantize.dequantize_planes(torch.from_numpy(src), ext[0],
+                                          ext[1], max_val, ihs)
+        re64, im64 = phase_ops.grow_half_planes(spec.double(), m)
+    re, im = half_bins(src, mode, n, ext, max_val, ihs)
+    got, _ = inverse(load_spectrum(re, im, n), win, n)
+    ref = istft.irfft_window_plain(re64, im64, n, None).numpy()
+    peak = np.abs(ref).max(axis=-1, keepdims=True)
+    want = ref * win.astype(F32).astype(np.float64)
+    assert float((np.abs(got - want) / peak).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_kg_masked_frames_are_zeros(n):
+    """KG's real-frame count on the mixed core's blocks (the plan's frames
+    a block, 3 rows whose frame count is no multiple of it, so blocks
+    straddle rows): every frame stored once, the masked ones exact zeros,
+    the rest the unmasked launch's frame; where a block holds several
+    frames, one is live only through the next row's first frame, and a
+    count of 0 masks all."""
+    per_block = rfft_mag.mixed_plan(n).frames_per_block
+    frames = 2 * per_block + 1
+    rng = np.random.default_rng(n + 17)
+    m = n // 2
+    re = rng.standard_normal((3 * frames, m + 1)).astype(F32)
+    im = rng.standard_normal((3 * frames, m + 1)).astype(F32)
+    full, _ = inverse(load_spectrum(re, im, n), hann_window(n), n)
+    for real in (0, 1, frames // 2, frames):
+        out, stores, by_next_row = masked_launch(full, frames, real,
+                                                 per_block)
+        assert np.array_equal(stores, np.ones(3 * frames, int))
+        fi = np.arange(3 * frames) % frames
+        assert np.array_equal(out[fi >= real], np.zeros_like(out[fi >= real]))
+        assert np.array_equal(out[fi < real], full[fi < real])
+        if real == 1 and per_block > 1:
+            assert by_next_row > 0

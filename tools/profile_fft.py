@@ -7,13 +7,14 @@ KG (phase synthesis).
 
 Needs one NVIDIA GPU and nvcc. Builds gomel_tpu_torch/csrc/rfft_mag.cu,
 phase_encode.cu, griffinlim.cu and phase_decode.cu (with fft_core.cuh) as
-shipped, plus one entry point each that launches the earlier radix-2
-Stockham form still in those files (stft_mag_kernel<true>,
-stft_planes_kernel<true>, gl_project_kernel<true>, irfft_window_kernel<mode,
-true>: log2(n/2) passes through two shared buffers, one barrier each, one
-block a frame), and in variants that each take work out of the register
-core. Then, on one card and in turns (radix-2, core, core, radix-2), times
-both forms at the bench shape of chip_smoke.py (2 x 1122 frames of 4096,
+shipped, each with the shared-memory form of its kernel that the register
+cores replaced (tools/fft_earlier.cuh, built only here: entry points
+prof_earlier_stft_mag, _stft_planes, _gl_project, _irfft_window; radix-2
+Stockham, log2(n/2) passes through two shared buffers, one barrier each, or
+the mixed radix over n/2's prime factors; one block a frame), and in
+variants that each take work out of the register core. Then, on one card
+and in turns (radix-2, core, core, radix-2), times both forms at the bench
+shape of chip_smoke.py (2 x 1122 frames of 4096,
 hop 1280, Hann) and at one shard of its 30-minute long-form file (1 x 16,875
 frames): KB (magnitudes) and KE (bins 1..1536 as (im, re)) beside
 ``torch.fft.rfft`` of the same frames laid out in memory; KJ beside
@@ -49,12 +50,13 @@ anything:
   inv_store_only      KJ/KG: no such reads, no forward passes, no DFTs: the
                       inverse's last pass alone reads the buffer and stores
 
-The mixed-radix register core (KB and KJ where n/2 is not a power of two)
-is raced the same way against the shared-memory mixed radix it replaced
-(stft_mag_kernel<false>, gl_project_kernel<false>, launched only by the
-tool) at n = 400, 1200, 3000 and 6000, hop n/4, on the bench signal (2 rows
-of 30 s at 48 kHz), beside ``torch.fft.rfft`` / ``irfft`` (and KJ's
-``rfft`` + ``irfft``) of the same frames, with its ablations:
+The mixed-radix register core (KB, KE, KJ and KG where n/2 is not a power
+of two) is raced the same way against the shared-memory mixed radix it
+replaced (tools/fft_earlier.cuh) at n = 400, 1200, 3000 and 6000, hop n/4,
+on the bench signal (2 rows of 30 s at 48 kHz): KB, KE (bins 1..0.384 n, as
+the phase encode at 3000), KJ, and KG on half-spectrum planes, beside
+``torch.fft.rfft`` / ``irfft`` (and KJ's ``rfft`` + ``irfft``) of the same
+frames, each also with one frame a block; KB and KJ with the ablations:
 
   mixed_dense         the R x R product in place of each compile-time
                       butterfly, its roots constants of a table (the
@@ -69,7 +71,6 @@ of 30 s at 48 kHz), beside ``torch.fft.rfft`` / ``irfft`` (and KJ's
   mixed_linear_banks  every pass's shared accesses at j + t m/R, free of
                       bank conflicts and of the digit reversal (the wrong
                       points: what the conflicts cost)
-  one frame a block   the shipped build with frames_per_block 1
 
 Prints the card's name and power limit, ptxas's registers, shared memory
 and spills of each kernel at n = 4096, of the radix-2 forms and of the
@@ -108,135 +109,11 @@ SOURCES = ("fft_core.cuh",) + FWD + INV
 MIXED_N = (400, 1200, 3000, 6000)
 RADIX30 = rfft_mag.MIXED_RADICES + (20, 24, 30)
 
-# the earlier radix-2 form, launched from an entry point added to each file
-_RADIX2 = {
-    "rfft_mag.cu": """
-GOMEL_API int prof_radix2_stft_mag(const void* x, const void* window,
-    const void* tw, void* out, long long batch, long long frames,
-    long long batch_stride, long long hop, long long n, int device,
-    void* stream) {
-  cudaSetDevice(device);
-  const int m = static_cast<int>(n / 2);
-  launch_frames(stft_mag_kernel<true>, batch * frames, m,
-                2 * static_cast<size_t>(m) * sizeof(float2),
-                static_cast<cudaStream_t>(stream),
-                static_cast<const float*>(x), static_cast<const float*>(window),
-                static_cast<const float2*>(tw), static_cast<float*>(out),
-                static_cast<int>(frames), batch_stride, hop, m);
-  return gomel_status();
-}
-""",
-    "phase_encode.cu": """
-GOMEL_API int prof_radix2_stft_planes(const void* x, const void* window,
-    const void* tw, void* out, long long batch, long long frames,
-    long long batch_stride, long long hop, long long n, int first, int count,
-    int device, void* stream) {
-  cudaSetDevice(device);
-  const int m = static_cast<int>(n / 2);
-  launch_frames(stft_planes_kernel<true>, batch * frames, m,
-                2 * static_cast<size_t>(m) * sizeof(float2),
-                static_cast<cudaStream_t>(stream),
-                static_cast<const float*>(x), static_cast<const float*>(window),
-                static_cast<const float2*>(tw), static_cast<float2*>(out),
-                static_cast<int>(frames), batch_stride, hop, m, first, count);
-  return gomel_status();
-}
-""",
-    "griffinlim.cu": """
-GOMEL_API int prof_radix2_gl_project(const void* sig, const void* mag,
-    const void* window, const void* tw, void* out, long long batch,
-    long long frames, long long length, long long hop, long long n,
-    int device, void* stream) {
-  cudaSetDevice(device);
-  const int m = static_cast<int>(n / 2);
-  launch_frames(gl_project_kernel<true>, batch * frames, m,
-                2 * static_cast<size_t>(m) * sizeof(float2),
-                static_cast<cudaStream_t>(stream),
-                static_cast<const float*>(sig), static_cast<const float*>(mag),
-                static_cast<const float*>(window),
-                static_cast<const float2*>(tw), static_cast<float2*>(out),
-                static_cast<int>(frames), length, hop, m,
-                1.0f / static_cast<float>(n));
-  return gomel_status();
-}
-""",
-    "phase_decode.cu": """
-template <int kMode>
-static void prof_radix2_launch(const void* src, const void* aux0,
-    const void* aux1, const void* window, const void* tw, void* out,
-    long long total, int frames, int real_frames, int nf, int m,
-    float max_val, int ihs_passes, cudaStream_t s) {
-  launch_frames(irfft_window_kernel<kMode, true>, total, m,
-                (2 * static_cast<size_t>(m) + 1) * sizeof(float2), s, src,
-                static_cast<const float*>(aux0),
-                static_cast<const float*>(aux1),
-                static_cast<const float*>(window),
-                static_cast<const float2*>(tw), static_cast<float2*>(out),
-                frames, real_frames, nf, m, max_val, ihs_passes,
-                1.0f / static_cast<float>(2 * m));
-}
-
-GOMEL_API int prof_radix2_irfft_window(int mode, const void* src,
-    const void* aux0, const void* aux1, const void* window, const void* tw,
-    void* out, long long batch, long long frames, long long real_frames,
-    long long nf, long long n, float max_val, int ihs_passes, int device,
-    void* stream) {
-  cudaSetDevice(device);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int m = static_cast<int>(n / 2);
-  const int f = static_cast<int>(frames), r = static_cast<int>(real_frames);
-  const int k = static_cast<int>(nf);
-  if (mode == kSpec) {
-    prof_radix2_launch<kSpec>(src, aux0, aux1, window, tw, out,
-                              batch * frames, f, r, k, m, max_val, ihs_passes,
-                              s);
-  } else if (mode == kQuant8) {
-    prof_radix2_launch<kQuant8>(src, aux0, aux1, window, tw, out,
-                                batch * frames, f, r, k, m, max_val,
-                                ihs_passes, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return gomel_status();
-}
-""",
-}
-
-# the shared-memory mixed radix the mixed-radix register core replaced
-_RADIX2["rfft_mag.cu"] += """
-GOMEL_API int prof_mixed_old_stft_mag(const void* x, const void* window,
-    const void* tw, void* out, long long batch, long long frames,
-    long long batch_stride, long long hop, long long n, int device,
-    void* stream) {
-  cudaSetDevice(device);
-  const int m = static_cast<int>(n / 2);
-  launch_frames(stft_mag_kernel<false>, batch * frames, m,
-                2 * static_cast<size_t>(m) * sizeof(float2),
-                static_cast<cudaStream_t>(stream),
-                static_cast<const float*>(x), static_cast<const float*>(window),
-                static_cast<const float2*>(tw), static_cast<float*>(out),
-                static_cast<int>(frames), batch_stride, hop, m);
-  return gomel_status();
-}
-"""
-_RADIX2["griffinlim.cu"] += """
-GOMEL_API int prof_mixed_old_gl_project(const void* sig, const void* mag,
-    const void* window, const void* tw, void* out, long long batch,
-    long long frames, long long length, long long hop, long long n,
-    int device, void* stream) {
-  cudaSetDevice(device);
-  const int m = static_cast<int>(n / 2);
-  launch_frames(gl_project_kernel<false>, batch * frames, m,
-                2 * static_cast<size_t>(m) * sizeof(float2),
-                static_cast<cudaStream_t>(stream),
-                static_cast<const float*>(sig), static_cast<const float*>(mag),
-                static_cast<const float*>(window),
-                static_cast<const float2*>(tw), static_cast<float2*>(out),
-                static_cast<int>(frames), length, hop, m,
-                1.0f / static_cast<float>(n));
-  return gomel_status();
-}
-"""
+# the earlier shared-memory forms (tools/fft_earlier.cuh), built into each
+# variant's copy of their kernel's source
+TOOLS = os.path.join(HERE, "tools")
+_EARLIER = {"rfft_mag.cu": "KB", "phase_encode.cu": "KE",
+            "griffinlim.cu": "KJ", "phase_decode.cu": "KG"}
 
 
 def _dense_roots() -> str:
@@ -344,11 +221,11 @@ _INV_NO_LOAD = [
     ("griffinlim.cu", "const float mk = mg[k], mq = mg[m - k];",
      "const float mk = 1.0f + k, mq = 2.0f + m;"),
     ("phase_decode.cu",
-     "      const float2 p = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames,\n"
-     "                                       nf, max_val, ext, ihs_passes);\n"
-     "      const float2 q = half_bin<kMode>(src, aux0, frame, bi, fi, m - k, m,\n"
-     "                                       frames, nf, max_val, ext, ihs_passes);",
-     "      const float2 p = make_float2(k, th), q = make_float2(th, ext.x + k);"),
+     "    const float2 p = half_bin<kMode>(src, aux0, frame, bi, fi, k, m, frames,\n"
+     "                                     nf, max_val, ext, ihs_passes);\n"
+     "    const float2 q = half_bin<kMode>(src, aux0, frame, bi, fi, m - k, m,\n"
+     "                                     frames, nf, max_val, ext, ihs_passes);",
+     "    const float2 p = make_float2(k, th), q = make_float2(th, ext.x + k);"),
 ]
 _INV_CALL = "  inv_passes<kLogM, 0, 1>(z, twp, th, dst, w2, inv_n, zero);"
 _INV_NO_PASSES = ("fft_core.cuh", _INV_CALL,
@@ -424,28 +301,29 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
                 raise RuntimeError(f"variant {variant}: {old!r} is not in "
                                    f"{name} exactly once")
             files[name] = files[name].replace(old, new)
-        for name, extra in _RADIX2.items():
-            files[name] += extra
+        for name, kind in _EARLIER.items():
+            files[name] += (f"\n#define GOMEL_EARLIER_{kind}\n"
+                            f"#include \"fft_earlier.cuh\"\n")
         for name, text in files.items():
             with open(os.path.join(d, name), "w") as f:
                 f.write(text)
         lib = os.path.join(d, "lib.so")
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I",
-               _cuda.CSRC_DIR, "-o", lib, *(os.path.join(d, u) for u in units)]
+               _cuda.CSRC_DIR, "-I", TOOLS, "-o", lib,
+               *(os.path.join(d, u) for u in units)]
         log = open(os.path.join(d, "build.log"), "w")
         jobs[variant] = (subprocess.Popen(cmd, stdout=log,
                                           stderr=subprocess.STDOUT), lib, log)
     p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
-    radix2 = {
-        "prof_radix2_stft_mag": [p, p, p, p, i64, i64, i64, i64, i64],
-        "prof_radix2_stft_planes": [p, p, p, p, i64, i64, i64, i64, i64, i32,
-                                    i32],
-        "prof_radix2_gl_project": [p, p, p, p, p, i64, i64, i64, i64, i64],
-        "prof_radix2_irfft_window": [i32, p, p, p, p, p, p, i64, i64, i64,
-                                     i64, i64, f32, i32],
-        "prof_mixed_old_stft_mag": [p, p, p, p, i64, i64, i64, i64, i64],
-        "prof_mixed_old_gl_project": [p, p, p, p, p, i64, i64, i64, i64, i64],
+    earlier = {
+        "prof_earlier_stft_mag": [i32, p, p, p, p, i64, i64, i64, i64, i64],
+        "prof_earlier_stft_planes": [i32, p, p, p, p, i64, i64, i64, i64, i64,
+                                     i32, i32],
+        "prof_earlier_gl_project": [i32, p, p, p, p, p, i64, i64, i64, i64,
+                                    i64],
+        "prof_earlier_irfft_window": [i32, i32, p, p, p, p, p, p, i64, i64,
+                                      i64, i64, i64, f32, i32],
     }
     libs = {}
     for variant, (proc, lib, log) in jobs.items():
@@ -465,7 +343,7 @@ def build(work: str) -> dict[str, tuple[ctypes.CDLL, str]]:
                 fn = getattr(handle, symbol)
                 fn.argtypes = [*_cuda._SIGNATURES[symbol], i32, p]
                 fn.restype = i32
-        for symbol, args in radix2.items():
+        for symbol, args in earlier.items():
             if hasattr(handle, symbol):
                 getattr(handle, symbol).argtypes = [*args, i32, p]
                 getattr(handle, symbol).restype = i32
@@ -492,28 +370,33 @@ def ptxas_lines(report: str) -> list[str]:
 
 def _at_n(line: str) -> bool:
     """A ptxas line of a register-core kernel at n = N, or of a radix-2
-    form (the shared-memory kernels built with kPow2 true)."""
+    form (the earlier kernels built with kPow2 true)."""
     return f"Li{N.bit_length() - 2}E" in line or "Lb1E" in line
 
 
 def mixed_race(libs, dev, iters: int, record) -> None:
     """The mixed-radix register core against the shared-memory mixed radix
-    it replaced, KB and KJ at MIXED_N on the bench signal, beside
-    torch.fft, and the mixed ablations."""
+    it replaced at MIXED_N on the bench signal, beside torch.fft: KB, KE
+    (bins 1..0.384 n, the phase encode's share at 3000), KJ and KG (on
+    half-spectrum planes, as phase 4 times it), and KB's and KJ's mixed
+    ablations."""
     g = torch.Generator(device=dev).manual_seed(1)
     stream = torch.cuda.current_stream(dev).cuda_stream
     length = 1_440_000 + 2 * 1280          # the bench rows, padded
     x = torch.rand((2, length), generator=g, device=dev) - 0.5
     shipped = libs["shipped"][0]
     for n in MIXED_N:
-        hop = n // 4
+        hop, nf = n // 4, n * 384 // 1000
         frames = (length - n) // hop + 1
         sig = x[:, :n + (frames - 1) * hop].contiguous()
         win = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
         tw = rfft_mag._twiddles(n, dev)
         mag = torch.empty((2, frames, n // 2 + 1), device=dev)
+        pairs = torch.empty((2, frames, nf, 2), device=dev)
         target = torch.rand((2, frames, n // 2 + 1), generator=g,
                             device=dev) * 3
+        re, im = (torch.randn((2, frames, n // 2 + 1), generator=g,
+                              device=dev) for _ in range(2))
         fw = torch.empty((2, frames, n), device=dev)
         plans = {}
         for name, radices in (("shipped", rfft_mag.MIXED_RADICES),
@@ -531,6 +414,14 @@ def mixed_race(libs, dev, iters: int, record) -> None:
                 pl.threads, per_block or pl.frames_per_block, dev.index,
                 stream)
 
+        def ke(lib, plan="shipped", per_block=None):
+            pl, table = plans[plan]
+            return lambda: lib.gomel_stft_planes(
+                x.data_ptr(), win.data_ptr(), tw.data_ptr(), table.data_ptr(),
+                pairs.data_ptr(), 2, frames, length, hop, n, 1, nf, pl.code,
+                pl.threads, per_block or pl.frames_per_block, dev.index,
+                stream)
+
         def kj(lib, plan="shipped", per_block=None):
             pl, table = plans[plan]
             return lambda: lib.gomel_gl_project(
@@ -539,26 +430,50 @@ def mixed_race(libs, dev, iters: int, record) -> None:
                 sig.shape[1], hop, n, pl.code, pl.threads,
                 per_block or pl.frames_per_block, dev.index, stream)
 
-        old = {"KB": lambda: shipped.prof_mixed_old_stft_mag(
-                   x.data_ptr(), win.data_ptr(), tw.data_ptr(), mag.data_ptr(),
-                   2, frames, length, hop, n, dev.index, stream),
-               "KJ": lambda: shipped.prof_mixed_old_gl_project(
-                   sig.data_ptr(), target.data_ptr(), win.data_ptr(),
+        def kg(lib, plan="shipped", per_block=None):
+            pl, table = plans[plan]
+            return lambda: lib.gomel_irfft_window(
+                0, re.data_ptr(), im.data_ptr(), None, win.data_ptr(),
+                tw.data_ptr(), table.data_ptr(), fw.data_ptr(), 2, frames,
+                frames, n // 2 + 1, n, 0.0, 0, pl.code, pl.threads,
+                per_block or pl.frames_per_block, dev.index, stream)
+
+        old = {"KB": lambda: shipped.prof_earlier_stft_mag(
+                   0, x.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                   mag.data_ptr(), 2, frames, length, hop, n, dev.index,
+                   stream),
+               "KE": lambda: shipped.prof_earlier_stft_planes(
+                   0, x.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                   pairs.data_ptr(), 2, frames, length, hop, n, 1, nf,
+                   dev.index, stream),
+               "KJ": lambda: shipped.prof_earlier_gl_project(
+                   0, sig.data_ptr(), target.data_ptr(), win.data_ptr(),
                    tw.data_ptr(), fw.data_ptr(), 2, frames, sig.shape[1], hop,
-                   n, dev.index, stream)}
+                   n, dev.index, stream),
+               "KG": lambda: shipped.prof_earlier_irfft_window(
+                   0, 0, re.data_ptr(), im.data_ptr(), None, win.data_ptr(),
+                   tw.data_ptr(), fw.data_ptr(), 2, frames, frames,
+                   n // 2 + 1, n, 0.0, 0, dev.index, stream)}
         framed = (frame_signal(x, n, hop) * win).contiguous()
         spec = torch.fft.rfft(framed, dim=-1)
+        half = torch.complex(re, im)
+        rfft_ms = min(chip_smoke.cuda_ms(
+            lambda: torch.fft.rfft(framed, dim=-1), iters) for _ in range(2))
+        irfft_ms = min(chip_smoke.cuda_ms(
+            lambda: torch.fft.irfft(spec, n=n), iters) for _ in range(2))
         lib_ms = {
-            "KB": {"rfft_ms": min(chip_smoke.cuda_ms(
-                lambda: torch.fft.rfft(framed, dim=-1), iters)
-                for _ in range(2))},
-            "KJ": {"irfft_ms": min(chip_smoke.cuda_ms(
-                lambda: torch.fft.irfft(spec, n=n), iters) for _ in range(2)),
+            "KB": {"rfft_ms": rfft_ms}, "KE": {"rfft_ms": rfft_ms},
+            "KJ": {"irfft_ms": irfft_ms,
                    "rfft_irfft_ms": min(chip_smoke.cuda_ms(
                        lambda: torch.fft.irfft(torch.fft.rfft(
-                           framed, dim=-1), n=n), iters) for _ in range(2))}}
-        inputs = {"KB": (x, win, mag), "KJ": (sig, target, win, fw)}
-        for kind, make, out in (("KB", kb, mag), ("KJ", kj, fw)):
+                           framed, dim=-1), n=n), iters) for _ in range(2))},
+            "KG": {"irfft_ms": min(chip_smoke.cuda_ms(
+                lambda: torch.fft.irfft(half, n=n), iters)
+                for _ in range(2))}}
+        inputs = {"KB": (x, win, mag), "KE": (x, win, pairs),
+                  "KJ": (sig, target, win, fw), "KG": (re, im, win, fw)}
+        for kind, make, out in (("KB", kb, mag), ("KE", ke, pairs),
+                                ("KJ", kj, fw), ("KG", kg, fw)):
             new_fn, old_fn = make(shipped), old[kind]
             for fn in (new_fn, old_fn):
                 if fn() != 0:
@@ -567,9 +482,12 @@ def mixed_race(libs, dev, iters: int, record) -> None:
             new_out = out.clone()
             old_fn()
             torch.cuda.synchronize()
-            rel = (chip_smoke.rel_l2(new_out, out) if kind == "KJ" else float(
-                ((new_out - out).abs() / out.abs().amax(-1, keepdim=True)
-                 .clamp_min(1e-30)).max()))
+            if kind == "KJ":
+                rel = chip_smoke.rel_l2(new_out, out)
+            else:
+                dims = tuple(range(2, out.dim()))
+                rel = float(((new_out - out).abs() / out.abs().amax(
+                    dims, keepdim=True).clamp_min(1e-30)).max())
             if rel > (1e-4 if kind == "KJ" else 1e-5):
                 raise AssertionError(f"{kind} n {n}: the mixed core against "
                                      f"the earlier form {rel:.3e}")
@@ -585,11 +503,13 @@ def mixed_race(libs, dev, iters: int, record) -> None:
                    core_vs_library=new_ms / next(iter(lib_ms[kind].values())),
                    core_vs_earlier_rel_err=rel)
             runs = {"one frame a block": make(shipped, per_block=1)}
-            for variant in ("mixed_dense", "mixed_scalar", "mixed_radix30",
-                            "mixed_min_blocks_3", "mixed_unroll_2",
-                            "mixed_linear_banks"):
-                runs[variant] = make(libs[variant][0], "radix30" if variant
-                                     == "mixed_radix30" else "shipped")
+            if kind in ("KB", "KJ"):
+                for variant in ("mixed_dense", "mixed_scalar",
+                                "mixed_radix30", "mixed_min_blocks_3",
+                                "mixed_unroll_2", "mixed_linear_banks"):
+                    runs[variant] = make(libs[variant][0], "radix30" if
+                                         variant == "mixed_radix30"
+                                         else "shipped")
             for variant, fn in runs.items():
                 if fn() != 0:
                     raise RuntimeError(f"{kind} n {n} {variant}: launch "
@@ -705,19 +625,19 @@ def main(argv=None) -> int:
 
         def radix2(lib, kind):
             if kind == "KB":
-                return lambda: lib.prof_radix2_stft_mag(
-                    x.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                return lambda: lib.prof_earlier_stft_mag(
+                    1, x.data_ptr(), win.data_ptr(), tw.data_ptr(),
                     mag.data_ptr(), *common, dev.index, stream)
             if kind == "KE":
-                return lambda: lib.prof_radix2_stft_planes(
-                    x.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                return lambda: lib.prof_earlier_stft_planes(
+                    1, x.data_ptr(), win.data_ptr(), tw.data_ptr(),
                     pairs.data_ptr(), *common, 1, NF, dev.index, stream)
             if kind == "KJ":
-                return lambda: lib.prof_radix2_gl_project(
-                    x.data_ptr(), target.data_ptr(), win.data_ptr(),
+                return lambda: lib.prof_earlier_gl_project(
+                    1, x.data_ptr(), target.data_ptr(), win.data_ptr(),
                     tw.data_ptr(), fw.data_ptr(), *common, dev.index, stream)
-            return lambda: lib.prof_radix2_irfft_window(
-                mode, *kg_args, fw.data_ptr(), *kg_dims, dev.index, stream)
+            return lambda: lib.prof_earlier_irfft_window(
+                1, mode, *kg_args, fw.data_ptr(), *kg_dims, dev.index, stream)
 
         framed = (frame_signal(x, N, HOP) * win).contiguous()
         spec = torch.complex(torch.randn_like(target), torch.randn_like(target))

@@ -315,7 +315,7 @@ def main(argv=None) -> int:
         we, lo, hi = mel_ops._extended_weights(fwd)
         frames = mags.shape[1]
         tw = rfft_mag._twiddles(n_fft, dev).data_ptr()
-        tw_pass, *plan = rfft_mag._core_args(n_fft, dev)
+        tw_pass, *plan = rfft_mag._fft_args(n_fft, dev)
         outs = {}
 
         def make(lib, kind):
