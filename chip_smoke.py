@@ -208,22 +208,6 @@ def png_steps(a_path: str, b_path: str, read_png) -> np.ndarray:
     return np.minimum(d, 256 - d)
 
 
-def spectral_convergence(pcm: np.ndarray, target: torch.Tensor,
-                         window: torch.Tensor, n_fft: int, hop: int,
-                         stft_mag) -> float:
-    """Scale-invariant spectral convergence of an int16 wave against target
-    magnitudes [F, n/2 + 1] (gomel_tpu/utils/metrics.py:106): the least-
-    squares gain c is factored out, since Griffin-Lim's overlap-add is not
-    normalised. The wave is zero-padded back to the frames' span (towav
-    trims the reference padding)."""
-    length = n_fft + (target.shape[0] - 1) * hop
-    x = torch.from_numpy(pcm[:length].astype(np.float64) / 32768.0)
-    x = torch.nn.functional.pad(x, (0, length - x.shape[0]))
-    a = stft_mag(x, window, n_fft, hop)
-    c = float((a * target).sum() / (target * target).sum())
-    return float((a - c * target).norm() / (abs(c) * target.norm()))
-
-
 def towav_split(png: str, out: str, dev: torch.device, runs: int
                 ) -> dict[str, float]:
     """Milliseconds of each step of ``towav --device cuda`` (the steps of
@@ -1304,18 +1288,6 @@ def mixed_core_checks(dev: torch.device) -> None:
         f"bit-equal to the batch's (KB, KE, KG, KJ)")
 
 
-def spectral_convergence_t(sig: torch.Tensor, target: torch.Tensor,
-                           window: torch.Tensor, n_fft: int,
-                           hop: int) -> float:
-    """Scale-invariant spectral convergence of a float signal [..., L]
-    against target magnitudes [..., F, n/2 + 1], on the signal's device in
-    its dtype (see spectral_convergence)."""
-    from gomel_tpu_torch.ops.rfft_mag import stft_mag_plain
-    a = stft_mag_plain(sig, window, n_fft, hop)
-    c = (a * target).sum() / (target * target).sum()
-    return float((a - c * target).norm() / (c.abs() * target.norm()))
-
-
 def new_paths(tmp: str, drive, dev: torch.device, wav: str,
               logmel: torch.Tensor, inv: torch.Tensor, sig0: torch.Tensor,
               win: torch.Tensor, x: torch.Tensor, nf: int) -> None:
@@ -1330,6 +1302,7 @@ def new_paths(tmp: str, drive, dev: torch.device, wav: str,
     from gomel_tpu_torch import Phase, PhaseConfig
     from gomel_tpu_torch.cli.tools import tomel, towav
     from gomel_tpu_torch.ops import griffinlim, mel_ops, phase_ops
+    from gomel_tpu_torch.utils.metrics import spectral_convergence
 
     n_fft, hop = 4096, 1280
     target = mel_ops.mel_to_magnitudes_plain(logmel, inv)
@@ -1360,8 +1333,8 @@ def new_paths(tmp: str, drive, dev: torch.device, wav: str,
             if {k: counts.get(k, 0) for k in want} != want:
                 raise AssertionError(f"mel_decode {backend} {label} "
                                      f"launches {counts}, expected {want}")
-        sc_mm = spectral_convergence_t(out["mm"], target, win, n_fft, hop)
-        sc_ex = spectral_convergence_t(out["auto"], target, win, n_fft, hop)
+        sc_mm = spectral_convergence(out["mm"], target, n_fft, hop, win)
+        sc_ex = spectral_convergence(out["auto"], target, n_fft, hop, win)
         log(f"  mel_decode {label} from one start: spectral convergence mm "
             f"{sc_mm:.6f}, exact {sc_ex:.6f} (bound: mm <= 1.05 x exact + "
             f"1e-3 = {1.05 * sc_ex + 1e-3:.6f})")
@@ -1587,6 +1560,7 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
     from gomel_tpu_torch.ops.stft import hann_window
     from gomel_tpu_torch.parallel import sharded as sh
     from gomel_tpu_torch.pipelines import longform as lf
+    from gomel_tpu_torch.utils.metrics import spectral_convergence
 
     def path(name):
         return os.path.join(tmp, "long_" + name)
@@ -1717,8 +1691,8 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
               f"{LONG_SECONDS / 60:g} min, {N_SHARDS} frame shards", run, must)
     win = torch.tensor(hann_window(c.resolut), dtype=torch.float32,
                        device=dev)
-    sc = {mm: spectral_convergence_t(decoded[mm], target, win, c.resolut,
-                                     c.window) for mm in (True, False)}
+    sc = {mm: spectral_convergence(decoded[mm], target, c.resolut, c.window,
+                                   win) for mm in (True, False)}
     log(f"sharded mel decode GL-2 from the same per-shard starts: spectral "
         f"convergence interior_mm=True {sc[True]:.6f}, False {sc[False]:.6f} "
         f"(bound: True <= 1.05 x False + 1e-3)")
@@ -2162,6 +2136,335 @@ def streaming(drive, card: str, dev: torch.device) -> None:
     report("mel encode", t_s, t_w, label, "Mel.encode, the whole signal")
 
 
+def serving_phase(tmp: str, drive, card: str, dev: torch.device,
+                  x: torch.Tensor) -> None:
+    """Phase 3h: the serving artifacts (gomel_tpu_torch/serving.py). The
+    nine single-device builders at the bench shape (the CLI widths, 30 s at
+    48 kHz) on the card with a symbolic batch, each saved, its header read
+    and loaded back, called at B = 2 and B = 1 through ``drive`` (so each
+    proves its hand kernels ran), bit-equal to the port's eager path on the
+    card and within the CPU bounds of its CPU artifact (float32 1e-5 of the
+    frame's or row's peak, the log-mel's energies 1e-5 of the frame's peak,
+    planes 1 step at < 2e-3, PCM
+    1 LSB for phase and 2 for mel at < 5e-2, equal finite flags); then the
+    four long-form builders on four frame shards of the card at the
+    30-minute file's 67,497 frames, each called once and held bit-equal to
+    the sharded program phase 3e's file calls run; then the ``export`` and
+    ``info`` tools. Prints each artifact's build and load seconds, device ms
+    and host us per call beside the eager path's."""
+    from gomel_tpu_torch import MelConfig, PhaseConfig, make_mesh, serving
+    from gomel_tpu_torch.cli.tools import main as tools_main
+    from gomel_tpu_torch.core.filterbank import (inverse_mel_weights,
+                                                 mel_weights)
+    from gomel_tpu_torch.ops import (griffinlim, mel_ops, phase_ops, prng,
+                                     quantize)
+    from gomel_tpu_torch.ops.stft import hann_window
+    from gomel_tpu_torch.parallel import sharded as sh
+    from gomel_tpu_torch.parallel.mesh import shard_array
+
+    cpu = torch.device("cpu")
+    f32 = torch.float32
+    mcfg, pcfg = MelConfig.cli_default(), PhaseConfig.cli_default()
+    n_fft, hop, nf = mcfg.resolut, mcfg.window, pcfg.num_freqs
+    fwd = torch.tensor(mel_weights(mcfg.n_bins, mcfg.num_mels, mcfg.mel_fmin,
+                                   mcfg.mel_fmax), dtype=f32, device=dev)
+    inv = torch.tensor(inverse_mel_weights(mcfg.n_bins, mcfg.num_mels,
+                                           mcfg.mel_fmin, mcfg.mel_fmax),
+                       dtype=f32, device=dev)
+    win = torch.tensor(hann_window(n_fft), dtype=f32, device=dev)
+    keys_np = prng.split_rows(prng.key(SEED + 7), BATCH)
+    # the artifacts take the keys' uint32 bits as int32
+    keys = torch.from_numpy(keys_np.view(np.int32)).to(dev)
+    max_val, ihs = 255, pcfg.ihs_passes
+    n_gl = mcfg.griffin_lim_iterations
+
+    def host_keys(k):
+        """The eager path's host keys of an artifact's key rows (the first
+        rows of ``keys``), with no copy from the card."""
+        return keys_np[:k.shape[0]]
+
+    def live_mel_dec(lm, k, backend="auto"):
+        # the window on the card (a host window is copied each call, which
+        # waits for the queue); "mm" folds the host Hann window into its
+        # weights, as the artifact does, and copies it to the card
+        return mel_ops.mel_decode(lm, n_fft, hop, inv, n_gl,
+                                  key=host_keys(k), fft_backend=backend,
+                                  window=win if backend == "auto" else None)
+
+    def live_mel_dec_q(planes, mx, mn, k):
+        mag = mel_ops.mel_to_magnitudes(planes, inv, mcfg.tune_mul,
+                                        mcfg.tune_add, mcfg.volume_boost, mx,
+                                        mn, 255)
+        return griffinlim.griffin_lim(mag, hop, n_gl, win, key=host_keys(k),
+                                      pcm16=True)
+
+    def frame_rel(got, want, dims):
+        peak = want.abs().amax(dim=dims, keepdim=True)
+        return float(((got.double() - want.double()).abs()
+                      / torch.clamp(peak.double(), min=1e-30)).max())
+
+    def near(kind, got, want):
+        """The CPU bound of ``kind``; returns its measure for the log."""
+        if kind == "logmel":    # the mel energies, 1e-5 of the frame's peak
+            return near("frames", got.double().exp(), want.double().exp())
+        if kind in ("frames", "signal"):
+            d = frame_rel(got, want, (-2, -1) if kind == "frames" else (-1,))
+            return d, d <= 1e-5
+        if kind == "planes":
+            d = (got.long() - want.long()).abs()
+            return (int(d.max()), float((d > 0).float().mean())), (
+                int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3)
+        if kind in ("pcm", "pcm_mel"):
+            lsb = 2 if kind == "pcm_mel" else 1
+            d = (got.long() - want.long()).abs()
+            return (int(d.max()), float((d > 0).float().mean())), (
+                int(d.max()) <= lsb and float((d > 0).float().mean()) < 5e-2)
+        if kind == "extrema":
+            d = float(((got - want).abs() / want.abs().clamp(min=1e-6)).max())
+            return d, d <= 1e-5
+        if kind == "finite":
+            return bool(torch.equal(got, want)), bool(torch.equal(got, want))
+        raise ValueError(kind)
+
+    bench = {}
+    # name, builder, kwargs, inputs (card), live path, must-run kernels,
+    # each output's CPU bound
+    sig_s = dict(seconds=SECONDS, sample_rate=SAMPLE_RATE)
+    enc_m = mel_ops.mel_encode_batch(x, mcfg.num_mels, n_fft, hop, fwd, win)
+    spec_p = phase_ops.phase_encode_batch(x, nf, n_fft, hop, win)
+    planes_p, mx_p, mn_p = quantize.quantize_planes_batch(spec_p, max_val,
+                                                          ihs)
+    planes_m, mx_m, mn_m = quantize.quantize_mel_plane_batch(enc_m)
+    frames = enc_m.shape[1]
+    cases = (
+        ("mel-enc", serving.export_mel_encoder, (mcfg, sig_s), (x,),
+         lambda a: mel_ops.mel_encode_batch(a, mcfg.num_mels, n_fft, hop, fwd,
+                                            win),
+         ("stft_mel_log",), ("logmel",)),
+        ("mel-dec", serving.export_mel_decoder, (mcfg, dict(n_frames=frames)),
+         (enc_m, keys), live_mel_dec,
+         ("mel_to_magnitudes", "threefry_uniform", "gl_project",
+          "gl_overlap_add"), ("pcm_mel",)),
+        ("phase-enc", serving.export_phase_encoder, (pcfg, sig_s), (x,),
+         lambda a: phase_ops.phase_encode_batch(a, nf, n_fft, hop, win),
+         ("phase_encode",), ("frames",)),
+        ("phase-dec", serving.export_phase_decoder,
+         (pcfg, dict(n_frames=frames)), (spec_p,),
+         lambda s: phase_ops.phase_decode(s, n_fft, hop, pcfg.volume_boost,
+                                          win),
+         ("irfft_window", "overlap_normalize"), ("signal",)),
+        ("phase-rt", serving.export_phase_roundtrip, (pcfg, sig_s), (x,),
+         lambda a: phase_ops.phase_decode(phase_ops.phase_encode_batch(
+             a, nf, n_fft, hop, win), n_fft, hop, pcfg.volume_boost, win),
+         ("phase_encode", "irfft_window", "overlap_normalize"), ("signal",)),
+        ("phase-enc-q", serving.export_phase_encoder_quantized,
+         (pcfg, sig_s), (x,),
+         lambda a: quantize.quantize_planes_batch(phase_ops.phase_encode_batch(
+             a, nf, n_fft, hop, win), max_val, ihs),
+         ("phase_encode", "quantize_planes"),
+         ("planes", "extrema", "extrema")),
+        ("phase-dec-q", serving.export_phase_decoder_quantized,
+         (pcfg, dict(n_frames=frames)), (planes_p, mx_p, mn_p),
+         lambda p, a, b: phase_ops.dequantize_decode(
+             p, a, b, max_val, ihs, n_fft, hop, pcfg.volume_boost, win,
+             pcm16=True),
+         ("irfft_window", "overlap_normalize"), ("pcm", "finite")),
+        ("mel-enc-q", serving.export_mel_encoder_quantized, (mcfg, sig_s),
+         (x,),
+         lambda a: quantize.quantize_mel_plane_batch(mel_ops.mel_encode_batch(
+             a, mcfg.num_mels, n_fft, hop, fwd, win)),
+         ("stft_mel_log", "quantize_mel_plane"),
+         ("planes", "extrema", "extrema")),
+        ("mel-dec-q", serving.export_mel_decoder_quantized,
+         (mcfg, dict(n_frames=frames)), (planes_m, mx_m, mn_m, keys),
+         live_mel_dec_q,
+         ("mel_to_magnitudes", "threefry_uniform", "gl_project",
+          "gl_overlap_add"), ("pcm_mel", "finite")),
+        # the mm route: bf16 KN + KO inside Griffin-Lim (no CPU bound: the
+        # CPU runs it exact; phase 3f holds it by spectral convergence),
+        # float32 KN + KO in the phase codec
+        ("mel-dec mm", serving.export_mel_decoder,
+         (mcfg, dict(n_frames=frames, fft_backend="mm")), (enc_m, keys),
+         lambda lm, k: live_mel_dec(lm, k, "mm"),
+         ("mel_to_magnitudes", "threefry_uniform", "dft_fwd_bf16",
+          "dft_inv_bf16", "irfft_window", "gl_overlap_add"), ()),
+        ("phase-rt mm", serving.export_phase_roundtrip,
+         (pcfg, dict(sig_s, encode_fft_backend="mm",
+                     decode_fft_backend="mm")), (x,),
+         lambda a: phase_ops.phase_decode(phase_ops.phase_encode_batch(
+             a, nf, n_fft, hop, win, "mm"), n_fft, hop, pcfg.volume_boost,
+             win, fft_backend="mm"),
+         ("dft_fwd_f32", "dft_inv_f32", "overlap_normalize"), ("signal",)),
+    )
+    for name, builder, (cfg, kw), args, live, must, bounds in cases:
+        t0 = time.perf_counter()
+        exp = builder(cfg, **kw, device=dev)
+        build_s = time.perf_counter() - t0
+        path = os.path.join(tmp, name.replace(" ", "_") + ".gmexp")
+        serving.save_exported(exp, path, serving.artifact_meta(
+            exp, cfg, kind=name.split()[0], **kw))
+        meta = serving.read_artifact_meta(path)
+        if (meta["kind"], meta["platforms"], meta["in_shapes"][0][0]) != (
+                name.split()[0], ["cuda"], "b"):
+            raise AssertionError(f"{name}: header {meta}")
+        t0 = time.perf_counter()
+        art = serving.load_exported(path)
+        load_s = time.perf_counter() - t0
+        out = {}
+        for b in (BATCH, 1):
+            sub = tuple(a[:b] for a in args)
+
+            def call():
+                out[b] = art.call(*sub)
+                return 0
+            _, counts = drive(f"serving {name} artifact, B = {b}", call, must)
+            got = out[b] if isinstance(out[b], tuple) else (out[b],)
+            want = live(*sub)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            if len(got) != len(want) or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name} artifact at B = {b} differs "
+                                     f"from the eager path on the card")
+        if name in ("mel-dec", "mel-dec-q"):
+            want_counts = {"mel_to_magnitudes": 1, "threefry_uniform": 1,
+                           "gl_project": n_gl, "gl_overlap_add": n_gl}
+            if {k: counts.get(k, 0) for k in want_counts} != want_counts:
+                raise AssertionError(f"{name}: launches {counts}, expected "
+                                     f"{want_counts}")
+        # the CPU artifact of the same builder on the same inputs
+        got = out[BATCH] if isinstance(out[BATCH], tuple) else (out[BATCH],)
+        got_cpu = ()
+        if bounds:
+            got_cpu = builder(cfg, **kw, device=cpu).call(
+                *(a.cpu() for a in args))
+            got_cpu = got_cpu if isinstance(got_cpu, tuple) else (got_cpu,)
+        if name == "mel-dec":       # the float wave as the PCM-16 of towav
+            got = (quantize.pcm16_encode(got[0])[0],)
+            got_cpu = (quantize.pcm16_encode(got_cpu[0])[0],)
+        measures = []
+        for kind, g, c in zip(bounds, got, got_cpu):
+            m, ok = near(kind, g.cpu(), c)
+            measures.append(f"{kind} {m}")
+            if not ok:
+                raise AssertionError(f"{name}: the card artifact against the "
+                                     f"CPU artifact, {kind} {m}, is outside "
+                                     f"its bound")
+        # the eager "mm" decodes copy their window between the host and
+        # the card each call, which waits for the queue: both sides on the
+        # host clock there
+        timer = wall_ms if name.endswith(" mm") else cuda_ms
+        a_ms = timer(lambda: art.call(*args))
+        l_ms = timer(lambda: live(*args))
+        a_us, l_us = host_us(lambda: art.call(*args)), host_us(
+            lambda: live(*args))
+        bench[name] = (a_ms, l_ms, a_us, l_us, timer.__name__)
+        log(f"serving {name}: {meta['in_shapes']} -> {meta['out_shapes']}, "
+            f"{os.path.getsize(path) / 1e6:.1f} MB; built in {build_s:.2f} s,"
+            f" loaded in {load_s:.2f} s; bit-equal to the eager path at B = "
+            f"{BATCH} and 1; launches at B = 1 {counts}; against the CPU "
+            f"artifact: {', '.join(measures)}")
+    log(f"serving artifacts on {card}: device ms per call (CUDA events) and "
+        f"host us to enqueue one call, artifact against the eager path, "
+        f"[{BATCH}, {x.shape[1]}] audio or its spectrogram")
+    for name, (a_ms, l_ms, a_us, l_us, timer) in bench.items():
+        clock = "device" if timer == "cuda_ms" else "host clock (wall_ms)"
+        log(f"  {name}: {clock} {a_ms:.4f} ms (eager {l_ms:.4f}, ratio "
+            f"{a_ms / l_ms:.3f}); host enqueue {a_us:.1f} us (eager "
+            f"{l_us:.1f})")
+
+    # the long-form artifacts: four frame shards of the card, 30 minutes
+    n = int(SAMPLE_RATE * LONG_SECONDS)
+    mesh = make_mesh(data=1, frame=N_SHARDS, devices=[dev] * N_SHARDS)
+    n_frames = long_plan(pcfg).n_frames
+    plan = serving.longform_plan(pcfg, mesh, n_frames)
+    xl = torch.from_numpy(long_pcm(n, dev).astype(np.float32) / 32768.0)
+    xl = sh.pad_signal_for_plan(xl[None].to(dev), plan)
+    fwd_np = fwd.cpu().numpy()
+    inv_np = inv.cpu().numpy()
+    live_lf = {
+        "longform-mel-enc": sh.sharded_mel_encode_fn(mesh, plan,
+                                                     mcfg.num_mels, fwd_np),
+        "longform-phase-enc": sh.sharded_phase_encode_fn(mesh, plan, nf),
+        "longform-phase-dec": sh.sharded_phase_decode_fn(
+            mesh, plan, pcfg.volume_boost),
+        "longform-mel-dec": sh.sharded_mel_decode_fn(
+            mesh, plan, inv_np, n_gl, mcfg.tune_mul, mcfg.tune_add)}
+    x_sh = shard_array(xl, mesh)
+    spec_l = live_lf["longform-phase-enc"](x_sh)
+    logmel_l = live_lf["longform-mel-enc"](x_sh)
+    lf_cases = (
+        ("longform-mel-enc", serving.export_longform_mel_encoder, mcfg,
+         (xl,), (x_sh,), ("stft_mel_log",)),
+        ("longform-phase-enc", serving.export_longform_phase_encoder, pcfg,
+         (xl,), (x_sh,), ("phase_encode",)),
+        ("longform-phase-dec", serving.export_longform_phase_decoder, pcfg,
+         (spec_l.gather(),), (spec_l,),
+         ("irfft_window_masked", "overlap_normalize", "shard_epilogue")),
+        ("longform-mel-dec", serving.export_longform_mel_decoder, mcfg,
+         (logmel_l.gather(), torch.from_numpy(prng.key(1).view(np.int32))
+          .to(dev)), (logmel_l, 1),
+         ("mel_to_magnitudes", "threefry_uniform", "gl_project",
+          "gl_overlap_add", "shard_epilogue")))
+    for name, builder, cfg, args, live_args, must in lf_cases:
+        t0 = time.perf_counter()
+        exp = builder(cfg, mesh, n_frames=n_frames, batch=1)
+        build_s = time.perf_counter() - t0
+        path = os.path.join(tmp, name + ".gmexp")
+        serving.save_exported(exp, path, serving.artifact_meta(
+            exp, cfg, kind=name, n_frames=n_frames))
+        t0 = time.perf_counter()
+        art = serving.load_exported(path)
+        load_s = time.perf_counter() - t0
+        out = {}
+
+        def call():
+            out["got"] = serving.call_longform(art, mesh, *args)
+            return 0
+        _, counts = drive(f"serving {name} artifact, {LONG_SECONDS / 60:g} "
+                          f"min over {N_SHARDS} frame shards", call, must)
+        want = live_lf[name](*live_args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(out["got"].shards,
+                                                     want.shards)):
+            raise AssertionError(f"{name} artifact differs from the sharded "
+                                 f"program on the card")
+        del out, want
+        # warm calls, each from the whole input: the artifact with
+        # call_longform's sharding, the sharded program with shard_array's
+        live_fn = live_lf[name]
+        a_ms = cuda_ms(lambda: serving.call_longform(art, mesh, *args), 5, 1)
+        l_ms = cuda_ms(lambda: live_fn(shard_array(args[0], mesh),
+                                       *live_args[1:]), 5, 1)
+        a_us = host_us(lambda: serving.call_longform(art, mesh, *args), 5)
+        l_us = host_us(lambda: live_fn(shard_array(args[0], mesh),
+                                       *live_args[1:]), 5)
+        log(f"serving {name}: {exp.in_shapes} -> {exp.out_shapes}, built in "
+            f"{build_s:.2f} s, loaded in {load_s:.2f} s; bit-equal to the "
+            f"sharded program; launches {counts}; device {a_ms:.4f} ms a call "
+            f"(the sharded program {l_ms:.4f}, ratio {a_ms / l_ms:.3f}); host "
+            f"enqueue {a_us:.1f} us (the sharded program {l_us:.1f})")
+    del spec_l, logmel_l, x_sh, xl
+
+    # the export tool and its header reader
+    path = os.path.join(tmp, "cli_mel_enc.gmexp")
+    t0 = time.perf_counter()
+    if tools_main(["export", "mel-enc", path, "--seconds", str(SECONDS),
+                   "--sample-rate", str(SAMPLE_RATE)]) != 0:
+        raise AssertionError("export mel-enc failed")
+    cli_s = time.perf_counter() - t0
+    if tools_main(["info", path]) != 0:
+        raise AssertionError("info failed")
+    art = serving.load_exported(path)
+    got = art.call(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, enc_m):
+        raise AssertionError("the export tool's mel-enc artifact differs from "
+                             "the eager path")
+    log(f"export mel-enc (the CLI, {cli_s:.2f} s) and info: header "
+        f"{serving.read_artifact_meta(path)['in_shapes']}, bit-equal to the "
+        f"eager path")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2179,6 +2482,7 @@ def main() -> int:
                                      istft, mel_ops, phase_ops, prng,
                                      quantize, rfft_mag)
     from gomel_tpu_torch.ops.stft import hann_window
+    from gomel_tpu_torch.utils.metrics import spectral_convergence
 
     # the plain references run in full float32 (no TF32 anywhere)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2826,9 +3130,13 @@ def main() -> int:
             torch.from_numpy(planes.copy()), inv.cpu(), mgc_max=p_mx,
             mgc_min=p_mn).double()
         win64 = torch.tensor(hann_window(n_fft), dtype=torch.float64)
-        sc_g, sc_c = (spectral_convergence(w, target, win64, n_fft, hop,
-                                           rfft_mag.stft_mag_plain)
-                      for w in (wg, wc))
+        # each wave at unit scale, zero-padded back to the frames' span
+        # (towav trims the reference padding)
+        span = n_fft + (target.shape[0] - 1) * hop
+        sc_g, sc_c = (spectral_convergence(torch.nn.functional.pad(
+            torch.from_numpy(w[:span].astype(np.float64) / 32768.0),
+            (0, max(span - len(w), 0))), target, n_fft, hop, win64)
+            for w in (wg, wc))
         log(f"towav WAV {wg.shape} @ {sr_g} Hz: cuda vs cpu (same --seed) max "
             f"{int(lsb.max())} LSB, differing {float((lsb > 0).mean()):.2e} "
             f"(bounds 2, 5e-2); scale-invariant spectral convergence against "
@@ -2864,6 +3172,9 @@ def main() -> int:
 
         # -- phase 3g: the streaming codecs on the 30-minute signal ---------
         streaming(drive, card, dev)
+
+        # -- phase 3h: the serving artifacts ---------------------------------
+        serving_phase(tmp, drive, card, dev, x)
 
     # -- phase 4: times at the bench shape ---------------------------------
     log(f"timing on {card}: device ms per call (CUDA events over up to 20 "

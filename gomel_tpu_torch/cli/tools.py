@@ -209,14 +209,17 @@ def fromphase(argv: Optional[Sequence[str]] = None) -> int:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """Multiplexed entry: ``python -m gomel_tpu_torch.cli.tools <tool> ...``
-    (the batch tools are in cli/batch.py)."""
+    (the batch tools are in cli/batch.py, ``export`` and ``info`` in
+    cli/export.py)."""
     from .batch import (batch_fromphase, batch_tomel, batch_tophase,
                         batch_towav)
+    from .export import export_tool, info_tool
     argv = list(sys.argv[1:] if argv is None else argv)
     tools = {"tomel": tomel, "towav": towav, "tophase": tophase,
              "fromphase": fromphase, "batch-tomel": batch_tomel,
              "batch-tophase": batch_tophase,
-             "batch-fromphase": batch_fromphase, "batch-towav": batch_towav}
+             "batch-fromphase": batch_fromphase, "batch-towav": batch_towav,
+             "export": export_tool, "info": info_tool}
     if not argv or argv[0] not in tools:
         print(f"Usage: gomel_tpu_torch.cli.tools {{{','.join(tools)}}} <args>",
               file=sys.stderr)

@@ -178,15 +178,29 @@ class KernelWeights(NamedTuple):
     cols: int                # the padded output columns
 
 
-def _kernel_weights(direction: str, master: np.ndarray, n: int, bf16: bool,
-                    device: torch.device) -> KernelWeights:
+def kernel_weights_tensor(direction: str, master: np.ndarray, n: int,
+                          bf16: bool) -> torch.Tensor:
+    """The kernels' layout of ``master`` as a host tensor: bf16 or float32
+    (:func:`_kernel_layout`)."""
     w = torch.from_numpy(_kernel_layout(direction, master, n, bf16))
-    w = (w.to(torch.bfloat16) if bf16 else w).to(device)
+    return w.to(torch.bfloat16) if bf16 else w
+
+
+def kernel_weights(w: torch.Tensor) -> KernelWeights:
+    """A kernel layout already on the card (:func:`kernel_weights_tensor`)
+    with its TMA tensor map, built here."""
+    bf16 = w.dtype == torch.bfloat16
     tmap = ctypes.create_string_buffer(128)
-    _cuda.launch("gomel_dft_weight_map", device, ctypes.addressof(tmap),
+    _cuda.launch("gomel_dft_weight_map", w.device, ctypes.addressof(tmap),
                  w.data_ptr(), int(bf16), w.shape[0], w.shape[1])
     depth, cols = (w.shape[1], w.shape[0]) if bf16 else w.shape
     return KernelWeights(w, tmap, int(depth), int(cols))
+
+
+def _kernel_weights(direction: str, master: np.ndarray, n: int, bf16: bool,
+                    device: torch.device) -> KernelWeights:
+    return kernel_weights(kernel_weights_tensor(direction, master, n, bf16)
+                          .to(device))
 
 
 # (direction, n, window key, kind, device) -> weights; at most 8 entries
@@ -254,8 +268,18 @@ def dft_fwd_plain(x: torch.Tensor, n: int, hop: int, window=None, *,
     ("project", planes). ``bf16_operands`` rounds the frames and the
     float32 weights through bfloat16 first, as the bf16 mode does, and
     accumulates in ``x``'s dtype."""
+    return dft_fwd_weights_plain(
+        x, _weights("fwd", n, window, x.dtype, x.device), n, hop, kind=kind,
+        mag=mag, first=first, count=count, bf16_operands=bf16_operands)
+
+
+def dft_fwd_weights_plain(x: torch.Tensor, w: torch.Tensor, n: int,
+                          hop: int, *, kind: str = "planes",
+                          mag: torch.Tensor | None = None, first: int = 0,
+                          count: int = 0, bf16_operands: bool = False):
+    """:func:`dft_fwd_plain` given its weights ``w`` [n, 2(n/2+1)] in
+    ``x``'s dtype on its device (the master with the window folded in)."""
     frames = frame_signal(x, n, hop)
-    w = _weights("fwd", n, window, x.dtype, x.device)
     if bf16_operands:
         frames, w = _bf16_round(frames), _bf16_round(w)
     out = torch.matmul(frames, w)
@@ -278,8 +302,19 @@ def dft_inv_plain(re: torch.Tensor, im: torch.Tensor, n: int, window=None,
     (bf16 planes are widened to float32) -> irfft_n x window [..., F, n];
     frames at or past ``real_frames`` are zeros."""
     dtype = torch.float32 if re.dtype == torch.bfloat16 else re.dtype
+    return dft_inv_weights_plain(
+        re, im, _weights("inv", n, window, dtype, re.device),
+        real_frames=real_frames, bf16_operands=bf16_operands)
+
+
+def dft_inv_weights_plain(re: torch.Tensor, im: torch.Tensor,
+                          w: torch.Tensor, *,
+                          real_frames: int | None = None,
+                          bf16_operands: bool = False) -> torch.Tensor:
+    """:func:`dft_inv_plain` given its weights ``w`` [2(n/2+1), n] in the
+    planes' dtype (float32 for bf16 planes) on their device."""
+    dtype = torch.float32 if re.dtype == torch.bfloat16 else re.dtype
     z = torch.cat([re, im], dim=-1).to(dtype)
-    w = _weights("inv", n, window, dtype, re.device)
     if bf16_operands:
         z, w = _bf16_round(z), _bf16_round(w)
     frames = torch.matmul(z, w)
@@ -291,6 +326,17 @@ def dft_inv_plain(re: torch.Tensor, im: torch.Tensor, n: int, window=None,
 def _launch_fwd(x: torch.Tensor, n: int, hop: int, window, bf16: bool,
                 kind: str, mag: torch.Tensor | None, first: int, count: int,
                 final: bool):
+    wt = _weights("fwd", n, window, "bf16" if bf16 else "f32", x.device)
+    return launch_fwd(x, wt, n, hop, bf16, kind, mag, first, count, final)
+
+
+def launch_fwd(x: torch.Tensor, wt: KernelWeights, n: int, hop: int,
+               bf16: bool, kind: str, mag: torch.Tensor | None, first: int,
+               count: int, final: bool, padded: bool = False):
+    """Launch KN on contiguous CUDA tensors with the weights ``wt`` of
+    ``bf16``'s mode (see :func:`dft_fwd_plain` for ``kind``); ``final``
+    False in the bf16 projection returns bf16 planes, views of rows padded
+    to ``LOW_ALIGN`` bins (``padded``: the padded rows themselves)."""
     tensors = (x,) if mag is None else (x, mag)
     dev = _cuda.check_cuda("dft_fwd", *tensors)
     if any(t.dtype != torch.float32 for t in tensors):
@@ -302,7 +348,6 @@ def _launch_fwd(x: torch.Tensor, n: int, hop: int, window, bf16: bool,
     shape = lead + (frames, half)
     if mag is not None and tuple(mag.shape) != shape:
         raise ValueError(f"dft_fwd: magnitudes {tuple(mag.shape)} != {shape}")
-    wt = _weights("fwd", n, window, "bf16" if bf16 else "f32", dev)
     low = kind == "project" and bf16 and not final
     f32 = torch.float32
     out1 = None
@@ -332,7 +377,7 @@ def _launch_fwd(x: torch.Tensor, n: int, hop: int, window, bf16: bool,
                      int(low), ld_low, batch, frames, length, hop, n,
                      wt.depth, wt.cols, _EPILOGUES[kind], first, count)
         (FWD_KERNEL if bf16 else FWD_F32_KERNEL).launches += 1
-    if low:
+    if low and not padded:
         return out0[..., :half], out1[..., :half]
     return out0 if out1 is None else (out0, out1)
 
@@ -403,6 +448,15 @@ def istft_frames(re: torch.Tensor, im: torch.Tensor, n: int, window=None,
     bf16 = _low(precision, re.device)
     if re.device.type == "cpu":
         return dft_inv_plain(re, im, n, window, real_frames=real_frames)
+    wt = _weights("inv", n, window, "bf16" if bf16 else "f32", re.device)
+    return launch_inv(re, im, wt, n, bf16, real_frames)
+
+
+def launch_inv(re: torch.Tensor, im: torch.Tensor, wt: KernelWeights,
+               n: int, bf16: bool,
+               real_frames: int | None = None) -> torch.Tensor:
+    """Launch KO with the weights ``wt`` of ``bf16``'s mode on CUDA planes
+    [..., F, n/2 + 1] (see :func:`istft_frames`)."""
     ld = _row_stride(re)
     if ld is None or _row_stride(im) != ld:
         re, im = re.contiguous(), im.contiguous()
@@ -422,7 +476,6 @@ def istft_frames(re: torch.Tensor, im: torch.Tensor, n: int, window=None,
         raise ValueError(f"dft_inv: real_frames {real_frames} outside "
                          f"0..{frames}")
     rows = int(np.prod(lead, dtype=np.int64)) * frames
-    wt = _weights("inv", n, window, "bf16" if bf16 else "f32", dev)
     out = torch.empty(tuple(lead) + (frames, n), dtype=torch.float32,
                       device=dev)
     if rows > 0:

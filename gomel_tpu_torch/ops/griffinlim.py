@@ -35,7 +35,7 @@ import torch
 from . import _cuda, dft_mm, fftbackend, istft, prng
 from .istft import overlap_add_plain
 from .quantize import pcm16_encode
-from .rfft_mag import _fft_args, _twiddles
+from .rfft_mag import fft_plan_args, fft_tables
 from .stft import frame_signal, hann_window, window_like
 
 PROJECT_KERNEL = _cuda.Kernel("gl_project", "gomel_tpu_torch/csrc/griffinlim.cu",
@@ -132,18 +132,29 @@ def gl_project(sig: torch.Tensor, mag_half: torch.Tensor,
     if route == "xla":
         fftbackend.XLA_ROUTE.launches += 1
         return gl_project_plain(sig, mag_half, window, n, hop)
+    return launch_gl_project(sig, mag_half, window, *fft_tables(n, dev),
+                             fft_plan_args(n), n, hop)
+
+
+def launch_gl_project(sig: torch.Tensor, mag_half: torch.Tensor,
+                      window: torch.Tensor, tw: torch.Tensor,
+                      tw_pass: torch.Tensor, plan: tuple[int, int, int],
+                      n: int, hop: int) -> torch.Tensor:
+    """Launch KJ on contiguous float32 CUDA tensors of matching shapes
+    (:func:`gl_project`'s checks) with the FFT tables and plan of n."""
+    *lead, frames, _ = mag_half.shape
     if window.shape != (n,) or window.data_ptr() % 8:
         raise ValueError(f"gl_project: window shape {tuple(window.shape)} "
                          f"!= ({n},) or misaligned (the kernel reads float2)")
     batch = int(np.prod(lead, dtype=np.int64))
     out = torch.empty(tuple(lead) + (frames, n), dtype=torch.float32,
-                      device=dev)
+                      device=sig.device)
     if batch * frames == 0:
         return out
-    tw_pass, *plan = _fft_args(n, dev)
-    _cuda.launch("gomel_gl_project", dev, sig.data_ptr(), mag_half.data_ptr(),
-                 window.data_ptr(), _twiddles(n, dev).data_ptr(), tw_pass,
-                 out.data_ptr(), batch, frames, sig.shape[-1], hop, n, *plan)
+    _cuda.launch("gomel_gl_project", sig.device, sig.data_ptr(),
+                 mag_half.data_ptr(), window.data_ptr(), tw.data_ptr(),
+                 tw_pass.data_ptr(), out.data_ptr(), batch, frames,
+                 sig.shape[-1], hop, n, *plan)
     PROJECT_KERNEL.launches += 1
     return out
 
@@ -182,6 +193,15 @@ def gl_overlap_add(frames_w: torch.Tensor, hop: int,
                          f"{tuple(lead) + (length,)}")
     if frames_w.device.type == "cpu":
         return gl_overlap_add_plain(frames_w, hop, t_prev, momentum, pcm16)
+    return launch_gl_overlap_add(frames_w, hop, t_prev, momentum, pcm16)
+
+
+def launch_gl_overlap_add(frames_w: torch.Tensor, hop: int,
+                          t_prev: torch.Tensor | None, momentum: float,
+                          pcm16: bool):
+    """Launch KK on CUDA tensors (see :func:`gl_overlap_add`)."""
+    *lead, frames, n = frames_w.shape
+    length = n + (frames - 1) * hop
     frames_w = frames_w.contiguous()
     if t_prev is not None:
         t_prev = t_prev.contiguous()

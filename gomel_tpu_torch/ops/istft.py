@@ -36,7 +36,7 @@ import torch
 
 from . import _cuda, dft_mm, fftbackend
 from .quantize import pcm16_encode
-from .rfft_mag import _fft_args, _twiddles, supported
+from .rfft_mag import fft_plan_args, fft_tables, supported
 
 SYNTH_KERNEL = _cuda.Kernel("irfft_window",
                             "gomel_tpu_torch/csrc/phase_decode.cu",
@@ -179,10 +179,14 @@ def launch_irfft_window(mode: int, src: torch.Tensor,
                         nf: int, window: torch.Tensor | None,
                         lead: tuple[int, ...], max_val: float = 0.0,
                         ihs_passes: int = 0,
-                        real_frames: int | None = None) -> torch.Tensor:
+                        real_frames: int | None = None,
+                        fft: tuple | None = None) -> torch.Tensor:
     """Launch KG on ``src`` (see csrc/phase_decode.cu for the modes) ->
     frames_w [*lead, frames, n] float32; with ``real_frames`` the frames at
-    or past that count in each row are zeros (K10's frame mask)."""
+    or past that count in each row are zeros (K10's frame mask).
+    ``fft``: (twiddles, per-pass table, plan) of n on the device (None:
+    rfft_mag's, :func:`~gomel_tpu_torch.ops.rfft_mag.fft_tables` and
+    :func:`~gomel_tpu_torch.ops.rfft_mag.fft_plan_args`)."""
     tensors = (src, *aux) + (() if window is None else (window,))
     dev = _cuda.check_cuda("irfft_window", *tensors)
     if any(t.dtype != torch.float32 for t in aux) or (
@@ -205,10 +209,11 @@ def launch_irfft_window(mode: int, src: torch.Tensor,
     if batch * frames == 0:
         return out
     ptrs = [t.data_ptr() for t in aux] + [None] * (2 - len(aux))
-    tw_pass, *plan = _fft_args(n, dev)
+    tw, tw_pass, plan = ((*fft_tables(n, dev), fft_plan_args(n))
+                         if fft is None else fft)
     _cuda.launch("gomel_irfft_window", dev, mode, src.data_ptr(), *ptrs,
                  None if window is None else window.data_ptr(),
-                 _twiddles(n, dev).data_ptr(), tw_pass, out.data_ptr(), batch,
+                 tw.data_ptr(), tw_pass.data_ptr(), out.data_ptr(), batch,
                  frames, frames if real_frames is None else real_frames, nf, n,
                  float(max_val), int(ihs_passes), *plan)
     (SYNTH_KERNEL if real_frames is None
@@ -290,9 +295,36 @@ def overlap_normalize_plain(frames_w: torch.Tensor, hop: int,
     return pcm16_encode(sig)[0], finite
 
 
+def window_sum_short(taps: int, n_frames: int) -> bool:
+    """Whether the window sum of ``n_frames`` frames is short: all its
+    F + K - 1 hop-rows are distinct (:func:`_window_sum_rows`)."""
+    return n_frames + taps - 1 <= 2 * (taps - 1)
+
+
 def _launch_ola(frames_w: torch.Tensor, hop: int,
                 window: torch.Tensor | None, volume_boost: float,
                 pcm16: bool):
+    *_, frames, n = frames_w.shape
+    table, threshold, short = None, 0.0, False
+    if window is not None:
+        if window.shape != (n,):
+            raise ValueError(f"overlap_normalize: window shape "
+                             f"{tuple(window.shape)} != ({n},)")
+        table, prefix = _window_table(window, hop)
+        table = table.to(frames_w.device)
+        threshold = window_sum_threshold(prefix, frames)
+        short = window_sum_short(prefix.shape[0], frames)
+    return launch_ola(frames_w, hop, table, threshold, short, volume_boost,
+                      pcm16)
+
+
+def launch_ola(frames_w: torch.Tensor, hop: int, table: torch.Tensor | None,
+               threshold: float, short: bool, volume_boost: float,
+               pcm16: bool):
+    """Launch KH on CUDA frames [..., F, N]: the overlap-add, and with the
+    window's prefix table [K, hop] on that device (:func:`_prefix_rows`) the
+    normalisation under ``threshold`` (:func:`window_sum_threshold`) and
+    ``short`` (:func:`window_sum_short`) of F frames."""
     dev = _cuda.check_cuda("overlap_normalize", frames_w)
     if frames_w.dtype != torch.float32:
         raise ValueError("overlap_normalize: the CUDA kernel takes float32")
@@ -302,15 +334,6 @@ def _launch_ola(frames_w: torch.Tensor, hop: int,
     lead = tuple(lead)
     batch = int(np.prod(lead, dtype=np.int64))
     length = n + (frames - 1) * hop
-    table, threshold, short = None, 0.0, False
-    if window is not None:
-        if window.shape != (n,):
-            raise ValueError(f"overlap_normalize: window shape "
-                             f"{tuple(window.shape)} != ({n},)")
-        table, prefix = _window_table(window, hop)
-        table = table.to(dev)
-        threshold = window_sum_threshold(prefix, frames)
-        short = frames + prefix.shape[0] - 1 <= 2 * (prefix.shape[0] - 1)
     out_f = out_pcm = None
     if pcm16:
         out_pcm = torch.empty(lead + (length,), dtype=torch.int16, device=dev)
@@ -401,19 +424,38 @@ def shard_epilogue_plain(sig_ext: torch.Tensor, recv: torch.Tensor | None,
                          momentum: float = 0.0, pcm16: bool = False,
                          extend: bool = False):
     """Plain PyTorch version of KM (see :func:`shard_epilogue`)."""
+    table, threshold = None, 0.0
+    if window is not None:
+        table, prefix = _window_table(window, hop)
+        threshold = window_sum_threshold(prefix, n_frames)
+    return shard_epilogue_table_plain(
+        sig_ext, recv, chunk, table, threshold, hop=hop, start=start,
+        n_frames=n_frames, volume_boost=volume_boost, t_prev=t_prev,
+        momentum=momentum, pcm16=pcm16, extend=extend)
+
+
+def shard_epilogue_table_plain(sig_ext: torch.Tensor,
+                               recv: torch.Tensor | None, chunk: int,
+                               table: torch.Tensor | None, threshold: float,
+                               *, hop: int = 0, start: int = 0,
+                               n_frames: int = 0, volume_boost: float = 0.0,
+                               t_prev: torch.Tensor | None = None,
+                               momentum: float = 0.0, pcm16: bool = False,
+                               extend: bool = False):
+    """:func:`shard_epilogue_plain` given the window's prefix table
+    (:func:`_prefix_rows`; None: no normalisation) and the global
+    threshold (:func:`window_sum_threshold`)."""
     halo = sig_ext.shape[-1] - chunk
     t = sig_ext[..., :chunk].clone()
     if recv is not None:
         t[..., :halo] = t[..., :halo] + recv.to(t.device)
     y = t
-    if window is not None:
-        table, prefix = _window_table(window, hop)
+    if table is not None:
         # the table already on the device: a copy from the host would wait
         # for the work queued before it
         wsum = _window_sum_span(table.to(t.device), n_frames, hop, start,
                                 chunk)
-        threshold = torch.full((), window_sum_threshold(prefix, n_frames),
-                               dtype=t.dtype, device=t.device)
+        threshold = torch.full((), threshold, dtype=t.dtype, device=t.device)
         y = normalize_by_window_sum(t, wsum, threshold)
         if volume_boost != 0.0:
             y = y * torch.full((), float(volume_boost), dtype=y.dtype,
@@ -426,6 +468,29 @@ def shard_epilogue_plain(sig_ext: torch.Tensor, recv: torch.Tensor | None,
     if extend:
         y = torch.nn.functional.pad(y, (0, halo))
     return (y, t) if t_prev is not None else y
+
+
+def check_shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,
+                         chunk: int, normalize: bool, hop: int, start: int,
+                         n_frames: int, t_prev: torch.Tensor | None,
+                         pcm16: bool) -> None:
+    """The shapes and modes :func:`shard_epilogue` takes."""
+    if sig_ext.ndim != 2 or not 0 < chunk <= sig_ext.shape[1]:
+        raise ValueError(f"shard_epilogue: signal {tuple(sig_ext.shape)}, "
+                         f"chunk {chunk}")
+    b, ext_len = sig_ext.shape
+    halo = ext_len - chunk
+    if recv is not None and tuple(recv.shape) != (b, halo):
+        raise ValueError(f"shard_epilogue: recv {tuple(recv.shape)} != "
+                         f"{(b, halo)}")
+    if t_prev is not None and (normalize or pcm16
+                               or tuple(t_prev.shape) != (b, chunk)):
+        raise ValueError("shard_epilogue: the momentum step takes t_prev "
+                         "[B, chunk] and no window or PCM-16")
+    if normalize and (hop < 1 or n_frames < 1):
+        raise ValueError(f"shard_epilogue: hop {hop}, {n_frames} frames")
+    if start < 0:
+        raise ValueError(f"shard_epilogue: start {start} < 0")
 
 
 def shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,
@@ -450,27 +515,36 @@ def shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,
     (c in the momentum step) in a [B, chunk + halo] buffer whose last halo
     columns are for the caller to fill (the next Griffin-Lim iteration's
     extended signal)."""
-    if sig_ext.ndim != 2 or not 0 < chunk <= sig_ext.shape[1]:
-        raise ValueError(f"shard_epilogue: signal {tuple(sig_ext.shape)}, "
-                         f"chunk {chunk}")
-    b, ext_len = sig_ext.shape
-    halo = ext_len - chunk
-    if recv is not None and tuple(recv.shape) != (b, halo):
-        raise ValueError(f"shard_epilogue: recv {tuple(recv.shape)} != "
-                         f"{(b, halo)}")
-    if t_prev is not None and (window is not None or pcm16
-                               or tuple(t_prev.shape) != (b, chunk)):
-        raise ValueError("shard_epilogue: the momentum step takes t_prev "
-                         "[B, chunk] and no window or PCM-16")
-    if window is not None and (hop < 1 or n_frames < 1):
-        raise ValueError(f"shard_epilogue: hop {hop}, {n_frames} frames")
-    if start < 0:
-        raise ValueError(f"shard_epilogue: start {start} < 0")
+    check_shard_epilogue(sig_ext, recv, chunk, window is not None, hop,
+                         start, n_frames, t_prev, pcm16)
     if sig_ext.device.type == "cpu":
         return shard_epilogue_plain(
             sig_ext, recv, chunk, window=window, hop=hop, start=start,
             n_frames=n_frames, volume_boost=volume_boost, t_prev=t_prev,
             momentum=momentum, pcm16=pcm16, extend=extend)
+    table, threshold = None, 0.0
+    if window is not None:
+        table, prefix = _window_table(window, hop)
+        table = table.to(sig_ext.device)
+        threshold = window_sum_threshold(prefix, n_frames)
+    return launch_shard_epilogue(
+        sig_ext, recv, chunk, table, threshold, hop=hop, start=start,
+        n_frames=n_frames, volume_boost=volume_boost, t_prev=t_prev,
+        momentum=momentum, pcm16=pcm16, extend=extend)
+
+
+def launch_shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,
+                          chunk: int, table: torch.Tensor | None,
+                          threshold: float, *, hop: int = 0, start: int = 0,
+                          n_frames: int = 0, volume_boost: float = 0.0,
+                          t_prev: torch.Tensor | None = None,
+                          momentum: float = 0.0, pcm16: bool = False,
+                          extend: bool = False):
+    """Launch KM on CUDA tensors (see :func:`shard_epilogue`), given the
+    window's prefix table on that device (None: no normalisation) and the
+    global threshold (:func:`window_sum_threshold`)."""
+    b, ext_len = sig_ext.shape
+    halo = ext_len - chunk
     sig_ext = sig_ext.contiguous()
     if t_prev is not None:
         t_prev = t_prev.contiguous()
@@ -482,13 +556,10 @@ def shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,
     if sig_ext.dtype != torch.float32 or (
             t_prev is not None and t_prev.dtype != torch.float32):
         raise ValueError("shard_epilogue: the CUDA kernel takes float32")
-    table, threshold, short, taps = None, 0.0, False, 1
-    if window is not None:
-        table, prefix = _window_table(window, hop)
-        table = table.to(dev)
-        taps = prefix.shape[0]
-        threshold = window_sum_threshold(prefix, n_frames)
-        short = n_frames + taps - 1 <= 2 * (taps - 1)
+    short, taps = False, 1
+    if table is not None:
+        taps = table.shape[0]
+        short = window_sum_short(taps, n_frames)
     out_f = out_t = out_pcm = None
     stride = chunk + halo if extend else chunk
     if pcm16:

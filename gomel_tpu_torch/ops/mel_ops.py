@@ -175,7 +175,12 @@ def mel_from_mags_plain(mags: torch.Tensor,
                         fwd_weights: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: a dense product with W_ext, then
     the log."""
-    we, _, _ = _extended_weights(fwd_weights)
+    return mel_from_ext_plain(mags, _extended_weights(fwd_weights)[0])
+
+
+def mel_from_ext_plain(mags: torch.Tensor, we: torch.Tensor) -> torch.Tensor:
+    """:func:`mel_from_mags_plain` given W_ext [N/2+1, 2M]
+    (:func:`extended_weights_np`)."""
     y = mags @ we.to(mags.dtype)
     return spectral_normalize(y.reshape(*y.shape[:-1], we.shape[1] // 2, 2))
 
@@ -185,14 +190,23 @@ def _mel_from_mags(mags: torch.Tensor, fwd_weights: torch.Tensor) -> torch.Tenso
     if mags.device.type == "cpu":
         return mel_from_mags_plain(mags, fwd_weights)
     slots, weights, groups = _mel_band_table(fwd_weights)
+    bins = fwd_weights.shape[1] + 1
+    if mags.shape[-1] != bins:
+        raise ValueError(f"mel_log: {mags.shape[-1]} bins, weights expect {bins}")
+    return launch_mel_log(mags, slots, weights, groups, fwd_weights.shape[0])
+
+
+def launch_mel_log(mags: torch.Tensor, slots: torch.Tensor,
+                   weights: torch.Tensor, groups: int,
+                   mels: int) -> torch.Tensor:
+    """Launch KC on CUDA magnitudes [..., N/2+1] with the band table of
+    :func:`mel_band_plan` -> [..., mels, 2]."""
     dev = _cuda.check_cuda("mel_log", mags, slots, weights)
     if mags.dtype != torch.float32:
         raise ValueError("mel_log: the CUDA kernel takes float32 tensors")
-    bins, cols = fwd_weights.shape[1] + 1, 2 * fwd_weights.shape[0]
-    if mags.shape[-1] != bins:
-        raise ValueError(f"mel_log: {mags.shape[-1]} bins, weights expect {bins}")
+    bins, cols = mags.shape[-1], 2 * mels
     rows = mags.numel() // bins
-    out = torch.empty(mags.shape[:-1] + (cols // 2, 2), dtype=torch.float32,
+    out = torch.empty(mags.shape[:-1] + (mels, 2), dtype=torch.float32,
                       device=dev)
     if rows == 0:
         return out
@@ -238,21 +252,32 @@ def stft_mel_log(x: torch.Tensor, window: torch.Tensor | None, n: int,
                          f"do not match n={n}")
     dev = rfft_mag._check("stft_mel_log", x, window, n)
     slots, weights, groups = _mel_band_table(fwd_weights)
-    _cuda.check_cuda("stft_mel_log", x, slots, weights)
+    return launch_stft_mel_log(x, window, *rfft_mag.fft_tables(n, dev),
+                               rfft_mag.fft_plan_args(n), slots, weights,
+                               groups, fwd_weights.shape[0], n, hop)
+
+
+def launch_stft_mel_log(x: torch.Tensor, window: torch.Tensor | None,
+                        tw: torch.Tensor, tw_pass: torch.Tensor,
+                        plan: tuple[int, int, int], slots: torch.Tensor,
+                        weights: torch.Tensor, groups: int, mels: int,
+                        n: int, hop: int) -> torch.Tensor:
+    """Launch the fused KB + KC on a checked CUDA signal (rfft_mag._check)
+    with the FFT tables and plan of n (a power of two at n/2) and the band
+    table of :func:`mel_band_plan`."""
+    dev = _cuda.check_cuda("stft_mel_log", x, slots, weights)
     lead, length = x.shape[:-1], x.shape[-1]
     frames = num_frames_of(length, n, hop)
     batch = int(np.prod(lead, dtype=np.int64))
-    mels = fwd_weights.shape[0]
     out = torch.empty(lead + (frames, mels, 2), dtype=torch.float32,
                       device=dev)
     if batch == 0 or frames == 0:
         return out
     win_ptr = None if window is None else window.data_ptr()
-    tw_pass, *plan = rfft_mag._fft_args(n, dev)
     _cuda.launch("gomel_stft_mel_log", dev, x.data_ptr(), win_ptr,
-                 rfft_mag._twiddles(n, dev).data_ptr(), tw_pass,
-                 slots.data_ptr(), weights.data_ptr(), groups, out.data_ptr(),
-                 2 * mels, batch, frames, length, hop, n, *plan)
+                 tw.data_ptr(), tw_pass.data_ptr(), slots.data_ptr(),
+                 weights.data_ptr(), groups, out.data_ptr(), 2 * mels, batch,
+                 frames, length, hop, n, *plan)
     FUSED_KERNEL.launches += 1
     return out
 
@@ -314,16 +339,19 @@ def _band_table(inv_weights: torch.Tensor):
     its weights as float32 [N/2, max run], zero-padded. Runs are contiguous
     (core/filterbank.inverse_mel_weights fills one branch per bin)."""
     def make(u):
-        first, count = band_spans(u)
-        t = np.arange(max(1, int(count.max())))
-        idx = np.minimum(first[:, None] + t, u.shape[1] - 1)
-        taps = np.where(t < count[:, None], np.take_along_axis(u, idx, axis=1),
-                        0.0).astype(np.float32)
         dev = inv_weights.device
-        return (torch.from_numpy(first.astype(np.int32)).to(dev),
-                torch.from_numpy(count.astype(np.int32)).to(dev),
-                torch.from_numpy(taps).to(dev))
+        return tuple(torch.from_numpy(t).to(dev) for t in mel_runs_np(u))
     return _memoized(_BAND_CACHE, inv_weights, make)
+
+
+def mel_runs_np(u: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """KI's table of U [N/2, M] (see :func:`_band_table`) in numpy."""
+    first, count = band_spans(u)
+    t = np.arange(max(1, int(count.max())))
+    idx = np.minimum(first[:, None] + t, u.shape[1] - 1)
+    taps = np.where(t < count[:, None], np.take_along_axis(u, idx, axis=1),
+                    0.0).astype(np.float32)
+    return first.astype(np.int32), count.astype(np.int32), taps
 
 
 def spectral_denormalize(x: torch.Tensor) -> torch.Tensor:
@@ -384,19 +412,35 @@ def mel_to_magnitudes(src: torch.Tensor, inv_weights: torch.Tensor,
     if src.device.type == "cpu":
         return mel_to_magnitudes_plain(src, inv_weights, tune_mul, tune_add,
                                        boost, mgc_max, mgc_min, max_val)
+    mx = mn = None
     if quantized:
-        *lead, _, frames, _ = src.shape
         f32 = torch.float32
         mx = torch.as_tensor(mgc_max, dtype=f32, device=src.device)
         mn = torch.as_tensor(mgc_min, dtype=f32, device=src.device)
         mx, mn = mx.reshape(-1).contiguous(), mn.reshape(-1).contiguous()
+    first, count, taps = _band_table(inv_weights)
+    return launch_mel_to_mag(src, mx, mn, first.to(src.device),
+                             count.to(src.device), taps.to(src.device),
+                             max_val, boost, tune_mul, tune_add)
+
+
+def launch_mel_to_mag(src: torch.Tensor, mx: torch.Tensor | None,
+                      mn: torch.Tensor | None, first: torch.Tensor,
+                      count: torch.Tensor, taps: torch.Tensor, max_val: int,
+                      boost: float, tune_mul: float,
+                      tune_add: float) -> torch.Tensor:
+    """Launch KI on CUDA uint8 planes with their extrema [rows], or on
+    float32 log-mel (``mx``, ``mn`` None), with the KI table of U on that
+    device (:func:`_band_table`: first [N/2], count [N/2], taps)."""
+    quantized = mx is not None
+    if quantized:
+        *lead, mels, frames, _ = src.shape
         dev = _cuda.check_cuda("mel_to_magnitudes", src, mx, mn)
         if not 0 < max_val <= 255:
             raise ValueError(f"mel_to_magnitudes: max_val {max_val} exceeds "
                              f"uint8")
     else:
-        *lead, frames, _, _ = src.shape
-        mx = mn = None
+        *lead, frames, mels, _ = src.shape
         dev = _cuda.check_cuda("mel_to_magnitudes", src)
         if src.dtype != torch.float32:
             raise ValueError("mel_to_magnitudes: the CUDA kernel takes "
@@ -405,9 +449,7 @@ def mel_to_magnitudes(src: torch.Tensor, inv_weights: torch.Tensor,
     if quantized and mx.numel() != batch:
         raise ValueError(f"mel_to_magnitudes: {mx.numel()} extrema for "
                          f"{batch} rows")
-    first, count, taps = _band_table(inv_weights)
-    first, count, taps = first.to(dev), count.to(dev), taps.to(dev)
-    bins = inv_weights.shape[0]
+    bins = first.shape[0]
     out = torch.empty(tuple(lead) + (frames, bins + 1), dtype=torch.float32,
                       device=dev)
     if batch * frames == 0:

@@ -147,27 +147,53 @@ def uniform_plain(keys, shape, dtype: torch.dtype = torch.float32,
     on ``int32`` is arithmetic), float32 or float64. See :func:`uniform`."""
     table, out_shape, per_key = _check(keys, shape, dtype)
     device = torch.device(device)
-    rows = table.shape[0]
-    i64 = torch.int64
-    kt = _device_keys(table, device).to(i64) & _M32
+    kt = _device_keys(table, device)
+    return uniform_table_plain(kt, per_key, dtype).reshape(out_shape)
+
+
+def _rounds(kt: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
+    """Threefry-2x32's 20 rounds on int64 tensors masked to 32 bits: the
+    key table ``kt`` [R, 2] against counters ``x0``, ``x1`` [R, C] (or
+    broadcasting to it) -> the two output words."""
+    kt = kt.to(torch.int64) & _M32
     k0, k1 = kt[:, 0:1], kt[:, 1:2]
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    # fewer than 2^32 samples from a key: the counter's high word is 0
-    x0 = ks[0].expand(rows, per_key).clone()
-    x1 = (torch.arange(per_key, dtype=i64, device=device) + ks[1]) & _M32
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x0 = (x0 + x1) & _M32
             x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def fold_in_table(kt: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """:func:`fold_in` on the device: int32 key words [R, 2] (uint32 bits)
+    and ``data`` int64 [D] -> int32 keys [R, D, 2], key r folded with
+    data[d]."""
+    x0, x1 = _rounds(kt, torch.zeros_like(data)[None, :], data[None, :])
+    return torch.stack([x0, x1], dim=-1).to(torch.int32)
+
+
+def uniform_table_plain(kt: torch.Tensor, per_key: int,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of KP on a key table: int32 [R, 2] (uint32
+    bits) on the result's device -> [R, per_key] in ``dtype``."""
+    i64 = torch.int64
+    rows = kt.shape[0]
+    # fewer than 2^32 samples from a key: the counter's high word is 0
+    x0, x1 = _rounds(kt, torch.zeros((rows, per_key), dtype=i64,
+                                     device=kt.device),
+                     torch.arange(per_key, dtype=i64, device=kt.device))
     if dtype == torch.float32:
         mant = ((x0 ^ x1) >> 9) | 0x3F800000
         out = mant.to(torch.int32).view(torch.float32) - 1.0
     else:
         mant = (x0 << 20) | (x1 >> 12) | 0x3FF0000000000000
         out = mant.view(torch.float64) - 1.0
-    return out.reshape(out_shape)
+    return out
 
 
 def uniform(keys, shape, dtype: torch.dtype = torch.float32,
@@ -195,11 +221,18 @@ def uniform(keys, shape, dtype: torch.dtype = torch.float32,
         raise ValueError("uniform: the CUDA kernel draws float32")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    rows = table.shape[0]
-    out = torch.empty(out_shape, dtype=torch.float32, device=device)
+    kt = _device_keys(table, device)
+    return launch_uniform(kt, per_key).reshape(out_shape)
+
+
+def launch_uniform(kt: torch.Tensor, per_key: int) -> torch.Tensor:
+    """Launch KP on a CUDA key table int32 [R, 2] (uint32 bits) -> float32
+    [R, per_key]."""
+    device = kt.device
+    rows = kt.shape[0]
+    out = torch.empty((rows, per_key), dtype=torch.float32, device=device)
     if rows * per_key == 0:
         return out
-    kt = _device_keys(table, device)
     _cuda.launch("gomel_threefry_uniform", device, kt.data_ptr(),
                  out.data_ptr(), rows, per_key)
     KERNEL.launches += 1

@@ -218,6 +218,14 @@ def _quantize(spec2: torch.Tensor, max_val: int, batched: bool, frames=None):
     true_frames = _true_frames(frames, spec2.shape[0], spec2.device)
     if spec2.device.type == "cpu":
         return quantize_mel_plane_plain(spec2, max_val, true_frames)
+    return launch_quantize_mel(spec2, max_val, batched, true_frames)
+
+
+def launch_quantize_mel(spec2: torch.Tensor, max_val: int, batched: bool,
+                        true_frames: torch.Tensor | None = None):
+    """Launch KD on a CUDA spectrogram [B, F, M, 2] (``batched``) or
+    [F, M, 2], with the int32 frame counts [B] of the masked form; pass 1's
+    partials and the per-row tickets are the kernel's own scratch."""
     dev = _cuda.check_cuda("quantize_mel_plane", spec2,
                            *(() if true_frames is None else (true_frames,)))
     if spec2.dtype != torch.float32:
@@ -299,6 +307,16 @@ def _quantize_planes(spec2: torch.Tensor, max_val: int, ihs_passes: int,
     true_frames = _true_frames(frames, spec2.shape[0], spec2.device)
     if spec2.device.type == "cpu":
         return quantize_planes_plain(spec2, max_val, ihs_passes, true_frames)
+    return launch_quantize_planes(spec2, max_val, ihs_passes, batched,
+                                  true_frames)
+
+
+def launch_quantize_planes(spec2: torch.Tensor, max_val: int,
+                           ihs_passes: int, batched: bool,
+                           true_frames: torch.Tensor | None = None):
+    """Launch KF on a CUDA spectrogram [B, F, nf, 2] (``batched``) or
+    [F, nf, 2], with the int32 frame counts [B] of the masked form; pass 1's
+    partials and the per-row tickets are the kernel's own scratch."""
     dev = _cuda.check_cuda("quantize_planes", spec2,
                            *(() if true_frames is None else (true_frames,)))
     if spec2.dtype != torch.float32:

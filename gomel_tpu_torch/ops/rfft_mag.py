@@ -16,8 +16,8 @@ and the per-pass twiddles of :func:`_pass_twiddles_np`; at the other sizes
 the mixed-radix register core (fwd_frame_mixed) on the plan
 :func:`mixed_plan` gives and the table of :func:`_mixed_twiddles_np`. The
 inverse kernels KG (ops/istft.py) and KJ (ops/griffinlim.py) run the same
-cores' inverses on the same plans and tables; :func:`_fft_args` hands all
-four the plan and table of their size.
+cores' inverses on the same plans and tables; :func:`fft_tables` and
+:func:`fft_plan_args` hand all four the tables and plan of their size.
 ``backend`` picks the route first (ops/fftbackend.resolve): a size the
 kernels do not take goes by the xla route (``torch.fft`` on the card), and
 the name ``mm`` by the matmul DFT (ops/dft_mm, kernel KN).
@@ -281,20 +281,34 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     return _table("tw", n, device)
 
 
-def _fft_args(n: int, device: torch.device) -> tuple:
-    """The FFT kernels' (tw_pass, radices, threads, frames_per_block), KB,
-    KE, KG and KJ alike (the inverse conjugates the table's roots): the
-    power-of-two core's plan (:func:`fwd_plan`) and per-pass table when n/2
-    is a power of two, else the mixed-radix register core's
-    (:func:`mixed_plan`, which raises for a size the kernels do not
-    take)."""
+def _pow2(n: int) -> bool:
     m = n // 2
-    if m >= 2 and not m & (m - 1):
-        plan, kind = fwd_plan(n), "pass"
-    else:
-        plan, kind = mixed_plan(n), "mixed"
-    return (_table(kind, n, device).data_ptr(), plan.code, plan.threads,
-            plan.frames_per_block)
+    return m >= 2 and not m & (m - 1)
+
+
+def fft_plan_args(n: int) -> tuple[int, int, int]:
+    """The FFT kernels' (radices, threads, frames_per_block), KB, KE, KG and
+    KJ alike: the power-of-two core's plan (:func:`fwd_plan`) when n/2 is a
+    power of two, else the mixed-radix register core's (:func:`mixed_plan`,
+    which raises for a size the kernels do not take)."""
+    plan = fwd_plan(n) if _pow2(n) else mixed_plan(n)
+    return plan.code, plan.threads, plan.frames_per_block
+
+
+def fft_tables(n: int, device: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The FFT kernels' two tables on ``device``: the twiddles of
+    :func:`_twiddles_np` and the per-pass table of the plan
+    (:func:`_pass_twiddles_np` or :func:`_mixed_twiddles_np`; the inverse
+    conjugates its roots)."""
+    return (_twiddles(n, device),
+            _table("pass" if _pow2(n) else "mixed", n, device))
+
+
+def _fft_args(n: int, device: torch.device) -> tuple:
+    """The FFT kernels' (tw_pass, radices, threads, frames_per_block): the
+    per-pass table's address, then :func:`fft_plan_args`."""
+    return (fft_tables(n, device)[1].data_ptr(), *fft_plan_args(n))
 
 
 def stft_mag_plain(x: torch.Tensor, window: torch.Tensor | None, n: int,
@@ -332,6 +346,17 @@ def stft_mag(x: torch.Tensor, window: torch.Tensor | None, n: int,
     if route == "xla":
         fftbackend.XLA_ROUTE.launches += 1
         return stft_mag_plain(x, window, n, hop)
+    return launch_stft_mag(x, window, *fft_tables(n, dev), fft_plan_args(n),
+                           n, hop)
+
+
+def launch_stft_mag(x: torch.Tensor, window: torch.Tensor | None,
+                    tw: torch.Tensor, tw_pass: torch.Tensor,
+                    plan: tuple[int, int, int], n: int,
+                    hop: int) -> torch.Tensor:
+    """Launch KB on checked CUDA tensors (:func:`_check`) with the FFT
+    tables and plan of n (:func:`fft_tables`, :func:`fft_plan_args`)."""
+    dev = x.device
     lead, length = x.shape[:-1], x.shape[-1]
     frames = num_frames_of(length, n, hop)
     batch = int(np.prod(lead, dtype=np.int64))
@@ -340,10 +365,9 @@ def stft_mag(x: torch.Tensor, window: torch.Tensor | None, n: int,
     if batch == 0:
         return out
     win_ptr = None if window is None else window.data_ptr()
-    tw_pass, *plan = _fft_args(n, dev)
-    _cuda.launch("gomel_stft_mag", dev, x.data_ptr(), win_ptr,
-                 _twiddles(n, dev).data_ptr(), tw_pass, out.data_ptr(), batch,
-                 frames, length, hop, n, *plan)
+    _cuda.launch("gomel_stft_mag", dev, x.data_ptr(), win_ptr, tw.data_ptr(),
+                 tw_pass.data_ptr(), out.data_ptr(), batch, frames, length,
+                 hop, n, *plan)
     KERNEL.launches += 1
     return out
 
@@ -377,6 +401,17 @@ def stft_planes(x: torch.Tensor, window: torch.Tensor | None, n: int,
     if route == "xla":
         fftbackend.XLA_ROUTE.launches += 1
         return stft_planes_plain(x, window, n, hop, first, count)
+    return launch_stft_planes(x, window, *fft_tables(n, dev),
+                              fft_plan_args(n), n, hop, first, count)
+
+
+def launch_stft_planes(x: torch.Tensor, window: torch.Tensor | None,
+                       tw: torch.Tensor, tw_pass: torch.Tensor,
+                       plan: tuple[int, int, int], n: int, hop: int,
+                       first: int, count: int) -> torch.Tensor:
+    """Launch KE on checked CUDA tensors (:func:`_check`) with the FFT
+    tables and plan of n."""
+    dev = x.device
     lead, length = x.shape[:-1], x.shape[-1]
     frames = num_frames_of(length, n, hop)
     batch = int(np.prod(lead, dtype=np.int64))
@@ -385,9 +420,8 @@ def stft_planes(x: torch.Tensor, window: torch.Tensor | None, n: int,
     if batch == 0:
         return out
     win_ptr = None if window is None else window.data_ptr()
-    tw_pass, *plan = _fft_args(n, dev)
     _cuda.launch("gomel_stft_planes", dev, x.data_ptr(), win_ptr,
-                 _twiddles(n, dev).data_ptr(), tw_pass, out.data_ptr(), batch,
+                 tw.data_ptr(), tw_pass.data_ptr(), out.data_ptr(), batch,
                  frames, length, hop, n, first, count, *plan)
     PLANES_KERNEL.launches += 1
     return out
