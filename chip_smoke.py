@@ -80,6 +80,19 @@ tails).
 Phase 4 prints each kernel's time beside the one PERF.md last recorded
 (EARLIER_MS).
 
+KA (PCM-16 ingest) stores a float4 of output a thread, from one 8-byte load
+of 4 mono int16 or one 16-byte load of 4 stereo frames where the row allows:
+phase 2 also holds its three modes (mono and stereo, zero-stuff at every
+pad-shift pair, per-row scales) bit-exact at odd lengths and on bases 1 and
+3 int16 off 16 bytes. On the mel encode from PCM (tomel, batch-tomel) the
+fused KB + KC reads the int16 samples itself in its int16 mode: phase 2
+holds it bit-equal to KA followed by the float launch (the bench shape, a
+row not a multiple of the hop, a row shorter than a frame, per-row scales,
+the batch with its empty row), phase 3 holds tomel's PNG byte-equal to the
+KA route's, those two paths must launch it and no KA, and phase 4 times it
+and both PCM chains (to the log-mel, and with KD) against KA followed by the
+float launch.
+
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; so
@@ -359,9 +372,9 @@ INSTR_RATE_S = FP32_FLOP_S / 2
 THREEFRY_OPS = 20 * 3 + 12 + 3
 
 
-# each kernel's phase-4 device ms as PERF.md recorded it before KD's and
-# KP's redesign, and the n = 3000 rows before the mixed-radix register core
-# took them (KB's and KJ's, then KE's and KG's; NVIDIA H100 80GB HBM3,
+# each kernel's phase-4 device ms as PERF.md recorded it before KD's, KP's
+# and KA's redesign, and the n = 3000 rows before the mixed-radix register
+# core took them (KB's and KJ's, then KE's and KG's; NVIDIA H100 80GB HBM3,
 # 700.00 W; the last run PERF.md names for each), printed beside this run's
 # to read the controls off
 EARLIER_MS = {
@@ -1799,8 +1812,8 @@ def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
         raise AssertionError("the native FLAC decoder did not build or load")
 
     runs = {
-        "batch-tomel": (batch_tomel, [src], "bm", ("pcm16_ingest_rows",
-                        "stft_mel_log", "quantize_mel_plane_masked")),
+        "batch-tomel": (batch_tomel, [src], "bm", (
+            "stft_mel_log pcm16", "quantize_mel_plane_masked")),
         "batch-towav": (batch_towav, [path("bm_cuda"), "--seed", "1"], "bw",
                         ("mel_to_magnitudes", "gl_project", "gl_overlap_add",
                          "threefry_uniform")),
@@ -1821,6 +1834,12 @@ def batch_clis(tmp: str, rng: np.random.Generator, drive, card: str) -> None:
         if counts.get("threefry_uniform", 0) != want_p:
             raise AssertionError(f"{label}: {counts.get('threefry_uniform', 0)}"
                                  f" KP launches, expected {want_p}")
+        # the mel encode from PCM reads the int16 rows in the fused launch:
+        # no KA, no float fused launch
+        if label == "batch-tomel" and any(counts.get(k) for k in (
+                "pcm16_ingest", "pcm16_ingest_rows", "stft_mel_log")):
+            raise AssertionError(f"batch-tomel ran KA or the float fused "
+                                 f"launch: {counts}")
         if len(os.listdir(path(out + "_cuda"))) != len(spec):
             raise AssertionError(f"{label} wrote {os.listdir(path(out + '_cuda'))}")
 
@@ -2465,6 +2484,107 @@ def serving_phase(tmp: str, drive, card: str, dev: torch.device,
         f"{serving.read_artifact_meta(path)['in_shapes']}, bit-equal to the "
         f"eager path")
 
+def offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """``t`` copied into a card buffer ``offset`` elements past its start (a
+    base off 16 bytes unless offset is a multiple of 16 bytes)."""
+    flat = torch.zeros(t.numel() + offset + 8, dtype=t.dtype, device=t.device)
+    view = flat[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def ka_odd_checks(dev: torch.device, pcm: torch.Tensor) -> None:
+    """KA in its three modes (mono and stereo, zero-stuff at every pair of
+    the pad-shift table, per-row scales) on the bench rows cut to odd
+    lengths, with bases 1 and 3 int16 off 16 bytes and rows whose starts
+    fall off 16 bytes, padded and not: bit-equal to the plain version."""
+    from gomel_tpu_torch.core.config import PAD_SHIFT_TABLE
+    from gomel_tpu_torch.ops import quantize
+    f32 = torch.float32
+    scales = torch.tensor([32768.0, 65536.0], device=dev)
+    checked = 0
+    for n in (pcm.shape[1] - 1, 48001, 7):
+        rows = pcm[:, :n].contiguous()
+        for offset in (1, 3):
+            src = offset_view(rows, offset)
+            st = offset_view(rows.reshape(-1)[:2 * (n // 2)].reshape(-1, 2)
+                             .contiguous(), offset)
+            for pad in (0, 1283):
+                cases = [("mono", quantize.pcm16_ingest_batch(
+                              src, f32, 32768.0, n + pad),
+                          quantize.pcm16_ingest_plain(
+                              rows, f32, 32768.0, n + pad, batched=True)),
+                         ("stereo", quantize.pcm16_ingest(
+                             st, f32, 65536.0, n + pad),
+                          quantize.pcm16_ingest_plain(
+                              st, f32, 65536.0, n + pad)),
+                         ("per-row", quantize.pcm16_ingest_batch(
+                             src, f32, scales, n + pad),
+                          quantize.pcm16_ingest_plain(
+                              rows, f32, scales, n + pad, batched=True))]
+                for zp, zs in sorted({p for p in PAD_SHIFT_TABLE.values()
+                                      if p[0]}):
+                    up = n + -(-n // zp) * zs
+                    cases.append((f"zero-stuff ({zp}, {zs})",
+                                  quantize.pcm16_ingest_batch(
+                                      src, f32, 32768.0, up + pad, zp, zs),
+                                  quantize.pcm16_ingest_plain(
+                                      rows, f32, 32768.0, up + pad,
+                                      batched=True, zp=zp, zs=zs)))
+                torch.cuda.synchronize()
+                for label, got, want in cases:
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"pcm16_ingest ({label}, n {n}, base {offset} "
+                            f"int16 off, pad {pad}) differs from its plain "
+                            f"version")
+                    checked += 1
+    log(f"KA pcm16_ingest at odd lengths ({pcm.shape[1] - 1}, 48001, 7), "
+        f"bases 1 and 3 int16 off 16 bytes, padded and not: mono, stereo, "
+        f"per-row scales and zero-stuff at every pad-shift pair bit-exact "
+        f"({checked} cases)")
+
+
+def pcm16_fused_checks(dev: torch.device, pcm: torch.Tensor,
+                       pcm4: torch.Tensor, scales4: torch.Tensor,
+                       win: torch.Tensor, fwd: torch.Tensor, n: int,
+                       hop: int, padded: int) -> None:
+    """The fused launch's int16 mode bit-equal to KA followed by the float
+    fused launch: the bench shape, a row whose length is not a multiple of
+    the hop, a row shorter than one frame, per-row scales, and the batch
+    shape with its empty row (all zeros)."""
+    from gomel_tpu_torch.ops import mel_ops, quantize
+    f32 = torch.float32
+    empty = pcm4.clone()
+    empty[3] = 0
+    cases = (
+        ("the bench shape", pcm, 32768.0, padded),
+        ("L = 100,001, not a multiple of the hop", pcm[0, :100001].contiguous(),
+         65536.0, (100001 // hop + 1) * hop),
+        ("L = 3,000 < n", pcm[1, :3000].contiguous(), 32768.0, n),
+        ("per-row scales", pcm4, scales4, 0),
+        ("the batch shape with its empty row", empty, scales4, 0),
+    )
+    for label, src, scale, pad_to in cases:
+        before = (mel_ops.FUSED_PCM16_KERNEL.launches,
+                  quantize.INGEST_KERNEL.launches)
+        got = mel_ops.stft_mel_log_pcm16(src, scale, pad_to, win, n, hop, fwd)
+        if (mel_ops.FUSED_PCM16_KERNEL.launches - before[0],
+                quantize.INGEST_KERNEL.launches - before[1]) != (1, 0):
+            raise AssertionError(f"stft_mel_log_pcm16 ({label}): not one "
+                                 f"launch of its own")
+        batched = src.ndim == 2
+        x = quantize.pcm16_ingest_plain(src, f32, scale, pad_to,
+                                        batched=batched)
+        want = mel_ops.stft_mel_log(x, win, n, hop, fwd)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"stft_mel_log_pcm16 ({label}) differs from "
+                                 f"KA followed by the fused launch")
+        log(f"fused KB + KC int16 mode, {label} {tuple(src.shape)} -> "
+            f"{tuple(got.shape)}: bit-equal to KA then the float launch")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2513,6 +2633,7 @@ def main() -> int:
                                    quantize.INGEST_ZERO_STUFF_KERNEL,
                                    rfft_mag.KERNEL,
                                    mel_ops.KERNEL, mel_ops.FUSED_KERNEL,
+                                   mel_ops.FUSED_PCM16_KERNEL,
                                    quantize.QUANTIZE_KERNEL,
                                    rfft_mag.PLANES_KERNEL,
                                    quantize.PLANES_KERNEL,
@@ -2579,6 +2700,7 @@ def main() -> int:
                                float((st - st_ref).abs().max()))
     log(f"KA pcm16_ingest [{BATCH}, {length}] -> {tuple(x.shape)}: "
         f"bit-exact, max|d| {errs['pcm16_ingest']}")
+    ka_odd_checks(dev, pcm)
 
     win = torch.tensor(hann_window(n_fft), dtype=f32, device=dev)
     mags = rfft_mag.stft_mag(x, win, n_fft, hop)
@@ -2646,6 +2768,20 @@ def main() -> int:
     log(f"fused KB + KC stft_mel_log -> {tuple(fused.shape)}: bit-equal to "
         f"KB then KC (also with a NaN frame); max|d log| against the plain "
         f"versions {errs['stft_mel_log']:.3e} where plain mel > 1e-4")
+    fused16 = mel_ops.stft_mel_log_pcm16(pcm, 32768.0, padded, win, n_fft,
+                                         hop, fwd)
+    fused16_ref = mel_ops.stft_mel_log_pcm16_plain(pcm, 32768.0, padded, win,
+                                                   n_fft, hop, fwd)
+    torch.cuda.synchronize()
+    errs["stft_mel_log pcm16"] = float((fused16 - fused16_ref).abs()[
+        fused16_ref > math.log(1e-4)].max())
+    if not torch.equal(fused16, fused):
+        raise AssertionError("the fused launch's int16 mode differs from KA "
+                             "followed by the float launch")
+    log(f"fused KB + KC int16 mode -> {tuple(fused16.shape)}: bit-equal to KA "
+        f"then the float launch; max|d log| against its plain version "
+        f"{errs['stft_mel_log pcm16']:.3e} where plain mel > 1e-4 (the float "
+        f"launch's: torch.fft's rounding on quiet bins)")
 
     img, mx, mn = quantize.quantize_mel_plane_batch(logmel_ref)
     img_ref, mx_ref, mn_ref = quantize.quantize_mel_plane_plain(logmel_ref)
@@ -2929,6 +3065,7 @@ def main() -> int:
     errs["pcm16_ingest_rows"] = float((x4 - x4_ref).abs().max())
     log(f"KA pcm16_ingest per-row scales {scales4.tolist()} [{rows4}, "
         f"{padded}]: bit-exact")
+    pcm16_fused_checks(dev, pcm, pcm4, scales4, win, fwd, n_fft, hop, padded)
 
     def nan_rows(t):
         """A NaN in a counted frame of row 1 and in a pad frame of row 2."""
@@ -3012,9 +3149,30 @@ def main() -> int:
         wavcodec.write_wav(wav, seeded_pcm(rng, 1, length)[0], SAMPLE_RATE)
         png_gpu = os.path.join(tmp, "gpu.png")
         png_cpu = os.path.join(tmp, "cpu.png")
-        drive("tomel --device cuda (first call)",
-              lambda: tomel([wav, "--device", "cuda", "-o", png_gpu]),
-              ("pcm16_ingest", "stft_mel_log", "quantize_mel_plane"))
+        _, counts = drive("tomel --device cuda (first call)",
+                          lambda: tomel([wav, "--device", "cuda", "-o",
+                                         png_gpu]),
+                          ("stft_mel_log pcm16", "quantize_mel_plane"))
+        if counts.get("pcm16_ingest") or counts.get("stft_mel_log"):
+            raise AssertionError(f"tomel ran KA or the float fused launch: "
+                                 f"{counts}")
+        # the route before the int16 mode (KA, the float fused launch, KD)
+        # on the same file, through the CLI's Mel: the same PNG bytes
+        from gomel_tpu_torch.cli import tools as cli_tools
+        m_cli = cli_tools._mel_from_args(cli_tools._mel_parser(
+            "tomel", False).parse_args([wav, "--device", "cuda"]))
+        buf, sr_w = audio_io.load_wav_any(wav, mono="left", raw_pcm16=True)
+        x_ka = quantize.pcm16_ingest(torch.from_numpy(buf.copy()).to(dev),
+                                     f32, 32768.0,
+                                     pad_length(len(buf), m_cli.config.window))
+        png_ka = os.path.join(tmp, "ka_route.png")
+        m_cli._save_quantized(png_ka, quantize.quantize_mel_plane(
+            m_cli._encode_padded(x_ka), 255), len(buf), sr_w)
+        with open(png_gpu, "rb") as fa, open(png_ka, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError("tomel's PNG differs from the KA route's")
+        log("tomel PNG (the int16 fused launch) byte-equal to the KA + float "
+            "fused launch route's")
         if tomel([wav, "--device", "cpu", "-o", png_cpu]) != 0:
             raise AssertionError("tomel on cpu failed")
         a = read_png(png_gpu).astype(np.int64)
@@ -3186,6 +3344,8 @@ def main() -> int:
         "stft_mag": lambda: rfft_mag.stft_mag(x, win, n_fft, hop),
         "mel_log": lambda: mel_ops._mel_from_mags(mags_ref, fwd),
         "stft_mel_log": lambda: mel_ops.stft_mel_log(x, win, n_fft, hop, fwd),
+        "stft_mel_log pcm16": lambda: mel_ops.stft_mel_log_pcm16(
+            pcm, 32768.0, padded, win, n_fft, hop, fwd),
         "quantize_mel_plane": lambda: quantize.quantize_mel_plane_batch(
             logmel_ref),
         "phase_encode": lambda: phase_ops.phase_encode_batch(x, nf, n_fft, hop,
@@ -3218,6 +3378,8 @@ def main() -> int:
         "mel_log": lambda: mel_ops.mel_from_mags_plain(mags_ref, fwd),
         "stft_mel_log": lambda: mel_ops.stft_mel_log_plain(x, win, n_fft, hop,
                                                            fwd),
+        "stft_mel_log pcm16": lambda: mel_ops.stft_mel_log_pcm16_plain(
+            pcm, 32768.0, padded, win, n_fft, hop, fwd),
         "quantize_mel_plane": lambda: quantize.quantize_mel_plane_plain(
             logmel_ref),
         "phase_encode": lambda: rfft_mag.stft_planes_plain(x, win, n_fft, hop,
@@ -3271,6 +3433,10 @@ def main() -> int:
         "stft_mag": (nbytes(x, win, mags_ref), f2 * kb_ops),
         "stft_mel_log": (nbytes(x, win, slots, band_w, logmel_ref),
                          f2 * (kb_ops + 2 * nnz + 2 * cfg.num_mels)),
+        # the int16 signal in (5.75 MB, not 11.5), one division a sample
+        "stft_mel_log pcm16": (nbytes(pcm, win, slots, band_w, logmel_ref),
+                               f2 * (kb_ops + 2 * nnz + 2 * cfg.num_mels)
+                               + float(x.numel())),
         "mel_log": (nbytes(mags_ref, slots, band_w, logmel_ref),
                     f2 * (2 * nnz + 2 * cfg.num_mels)),
         "quantize_mel_plane": (nbytes(logmel_ref, img, mx, mn),
@@ -3312,7 +3478,11 @@ def main() -> int:
     fold_d = float((fold() - griffinlim.gl_overlap_add(fw_gl, hop)).abs().max())
     log(f"  gl_overlap_add's library call, F.fold of the frames: max|d| "
         f"{fold_d:.3e} against KK")
-    library = {"stft_mag": lambda: torch.fft.rfft(frames_kb, dim=-1),
+    # KA's library call: the one division of the int16 tensor (its mono
+    # and per-row modes without the padding)
+    library = {"pcm16_ingest": lambda: pcm / 32768.0,
+               "pcm16_ingest_rows": lambda: pcm4 / scales4[:, None],
+               "stft_mag": lambda: torch.fft.rfft(frames_kb, dim=-1),
                "phase_encode": lambda: torch.fft.rfft(frames_kb, dim=-1),
                "irfft_window": lambda: torch.fft.irfft(spec_c, n=n_fft),
                "gl_project": lambda: torch.fft.irfft(spec_c, n=n_fft),
@@ -3356,6 +3526,29 @@ def main() -> int:
     called = wall_ms(encode_kernels)
     log(f"  the same, called back to back from Python (host clock): kernels "
         f"{called:.4f} ms = {audio_s / (called / 1e3):.1f} audio-s/s")
+
+    # the mel encode from PCM: the int16 mode (one launch) against KA then
+    # the float launch, both to the log-mel and with KD after
+    def pcm_logmel_int16():
+        return mel_ops.stft_mel_log_pcm16(pcm, 32768.0, padded, win, n_fft,
+                                          hop, fwd)
+
+    def pcm_logmel_ka():
+        return mel_ops.stft_mel_log(quantize.pcm16_ingest_batch(
+            pcm, f32, 32768.0, padded), win, n_fft, hop, fwd)
+
+    for label, a_fn, b_fn in (
+            ("PCM -> log-mel", pcm_logmel_int16, pcm_logmel_ka),
+            ("PCM -> mel encode + quantize",
+             lambda: quantize.quantize_mel_plane_batch(pcm_logmel_int16()),
+             lambda: quantize.quantize_mel_plane_batch(pcm_logmel_ka()))):
+        a_ms, b_ms = race(a_fn, b_fn, label)
+        log(f"  {label}, [{BATCH}, {length}] int16, device: the int16 fused "
+            f"launch {a_ms:.4f} ms = {audio_s / (a_ms / 1e3):.1f} audio-s/s; "
+            f"KA + the float launch {b_ms:.4f} ms = "
+            f"{audio_s / (b_ms / 1e3):.1f} audio-s/s; ratio {a_ms / b_ms:.3f}"
+            f"; called back to back (host clock) {wall_ms(a_fn):.4f} and "
+            f"{wall_ms(b_fn):.4f} ms")
 
     def phase_encode_kernels():
         sp = phase_ops.phase_encode_batch(x, nf, n_fft, hop, win)

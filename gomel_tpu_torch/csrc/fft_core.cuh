@@ -70,7 +70,10 @@ __device__ __forceinline__ float2 inverse_split_bin(float2 p, float2 q,
 //     registers. A thread takes butterflies 2 th and 2 th + 1, so each load
 //     is one 16-byte float4 (two complex points) of signal and one of window
 //     when the frame's address allows it (vec), else four scalar loads of
-//     the same values; the window multiplies in registers.
+//     the same values; the window multiplies in registers. The fused
+//     KB + KC's int16 mode reads the PCM instead (Pcm16Samples: an 8-byte
+//     load of 4 int16 made into KA's values by a LOP3 and an FMA each,
+//     zeros past the row).
 //   - A Stockham pass (ns = product of the earlier radices, radix R):
 //     butterfly j takes a[j + t m/R] (t < R) times exp(-2 pi i t k / (ns R)),
 //     k = j mod ns, and writes its R-point DFT to a[(j - k) R + k + s ns].
@@ -220,11 +223,52 @@ __device__ __forceinline__ void store_dft(float2* z, const float2* v, int sa) {
   for (int s = 0; s < R; ++s) at(z, sa, s * kNs) = v[bitrev<R>(s)];
 }
 
+// A frame of the float32 signal (KB, KE, KJ, the float fused launch).
+struct FloatSamples {
+  const float* src;
+};
+
+// The same samples formed from int16 PCM (the fused KB + KC's int16 mode):
+// sample i is src[i] / s for the row's power-of-two scale s, KA's value (a
+// LOP3 and one exact FMA: common.cuh pcm_biased), and 0 at i >= avail (the
+// padding past the row's samples). kWhole (the launch's frames all inside
+// their rows, vec holding): one 8-byte load of 4, no test. Else the same
+// load where vec holds and all four lie inside the row, scalar loads of the
+// same samples otherwise.
+template <bool kWhole>
+struct Pcm16Samples {
+  const int16_t* src;
+  long long avail;  // the row's samples from the frame's first one
+  float inv, bias;  // 1 / s and -kPcmBias / s (pcm_scale)
+  __device__ __forceinline__ float value(unsigned h) const {
+    return __fmaf_rn(pcm_biased(h), inv, bias);
+  }
+  __device__ __forceinline__ float4 load4(int off, bool vec) const {
+    if (kWhole || (vec && off + 4 <= avail)) {
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(src + off));
+      return make_float4(value(q.x), value(q.x >> 16), value(q.y),
+                         value(q.y >> 16));
+    }
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = off + j < avail
+                 ? value(static_cast<uint16_t>(__ldg(src + off + j)))
+                 : 0.0f;
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
 // Samples off..off+3 of a frame times the window (if any): two complex
-// points. The vector and scalar routes load the same values.
-__device__ __forceinline__ float4 load_pair(const float* __restrict__ src,
+// points. The vector and scalar routes load the same values. The float32
+// form keeps its loads behind one restrict pointer as one body: written as
+// the int16 form's template it compiled to more instructions, and KB and
+// KE ran 2-6% slower (chip_smoke.py phase 4).
+__device__ __forceinline__ float4 load_pair(const FloatSamples& s,
                                             const float* __restrict__ window,
                                             int off, bool vec) {
+  const float* __restrict__ src = s.src;
   float4 x, w;
   if (vec) {
     x = __ldg(reinterpret_cast<const float4*>(src + off));
@@ -242,13 +286,25 @@ __device__ __forceinline__ float4 load_pair(const float* __restrict__ src,
   return make_float4(x.x * w.x, x.y * w.y, x.z * w.z, x.w * w.w);
 }
 
+template <bool kWhole>
+__device__ __forceinline__ float4 load_pair(const Pcm16Samples<kWhole>& s,
+                                            const float* __restrict__ window,
+                                            int off, bool vec) {
+  const float4 x = s.load4(off, vec);
+  if (window == nullptr) return x;
+  const float4 w =
+      vec ? __ldg(reinterpret_cast<const float4*>(window + off))
+          : make_float4(__ldg(window + off), __ldg(window + off + 1),
+                        __ldg(window + off + 2), __ldg(window + off + 3));
+  return make_float4(x.x * w.x, x.y * w.y, x.z * w.z, x.w * w.w);
+}
+
 // The first pass (ns = 1, no twiddles), from the signal: B = 2 butterflies
 // 2 th and 2 th + 1, whose point t is the float4 at z[2 th + t m/R]; or
 // B = 1 (the only pass, R = m), whose points 2c and 2c + 1 are the float4 at
 // z[2c]. A slot past the last frame (valid false) loads nothing.
-template <int R, int B, int M, bool kInverse>
-__device__ __forceinline__ void first_pass(float2* z,
-                                           const float* __restrict__ src,
+template <int R, int B, int M, bool kInverse, typename S>
+__device__ __forceinline__ void first_pass(float2* z, const S& src,
                                            const float* __restrict__ window,
                                            bool vec, bool valid, int th) {
   float2 v[R * B];
@@ -332,16 +388,26 @@ __device__ __forceinline__ void later_passes(float2* z,
 }
 
 // The forward transform of one frame (thread th of its T) into z, Z in
-// natural order. Every thread of the block calls it: it holds the barriers.
-template <int kLogM>
-__device__ __forceinline__ void fwd_frame_pow2(
-    float2* z, const float* __restrict__ src, const float* __restrict__ window,
-    bool vec, bool valid, const float2* __restrict__ twp, int th) {
+// natural order, its samples from S (FloatSamples, Pcm16Samples). Every
+// thread of the block calls it: it holds the barriers.
+template <int kLogM, typename S>
+__device__ __forceinline__ void fwd_frame_pow2_samples(
+    float2* z, const S& src, const float* __restrict__ window, bool vec,
+    bool valid, const float2* __restrict__ twp, int th) {
   using Plan = FwdPlan<kLogM>;
   constexpr int r0 = 1 << Plan::pass_log(0);
   first_pass<r0, (Plan::m >= kRegPoints ? 2 : 1), Plan::m, false>(
       z, src, window, vec, valid, th);
   later_passes<kLogM, 1, r0, false>(z, twp, th);
+}
+
+// The same from the float32 signal at src.
+template <int kLogM>
+__device__ __forceinline__ void fwd_frame_pow2(
+    float2* z, const float* __restrict__ src, const float* __restrict__ window,
+    bool vec, bool valid, const float2* __restrict__ twp, int th) {
+  fwd_frame_pow2_samples<kLogM>(z, FloatSamples{src}, window, vec, valid, twp,
+                                th);
 }
 
 // rfft bins k and m - k (0 < k <= m/2) from Z in a frame's buffer: one read

@@ -56,6 +56,20 @@
 // and hence KB's occupancy stay as they are. The magnitudes are the very
 // expressions KB stores, and the band sum is KC's, so the log-mel equals
 // KB followed by KC bit for bit.
+//
+// Its int16 mode (gomel_stft_mel_log_pcm16; the mel encode from PCM, KA's
+// mono ingest folded in): the first pass reads the int16 samples (8-byte
+// loads of 4 where the frames' bases allow, fft_core.cuh Pcm16Samples) and
+// forms KA's value, the sample divided by the row's power-of-two scale
+// (the int16 bits made a float by a LOP3, no conversion instruction, and
+// one exact FMA: common.cuh pcm_biased), zero past the row's samples up to
+// the padded length; a launch whose frames all lie inside their rows runs
+// a build with no test a load. So the log-mel equals KA followed by the float launch bit
+// for bit, KA's launch is gone, and the signal the launch reads is 2 bytes
+// a sample (5.75 MB at the bench shape, against KA's 5.75 MB read + 11.5 MB
+// written + the float launch's 11.5 MB read).
+#include <cstring>
+
 #include "fft_core.cuh"
 #include "mel_bands.cuh"
 
@@ -108,18 +122,44 @@ stft_mag_pow2_kernel(const float* __restrict__ x,
   }
 }
 
+// Where frame (bi, fi) of the mel encode's input starts, and its samples:
+// the float32 signal (FloatSignal), or the int16 PCM rows divided by the
+// row's scale with zeros past n_in (Pcm16Signal: the int16 mode).
+struct FloatSignal {
+  const float* x;
+  long long batch_stride, hop;
+  __device__ __forceinline__ FloatSamples frame(long long bi,
+                                                long long fi) const {
+    return {x + bi * batch_stride + fi * hop};
+  }
+};
+
+template <bool kWhole>
+struct Pcm16Signal {
+  const int16_t* pcm;
+  const float* scales;  // [batch], or null for the one scale
+  float scale;          // powers of two (pcm_scale's inv not 0)
+  long long n_in, hop;  // n_in: a row's samples and its stride
+  __device__ __forceinline__ Pcm16Samples<kWhole> frame(long long bi,
+                                                        long long fi) const {
+    const long long start = fi * hop;
+    const PcmScale d =
+        pcm_scale(scales != nullptr ? __ldg(scales + bi) : scale);
+    return {pcm + bi * n_in + start, n_in - start, d.inv, d.bias};
+  }
+};
+
 // The fused KB + KC launch for m = 2^kLogM: KB's transform and split, the
 // magnitudes into the frame's buffer, then the block's band sums over its
 // frames into out [total, table.cols].
-template <int kLogM>
+template <int kLogM, typename Signal>
 __global__ void __launch_bounds__(FwdPlan<kLogM>::threads *
                                   FwdPlan<kLogM>::frames_per_block)
-stft_mel_log_pow2_kernel(const float* __restrict__ x,
-                         const float* __restrict__ window,
+stft_mel_log_pow2_kernel(const Signal sig, const float* __restrict__ window,
                          const float2* __restrict__ tw,
                          const float2* __restrict__ twp, MelTable table,
                          float* __restrict__ out, long long total, int frames,
-                         long long batch_stride, long long hop, bool vec) {
+                         bool vec) {
   using Plan = FwdPlan<kLogM>;
   constexpr int m = Plan::m;
   constexpr int threads = Plan::threads;
@@ -131,11 +171,11 @@ stft_mel_log_pow2_kernel(const float* __restrict__ x,
                           Plan::frames_per_block;
   const long long frame = first + slot;
   const bool valid = frame < total;
-  const long long bi = frame / frames;
-  const long long fi = frame - bi * frames;
+  const long long bi = valid ? frame / frames : 0;
+  const long long fi = valid ? frame - bi * frames : 0;
   float2* z = sbuf + slot * m;
-  fwd_frame_pow2<kLogM>(z, valid ? x + bi * batch_stride + fi * hop : x,
-                        window, vec, valid, twp, th);
+  fwd_frame_pow2_samples<kLogM>(z, sig.frame(bi, fi), window, vec, valid, twp,
+                                th);
   float mag_k[kPairs], mag_mk[kPairs];
 #pragma unroll
   for (int i = 0; i < kPairs; ++i) {
@@ -253,6 +293,37 @@ GOMEL_API int gomel_stft_mag(const void* x, const void* window, const void* tw,
       batch * frames, static_cast<int>(frames), batch_stride, hop, vec);
 }
 
+namespace {
+
+// The fused launch on Signal's frames: the band table's checks, then the
+// kernel of m = n/2 (a power of two, 2 ... 8192).
+template <typename Signal>
+int launch_stft_mel_log(const Signal& sig, const void* window, const void* tw,
+                        const void* tw_pass, const void* slots,
+                        const void* weights, int groups, void* out,
+                        long long cols, long long batch, long long frames,
+                        long long n, int radices, int threads,
+                        int frames_per_block, bool vec, void* stream) {
+  const int m = static_cast<int>(n / 2);
+  if (!(is_pow2(m) && m >= 2) || groups % kMelWarps != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const MelTable table{static_cast<const int4*>(slots),
+                       static_cast<const float*>(weights), groups,
+                       static_cast<int>(cols)};
+  return with_log_m(m, [&](auto log_m) {
+    constexpr int kL = decltype(log_m)::value;
+    return launch_pow2_frames<kL>(
+        stft_mel_log_pow2_kernel<kL, Signal>, batch * frames, radices,
+        threads, frames_per_block, static_cast<cudaStream_t>(stream), sig,
+        static_cast<const float*>(window), static_cast<const float2*>(tw),
+        static_cast<const float2*>(tw_pass), table, static_cast<float*>(out),
+        batch * frames, static_cast<int>(frames), vec);
+  });
+}
+
+}  // namespace
+
 // The fused KB + KC launch, for n/2 a power of two (2 ... 8192): x, window,
 // tw, tw_pass and the plan as gomel_stft_mag; slots, weights, groups: the
 // band table of ops/mel_ops.mel_band_plan (groups a multiple of 4); out:
@@ -268,22 +339,54 @@ GOMEL_API int gomel_stft_mel_log(const void* x, const void* window,
                                  int frames_per_block, int device,
                                  void* stream) {
   cudaSetDevice(device);
-  const int m = static_cast<int>(n / 2);
-  if (!(is_pow2(m) && m >= 2) || groups % kMelWarps != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const FloatSignal sig{static_cast<const float*>(x), batch_stride, hop};
+  return launch_stft_mel_log(
+      sig, window, tw, tw_pass, slots, weights, groups, out, cols, batch,
+      frames, n, radices, threads, frames_per_block,
+      frames_vec_aligned(x, window, batch_stride, hop), stream);
+}
+
+// The fused launch's int16 mode, KA's mono ingest folded into its frame
+// loads: pcm int16 [batch, n_in] (row stride n_in), each sample divided by
+// scales[row] (float32 [batch]) or, with scales null, by scale, and zero
+// from n_in up to the padded length whose frame count the caller passes
+// (frames). The scales must be powers of two in [2^-100, 2^100] (the
+// wrapper checks a table; a scalar scale off that set launches nothing and
+// returns cudaErrorInvalidValue). Every sample is KA's value, so the
+// log-mel equals KA followed by gomel_stft_mel_log bit for bit. The int16
+// loads are 8 bytes where every frame's first sample sits on 8 bytes (hop
+// and, past one row, n_in multiples of 4, pcm on 8 bytes, the window on
+// 16), else scalar; when besides every frame lies inside its row (n_in at
+// least the last frame's end) the kernel is the one without a test a load.
+GOMEL_API int gomel_stft_mel_log_pcm16(
+    const void* pcm, float scale, const void* scales, long long n_in,
+    const void* window, const void* tw, const void* tw_pass,
+    const void* slots, const void* weights, int groups, void* out,
+    long long cols, long long batch, long long frames, long long hop,
+    long long n, int radices, int threads, int frames_per_block, int device,
+    void* stream) {
+  cudaSetDevice(device);
+  if (scales == nullptr) {
+    unsigned b;
+    std::memcpy(&b, &scale, sizeof b);
+    const unsigned e = (b >> 23) & 0xffu;
+    if ((b & 0x807fffffu) != 0u || e < 27u || e > 227u) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  const MelTable table{static_cast<const int4*>(slots),
-                       static_cast<const float*>(weights), groups,
-                       static_cast<int>(cols)};
-  const bool vec = frames_vec_aligned(x, window, batch_stride, hop);
-  return with_log_m(m, [&](auto log_m) {
-    constexpr int kL = decltype(log_m)::value;
-    return launch_pow2_frames<kL>(
-        stft_mel_log_pow2_kernel<kL>, batch * frames, radices, threads,
-        frames_per_block, static_cast<cudaStream_t>(stream),
-        static_cast<const float*>(x), static_cast<const float*>(window),
-        static_cast<const float2*>(tw), static_cast<const float2*>(tw_pass),
-        table, static_cast<float*>(out), batch * frames,
-        static_cast<int>(frames), batch_stride, hop, vec);
-  });
+  const auto p = static_cast<const int16_t*>(pcm);
+  const auto sc = static_cast<const float*>(scales);
+  const bool vec = hop % 4 == 0 && (batch == 1 || n_in % 4 == 0) &&
+                   reinterpret_cast<uintptr_t>(pcm) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(window) % 16 == 0;
+  if (vec && n_in >= (frames - 1) * hop + n) {
+    return launch_stft_mel_log(Pcm16Signal<true>{p, sc, scale, n_in, hop},
+                               window, tw, tw_pass, slots, weights, groups,
+                               out, cols, batch, frames, n, radices, threads,
+                               frames_per_block, vec, stream);
+  }
+  return launch_stft_mel_log(Pcm16Signal<false>{p, sc, scale, n_in, hop},
+                             window, tw, tw_pass, slots, weights, groups, out,
+                             cols, batch, frames, n, radices, threads,
+                             frames_per_block, vec, stream);
 }

@@ -45,6 +45,9 @@ _SIGNATURES = {
                           _I32, _I32, _I64, _I32, _I32],
     "gomel_stft_mel_log": [_P, _P, _P, _P, _P, _P, _I32, _P, _I64, _I64,
                            _I64, _I64, _I64, _I64, _I32, _I32, _I32],
+    "gomel_stft_mel_log_pcm16": [_P, _F32, _P, _I64, _P, _P, _P, _P, _P,
+                                 _I32, _P, _I64, _I64, _I64, _I64, _I64,
+                                 _I32, _I32, _I32],
     "gomel_mel_log": [_P, _P, _P, _I32, _I64, _P, _I64, _I64, _I64],
     "gomel_quantize_mel": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                            _I32, _F32],

@@ -1,8 +1,9 @@
 """Mel spectrogram codec: the encode's filterbank + log is kernel KC
 (csrc/mel_log.cu, on magnitudes in device memory) or, where KB's
 power-of-two kernel takes the transform, the fused KB + KC launch
-(csrc/rfft_mag.cu ``gomel_stft_mel_log``), both on the band table of
-:func:`mel_band_plan` (csrc/mel_bands.cuh); the decode's dequantize + exp +
+(csrc/rfft_mag.cu ``gomel_stft_mel_log``; from int16 PCM its int16 mode,
+``gomel_stft_mel_log_pcm16``, which folds in KA's mono ingest), both on the
+band table of :func:`mel_band_plan` (csrc/mel_bands.cuh); the decode's dequantize + exp +
 inverse filterbank + magnitudes is kernel KI (csrc/mel_decode.cu), and its
 Griffin-Lim is kernels KJ and KK (ops/griffinlim.py).
 
@@ -25,7 +26,7 @@ import torch
 
 from . import _cuda, fftbackend, rfft_mag
 from .griffinlim import griffin_lim, griffin_lim_magnitudes
-from .quantize import dequantize_mel_plane
+from .quantize import dequantize_mel_plane, pcm16_ingest_plain
 from .rfft_mag import stft_mag, stft_mag_plain
 from .stft import map_frame_chunks, num_frames_of, window_like
 
@@ -34,6 +35,13 @@ KERNEL = _cuda.Kernel("mel_log", "gomel_tpu_torch/csrc/mel_log.cu",
 FUSED_KERNEL = _cuda.Kernel("stft_mel_log", "gomel_tpu_torch/csrc/rfft_mag.cu",
                             "gomel_tpu/ops/mxu_fft.py:140 + "
                             "gomel_tpu/ops/mel_ops.py:98")
+# the fused launch's int16 mode: a tally of its own (FUSED_KERNEL counts the
+# float launch only)
+FUSED_PCM16_KERNEL = _cuda.Kernel("stft_mel_log pcm16",
+                                  "gomel_tpu_torch/csrc/rfft_mag.cu",
+                                  "gomel_tpu/ops/quantize.py:105 + "
+                                  "gomel_tpu/ops/mxu_fft.py:140 + "
+                                  "gomel_tpu/ops/mel_ops.py:98")
 MAG_KERNEL = _cuda.Kernel("mel_to_magnitudes",
                           "gomel_tpu_torch/csrc/mel_decode.cu",
                           "gomel_tpu/ops/mel_ops.py:152")
@@ -279,6 +287,86 @@ def launch_stft_mel_log(x: torch.Tensor, window: torch.Tensor | None,
                  weights.data_ptr(), groups, out.data_ptr(), 2 * mels, batch,
                  frames, length, hop, n, *plan)
     FUSED_KERNEL.launches += 1
+    return out
+
+
+def stft_mel_log_pcm16_plain(pcm: torch.Tensor, scale, pad_to: int,
+                             window: torch.Tensor | None, n: int, hop: int,
+                             fwd_weights: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the fused launch's int16 mode: KA's plain
+    version (to float32), then the fused launch's."""
+    x = pcm16_ingest_plain(pcm, torch.float32, scale, pad_to,
+                           batched=pcm.ndim == 2)
+    return stft_mel_log_plain(x, window, n, hop, fwd_weights)
+
+
+def stft_mel_log_pcm16(pcm: torch.Tensor, scale, pad_to: int,
+                       window: torch.Tensor | None, n: int, hop: int,
+                       fwd_weights: torch.Tensor) -> torch.Tensor:
+    """The log-mel [..., F, M, 2] of mono int16 PCM [L] or [B, L] read as KA
+    reads it (ops/quantize.pcm16_ingest: each sample divided by ``scale``,
+    one divisor or a [B] tensor or array of per-row ones, powers of two in
+    [2^-100, 2^100] on the card; zero-padded to max(L, pad_to), which sets
+    F), in one launch of the fused KB + KC in its int16 mode, bit-equal to
+    KA followed by :func:`stft_mel_log`. n/2 must be a power of two on a
+    CUDA tensor; there is no fallback to KA. Rows already padded to the
+    frames' end (L >= pad_to) take the kernel's build without a test a
+    load. The plain version on a CPU tensor."""
+    if pcm.dtype != torch.int16 or pcm.ndim not in (1, 2):
+        raise ValueError(f"stft_mel_log_pcm16 takes int16 [L] or [B, L] "
+                         f"(got {pcm.dtype}, {tuple(pcm.shape)})")
+    per_row = (scale.ndim > 0 if isinstance(scale, torch.Tensor)
+               else np.ndim(scale) > 0)
+    if per_row:
+        scale = torch.as_tensor(scale, dtype=torch.float32)
+        if pcm.ndim != 2 or tuple(scale.shape) != (pcm.shape[0],):
+            raise ValueError(f"stft_mel_log_pcm16: per-row scales "
+                             f"{tuple(scale.shape)} need a [B, L] batch of "
+                             f"{pcm.shape[0] if pcm.ndim == 2 else 1} rows")
+    if pcm.device.type == "cpu":
+        return stft_mel_log_pcm16_plain(pcm, scale, pad_to, window, n, hop,
+                                        fwd_weights)
+    # the kernel divides by one exact FMA: powers of two only (a table on
+    # the card is read back once to check)
+    values = (scale.detach().cpu().double().numpy() if per_row
+              else np.array([float(scale)]))
+    mant, exp = np.frexp(values)
+    if not ((mant == 0.5) & (exp >= -99) & (exp <= 101)).all():
+        raise ValueError(f"stft_mel_log_pcm16: scales must be powers of two "
+                         f"in [2^-100, 2^100] (got {values.tolist()})")
+    if per_row:
+        scale = scale.to(pcm.device)
+    m = n // 2
+    if n % 2 or m < 2 or m & (m - 1):
+        raise ValueError(f"stft_mel_log_pcm16: n/2 = {n / 2} is not a power "
+                         f"of two")
+    if 2 * fwd_weights.shape[1] != n:
+        raise ValueError(f"stft_mel_log_pcm16: weights "
+                         f"{tuple(fwd_weights.shape)} do not match n={n}")
+    tensors = [pcm] + ([scale.contiguous()] if per_row else [])
+    if window is not None:
+        tensors.append(window)
+        if window.dtype != torch.float32 or window.shape != (n,):
+            raise ValueError(f"stft_mel_log_pcm16: the window must be float32 "
+                             f"({n},)")
+    dev = _cuda.check_cuda("stft_mel_log_pcm16", *tensors)
+    slots, weights, groups = _mel_band_table(fwd_weights)
+    tw, tw_pass = rfft_mag.fft_tables(n, dev)
+    n_in, mels = pcm.shape[-1], fwd_weights.shape[0]
+    rows = pcm.shape[0] if pcm.ndim == 2 else 1
+    frames = num_frames_of(max(n_in, pad_to), n, hop)
+    out = torch.empty(pcm.shape[:-1] + (frames, mels, 2), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    _cuda.launch("gomel_stft_mel_log_pcm16", dev, pcm.data_ptr(),
+                 0.0 if per_row else float(scale),
+                 tensors[1].data_ptr() if per_row else None, n_in,
+                 None if window is None else window.data_ptr(), tw.data_ptr(),
+                 tw_pass.data_ptr(), slots.data_ptr(), weights.data_ptr(),
+                 groups, out.data_ptr(), 2 * mels, rows, frames, hop, n,
+                 *rfft_mag.fft_plan_args(n))
+    FUSED_PCM16_KERNEL.launches += 1
     return out
 
 

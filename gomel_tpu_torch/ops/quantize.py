@@ -36,6 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core.config import PAD_SHIFT_TABLE
 from ..core.framing import zero_stuff_output_length
 from . import _cuda
 from .resample import zero_stuff_upsample
@@ -65,6 +66,10 @@ PLANES_MASKED_KERNEL = _cuda.Kernel("quantize_planes_masked",
 DEQUANTIZE_RAW_KERNEL = _cuda.Kernel("dequantize_raw",
                                      "gomel_tpu_torch/csrc/dequantize.cu",
                                      "gomel_tpu/ops/quantize.py:88")
+
+# the (zp, zs) pairs KA is built for (a kernel each: csrc/ingest.cu), the
+# pad-shift table's, (0, 0) among them
+ZERO_STUFF_PAIRS = frozenset(PAD_SHIFT_TABLE.values())
 
 # (device index, stream) -> uint32 tickets of KD's and KF's per-row fold,
 # zero between calls: each call's last block of a row wraps its ticket back
@@ -133,6 +138,9 @@ def _ingest(pcm: torch.Tensor, dtype: torch.dtype, scale, pad_to: int,
     dev = _cuda.check_cuda("pcm16_ingest", *tensors)
     if pcm.dtype != torch.int16 or dtype != torch.float32:
         raise ValueError("pcm16_ingest: the CUDA kernel maps int16 to float32")
+    if (zp, zs) not in ZERO_STUFF_PAIRS:
+        raise ValueError(f"pcm16_ingest: the CUDA kernel takes the (zp, zs) "
+                         f"pairs of PAD_SHIFT_TABLE, not ({zp}, {zs})")
     n_out = max(zero_stuff_output_length(n_in, zp, zs), pad_to)
     out = torch.empty((rows, n_out) if batched else (n_out,),
                       dtype=torch.float32, device=dev)

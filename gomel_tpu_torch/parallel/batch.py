@@ -34,7 +34,8 @@ from ..core.config import MelConfig, PhaseConfig
 from ..core.framing import pad_length
 from ..ops import prng
 from ..ops.griffinlim import griffin_lim
-from ..ops.mel_ops import mel_decode, mel_encode_batch, mel_to_magnitudes
+from ..ops.mel_ops import (fused_route, mel_decode, mel_encode_batch,
+                           mel_to_magnitudes, stft_mel_log_pcm16)
 from ..ops.phase_ops import dequantize_decode, phase_decode, phase_encode_batch
 from ..ops.quantize import (pcm16_ingest_batch, quantize_mel_plane_batch,
                             quantize_planes_batch)
@@ -189,10 +190,11 @@ class BatchedMel:
         ``[:, :frames[i]]`` before writing.
 
         An int16 ``audio_batch`` goes up as int16 and is converted on the
-        device (kernel KA); ``scales`` [B] then gives each row's divisor
-        (32768 for WAV, 65536 for mel-scaled FLAC:
-        io.dataset.pcm_scale_for), powers of two, so the conversion is
-        exact."""
+        device; ``scales`` [B] then gives each row's divisor (32768 for WAV,
+        65536 for mel-scaled FLAC: io.dataset.pcm_scale_for), powers of
+        two, so the conversion is exact. Where the fused KB + KC takes the
+        encode (ops/mel_ops.fused_route) its int16 mode reads the rows
+        itself, in one launch; else kernel KA converts them first."""
         c, m = self.config, self.mel
         rows = audio_batch.shape[0]
         _check_rows("frames", frames, rows)
@@ -200,9 +202,14 @@ class BatchedMel:
             if scales is None:
                 raise ValueError("int16 audio_batch requires per-row scales")
             _check_rows("scales", scales, rows)
-            x = pcm16_ingest_batch(
-                _rows(audio_batch, None, self.device), self.dtype,
-                torch.as_tensor(np.asarray(scales, np.float32)))
+            pcm = _rows(audio_batch, None, self.device)
+            divisors = torch.as_tensor(np.asarray(scales, np.float32))
+            if (fused_route(c.resolut, "auto", pcm.device.type)
+                    and self.dtype == torch.float32):
+                spec = stft_mel_log_pcm16(pcm, divisors, 0, m.window,
+                                          c.resolut, c.window, m.fwd_weights)
+                return quantize_mel_plane_batch(spec, 255, frames=frames)
+            x = pcm16_ingest_batch(pcm, self.dtype, divisors)
         else:
             x = _rows(audio_batch, self.dtype, self.device)
         spec = mel_encode_batch(x, c.num_mels, c.resolut, c.window,

@@ -28,7 +28,8 @@ from ..io import audio as audio_io
 from ..io import imagecodec
 from ..ops import _cuda, prng
 from ..ops.griffinlim import griffin_lim
-from ..ops.mel_ops import mel_decode, mel_encode, mel_to_magnitudes
+from ..ops.mel_ops import (fused_route, mel_decode, mel_encode,
+                           mel_to_magnitudes, stft_mel_log_pcm16)
 from ..ops.quantize import pcm16_ingest, quantize_mel_plane
 from ..ops.stft import hann_window
 
@@ -247,12 +248,25 @@ class Mel(torch.nn.Module):
     def _to_mel_pcm(self, buf: np.ndarray, sr: int, output_file: str,
                     scale: float) -> None:
         """Device-quantize file encode from raw int16 [L]: the conversion
-        and padding (kernel KA, dividing by the power-of-two ``scale``), the
-        encode and the PNG quantizer run on the device."""
-        padded = pad_length(buf.shape[0], self.config.window)
-        pcm = torch.from_numpy(buf.copy()).to(self.device)
-        x = pcm16_ingest(pcm, self.dtype, scale, padded)
-        spec = self._encode_padded(x)
+        (dividing by the power-of-two ``scale``) and the reference padding,
+        the encode and the PNG quantizer run on the device. Where the fused
+        KB + KC takes the encode (ops/mel_ops.fused_route) its int16 mode
+        reads the samples itself, in one launch, from a copy zero-padded on
+        the host (so every frame lies inside the row); else kernel KA
+        converts and pads them first. The same bits either way."""
+        c = self.config
+        padded = pad_length(buf.shape[0], c.window)
+        if (fused_route(c.resolut, "auto", self.device.type)
+                and self.dtype == torch.float32):
+            host = np.zeros(padded, np.int16)
+            host[:buf.shape[0]] = buf
+            spec = stft_mel_log_pcm16(torch.from_numpy(host).to(self.device),
+                                      scale, padded, self.window, c.resolut,
+                                      c.window, self.fwd_weights)
+        else:
+            pcm = torch.from_numpy(buf.copy()).to(self.device)
+            spec = self._encode_padded(pcm16_ingest(pcm, self.dtype, scale,
+                                                    padded))
         self._save_quantized(output_file, quantize_mel_plane(spec, 255),
                              buf.shape[0], sr)
 

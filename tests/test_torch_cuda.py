@@ -893,6 +893,162 @@ def test_pcm16_ingest_per_row_scales_bit_exact(cuda):
     assert torch.equal(out.cpu()[:, :1001], pcm.float() * recip[:, None])
 
 
+def _offset_pcm(pcm, offset, dev):
+    """``pcm`` as a view ``offset`` int16 past the start of a card buffer
+    (a base off 16 bytes unless offset is a multiple of 8)."""
+    flat = torch.zeros(pcm.numel() + offset + 8, dtype=torch.int16, device=dev)
+    view = flat[offset:offset + pcm.numel()].view(pcm.shape)
+    view.copy_(pcm.to(dev))
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 4])
+@pytest.mark.parametrize("mode", ["mono", "stereo", "per-row"]
+                         + [f"zero-stuff {p}" for p in sorted(
+                             {v for v in PAD_SHIFT_TABLE.values() if v[0]})])
+@pytest.mark.parametrize("n", [1, 7, 8, 1001, 4099])
+def test_pcm16_ingest_modes_odd_bit_exact(cuda, mode, n, offset):
+    """KA in every mode at odd lengths, lengths under one slot, rows whose
+    starts fall off 16 bytes and a base off 16 bytes (the scalar heads,
+    tails and loads), padded and not, bit-equal to its plain version."""
+    zp, zs = ((int(mode[12]), int(mode[15])) if mode.startswith("zero")
+              else (0, 0))
+    rows = 3 if mode == "per-row" or zp else 1
+    shape = (n, 2) if mode == "stereo" else (rows, n)
+    pcm = _pcm(shape, seed=n + offset)
+    scales = torch.tensor([32768.0, 65536.0, 32768.0])
+    scale = scales if mode == "per-row" else 65536.0
+    src = _offset_pcm(pcm, offset, cuda)
+    for pad in (0, 13):
+        pad_to = (n + -(-n // zp) * zs if zp else n) + pad
+        if mode == "stereo":
+            out = quantize.pcm16_ingest(src, torch.float32, scale, pad_to)
+            ref = quantize.pcm16_ingest_plain(pcm, torch.float32, scale,
+                                              pad_to)
+        else:
+            out = quantize.pcm16_ingest_batch(src, torch.float32, scale,
+                                              pad_to, zp, zs)
+            ref = quantize.pcm16_ingest_plain(pcm, torch.float32, scale,
+                                              pad_to, batched=True, zp=zp,
+                                              zs=zs)
+        assert torch.equal(out.cpu(), ref)
+
+
+def test_pcm16_ingest_refuses_pairs_off_the_table(cuda):
+    """KA's kernel is built for the pad-shift table's pairs only."""
+    with pytest.raises(ValueError, match="PAD_SHIFT_TABLE"):
+        quantize.pcm16_ingest(_pcm((100,)).to(cuda), torch.float32, 32768.0,
+                              0, 3, 1)
+
+
+@pytest.mark.parametrize("n,hop,rows,length,pad_to,scales,offset", [
+    (4096, 1280, 2, 48000, 48640, [32768.0], 0),         # the CLI widths
+    (4096, 1280, 4, 51200, 0, [32768.0, 65536.0, 32768.0, 65536.0], 0),
+    (64, 16, 1, 1001, 1024, [65536.0], 0),                # L % hop != 0
+    (64, 16, 1, 40, 64, [32768.0], 0),                    # L < n
+    (256, 64, 3, 2002, 2100, [65536.0, 32768.0, 65536.0], 0),
+    (256, 50, 2, 1999, 0, [32768.0], 0),                  # hop % 4: scalar
+    (512, 128, 2, 9000, 0, [32768.0], 1),                 # base off 8 bytes
+    (16384, 4096, 1, 50000, 53248, [65536.0], 0),         # > 48 KB shared
+])
+def test_stft_mel_log_pcm16_equals_ka_then_fused(cuda, n, hop, rows, length,
+                                                 pad_to, scales, offset):
+    """The fused launch's int16 mode is KA followed by the float launch bit
+    for bit, with one launch of its own tally and none of KA's; a batch's
+    empty (all-zero) row and per-row scales too."""
+    pcm = _pcm((rows, length), seed=n + rows)
+    if rows > 2:
+        pcm[1] = 0
+    sc = (torch.tensor(scales) if len(scales) > 1 else scales[0])
+    src = _offset_pcm(pcm, offset, cuda)
+    if rows == 1:
+        src = src[0]
+    win = torch.tensor(hann_window(n), dtype=torch.float32, device=cuda)
+    fwd = torch.tensor(mel_weights(n // 2, 32, 0.0, 8000.0),
+                       dtype=torch.float32, device=cuda)
+    x = quantize.pcm16_ingest_batch(pcm.to(cuda), torch.float32, sc, pad_to)
+    want = mel_ops.stft_mel_log(x if rows > 1 else x[0], win, n, hop, fwd)
+    before = (mel_ops.FUSED_PCM16_KERNEL.launches,
+              mel_ops.FUSED_KERNEL.launches,
+              quantize.INGEST_KERNEL.launches,
+              quantize.INGEST_ROWS_KERNEL.launches)
+    got = mel_ops.stft_mel_log_pcm16(src, sc, pad_to, win, n, hop, fwd)
+    assert (mel_ops.FUSED_PCM16_KERNEL.launches - before[0],
+            mel_ops.FUSED_KERNEL.launches - before[1],
+            quantize.INGEST_KERNEL.launches - before[2],
+            quantize.INGEST_ROWS_KERNEL.launches - before[3]) == (1, 0, 0, 0)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    # against float64: the mel values within 1e-5 of their frame's peak
+    x64 = quantize.pcm16_ingest_plain(pcm, torch.float64, sc, pad_to,
+                                      batched=True)
+    ref = mel_ops.mel_from_mags_plain(
+        rfft_mag.stft_mag_plain(x64, win.cpu().double(), n, hop),
+        fwd.cpu().double())
+    ref = ref if rows > 1 else ref[0]
+    e_got, e_ref = got.cpu().double().exp(), ref.exp()
+    peak = e_ref.amax(dim=(-2, -1), keepdim=True)
+    assert bool(((e_got - e_ref).abs() <= 1e-5 * peak).all())
+
+
+def test_stft_mel_log_pcm16_raises_off_its_route(cuda):
+    """The int16 mode takes n/2 a power of two and power-of-two scales on the
+    card; otherwise it raises, with no fallback to KA."""
+    pcm = _pcm((12000,)).to(cuda)
+    fwd = torch.tensor(mel_weights(1500, 80, 0.0, 8000.0),
+                       dtype=torch.float32, device=cuda)
+    before = quantize.INGEST_KERNEL.launches
+    with pytest.raises(ValueError, match="power of two"):
+        mel_ops.stft_mel_log_pcm16(pcm, 32768.0, 0, None, 3000, 750, fwd)
+    assert quantize.INGEST_KERNEL.launches == before
+    # its one FMA a sample takes powers of two only, a table's too
+    fwd4 = torch.tensor(mel_weights(2048, 64, 0.0, 8000.0),
+                        dtype=torch.float32, device=cuda)
+    rows = _pcm((2, 12000)).to(cuda)
+    for scale in (3.0, [32768.0, 30000.0], torch.tensor([2.0 ** 101, 1.0],
+                                                        device=cuda)):
+        with pytest.raises(ValueError, match="powers of two"):
+            mel_ops.stft_mel_log_pcm16(rows, scale, 0, None, 4096, 1024, fwd4)
+
+
+def test_mel_file_encodes_take_the_int16_launch(cuda, tmp_path):
+    """Mel.to_mel_wav with device quantize launches the int16 mode and no
+    KA, and writes the bytes of KA followed by the float launch; at
+    resolut 3000 (the mixed route) it keeps KA."""
+    from gomel_tpu_torch.io import wavcodec
+    from gomel_tpu_torch.io.pngcodec import read_png
+    rng = np.random.default_rng(11)
+    wav = str(tmp_path / "in.wav")
+    wavcodec.write_wav(wav, rng.integers(-9000, 9000, 30001).astype(np.int16),
+                       48000)
+    cfg = MelConfig(num_mels=40, window=256, resolut=1024, mel_fmax=8000.0)
+    m = Mel(cfg, device_quantize=True, device=cuda)
+    before = (mel_ops.FUSED_PCM16_KERNEL.launches,
+              quantize.INGEST_KERNEL.launches)
+    m.to_mel_wav(wav, str(tmp_path / "new.png"))
+    assert (mel_ops.FUSED_PCM16_KERNEL.launches - before[0],
+            quantize.INGEST_KERNEL.launches - before[1]) == (1, 0)
+    buf = wavcodec.read_wav(wav)[0]
+    pcm = torch.from_numpy(buf.copy()).to(cuda)
+    from gomel_tpu_torch.core.framing import pad_length
+    x = quantize.pcm16_ingest(pcm, torch.float32, 32768.0,
+                              pad_length(len(buf), cfg.window))
+    m._save_quantized(str(tmp_path / "old.png"),
+                      quantize.quantize_mel_plane(m._encode_padded(x), 255),
+                      len(buf), 48000)
+    with open(tmp_path / "new.png", "rb") as a, \
+            open(tmp_path / "old.png", "rb") as b:
+        assert a.read() == b.read()
+    m3k = Mel(MelConfig(resolut=3000, window=750, num_mels=40),
+              device_quantize=True, device=cuda)
+    before = (mel_ops.FUSED_PCM16_KERNEL.launches,
+              quantize.INGEST_KERNEL.launches)
+    m3k.to_mel_wav(wav, str(tmp_path / "m3k.png"))
+    assert (mel_ops.FUSED_PCM16_KERNEL.launches - before[0],
+            quantize.INGEST_KERNEL.launches - before[1]) == (0, 1)
+    assert read_png(str(tmp_path / "m3k.png")).size > 0
+
+
 def test_batched_encode_quantized_cuda_vs_cpu(cuda):
     """BatchedMel and BatchedPhase on the card against the CPU path, int16
     rows with mixed scales and masked frames."""

@@ -655,3 +655,106 @@ def test_pcm16_ingest_per_row_scales_vs_jax(dt):
         tq.pcm16_ingest_batch(torch.from_numpy(pcm), t_dt, scales[:3])
     with pytest.raises(ValueError):
         tq.pcm16_ingest(torch.from_numpy(pcm[0]), t_dt, scales)
+
+
+# -- KA's zero-stuff at ragged lengths; the fused launch's int16 mode --------
+def _ragged_lengths(zp: int) -> list[int]:
+    """Input lengths that leave a partial last group: 1, zp - 1, zp + 1 and
+    an odd count (for zp = 1 every length is whole groups)."""
+    return sorted({n for n in (1, zp - 1, zp + 1, 2 * zp + 1, 1001) if n > 0})
+
+
+ZERO_STUFF_CASES = [(zp, zs, n)
+                    for zp, zs in sorted({p for p in PAD_SHIFT_TABLE.values()
+                                          if p[0] > 0})
+                    for n in _ragged_lengths(zp)]
+
+
+@pytest.mark.parametrize("zp,zs,n", ZERO_STUFF_CASES)
+def test_pcm16_ingest_zero_stuff_ragged_lengths_vs_jax(zp, zs, n):
+    """KA's plain version with the zero-stuff upsample at every pad-shift
+    pair of the table and lengths whose last group is partial, mono, stereo
+    and a batch of mono rows, with and without padding past the upsampled
+    length, against the JAX package bit for bit."""
+    rng = np.random.default_rng(100 * zp + 10 * zs + n)
+    up = n + -(-n // zp) * zs
+    for shape, pad_to in (((n,), 0), ((n, 2), 0), ((n,), up + 7),
+                          ((n, 2), up + 3)):
+        pcm = rng.integers(-32768, 32768, size=shape, dtype=np.int16)
+        ref = np.asarray(jq.pcm16_ingest(jnp.asarray(pcm), jnp.float32,
+                                         32768.0, pad_to, zp, zs))
+        out = tq.pcm16_ingest(torch.from_numpy(pcm), torch.float32, 32768.0,
+                              pad_to, zp, zs).numpy()
+        assert out.shape == ref.shape == (max(up, pad_to),)
+        np.testing.assert_array_equal(out, ref)   # bit-exact
+    rows = rng.integers(-32768, 32768, size=(3, n), dtype=np.int16)
+    out = tq.pcm16_ingest_batch(torch.from_numpy(rows), torch.float32,
+                                np.array([32768.0, 65536.0, 32768.0]), 0,
+                                zp, zs).numpy()
+    for r, scale in enumerate((32768.0, 65536.0, 32768.0)):
+        np.testing.assert_array_equal(out[r], np.asarray(jq.pcm16_ingest(
+            jnp.asarray(rows[r]), jnp.float32, scale, 0, zp, zs)))
+
+
+def test_pcm16_ingest_cuda_pairs_are_the_table():
+    """KA's kernel is built for the table's (zp, zs) pairs and (0, 0)."""
+    assert tq.ZERO_STUFF_PAIRS == frozenset(PAD_SHIFT_TABLE.values())
+    assert (0, 0) in tq.ZERO_STUFF_PAIRS
+
+
+@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("layout", ["row", "row short", "batch"])
+def test_stft_mel_log_pcm16_plain_vs_jax(n, layout):
+    """The fused launch's int16 mode (its plain version, on the CPU) against
+    the JAX package's pcm16_ingest followed by its mel encode, row by row:
+    a single row whose length is not a multiple of the hop, padded; a row
+    shorter than one frame, padded to one; a batch with per-row scales
+    mixing 32768 and 65536 and an empty (all-zero) row. KC's tolerance: 1e-5
+    in the log domain, over every value (the empty row's clamp too)."""
+    hop, mels = n // 4, 16
+    rng = np.random.default_rng(n + len(layout))
+    w = mel_weights(n // 2, mels, 0.0, 8000.0).astype(np.float32)
+    win = tstft.hann_window(n).astype(np.float32)
+    if layout == "batch":
+        pcm = rng.integers(-32768, 32768, size=(3, 23 * hop), dtype=np.int16)
+        pcm[1] = 0
+        scales = np.array([32768.0, 65536.0, 32768.0], np.float32)
+        pad_to = 0
+    else:
+        length = 23 * hop + 5 if layout == "row" else n // 2 + 3
+        pcm = rng.integers(-32768, 32768, size=(length,), dtype=np.int16)
+        scales = 65536.0
+        pad_to = (length // hop + 2) * hop if layout == "row" else n
+    got = tmel.stft_mel_log_pcm16(torch.from_numpy(pcm),
+                                  torch.from_numpy(scales)
+                                  if np.ndim(scales) else scales, pad_to,
+                                  torch.from_numpy(win), n, hop,
+                                  torch.from_numpy(w)).numpy()
+    rows = pcm if pcm.ndim == 2 else pcm[None]
+    for r in range(rows.shape[0]):
+        scale = float(scales[r]) if np.ndim(scales) else scales
+        x = jq.pcm16_ingest(jnp.asarray(rows[r]), jnp.float32, scale, pad_to)
+        ref = np.asarray(jmel.mel_encode(x, mels, n, hop, jnp.asarray(w),
+                                         jnp.asarray(win)))
+        out = got[r] if pcm.ndim == 2 else got
+        assert out.shape == ref.shape and out.dtype == np.float32
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def test_stft_mel_log_pcm16_checks_its_inputs():
+    """int16 [L] or [B, L] only; per-row scales need a batch of as many
+    rows; on the CPU the wrapper is its plain version."""
+    n, hop = 64, 16
+    w = torch.from_numpy(mel_weights(n // 2, 8, 0.0, 8000.0).astype(np.float32))
+    win = torch.from_numpy(tstft.hann_window(n).astype(np.float32))
+    pcm = torch.from_numpy(np.random.default_rng(5).integers(
+        -32768, 32768, size=(2, 300), dtype=np.int16))
+    got = tmel.stft_mel_log_pcm16(pcm, [32768.0, 65536.0], 0, win, n, hop, w)
+    assert torch.equal(got, tmel.stft_mel_log_pcm16_plain(
+        pcm, torch.tensor([32768.0, 65536.0]), 0, win, n, hop, w))
+    with pytest.raises(ValueError):
+        tmel.stft_mel_log_pcm16(pcm.float(), 32768.0, 0, win, n, hop, w)
+    with pytest.raises(ValueError):
+        tmel.stft_mel_log_pcm16(pcm[0], [32768.0], 0, win, n, hop, w)
+    with pytest.raises(ValueError):
+        tmel.stft_mel_log_pcm16(pcm, [32768.0] * 3, 0, win, n, hop, w)
