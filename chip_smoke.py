@@ -93,6 +93,16 @@ KA route's, those two paths must launch it and no KA, and phase 4 times it
 and both PCM chains (to the log-mel, and with KD) against KA followed by the
 float launch.
 
+Phase 3i drives the compat drop-in (gomel_tpu_torch.compat.phase, the
+reference Python port's ``import phase``) on the card: to_phase_wav and
+to_wav_png on phase 3's 30 s WAV in 8-bit, IHS and HDR, to_phase_flac and
+to_wav_png on a 30 s 16 kHz FLAC, each with device quantize off and on,
+against the same calls on the CPU, with the launches each must show; then
+the native PNG scanline filter (native/pngfilter.cpp): loaded, write_png's
+bytes and read_png's arrays equal to the numpy path's on all five filter
+types, and read_png's host time, native against numpy, on the 30 s phase
+PNG with Up, Sub and Paeth rows.
+
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; so
@@ -211,14 +221,14 @@ def seeded_pcm_rate(rng: np.random.Generator, n: int, sr: int) -> np.ndarray:
 
 
 def png_steps(a_path: str, b_path: str, read_png) -> np.ndarray:
-    """Per-pixel steps between two 8-bit PNGs, wrap-aware on the derived B
-    channel (-1 vs 0 wraps to 255)."""
-    a = read_png(a_path).astype(np.int64)
-    b = read_png(b_path).astype(np.int64)
-    if a.shape != b.shape:
-        raise AssertionError(f"PNG shapes differ: {a.shape} vs {b.shape}")
-    d = np.abs(a - b)
-    return np.minimum(d, 256 - d)
+    """Per-pixel steps between two PNGs of one bit depth, wrap-aware on the
+    derived B channel (-1 vs 0 wraps to the top level: 255 or 65535)."""
+    a, b = read_png(a_path), read_png(b_path)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"PNGs differ in form: {a.shape} {a.dtype} vs "
+                             f"{b.shape} {b.dtype}")
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    return np.minimum(d, int(np.iinfo(a.dtype).max) + 1 - d)
 
 
 def towav_split(png: str, out: str, dev: torch.device, runs: int
@@ -2484,6 +2494,194 @@ def serving_phase(tmp: str, drive, card: str, dev: torch.device,
         f"{serving.read_artifact_meta(path)['in_shapes']}, bit-equal to the "
         f"eager path")
 
+def median_s(fn, runs: int = 3) -> float:
+    """Median host-clock seconds of ``runs`` calls, each ended by a
+    synchronise."""
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out))
+
+
+def native_png_checks(tmp: str, phase_png: str) -> None:
+    """The native PNG scanline filter (native/pngfilter.cpp) on this host:
+    it loaded (a failed build logs a warning and leaves ``get_lib()`` None);
+    ``write_png`` through ``png_filter_up`` gives the numpy path's bytes on
+    the 30 s phase image; PNGs whose rows carry each of the five filter
+    types (tools/png_filters.py) at 8 and 16 bits, color types 0, 2, 4, 6,
+    odd widths and one row read back as their image through ``png_unfilter``
+    and through the numpy path. Prints ``read_png``'s host time, native
+    against numpy, on the 30 s phase PNG (Up rows) and on the same image
+    with Sub rows and with Paeth rows, medians of 3."""
+    from gomel_tpu_torch.io import _native, pngcodec
+    from tools.png_filters import numpy_path, png_bytes
+
+    if _native.get_lib() is None:
+        raise AssertionError("the native PNG filter did not build or load")
+
+    img = pngcodec.read_png(phase_png)
+    a, b = os.path.join(tmp, "up_native.png"), os.path.join(tmp, "up_np.png")
+    pngcodec.write_png(a, img)
+    numpy_path(lambda: pngcodec.write_png(b, img))()
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("write_png: png_filter_up's bytes differ "
+                                 "from the numpy path's")
+    rng = np.random.default_rng(SEED + 19)
+    path = os.path.join(tmp, "filters.png")
+    cases = 0
+    for dtype in (np.uint8, np.uint16):
+        for shape in ((7, 13), (5, 11, 2), (6, 9, 3), (9, 31, 4), (1, 17, 4)):
+            src = rng.integers(0, np.iinfo(dtype).max + 1, size=shape,
+                               dtype=dtype)
+            for filters in ([0], [1], [2], [3], [4], [0, 1, 2, 3, 4]):
+                with open(path, "wb") as f:
+                    f.write(png_bytes(src, filters))
+                got = pngcodec.read_png(path)
+                ref = numpy_path(lambda: pngcodec.read_png(path))()
+                if not (np.array_equal(got, ref)
+                        and np.array_equal(got, src)):
+                    raise AssertionError(f"read_png {shape} {dtype.__name__} "
+                                         f"filters {filters}: native and "
+                                         f"numpy paths differ")
+                cases += 1
+    log(f"native PNG filter: loaded ({_native._pngfilter._so}); write_png of "
+        f"the 30 s phase image {img.shape} byte-equal to the numpy path; "
+        f"{cases} PNGs with each filter type (8 and 16 bits, color types 0, "
+        f"2, 4, 6, odd widths, one row) equal on both paths and to their "
+        f"image")
+    times = []
+    for label, filters in (("Up (the port's writer)", None), ("Sub", [1]),
+                           ("Paeth", [4])):
+        p = phase_png
+        if filters is not None:
+            p = os.path.join(tmp, f"phase_{filters[0]}.png")
+            with open(p, "wb") as f:
+                f.write(png_bytes(img, filters))
+        nat = median_s(lambda: pngcodec.read_png(p))
+        ref = median_s(numpy_path(lambda: pngcodec.read_png(p)))
+        if not np.array_equal(pngcodec.read_png(p), img):
+            raise AssertionError(f"read_png of the {label} rows")
+        times.append(f"{label} native {1e3 * nat:.3f} ms, numpy "
+                     f"{1e3 * ref:.3f} ms ({ref / nat:.1f}x)")
+    log(f"  read_png of the 30 s phase PNG {img.shape} {img.dtype} "
+        f"({os.path.getsize(phase_png) / 1e6:.2f} MB), host clock, median of "
+        f"3: " + "; ".join(times))
+
+
+def compat_phase(tmp: str, drive, card: str, wav: str,
+                 walls: dict[str, float], device: str = "cuda") -> None:
+    """Phase 3i: the compat drop-in (``gomel_tpu_torch.compat.phase``, the
+    reference Python port's ``import phase``) on ``device``.
+    ``Phase(sample_rate=48000)`` runs ``to_phase_wav`` then ``to_wav_png``
+    on phase 3's 30 s 48 kHz WAV with device quantize off and on, in 8-bit,
+    IHS and HDR; ``to_phase_flac`` then ``to_wav_png`` run on a 30 s 16 kHz
+    FLAC (the zero-stuff ingest and the rate rescale) in both quantize
+    modes. Each call goes through ``drive`` with the kernels it must launch:
+    KA, KE, KF on a device-quantize encode (KA's zero-stuff kernel on the
+    FLAC), KE on a float encode, KG and KH on every decode. Each PNG is
+    held to the same call with ``device="cpu"`` (1 step, 2 at 16 bits, at a
+    flip rate < 2e-3, equal metadata in the "py" layout), each WAV to the
+    CPU decode of the same PNG (1 LSB at < 5e-2 differing), and the 48 kHz
+    round trip to its input (correlation > 0.99). Then the native PNG
+    filter (``native_png_checks``). Prints each file call's wall (median of
+    3) beside phase 3b's ``tophase`` / ``fromphase`` walls."""
+    from gomel_tpu_torch.compat import phase as compat
+    from gomel_tpu_torch.io import audio as audio_io
+    from gomel_tpu_torch.io import flac, imagecodec, wavcodec
+    from gomel_tpu_torch.io.pngcodec import read_png
+
+    def rc0(fn, *args):
+        """``drive`` wants a return code: the file calls return None or the
+        rate written."""
+        return lambda: (fn(*args), 0)[1]
+
+    flac16 = os.path.join(tmp, "compat16k.flac")
+    rng = np.random.default_rng(SEED + 20)
+    flac.write_flac(flac16, seeded_pcm_rate(rng, 30 * 16000, 16000), 16000)
+    x_in, _ = audio_io.load_wav(wav)
+    rows = []
+    cases = [(label, dq, src) for dq in (False, True)
+             for label, src in (("8bit", wav), ("ihs", wav), ("hdr", wav),
+                                ("flac 16 kHz", flac16))]
+    for label, dq, src in cases:
+        hdr, ihs = label == "hdr", label == "ihs"
+        is_flac = src == flac16
+        tag = f"compat.phase {label}, device quantize {dq}"
+        stem = os.path.join(tmp, f"compat_{label.split()[0]}_{int(dq)}")
+        png_g, png_c = stem + "_gpu.png", stem + "_cpu.png"
+        out_g, out_c = stem + "_gpu.wav", stem + "_cpu.wav"
+        enc_name = "to_phase_flac" if is_flac else "to_phase_wav"
+
+        def make(dev):
+            return compat.Phase(sample_rate=48000, HDR=hdr, IHS=ihs,
+                                device_quantize=dq, device=dev)
+
+        if dq:
+            ingest = "pcm16_ingest zero-stuff" if is_flac else "pcm16_ingest"
+            must = (ingest, "phase_encode", "quantize_planes")
+        else:
+            must = ("phase_encode",)
+        t_enc, _ = drive(f"{tag}: {enc_name}",
+                         rc0(getattr(make(device), enc_name), src, png_g),
+                         must)
+        rate = []
+        t_dec, _ = drive(f"{tag}: to_wav_png",
+                         rc0(lambda: rate.append(make(device).to_wav_png(
+                             png_g, out_g))),
+                         ("irfft_window", "overlap_normalize"))
+        getattr(make("cpu"), enc_name)(src, png_c)
+        rate_c = make("cpu").to_wav_png(png_g, out_c)
+        d = png_steps(png_g, png_c, read_png)
+        flips = float((d > 0).mean())
+        meta_g = imagecodec.load_phase_image_raw(png_g, True, hdr, "py")[1:]
+        meta_c = imagecodec.load_phase_image_raw(png_c, True, hdr, "py")[1:]
+        meta_eq = all(np.array_equal(u, v) for u, v in zip(meta_g, meta_c))
+        wg, sr_g = wavcodec.read_wav(out_g)
+        wc, sr_c = wavcodec.read_wav(out_c)
+        lsb = np.abs(wg.astype(np.int64) - wc.astype(np.int64))
+        steps = 2 if hdr else 1
+        log(f"{tag}: PNG {read_png(png_g).shape} {device} vs cpu max step "
+            f"{int(d.max())}, flip rate {flips:.2e} (bounds {steps}, 2e-3), "
+            f"metadata equal {meta_eq} (rate {float(meta_g[3])}); WAV "
+            f"{wg.shape} @ {sr_g} Hz against the cpu decode of the same PNG "
+            f"max {int(lsb.max())} LSB, differing "
+            f"{float((lsb > 0).mean()):.2e} (bounds 1, 5e-2); returned rate "
+            f"{rate[0]}")
+        if d.max() > steps or flips >= 2e-3 or not meta_eq:
+            raise AssertionError(f"{tag}: PNG differs from the CPU path")
+        if sr_g != sr_c or wg.shape != wc.shape or lsb.max() > 1 \
+                or float((lsb > 0).mean()) >= 5e-2 or rate[0] != rate_c:
+            raise AssertionError(f"{tag}: WAV differs from the CPU path")
+        if is_flac:
+            # 16 kHz zero-stuffed x3: the recorded rate is rescaled to 48 kHz
+            if float(meta_g[3]) != 48000.0 or rate[0] != 48000:
+                raise AssertionError(f"{tag}: rate {meta_g[3]}, returned "
+                                     f"{rate[0]}; expected 48000")
+        else:
+            y_out, _ = audio_io.load_wav(out_g)
+            n_c = min(len(x_in), len(y_out))
+            corr = float(np.corrcoef(x_in[4096:n_c - 4096],
+                                     y_out[4096:n_c - 4096])[0, 1])
+            log(f"  WAV -> PNG -> WAV correlation {corr:.6f} (bound 0.99)")
+            if corr <= 0.99:
+                raise AssertionError(f"{tag}: round-trip correlation {corr}")
+        enc_s = median_s(lambda: getattr(make(device), enc_name)(src, png_g))
+        dec_s = median_s(lambda: make(device).to_wav_png(png_g, out_g))
+        rows.append(f"{label} dq {int(dq)}: {enc_name} {1e3 * enc_s:.3f} ms, "
+                    f"to_wav_png {1e3 * dec_s:.3f} ms (first calls "
+                    f"{1e3 * t_enc:.3f}, {1e3 * t_dec:.3f})")
+    log(f"compat.phase file calls on {card}, host clock, median of 3 after "
+        f"the driven call (30 s of audio each): " + "; ".join(rows))
+    log(f"  beside phase 3b on the same 30 s WAV (device quantize, the go "
+        f"layout): tophase {walls['tophase']:.3f} ms, fromphase "
+        f"{walls['fromphase']:.3f} ms")
+    native_png_checks(tmp, os.path.join(tmp, "compat_8bit_1_gpu.png"))
+
+
 def offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
     """``t`` copied into a card buffer ``offset`` elements past its start (a
     base off 16 bytes unless offset is a multiple of 16 bytes)."""
@@ -3256,6 +3454,8 @@ def main() -> int:
                     fromphase([png_g, "--device", "cuda", "-o", out_g])
                     torch.cuda.synchronize()
                     runs_dec.append(time.perf_counter() - t0)
+                walls3b = {"tophase": 1e3 * float(np.median(runs_enc[1:])),
+                           "fromphase": 1e3 * float(np.median(runs_dec[1:]))}
                 log(f"  30 s file wall, median of 4 after the first: tophase "
                     f"{1e3 * float(np.median(runs_enc[1:])):.3f} ms, fromphase "
                     f"{1e3 * float(np.median(runs_dec[1:])):.3f} ms (first "
@@ -3334,6 +3534,9 @@ def main() -> int:
         # -- phase 3h: the serving artifacts ---------------------------------
         serving_phase(tmp, drive, card, dev, x)
 
+        # -- phase 3i: the compat drop-in and the native PNG filter -----------
+        compat_phase(tmp, drive, card, wav, walls3b)
+
     # -- phase 4: times at the bench shape ---------------------------------
     log(f"timing on {card}: device ms per call (CUDA events over up to 20 "
         f"calls queued behind a sleep kernel, after 3 warmup; lower of two "
@@ -3405,7 +3608,19 @@ def main() -> int:
         "quantize_planes_masked": lambda: quantize.quantize_planes_plain(
             spec4, 255, 0, frames4),
     }
-    extra_k = long_k | dft_k | prng_k
+    # KC at n = 3000 (1501 bins a frame, the mixed radix's magnitudes; the
+    # fused route takes only power-of-two n/2)
+    slots3k, band_w3k, _ = mel_ops._mel_band_table(fwd3k)
+    nnz3k = 2.0 * float(slots3k[:, 1][slots3k[:, 2] >= 0].sum())
+    we3k = mel_ops._extended_weights(fwd3k)[0]
+    kc3k = {"mel_log (n 3000)": dict(
+        kernel=lambda: mel_ops._mel_from_mags(mags3k, fwd3k),
+        plain=lambda: mel_ops.mel_from_mags_plain(mags3k, fwd3k),
+        library=lambda: torch.matmul(mags3k, we3k),
+        work=(nbytes(mags3k, slots3k, band_w3k, ref3k),
+              mags3k.shape[0] * mags3k.shape[1]
+              * (2 * nnz3k + 2 * cfg.num_mels)))}
+    extra_k = long_k | dft_k | prng_k | kc3k
     for name, entry in extra_k.items():
         kernel_fns[name], plain_fns[name] = entry["kernel"], entry["plain"]
     times = {name: race(kernel_fns[name], plain_fns[name], name)
@@ -3478,6 +3693,19 @@ def main() -> int:
     fold_d = float((fold() - griffinlim.gl_overlap_add(fw_gl, hop)).abs().max())
     log(f"  gl_overlap_add's library call, F.fold of the frames: max|d| "
         f"{fold_d:.3e} against KK")
+    # KH's: the overlap-add of its windowed frames as one F.fold (KH also
+    # divides by the window-sum and converts to PCM-16)
+    fw_ref_cols = fw_ref.transpose(1, 2)
+
+    def fold_kh():
+        return torch.nn.functional.fold(
+            fw_ref_cols, (1, gl_len), (1, n_fft),
+            stride=(1, hop)).reshape(BATCH, gl_len)
+
+    fold_kh_d = float((fold_kh() - istft.overlap_add_plain(fw_ref, hop))
+                      .abs().max())
+    log(f"  overlap_normalize's library call, F.fold of the frames: max|d| "
+        f"{fold_kh_d:.3e} against the plain overlap-add")
     # KA's library call: the one division of the int16 tensor (its mono
     # and per-row modes without the padding)
     library = {"pcm16_ingest": lambda: pcm / 32768.0,
@@ -3487,6 +3715,7 @@ def main() -> int:
                "irfft_window": lambda: torch.fft.irfft(spec_c, n=n_fft),
                "gl_project": lambda: torch.fft.irfft(spec_c, n=n_fft),
                "gl_overlap_add": fold,
+               "overlap_normalize": fold_kh,
                "mel_log": lambda: torch.matmul(mags_ref, we),
                "mel_to_magnitudes": lambda: torch.matmul(mel_lin, inv_t)}
     for name, entry in extra_k.items():

@@ -8,7 +8,8 @@ fall back to their pure-Python paths (with a one-time warning: the fallbacks
 are correct but orders of magnitude slower). The sources ship inside the
 package; the shared objects go to ``build/gomel_tpu_torch/native/`` beside
 the package (as the CUDA kernels go to ``build/gomel_tpu_torch/``), never
-next to the sources. Only the FLAC decoder is ported so far (io/flac.py).
+next to the sources. Two helpers: the FLAC decoder (its ``NativeLib`` is in
+io/flac.py) and the PNG scanline filter (here, for io/pngcodec.py).
 """
 from __future__ import annotations
 
@@ -75,3 +76,24 @@ class NativeLib:
                     type(e).__name__, e)
                 self._lib = None
             return self._lib
+
+
+def _configure_pngfilter(lib):
+    lib.png_unfilter.restype = ctypes.c_int
+    lib.png_unfilter.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_long, ctypes.c_long, ctypes.c_int,
+    ]
+    lib.png_filter_up.restype = None
+    lib.png_filter_up.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_long, ctypes.c_long,
+    ]
+
+
+_pngfilter = NativeLib("pngfilter.cpp", "_pngfilter.so", _configure_pngfilter)
+
+
+def get_lib():
+    """PNG filter helper (pngcodec.py's fast path), or None."""
+    return _pngfilter.get()

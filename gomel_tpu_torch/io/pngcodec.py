@@ -1,9 +1,13 @@
 """Self-contained PNG codec (8/16-bit, gray/RGB/RGBA, no interlace).
 
-``write_png`` and ``read_png`` of ``gomel_tpu/io/pngcodec.py`` with the numpy
-scanline filter path only; it writes the same bytes as the original's native
-C++ filter (tests/test_torch_host.py pins that), so the port needs no native
-helper. zlib does the deflate/inflate.
+``write_png`` and ``read_png`` of ``gomel_tpu/io/pngcodec.py``: zlib (C speed)
+does the deflate/inflate, and the native C++ helper
+(gomel_tpu_torch/native/pngfilter.cpp, built by io/_native.py at first use)
+runs the sequential scanline loops: the Up filter on write, the unfilter of
+all five filter types on read. Where the helper cannot build, the numpy path
+runs instead (a one-time warning): the same bytes and arrays, but its Sub,
+Average and Paeth rows take one Python step a byte (tests/test_torch_host.py
+holds the two paths equal).
 
 Supports color types 0 (gray), 2 (RGB), 4 (gray+alpha), 6 (RGBA) at bit depth
 8 or 16, which covers everything Go's encoder emits for NRGBA/NRGBA64 images.
@@ -14,6 +18,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from ._native import get_lib
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -62,14 +68,21 @@ def write_png(path, image: np.ndarray, compress_level: int = 1,
     rowbytes = len(body) // h
     img_rows = np.frombuffer(body, dtype=np.uint8).reshape(h, rowbytes)
 
-    # filter type 2 (Up) for rows > 0, 0 for row 0
-    filtered = np.empty((h, rowbytes + 1), dtype=np.uint8)
-    filtered[0, 0] = 0
-    filtered[0, 1:] = img_rows[0]
-    if h > 1:
-        filtered[1:, 0] = 2
-        filtered[1:, 1:] = img_rows[1:] - img_rows[:-1]
-    raw_bytes = filtered.tobytes()
+    lib = get_lib()
+    if lib is not None:
+        raw = np.empty(h * (rowbytes + 1), dtype=np.uint8)
+        src = np.ascontiguousarray(img_rows)
+        lib.png_filter_up(src.ctypes.data, raw.ctypes.data, h, rowbytes)
+        raw_bytes = raw.tobytes()
+    else:
+        # numpy path: filter type 2 (Up) for rows > 0, 0 for row 0
+        filtered = np.empty((h, rowbytes + 1), dtype=np.uint8)
+        filtered[0, 0] = 0
+        filtered[0, 1:] = img_rows[0]
+        if h > 1:
+            filtered[1:, 0] = 2
+            filtered[1:, 1:] = img_rows[1:] - img_rows[:-1]
+        raw_bytes = filtered.tobytes()
 
     ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
     comp = zlib.compressobj(compress_level, zlib.DEFLATED, 15, 8,
@@ -85,7 +98,8 @@ def write_png(path, image: np.ndarray, compress_level: int = 1,
 
 
 def _unfilter(raw: np.ndarray, h: int, rowbytes: int, bpp: int) -> np.ndarray:
-    """numpy/Python scanline unfilter (row-vectorized for None/Up)."""
+    """numpy/Python scanline unfilter (row-vectorized for None/Up); the
+    path where the native helper cannot build."""
     out = np.zeros((h, rowbytes), dtype=np.uint8)
     raw = raw.reshape(h, rowbytes + 1)
     for y in range(h):
@@ -180,7 +194,16 @@ def read_png(path: str) -> np.ndarray:
     if raw.size != expected:
         raise ValueError("corrupt PNG: unexpected data size")
 
-    flat = _unfilter(raw.copy(), h, rowbytes, bpp).reshape(-1)
+    lib = get_lib()
+    if lib is not None:
+        out = np.empty(h * rowbytes, dtype=np.uint8)
+        src = np.ascontiguousarray(raw)
+        rc = lib.png_unfilter(src.ctypes.data, out.ctypes.data, h, rowbytes, bpp)
+        if rc != 0:
+            raise ValueError("invalid PNG filter type")
+        flat = out
+    else:
+        flat = _unfilter(raw.copy(), h, rowbytes, bpp).reshape(-1)
     if depth == 16:
         img = flat.view(np.uint8).reshape(h, w, channels, 2)
         arr = (img[..., 0].astype(np.uint16) << 8) | img[..., 1].astype(np.uint16)

@@ -1,4 +1,5 @@
-"""C++ sources of the port's native host helpers (the FLAC decoder).
+"""C++ sources of the port's native host helpers (the FLAC decoder
+and the PNG scanline filter).
 
 Shipped inside the package (package data), so an installed copy compiles
 them on first use as a checkout does: io/_native.py builds each with g++

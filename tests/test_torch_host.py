@@ -298,17 +298,21 @@ def _flac_pcm(n, ch, seed):
     return np.clip(tone, -32768, 32767).astype(np.int64).squeeze()
 
 
+def _source_body(path):
+    """A C++ source below its header comment (the ``//`` lines before the
+    first line of code)."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    return b"\n".join(lines[next(i for i, ln in enumerate(lines)
+                                 if not ln.startswith(b"//")):])
+
+
 def test_flacdec_source_equal():
     """The C++ decoder is the JAX package's, byte for byte below its header
     comment (which names the port's paths)."""
-    def body(path):
-        with open(path, "rb") as f:
-            lines = f.read().split(b"\n")
-        return b"\n".join(lines[next(i for i, ln in enumerate(lines)
-                                     if not ln.startswith(b"//")):])
-    assert body(os.path.join(REPO, "gomel_tpu_torch", "native",
-                             "flacdec.cpp")) == \
-        body(os.path.join(REPO, "gomel_tpu", "native", "flacdec.cpp"))
+    assert _source_body(os.path.join(REPO, "gomel_tpu_torch", "native",
+                                     "flacdec.cpp")) == \
+        _source_body(os.path.join(REPO, "gomel_tpu", "native", "flacdec.cpp"))
 
 
 @pytest.mark.parametrize("mode", ["verbatim", "fixed"])
@@ -345,6 +349,109 @@ def test_native_flac_builds_outside_the_sources():
     assert not [f for f in os.listdir(os.path.join(REPO, "gomel_tpu_torch",
                                                    "native"))
                 if f.endswith(".so")]
+
+
+# -- the native PNG scanline filter (native/pngfilter.cpp) --------------------
+
+def test_pngfilter_source_equal():
+    """The PNG filter is the JAX package's, byte for byte below its header
+    comment."""
+    assert _source_body(os.path.join(REPO, "gomel_tpu_torch", "native",
+                                     "pngfilter.cpp")) == \
+        _source_body(os.path.join(REPO, "gomel_tpu", "native",
+                                  "pngfilter.cpp"))
+
+
+def test_native_png_builds_outside_the_sources():
+    assert tnative.get_lib() is not None
+    assert os.path.dirname(tnative._pngfilter._so) == tnative.BUILD_DIR
+    assert os.path.exists(os.path.join(tnative.BUILD_DIR, "_pngfilter.so"))
+    assert not [f for f in os.listdir(os.path.join(REPO, "gomel_tpu_torch",
+                                                   "native"))
+                if f.endswith(".so")]
+
+
+# (shape, dtype): color types 0, 4, 2 and 6 at odd widths, and one row
+_PNG_CASES = [((7, 13), np.uint8), ((5, 11, 2), np.uint8),
+              ((6, 9, 3), np.uint8), ((9, 31, 4), np.uint8),
+              ((1, 17, 4), np.uint8), ((7, 13), np.uint16),
+              ((5, 11, 2), np.uint16), ((6, 9, 3), np.uint16),
+              ((9, 31, 4), np.uint16), ((1, 5, 3), np.uint16)]
+
+
+@pytest.mark.parametrize("shape,dtype", _PNG_CASES)
+@pytest.mark.parametrize("filters", [[0], [1], [2], [3], [4],
+                                     [0, 1, 2, 3, 4], [4, 3, 1]])
+def test_read_png_native_and_numpy_equal(tmp_path, shape, dtype, filters):
+    """Rows carrying each filter type (tools/png_filters.py): the native
+    unfilter, the numpy path and the JAX package's reader give the image."""
+    from tools.png_filters import numpy_path, png_bytes
+    img = np.random.default_rng(len(shape) * 7 + shape[-1]).integers(
+        0, np.iinfo(dtype).max + 1, size=shape, dtype=dtype)
+    want = img[..., 0] if img.ndim == 3 and img.shape[2] == 1 else img
+    path = tmp_path / "f.png"
+    path.write_bytes(png_bytes(img, filters))
+    got = tpng.read_png(str(path))
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        numpy_path(lambda: tpng.read_png(str(path)))(), want)
+    np.testing.assert_array_equal(jpng.read_png(str(path)), want)
+
+
+@pytest.mark.parametrize("shape,dtype", [c for c in _PNG_CASES
+                                         if len(c[0]) == 2
+                                         or c[0][2] in (3, 4)])
+def test_write_png_native_and_numpy_equal(tmp_path, shape, dtype):
+    from tools.png_filters import numpy_path
+    img = np.random.default_rng(shape[1]).integers(
+        0, np.iinfo(dtype).max + 1, size=shape, dtype=dtype)
+    a, b = tmp_path / "native.png", tmp_path / "numpy.png"
+    tpng.write_png(str(a), img)
+    numpy_path(lambda: tpng.write_png(str(b), img))()
+    assert a.read_bytes() == b.read_bytes()
+    np.testing.assert_array_equal(tpng.read_png(str(a)), img)
+
+
+def test_png_invalid_filter_raises(tmp_path):
+    from tools.png_filters import numpy_path, png_bytes
+    data = bytearray(png_bytes(np.zeros((3, 4, 3), np.uint8), [0]))
+    raw = bytearray(zlib.decompress(bytes(data[41:data.index(b"IEND") - 8])))
+    raw[1 + 12] = 5                                 # row 1's filter byte
+    idat = zlib.compress(bytes(raw))
+    body = b"IDAT" + idat
+    crc = zlib.crc32(body).to_bytes(4, "big")
+    png = (bytes(data[:33]) + len(idat).to_bytes(4, "big") + body + crc
+           + b"\x00\x00\x00\x00IEND\xaeB`\x82")
+    path = tmp_path / "bad.png"
+    path.write_bytes(png)
+    with pytest.raises(ValueError, match="filter type"):
+        tpng.read_png(str(path))
+    with pytest.raises(ValueError, match="filter type"):
+        numpy_path(lambda: tpng.read_png(str(path)))()
+
+
+def test_pngfilter_argtypes_match_declarations():
+    """``_configure_pngfilter``'s ctypes lists against the C declarations of
+    png_unfilter and png_filter_up (a list that drifts passes garbage)."""
+    import ctypes
+    import re
+    import types
+    with open(os.path.join(REPO, "gomel_tpu_torch", "native",
+                           "pngfilter.cpp")) as f:
+        text = f.read()
+    kinds = {"int": ctypes.c_int, "long": ctypes.c_long, "void": None}
+    lib = types.SimpleNamespace(png_unfilter=types.SimpleNamespace(),
+                                png_filter_up=types.SimpleNamespace())
+    tnative._configure_pngfilter(lib)
+    decls = re.findall(r"^(int|void) (png_\w+)\(([^)]*)\)", text, re.M)
+    assert sorted(d[1] for d in decls) == ["png_filter_up", "png_unfilter"]
+    for ret, name, params in decls:
+        fn = getattr(lib, name)
+        assert fn.restype is kinds[ret]
+        want = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
+                for p in params.split(",")]
+        assert fn.argtypes == want, name
 
 
 @pytest.mark.parametrize("mono", ["mean", "left", "go_concat"])
