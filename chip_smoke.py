@@ -2783,6 +2783,480 @@ def pcm16_fused_checks(dev: torch.device, pcm: torch.Tensor,
             f"{tuple(got.shape)}: bit-equal to KA then the float launch")
 
 
+# -- phase 3j: the multi-process form --------------------------------------
+
+MP_TIMEOUT_S = 600      # each worker's limit, and the group's collectives'
+MP_RUNS = 7             # timed runs of each call, after one untimed
+HALO_RUNS = 50          # timed halo exchanges of each direction
+# the host link of the card (PCIe Gen5 x16, one direction): the byte bound
+# of a halo staged through host memory, a D2H and an H2D of its bytes
+PCIE_BYTES_S = 64e9
+# NVLink between two cards of a host, one direction: the byte bound of a
+# halo that NCCL moves card to card
+NVLINK_BYTES_S = 450e9
+# kernels each worker's call must launch (from its own tallies)
+MP_MUST = {
+    "LongFormPhase.encode": ("phase_encode",),
+    "LongFormPhase.decode": ("irfft_window_masked", "overlap_normalize",
+                             "shard_epilogue"),
+    "LongFormMel.encode": ("stft_mel_log",),
+    "LongFormMel.decode": ("mel_to_magnitudes", "gl_project",
+                           "gl_overlap_add", "shard_epilogue",
+                           "threefry_uniform"),
+    "decode_resumable, saved at iteration 1": (
+        "mel_to_magnitudes", "gl_project", "gl_overlap_add",
+        "shard_epilogue", "threefry_uniform"),
+    "decode_resumable, resumed": ("mel_to_magnitudes", "gl_project",
+                                  "gl_overlap_add", "shard_epilogue"),
+    "BatchedMel.encode(process_local)": ("stft_mel_log",),
+    "BatchedMel.decode(process_local)": ("mel_to_magnitudes", "gl_project",
+                                         "gl_overlap_add",
+                                         "threefry_uniform")}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _sha(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _piece_hashes(value) -> dict[str, str]:
+    """sha256 of each of this process's pieces of a long-form result, keyed
+    by its global rows and columns."""
+    return {",".join(f"{s.start}-{s.stop}" for s in p.index[:2]): _sha(p.data)
+            for p in value.addressable_shards}
+
+
+def _ref_hashes(full: torch.Tensor, keys) -> dict[str, str]:
+    """sha256 of the same pieces of a one-controller result."""
+    out = {}
+    for key in keys:
+        (r0, r1), (c0, c1) = (tuple(int(v) for v in p.split("-"))
+                              for p in key.split(","))
+        out[key] = _sha(full[r0:r1, c0:c1])
+    return out
+
+
+class _MpRun:
+    """One worker's record: each call's walls between barriers (``runs``
+    timed runs after an untimed one, or one run when ``warm`` is False) and
+    its launches (the last run's), its results' hashes."""
+
+    def __init__(self, tallies: dict, dev: torch.device):
+        self.tallies, self.dev = tallies, dev
+        self.report: dict = {"calls": {}, "hashes": {}}
+
+    def call(self, label: str, fn, warm: bool = True):
+        import torch.distributed as dist
+        walls = []
+        for _ in range(1 + MP_RUNS if warm else 1):
+            for k in self.tallies.values():
+                k.launches = 0
+            dist.barrier()
+            t0 = time.perf_counter()
+            value = fn()
+            _sync(self.dev)
+            dist.barrier()
+            walls.append(time.perf_counter() - t0)
+        self.report["calls"][label] = {
+            "s": walls[1:] if warm else walls,
+            "launches": {n: k.launches for n, k in self.tallies.items()
+                         if k.launches}}
+        return value
+
+
+def _one_controller_walls(fn, dev: torch.device):
+    """``fn``'s value and its walls: MP_RUNS timed runs after an untimed
+    one."""
+    walls = []
+    for _ in range(1 + MP_RUNS):
+        t0 = time.perf_counter()
+        value = fn()
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    return value, walls[1:]
+
+
+def _spread(seconds: list) -> str:
+    """Median (min-max) of walls in seconds, as ms."""
+    ms = 1e3 * np.asarray(seconds)
+    return (f"{np.median(ms):.3f} ({ms.min():.3f}-{ms.max():.3f})"
+            if len(ms) > 1 else f"{ms[0]:.3f}")
+
+
+def worker_device(backend: str, device: str, rank: int) -> str:
+    """A phase 3j worker's device: its own card on NCCL (NCCL drives one
+    card a process), else ``device``, shared by every worker."""
+    return f"cuda:{rank}" if backend == "nccl" else device
+
+
+def longform_mesh_devices(dev: torch.device, world: int) -> list:
+    """A long-form worker's devices of the 1 x N_SHARDS mesh."""
+    return [dev] * (N_SHARDS // world)
+
+
+def _gather_keys(report: dict) -> list:
+    import torch.distributed as dist
+    from gomel_tpu_torch.parallel import mesh as pm
+    keys = {name: sorted(h) for name, h in report["hashes"].items()}
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, keys, group=pm.host_group())
+    return out
+
+
+def mp_longform(rank: int, world: int, dev: torch.device, seconds: float,
+                out_dir: str, tallies: dict) -> dict:
+    """The long-form calls of phase 3j on a 1 x 4 mesh over ``world``
+    processes, frame shards 4 / world a process on ``dev``; rank 0 then runs
+    the same calls on one controller (a 1 x 4 mesh of ``dev``) and hashes
+    every process's pieces of them."""
+    import torch.distributed as dist
+    from gomel_tpu_torch import (LongFormMel, LongFormPhase, MelConfig,
+                                 Mesh, PhaseConfig, make_mesh)
+    from gomel_tpu_torch.parallel import sharded as sh
+    from gomel_tpu_torch.pipelines import longform as lf
+
+    n = int(SAMPLE_RATE * seconds)
+    x = (long_pcm(n, dev).astype(np.float32) / np.float32(32768.0))[None]
+    mesh = make_mesh(data=1, frame=N_SHARDS,
+                     devices=longform_mesh_devices(dev, world))
+    pcfg, mcfg = PhaseConfig.cli_default(), MelConfig.cli_default()
+    lp, lm = LongFormPhase(pcfg, mesh), LongFormMel(mcfg, mesh)
+    run = _MpRun(tallies, dev)
+    hashes = run.report["hashes"]
+    spec = run.call("LongFormPhase.encode", lambda: lp.encode(x))
+    hashes["phase spectrogram"] = _piece_hashes(spec)
+    hashes["phase audio"] = _piece_hashes(run.call(
+        "LongFormPhase.decode", lambda: lp.decode(spec)))
+    del spec
+    logmel = run.call("LongFormMel.encode", lambda: lm.encode(x))
+    hashes["log-mel"] = _piece_hashes(logmel)
+    hashes["mel audio"] = _piece_hashes(run.call(
+        "LongFormMel.decode", lambda: lm.decode(logmel, seed=1)))
+    ckpt = os.path.join(out_dir, "ckpt")
+
+    def save(done, carry):
+        if done == 1:
+            lf.save_gl_checkpoint_sharded(ckpt, done, carry)
+    hashes["mel audio, resumable"] = _piece_hashes(run.call(
+        "decode_resumable, saved at iteration 1", lambda: lm.decode_resumable(
+            logmel, seed=1, segment_iters=1, callback=save), warm=False))
+    done, carry = lf.load_gl_checkpoint_sharded(ckpt, mesh)
+    run.report["resumed_from"] = done
+    hashes["mel audio, resumed"] = _piece_hashes(run.call(
+        "decode_resumable, resumed", lambda: lm.decode_resumable(
+            logmel, seed=1, segment_iters=1, resume=(done, carry)),
+        warm=False))
+
+    # one halo exchange of each direction at the 30-minute plan
+    plan = lp._plan(n)
+    exts = [torch.zeros((1, plan.chunk + plan.halo), device=mesh.device(i))
+            if mesh.is_local(i) else None for i in range(mesh.size)]
+    halo = {}
+    for name, fn in (("pull", lambda: sh._pull_right_halo(exts, mesh, plan)),
+                     ("push", lambda: sh._push_tail_right(exts, mesh, plan))):
+        times = []
+        for _ in range(HALO_RUNS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        halo[name] = times
+    crossing = sum(1 for i in range(mesh.size - 1)
+                   if mesh.rank(i) != mesh.rank(i + 1))
+    run.report["halo"] = {"s": halo, "bytes": crossing * plan.halo * 4,
+                          "messages": crossing}
+    keys = _gather_keys(run.report)
+    if rank == 0:   # one controller: this process owns every cell
+        mesh1 = Mesh([[dev] * N_SHARDS])
+        lp1, lm1 = LongFormPhase(pcfg, mesh1), LongFormMel(mcfg, mesh1)
+        walls, ref = {}, {}
+        spec1, walls["LongFormPhase.encode"] = _one_controller_walls(
+            lambda: lp1.encode(x), dev)
+        wave1, walls["LongFormPhase.decode"] = _one_controller_walls(
+            lambda: lp1.decode(spec1), dev)
+        logmel1, walls["LongFormMel.encode"] = _one_controller_walls(
+            lambda: lm1.encode(x), dev)
+        mel1, walls["LongFormMel.decode"] = _one_controller_walls(
+            lambda: lm1.decode(logmel1, seed=1), dev)
+        for name, full in (("phase spectrogram", spec1),
+                           ("phase audio", wave1), ("log-mel", logmel1),
+                           ("mel audio", mel1),
+                           ("mel audio, resumable", mel1),
+                           ("mel audio, resumed", mel1)):
+            ref[name] = _ref_hashes(full, {k for r in keys for k in r[name]})
+        exts1 = [torch.zeros((1, plan.chunk + plan.halo), device=dev)
+                 for _ in range(N_SHARDS)]
+        times = []
+        for _ in range(HALO_RUNS):
+            t0 = time.perf_counter()
+            sh._pull_right_halo(exts1, mesh1, plan)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        run.report["one_controller"] = {
+            "walls": walls, "hashes": ref, "halo_pull_s": times}
+    dist.barrier()
+    return run.report
+
+
+def batch_row(k: int, n: int) -> np.ndarray:
+    """The 'file' utt<k> of phase 3j's batch: n samples, 48 kHz float32."""
+    return (seeded_pcm(np.random.default_rng(SEED + 100 + k), 1, n)[0]
+            .astype(np.float32) / np.float32(32768.0))
+
+
+def mp_batch(rank: int, world: int, dev: torch.device, seconds: float,
+             out_dir: str, tallies: dict) -> dict:
+    """BatchedMel(input_mode="process_local") on a 2 x 2 mesh over 4
+    processes (both axes crossing processes, one cell each on ``dev``), two
+    rows of ``seconds`` a group picked by shard_files_for_group; rank 0 then
+    runs the same on one controller over a 2 x 2 mesh of ``dev``."""
+    from gomel_tpu_torch import MelConfig, Mesh, make_mesh
+    from gomel_tpu_torch.core.framing import pad_length
+    from gomel_tpu_torch.io.dataset import shard_files_for_group
+    from gomel_tpu_torch.parallel import mesh as pm
+    from gomel_tpu_torch.parallel.batch import BatchedMel
+    del out_dir
+    cfg = MelConfig.cli_default()
+    n = pad_length(int(SAMPLE_RATE * seconds), cfg.window)
+    mesh = make_mesh(data=2, frame=2, devices=[dev])
+    files = [f"utt{k}" for k in range(4)]
+    mine = shard_files_for_group(files, mesh)
+    gi, ng = pm.data_group_for_process(mesh)
+    rows = np.stack([batch_row(int(f[3:]), n) for f in mine])
+    bm = BatchedMel(cfg, mesh=mesh, input_mode="process_local")
+    run = _MpRun(tallies, dev)
+    key = f"{gi * len(mine)}-{(gi + 1) * len(mine)},0-0"
+    enc = run.call("BatchedMel.encode(process_local)", lambda: bm.encode(rows))
+    dec = run.call("BatchedMel.decode(process_local)",
+                   lambda: bm.decode(enc, seed=1))
+    run.report["hashes"] = {"log-mel rows": {key: _sha(enc)},
+                            "audio rows": {key: _sha(dec)}}
+    run.report["group"] = [gi, ng, mine]
+    keys = _gather_keys(run.report)
+    if rank == 0:   # one controller: this process owns every cell
+        mesh1 = Mesh([[dev] * 2] * 2)
+        bm1 = BatchedMel(cfg, mesh=mesh1)
+        everyone = np.stack([batch_row(int(f[3:]), n)
+                             for g in range(ng) for f in files[g::ng]])
+        walls, ref = {}, {}
+        enc1, walls["BatchedMel.encode(process_local)"] = \
+            _one_controller_walls(lambda: bm1.encode(everyone), dev)
+        dec1, walls["BatchedMel.decode(process_local)"] = \
+            _one_controller_walls(lambda: bm1.decode(enc1, seed=1), dev)
+        for name, full in (("log-mel rows", enc1), ("audio rows", dec1)):
+            ref[name] = {}
+            for k in {k for r in keys for k in r[name]}:
+                r0, r1 = (int(v) for v in k.split(",")[0].split("-"))
+                ref[name][k] = _sha(full[r0:r1])
+        run.report["one_controller"] = {"walls": walls, "hashes": ref}
+    import torch.distributed as dist
+    dist.barrier()
+    return run.report
+
+
+def mp_worker(argv: list[str]) -> int:
+    """One process of phase 3j: ``chip_smoke.py --mp-worker SCENARIO RANK
+    WORLD PORT OUT_DIR BACKEND DEVICE SECONDS``. Loads the kernels phase 1
+    built, joins the group, runs SCENARIO and writes its report to
+    OUT_DIR/rank<RANK>.json."""
+    scenario, rank, world, port, out_dir, backend, device, seconds = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+    from gomel_tpu_torch.ops import _cuda
+    from gomel_tpu_torch.parallel import mesh as pm
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if dev.index is not None:   # NCCL: this worker's own card
+            torch.cuda.set_device(dev)
+        _cuda.library()
+    _, tallies = kernel_tallies()
+    pm.initialize_multihost(f"127.0.0.1:{port}", world, rank,
+                            backend=backend, timeout_s=MP_TIMEOUT_S)
+    try:
+        fn = mp_longform if scenario == "longform" else mp_batch
+        report = fn(rank, world, dev, float(seconds), out_dir, tallies)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(tmp: str, scenario: str, world: int, backend: str,
+                device: str, seconds: float) -> list[dict]:
+    """Start ``world`` workers of ``scenario`` together, wait for all (each
+    within MP_TIMEOUT_S), kill any left, fail on any non-zero exit; return
+    their reports in rank order."""
+    out_dir = os.path.join(tmp, f"mp_{scenario}_{backend}")
+    os.makedirs(out_dir, exist_ok=True)
+    port = str(_free_port())
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mp-worker",
+         scenario, str(r), str(world), port, out_dir, backend,
+         worker_device(backend, device, r), str(seconds)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        for r in failed:
+            print(f"--- phase 3j worker {r} of {scenario} ({backend}) exit "
+                  f"code {procs[r].returncode}:\n{logs[r][-4000:]}",
+                  file=sys.stderr)
+        raise AssertionError(f"phase 3j {scenario} ({backend}): workers "
+                             f"{failed} failed")
+    reports = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def check_workers(label: str, reports: list[dict], card: str,
+                  launches: dict, backend: str) -> None:
+    """Phase 3j's checks of one run: every worker's pieces bit-equal to
+    rank 0's one-controller result (by sha256), the kernels of each call
+    launched in every worker, and the walls and halo times printed."""
+    ref = reports[0]["one_controller"]
+    for r, rep in enumerate(reports):
+        for name, pieces in rep["hashes"].items():
+            for key, h in pieces.items():
+                if ref["hashes"][name][key] != h:
+                    raise AssertionError(f"{label}: rank {r}'s {name} "
+                                         f"[{key}] differs from one "
+                                         f"controller's")
+        for call, info in rep["calls"].items():
+            missing = [k for k in MP_MUST.get(call, ())
+                       if not info["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"{label}: {call} in rank {r} never "
+                                     f"launched {missing}")
+            for k, c in info["launches"].items():
+                if k in launches:
+                    launches[k] += c
+    n_pieces = sum(len(p) for rep in reports for p in rep["hashes"].values())
+    log(f"{label}: all {n_pieces} pieces of {len(reports)} processes "
+        f"bit-equal to one controller's (sha256); every call launched its "
+        f"kernels in every process")
+    log(f"  walls on {card}, ms (host clock between barriers, rank 0; median "
+        f"(min-max) of {MP_RUNS} runs after an untimed one; then one "
+        f"controller's, the same calls in one process, and the ratio of the "
+        f"medians):")
+    for c, info in reports[0]["calls"].items():
+        line = f"    {c}: {_spread(info['s'])}"
+        if c in ref["walls"]:
+            one = ref["walls"][c]
+            line += (f"; one controller {_spread(one)}; ratio "
+                     f"{np.median(info['s']) / np.median(one):.3f}")
+        log(line)
+    for r, rep in enumerate(reports):
+        log(f"  rank {r} launches: " + "; ".join(
+            f"{c}: {info['launches']}" for c, info in rep["calls"].items()))
+    if "halo" in reports[0]:
+        h = reports[0]["halo"]
+        if backend == "nccl":
+            how, rate = "NCCL card to card", NVLINK_BYTES_S
+            bound = h["bytes"] / rate * 1e3
+            link = f"one copy at {rate / 1e9:.0f} GB/s (NVLink)"
+        else:
+            how, rate = "gloo over host memory (D2H, send/recv, H2D)", \
+                PCIE_BYTES_S
+            bound = 2 * h["bytes"] / rate * 1e3
+            link = f"a D2H and an H2D at {rate / 1e9:.0f} GB/s"
+        log(f"  one halo exchange on {card}, {how}, ms, median (min-max) of "
+            f"{HALO_RUNS}: pull {_spread(h['s']['pull'])}, push "
+            f"{_spread(h['s']['push'])}, {h['bytes']} bytes in "
+            f"{h['messages']} message(s) across processes; byte bound "
+            f"({link}) {bound:.6f} ms; one controller's pull (device "
+            f"copies) {_spread(ref['halo_pull_s'])}")
+        log(f"  decode_resumable resumed from iteration "
+            f"{reports[0]['resumed_from']} of the sharded checkpoint")
+
+
+def multiprocess(tmp: str, card: str, launches: dict, device: str = "cuda",
+                 seconds: float = LONG_SECONDS,
+                 batch_seconds: float = SECONDS) -> None:
+    """Phase 3j: the multi-process form on the card. LongFormPhase and
+    LongFormMel encode and decode (GL-2) of the 30-minute signal on a 1 x 4
+    mesh over 2 processes (2 frame shards each on the card, gloo: the halos
+    staged through host memory), decode_resumable through a sharded
+    checkpoint saved at iteration 1, loaded and resumed; BatchedMel
+    (input_mode="process_local") encode and decode of two 30 s rows a group
+    on a 2 x 2 mesh over 4 processes. Every process's pieces bit-equal to
+    the same calls on one controller; their kernels' launches added to
+    ``launches``. The NCCL route (one card a process) runs only where the
+    card count reaches the processes."""
+    log(f"phase 3j: the multi-process form on {card}")
+    reports = run_workers(tmp, "longform", 2, "gloo", device, seconds)
+    check_workers(f"long form, {seconds / 60:g} min, 1 x {N_SHARDS} mesh "
+                  f"over 2 processes (gloo)", reports, card, launches, "gloo")
+    reports = run_workers(tmp, "batch", 4, "gloo", device, batch_seconds)
+    check_workers(f"BatchedMel(process_local), 2 x {batch_seconds:g} s a "
+                  f"group, 2 x 2 mesh over 4 processes (gloo)", reports, card,
+                  launches, "gloo")
+    visible = torch.cuda.device_count() if device == "cuda" else 0
+    if visible >= 2:
+        reports = run_workers(tmp, "longform", 2, "nccl", device, seconds)
+        check_workers("long form over 2 processes on 2 cards (NCCL)",
+                      reports, card, launches, "nccl")
+    else:
+        log(f"  NCCL route not run: {visible} card(s) visible, and NCCL "
+            f"refuses two ranks on one card (make_mesh raises); it runs "
+            f"where the card count reaches the process count")
+
+
+def kernel_tallies() -> tuple[dict, dict]:
+    """Every kernel of the port by name, and the same with the xla route's
+    tally (torch.fft on the card, for the sizes the hand FFT kernels do not
+    take; not a kernel of the port)."""
+    from gomel_tpu_torch.ops import (dft_mm, fftbackend, griffinlim, istft,
+                                     mel_ops, prng, quantize, rfft_mag)
+    kernels = {k.name: k for k in (quantize.INGEST_KERNEL,
+                                   quantize.INGEST_ZERO_STUFF_KERNEL,
+                                   rfft_mag.KERNEL,
+                                   mel_ops.KERNEL, mel_ops.FUSED_KERNEL,
+                                   mel_ops.FUSED_PCM16_KERNEL,
+                                   quantize.QUANTIZE_KERNEL,
+                                   rfft_mag.PLANES_KERNEL,
+                                   quantize.PLANES_KERNEL,
+                                   istft.SYNTH_KERNEL, istft.OLA_KERNEL,
+                                   mel_ops.MAG_KERNEL,
+                                   griffinlim.PROJECT_KERNEL,
+                                   griffinlim.OLA_KERNEL,
+                                   quantize.INGEST_ROWS_KERNEL,
+                                   quantize.QUANTIZE_MASKED_KERNEL,
+                                   quantize.PLANES_MASKED_KERNEL,
+                                   quantize.DEQUANTIZE_RAW_KERNEL,
+                                   istft.SYNTH_MASKED_KERNEL,
+                                   istft.SHARD_KERNEL, dft_mm.FWD_KERNEL,
+                                   dft_mm.FWD_F32_KERNEL, dft_mm.INV_KERNEL,
+                                   dft_mm.INV_F32_KERNEL, prng.KERNEL)}
+    return kernels, dict(kernels, xla_route=fftbackend.XLA_ROUTE)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2827,29 +3301,7 @@ def main() -> int:
     length = int(SAMPLE_RATE * SECONDS)
     padded = pad_length(length, hop)
     rng = np.random.default_rng(SEED)
-    kernels = {k.name: k for k in (quantize.INGEST_KERNEL,
-                                   quantize.INGEST_ZERO_STUFF_KERNEL,
-                                   rfft_mag.KERNEL,
-                                   mel_ops.KERNEL, mel_ops.FUSED_KERNEL,
-                                   mel_ops.FUSED_PCM16_KERNEL,
-                                   quantize.QUANTIZE_KERNEL,
-                                   rfft_mag.PLANES_KERNEL,
-                                   quantize.PLANES_KERNEL,
-                                   istft.SYNTH_KERNEL, istft.OLA_KERNEL,
-                                   mel_ops.MAG_KERNEL,
-                                   griffinlim.PROJECT_KERNEL,
-                                   griffinlim.OLA_KERNEL,
-                                   quantize.INGEST_ROWS_KERNEL,
-                                   quantize.QUANTIZE_MASKED_KERNEL,
-                                   quantize.PLANES_MASKED_KERNEL,
-                                   quantize.DEQUANTIZE_RAW_KERNEL,
-                                   istft.SYNTH_MASKED_KERNEL,
-                                   istft.SHARD_KERNEL, dft_mm.FWD_KERNEL,
-                                   dft_mm.FWD_F32_KERNEL, dft_mm.INV_KERNEL,
-                                   dft_mm.INV_F32_KERNEL, prng.KERNEL)}
-    # the kernels' tallies and the xla route's (torch.fft on the card, for
-    # the sizes the hand FFT kernels do not take; not a kernel of the port)
-    tallies = dict(kernels, xla_route=fftbackend.XLA_ROUTE)
+    kernels, tallies = kernel_tallies()
     errs: dict[str, float] = {}
     # launches of each kernel summed over the main-path runs (the CLIs, the
     # batch CLIs, the long-form calls and phase 3f's paths), each read with
@@ -3537,6 +3989,9 @@ def main() -> int:
         # -- phase 3i: the compat drop-in and the native PNG filter -----------
         compat_phase(tmp, drive, card, wav, walls3b)
 
+        # -- phase 3j: the multi-process form ---------------------------------
+        multiprocess(tmp, card, launches)
+
     # -- phase 4: times at the bench shape ---------------------------------
     log(f"timing on {card}: device ms per call (CUDA events over up to 20 "
         f"calls queued behind a sleep kernel, after 3 warmup; lower of two "
@@ -3904,4 +4359,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:
+        sys.exit(mp_worker(sys.argv[2:]))
     sys.exit(main())

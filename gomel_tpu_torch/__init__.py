@@ -6,9 +6,11 @@ PyTorch, with its device kernels written by hand in CUDA C++ for Hopper
 the mel codec (WAV or FLAC -> log-mel -> quantized PNG, ``tomel``, and back
 by Griffin-Lim, ``towav``), the phase codec round trip (WAV or FLAC -> phase
 PNG -> WAV, ``tophase`` and ``fromphase``), their batched forms on one
-device (``parallel/``, the ``batch-*`` tools of ``cli/batch.py``), the
-long-form frame-sharded codecs on one controller (``LongFormMel``,
-``LongFormPhase`` over a ``make_mesh`` grid of devices), the streaming
+device or over a mesh's data axis (``parallel/``, the ``batch-*`` tools of ``cli/batch.py``), the
+long-form frame-sharded codecs (``LongFormMel``, ``LongFormPhase`` over a
+``make_mesh`` grid of devices, on one controller or across the processes of
+a ``torch.distributed`` group: ``parallel.initialize_multihost``), the
+streaming
 codecs for one device in bounded memory (``StreamingPhase``,
 ``StreamingMel``), and the codecs as ``torch.export`` serving artifacts
 (``serving``, with the ``export`` and ``info`` tools) so far.

@@ -3,9 +3,12 @@
 
 Counterpart of ``gomel_tpu/io/_native.py``: ``NativeLib`` builds a shared
 object from source on first use with g++ and configures its symbol
-signatures; it returns None when the toolchain or the build fails, so callers
-fall back to their pure-Python paths (with a one-time warning: the fallbacks
-are correct but orders of magnitude slower). The sources ship inside the
+signatures (the build under an exclusive ``flock`` on a ``.lock`` file
+beside the shared object, so processes that load it at once build it once:
+one that waited finds it current); it returns None when the toolchain or
+the build fails, so callers fall back to their pure-Python paths (with a
+one-time warning: the fallbacks are correct but orders of magnitude
+slower). The sources ship inside the
 package; the shared objects go to ``build/gomel_tpu_torch/native/`` beside
 the package (as the CUDA kernels go to ``build/gomel_tpu_torch/``), never
 next to the sources. Two helpers: the FLAC decoder (its ``NativeLib`` is in
@@ -14,6 +17,7 @@ io/flac.py) and the PNG scanline filter (here, for io/pngcodec.py).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
@@ -32,24 +36,39 @@ class NativeLib:
 
     def __init__(self, src_name: str, so_name: str, configure):
         self._src = os.path.join(_NATIVE_DIR, src_name)
+        self._dir = BUILD_DIR
         self._so = os.path.join(BUILD_DIR, so_name)
         self._configure = configure
         self._lock = threading.Lock()
         self._lib = None
         self._tried = False
 
+    def _stale(self) -> bool:
+        if not os.path.exists(self._src):
+            if not os.path.exists(self._so):
+                raise FileNotFoundError(self._src)
+            return False
+        return (not os.path.exists(self._so)
+                or os.path.getmtime(self._src) > os.path.getmtime(self._so))
+
     def _build(self) -> None:
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp,
-                            self._src],
-                           check=True, capture_output=True, timeout=120)
-            os.replace(tmp, self._so)   # a concurrent loader sees old or new
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        """Compile under the cross-process lock, unless another process
+        built it while this one waited."""
+        os.makedirs(self._dir, exist_ok=True)
+        with open(self._so + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)   # released when it closes
+            if not self._stale():
+                return
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=self._dir)
+            os.close(fd)
+            try:
+                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp,
+                                self._src],
+                               check=True, capture_output=True, timeout=120)
+                os.replace(tmp, self._so)   # a loader sees old or new
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
 
     def get(self):
         """Return the loaded ctypes library, building if needed, or None."""
@@ -58,12 +77,7 @@ class NativeLib:
                 return self._lib
             self._tried = True
             try:
-                if not os.path.exists(self._so) or (
-                    os.path.exists(self._src)
-                    and os.path.getmtime(self._src) > os.path.getmtime(self._so)
-                ):
-                    if not os.path.exists(self._src):
-                        raise FileNotFoundError(self._src)
+                if self._stale():
                     self._build()
                 lib = ctypes.CDLL(self._so)
                 self._configure(lib)

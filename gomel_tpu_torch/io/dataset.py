@@ -1,9 +1,9 @@
 """Prefetching audio dataset loader — host ingest for batched pipelines.
 
-Copy of ``gomel_tpu/io/dataset.py`` without the mesh (``shard_files_for_group``
-waits for the multi-process slice): the port cannot import ``gomel_tpu``,
-whose package __init__ imports JAX. tests/test_torch_host.py pins the copy to
-the original.
+Copy of ``gomel_tpu/io/dataset.py``, the process rank and the mesh taken
+from the port's ``torch.distributed`` group (parallel/mesh.py): the port
+cannot import ``gomel_tpu``, whose package __init__ imports JAX.
+tests/test_torch_host.py pins the copy to the original.
 
 The reference processes one file per CLI invocation; a batched pipeline
 needs host-side decode (WAV/FLAC -> float buffers) overlapped with device
@@ -43,17 +43,42 @@ def list_audio_files(root: str, recursive: bool = True) -> List[str]:
     return sorted(out)
 
 
-def shard_files_for_process(files: Sequence[str], process_index: int = 0,
-                            process_count: int = 1) -> List[str]:
+def shard_files_for_process(files: Sequence[str],
+                            process_index: Optional[int] = None,
+                            process_count: Optional[int] = None) -> List[str]:
     """Per-process file shard for multi-host ingest: process ``p`` takes
-    files ``p, p+P, p+2P, ...`` (stride = process count), which keeps the
-    per-process counts within one file of each other. The index and count
-    are explicit (``--process-shard INDEX COUNT`` on the batch CLIs); the
-    default, rank 0 of 1, is the identity."""
+    files ``p, p+P, p+2P, ...`` (stride = process count).
+
+    This is the host-side half of ``BatchedMel/Phase(input_mode=
+    "process_local")``: each process decodes only its own files and passes
+    the resulting rows; the strided split keeps per-process counts within one
+    file of each other, so equal local batch sizes need at most one padding
+    row. Defaults come from the live ``torch.distributed`` group (the batch
+    CLIs pass ``--process-shard INDEX COUNT``); without one this is the
+    identity."""
+    if process_index is None or process_count is None:
+        from ..parallel import mesh
+        process_index = mesh.process_index()
+        process_count = mesh.process_count()
     if not 0 <= process_index < process_count:
         raise ValueError(f"process_index {process_index} not in "
                          f"[0, {process_count})")
     return list(files[process_index::process_count])
+
+
+def shard_files_for_group(files: Sequence[str], mesh) -> List[str]:
+    """Per-GROUP file shard for meshes where several processes co-own each
+    data block (e.g. a 2x2 ``(data, frame)`` mesh over four single-device
+    processes): group ``g`` takes files ``g, g+G, g+2G, ...``.
+
+    The group half of ``shard_files_for_process``: co-owning processes get
+    the IDENTICAL list (the process-local ingest requires group members to
+    pass identical rows, parallel.mesh.data_group_for_process). On meshes
+    with one process per data block this equals ``shard_files_for_process``.
+    """
+    from ..parallel.mesh import data_group_for_process
+    gi, ng = data_group_for_process(mesh)
+    return list(files[gi::ng])
 
 
 def load_audio(path: str, mono: str = "left",

@@ -4,7 +4,11 @@ At first use one ``nvcc`` per source, all started together, compiles each for
 ``sm_90a``, and one more links the objects into one shared library with a
 plain C interface, ``build/gomel_tpu_torch/libgomel_kernels.so`` beside the
 package. A stamp file holds the hash of the sources the library was built
-from; a changed source rebuilds it. ``ctypes`` loads the library, and
+from; a changed source rebuilds it. Several processes may load the kernels
+at once (the multi-process meshes): the build runs under an exclusive
+``flock`` on ``build.lock`` in the build directory, a process that waited
+for it finds the stamp current and builds nothing, and the library and the
+stamp each land by an atomic rename. ``ctypes`` loads the library, and
 :func:`launch` calls an entry point on PyTorch's current stream and raises
 if the launch failed.
 
@@ -14,6 +18,7 @@ CUDA toolkit, where only the kernels' plain PyTorch versions run.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -118,18 +123,34 @@ def _nvcc() -> str:
     return path
 
 
+def _current(digest: str) -> bool:
+    """Whether the library exists and its stamp holds ``digest``."""
+    stamp = LIB_PATH + ".sha256"
+    if not (os.path.exists(LIB_PATH) and os.path.exists(stamp)):
+        return False
+    with open(stamp) as f:
+        return f.read().strip() == digest
+
+
 def build() -> float:
     """Compile the kernels unless the stamp matches the sources; returns the
-    seconds spent compiling (0.0 when the library was current). The
+    seconds spent compiling (0.0 when the library was current, also when
+    another process built it while this one waited for the lock). The
     compiler's report (registers, shared memory, spills) goes to
     ``build.log``."""
     digest = sources_hash()
-    stamp = LIB_PATH + ".sha256"
-    if os.path.exists(LIB_PATH) and os.path.exists(stamp):
-        with open(stamp) as f:
-            if f.read().strip() == digest:
-                return 0.0
+    if _current(digest):
+        return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        if _current(digest):
+            return 0.0
+        return _compile(digest)
+
+
+def _compile(digest: str) -> float:
+    """One build of the library (under the lock); returns its seconds."""
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
@@ -163,8 +184,10 @@ def build() -> float:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, LIB_PATH)   # atomic: a concurrent loader sees old or new
-    with open(stamp, "w") as f:
+    stamp = LIB_PATH + ".sha256"
+    with open(stamp + f".tmp{os.getpid()}", "w") as f:
         f.write(digest)
+    os.replace(stamp + f".tmp{os.getpid()}", stamp)
     return time.perf_counter() - t0
 
 

@@ -18,19 +18,26 @@ signal is cut into contiguous runs of frames, one per shard of the mesh's
   over the shards, and KM divides each sample by the window sum at its
   global position.
 
-One process drives every shard (the mesh's devices may repeat: four frame
-shards on one card). The halo "collectives" are copies between shard
-tensors, peer copies when two shards sit on different cards. Each shard's
-work runs the port's kernels on its device: KA (file ingest), KB + KC or KE
-(encode; K18's chunk loop when asked), KD / KF (file quantize), KL (file
-dequantize), KG with a real-frame count + KH without a window (decode), KI +
-KJ + KK (Griffin-Lim; KN + KO on the interior iterations with
-``interior_mm``), and KM after every synthesis.
+One process drives every shard of a mesh that one process owns (the mesh's
+devices may repeat: four frame shards on one card); there the halo
+"collectives" are copies between shard tensors, peer copies when two shards
+sit on different cards. On a mesh over several processes
+(parallel/mesh.py) each process holds and computes its own shards, and a
+halo between shards of two processes goes over the process group: every
+process posts all its sends and receives of one exchange in one
+``torch.distributed.batch_isend_irecv`` (device tensors on NCCL; on gloo a
+CUDA tensor goes through pinned host memory, D2H before the send and H2D
+after the receive), the per-row finite flags of a PCM-16 result meet in a
+MIN all-reduce, and the window-sum threshold, a host value of the plan,
+needs nothing. Each shard's work runs the port's kernels on its device:
+KA (file ingest), KB + KC or KE (encode; K18's chunk loop when asked), KD /
+KF (file quantize), KL (file dequantize), KG with a real-frame count + KH
+without a window (decode), KI + KJ + KK (Griffin-Lim; KN + KO on the
+interior iterations with ``interior_mm``), and KM after every synthesis.
 
 The host plan (``FrameShardPlan``, ``plan_frame_sharding``,
 ``pad_signal_for_plan``, ``pad_frames_for_plan``) is copied from the JAX
-package and pinned to it by tests/test_torch_host.py. The multi-process form
-(NCCL halos, process-local ingest) is a later slice.
+package and pinned to it by tests/test_torch_host.py.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import fftbackend, istft
 from ..ops import prng
@@ -48,6 +56,7 @@ from ..ops.quantize import pcm16_encode
 from ..ops.rfft_mag import stft_planes
 from ..ops.stft import auto_frame_chunk, hann_window
 from .mesh import DATA_AXIS, FRAME_AXIS, Mesh, Sharded
+from .mesh import backend as _backend
 
 
 # ---------------------------------------------------------------------------
@@ -149,42 +158,106 @@ def _local_frame_count(plan: FrameShardPlan, f: int) -> int:
                plan.frames_per_shard)
 
 
+def _exchange(sends: list, recvs: list) -> None:
+    """One halo exchange between processes: ``sends`` [(peer, tag, tensor)]
+    and ``recvs`` [(peer, tag, destination view)], all posted in one
+    ``batch_isend_irecv`` (so no order of the processes can deadlock) and
+    waited on; each received tensor is then copied into its destination.
+    ``tag`` is the receiving shard's index, unique within an exchange; both
+    sides post in the order of that index (NCCL matches a pair's messages in
+    order). On gloo a CUDA tensor is staged through pinned host memory: D2H
+    before the send, H2D after the receive."""
+    if not sends and not recvs:
+        return
+    staged = _backend() == "gloo"
+
+    def wire(t: torch.Tensor) -> torch.Tensor:
+        """A contiguous buffer of ``t``'s shape on the transport's side."""
+        if staged and t.device.type == "cuda":
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+    ops, landed = [], []
+    for peer, tag, t in sends:
+        buf = wire(t)
+        buf.copy_(t)                       # D2H when staged: synchronous
+        ops.append(dist.P2POp(dist.isend, buf, peer, tag=tag))
+    for peer, tag, dst in recvs:
+        buf = wire(dst)
+        ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+        landed.append((buf, dst))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for buf, dst in landed:
+        dst.copy_(buf)                     # H2D when staged
+
+
 def _pull_right_halo(exts: list, mesh: Mesh, plan: FrameShardPlan) -> None:
-    """Fill the last ``halo`` columns of each extended buffer [B, chunk +
-    halo] with the first ``halo`` samples of its right neighbour's chunk;
-    the last frame shard reads zeros (open boundary). In place."""
+    """Fill the last ``halo`` columns of each of this process's extended
+    buffers [B, chunk + halo] with the first ``halo`` samples of its right
+    neighbour's chunk; the last frame shard reads zeros (open boundary). In
+    place: a copy when the neighbour is local, else one exchange over the
+    process group for all the shards."""
     chunk, halo = plan.chunk, plan.halo
-    for i, e in enumerate(exts):
-        if _frame_index(mesh, i) + 1 < mesh.shape[FRAME_AXIS]:
-            e[:, chunk:].copy_(exts[i + 1][:, :halo])
-        else:
-            e[:, chunk:].zero_()
+    n_frame = mesh.shape[FRAME_AXIS]
+    sends, recvs = [], []
+    for i in range(mesh.size):
+        if _frame_index(mesh, i) + 1 == n_frame:
+            if exts[i] is not None:
+                exts[i][:, chunk:].zero_()
+            continue
+        mine, right = exts[i] is not None, exts[i + 1] is not None
+        if mine and right:
+            exts[i][:, chunk:].copy_(exts[i + 1][:, :halo])
+        elif mine:
+            recvs.append((mesh.rank(i + 1), i, exts[i][:, chunk:]))
+        elif right:
+            sends.append((mesh.rank(i), i, exts[i + 1][:, :halo]))
+    _exchange(sends, recvs)
 
 
 def _push_tail_right(sig_exts: list, mesh: Mesh,
                      plan: FrameShardPlan) -> list:
-    """The overlap-add tail each shard receives from its LEFT neighbour:
-    that neighbour's last ``halo`` samples [B, halo], on this shard's device
-    (a view when both sit on one device); None for frame shard 0 (open
-    boundary: it receives zeros)."""
-    recv = []
-    for i, s in enumerate(sig_exts):
+    """The overlap-add tail each of this process's shards receives from its
+    LEFT neighbour: that neighbour's last ``halo`` samples [B, halo], on
+    this shard's device (a view when both sit on one device, a buffer
+    filled by the exchange when the neighbour is another process's); None
+    for frame shard 0 (open boundary: it receives zeros) and for the shards
+    of other processes."""
+    chunk, halo = plan.chunk, plan.halo
+    recv: list = [None] * mesh.size
+    sends, recvs = [], []
+    for i in range(mesh.size):
         if _frame_index(mesh, i) == 0:
-            recv.append(None)
-        else:
-            recv.append(sig_exts[i - 1][:, plan.chunk:].to(s.device))
+            continue
+        mine, left = sig_exts[i] is not None, sig_exts[i - 1] is not None
+        if mine and left:
+            recv[i] = sig_exts[i - 1][:, chunk:].to(sig_exts[i].device)
+        elif mine:
+            s = sig_exts[i]
+            recv[i] = s.new_empty((s.shape[0], halo))
+            recvs.append((mesh.rank(i - 1), i, recv[i]))
+        elif left:
+            sends.append((mesh.rank(i), i, sig_exts[i - 1][:, chunk:]))
+    _exchange(sends, recvs)
     return recv
+
+
+def _local(shards: list, fn) -> list:
+    """``fn(i, shard)`` for each of this process's shards, None for the
+    others'."""
+    return [None if s is None else fn(i, s) for i, s in enumerate(shards)]
 
 
 def _local_signal_ext(x: Sharded, plan: FrameShardPlan) -> list:
     """[B, chunk] shards -> [B, chunk + halo] extended signals with the
     right neighbour's head pulled in: the buffer every analysis frames from
     (the single definition of the halo protocol)."""
-    exts = []
-    for s in x.shards:
+    def extend(_, s):
         e = s.new_empty((s.shape[0], plan.chunk + plan.halo))
         e[:, :plan.chunk].copy_(s)
-        exts.append(e)
+        return e
+    exts = _local(x.shards, extend)
     _pull_right_halo(exts, x.mesh, plan)
     return exts
 
@@ -194,40 +267,54 @@ def _local_overlap_add(sig_exts: list, mesh: Mesh, plan: FrameShardPlan,
     """Each shard's un-normalised overlap-add [B, chunk + halo] -> its
     [B, chunk] samples: the left neighbour's tail added into its head, then
     ``epilogue`` (ops/istft.shard_epilogue: the global window-sum
-    normalisation, the momentum step or PCM-16), kernel KM on the card."""
+    normalisation, the momentum step or PCM-16), kernel KM on the card.
+    ``window`` is a :class:`_PerDevice` (each shard takes its device's)."""
     recv = _push_tail_right(sig_exts, mesh, plan)
-    decode = epilogue.get("window") is not None
+    window = epilogue.pop("window", None)
     t_prev = epilogue.pop("t_prev", None)
-    out = []
-    for i, (s, r) in enumerate(zip(sig_exts, recv)):
+
+    def finish(i, s):
         kw = dict(epilogue)
-        if decode:
+        if window is not None:
+            kw["window"] = window(s.device)
             kw["start"] = _frame_index(mesh, i) * plan.chunk
         if t_prev is not None:
             kw["t_prev"] = t_prev[i]
-        out.append(istft.shard_epilogue(s, r, plan.chunk, **kw))
-    return out
+        return istft.shard_epilogue(s, recv[i], plan.chunk, **kw)
+    return _local(sig_exts, finish)
 
 
 def _rows_finite(flags: list, mesh: Mesh) -> torch.Tensor:
-    """Per-shard [B_loc] finite flags -> [B] on the mesh's first device: a
-    row is finite when every frame shard of it is."""
+    """Per-shard [B_loc] finite flags -> [B] on this process's first
+    device: a row is finite when every frame shard of it is. Across
+    processes each process ANDs its own frame shards of a row (rows it owns
+    no shard of count as finite) and a MIN all-reduce over the group
+    combines them, so every process gets every row's flag."""
     n_frame = mesh.shape[FRAME_AXIS]
-    dev = mesh.first_device
+    dev = mesh.first_local_device
+    b_loc = next(f for f in flags if f is not None).shape[0]
     rows = []
     for d in range(mesh.shape[DATA_AXIS]):
-        ok = flags[d * n_frame].to(dev)
-        for f in range(1, n_frame):
-            ok = ok & flags[d * n_frame + f].to(dev)
+        ok = torch.ones(b_loc, dtype=torch.bool, device=dev)
+        for f in flags[d * n_frame:(d + 1) * n_frame]:
+            if f is not None:
+                ok = ok & f.to(dev)
         rows.append(ok)
-    return torch.cat(rows)
+    out = torch.cat(rows)
+    if not mesh.spans_processes:
+        return out
+    wire = out.to(torch.int32)
+    if _backend() == "gloo":
+        wire = wire.cpu()
+    dist.all_reduce(wire, op=dist.ReduceOp.MIN)
+    return wire.to(dev) > 0
 
 
 def _pcm16_result(outs: list, mesh: Mesh):
     """[(int16 [B_loc, chunk], finite [B_loc])] per shard -> (Sharded int16,
     finite [B])."""
-    return (Sharded(mesh, [p for p, _ in outs]),
-            _rows_finite([f for _, f in outs], mesh))
+    return (Sharded(mesh, [None if o is None else o[0] for o in outs]),
+            _rows_finite([None if o is None else o[1] for o in outs], mesh))
 
 
 class _PerDevice:
@@ -265,13 +352,12 @@ def sharded_stft_fn(mesh: Mesh, plan: FrameShardPlan,
     bins = plan.frame_len // 2 + 1
 
     def fn(x: Sharded) -> tuple[Sharded, Sharded]:
-        re, im = [], []
-        for e in _local_signal_ext(x, plan):
-            sp = stft_planes(e, window(e.device), plan.frame_len, plan.hop, 0,
-                             bins, fft_backend)
-            re.append(sp[..., 1].contiguous())
-            im.append(sp[..., 0].contiguous())
-        return Sharded(mesh, re), Sharded(mesh, im)
+        planes = _local(_local_signal_ext(x, plan), lambda _, e: stft_planes(
+            e, window(e.device), plan.frame_len, plan.hop, 0, bins,
+            fft_backend))
+        return tuple(Sharded(mesh, _local(
+            planes, lambda _, sp: sp[..., part].contiguous()))
+            for part in (1, 0))
 
     return fn
 
@@ -284,16 +370,16 @@ def sharded_istft_fn(mesh: Mesh, plan: FrameShardPlan,
     without a window, then KM's halo add and normalisation."""
     window = _PerDevice(hann_window(plan.frame_len), dtype)
 
+    def synth(i, h):
+        real = _local_frame_count(plan, _frame_index(mesh, i))
+        frames_w = istft.irfft_window(
+            h.real.contiguous(), h.imag.contiguous(), plan.frame_len,
+            window(h.device), real)
+        return istft.overlap_add(frames_w, plan.hop)
+
     def fn(half_spec: Sharded) -> Sharded:
-        sig_exts = []
-        for i, h in enumerate(half_spec.shards):
-            real = _local_frame_count(plan, _frame_index(mesh, i))
-            frames_w = istft.irfft_window(
-                h.real.contiguous(), h.imag.contiguous(), plan.frame_len,
-                window(h.device), real)
-            sig_exts.append(istft.overlap_add(frames_w, plan.hop))
         return Sharded(mesh, _local_overlap_add(
-            sig_exts, mesh, plan, window=window(mesh.first_device),
+            _local(half_spec.shards, synth), mesh, plan, window=window,
             hop=plan.hop, n_frames=plan.n_frames))
 
     return fn
@@ -331,7 +417,7 @@ def sharded_gl_noise_fn(mesh: Mesh, plan: FrameShardPlan, batch: int,
     def fn(seed: int) -> Sharded:
         return Sharded(mesh, [
             _shard_noise(seed, plan, b_loc, dtype, i, mesh.device(i))
-            for i in range(mesh.size)])
+            if mesh.is_local(i) else None for i in range(mesh.size)])
 
     return fn
 
@@ -373,22 +459,22 @@ def sharded_griffin_lim_fn(mesh: Mesh, plan: FrameShardPlan, n_iter: int,
     mom = float(momentum)
 
     def project(exts, mags, final=False):
-        return [gl_overlap_add(gl_project(e, m, window(e.device), n, hop,
-                                          backend, final, hann_window(n)),
-                               hop)
-                for e, m in zip(exts, mags)]
+        return _local(exts, lambda i, e: gl_overlap_add(gl_project(
+            e, mags[i], window(e.device), n, hop, backend, final,
+            hann_window(n)), hop))
+
+    def pad_frames_zero(i, m):
+        real = _local_frame_count(plan, _frame_index(mesh, i))
+        if real < m.shape[1]:
+            m = m.clone()
+            m[:, real:] = 0.0
+        return m
 
     def fn(mag: Sharded, sig0):
         if noise_init:
             sig0 = sharded_gl_noise_fn(
                 mesh, plan, mag.shape[0], dtype)(sig0)
-        mags = []
-        for i, m in enumerate(mag.shards):
-            real = _local_frame_count(plan, _frame_index(mesh, i))
-            if real < m.shape[1]:
-                m = m.clone()
-                m[:, real:] = 0.0
-            mags.append(m)
+        mags = _local(mag.shards, pad_frames_zero)
         exts = _local_signal_ext(sig0, plan)
         n_interior = n_iter if not final_iteration else max(n_iter - 1, 0)
         t_prev = list(sig0.shards)
@@ -397,7 +483,8 @@ def sharded_griffin_lim_fn(mesh: Mesh, plan: FrameShardPlan, n_iter: int,
             if mom != 0.0:
                 outs = _local_overlap_add(sig_exts, mesh, plan, t_prev=t_prev,
                                           momentum=mom, extend=True)
-                exts, t_prev = [c for c, _ in outs], [t for _, t in outs]
+                exts = _local(outs, lambda _, o: o[0])
+                t_prev = _local(outs, lambda _, o: o[1])
             else:
                 exts = _local_overlap_add(sig_exts, mesh, plan, extend=True)
             _pull_right_halo(exts, mesh, plan)
@@ -405,11 +492,10 @@ def sharded_griffin_lim_fn(mesh: Mesh, plan: FrameShardPlan, n_iter: int,
             outs = _local_overlap_add(project(exts, mags, final=True), mesh,
                                       plan, pcm16=pcm16)
             return _pcm16_result(outs, mesh) if pcm16 else Sharded(mesh, outs)
-        sig = [e[:, :plan.chunk].contiguous() for e in exts]
+        sig = _local(exts, lambda _, e: e[:, :plan.chunk].contiguous())
         if pcm16:
-            return _pcm16_result(
-                [(pcm16_encode(s)[0], torch.isfinite(s).all(dim=-1))
-                 for s in sig], mesh)
+            return _pcm16_result(_local(sig, lambda _, s: (
+                pcm16_encode(s)[0], torch.isfinite(s).all(dim=-1))), mesh)
         return Sharded(mesh, sig)
 
     return fn
@@ -433,10 +519,10 @@ def sharded_phase_encode_fn(mesh: Mesh, plan: FrameShardPlan, num_freqs: int,
     fc = _frame_chunk(plan, frame_chunk)
 
     def fn(x: Sharded) -> Sharded:
-        return Sharded(mesh, [
-            phase_encode(e, num_freqs, plan.frame_len, plan.hop,
-                         window(e.device), fft_backend, frame_chunk=fc)
-            for e in _local_signal_ext(x, plan)])
+        return Sharded(mesh, _local(
+            _local_signal_ext(x, plan), lambda _, e: phase_encode(
+                e, num_freqs, plan.frame_len, plan.hop, window(e.device),
+                fft_backend, frame_chunk=fc)))
 
     return fn
 
@@ -456,14 +542,14 @@ def sharded_phase_decode_fn(mesh: Mesh, plan: FrameShardPlan,
     del frame_chunk
     window = _PerDevice(hann_window(plan.frame_len), dtype)
 
+    def synth(i, s):
+        real = _local_frame_count(plan, _frame_index(mesh, i))
+        return phase_synthesize(s, plan.frame_len, plan.hop,
+                                window(s.device), real)
+
     def fn(spec2: Sharded):
-        sig_exts = []
-        for i, s in enumerate(spec2.shards):
-            real = _local_frame_count(plan, _frame_index(mesh, i))
-            sig_exts.append(phase_synthesize(s, plan.frame_len, plan.hop,
-                                             window(s.device), real))
         outs = _local_overlap_add(
-            sig_exts, mesh, plan, window=window(mesh.first_device),
+            _local(spec2.shards, synth), mesh, plan, window=window,
             hop=plan.hop, n_frames=plan.n_frames,
             volume_boost=float(volume_boost), pcm16=pcm16)
         return _pcm16_result(outs, mesh) if pcm16 else Sharded(mesh, outs)
@@ -484,10 +570,10 @@ def sharded_mel_encode_fn(mesh: Mesh, plan: FrameShardPlan, num_mels: int,
     fc = _frame_chunk(plan, frame_chunk)
 
     def fn(x: Sharded) -> Sharded:
-        return Sharded(mesh, [
-            mel_encode(e, num_mels, plan.frame_len, plan.hop, fwd(e.device),
-                       window(e.device), fft_backend, frame_chunk=fc)
-            for e in _local_signal_ext(x, plan)])
+        return Sharded(mesh, _local(
+            _local_signal_ext(x, plan), lambda _, e: mel_encode(
+                e, num_mels, plan.frame_len, plan.hop, fwd(e.device),
+                window(e.device), fft_backend, frame_chunk=fc)))
 
     return fn
 
@@ -501,9 +587,9 @@ def sharded_mel_magnitudes_fn(mesh: Mesh, inv_weights, tune_mul: float = 1.0,
     inv = _PerDevice(inv_weights, dtype)
 
     def fn(logmel: Sharded) -> Sharded:
-        return Sharded(mesh, [
+        return Sharded(mesh, _local(logmel.shards, lambda _, s: (
             mel_to_magnitudes(s.contiguous(), inv(s.device), tune_mul,
-                              tune_add) for s in logmel.shards])
+                              tune_add))))
 
     return fn
 

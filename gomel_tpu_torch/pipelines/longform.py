@@ -1,8 +1,7 @@
 """Long-form frame-sharded pipelines: the user-facing API over
 parallel/sharded.py.
 
-Counterpart of ``gomel_tpu/pipelines/longform.py`` on one controller: one
-process drives every shard of the mesh. Hour-scale audio is cut into runs of
+Counterpart of ``gomel_tpu/pipelines/longform.py``. Hour-scale audio is cut into runs of
 frames over the mesh's 'frame' axis with a one-window halo, composed with
 the 'data' batch axis; this module hides the plan, padding and trim behind
 the encode/decode shapes of pipelines.mel / pipelines.phase and gives the
@@ -15,20 +14,27 @@ Typical use::
     spec = lf.encode(batch_of_long_audio)   # [B, F, num_freqs, 2]
     wav = lf.decode(spec)                   # [B, out_len]
 
-Results are tensors on the mesh's first device. On the file paths with
+On a mesh that one process owns, results are tensors on the mesh's first
+device. On a mesh over several processes (parallel/mesh.py) every process
+passes the same whole host input (the replicated-input model: each read the
+same file), uploads only its own shards, and gets back its own shards, not
+gathered: a :class:`parallel.mesh.Sharded` trimmed to the result's shape
+(read it with ``addressable_shards``), which ``decode`` also takes as its
+input. The file calls need the whole file on one host and refuse such a
+mesh; :func:`save_gl_checkpoint_sharded` and
+:func:`load_gl_checkpoint_sharded` persist a ``decode_resumable`` carry
+shard by shard, each process its own. On the file paths with
 ``device_quantize``, only int16 samples go to the shards (converted there by
 kernel KA) and the quantizer (KD / KF) runs on the trimmed global
 spectrogram gathered on the mesh's first device, so its extrema are the
 whole file's; the decodes upload integer planes, de-quantize them per shard
 (kernel KL) and read back int16 samples (KM's PCM-16 epilogue).
-
-The sharded checkpoint directory of the JAX package (``save/load_gl_
-checkpoint_sharded``, ``prune_gl_checkpoints``) belongs to the multi-process
-slice, not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
 
 import numpy as np
 import torch
@@ -44,18 +50,22 @@ from ..ops.quantize import (dequantize_raw, pcm16_ingest_batch,
 from ..ops.resample import zero_stuff_upsample
 from ..parallel import sharded as sh
 from ..parallel.mesh import (_CPU_MESH_HINT, DATA_AXIS, FRAME_AXIS, Mesh,
-                             Sharded, make_mesh, shard_array)
+                             Sharded, all_reduce_min_host, make_mesh,
+                             process_count, process_index, shard_array)
 
 
 def _default_mesh(what: str) -> Mesh:
-    """Every CUDA device on the 'frame' axis; raises without CUDA."""
+    """Every CUDA device on the 'frame' axis (with a process group of
+    several processes, each process's card); raises without CUDA."""
     require_device("cuda", what, hint=_CPU_MESH_HINT)
-    return make_mesh(data=1, frame=torch.cuda.device_count())
+    n = process_count() if process_count() > 1 else torch.cuda.device_count()
+    return make_mesh(data=1, frame=n)
 
 
 def _as_array(x):
-    """A tensor stays; anything else becomes a numpy array."""
-    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+    """A tensor or a Sharded array stays; anything else becomes a numpy
+    array."""
+    return x if isinstance(x, (torch.Tensor, Sharded)) else np.asarray(x)
 
 
 class _LongFormBase:
@@ -112,14 +122,39 @@ class _LongFormBase:
     def _prep_frames(self, spec, plan: sh.FrameShardPlan, raw: bool = False
                      ) -> tuple[Sharded, int]:
         """Pad a [B, F, ...] spectrogram to (batch multiple, F_pad) and shard
-        it, in the working dtype (``raw``: as it is, integer planes)."""
+        it, in the working dtype (``raw``: as it is, integer planes). A
+        :class:`Sharded` result of this object's encode on the same mesh
+        passes through as it is (its pad frames are the plan's)."""
+        if isinstance(spec, Sharded):
+            if (spec.mesh is not self.mesh
+                    or spec.padded_shape[1] != plan.n_frames_padded):
+                raise ValueError(
+                    f"a Sharded spectrogram of {spec.padded_shape[1]} frames "
+                    f"on another mesh or plan (this one pads to "
+                    f"{plan.n_frames_padded} frames)")
+            dtype = None if raw else self.dtype
+            return Sharded(self.mesh, [None if s is None else s.to(dtype)
+                                       for s in spec.shards]), spec.shape[0]
         spec, b = self._pad_batch(sh.pad_frames_for_plan(_as_array(spec),
                                                          plan))
         return shard_array(spec, self.mesh, None if raw else self.dtype), b
 
-    @staticmethod
-    def _trim(result: Sharded, b: int, n: int) -> torch.Tensor:
+    def _trim(self, result: Sharded, b: int, n: int):
+        """The [:b, :n] result: gathered on one controller, this process's
+        shards (a trimmed :class:`Sharded`) on a mesh over processes."""
+        if self.mesh.spans_processes:
+            return Sharded(self.mesh, result.shards, trim=(b, n))
         return result.gather()[:b, :n]
+
+    def _require_single_controller(self, what: str) -> None:
+        """The file calls read or write one host file: they need the whole
+        array in this process, so a mesh over several processes is refused
+        (gomel_tpu/pipelines/longform.py:152)."""
+        if self.mesh.spans_processes:
+            raise ValueError(
+                f"{what} assembles the full file on one host; on "
+                f"multi-process meshes use the buffer-level encode/decode "
+                f"with per-shard I/O (save_gl_checkpoint_sharded)")
 
     def _pcm_convert(self, xg: Sharded, scale: float) -> Sharded:
         """Raw int16 shards -> float shards, each through kernel KA (exact:
@@ -177,14 +212,16 @@ class LongFormPhase(_LongFormBase):
                               self.mesh, plan, boost, self.dtype,
                               pcm16=pcm16))
 
-    def encode(self, x) -> torch.Tensor:
-        """[B, L] (or [L]) -> [B, F, num_freqs, 2] (F = real frame count)."""
+    def encode(self, x) -> torch.Tensor | Sharded:
+        """[B, L] (or [L]) -> [B, F, num_freqs, 2] (F = real frame count;
+        this process's shards of it on a mesh over processes)."""
         plan = self._plan(_as_array(x).shape[-1])
         xp, b = self._prep_signal(x, plan)
         return self._trim(self._encode_fn(plan)(xp), b, plan.n_frames)
 
-    def decode(self, spec) -> torch.Tensor:
-        """[B, F, num_freqs, 2] -> [B, out_len]."""
+    def decode(self, spec) -> torch.Tensor | Sharded:
+        """[B, F, num_freqs, 2] -> [B, out_len] (this process's shards on a
+        mesh over processes)."""
         spec = _as_array(spec)
         plan = self._plan_for_frames(spec.shape[1])
         spec_p, b = self._prep_frames(spec, plan)
@@ -241,6 +278,7 @@ class LongFormPhase(_LongFormBase):
     def to_phase_wav(self, input_file: str, output_file: str) -> None:
         """WAV -> phase PNG, frame-sharded over the mesh (upsample,
         samples_in_mel, Go metadata layout; phase/phase.go:221-244)."""
+        self._require_single_controller("LongFormPhase.to_phase_wav")
         buf, sr = audio_io.load_wav_any(input_file, mono="left",
                                         raw_pcm16=self.device_quantize)
         self._encode_loaded(buf, sr, output_file)
@@ -248,6 +286,7 @@ class LongFormPhase(_LongFormBase):
     def to_phase_flac(self, input_file: str, output_file: str) -> None:
         """FLAC -> phase PNG, frame-sharded (phase/phase.go:195-218; 1/32768
         scaling)."""
+        self._require_single_controller("LongFormPhase.to_phase_flac")
         buf, sr = audio_io.load_flac_any(input_file, mono="go_concat",
                                          scaling="phase",
                                          raw_pcm16=self.device_quantize)
@@ -257,6 +296,7 @@ class LongFormPhase(_LongFormBase):
                    layout: str = "auto") -> int:
         """phase PNG -> WAV, frame-sharded decode (phase/phase.go:246-275).
         Returns the sample rate written."""
+        self._require_single_controller("LongFormPhase.to_wav_png")
         c = self.config
         if self.device_quantize:
             planes, maxs, mins, samples, sr, nf = \
@@ -344,15 +384,17 @@ class LongFormMel(_LongFormBase):
                 f"{self.config.num_mels}; decode with the same config the "
                 f"image was written with")
 
-    def encode(self, x) -> torch.Tensor:
-        """[B, L] (or [L]) -> [B, F, num_mels, 2] log-mel."""
+    def encode(self, x) -> torch.Tensor | Sharded:
+        """[B, L] (or [L]) -> [B, F, num_mels, 2] log-mel (this process's
+        shards on a mesh over processes)."""
         plan = self._plan(_as_array(x).shape[-1])
         xp, b = self._prep_signal(x, plan)
         return self._trim(self._encode_fn(plan)(xp), b, plan.n_frames)
 
     def decode(self, logmel, seed: int = 0,
-               momentum: float = 0.0) -> torch.Tensor:
-        """[B, F, num_mels, 2] -> [B, out_len] via sharded Griffin-Lim from
+               momentum: float = 0.0) -> torch.Tensor | Sharded:
+        """[B, F, num_mels, 2] -> [B, out_len] (this process's shards on a
+        mesh over processes) via sharded Griffin-Lim from
         per-shard starts, each drawn on its shard's device from the key
         ``fold_in(key(seed), shard)`` (parallel/sharded._shard_noise): the
         JAX package's starts for that seed on the same mesh shape.
@@ -392,6 +434,7 @@ class LongFormMel(_LongFormBase):
 
     def to_mel_wav(self, input_file: str, output_file: str) -> None:
         """WAV -> mel PNG, frame-sharded over the mesh (mel/mel.go:194-209)."""
+        self._require_single_controller("LongFormMel.to_mel_wav")
         buf, sr = audio_io.load_wav_any(input_file, mono="left",
                                         raw_pcm16=self.device_quantize)
         if buf.dtype == np.int16:
@@ -402,6 +445,7 @@ class LongFormMel(_LongFormBase):
     def to_mel_flac(self, input_file: str, output_file: str) -> None:
         """FLAC -> mel PNG, frame-sharded (mel/mel.go:176-191; mel 1/65536
         FLAC scaling)."""
+        self._require_single_controller("LongFormMel.to_mel_flac")
         buf, sr = audio_io.load_flac_any(input_file, mono="go_concat",
                                          scaling="mel",
                                          raw_pcm16=self.device_quantize)
@@ -416,6 +460,7 @@ class LongFormMel(_LongFormBase):
         (mel/mel.go:211-238). VolumeBoost is added in the log domain before
         the decode; trim and embedded-rate rules match the single-file
         path. Returns the sample rate written."""
+        self._require_single_controller("LongFormMel.to_wav_png")
         c = self.config
         if self.device_quantize:
             planes, mx, mn, samples, sr = imagecodec.load_mel_image_raw(
@@ -451,11 +496,14 @@ class LongFormMel(_LongFormBase):
     def decode_resumable(self, logmel, seed: int = 0, momentum: float = 0.0,
                          segment_iters: int = 8, callback=None,
                          resume: tuple[int, object] | None = None
-                         ) -> torch.Tensor:
+                         ) -> torch.Tensor | Sharded:
         """``decode`` split into segments of ``segment_iters`` Griffin-Lim
         iterations; after each, ``callback(done_iters, carry)`` may persist
-        the signal carry (a Sharded [B, F_pad*hop]; :func:`save_gl_checkpoint`)
-        and ``resume=(done_iters, carry)`` restarts from one. With
+        the signal carry (a Sharded [B, F_pad*hop]; :func:`save_gl_checkpoint`,
+        or on a mesh over processes :func:`save_gl_checkpoint_sharded`) and
+        ``resume=(done_iters, carry)`` restarts from one (a whole host array,
+        or a Sharded carry such as :func:`load_gl_checkpoint_sharded`
+        returns). With
         ``momentum == 0`` the segments run the same iterations as
         ``decode`` from the same per-shard starts: bit-for-bit equal output.
         With momentum the extrapolation restarts at segment boundaries."""
@@ -500,8 +548,16 @@ class LongFormMel(_LongFormBase):
 
 def save_gl_checkpoint(path: str, done: int, carry) -> None:
     """Persist a ``decode_resumable`` checkpoint (iteration count + signal
-    carry, a Sharded or a whole array) to ``path`` (.npz)."""
+    carry, a Sharded or a whole array) to ``path`` (.npz). A mesh over
+    several processes holds no whole carry in one of them: there use
+    :func:`save_gl_checkpoint_sharded`."""
     if isinstance(carry, Sharded):
+        if carry.mesh.spans_processes:
+            raise ValueError(
+                "save_gl_checkpoint needs the full carry on one host; on "
+                "multi-process meshes persist it shard by shard with "
+                "save_gl_checkpoint_sharded from the decode_resumable "
+                "callback")
         carry = carry.gather()
     if isinstance(carry, torch.Tensor):
         carry = carry.cpu().numpy()
@@ -515,3 +571,156 @@ def load_gl_checkpoint(path: str) -> tuple[int, np.ndarray]:
     with open(path, "rb") as f:
         z = np.load(f)
         return int(z["done"]), z["carry"]
+
+
+# -- multi-process checkpoints: each process persists its own shards --------
+
+def _index_key(index, shape) -> str:
+    """Canonical string for a shard's global slice (device independent,
+    stable across restarts): ``start-stop`` of each axis, joined by ``_``
+    (gomel_tpu/pipelines/longform.py:626)."""
+    parts = []
+    for sl, dim in zip(index, shape):
+        start = 0 if sl.start is None else int(sl.start)
+        stop = dim if sl.stop is None else int(sl.stop)
+        parts.append(f"{start}-{stop}")
+    return "_".join(parts)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype ("float32"), as the JAX package's META
+    records it."""
+    return str(dtype).removeprefix("torch.")
+
+
+def save_gl_checkpoint_sharded(ckpt_dir: str, done: int,
+                               carry: Sharded) -> None:
+    """Checkpoint of a ``decode_resumable`` carry on any mesh, over several
+    processes too: every process writes the shards it owns, one .npz per
+    global slice, and no process needs the whole carry (the JAX package's
+    layout, gomel_tpu/pipelines/longform.py:637).
+
+    Each iteration count gets its own ``iter_<done>/`` directory; a file
+    lands under a temporary name and is renamed into place; every shard file
+    stamps ``done``; ``META.npz`` (done, shape, dtype) is written alike by
+    every process; a process writes its ``COMPLETE.p<rank>`` marker last,
+    after all its files. A save cut short leaves a directory that
+    :func:`load_gl_checkpoint_sharded` skips, and files are keyed by global
+    slice, so a restart on a mesh of the same shape reassembles them
+    whatever its devices."""
+    if carry.trim is not None:
+        raise ValueError("save_gl_checkpoint_sharded takes the untrimmed "
+                         "carry that decode_resumable's callback receives")
+    shape = carry.padded_shape
+    sub = os.path.join(ckpt_dir, f"iter_{int(done):08d}")
+    os.makedirs(sub, exist_ok=True)
+    pid = process_index()
+    for shard in carry.addressable_shards:
+        fname = os.path.join(sub, f"shard_{_index_key(shard.index, shape)}"
+                                  f".npz")
+        tmp = fname + f".tmp{pid}"
+        with open(tmp, "wb") as f:
+            np.savez(f, data=shard.data.cpu().numpy(), done=int(done))
+        os.replace(tmp, fname)
+    meta = os.path.join(sub, "META.npz")
+    tmp = meta + f".tmp{pid}"
+    with open(tmp, "wb") as f:
+        np.savez(f, done=int(done), shape=np.asarray(shape),
+                 dtype=_dtype_name(carry.dtype))
+    os.replace(tmp, meta)
+    with open(os.path.join(sub, f"COMPLETE.p{pid}"), "w"):
+        pass
+
+
+def _complete_checkpoints(ckpt_dir: str) -> list[int]:
+    """Iteration counts with META and this process's completeness marker,
+    ascending."""
+    pid = process_index()
+    try:
+        names = os.listdir(ckpt_dir)
+    except FileNotFoundError:
+        return []
+    out = []
+    for name in names:
+        sub = os.path.join(ckpt_dir, name)
+        if (name.startswith("iter_")
+                and os.path.exists(os.path.join(sub, f"COMPLETE.p{pid}"))
+                and os.path.exists(os.path.join(sub, "META.npz"))):
+            out.append(int(name[5:]))
+    return sorted(out)
+
+
+def prune_gl_checkpoints(ckpt_dir: str, keep_last: int = 2) -> None:
+    """Drop old checkpoint iterations, keeping the newest ``keep_last``
+    complete ones (by this process's markers). One process removes whole
+    directories; on several, each drops its own marker first, then the
+    shard files. Call it from the ``decode_resumable`` callback right after
+    a save, in every process at the same point, so no marker outlives its
+    shard files (a stale marker would make a later load fail on a missing
+    file, never reassemble wrong data: the stamps are checked)."""
+    if keep_last < 1:
+        raise ValueError("keep_last must be >= 1")
+    for done in _complete_checkpoints(ckpt_dir)[:-keep_last]:
+        sub = os.path.join(ckpt_dir, f"iter_{done:08d}")
+        if process_count() == 1:
+            shutil.rmtree(sub, ignore_errors=True)
+            continue
+        try:
+            os.remove(os.path.join(sub, f"COMPLETE.p{process_index()}"))
+        except FileNotFoundError:
+            pass
+        for name in os.listdir(sub):
+            if name.startswith("shard_"):
+                try:
+                    os.remove(os.path.join(sub, name))
+                except FileNotFoundError:
+                    pass   # another process's, already gone
+
+
+def load_gl_checkpoint_sharded(ckpt_dir: str, mesh: Mesh,
+                               done: int | None = None
+                               ) -> tuple[int, Sharded]:
+    """Reassemble a :func:`save_gl_checkpoint_sharded` checkpoint on a mesh
+    of the same shape: each process loads only its own shards' files.
+    Returns ``(done, carry)`` for ``decode_resumable(resume=...)``.
+
+    ``done=None`` takes the newest checkpoint every process completed: the
+    processes agree on the least of their newest by a MIN all-reduce, so a
+    preemption that cut some processes' saves short rolls every process
+    back to the last iteration all of them finished."""
+    if done is None:
+        local = _complete_checkpoints(ckpt_dir)
+        done = all_reduce_min_host(local[-1] if local else -1)
+        if done < 0:
+            raise ValueError(f"no complete checkpoint in {ckpt_dir!r} "
+                             f"(in every process)")
+        if done not in local:
+            raise ValueError(
+                f"globally-agreed checkpoint iter_{done} is not complete "
+                f"on process {process_index()}")
+    sub = os.path.join(ckpt_dir, f"iter_{int(done):08d}")
+    with open(os.path.join(sub, "META.npz"), "rb") as f:
+        z = np.load(f)
+        meta_done = int(z["done"])
+        shape = tuple(int(d) for d in z["shape"])
+        dtype = str(z["dtype"])
+    if meta_done != done:
+        raise ValueError(f"checkpoint {sub!r} META stamps done={meta_done}")
+    n_data, n_frame = mesh.shape[DATA_AXIS], mesh.shape[FRAME_AXIS]
+    if shape[0] % n_data or shape[1] % n_frame:
+        raise ValueError(f"checkpoint shape {shape} does not split over "
+                         f"mesh {mesh.shape}")
+    b, t = shape[0] // n_data, shape[1] // n_frame
+    shards: list = [None] * mesh.size
+    for i in mesh.local_indices:
+        d, f = divmod(i, n_frame)
+        index = (slice(d * b, (d + 1) * b), slice(f * t, (f + 1) * t))
+        fname = os.path.join(sub, f"shard_{_index_key(index, shape)}.npz")
+        with open(fname, "rb") as fh:
+            z = np.load(fh)
+            if int(z["done"]) != done:   # the mixed-iteration guard
+                raise ValueError(f"shard {fname!r} stamps done="
+                                 f"{int(z['done'])}, expected {done}")
+            data = z["data"].astype(dtype)
+        shards[i] = torch.from_numpy(data).to(mesh.device(i))
+    return done, Sharded(mesh, shards)

@@ -990,6 +990,10 @@ def call_longform(exp: Exported, mesh, *args):
     from .parallel.mesh import DATA_AXIS, FRAME_AXIS, Sharded, shard_array
     if exp.mesh_shape is None:
         raise ValueError("call_longform: not a long-form artifact")
+    if mesh.spans_processes:
+        raise ValueError("call_longform: an artifact is one program over "
+                         "every shard, so it runs on a mesh that one "
+                         "process owns")
     if mesh.size != exp.nr_devices:
         raise ValueError(f"artifact was exported for {exp.nr_devices} "
                          f"devices; mesh has {mesh.size}")

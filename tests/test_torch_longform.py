@@ -74,12 +74,9 @@ def _peak_close(got, want, tol):
     assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
 
 
-# the JAX package's parallel names that are multi-process or JAX-sharding
-# helpers: the multi-process slice, not the one-controller port
-LATER = {"data_sharding", "batch_frame_sharding", "replicated",
-         "initialize_multihost", "is_multihost", "data_group_for_process",
-         "host_to_global", "local_rows_to_global",
-         "process_local_batch_multiple", "local_rows"}
+# the JAX package's parallel names that build JAX shardings (a
+# NamedSharding has no counterpart: a Sharded array carries its layout)
+LATER = {"data_sharding", "batch_frame_sharding", "replicated"}
 # gomel_tpu/parallel/__init__.py:30-43, the frame-sharded programs
 SHARDED = ("FrameShardPlan", "plan_frame_sharding", "pad_signal_for_plan",
            "pad_frames_for_plan", "sharded_stft_fn", "sharded_istft_fn",
@@ -92,8 +89,8 @@ PLAN_FIELDS = ("frame_len", "hop", "n_shards", "n_frames", "n_frames_padded",
 
 
 def test_parallel_exports_the_frame_sharded_programs():
-    """Every name of gomel_tpu.parallel.__all__ but the multi-process and
-    JAX-sharding helpers is in gomel_tpu_torch.parallel.__all__ and
+    """Every name of gomel_tpu.parallel.__all__ but the JAX-sharding helpers
+    (the multi-process ones included) is in gomel_tpu_torch.parallel.__all__ and
     importable from it; the frame-sharded ones are parallel/sharded.py's,
     each taking the JAX function's parameters in the JAX order (the port
     adds ``pcm16`` after them)."""
