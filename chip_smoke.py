@@ -103,6 +103,14 @@ bytes and read_png's arrays equal to the numpy path's on all five filter
 types, and read_png's host time, native against numpy, on the 30 s phase
 PNG with Up, Sub and Paeth rows.
 
+Phase 2h holds the JAX call surface on the card at the bench shape
+(``call_surface``): ``frame_chunk`` on mel_encode_batch and
+phase_encode_batch from float32 and int16 rows (bit-equal to the unchunked
+call, one launch a chunk), on phase_decode (one KG and one KH launch, within
+1e-5 of the unchunked decode's peak; a chunk under N - hop raises),
+chunked_irfft_overlap_add with a prefix and a scattered ``frame_mask``, and
+ops/mxu_fft's transforms on KE, KB and KG.
+
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), a JSON object with one entry per kernel, and
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; so
@@ -270,8 +278,9 @@ def towav_split(png: str, out: str, dev: torch.device, runs: int
             mag = mel_ops.mel_to_magnitudes(planes, m.inv_weights, c.tune_mul,
                                             c.tune_add, c.volume_boost, mx, mn)
             return griffinlim.griffin_lim(mag, c.window,
-                                          c.griffin_lim_iterations, m.window,
-                                          init=init, pcm16=True)
+                                          c.griffin_lim_iterations,
+                                          window=m.window, init=init,
+                                          pcm16=True)
         pcm, finite = step("KI + GL kernels", kernels)
         wave = step("D2H int16 + flag", lambda: (pcm.cpu().numpy(),
                                                 bool(finite)))[0]
@@ -1677,7 +1686,8 @@ def longform(tmp: str, drive, card: str, dev: torch.device) -> None:
         torch.from_numpy(planes.copy()).to(dev), sm.inv_weights, c.tune_mul,
         c.tune_add, float(c.volume_boost), mx, mn)
     pcm1, ok1 = griffinlim.griffin_lim(mag, c.window, c.griffin_lim_iterations,
-                                       sm.window, init=start, pcm16=True)
+                                       window=sm.window, init=start,
+                                       pcm16=True)
     wave1 = pcm1.cpu().numpy()
     if not bool(ok1):
         raise AssertionError("single-path GL gave non-finite samples")
@@ -2224,7 +2234,7 @@ def serving_phase(tmp: str, drive, card: str, dev: torch.device,
         mag = mel_ops.mel_to_magnitudes(planes, inv, mcfg.tune_mul,
                                         mcfg.tune_add, mcfg.volume_boost, mx,
                                         mn, 255)
-        return griffinlim.griffin_lim(mag, hop, n_gl, win, key=host_keys(k),
+        return griffinlim.griffin_lim(mag, hop, n_gl, host_keys(k), win,
                                       pcm16=True)
 
     def frame_rel(got, want, dims):
@@ -3228,6 +3238,136 @@ def multiprocess(tmp: str, card: str, launches: dict, device: str = "cuda",
             f"where the card count reaches the process count")
 
 
+def call_surface(dev: torch.device, tallies: dict, x: torch.Tensor,
+                 pcm: torch.Tensor, win: torch.Tensor, fwd: torch.Tensor,
+                 mels: int, nf: int, n: int, hop: int) -> None:
+    """Phase 2h: the JAX call surface of the encodes and decodes on the card,
+    at the bench shape. ``frame_chunk`` on mel_encode_batch and
+    phase_encode_batch (float32 rows ``x`` and int16 rows ``pcm``) gives the
+    unchunked call's bits with one launch of the encode's kernel a chunk;
+    phase_decode with ``frame_chunk`` stays one KG and one KH launch within
+    1e-5 of the unchunked decode's peak, and a chunk under N - hop raises
+    the JAX program's ValueError; chunked_irfft_overlap_add with a prefix
+    frame_mask gives the real-frame count's bits, and with a scattered one
+    is within 1e-5 of the peak of its plain version (torch.fft, the masked
+    frames zeroed, the plain overlap-add); ops/mxu_fft's three transforms
+    launch KE, KB and KG within 1e-5 of the peak of torch.fft. These
+    launches do not count as the main path's."""
+    from gomel_tpu_torch.ops import istft, mel_ops, mxu_fft, phase_ops
+
+    def counted(fn):
+        for k in tallies.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: k.launches for name, k in tallies.items()
+                     if k.launches}
+
+    def near(got, want, label):
+        err = float((got - want).abs().max())
+        peak = float(want.abs().max())
+        if not err <= 1e-5 * peak:
+            raise AssertionError(f"{label}: max|d| {err:.3e} > 1e-5 of the "
+                                 f"peak {peak:.3e}")
+        return err, peak
+
+    encodes = (
+        ("mel_encode_batch float32", "stft_mel_log", lambda c:
+         mel_ops.mel_encode_batch(x, mels, n, hop, fwd, win, "auto", c)),
+        ("mel_encode_batch int16", "stft_mel_log pcm16", lambda c:
+         mel_ops.mel_encode_batch(pcm, mels, n, hop, fwd, win, "auto", c,
+                                  pcm_scale=32768.0)),
+        ("phase_encode_batch float32", "phase_encode", lambda c:
+         phase_ops.phase_encode_batch(x, nf, n, hop, win, "auto", c)),
+        ("phase_encode_batch int16", "phase_encode", lambda c:
+         phase_ops.phase_encode_batch(pcm, nf, n, hop, win, "auto", c)))
+    for label, kernel, fn in encodes:
+        base, base_counts = counted(lambda: fn(None))
+        frames = base.shape[1]
+        for chunk in (512, 333):
+            got, counts = counted(lambda: fn(chunk))
+            want = -(-frames // chunk)
+            log(f"{label} frame_chunk {chunk}, {tuple(base.shape)}: "
+                f"bit-equal {torch.equal(got, base)}; launches {counts} "
+                f"(unchunked {base_counts})")
+            if not torch.equal(got, base):
+                raise AssertionError(f"{label} frame_chunk {chunk} differs "
+                                     f"from the unchunked call")
+            if counts.get(kernel) != want:
+                raise AssertionError(f"{label} frame_chunk {chunk}: {kernel} "
+                                     f"launched {counts.get(kernel)} times, "
+                                     f"not {want}")
+            if label == "mel_encode_batch int16" and any(
+                    k.startswith("pcm16_ingest") for k in counts):
+                raise AssertionError(f"{label}: KA ran beside the fused "
+                                     f"launch's int16 mode")
+
+    spec = phase_ops.phase_encode_batch(x, nf, n, hop, win)
+    base, _ = counted(lambda: phase_ops.phase_decode(spec, n, hop, 0.0, win))
+    for chunk in (512, 333, 3):
+        got, counts = counted(lambda: phase_ops.phase_decode(
+            spec, n, hop, 0.0, win, "auto", chunk))
+        err, peak = near(got, base, f"phase_decode frame_chunk {chunk}")
+        log(f"phase_decode frame_chunk {chunk}, {tuple(got.shape)}: max|d| "
+            f"{err:.3e} of peak {peak:.3e} (bound 1e-5 of it), bit-equal "
+            f"{torch.equal(got, base)}; launches {counts}")
+        if counts != {"irfft_window": 1, "overlap_normalize": 1}:
+            raise AssertionError(f"phase_decode frame_chunk {chunk}: "
+                                 f"launches {counts}, not one KG and one KH")
+    try:
+        phase_ops.phase_decode(spec, n, hop, 0.0, win, frame_chunk=1)
+    except ValueError as e:
+        log(f"phase_decode frame_chunk 1: ValueError {e}")
+    else:
+        raise AssertionError("phase_decode frame_chunk 1 did not raise")
+
+    re, im = (p.contiguous() for p in phase_ops.grow_half_planes(
+        spec[0], n // 2))
+    frames = re.shape[0]
+    gen = torch.Generator().manual_seed(SEED)
+    scattered = torch.rand(frames, generator=gen) < 0.5
+    prefix = torch.arange(frames) < frames * 2 // 3
+    by_count, _ = counted(lambda: istft.chunked_irfft_overlap_add(
+        re, im, hop, win, 512, "auto", real_frames=int(prefix.sum())))
+    for label, mask in (("prefix", prefix), ("scattered", scattered)):
+        got, counts = counted(lambda: istft.chunked_irfft_overlap_add(
+            re, im, hop, win, 512, "auto", mask))
+        keep = mask.to(dev)[:, None]
+        plain = istft.overlap_add_plain(
+            istft.irfft_window_plain(re, im, n, win) * keep, hop)
+        err, peak = near(got, plain, f"chunked_irfft_overlap_add {label}")
+        log(f"chunked_irfft_overlap_add, {label} frame_mask "
+            f"({int(mask.sum())} of {frames} frames): max|d| {err:.3e} of "
+            f"peak {peak:.3e} against its plain version (bound 1e-5 of it); "
+            f"launches {counts}")
+        if label == "prefix" and not torch.equal(got, by_count):
+            raise AssertionError("chunked_irfft_overlap_add: a prefix mask "
+                                 "differs from its real-frame count")
+        synth = "irfft_window_masked" if label == "prefix" else "irfft_window"
+        if counts != {synth: 1, "overlap_normalize": 1}:
+            raise AssertionError(f"chunked_irfft_overlap_add {label}: "
+                                 f"launches {counts}")
+
+    rows = x[:, :64 * n].reshape(-1, n)
+    ref = torch.fft.rfft(rows)
+    for label, kernel, fn, want in (
+            ("rfft re", "phase_encode", lambda: mxu_fft.rfft(rows, n)[0],
+             ref.real),
+            ("rfft_mag", "stft_mag", lambda: mxu_fft.rfft_mag(rows, n),
+             ref.abs()),
+            ("irfft", "irfft_window",
+             lambda: mxu_fft.irfft(ref.real.contiguous(),
+                                   ref.imag.contiguous(), n),
+             torch.fft.irfft(ref, n))):
+        got, counts = counted(fn)
+        err, peak = near(got, want, f"mxu_fft.{label}")
+        log(f"ops/mxu_fft.{label}, {tuple(rows.shape)}: max|d| {err:.3e} of "
+            f"peak {peak:.3e} against torch.fft; launches {counts}")
+        if counts != {kernel: 1}:
+            raise AssertionError(f"mxu_fft.{label}: launches {counts}, not "
+                                 f"one {kernel}")
+
+
 def kernel_tallies() -> tuple[dict, dict]:
     """Every kernel of the port by name, and the same with the xla route's
     tally (torch.fft on the card, for the sizes the hand FFT kernels do not
@@ -3793,6 +3933,10 @@ def main() -> int:
     # -- phase 2g: KP, the Griffin-Lim start's Threefry draw ------------------
     prng_k = prng_kernel(dev, errs, gl_len)
 
+    # -- phase 2h: the JAX call surface (frame_chunk, frame_mask, mxu_fft) ---
+    log(f"phase 2h: the JAX call surface on {card}")
+    call_surface(dev, tallies, x, pcm, win, fwd, cfg.num_mels, nf, n_fft, hop)
+
     # -- phase 3: the main path, tomel on a 30 s WAV ----------------------
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "speech.wav")
@@ -4280,7 +4424,7 @@ def main() -> int:
 
     def decode_kernels():
         m_half = mel_ops.mel_to_magnitudes(img, inv, mgc_max=mx, mgc_min=mn)
-        return griffinlim.griffin_lim(m_half, hop, 2, win, init=sig0,
+        return griffinlim.griffin_lim(m_half, hop, 2, window=win, init=sig0,
                                       pcm16=True)
 
     def decode_plain():
@@ -4306,8 +4450,8 @@ def main() -> int:
     # recommended_gl(64): the plain version's ~35 small kernels an iteration
     # would fill the launch queue behind the sleep, so both run as CUDA graphs
     k_ms, p_ms = race(
-        graph(lambda: griffinlim.griffin_lim(mag, hop, it24, win, init=sig0,
-                                             momentum=mom24)),
+        graph(lambda: griffinlim.griffin_lim(mag, hop, it24, window=win,
+                                             init=sig0, momentum=mom24)),
         graph(lambda: gl_plain(mag, it24, mom24, False)), "recommended_gl(64)")
     log(f"  recommended_gl(64) = momentum {mom24} x {it24} iterations, "
         f"[{BATCH}, {frames} frames], device (CUDA graph replays): kernels "

@@ -237,10 +237,9 @@ def launch_gl_overlap_add(frames_w: torch.Tensor, hop: int,
     return out_t
 
 
-def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
-                *, init=None, key: np.ndarray | None = None,
-                fft_backend: str = "auto", momentum: float = 0.0,
-                pcm16: bool = False):
+def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, key=None,
+                window=None, init=None, fft_backend: str = "auto",
+                momentum: float = 0.0, *, pcm16: bool = False):
     """Iterative phase reconstruction (gomel_tpu/ops/griffinlim.py:98).
 
     mag_half: [..., F, N/2 + 1] fixed half-spectrum magnitudes. Returns the
@@ -248,11 +247,15 @@ def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
     (int16 PCM, per-row all-finite flag). ``n_iter`` = 0 returns the
     initial signal (mel/mel.go:85: the loop never runs). The initial signal
     is uniform [0, 1) drawn on ``mag_half``'s device from ``key``
-    (ops/prng.uniform): one key, uint32 [2] (ops/prng.key), draws the whole
+    (ops/prng.uniform): anything ``np.asarray`` makes uint32 [2] or [B, 2]
+    (ops/prng.key, or a JAX ``PRNGKey``). One key draws the whole
     [..., out_len] as ``jax.random.uniform(key, shape)`` does; a table of
     row keys [B, 2] for magnitudes [B, F, N/2 + 1] draws row r from key r,
     as the JAX package's batched decode does under ``vmap``. ``init``
-    overrides the draw; ``window`` is Hann when None.
+    overrides the draw; ``window`` is Hann when None. The parameters come
+    in the JAX function's order; a floating-point array where the key goes
+    is a window passed by position, and raises TypeError (pass
+    ``window=``).
 
     ``momentum`` 0.0 is the reference's plain Griffin-Lim; a value in
     (0, 1] runs fast Griffin-Lim in the signal domain, as the JAX package
@@ -264,6 +267,12 @@ def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, window=None,
     device); ``mm`` is the JAX package's TPU default (see the module
     docstring); ``xla`` and ``mxu`` are exact.
     """
+    if key is not None:
+        key = np.asarray(key.cpu() if isinstance(key, torch.Tensor) else key)
+        if key.dtype.kind == "f":
+            raise TypeError("griffin_lim: a floating-point key is a window "
+                            "passed by position; the JAX order is (mag_half, "
+                            "hop, n_iter, key, window, ...): pass window=")
     *lead, frames, bins = mag_half.shape
     n = (bins - 1) * 2
     dtype, dev = mag_half.dtype, mag_half.device

@@ -253,29 +253,56 @@ def irfft_window(re: torch.Tensor, im: torch.Tensor, n: int,
                                real_frames=real_frames)
 
 
-def chunked_irfft_overlap_add(re: torch.Tensor, im: torch.Tensor, hop: int,
-                              window: torch.Tensor, chunk: int,
-                              fft_backend: str = "xla",
-                              real_frames: int | None = None) -> torch.Tensor:
-    """Un-normalised windowed overlap-add synthesis: [..., F, N/2 + 1]
-    planes -> [..., N + (F-1)*hop] (gomel_tpu/ops/istft.py:75). Frames at or
-    past ``real_frames`` contribute nothing (the JAX program's
-    ``frame_mask``, always a prefix on the sharded decode, held as its
-    length).
-
-    The JAX program scans over ``chunk``-frame slices and carries each
-    overlap-add tail, to keep a slice's frames in a TPU core's fast memory.
-    Here one KG launch with the real-frame count writes every frame and one
-    KH launch without a window sums them, one owner per output sample, so no
-    tail is carried: the result equals the JAX program's up to the order of
-    the adds at slice edges. ``chunk`` is validated as the JAX program does
-    (``chunk * hop >= N - hop``). ``fft_backend`` as in
-    :func:`irfft_window` (the JAX default, ``xla``, is the library FFT)."""
-    n = (re.shape[-1] - 1) * 2
+def check_frame_chunk(chunk: int, hop: int, n: int) -> None:
+    """The JAX program's rule for a synthesis chunk (gomel_tpu/ops/istft.py
+    ``chunked_irfft_overlap_add``): a tail of N - hop samples must not span
+    two chunk bodies, so ``chunk * hop >= N - hop``; ValueError with its
+    text otherwise."""
     if chunk * hop < n - hop:
         raise ValueError(f"chunk {chunk} too small: need chunk*hop >= "
                          f"N - hop = {n - hop}")
-    return overlap_add(irfft_window(re, im, n, window, real_frames,
+
+
+def chunked_irfft_overlap_add(re: torch.Tensor, im: torch.Tensor, hop: int,
+                              window_arr: torch.Tensor, chunk: int,
+                              fft_backend: str = "xla", frame_mask=None, *,
+                              real_frames: int | None = None) -> torch.Tensor:
+    """Un-normalised windowed overlap-add synthesis: [..., F, N/2 + 1]
+    planes -> [..., N + (F-1)*hop] (gomel_tpu/ops/istft.py:75).
+
+    ``frame_mask`` (optional bool [F], array or tensor): frames masked False
+    contribute nothing. A prefix mask (the sharded decode's padded frames)
+    becomes KG's real-frame count; any other mask zeroes the masked frames'
+    planes before the one KG launch. ``real_frames`` gives the prefix as a
+    count instead (frames at or past it contribute nothing); pass one or
+    the other.
+
+    The JAX program scans over ``chunk``-frame slices and carries each
+    overlap-add tail, to keep a slice's frames in a TPU core's fast memory.
+    Here one KG launch writes every frame and one KH launch without a window
+    sums them, one owner per output sample, so no tail is carried: the result
+    equals the JAX program's up to the order of the adds at slice edges.
+    ``chunk`` is validated as the JAX program does (:func:`check_frame_chunk`).
+    ``fft_backend`` as in :func:`irfft_window` (the JAX default, ``xla``, is
+    the library FFT)."""
+    n = (re.shape[-1] - 1) * 2
+    check_frame_chunk(chunk, hop, n)
+    if frame_mask is not None:
+        if real_frames is not None:
+            raise TypeError("chunked_irfft_overlap_add: pass frame_mask or "
+                            "real_frames, not both")
+        mask = torch.as_tensor(frame_mask, device="cpu").to(torch.bool)
+        frames = re.shape[-2]
+        if mask.shape != (frames,):
+            raise ValueError(f"chunked_irfft_overlap_add: frame_mask "
+                             f"{tuple(mask.shape)} for {frames} frames")
+        real_frames = int(mask.sum())
+        if not bool(mask[:real_frames].all()):
+            keep = mask.to(re.device)[:, None]
+            re = torch.where(keep, re, 0.0)
+            im = torch.where(keep, im, 0.0)
+            real_frames = None
+    return overlap_add(irfft_window(re, im, n, window_arr, real_frames,
                                     fft_backend), hop)
 
 
@@ -375,13 +402,20 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
 
 
 def istft_direct_planes(re: torch.Tensor, im: torch.Tensor, hop: int,
-                        window, fft_backend: str = "auto") -> torch.Tensor:
+                        window, fft_backend: str = "auto",
+                        frame_chunk: int | None = None) -> torch.Tensor:
     """Direct (0-iteration) iSTFT with window-sum normalisation: real/imag
     planes [..., F, N/2 + 1] -> signal [..., N + (F-1)*hop] (reference:
     phase/phase.go:93-133). ``window``: [N] numpy array or tensor.
     ``fft_backend`` as in :func:`irfft_window`: ``auto`` is exact on every
-    device, as the JAX program's ``auto`` -> ``xla``."""
+    device, as the JAX program's ``auto`` -> ``xla``. ``frame_chunk``: the
+    JAX program's per-chunk synthesis, checked as it checks it
+    (:func:`check_frame_chunk`); KH owns each output sample once and carries
+    no tail, so the synthesis stays one KG and one KH launch, and the
+    result is the unchunked one."""
     n = (re.shape[-1] - 1) * 2
+    if frame_chunk:
+        check_frame_chunk(frame_chunk, hop, n)
     window = torch.as_tensor(window, dtype=re.dtype, device=re.device)
     return overlap_normalize(irfft_window(re, im, n, window,
                                           backend=fft_backend), hop, window)

@@ -26,7 +26,8 @@ import torch
 
 from . import _cuda, fftbackend, rfft_mag
 from .griffinlim import griffin_lim, griffin_lim_magnitudes
-from .quantize import dequantize_mel_plane, pcm16_ingest_plain
+from .quantize import (dequantize_mel_plane, pcm16_ingest,
+                       pcm16_ingest_batch, pcm16_ingest_plain)
 from .rfft_mag import stft_mag, stft_mag_plain
 from .stft import map_frame_chunks, num_frames_of, window_like
 
@@ -374,7 +375,8 @@ def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
                fwd_weights: torch.Tensor,
                window: torch.Tensor | None = None,
                fft_backend: str = "auto",
-               frame_chunk: int | None = None) -> torch.Tensor:
+               frame_chunk: int | None = None, *,
+               pcm_scale=32768.0) -> torch.Tensor:
     """Audio [..., L] -> log-mel [..., F, num_mels, 2].
 
     fwd_weights: [num_mels, N/2] filterbank matrix (core.filterbank.mel_weights).
@@ -387,18 +389,36 @@ def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
     frame_chunk: launch the kernels once per chunk of that many frames
     (ops/stft.map_frame_chunks); the frames are independent, so the result
     is the same.
+    pcm_scale: an int16 ``x_padded`` is mono PCM-16 [L] or [B, L], each
+    sample divided by ``pcm_scale`` (one divisor, or for [B, L] one per row,
+    a [B] tensor or array; powers of two keep it exact) into ``window``'s
+    float dtype (float32 without a tensor window). Where the fused launch
+    runs, its int16 mode reads the samples itself
+    (:func:`stft_mel_log_pcm16`); else kernel KA converts them first
+    (ops/quantize.pcm16_ingest). The same bits either way.
     """
     if fwd_weights.shape[0] != num_mels:
         raise ValueError(f"fwd_weights has {fwd_weights.shape[0]} rows, "
                          f"num_mels={num_mels}")
-    window = window_like(window, frame_len, x_padded)
+    pcm = x_padded.dtype == torch.int16
+    dtype = ((window.dtype if isinstance(window, torch.Tensor)
+              else torch.float32) if pcm else x_padded.dtype)
+    window = window_like(window, frame_len, x_padded.new_empty(0, dtype=dtype))
+    fused = (fused_route(frame_len, fft_backend, x_padded.device.type)
+             and dtype == torch.float32)
+    if pcm and not fused:
+        ingest = pcm16_ingest_batch if x_padded.ndim == 2 else pcm16_ingest
+        x_padded = ingest(x_padded, dtype, pcm_scale)
+        pcm = False
     if frame_chunk:
         return map_frame_chunks(
             x_padded, frame_len, hop, frame_chunk,
             lambda seg: mel_encode(seg, num_mels, frame_len, hop, fwd_weights,
-                                   window, fft_backend))
-    if (fused_route(frame_len, fft_backend, x_padded.device.type)
-            and x_padded.dtype == torch.float32):
+                                   window, fft_backend, pcm_scale=pcm_scale))
+    if pcm:
+        return stft_mel_log_pcm16(x_padded, pcm_scale, 0, window, frame_len,
+                                  hop, fwd_weights)
+    if fused:
         return stft_mel_log(x_padded, window, frame_len, hop, fwd_weights)
     # [..., F, N/2+1]
     mags = stft_mag(x_padded, window, frame_len, hop, fft_backend)
@@ -408,13 +428,17 @@ def mel_encode(x_padded: torch.Tensor, num_mels: int, frame_len: int, hop: int,
 def mel_encode_batch(xb: torch.Tensor, num_mels: int, frame_len: int, hop: int,
                      fwd_weights: torch.Tensor,
                      window: torch.Tensor | None = None,
-                     fft_backend: str = "auto") -> torch.Tensor:
+                     fft_backend: str = "auto",
+                     frame_chunk: int | None = None, *,
+                     pcm_scale=32768.0) -> torch.Tensor:
     """Batched audio [B, L] -> log-mel [B, F, num_mels, 2]: one kernel launch
-    each for the whole batch."""
+    each for the whole batch, or with ``frame_chunk`` one per chunk of that
+    many frames; an int16 ``xb`` and its ``pcm_scale`` as in
+    :func:`mel_encode`, the same bits."""
     if xb.ndim != 2:
         raise ValueError(f"mel_encode_batch takes [B, L] (got {tuple(xb.shape)})")
     return mel_encode(xb, num_mels, frame_len, hop, fwd_weights, window,
-                      fft_backend)
+                      fft_backend, frame_chunk, pcm_scale=pcm_scale)
 
 
 # id(inv_weights) -> (pinned weights, their version, (first, count, taps))
@@ -569,6 +593,5 @@ def mel_decode(logmel: torch.Tensor, frame_len: int, hop: int,
                          f"frame_len={frame_len} needs {frame_len // 2}")
     mag = mel_to_magnitudes(logmel.contiguous(), inv_weights, tune_mul,
                             tune_add)
-    return griffin_lim(mag, hop, n_iter, window, init=init,
-                       key=key, fft_backend=fft_backend,
-                       momentum=momentum)
+    return griffin_lim(mag, hop, n_iter, key, window, init, fft_backend,
+                       momentum)

@@ -54,12 +54,22 @@ def phase_encode(x_padded: torch.Tensor, num_freqs: int, frame_len: int,
 
 def phase_encode_batch(xb: torch.Tensor, num_freqs: int, frame_len: int,
                        hop: int, window: torch.Tensor | None = None,
-                       fft_backend: str = "auto") -> torch.Tensor:
+                       fft_backend: str = "auto",
+                       frame_chunk: int | None = None) -> torch.Tensor:
     """Batched audio [B, L] -> phase spectrogram [B, F, num_freqs, 2]: one
-    kernel launch for the whole batch."""
+    kernel launch for the whole batch, or with ``frame_chunk`` one per chunk
+    of that many frames (:func:`phase_encode`; the result is the same bits).
+    An int16 ``xb`` is PCM-16, converted by kernel KA
+    (ops/quantize.pcm16_ingest_batch: each sample divided by 32768) into
+    ``window``'s float dtype (float32 without a tensor window) first."""
     if xb.ndim != 2:
         raise ValueError(f"phase_encode_batch takes [B, L] (got {tuple(xb.shape)})")
-    return phase_encode(xb, num_freqs, frame_len, hop, window, fft_backend)
+    if xb.dtype == torch.int16:
+        xb = quantize.pcm16_ingest_batch(
+            xb, window.dtype if isinstance(window, torch.Tensor)
+            else torch.float32, 32768.0)
+    return phase_encode(xb, num_freqs, frame_len, hop, window, fft_backend,
+                        frame_chunk)
 
 
 def _grow(spec2: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -130,15 +140,20 @@ def _synthesize(spec2: torch.Tensor, frame_len: int, window: torch.Tensor,
 def phase_decode(spec2: torch.Tensor, frame_len: int, hop: int,
                  volume_boost: float = 0.0,
                  window: torch.Tensor | None = None,
-                 fft_backend: str = "auto") -> torch.Tensor:
+                 fft_backend: str = "auto",
+                 frame_chunk: int | None = None) -> torch.Tensor:
     """Phase spectrogram [..., F, num_freqs, 2] -> audio
     [..., N + (F-1)*hop]: grow, direct iSTFT with window-sum normalisation,
     then the volume boost when it is non-zero (reference
     phase/phase.go:136-153). ``fft_backend``: ``auto`` is exact on every
-    device, as the JAX program's ``auto`` -> ``xla``."""
+    device, as the JAX program's ``auto`` -> ``xla``. ``frame_chunk`` as in
+    ops/istft.istft_direct_planes: checked as the JAX program checks it,
+    and the synthesis stays one KG and one KH launch."""
     if spec2.ndim < 3 or spec2.shape[-1] != 2 or spec2.shape[-2] > frame_len // 2:
         raise ValueError(f"phase_decode: bad spectrogram shape "
                          f"{tuple(spec2.shape)} for frame_len {frame_len}")
+    if frame_chunk:
+        istft.check_frame_chunk(frame_chunk, hop, frame_len)
     route = fftbackend.resolve(fft_backend, frame_len, spec2.device.type)
     if spec2.device.type == "cpu" and route != "mm":
         return phase_decode_plain(spec2, frame_len, hop, volume_boost, window)

@@ -45,11 +45,9 @@ from ..core.config import MelConfig, PhaseConfig
 from ..core.framing import pad_length
 from ..ops import prng
 from ..ops.griffinlim import griffin_lim
-from ..ops.mel_ops import (fused_route, mel_decode, mel_encode_batch,
-                           mel_to_magnitudes, stft_mel_log_pcm16)
+from ..ops.mel_ops import mel_decode, mel_encode_batch, mel_to_magnitudes
 from ..ops.phase_ops import dequantize_decode, phase_decode, phase_encode_batch
-from ..ops.quantize import (pcm16_ingest_batch, quantize_mel_plane_batch,
-                            quantize_planes_batch)
+from ..ops.quantize import quantize_mel_plane_batch, quantize_planes_batch
 from ..pipelines.mel import Mel
 from ..pipelines.phase import Phase
 from .mesh import (DATA_AXIS, FRAME_AXIS, Mesh, data_group_for_process,
@@ -158,15 +156,15 @@ def _check_rows(name: str, values, rows: int) -> None:
         raise ValueError(f"{name} has {n} rows for a {rows}-row batch")
 
 
-def local_rows(result, n_rows: int | None = None) -> np.ndarray:
+def local_rows(global_arr, n_rows: int | None = None) -> np.ndarray:
     """This process's rows of a batched result, on the host: the inverse of
     the ``input_mode="process_local"`` ingest, trimmed to ``n_rows`` (the
     process's true row count) when given. On a mesh that spans processes a
     result already is this process's rows (padding included); elsewhere it
     is the whole batch."""
-    if isinstance(result, torch.Tensor):
-        result = result.cpu().numpy()
-    rows = np.asarray(result)
+    if isinstance(global_arr, torch.Tensor):
+        global_arr = global_arr.cpu().numpy()
+    rows = np.asarray(global_arr)
     return rows if n_rows is None else rows[:n_rows]
 
 
@@ -291,13 +289,15 @@ class BatchedMel:
     ``Mel.from_numpy`` of the JAX package's arrays) in place of ``config``,
     ``dtype`` and ``device``. ``device`` defaults to the card, or with
     ``mesh`` to this process's first cell's device; ``mesh`` and
-    ``input_mode`` as in the module docstring."""
+    ``input_mode`` as in the module docstring. The positional parameters
+    are the JAX class's, in its order."""
 
     def __init__(self, config: MelConfig | None = None,
+                 mesh: Mesh | None = None,
                  dtype: torch.dtype = torch.float32, gl_momentum: float = 0.0,
-                 device: torch.device | str | None = None, *,
-                 mel: Mel | None = None, mesh: Mesh | None = None,
-                 input_mode: str = "replicated"):
+                 input_mode: str = "replicated", *,
+                 device: torch.device | str | None = None,
+                 mel: Mel | None = None):
         self._rowsplit = _MeshRows(mesh, input_mode)
         self.mel = mel if mel is not None else Mel(
             config or MelConfig(), dtype=dtype,
@@ -364,14 +364,8 @@ class BatchedMel:
 
             def fn_pcm(dev, pcm, divisors, fr):
                 fwd, _, win = self._weights(dev)
-                if (fused_route(c.resolut, "auto", pcm.device.type)
-                        and self.dtype == torch.float32):
-                    spec = stft_mel_log_pcm16(pcm, divisors, 0, win,
-                                              c.resolut, c.window, fwd)
-                    return quantize_mel_plane_batch(spec, 255, frames=fr)
-                x = pcm16_ingest_batch(pcm, self.dtype, divisors)
-                spec = mel_encode_batch(x, c.num_mels, c.resolut, c.window,
-                                        fwd, win)
+                spec = mel_encode_batch(pcm, c.num_mels, c.resolut, c.window,
+                                        fwd, win, pcm_scale=divisors)
                 return quantize_mel_plane_batch(spec, 255, frames=fr)
             # padding rows divide by 32768: any power of two converts them
             return self._run(fn_pcm, (audio_batch, None, 0), host=(
@@ -414,7 +408,7 @@ class BatchedMel:
             mag = mel_to_magnitudes(planes, inv, c.tune_mul, c.tune_add,
                                     float(boost), mx, mn)
             return griffin_lim(mag, c.window, c.griffin_lim_iterations,
-                               win.to(torch.float32), key=keys,
+                               keys, win.to(torch.float32),
                                momentum=self.gl_momentum, pcm16=pcm16)
         return self._run(fn, (img2_batch, None, 0), host=(
             (np.asarray(mgc_max, np.float32), None, 0),
@@ -432,13 +426,15 @@ class BatchedPhase:
     """Batched phase codec on one device or over ``mesh``'s 'data' axis;
     ``phase`` (for example ``Phase.from_numpy``) supplies the window in
     place of ``config``, ``dtype`` and ``device``. ``device``, ``mesh`` and
-    ``input_mode`` as in :class:`BatchedMel`."""
+    ``input_mode`` as in :class:`BatchedMel`; the positional parameters are
+    the JAX class's, in its order."""
 
     def __init__(self, config: PhaseConfig | None = None,
+                 mesh: Mesh | None = None,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str | None = None, *,
-                 phase: Phase | None = None, mesh: Mesh | None = None,
-                 input_mode: str = "replicated"):
+                 input_mode: str = "replicated", *,
+                 device: torch.device | str | None = None,
+                 phase: Phase | None = None):
         self._rowsplit = _MeshRows(mesh, input_mode)
         self.phase = phase if phase is not None else Phase(
             config or PhaseConfig(), dtype=dtype,
@@ -494,8 +490,6 @@ class BatchedPhase:
         pcm = _is_pcm(audio_batch)
 
         def fn(dev, x, fr):
-            if pcm:
-                x = pcm16_ingest_batch(x, self.dtype, 32768.0)
             spec = phase_encode_batch(x, c.num_freqs, c.resolut, c.window,
                                       self._window(dev))
             return quantize_planes_batch(spec, self._max_val, c.ihs_passes,

@@ -28,9 +28,8 @@ from ..io import audio as audio_io
 from ..io import imagecodec
 from ..ops import _cuda, prng
 from ..ops.griffinlim import griffin_lim
-from ..ops.mel_ops import (fused_route, mel_decode, mel_encode,
-                           mel_to_magnitudes, stft_mel_log_pcm16)
-from ..ops.quantize import pcm16_ingest, quantize_mel_plane
+from ..ops.mel_ops import mel_decode, mel_encode, mel_to_magnitudes
+from ..ops.quantize import quantize_mel_plane
 from ..ops.stft import hann_window
 
 
@@ -192,8 +191,7 @@ class Mel(torch.nn.Module):
                                 c.tune_mul, c.tune_add, float(c.volume_boost),
                                 mgc_max, mgc_min)
         return griffin_lim(mag, c.window, c.griffin_lim_iterations,
-                           self.window.to(torch.float32),
-                           key=prng.key(seed),
+                           prng.key(seed), self.window.to(torch.float32),
                            momentum=float(momentum), pcm16=True)
 
     # -- reference-layout API ------------------------------------------------
@@ -248,25 +246,18 @@ class Mel(torch.nn.Module):
     def _to_mel_pcm(self, buf: np.ndarray, sr: int, output_file: str,
                     scale: float) -> None:
         """Device-quantize file encode from raw int16 [L]: the conversion
-        (dividing by the power-of-two ``scale``) and the reference padding,
-        the encode and the PNG quantizer run on the device. Where the fused
-        KB + KC takes the encode (ops/mel_ops.fused_route) its int16 mode
-        reads the samples itself, in one launch, from a copy zero-padded on
-        the host (so every frame lies inside the row); else kernel KA
-        converts and pads them first. The same bits either way."""
+        (dividing by the power-of-two ``scale``), the encode and the PNG
+        quantizer run on the device, on a copy zero-padded on the host to
+        the reference length (so every frame lies inside the row). The
+        int16 encode (ops/mel_ops.mel_encode) reads the samples in the fused
+        KB + KC's int16 mode where that launch takes the encode, else kernel
+        KA converts them first; the same bits either way."""
         c = self.config
-        padded = pad_length(buf.shape[0], c.window)
-        if (fused_route(c.resolut, "auto", self.device.type)
-                and self.dtype == torch.float32):
-            host = np.zeros(padded, np.int16)
-            host[:buf.shape[0]] = buf
-            spec = stft_mel_log_pcm16(torch.from_numpy(host).to(self.device),
-                                      scale, padded, self.window, c.resolut,
-                                      c.window, self.fwd_weights)
-        else:
-            pcm = torch.from_numpy(buf.copy()).to(self.device)
-            spec = self._encode_padded(pcm16_ingest(pcm, self.dtype, scale,
-                                                    padded))
+        host = np.zeros(pad_length(buf.shape[0], c.window), np.int16)
+        host[:buf.shape[0]] = buf
+        spec = mel_encode(torch.from_numpy(host).to(self.device), c.num_mels,
+                          c.resolut, c.window, self.fwd_weights, self.window,
+                          pcm_scale=scale)
         self._save_quantized(output_file, quantize_mel_plane(spec, 255),
                              buf.shape[0], sr)
 

@@ -158,7 +158,8 @@ def test_weights_cached_by_host_window_values():
     mag, init, hop = _gl_inputs(2, n=n, hop=16)
     dft_mm._WEIGHTS.clear()
     for _ in range(2):
-        griffinlim.griffin_lim(_t(mag), hop, 2, np.hanning(n), init=_t(init),
+        griffinlim.griffin_lim(_t(mag), hop, 2, window=np.hanning(n),
+                               init=_t(init),
                                fft_backend="mm")
         assert len(dft_mm._WEIGHTS) == 2
 
@@ -308,7 +309,7 @@ def test_griffin_lim_bf16_interior_cost():
         else:
             fw = istft.irfft_window_plain(yr, yi, n, win)
         sig = istft.overlap_add_plain(fw, hop)
-    exact = griffinlim.griffin_lim(target, hop, 8, win, init=init)
+    exact = griffinlim.griffin_lim(target, hop, 8, window=win, init=init)
     assert sc(sig) <= 1.05 * sc(exact) + 1e-3, (sc(sig), sc(exact))
 
 

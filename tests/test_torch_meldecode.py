@@ -173,7 +173,7 @@ def test_griffin_lim_f64_matches_jax_and_oracle(n_iter):
     ref = np.asarray(jgl.griffin_lim(mag_j, hop, n_iter, jax.random.PRNGKey(0),
                                      jnp.asarray(w), init=jnp.asarray(init)))
     out = tgl.griffin_lim(tgl.griffin_lim_magnitudes(torch.from_numpy(lin2)),
-                          hop, n_iter, torch.from_numpy(w),
+                          hop, n_iter, window=torch.from_numpy(w),
                           init=torch.from_numpy(init))
     assert out.dtype == torch.float64 and out.shape == ref.shape
     # float64 FFTs on both sides, and the reference's full-FFT loop
@@ -193,11 +193,11 @@ def test_griffin_lim_momentum_f64_matches_jax():
                                      jnp.asarray(w), init=jnp.asarray(init),
                                      momentum=0.99))
     out = tgl.griffin_lim(tgl.griffin_lim_magnitudes(torch.from_numpy(lin2)),
-                          hop, 6, torch.from_numpy(w),
+                          hop, 6, window=torch.from_numpy(w),
                           init=torch.from_numpy(init), momentum=0.99)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-9)
     plain = tgl.griffin_lim(tgl.griffin_lim_magnitudes(torch.from_numpy(lin2)),
-                            hop, 6, torch.from_numpy(w),
+                            hop, 6, window=torch.from_numpy(w),
                             init=torch.from_numpy(init))
     assert float((out - plain).abs().max()) > 1e-3   # momentum took effect
 
@@ -211,7 +211,7 @@ def test_griffin_lim_zero_frame_takes_unit_phase():
     ref = np.asarray(jgl.griffin_lim(mag_j, hop, 1, jax.random.PRNGKey(0),
                                      jnp.asarray(w), init=jnp.asarray(init)))
     mag = tgl.griffin_lim_magnitudes(torch.from_numpy(lin2))
-    out = tgl.griffin_lim(mag, hop, 1, torch.from_numpy(w),
+    out = tgl.griffin_lim(mag, hop, 1, window=torch.from_numpy(w),
                           init=torch.from_numpy(init))
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-12)
     frames = tgl.gl_project(torch.from_numpy(init), mag, torch.from_numpy(w),
@@ -230,7 +230,7 @@ def test_gl_ops_check_shapes_and_devices():
     with pytest.raises(ValueError, match="frames"):
         tgl.gl_project(torch.cat([sig, sig[:1]]), mag, win, len(w), hop)
     with pytest.raises(ValueError):
-        tgl.griffin_lim(mag, hop, 2, win, init=sig[:-1])
+        tgl.griffin_lim(mag, hop, 2, window=win, init=sig[:-1])
     fw = tgl.gl_project(sig, mag, win, len(w), hop)
     with pytest.raises(ValueError):
         tgl.gl_overlap_add(fw, hop, t_prev=sig, momentum=0.5, pcm16=True)
@@ -268,7 +268,7 @@ def test_griffin_lim_zero_iterations_pcm16():
     lin2, init, w, hop = _gl_inputs(11)
     mag = tgl.griffin_lim_magnitudes(torch.from_numpy(lin2)).float()
     sig = torch.from_numpy(init).float()
-    pcm, finite = tgl.griffin_lim(mag, hop, 0, torch.from_numpy(w), init=sig,
+    pcm, finite = tgl.griffin_lim(mag, hop, 0, window=torch.from_numpy(w), init=sig,
                                   pcm16=True)
     assert bool(finite)
     assert torch.equal(pcm, tq.pcm16_encode(sig)[0])
