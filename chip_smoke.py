@@ -443,11 +443,12 @@ def fft_ops(n: int) -> float:
     return 2.5 * n * math.log2(n)
 
 
-def long_plan(pcfg):
-    """The frame-shard plan of the 30-minute file at the CLI widths."""
+def long_plan(pcfg, seconds: float = LONG_SECONDS):
+    """The frame-shard plan of the 30-minute file (or ``seconds``) at the
+    CLI widths."""
     from gomel_tpu_torch.core.framing import num_frames, pad_length
     from gomel_tpu_torch.parallel import sharded as sh
-    n = int(SAMPLE_RATE * LONG_SECONDS)
+    n = int(SAMPLE_RATE * seconds)
     f = num_frames(pad_length(n, pcfg.window), pcfg.resolut, pcfg.window)
     return sh.plan_frame_sharding(f, pcfg.resolut, pcfg.window, N_SHARDS)
 
@@ -2822,6 +2823,19 @@ MP_MUST = {
     "BatchedMel.decode(process_local)": ("mel_to_magnitudes", "gl_project",
                                          "gl_overlap_add",
                                          "threefry_uniform")}
+# the long-form serving artifacts of phase 3j and the kernels each runs
+SERVING_MUST = {
+    "longform-mel-enc": ("stft_mel_log",),
+    "longform-phase-enc": ("phase_encode",),
+    "longform-phase-dec": ("irfft_window_masked", "overlap_normalize",
+                           "shard_epilogue"),
+    "longform-mel-dec": ("mel_to_magnitudes", "threefry_uniform",
+                         "gl_project", "gl_overlap_add", "shard_epilogue"),
+    "longform-mel-dec interior_mm": (
+        "mel_to_magnitudes", "threefry_uniform", "dft_fwd_bf16",
+        "dft_inv_bf16", "irfft_window", "gl_overlap_add", "shard_epilogue")}
+MP_MUST.update({f"{name} {how}": must for name, must in SERVING_MUST.items()
+                for how in ("artifact", "eager", "artifact from phase 3h")})
 
 
 def _sync(dev: torch.device) -> None:
@@ -2851,43 +2865,86 @@ def _ref_hashes(full: torch.Tensor, keys) -> dict[str, str]:
     return out
 
 
+class _ExchangeClock:
+    """Count and host seconds of the halo exchanges across processes
+    (parallel/sharded._exchange calls that move something) since
+    ``reset``: the module function wrapped until ``close``. On gloo an
+    exchange's time includes its D2H copy's wait for the work queued
+    before it."""
+
+    def __init__(self):
+        from gomel_tpu_torch.parallel import sharded as sh
+        self._sh, self._orig = sh, sh._exchange
+        self.reset()
+
+        def timed(sends, recvs):
+            t0 = time.perf_counter()
+            self._orig(sends, recvs)
+            if sends or recvs:
+                self.count += 1
+                self.seconds += time.perf_counter() - t0
+        sh._exchange = timed
+
+    def reset(self) -> None:
+        self.count, self.seconds = 0, 0.0
+
+    def close(self) -> None:
+        self._sh._exchange = self._orig
+
+
 class _MpRun:
     """One worker's record: each call's walls between barriers (``runs``
-    timed runs after an untimed one, or one run when ``warm`` is False) and
-    its launches (the last run's), its results' hashes."""
+    timed runs after an untimed one, or one run when ``warm`` is False),
+    its host enqueue (the host time until the call returns, before the
+    synchronise) and its launches (the last run's), with ``clock`` its halo
+    exchanges; its results' hashes."""
 
-    def __init__(self, tallies: dict, dev: torch.device):
-        self.tallies, self.dev = tallies, dev
+    def __init__(self, tallies: dict, dev: torch.device,
+                 clock: _ExchangeClock | None = None):
+        self.tallies, self.dev, self.clock = tallies, dev, clock
         self.report: dict = {"calls": {}, "hashes": {}}
 
     def call(self, label: str, fn, warm: bool = True):
         import torch.distributed as dist
-        walls = []
+        walls, enqueue, exchanges = [], [], []
         for _ in range(1 + MP_RUNS if warm else 1):
             for k in self.tallies.values():
                 k.launches = 0
+            if self.clock is not None:
+                self.clock.reset()
             dist.barrier()
             t0 = time.perf_counter()
             value = fn()
+            enqueue.append(time.perf_counter() - t0)
             _sync(self.dev)
             dist.barrier()
             walls.append(time.perf_counter() - t0)
+            if self.clock is not None:
+                exchanges.append([self.clock.count, self.clock.seconds])
+        first = 1 if warm else 0
         self.report["calls"][label] = {
-            "s": walls[1:] if warm else walls,
+            "s": walls[first:], "first_s": walls[0],
+            "enqueue_s": enqueue[first:],
+            "exchanges": exchanges[first:],
             "launches": {n: k.launches for n, k in self.tallies.items()
                          if k.launches}}
         return value
 
 
-def _one_controller_walls(fn, dev: torch.device):
+def _one_controller_walls(fn, dev: torch.device, enqueue: list | None = None):
     """``fn``'s value and its walls: MP_RUNS timed runs after an untimed
-    one."""
+    one (``enqueue``, when given, gets the untimed run's wall, then each
+    timed run's host enqueue)."""
     walls = []
-    for _ in range(1 + MP_RUNS):
+    for k in range(1 + MP_RUNS):
         t0 = time.perf_counter()
         value = fn()
+        if enqueue is not None and k:
+            enqueue.append(time.perf_counter() - t0)
         _sync(dev)
         walls.append(time.perf_counter() - t0)
+        if enqueue is not None and not k:
+            enqueue.append(walls[0])
     return value, walls[1:]
 
 
@@ -3070,12 +3127,209 @@ def mp_batch(rank: int, world: int, dev: torch.device, seconds: float,
     return run.report
 
 
+def serving_cases(dev: torch.device, seconds: float, mesh) -> tuple:
+    """(plan, cases) of phase 3j's long-form serving artifacts on the
+    ``seconds`` signal at the CLI widths: each case (name, builder, config,
+    builder keywords, whole inputs on ``dev``, the eager sharded function on
+    ``mesh``, its arguments after the sharded input). The decoders' whole
+    inputs are the one-controller encodes of the signal (as phase 3h's);
+    the mel decoders run GL-2 from ``prng.key(1)`` (seed 1), once exact and
+    once with ``interior_mm``."""
+    from gomel_tpu_torch import MelConfig, Mesh, PhaseConfig, serving
+    from gomel_tpu_torch.core.filterbank import (inverse_mel_weights,
+                                                 mel_weights)
+    from gomel_tpu_torch.ops import prng
+    from gomel_tpu_torch.parallel import sharded as sh
+    from gomel_tpu_torch.parallel.mesh import shard_array
+    pcfg, mcfg = PhaseConfig.cli_default(), MelConfig.cli_default()
+    n = int(SAMPLE_RATE * seconds)
+    plan = long_plan(pcfg, seconds)
+    x = torch.from_numpy(long_pcm(n, dev).astype(np.float32) / 32768.0)
+    x = sh.pad_signal_for_plan(x[None].to(dev), plan)
+    fwd = mel_weights(mcfg.n_bins, mcfg.num_mels, mcfg.mel_fmin,
+                      mcfg.mel_fmax)
+    inv = inverse_mel_weights(mcfg.n_bins, mcfg.num_mels, mcfg.mel_fmin,
+                              mcfg.mel_fmax)
+    one = Mesh([[dev] * N_SHARDS])
+    spec = sh.sharded_phase_encode_fn(one, plan, pcfg.num_freqs)(
+        shard_array(x, one)).gather()
+    logmel = sh.sharded_mel_encode_fn(one, plan, mcfg.num_mels, fwd)(
+        shard_array(x, one)).gather()
+    key = torch.from_numpy(prng.key(1).view(np.int32)).to(dev)
+    gl = (inv, mcfg.griffin_lim_iterations, mcfg.tune_mul, mcfg.tune_add)
+    return plan, (
+        ("longform-mel-enc", serving.export_longform_mel_encoder, mcfg, {},
+         (x,), sh.sharded_mel_encode_fn(mesh, plan, mcfg.num_mels, fwd), ()),
+        ("longform-phase-enc", serving.export_longform_phase_encoder, pcfg,
+         {}, (x,), sh.sharded_phase_encode_fn(mesh, plan, pcfg.num_freqs),
+         ()),
+        ("longform-phase-dec", serving.export_longform_phase_decoder, pcfg,
+         {}, (spec,),
+         sh.sharded_phase_decode_fn(mesh, plan, pcfg.volume_boost), ()),
+        ("longform-mel-dec", serving.export_longform_mel_decoder, mcfg, {},
+         (logmel, key), sh.sharded_mel_decode_fn(mesh, plan, *gl), (1,)),
+        ("longform-mel-dec interior_mm", serving.export_longform_mel_decoder,
+         mcfg, {"interior_mm": True}, (logmel, key),
+         sh.sharded_mel_decode_fn(mesh, plan, *gl, interior_mm=True), (1,)))
+
+
+def _artifact_path(folder: str, name: str) -> str:
+    return os.path.join(folder, name.replace(" ", "_") + ".gmexp")
+
+
+def mp_serving(rank: int, world: int, dev: torch.device, seconds: float,
+               out_dir: str, tallies: dict, h_dir: str) -> dict:
+    """Phase 3j's long-form serving artifacts on the 1 x 4 mesh of
+    :func:`mp_longform` over ``world`` processes: each built in every
+    process, saved by rank 0, loaded by every rank and called (their
+    per-shard pieces, the halos between them exchanged over the group),
+    beside the eager sharded functions over the processes; then phase 3h's
+    artifacts (built on 4 frame shards of one card, in ``h_dir``) loaded
+    and run over the processes. Rank 0 then builds, saves and loads each on
+    one controller (a 1 x 4 mesh of ``dev``, the single program), checks
+    that phase 3h's gives the same, and hashes every process's pieces of
+    it. A rehearsal (``seconds`` not the 30 minutes) makes phase 3h's four
+    artifacts itself."""
+    import torch.distributed as dist
+    from gomel_tpu_torch import Mesh, make_mesh, serving
+    from gomel_tpu_torch.parallel.mesh import shard_array
+    mesh = make_mesh(data=1, frame=N_SHARDS,
+                     devices=longform_mesh_devices(dev, world))
+    one = Mesh([[dev] * N_SHARDS])
+    plan, cases = serving_cases(dev, seconds, mesh)
+    kw = dict(n_frames=plan.n_frames, batch=1)
+    in_3h = {name for name, *_ in cases if " " not in name}
+    if rank == 0 and seconds != LONG_SECONDS:
+        for name, builder, cfg, bkw, *_ in cases:
+            if name in in_3h:
+                serving.save_exported(builder(cfg, one, **kw, **bkw),
+                                      _artifact_path(h_dir, name))
+    dist.barrier()
+    # torch.export's one-time start in this process, outside the timed
+    # builds
+    _, builder, cfg, bkw, *_ = cases[1]
+    builder(cfg, mesh, **kw, **bkw)
+    run = _MpRun(tallies, dev, _ExchangeClock())
+    hashes, info = run.report["hashes"], {}
+    for name, builder, cfg, bkw, args, eager, extra in cases:
+        t0 = time.perf_counter()
+        exp = builder(cfg, mesh, **kw, **bkw)
+        build_s = time.perf_counter() - t0
+        path = _artifact_path(out_dir, name)
+        if rank == 0:
+            serving.save_exported(exp, path, serving.artifact_meta(
+                exp, cfg, kind=name.split()[0], n_frames=plan.n_frames))
+        dist.barrier()
+        t0 = time.perf_counter()
+        art = serving.load_exported(path)
+        info[name] = {"build_s": build_s, "load_s": time.perf_counter() - t0}
+        hashes[f"{name}, as built"] = _piece_hashes(
+            serving.call_longform(exp, mesh, *args))
+        del exp
+        hashes[name] = _piece_hashes(run.call(
+            f"{name} artifact", lambda: serving.call_longform(art, mesh,
+                                                              *args)))
+        del art
+        hashes[f"{name}, eager"] = _piece_hashes(run.call(
+            f"{name} eager", lambda: eager(shard_array(args[0], mesh),
+                                           *extra)))
+        if name in in_3h:
+            art = serving.load_exported(_artifact_path(h_dir, name))
+            hashes[f"{name}, phase 3h's artifact"] = _piece_hashes(run.call(
+                f"{name} artifact from phase 3h",
+                lambda: serving.call_longform(art, mesh, *args), warm=False))
+            del art
+    run.clock.close()
+    run.report["serving"] = info
+    keys = _gather_keys(run.report)
+    if rank == 0:   # one controller: this process owns every cell
+        walls, enqueue, ref, built = {}, {}, {}, {}
+        for name, builder, cfg, bkw, args, *_ in cases:
+            t0 = time.perf_counter()
+            exp = builder(cfg, one, **kw, **bkw)
+            build_s = time.perf_counter() - t0
+            path = _artifact_path(out_dir, "one-controller " + name)
+            serving.save_exported(exp, path)
+            del exp
+            t0 = time.perf_counter()
+            art = serving.load_exported(path)
+            built[name] = {"build_s": build_s,
+                           "load_s": time.perf_counter() - t0}
+            label = f"{name} artifact"
+            enqueue[label] = []
+            value, walls[label] = _one_controller_walls(
+                lambda: serving.call_longform(art, one, *args), dev,
+                enqueue[label])
+            built[name]["first_s"] = enqueue[label].pop(0)
+            full = value.gather()
+            del art, value
+            if name in in_3h:
+                h3 = serving.load_exported(_artifact_path(h_dir, name))
+                full3 = serving.call_longform(h3, one, *args).gather()
+                _sync(dev)
+                if not torch.equal(full, full3):
+                    raise AssertionError(f"{name}: the one-controller "
+                                         f"artifact built here differs "
+                                         f"from phase 3h's")
+                del h3, full3
+            for h in keys[0]:
+                if h == name or h.startswith(name + ","):
+                    ref[h] = _ref_hashes(full, {k for r in keys
+                                                for k in r[h]})
+            del full
+        run.report["one_controller"] = {
+            "walls": walls, "enqueue": enqueue, "hashes": ref,
+            "serving": built}
+    dist.barrier()
+    return run.report
+
+
+def multicard_serving(card: str, seconds: float) -> None:
+    """Phase 3j where a process sees 2 cards: the long-form artifacts on a
+    1 x 4 mesh over cuda:0 and cuda:1 in this one process (two frame shards
+    a card), those built on 4 shards of cuda:0 (moved to cuda:1 for its
+    shards) and those built on this mesh, each shard equal to the single
+    program on 4 shards of cuda:0."""
+    from gomel_tpu_torch import make_mesh, serving
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    mesh = make_mesh(data=1, frame=N_SHARDS, devices=[c0, c0, c1, c1])
+    one = make_mesh(data=1, frame=N_SHARDS, devices=[c0] * N_SHARDS)
+    plan, cases = serving_cases(c0, seconds, mesh)
+    kw = dict(n_frames=plan.n_frames, batch=1)
+
+    def sync():
+        for d in (c0, c1):
+            torch.cuda.synchronize(d)
+    for name, builder, cfg, bkw, args, *_ in cases:
+        single = builder(cfg, one, **kw, **bkw)
+        want = serving.call_longform(single, one, *args)
+        spread = builder(cfg, mesh, **kw, **bkw)
+        for label, art in (("built on cuda:0", single),
+                           ("built on this mesh", spread)):
+            got = serving.call_longform(art, mesh, *args)
+            sync()
+            if not all(torch.equal(g.to(c0), w)
+                       for g, w in zip(got.shards, want.shards)):
+                raise AssertionError(f"{name} ({label}) over 2 cards in one "
+                                     f"process differs from the single "
+                                     f"program")
+            walls = []
+            for _ in range(MP_RUNS):
+                t0 = time.perf_counter()
+                serving.call_longform(art, mesh, *args)
+                sync()
+                walls.append(time.perf_counter() - t0)
+            log(f"  {name} artifact {label}, 1 x 4 over cuda:0 and cuda:1 "
+                f"in one process on {card}: equal to the single program; "
+                f"wall {_spread(walls)} ms")
+
+
 def mp_worker(argv: list[str]) -> int:
     """One process of phase 3j: ``chip_smoke.py --mp-worker SCENARIO RANK
-    WORLD PORT OUT_DIR BACKEND DEVICE SECONDS``. Loads the kernels phase 1
-    built, joins the group, runs SCENARIO and writes its report to
-    OUT_DIR/rank<RANK>.json."""
-    scenario, rank, world, port, out_dir, backend, device, seconds = argv
+    WORLD PORT OUT_DIR BACKEND DEVICE SECONDS [ARG...]`` (``serving``: ARG
+    is phase 3h's folder). Loads the kernels phase 1 built, joins the group,
+    runs SCENARIO and writes its report to OUT_DIR/rank<RANK>.json."""
+    scenario, rank, world, port, out_dir, backend, device, seconds = argv[:8]
     rank, world = int(rank), int(world)
     sys.path.insert(0, HERE)
     import torch.distributed as dist
@@ -3090,8 +3344,10 @@ def mp_worker(argv: list[str]) -> int:
     pm.initialize_multihost(f"127.0.0.1:{port}", world, rank,
                             backend=backend, timeout_s=MP_TIMEOUT_S)
     try:
-        fn = mp_longform if scenario == "longform" else mp_batch
-        report = fn(rank, world, dev, float(seconds), out_dir, tallies)
+        fn = {"longform": mp_longform, "batch": mp_batch,
+              "serving": mp_serving}[scenario]
+        report = fn(rank, world, dev, float(seconds), out_dir, tallies,
+                    *argv[8:])
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3107,10 +3363,11 @@ def _free_port() -> int:
 
 
 def run_workers(tmp: str, scenario: str, world: int, backend: str,
-                device: str, seconds: float) -> list[dict]:
-    """Start ``world`` workers of ``scenario`` together, wait for all (each
-    within MP_TIMEOUT_S), kill any left, fail on any non-zero exit; return
-    their reports in rank order."""
+                device: str, seconds: float, *extra: str) -> list[dict]:
+    """Start ``world`` workers of ``scenario`` together (``extra`` after
+    their fixed arguments), wait for all (each within MP_TIMEOUT_S), kill
+    any left, fail on any non-zero exit; return their reports in rank
+    order."""
     out_dir = os.path.join(tmp, f"mp_{scenario}_{backend}")
     os.makedirs(out_dir, exist_ok=True)
     port = str(_free_port())
@@ -3118,7 +3375,7 @@ def run_workers(tmp: str, scenario: str, world: int, backend: str,
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mp-worker",
          scenario, str(r), str(world), port, out_dir, backend,
-         worker_device(backend, device, r), str(seconds)],
+         worker_device(backend, device, r), str(seconds), *extra],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(world)]
     logs = []
@@ -3204,6 +3461,36 @@ def check_workers(label: str, reports: list[dict], card: str,
             f"copies) {_spread(ref['halo_pull_s'])}")
         log(f"  decode_resumable resumed from iteration "
             f"{reports[0]['resumed_from']} of the sharded checkpoint")
+    if "serving" in reports[0]:
+        calls, one = reports[0]["calls"], ref["serving"]
+        log(f"  the artifacts on {card} (rank 0; ms, median (min-max) of "
+            f"{MP_RUNS} runs after an untimed one): build and load s in "
+            f"each process beside one controller's (4 shards of the card, "
+            f"the single program), and the first call after the load (the "
+            f"pieces are read then); a call's wall and host enqueue (until "
+            f"the call returns; on gloo it waits for each staged halo) "
+            f"beside one controller's and the eager sharded calls' over "
+            f"the processes; the halo exchanges across processes in a "
+            f"call and their host time in all (one controller: none, its "
+            f"halos are device copies inside the program)")
+
+        def halos(c):
+            return (f"{c['exchanges'][0][0]} exchange(s) a call, "
+                    f"{_spread([x[1] for x in c['exchanges']])}")
+        for name, info in reports[0]["serving"].items():
+            a, e = calls[f"{name} artifact"], calls[f"{name} eager"]
+            label = f"{name} artifact"
+            log(f"    {name}: built in {info['build_s']:.3f} s (one "
+                f"controller {one[name]['build_s']:.3f}), loaded in "
+                f"{info['load_s']:.3f} s (one controller "
+                f"{one[name]['load_s']:.3f}), first call "
+                f"{a['first_s']:.3f} s (one controller "
+                f"{one[name]['first_s']:.3f}); wall {_spread(a['s'])} (one "
+                f"controller {_spread(ref['walls'][label])}, eager "
+                f"{_spread(e['s'])}); host enqueue {_spread(a['enqueue_s'])}"
+                f" (one controller {_spread(ref['enqueue'][label])}, eager "
+                f"{_spread(e['enqueue_s'])}); halos {halos(a)} (eager "
+                f"{halos(e)})")
 
 
 def multiprocess(tmp: str, card: str, launches: dict, device: str = "cuda",
@@ -3215,14 +3502,22 @@ def multiprocess(tmp: str, card: str, launches: dict, device: str = "cuda",
     staged through host memory), decode_resumable through a sharded
     checkpoint saved at iteration 1, loaded and resumed; BatchedMel
     (input_mode="process_local") encode and decode of two 30 s rows a group
-    on a 2 x 2 mesh over 4 processes. Every process's pieces bit-equal to
-    the same calls on one controller; their kernels' launches added to
-    ``launches``. The NCCL route (one card a process) runs only where the
-    card count reaches the processes."""
+    on a 2 x 2 mesh over 4 processes; the four long-form serving artifacts
+    (the mel decoder also with ``interior_mm``) built, saved, loaded and
+    called over the 2 processes of the long-form mesh, and phase 3h's run
+    there (:func:`mp_serving`). Every process's pieces bit-equal to the
+    same calls on one controller; their kernels' launches added to
+    ``launches``. The NCCL route (one card a process) and the artifacts
+    over 2 cards of one process run only where the card count reaches
+    2."""
     log(f"phase 3j: the multi-process form on {card}")
     reports = run_workers(tmp, "longform", 2, "gloo", device, seconds)
     check_workers(f"long form, {seconds / 60:g} min, 1 x {N_SHARDS} mesh "
                   f"over 2 processes (gloo)", reports, card, launches, "gloo")
+    reports = run_workers(tmp, "serving", 2, "gloo", device, seconds, tmp)
+    check_workers(f"long-form serving artifacts, {seconds / 60:g} min, 1 x "
+                  f"{N_SHARDS} mesh over 2 processes (gloo)", reports, card,
+                  launches, "gloo")
     reports = run_workers(tmp, "batch", 4, "gloo", device, batch_seconds)
     check_workers(f"BatchedMel(process_local), 2 x {batch_seconds:g} s a "
                   f"group, 2 x 2 mesh over 4 processes (gloo)", reports, card,
@@ -3232,10 +3527,16 @@ def multiprocess(tmp: str, card: str, launches: dict, device: str = "cuda",
         reports = run_workers(tmp, "longform", 2, "nccl", device, seconds)
         check_workers("long form over 2 processes on 2 cards (NCCL)",
                       reports, card, launches, "nccl")
+        reports = run_workers(tmp, "serving", 2, "nccl", device, seconds,
+                              tmp)
+        check_workers("long-form serving artifacts over 2 processes on 2 "
+                      "cards (NCCL)", reports, card, launches, "nccl")
+        multicard_serving(card, seconds)
     else:
         log(f"  NCCL route not run: {visible} card(s) visible, and NCCL "
             f"refuses two ranks on one card (make_mesh raises); it runs "
-            f"where the card count reaches the process count")
+            f"where the card count reaches the process count; nor the "
+            f"artifacts on a mesh over 2 cards of one process")
 
 
 def call_surface(dev: torch.device, tallies: dict, x: torch.Tensor,

@@ -62,20 +62,33 @@ Decisions:
   header, also of a JAX artifact (the same layout after ``GMTPUEXP2\\n``);
   :func:`load_exported` raises ``ValueError`` for a JAX artifact, a foreign
   file or a truncated one, and says which.
-- **Long form** (``export_longform_*``): the program takes one tensor a
-  shard of ``mesh`` (``make_mesh``; a key [2] last for the mel decoder)
-  and returns one a shard, the port's sharded functions
-  (parallel/sharded.py) traced at one plan; :func:`call_longform` shards
-  host inputs and returns ``Sharded`` results. The artifact records the
-  mesh's size and shape and runs on a mesh of that size whose shards share
-  the artifact's device (four frame shards of one card, or of the CPU).
-  The window-sum threshold is one global value of the plan.
+- **Long form** (``export_longform_*``): the port's sharded functions
+  (parallel/sharded.py) at one plan, on any mesh ``make_mesh`` builds
+  (one device, several cards of one process, or the processes of a
+  ``torch.distributed`` group), run with :func:`call_longform` on any
+  mesh of the same (data, frame) shape on devices of the artifact's type:
+  every process passes the same whole inputs and gets a ``Sharded`` of
+  its own shards. An artifact holds per-shard pieces, each one shard's
+  work between two halo exchanges (its frame index fixes the real-frame
+  count, the window sum's start and the open boundaries), traced once
+  with the codec's tables as inputs; ``call_longform`` runs them on this
+  process's shards and does the exchanges between them on the host with
+  parallel/sharded.py's (copies, or one ``batch_isend_irecv`` over the
+  group), so every placement gives the eager sharded path's bits. Built
+  where one process holds every shard on one device (four frame shards of
+  one card, or of the CPU), the artifact also holds the single program
+  over every shard (a tensor a shard in, a key [2] last for the mel
+  decoder, a tensor a shard out), which runs on that placement and whose
+  buffers are the pieces' tables. The window-sum threshold is one global
+  value of the plan, and shard i's Griffin-Lim start is drawn from the key
+  folded with its global row-major index i.
 
 A loaded artifact composes: ``exp.module()`` is an ``nn.Module`` to call
 inside a larger one.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import inspect
 import io
@@ -84,6 +97,7 @@ import struct
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 from torch.export import Dim
 
 from .core.config import MelConfig, PhaseConfig
@@ -149,18 +163,26 @@ def _dims(shape) -> list[str]:
 class Exported:
     """A built or loaded artifact: the program, its device and its input
     layout. ``call(*args)`` checks the inputs against the program's and
-    runs it; ``module()`` is the program as an ``nn.Module``."""
+    runs it; ``module()`` is the program as an ``nn.Module``. A long-form
+    artifact also carries ``longform``, its per-shard form; built on a mesh
+    over several devices it has that alone (``program`` None)."""
 
-    def __init__(self, program: torch.export.ExportedProgram,
+    def __init__(self, program: torch.export.ExportedProgram | None,
                  device: torch.device, nr_devices: int = 1,
                  mesh_shape: tuple[int, int] | None = None,
-                 sharded: tuple[bool, ...] | None = None):
+                 sharded: tuple[bool, ...] | None = None,
+                 longform: "_Longform | None" = None,
+                 flat: tuple[list, list] | None = None):
         self.program = program
         self.device = torch.device(device)
         self.nr_devices = int(nr_devices)
         self.mesh_shape = None if mesh_shape is None else tuple(mesh_shape)
         self.sharded = None if sharded is None else tuple(sharded)
+        self.longform = longform
         self._module = None
+        if program is None:     # a long-form artifact of pieces alone
+            self._flat_in, self._flat_out = flat
+            return
         names = set(program.graph_signature.user_inputs)
         self._flat_in = [n.meta["val"] for n in program.graph.nodes
                          if n.op == "placeholder" and n.name in names]
@@ -208,6 +230,10 @@ class Exported:
         return self._global(self._flat_out, (True,) * n_out)
 
     def module(self) -> torch.nn.Module:
+        if self.program is None:
+            raise ValueError("this long-form artifact was built on a mesh "
+                             "over several devices and holds no single "
+                             "program: run it with call_longform")
         if self._module is None:
             self._module = self.program.module()
         return self._module
@@ -735,16 +761,15 @@ def longform_plan(config, mesh, n_frames: int):
                                   mesh.shape[FRAME_AXIS])
 
 
-def _longform_device(mesh) -> torch.device:
-    """The one device every shard of ``mesh`` sits on."""
-    dev = _device(mesh.first_device)
-    if any(torch.device(d) != mesh.first_device
-           for row in mesh.devices for d in row):
-        raise NotImplementedError(
-            "serving: a long-form artifact runs its shards on one device "
-            "(four frame shards of one card); a mesh over several devices "
-            "is the multi-process slice")
-    return dev
+def _mesh_devices(mesh) -> list[torch.device]:
+    return [_device(d) for row in mesh.devices for d in row]
+
+
+def _on_one_device(mesh, dev: torch.device) -> bool:
+    """Whether this process holds every shard of ``mesh``, all on ``dev``:
+    the placement the single program of a long-form artifact runs on."""
+    return (not mesh.spans_processes
+            and all(d == dev for d in _mesh_devices(mesh)))
 
 
 def _longform_batch(batch, mesh) -> int:
@@ -797,17 +822,77 @@ class _Shards(torch.nn.Module):
         return sig_exts[i - 1][:, self.chunk:]
 
 
+# One shard's steps between two halo exchanges: the single program of an
+# artifact runs them on every shard, its per-shard pieces (_Piece) one each.
+
+def _encode(codec, ext):
+    """The mel (fused KB + KC, or KB then KC) or phase (KE) encode of a
+    shard's extended signal."""
+    if isinstance(codec, _MelTables):
+        return codec.encode(ext)
+    return codec.stft_planes(ext, 1, codec.nf)
+
+
+def _synth(codec, spec, real: int):
+    """KG with the shard's real-frame count, then KH without a window: its
+    un-normalised overlap-add [B, chunk + halo]."""
+    return OPS.overlap_normalize(codec.synth_spec(spec, real), None, None,
+                                 codec.hop, 0.0, False, 0.0, False)[0]
+
+
+def _phase_epilogue(codec, sig_ext, recv, chunk: int, start: int,
+                    n_frames: int, boost: float):
+    """KM: the left neighbour's tail added, the window sum of the whole
+    signal at the shard's global ``start`` under the one global threshold,
+    the boost."""
+    return OPS.shard_epilogue(sig_ext, recv, codec.prefix, None, chunk,
+                              codec.hop, start, n_frames, codec.threshold,
+                              boost, 0.0, False)[0]
+
+
+def _gl_magnitudes(codec, c: MelConfig, logmel, real: int):
+    """KI, the shard's pad frames zero."""
+    mag = codec.magnitudes(logmel, None, None, 0.0, c)
+    if real < mag.shape[1]:
+        mag = torch.cat([mag[:, :real], mag.new_zeros(
+            (mag.shape[0], mag.shape[1] - real, mag.shape[2]))], 1)
+    return mag
+
+
+def _gl_keys(key, size: int):
+    """The key folded with each shard's global row-major index [size, 2]."""
+    return prng.fold_in_table(
+        key.reshape(1, 2),
+        torch.arange(size, dtype=torch.int64, device=key.device))[0]
+
+
+def _gl_start(key_row, b_loc: int, chunk: int, dtype):
+    """KP: the shard's Griffin-Lim start from its folded key [1, 2]."""
+    return OPS.threefry_uniform(key_row, b_loc * chunk, dtype).reshape(
+        b_loc, chunk)
+
+
+def _gl_project(codec, ext, mag, final: bool):
+    """KJ + KK (KN + KO on the mm route's interior iterations)."""
+    return OPS.gl_overlap_add(codec.project(ext, mag, final), None,
+                              codec.hop, 0.0, False)[0]
+
+
+def _gl_epilogue(codec, sig_ext, recv, t_prev, chunk: int, momentum: float):
+    """KM: the left neighbour's tail added, with ``t_prev`` the momentum
+    step; (samples, momentum carry or an empty tensor)."""
+    return OPS.shard_epilogue(sig_ext, recv, None, t_prev, chunk, codec.hop,
+                              0, 0, 0.0, 0.0, momentum, False)
+
+
 class _LongformEncoder(torch.nn.Module):
-    def __init__(self, codec, shards: _Shards, mel: bool):
+    def __init__(self, codec, shards: _Shards):
         super().__init__()
-        self.codec, self.shards, self.mel = codec, shards, mel
+        self.codec, self.shards = codec, shards
 
     def forward(self, *xs):
         exts = self.shards.extend(list(xs), self.shards.chunk)
-        if self.mel:
-            return tuple(self.codec.encode(e) for e in exts)
-        return tuple(self.codec.stft_planes(e, 1, self.codec.nf)
-                     for e in exts)
+        return tuple(_encode(self.codec, e) for e in exts)
 
 
 class _LongformPhaseDecoder(torch.nn.Module):
@@ -820,14 +905,11 @@ class _LongformPhaseDecoder(torch.nn.Module):
 
     def forward(self, *specs):
         c, sh = self.codec, self.shards
-        sig_exts = [OPS.overlap_normalize(
-            c.synth_spec(s, sh.real_frames(i)), None, None, c.hop, 0.0,
-            False, 0.0, False)[0] for i, s in enumerate(specs)]
-        return tuple(OPS.shard_epilogue(
-            s, sh.recv(sig_exts, i), c.prefix, None, sh.chunk, c.hop,
-            sh.f_index(i) * sh.chunk, sh.plan.n_frames, c.threshold,
-            self.boost, 0.0, False)[0]
-            for i, s in enumerate(sig_exts))
+        sig_exts = [_synth(c, s, sh.real_frames(i))
+                    for i, s in enumerate(specs)]
+        return tuple(_phase_epilogue(
+            c, s, sh.recv(sig_exts, i), sh.chunk, sh.f_index(i) * sh.chunk,
+            sh.plan.n_frames, self.boost) for i, s in enumerate(sig_exts))
 
 
 class _LongformMelDecoder(torch.nn.Module):
@@ -842,38 +924,26 @@ class _LongformMelDecoder(torch.nn.Module):
         self.b_loc, self.dtype, self.momentum = b_loc, dtype, float(momentum)
 
     def _epilogue(self, sig_exts, t_prev):
-        sh, mom = self.shards, self.momentum
-        outs = [OPS.shard_epilogue(
-            s, sh.recv(sig_exts, i), None,
-            None if t_prev is None else t_prev[i], sh.chunk, self.codec.hop,
-            0, 0, 0.0, 0.0, mom, False)
-            for i, s in enumerate(sig_exts)]
+        sh = self.shards
+        outs = [_gl_epilogue(self.codec, s, sh.recv(sig_exts, i),
+                             None if t_prev is None else t_prev[i], sh.chunk,
+                             self.momentum)
+                for i, s in enumerate(sig_exts)]
         return [o[0] for o in outs], [o[1] for o in outs]
 
     def forward(self, *args):
         *logmels, key = args
         c, sh, codec = self.c, self.shards, self.codec
-        mags = []
-        for i, m in enumerate(logmels):
-            mag = codec.magnitudes(m, None, None, 0.0, c)
-            real = sh.real_frames(i)
-            if real < mag.shape[1]:
-                mag = torch.cat([mag[:, :real], mag.new_zeros(
-                    (mag.shape[0], mag.shape[1] - real, mag.shape[2]))], 1)
-            mags.append(mag)
-        keys = prng.fold_in_table(
-            key.reshape(1, 2),
-            torch.arange(sh.size, dtype=torch.int64, device=key.device))[0]
-        sig0 = [OPS.threefry_uniform(keys[i:i + 1], self.b_loc * sh.chunk,
-                                     self.dtype).reshape(self.b_loc,
-                                                         sh.chunk)
+        mags = [_gl_magnitudes(codec, c, m, sh.real_frames(i))
+                for i, m in enumerate(logmels)]
+        keys = _gl_keys(key, sh.size)
+        sig0 = [_gl_start(keys[i:i + 1], self.b_loc, sh.chunk, self.dtype)
                 for i in range(sh.size)]
         exts = sh.extend(sig0, sh.chunk)
         n_iter = c.griffin_lim_iterations
         t_prev = sig0 if self.momentum != 0.0 else None
         for _ in range(max(n_iter - 1, 0)):
-            sig_exts = [OPS.gl_overlap_add(codec.project(e, m), None,
-                                           codec.hop, 0.0, False)[0]
+            sig_exts = [_gl_project(codec, e, m, False)
                         for e, m in zip(exts, mags)]
             outs, ts = self._epilogue(sig_exts, t_prev)
             if t_prev is not None:
@@ -881,23 +951,278 @@ class _LongformMelDecoder(torch.nn.Module):
             exts = sh.extend(outs, sh.chunk)
         if n_iter < 1:
             return tuple(e[:, :sh.chunk] for e in exts)
-        sig_exts = [OPS.gl_overlap_add(codec.project(e, m, True), None,
-                                       codec.hop, 0.0, False)[0]
+        sig_exts = [_gl_project(codec, e, m, True)
                     for e, m in zip(exts, mags)]
         return tuple(self._epilogue(sig_exts, None)[0])
 
 
-def _export_longform(module, example: list, mesh, sharded) -> Exported:
+# -- long form: the per-shard pieces --------------------------------------------
+
+class _Piece(torch.nn.Module):
+    """One shard's step between two halo exchanges, as a program of its
+    own: ``step(codec, *data)`` with the codec's tables as its first
+    inputs, so the pieces of an artifact share one copy of them and carry
+    no tensor of their own. The codec is held outside the module tree (its
+    buffers are not this module's) and rebound to the inputs a call."""
+
+    def __init__(self, codec: _Codec, step):
+        super().__init__()
+        self.step = step
+        self.__dict__["_codec"] = codec
+
+    def forward(self, *args):
+        names = list(self._codec._buffers)
+        codec = copy.copy(self._codec)
+        codec._buffers = dict(zip(names, args[:len(names)]))
+        return self.step(codec, *args[len(names):])
+
+
+def _piece_specs(program: str, codec, config, p: dict,
+                 dev: torch.device) -> dict:
+    """key -> (step, example data) of every piece of a long-form program of
+    the plan ``p``. A key names what sets a piece apart: the frame shard's
+    real-frame count (KG, KI), its start (KM's window sum), whether it has
+    a left neighbour (KM's tail) and a momentum carry."""
+    from .parallel.sharded import _local_frame_count
+    plan = _plan(p)
+    b, chunk, halo = p["b_loc"], plan.chunk, plan.halo
+    dtype = getattr(torch, p["dtype"])
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    ext = zeros(b, chunk + halo)
+    if program == "encode":
+        return {"encode": (_encode, (ext,))}
+    specs = {}
+    frames = plan.frames_per_shard
+    for f in range(plan.n_shards):
+        real = _local_frame_count(plan, f)
+        recv = (zeros(b, halo),) if f else ()
+        if program == "phase-dec":
+            specs[f"synth/{real}"] = (
+                lambda c, s, real=real: _synth(c, s, real),
+                (zeros(b, frames, config.num_freqs, 2),))
+            specs[f"epilogue/{f}"] = (
+                lambda c, s, *r, f=f: _phase_epilogue(
+                    c, s, r[0] if r else None, chunk, f * chunk,
+                    plan.n_frames, p["boost"]), (ext,) + recv)
+            continue
+        specs[f"start/{real}"] = (
+            lambda c, logmel, key_row, real=real: (
+                _gl_magnitudes(c, config, logmel, real),
+                _gl_start(key_row, b, chunk, dtype)),
+            (zeros(b, frames, config.num_mels, 2),
+             zeros(1, 2, dt=torch.int32)))
+        carries = {p["momentum"] != 0.0} if p["n_iter"] >= 2 else set()
+        for carry in carries | ({False} if p["n_iter"] >= 1 else set()):
+            specs[_gl_epilogue_key(f, carry)] = (
+                lambda c, s, *r, f=f, carry=carry: _gl_epilogue(
+                    c, s, r[0] if f else None, r[-1] if carry else None,
+                    chunk, p["momentum"]),
+                (ext,) + recv + ((zeros(b, chunk),) if carry else ()))
+    if program == "mel-dec":
+        specs["fold"] = (lambda c, key: _gl_keys(key, p["size"]),
+                         (zeros(2, dt=torch.int32),))
+        mag = zeros(b, frames, codec.n // 2 + 1)
+        for final in (False, True):
+            specs[f"project/{int(final)}"] = (
+                lambda c, e, m, final=final: _gl_project(c, e, m, final),
+                (ext, mag))
+    return specs
+
+
+def _gl_epilogue_key(f: int, carry: bool) -> str:
+    return f"epilogue/{int(f > 0)}{int(carry)}"
+
+
+def _plan(p: dict):
+    from .parallel.sharded import plan_frame_sharding
+    return plan_frame_sharding(p["n_frames"], p["frame_len"], p["hop"],
+                               p["n_shards"])
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A shape and dtype with no storage: an input or output spec."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+class _Longform:
+    """The per-shard form every long-form artifact carries: its pieces
+    (``_piece_specs``), each traced once on the artifact's device, the
+    codec's tables they take, and the host loop (:meth:`run`) that runs
+    them on this process's shards of a mesh with parallel/sharded.py's halo
+    exchanges between them (local copies, or ``batch_isend_irecv`` across
+    processes), so an artifact gives the eager sharded path's bits on any
+    placement of its (data, frame) shape. A loaded piece is deserialised
+    at its first call on a device; on another device than the artifact's
+    it runs as a copy moved there (``torch.export.passes.
+    move_to_device_pass``). The tables are copied to each device once."""
+
+    def __init__(self, params: dict, names: list[str], tables: list,
+                 device: torch.device, pieces: dict | None = None,
+                 blobs: dict[str, bytes] | None = None, path: str = ""):
+        self.params, self.names, self.tables = params, names, tables
+        self.device, self.path = device, path
+        self._pieces = dict(pieces or {})
+        self._blobs = dict(blobs or {})
+        self.keys = list(self._pieces or self._blobs)
+        self._tables_on: dict = {}
+        self._modules: dict = {}
+
+    @classmethod
+    def build(cls, program: str, codec, config, params: dict,
+              dev: torch.device) -> "_Longform":
+        params = dict(params, program=program)
+        names = list(codec._buffers)
+        tables = list(codec._buffers.values())
+        pieces = {}
+        for key, (step, data) in _piece_specs(program, codec, config,
+                                              params, dev).items():
+            ep = torch.export.export(_Piece(codec, step),
+                                     tuple(tables) + data, strict=False)
+            ep.example_inputs = None
+            pieces[key] = ep
+        return cls(params, names, tables, dev, pieces=pieces)
+
+    def blob(self, key: str) -> bytes:
+        """The ``torch.export.save`` bytes of piece ``key``."""
+        if key not in self._blobs:
+            if key not in self._pieces:
+                raise ValueError(f"call_longform: the artifact has no piece "
+                                 f"{key!r}")
+            self._blobs[key] = _program_bytes(self._pieces[key])
+        return self._blobs[key]
+
+    def tables_blob(self) -> bytes:
+        buf = io.BytesIO()
+        torch.save(dict(zip(self.names, self.tables)), buf)
+        return buf.getvalue()
+
+    def _on(self, device: torch.device) -> tuple:
+        if device not in self._tables_on:
+            self._tables_on[device] = tuple(t.to(device)
+                                            for t in self.tables)
+        return self._tables_on[device]
+
+    def _module(self, key: str, device: torch.device) -> tuple:
+        """Piece ``key`` on ``device``: its graph, whose inputs are the
+        tables and the data (a piece lifts no tensor of its own), and its
+        outputs' structure. The graph is called as it is: the data are
+        checked once, at ``call_longform``'s door, and every piece's input
+        between two exchanges is a piece's output."""
+        if (key, device) not in self._modules:
+            if device == self.device and key in self._pieces:
+                ep = self._pieces[key]
+            else:
+                ep = _load_program(self.path, self.blob(key))
+                if device != self.device:
+                    from torch.export.passes import move_to_device_pass
+                    ep = move_to_device_pass(ep, str(device))
+                    # the pass rewrites the graph's nodes, not its code
+                    ep.graph_module.recompile()
+            self._modules[key, device] = (ep.graph_module,
+                                          ep.call_spec.out_spec)
+        return self._modules[key, device]
+
+    def _run(self, key: str, *data):
+        dev = data[0].device
+        graph, out_spec = self._module(key, dev)
+        return pytree.tree_unflatten(list(graph(*self._on(dev), *data)),
+                                     out_spec)
+
+    def run(self, mesh, inputs: list) -> list:
+        """This process's output shards (None for other processes') of the
+        program on ``inputs``: a ``Sharded`` for each sharded input, the key
+        as a tensor."""
+        from .parallel import sharded as sh
+        from .parallel.mesh import Sharded
+        p, plan = self.params, _plan(self.params)
+        local = sh._local
+
+        def real(i):
+            return sh._local_frame_count(plan, sh._frame_index(mesh, i))
+
+        def tail(recv, i):
+            return () if sh._frame_index(mesh, i) == 0 else (recv[i],)
+
+        if p["program"] == "encode":
+            return local(sh._local_signal_ext(inputs[0], plan),
+                         lambda _, e: self._run("encode", e))
+        if p["program"] == "phase-dec":
+            sig_exts = local(inputs[0].shards, lambda i, s: self._run(
+                f"synth/{real(i)}", s))
+            recv = sh._push_tail_right(sig_exts, mesh, plan)
+            return local(sig_exts, lambda i, s: self._run(
+                f"epilogue/{sh._frame_index(mesh, i)}", s, *tail(recv, i)))
+        keys: dict = {}
+
+        def key_row(i, device):
+            """KP's key of shard ``i``: the key folded with its global
+            index, on its device."""
+            if device not in keys:
+                keys[device] = self._run("fold", inputs[1].to(device))
+            return keys[device][i:i + 1]
+        starts = local(inputs[0].shards, lambda i, m: self._run(
+            f"start/{real(i)}", m, key_row(i, m.device)))
+        mags = local(starts, lambda _, s: s[0])
+        sig0 = local(starts, lambda _, s: s[1])
+        exts = sh._local_signal_ext(Sharded(mesh, sig0), plan)
+        carry = p["momentum"] != 0.0
+        t_prev = sig0
+        for _ in range(max(p["n_iter"] - 1, 0)):
+            sig_exts = local(exts, lambda i, e: self._run(
+                "project/0", e, mags[i]))
+            recv = sh._push_tail_right(sig_exts, mesh, plan)
+            outs = local(sig_exts, lambda i, s: self._run(
+                _gl_epilogue_key(sh._frame_index(mesh, i), carry), s,
+                *tail(recv, i), *((t_prev[i],) if carry else ())))
+            if carry:
+                t_prev = local(outs, lambda _, o: o[1])
+            exts = sh._local_signal_ext(
+                Sharded(mesh, local(outs, lambda _, o: o[0])), plan)
+        if p["n_iter"] < 1:
+            return local(exts, lambda _, e: e[:, :plan.chunk])
+        sig_exts = local(exts, lambda i, e: self._run("project/1", e,
+                                                      mags[i]))
+        recv = sh._push_tail_right(sig_exts, mesh, plan)
+        return local(sig_exts, lambda i, s: self._run(
+            _gl_epilogue_key(sh._frame_index(mesh, i), False), s,
+            *tail(recv, i))[0])
+
+
+def _export_longform(module, pieces: _Longform, example: list, mesh,
+                     sharded, out_shard: tuple) -> Exported:
+    """A long-form artifact: the single program of ``module`` when this
+    process holds every shard of ``mesh`` on one device (else None), and
+    the per-shard pieces."""
     from .parallel.mesh import DATA_AXIS, FRAME_AXIS
     dev = example[0].device
-    return _export(module, tuple(example), None, dev, nr_devices=mesh.size,
-                   mesh_shape=(mesh.shape[DATA_AXIS], mesh.shape[FRAME_AXIS]),
-                   sharded=sharded)
+    layout = dict(nr_devices=mesh.size,
+                  mesh_shape=(mesh.shape[DATA_AXIS], mesh.shape[FRAME_AXIS]),
+                  sharded=sharded, longform=pieces)
+    if _on_one_device(mesh, dev):
+        return _export(module, tuple(example), None, dev, **layout)
+    return Exported(None, dev, flat=([_meta(t.shape, t.dtype)
+                                      for t in example],
+                                     [_meta(*out_shard)] * mesh.size),
+                    **layout)
 
 
 def _shard_zeros(mesh, shape, dtype, dev) -> list:
     return [torch.zeros(shape, dtype=dtype, device=dev)
             for _ in range(mesh.size)]
+
+
+def _longform_setup(config, mesh, n_frames: int, batch, dtype):
+    """(trace device, plan, rows a shard, the pieces' plan parameters)."""
+    from .parallel.mesh import DATA_AXIS
+    dev = _device(mesh.first_local_device)
+    plan = longform_plan(config, mesh, n_frames)
+    b_loc = _longform_batch(batch, mesh) // mesh.shape[DATA_AXIS]
+    params = dict(n_frames=plan.n_frames, frame_len=plan.frame_len,
+                  hop=plan.hop, n_shards=plan.n_shards, size=mesh.size,
+                  b_loc=b_loc, dtype=_dtype_name(dtype))
+    return dev, plan, b_loc, params
 
 
 def export_longform_mel_encoder(config: MelConfig, mesh, *, n_frames: int,
@@ -908,14 +1233,14 @@ def export_longform_mel_encoder(config: MelConfig, mesh, *, n_frames: int,
     log-mel over ``mesh`` (parallel/sharded.sharded_mel_encode_fn at the
     plan of ``n_frames`` real frames, :func:`longform_plan`): the fused
     KB + KC (or KB then KC) on each shard's extended signal."""
-    from .parallel.mesh import DATA_AXIS
-    dev = _longform_device(mesh)
-    plan = longform_plan(config, mesh, n_frames)
-    b_loc = _longform_batch(batch, mesh) // mesh.shape[DATA_AXIS]
-    module = _LongformEncoder(_MelTables(config, dtype, dev, fft_backend),
-                              _Shards(mesh, plan), True)
-    return _export_longform(module, _shard_zeros(mesh, (b_loc, plan.chunk),
-                                                 dtype, dev), mesh, (True,))
+    dev, plan, b_loc, params = _longform_setup(config, mesh, n_frames, batch,
+                                               dtype)
+    codec = _MelTables(config, dtype, dev, fft_backend)
+    return _export_longform(
+        _LongformEncoder(codec, _Shards(mesh, plan)),
+        _Longform.build("encode", codec, config, params, dev),
+        _shard_zeros(mesh, (b_loc, plan.chunk), dtype, dev), mesh, (True,),
+        ((b_loc, plan.frames_per_shard, config.num_mels, 2), dtype))
 
 
 def export_longform_mel_decoder(config: MelConfig, mesh, *, n_frames: int,
@@ -926,22 +1251,25 @@ def export_longform_mel_decoder(config: MelConfig, mesh, *, n_frames: int,
     """Frame-sharded Griffin-Lim decode: ([B, F_pad, num_mels, 2] log-mel,
     [2] int32 key) -> [B, F_pad * hop] audio (parallel/sharded.
     sharded_mel_decode_fn); shard i starts from ``fold_in(key, i)``'s draw,
-    as the JAX program's. ``interior_mm`` as in sharded_griffin_lim_fn:
-    True runs the interior iterations on the matmul DFT in bf16 (KN's
-    projection + KO, the JAX package's TPU default), None (the default) and
-    False the exact iteration (KJ + KK)."""
-    from .parallel.mesh import DATA_AXIS
-    dev = _longform_device(mesh)
-    plan = longform_plan(config, mesh, n_frames)
-    b_loc = _longform_batch(batch, mesh) // mesh.shape[DATA_AXIS]
+    as the JAX program's, with ``i`` its global row-major index.
+    ``interior_mm`` as in sharded_griffin_lim_fn: True runs the interior
+    iterations on the matmul DFT in bf16 (KN's projection + KO, the JAX
+    package's TPU default), None (the default) and False the exact
+    iteration (KJ + KK)."""
+    dev, plan, b_loc, params = _longform_setup(config, mesh, n_frames, batch,
+                                               dtype)
     codec = _MelTables(config, dtype, dev, "mm" if interior_mm else "auto",
                        encode=False, gl=True)
     module = _LongformMelDecoder(codec, _Shards(mesh, plan), config, b_loc,
                                  dtype, momentum)
+    pieces = _Longform.build("mel-dec", codec, config, dict(
+        params, n_iter=config.griffin_lim_iterations,
+        momentum=float(momentum)), dev)
     example = _shard_zeros(mesh, (b_loc, plan.frames_per_shard,
                                   config.num_mels, 2), dtype, dev)
     example.append(torch.zeros((2,), dtype=torch.int32, device=dev))
-    return _export_longform(module, example, mesh, (True, False))
+    return _export_longform(module, pieces, example, mesh, (True, False),
+                            ((b_loc, plan.chunk), dtype))
 
 
 def export_longform_phase_encoder(config: PhaseConfig, mesh, *,
@@ -951,14 +1279,14 @@ def export_longform_phase_encoder(config: PhaseConfig, mesh, *,
     """Frame-sharded [B, F_pad * hop] audio -> [B, F_pad, num_freqs, 2]
     (parallel/sharded.sharded_phase_encode_fn): KE on each shard's extended
     signal."""
-    from .parallel.mesh import DATA_AXIS
-    dev = _longform_device(mesh)
-    plan = longform_plan(config, mesh, n_frames)
-    b_loc = _longform_batch(batch, mesh) // mesh.shape[DATA_AXIS]
+    dev, plan, b_loc, params = _longform_setup(config, mesh, n_frames, batch,
+                                               dtype)
     codec = _PhaseEncoder(config, dtype, dev, fft_backend, False)
-    module = _LongformEncoder(codec, _Shards(mesh, plan), False)
-    return _export_longform(module, _shard_zeros(mesh, (b_loc, plan.chunk),
-                                                 dtype, dev), mesh, (True,))
+    return _export_longform(
+        _LongformEncoder(codec, _Shards(mesh, plan)),
+        _Longform.build("encode", codec, config, params, dev),
+        _shard_zeros(mesh, (b_loc, plan.chunk), dtype, dev), mesh, (True,),
+        ((b_loc, plan.frames_per_shard, config.num_freqs, 2), dtype))
 
 
 def export_longform_phase_decoder(config: PhaseConfig, mesh, *,
@@ -968,32 +1296,50 @@ def export_longform_phase_decoder(config: PhaseConfig, mesh, *,
     """Frame-sharded direct iSTFT: [B, F_pad, num_freqs, 2] -> [B, F_pad *
     hop] audio (parallel/sharded.sharded_phase_decode_fn), normalised by
     the window sum of the whole signal under one global threshold."""
-    from .parallel.mesh import DATA_AXIS
-    dev = _longform_device(mesh)
-    plan = longform_plan(config, mesh, n_frames)
-    b_loc = _longform_batch(batch, mesh) // mesh.shape[DATA_AXIS]
+    dev, plan, b_loc, params = _longform_setup(config, mesh, n_frames, batch,
+                                               dtype)
     codec = _Codec(config.resolut, config.window, dtype, dev)
     codec._ola_tables(plan.n_frames)
     module = _LongformPhaseDecoder(codec, _Shards(mesh, plan),
                                    config.volume_boost)
+    pieces = _Longform.build("phase-dec", codec, config, dict(
+        params, boost=float(config.volume_boost)), dev)
     example = _shard_zeros(mesh, (b_loc, plan.frames_per_shard,
                                   config.num_freqs, 2), dtype, dev)
-    return _export_longform(module, example, mesh, (True,))
+    return _export_longform(module, pieces, example, mesh, (True,),
+                            ((b_loc, plan.chunk), dtype))
+
+
+def _check_shards(exp: Exported, inputs: list) -> None:
+    """Each of this process's shards of each input against the artifact's
+    (the single program checks its own in ``Exported.call``)."""
+    k = 0
+    for j, (x, sharded) in enumerate(zip(inputs, exp.sharded)):
+        want = exp._flat_in[k]
+        k += exp.nr_devices if sharded else 1
+        for t in (x.shards if sharded else [x]):
+            if t is not None and (tuple(t.shape) != tuple(want.shape)
+                                  or t.dtype != want.dtype):
+                raise ValueError(
+                    f"input {j}: a shard is {_dtype_name(t.dtype)} "
+                    f"{list(t.shape)}; the artifact takes "
+                    f"{_dtype_name(want.dtype)} {list(want.shape)}")
 
 
 def call_longform(exp: Exported, mesh, *args):
-    """Run a long-form artifact on ``mesh``: each host or device input cut
-    the way the port's sharded functions take it (a sharded input [B, T,
-    ...] over (data, frame) by parallel/mesh.shard_array; the key as it
-    is), the program called once, and its shards returned as a
-    ``Sharded``."""
+    """Run a long-form artifact on ``mesh``, any placement of its (data,
+    frame) shape on devices of its type: every process passes the same
+    whole host or device inputs (the replicated-input model), cut the way
+    the port's sharded functions take them (a sharded input [B, T, ...]
+    over (data, frame) by parallel/mesh.shard_array; the key as it is).
+    Where this process holds every shard on the artifact's own device the
+    artifact's single program runs; elsewhere its per-shard pieces, with
+    the halo exchanges between them on the host, over the process group
+    where neighbours live in two processes. Returns a ``Sharded`` of this
+    process's shards (None for other processes')."""
     from .parallel.mesh import DATA_AXIS, FRAME_AXIS, Sharded, shard_array
     if exp.mesh_shape is None:
         raise ValueError("call_longform: not a long-form artifact")
-    if mesh.spans_processes:
-        raise ValueError("call_longform: an artifact is one program over "
-                         "every shard, so it runs on a mesh that one "
-                         "process owns")
     if mesh.size != exp.nr_devices:
         raise ValueError(f"artifact was exported for {exp.nr_devices} "
                          f"devices; mesh has {mesh.size}")
@@ -1001,23 +1347,32 @@ def call_longform(exp: Exported, mesh, *args):
     if shape != exp.mesh_shape:
         raise ValueError(f"artifact was exported for a {exp.mesh_shape} "
                          f"(data, frame) mesh; mesh is {shape}")
-    if any(torch.device(d) != exp.device
-           for row in mesh.devices for d in row):
-        raise ValueError(f"artifact runs its shards on {exp.device}; mesh "
+    if any(d.type != exp.device.type for d in _mesh_devices(mesh)):
+        raise ValueError(f"artifact runs on {exp.device.type} devices; mesh "
                          f"has {mesh.devices}")
     if len(args) != len(exp.sharded):
         raise ValueError(f"artifact takes {len(exp.sharded)} inputs "
                          f"{exp.in_shapes}, got {len(args)}")
-    flat = []
+    inputs = []
     for a, sharded in zip(args, exp.sharded):
         if sharded:
-            flat.extend(shard_array(a, mesh).shards)
+            inputs.append(shard_array(a, mesh))
         else:
             a = torch.as_tensor(a)
             if a.dtype == torch.uint32:     # a key's bits
                 a = a.view(torch.int32)
-            flat.append(a.to(exp.device))
-    return Sharded(mesh, list(exp.call(*flat)))
+            inputs.append(a)
+    if exp.program is not None and _on_one_device(mesh, exp.device):
+        flat = []
+        for x, sharded in zip(inputs, exp.sharded):
+            flat.extend(x.shards if sharded else [x.to(exp.device)])
+        return Sharded(mesh, list(exp.call(*flat)))
+    if exp.longform is None:
+        raise ValueError(f"call_longform: the artifact holds its single "
+                         f"program alone, which runs where this process "
+                         f"holds every shard on {exp.device}")
+    _check_shards(exp, inputs)
+    return Sharded(mesh, exp.longform.run(mesh, inputs))
 
 
 # -- persistence --------------------------------------------------------------
@@ -1045,11 +1400,33 @@ def artifact_meta(exp: Exported, config=None, kind: str = "",
     return meta
 
 
+def _program_bytes(program: torch.export.ExportedProgram) -> bytes:
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
+def _shard_specs(exp: Exported) -> tuple[list, list]:
+    """[shape, dtype] of one shard of each input and each output."""
+    ins, k = [], 0
+    for sharded in exp.sharded:
+        v = exp._flat_in[k]
+        ins.append([list(v.shape), _dtype_name(v.dtype)])
+        k += exp.nr_devices if sharded else 1
+    outs = [[list(v.shape), _dtype_name(v.dtype)]
+            for v in exp._flat_out[::exp.nr_devices]]
+    return ins, outs
+
+
 def save_exported(exp: Exported, path: str, meta: dict | None = None
                   ) -> None:
     """Write an artifact: magic, u32 header length, JSON header (``meta``,
     else :func:`artifact_meta` of ``exp``; the device and the long-form
-    layout are always recorded), the ``torch.export.save`` bytes."""
+    layout are always recorded), the ``torch.export.save`` bytes. A
+    long-form artifact's header also lists its ``sections``, written one
+    after another: its single program where it has one (which holds the
+    tables), else its ``tables`` (``torch.save`` of a dict), then each
+    piece's program."""
     header = dict(meta) if meta is not None else artifact_meta(exp)
     header.setdefault("platforms", exp.platforms)
     header.setdefault("nr_devices", exp.nr_devices)
@@ -1057,14 +1434,25 @@ def save_exported(exp: Exported, path: str, meta: dict | None = None
     if exp.mesh_shape is not None:
         header.setdefault("mesh", list(exp.mesh_shape))
         header.setdefault("sharded_inputs", list(exp.sharded))
-    blob = io.BytesIO()
-    torch.export.save(exp.program, blob)
+    if exp.longform is None:
+        blobs = [("program", _program_bytes(exp.program))]
+    else:
+        lf = exp.longform
+        blobs = ([("program", _program_bytes(exp.program))]
+                 if exp.program is not None
+                 else [("tables", lf.tables_blob())])
+        blobs += [(f"piece:{k}", lf.blob(k)) for k in lf.keys]
+        shard_in, shard_out = _shard_specs(exp)
+        header["longform"] = dict(lf.params, tables=lf.names,
+                                  shard_in=shard_in, shard_out=shard_out)
+        header["sections"] = [[name, len(b)] for name, b in blobs]
     head = json.dumps(header).encode()
     with open(path, "wb") as f:
         f.write(MAGIC)
         f.write(struct.pack("<I", len(head)))
         f.write(head)
-        f.write(blob.getvalue())
+        for _, b in blobs:
+            f.write(b)
 
 
 def _read_artifact(path: str, with_blob: bool) -> tuple[dict, bytes | None]:
@@ -1102,6 +1490,61 @@ def _read_artifact(path: str, with_blob: bool) -> tuple[dict, bytes | None]:
         return header, (f.read() if with_blob else None)
 
 
+def _load_program(path: str, blob: bytes) -> torch.export.ExportedProgram:
+    try:
+        return torch.export.load(io.BytesIO(blob))
+    except Exception as e:      # a cut or damaged archive
+        raise ValueError(f"{path}: truncated or corrupt program "
+                         f"({type(e).__name__}: {e})") from None
+
+
+def _sections(path: str, header: dict, blob: bytes) -> dict[str, bytes]:
+    """The file's sections by name (one ``program`` to the end of the file
+    where the header lists none)."""
+    sections = header.get("sections", [["program", len(blob)]])
+    if sum(n for _, n in sections) != len(blob):
+        raise ValueError(f"{path}: truncated or corrupt program (the "
+                         f"sections take {sum(n for _, n in sections)} "
+                         f"bytes, the file holds {len(blob)})")
+    out, at = {}, 0
+    for name, n in sections:
+        out[name] = blob[at:at + n]
+        at += n
+    return out
+
+
+def _load_longform(path: str, header: dict, parts: dict, program,
+                   device: torch.device) -> tuple["_Longform", tuple]:
+    """The per-shard form of a long-form artifact, and its inputs' and
+    outputs' flat specs (read off its single program where it has one)."""
+    lf = header["longform"]
+    names = lf["tables"]
+    if program is not None:
+        tables = [program.state_dict[f"codec.{n}"] for n in names]
+    else:
+        try:
+            held = torch.load(io.BytesIO(parts["tables"]),
+                              map_location=device, weights_only=True)
+        except Exception as e:
+            raise ValueError(f"{path}: truncated or corrupt tables "
+                             f"({type(e).__name__}: {e})") from None
+        tables = [held[n] for n in names]
+    blobs = {name.removeprefix("piece:"): b for name, b in parts.items()
+             if name.startswith("piece:")}
+    params = {k: v for k, v in lf.items()
+              if k not in ("tables", "shard_in", "shard_out")}
+    n = header["nr_devices"]
+    flat_in = []
+    for (shape, dtype), sharded in zip(lf["shard_in"],
+                                       header["sharded_inputs"]):
+        flat_in += [_meta(shape, getattr(torch, dtype))] * (
+            n if sharded else 1)
+    flat_out = [_meta(shape, getattr(torch, dtype))
+                for shape, dtype in lf["shard_out"] for _ in range(n)]
+    return (_Longform(params, names, tables, device, blobs=blobs, path=path),
+            (flat_in, flat_out))
+
+
 def load_exported(path: str) -> Exported:
     """Load an artifact written by :func:`save_exported` onto the device it
     was built for (raises RuntimeError when that device is absent)."""
@@ -1109,15 +1552,17 @@ def load_exported(path: str) -> Exported:
     device = torch.device(header.get("device", "cpu"))
     _cuda.require_device(device, "load_exported",
                          hint="load it where its device is")
-    try:
-        program = torch.export.load(io.BytesIO(blob))
-    except Exception as e:      # a cut or damaged archive
-        raise ValueError(f"{path}: truncated or corrupt program "
-                         f"({type(e).__name__}: {e})") from None
+    parts = _sections(path, header, blob)
+    program = (_load_program(path, parts["program"]) if "program" in parts
+               else None)
     mesh = header.get("mesh")
+    longform = flat = None
+    if "longform" in header:
+        longform, flat = _load_longform(path, header, parts, program, device)
     return Exported(program, device, header.get("nr_devices", 1),
                     None if mesh is None else tuple(mesh),
-                    None if mesh is None else tuple(header["sharded_inputs"]))
+                    None if mesh is None else tuple(header["sharded_inputs"]),
+                    longform, flat)
 
 
 def read_artifact_meta(path: str) -> dict:

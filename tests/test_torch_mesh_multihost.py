@@ -369,11 +369,3 @@ def test_batched_codecs_over_a_mesh_in_one_process():
     with pytest.raises(ValueError, match="unknown input_mode"):
         BatchedMel(cfg, device=CPU, mesh=mesh, input_mode="global")
 
-
-def test_serving_longform_call_refuses_a_mesh_over_processes():
-    """A long-form artifact is one program over every shard: calling it on
-    a mesh over processes raises."""
-    from gomel_tpu_torch import serving
-    exp = types.SimpleNamespace(mesh_shape=(1, 4), nr_devices=4)
-    with pytest.raises(ValueError, match="one process owns"):
-        serving.call_longform(exp, _split_mesh(), np.zeros((1, 8)))

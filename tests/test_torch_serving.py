@@ -35,7 +35,7 @@ from gomel_tpu_torch.ops import (griffinlim, istft, library, mel_ops,
                                  phase_ops, prng, quantize, rfft_mag)
 from gomel_tpu_torch.ops.stft import hann_window
 from gomel_tpu_torch.parallel import sharded as tsh
-from gomel_tpu_torch.parallel.mesh import shard_array
+from gomel_tpu_torch.parallel.mesh import Sharded, shard_array
 
 MEL = dict(num_mels=32, resolut=256, window=64, griffin_lim_iterations=2)
 PH = dict(sample_rate=8000, resolut=256, window=64, num_freqs=100)
@@ -593,6 +593,30 @@ def test_longform_interior_mm_matches_the_live_program():
     ref = np.asarray(js.call_longform(jexp, jmake_mesh(data=2, frame=4), lm,
                                       key))
     assert_near("f32", got.numpy(), ref)
+
+
+@pytest.mark.parametrize("name", LONG)
+def test_longform_artifact_keeps_its_bits_through_save_and_load(name,
+                                                                tmp_path):
+    """A one-device long-form artifact's file holds its single program, then
+    its per-shard pieces: loaded, the single program (call_longform on the
+    mesh it was built on) and the pieces both give the built artifact's
+    bits."""
+    args = inputs(name)
+    want = run_port(name, args)[0]
+    p = str(tmp_path / "a.gmexp")
+    ts.save_exported(artifact(name), p)
+    sections = [s[0] for s in ts.read_artifact_meta(p)["sections"]]
+    assert sections[0] == "program" and all(
+        s.startswith("piece:") for s in sections[1:])
+    loaded = ts.load_exported(p)
+    mesh = make_mesh(data=2, frame=4, devices=CPU8)
+    assert torch.equal(ts.call_longform(loaded, mesh, *args).gather(), want)
+    flat = [shard_array(args[0], mesh)]
+    if len(args) > 1:
+        flat.append(torch.from_numpy(_int32_bits(args[1])))
+    pieces = Sharded(mesh, loaded.longform.run(mesh, flat)).gather()
+    assert torch.equal(pieces, want)
 
 
 def test_artifact_records_the_jax_fields_and_its_device(tmp_path):

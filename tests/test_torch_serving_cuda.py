@@ -296,3 +296,55 @@ def test_card_quantized_and_longform_artifacts(cuda):
     ref = tsh.sharded_phase_decode_fn(mesh, plan)(want)
     assert all(torch.equal(a, b) for a, b in zip(got.shards, ref.shards))
     assert library.NS == "gomel_tpu_torch"
+
+
+LONGFORM = {  # name: (builder, config, real frames, builder keywords)
+    "mel-enc": ("export_longform_mel_encoder", "mel", 37, {}),
+    "phase-enc": ("export_longform_phase_encoder", "phase", 33, {}),
+    "phase-dec": ("export_longform_phase_decoder", "phase", 33, {}),
+    "mel-dec": ("export_longform_mel_decoder", "mel", 25, {}),
+    "mel-dec-mm": ("export_longform_mel_decoder", "mel", 25,
+                   dict(interior_mm=True, momentum=0.99))}
+
+
+@pytest.mark.parametrize("name", list(LONGFORM))
+def test_card_longform_pieces_give_the_single_program_bits(cuda, name,
+                                                           tmp_path):
+    """A long-form artifact on 4 frame shards of the card: its per-shard
+    pieces (the form it runs in over processes), as built and saved and
+    loaded, give its single program's bits; with 2 cards, so do it and one
+    built on a mesh over both cards in this process (pieces moved to
+    cuda:1)."""
+    builder, kind, n_frames, kw = LONGFORM[name]
+    cfg = (MelConfig(num_mels=32, resolut=256, window=64,
+                     griffin_lim_iterations=2) if kind == "mel" else PCFG)
+    build = getattr(serving, builder)
+    mesh = make_mesh(data=1, frame=4, devices=[cuda] * 4)
+    exp = build(cfg, mesh, n_frames=n_frames, **kw)
+    plan = serving.longform_plan(cfg, mesh, n_frames)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    if name.endswith("-enc"):
+        args = (torch.randn(1, plan.sharded_signal_len, device=cuda,
+                            generator=g),)
+    elif name == "phase-dec":
+        args = (torch.randn(1, plan.n_frames_padded, PCFG.num_freqs, 2,
+                            device=cuda, generator=g),)
+    else:
+        args = (torch.randn(1, plan.n_frames_padded, 32, 2, device=cuda,
+                            generator=g) - 3.0,
+                torch.from_numpy(prng.key(9).view(np.int32)).to(cuda))
+    want = serving.call_longform(exp, mesh, *args).gather()
+    inputs = [shard_array(args[0], mesh), *args[1:]]
+    path = str(tmp_path / "a.gmexp")
+    serving.save_exported(exp, path)
+    for art in (exp, serving.load_exported(path)):
+        got = art.longform.run(mesh, inputs)
+        assert all(torch.equal(s, want[:, i * s.shape[1]:(i + 1) * s.shape[1]])
+                   for i, s in enumerate(got))
+    if torch.cuda.device_count() < 2:
+        return
+    c1 = torch.device("cuda", 1)
+    two = make_mesh(data=1, frame=4, devices=[cuda, cuda, c1, c1])
+    for art in (exp, build(cfg, two, n_frames=n_frames, **kw)):
+        got = serving.call_longform(art, two, *args)
+        assert torch.equal(got.gather(cuda), want)
