@@ -85,14 +85,17 @@ _SIGNATURES = {
 
 
 class Kernel:
-    """One hand-written kernel: where it lives, what it replaces, and how
-    often its wrapper launched it (a plain count a run can reset and read)."""
+    """One hand-written kernel: where it lives, what it replaces, how often
+    its wrapper launched it (a plain count a run can reset and read), and
+    the name of the wrapper's span (utils/profiling.annotate), one a
+    launch."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
         self.source = source        # path in the repository
         self.replaces = replaces    # file:line of the TPU kernel
         self.launches = 0
+        self.span = "gomel.op." + name
 
 
 def _sources() -> list[str]:

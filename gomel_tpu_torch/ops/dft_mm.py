@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import _cuda
 from .stft import frame_signal, hann_window, num_frames_of
 
@@ -326,8 +327,10 @@ def dft_inv_weights_plain(re: torch.Tensor, im: torch.Tensor,
 def _launch_fwd(x: torch.Tensor, n: int, hop: int, window, bf16: bool,
                 kind: str, mag: torch.Tensor | None, first: int, count: int,
                 final: bool):
-    wt = _weights("fwd", n, window, "bf16" if bf16 else "f32", x.device)
-    return launch_fwd(x, wt, n, hop, bf16, kind, mag, first, count, final)
+    with annotate((FWD_KERNEL if bf16 else FWD_F32_KERNEL).span):
+        wt = _weights("fwd", n, window, "bf16" if bf16 else "f32", x.device)
+        return launch_fwd(x, wt, n, hop, bf16, kind, mag, first, count,
+                          final)
 
 
 def launch_fwd(x: torch.Tensor, wt: KernelWeights, n: int, hop: int,
@@ -448,8 +451,10 @@ def istft_frames(re: torch.Tensor, im: torch.Tensor, n: int, window=None,
     bf16 = _low(precision, re.device)
     if re.device.type == "cpu":
         return dft_inv_plain(re, im, n, window, real_frames=real_frames)
-    wt = _weights("inv", n, window, "bf16" if bf16 else "f32", re.device)
-    return launch_inv(re, im, wt, n, bf16, real_frames)
+    with annotate((INV_KERNEL if bf16 else INV_F32_KERNEL).span):
+        wt = _weights("inv", n, window, "bf16" if bf16 else "f32",
+                      re.device)
+        return launch_inv(re, im, wt, n, bf16, real_frames)
 
 
 def launch_inv(re: torch.Tensor, im: torch.Tensor, wt: KernelWeights,

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import _cuda, dft_mm, fftbackend, istft, prng
 from .istft import overlap_add_plain
 from .quantize import pcm16_encode
@@ -125,15 +126,19 @@ def gl_project(sig: torch.Tensor, mag_half: torch.Tensor,
         return dft_mm.istft_frames(yr, yi, n, fold, "default")
     if sig.device.type == "cpu":
         return gl_project_plain(sig, mag_half, window, n, hop)
-    sig, mag_half, window = (t.contiguous() for t in (sig, mag_half, window))
-    dev = _cuda.check_cuda("gl_project", sig, mag_half, window)
-    if any(t.dtype != torch.float32 for t in (sig, mag_half, window)):
-        raise ValueError("gl_project: the CUDA kernel takes float32 tensors")
-    if route == "xla":
-        fftbackend.XLA_ROUTE.launches += 1
-        return gl_project_plain(sig, mag_half, window, n, hop)
-    return launch_gl_project(sig, mag_half, window, *fft_tables(n, dev),
-                             fft_plan_args(n), n, hop)
+    kernel = fftbackend.XLA_ROUTE if route == "xla" else PROJECT_KERNEL
+    with annotate(kernel.span):
+        sig, mag_half, window = (t.contiguous()
+                                 for t in (sig, mag_half, window))
+        dev = _cuda.check_cuda("gl_project", sig, mag_half, window)
+        if any(t.dtype != torch.float32 for t in (sig, mag_half, window)):
+            raise ValueError("gl_project: the CUDA kernel takes float32 "
+                             "tensors")
+        if route == "xla":
+            kernel.launches += 1
+            return gl_project_plain(sig, mag_half, window, n, hop)
+        return launch_gl_project(sig, mag_half, window, *fft_tables(n, dev),
+                                 fft_plan_args(n), n, hop)
 
 
 def launch_gl_project(sig: torch.Tensor, mag_half: torch.Tensor,
@@ -193,7 +198,8 @@ def gl_overlap_add(frames_w: torch.Tensor, hop: int,
                          f"{tuple(lead) + (length,)}")
     if frames_w.device.type == "cpu":
         return gl_overlap_add_plain(frames_w, hop, t_prev, momentum, pcm16)
-    return launch_gl_overlap_add(frames_w, hop, t_prev, momentum, pcm16)
+    with annotate(OLA_KERNEL.span):
+        return launch_gl_overlap_add(frames_w, hop, t_prev, momentum, pcm16)
 
 
 def launch_gl_overlap_add(frames_w: torch.Tensor, hop: int,

@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import _cuda, dft_mm, fftbackend
 from .quantize import pcm16_encode
 from .rfft_mag import fft_plan_args, fft_tables, supported
@@ -216,9 +217,13 @@ def launch_irfft_window(mode: int, src: torch.Tensor,
                  tw.data_ptr(), tw_pass.data_ptr(), out.data_ptr(), batch,
                  frames, frames if real_frames is None else real_frames, nf, n,
                  float(max_val), int(ihs_passes), *plan)
-    (SYNTH_KERNEL if real_frames is None
-     else SYNTH_MASKED_KERNEL).launches += 1
+    synth_kernel(real_frames).launches += 1
     return out
+
+
+def synth_kernel(real_frames: int | None) -> _cuda.Kernel:
+    """KG's tally for a launch with (or without) a real-frame count."""
+    return SYNTH_KERNEL if real_frames is None else SYNTH_MASKED_KERNEL
 
 
 def irfft_window(re: torch.Tensor, im: torch.Tensor, n: int,
@@ -242,15 +247,18 @@ def irfft_window(re: torch.Tensor, im: torch.Tensor, n: int,
     if re.dtype != torch.float32:
         raise ValueError("irfft_window: the CUDA kernel takes float32")
     if route == "xla":
-        re, im = re.contiguous(), im.contiguous()
-        _cuda.check_cuda("irfft_window", re, im,
-                         *(() if window is None else (window,)))
-        fftbackend.XLA_ROUTE.launches += 1
-        return irfft_window_plain(re, im, n, window, real_frames)
+        with annotate(fftbackend.XLA_ROUTE.span):
+            re, im = re.contiguous(), im.contiguous()
+            _cuda.check_cuda("irfft_window", re, im,
+                             *(() if window is None else (window,)))
+            fftbackend.XLA_ROUTE.launches += 1
+            return irfft_window_plain(re, im, n, window, real_frames)
     *lead, frames, _ = re.shape
-    return launch_irfft_window(MODE_PLANES, re.contiguous(), (im.contiguous(),),
-                               n, frames, n // 2 + 1, window, tuple(lead),
-                               real_frames=real_frames)
+    with annotate(synth_kernel(real_frames).span):
+        return launch_irfft_window(MODE_PLANES, re.contiguous(),
+                                   (im.contiguous(),), n, frames, n // 2 + 1,
+                                   window, tuple(lead),
+                                   real_frames=real_frames)
 
 
 def check_frame_chunk(chunk: int, hop: int, n: int) -> None:
@@ -331,18 +339,19 @@ def window_sum_short(taps: int, n_frames: int) -> bool:
 def _launch_ola(frames_w: torch.Tensor, hop: int,
                 window: torch.Tensor | None, volume_boost: float,
                 pcm16: bool):
-    *_, frames, n = frames_w.shape
-    table, threshold, short = None, 0.0, False
-    if window is not None:
-        if window.shape != (n,):
-            raise ValueError(f"overlap_normalize: window shape "
-                             f"{tuple(window.shape)} != ({n},)")
-        table, prefix = _window_table(window, hop)
-        table = table.to(frames_w.device)
-        threshold = window_sum_threshold(prefix, frames)
-        short = window_sum_short(prefix.shape[0], frames)
-    return launch_ola(frames_w, hop, table, threshold, short, volume_boost,
-                      pcm16)
+    with annotate(OLA_KERNEL.span):
+        *_, frames, n = frames_w.shape
+        table, threshold, short = None, 0.0, False
+        if window is not None:
+            if window.shape != (n,):
+                raise ValueError(f"overlap_normalize: window shape "
+                                 f"{tuple(window.shape)} != ({n},)")
+            table, prefix = _window_table(window, hop)
+            table = table.to(frames_w.device)
+            threshold = window_sum_threshold(prefix, frames)
+            short = window_sum_short(prefix.shape[0], frames)
+        return launch_ola(frames_w, hop, table, threshold, short,
+                          volume_boost, pcm16)
 
 
 def launch_ola(frames_w: torch.Tensor, hop: int, table: torch.Tensor | None,
@@ -556,15 +565,16 @@ def shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,
             sig_ext, recv, chunk, window=window, hop=hop, start=start,
             n_frames=n_frames, volume_boost=volume_boost, t_prev=t_prev,
             momentum=momentum, pcm16=pcm16, extend=extend)
-    table, threshold = None, 0.0
-    if window is not None:
-        table, prefix = _window_table(window, hop)
-        table = table.to(sig_ext.device)
-        threshold = window_sum_threshold(prefix, n_frames)
-    return launch_shard_epilogue(
-        sig_ext, recv, chunk, table, threshold, hop=hop, start=start,
-        n_frames=n_frames, volume_boost=volume_boost, t_prev=t_prev,
-        momentum=momentum, pcm16=pcm16, extend=extend)
+    with annotate(SHARD_KERNEL.span):
+        table, threshold = None, 0.0
+        if window is not None:
+            table, prefix = _window_table(window, hop)
+            table = table.to(sig_ext.device)
+            threshold = window_sum_threshold(prefix, n_frames)
+        return launch_shard_epilogue(
+            sig_ext, recv, chunk, table, threshold, hop=hop, start=start,
+            n_frames=n_frames, volume_boost=volume_boost, t_prev=t_prev,
+            momentum=momentum, pcm16=pcm16, extend=extend)
 
 
 def launch_shard_epilogue(sig_ext: torch.Tensor, recv: torch.Tensor | None,

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, transfer
 from . import _cuda, fftbackend, rfft_mag
 from .griffinlim import griffin_lim, griffin_lim_magnitudes
 from .quantize import (dequantize_mel_plane, pcm16_ingest,
@@ -198,11 +199,14 @@ def _mel_from_mags(mags: torch.Tensor, fwd_weights: torch.Tensor) -> torch.Tenso
     """|rfft| [..., N/2+1] -> log-mel [..., num_mels, 2]."""
     if mags.device.type == "cpu":
         return mel_from_mags_plain(mags, fwd_weights)
-    slots, weights, groups = _mel_band_table(fwd_weights)
-    bins = fwd_weights.shape[1] + 1
-    if mags.shape[-1] != bins:
-        raise ValueError(f"mel_log: {mags.shape[-1]} bins, weights expect {bins}")
-    return launch_mel_log(mags, slots, weights, groups, fwd_weights.shape[0])
+    with annotate(KERNEL.span):
+        slots, weights, groups = _mel_band_table(fwd_weights)
+        bins = fwd_weights.shape[1] + 1
+        if mags.shape[-1] != bins:
+            raise ValueError(f"mel_log: {mags.shape[-1]} bins, weights expect "
+                             f"{bins}")
+        return launch_mel_log(mags, slots, weights, groups,
+                              fwd_weights.shape[0])
 
 
 def launch_mel_log(mags: torch.Tensor, slots: torch.Tensor,
@@ -253,17 +257,19 @@ def stft_mel_log(x: torch.Tensor, window: torch.Tensor | None, n: int,
     CUDA tensor. The plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return stft_mel_log_plain(x, window, n, hop, fwd_weights)
-    m = n // 2
-    if n % 2 or m < 2 or m & (m - 1):
-        raise ValueError(f"stft_mel_log: n/2 = {n / 2} is not a power of two")
-    if 2 * fwd_weights.shape[1] != n:
-        raise ValueError(f"stft_mel_log: weights {tuple(fwd_weights.shape)} "
-                         f"do not match n={n}")
-    dev = rfft_mag._check("stft_mel_log", x, window, n)
-    slots, weights, groups = _mel_band_table(fwd_weights)
-    return launch_stft_mel_log(x, window, *rfft_mag.fft_tables(n, dev),
-                               rfft_mag.fft_plan_args(n), slots, weights,
-                               groups, fwd_weights.shape[0], n, hop)
+    with annotate(FUSED_KERNEL.span):
+        m = n // 2
+        if n % 2 or m < 2 or m & (m - 1):
+            raise ValueError(f"stft_mel_log: n/2 = {n / 2} is not a power of "
+                             f"two")
+        if 2 * fwd_weights.shape[1] != n:
+            raise ValueError(f"stft_mel_log: weights "
+                             f"{tuple(fwd_weights.shape)} do not match n={n}")
+        dev = rfft_mag._check("stft_mel_log", x, window, n)
+        slots, weights, groups = _mel_band_table(fwd_weights)
+        return launch_stft_mel_log(x, window, *rfft_mag.fft_tables(n, dev),
+                                   rfft_mag.fft_plan_args(n), slots, weights,
+                                   groups, fwd_weights.shape[0], n, hop)
 
 
 def launch_stft_mel_log(x: torch.Tensor, window: torch.Tensor | None,
@@ -327,47 +333,52 @@ def stft_mel_log_pcm16(pcm: torch.Tensor, scale, pad_to: int,
     if pcm.device.type == "cpu":
         return stft_mel_log_pcm16_plain(pcm, scale, pad_to, window, n, hop,
                                         fwd_weights)
-    # the kernel divides by one exact FMA: powers of two only (a table on
-    # the card is read back once to check)
-    values = (scale.detach().cpu().double().numpy() if per_row
-              else np.array([float(scale)]))
-    mant, exp = np.frexp(values)
-    if not ((mant == 0.5) & (exp >= -99) & (exp <= 101)).all():
-        raise ValueError(f"stft_mel_log_pcm16: scales must be powers of two "
-                         f"in [2^-100, 2^100] (got {values.tolist()})")
-    if per_row:
-        scale = scale.to(pcm.device)
-    m = n // 2
-    if n % 2 or m < 2 or m & (m - 1):
-        raise ValueError(f"stft_mel_log_pcm16: n/2 = {n / 2} is not a power "
-                         f"of two")
-    if 2 * fwd_weights.shape[1] != n:
-        raise ValueError(f"stft_mel_log_pcm16: weights "
-                         f"{tuple(fwd_weights.shape)} do not match n={n}")
-    tensors = [pcm] + ([scale.contiguous()] if per_row else [])
-    if window is not None:
-        tensors.append(window)
-        if window.dtype != torch.float32 or window.shape != (n,):
-            raise ValueError(f"stft_mel_log_pcm16: the window must be float32 "
-                             f"({n},)")
-    dev = _cuda.check_cuda("stft_mel_log_pcm16", *tensors)
-    slots, weights, groups = _mel_band_table(fwd_weights)
-    tw, tw_pass = rfft_mag.fft_tables(n, dev)
-    n_in, mels = pcm.shape[-1], fwd_weights.shape[0]
-    rows = pcm.shape[0] if pcm.ndim == 2 else 1
-    frames = num_frames_of(max(n_in, pad_to), n, hop)
-    out = torch.empty(pcm.shape[:-1] + (frames, mels, 2), dtype=torch.float32,
-                      device=dev)
-    if out.numel() == 0:
-        return out
-    _cuda.launch("gomel_stft_mel_log_pcm16", dev, pcm.data_ptr(),
-                 0.0 if per_row else float(scale),
-                 tensors[1].data_ptr() if per_row else None, n_in,
-                 None if window is None else window.data_ptr(), tw.data_ptr(),
-                 tw_pass.data_ptr(), slots.data_ptr(), weights.data_ptr(),
-                 groups, out.data_ptr(), 2 * mels, rows, frames, hop, n,
-                 *rfft_mag.fft_plan_args(n))
-    FUSED_PCM16_KERNEL.launches += 1
+    with annotate(FUSED_PCM16_KERNEL.span):
+        # the kernel divides by one exact FMA: powers of two only (a table
+        # on the card is read back once to check)
+        if per_row:
+            with transfer(scale, torch.device("cpu")):
+                values = scale.detach().cpu().double().numpy()
+        else:
+            values = np.array([float(scale)])
+        mant, exp = np.frexp(values)
+        if not ((mant == 0.5) & (exp >= -99) & (exp <= 101)).all():
+            raise ValueError(f"stft_mel_log_pcm16: scales must be powers of "
+                             f"two in [2^-100, 2^100] (got {values.tolist()})")
+        if per_row:
+            with transfer(scale, pcm.device):
+                scale = scale.to(pcm.device)
+        m = n // 2
+        if n % 2 or m < 2 or m & (m - 1):
+            raise ValueError(f"stft_mel_log_pcm16: n/2 = {n / 2} is not a "
+                             f"power of two")
+        if 2 * fwd_weights.shape[1] != n:
+            raise ValueError(f"stft_mel_log_pcm16: weights "
+                             f"{tuple(fwd_weights.shape)} do not match n={n}")
+        tensors = [pcm] + ([scale.contiguous()] if per_row else [])
+        if window is not None:
+            tensors.append(window)
+            if window.dtype != torch.float32 or window.shape != (n,):
+                raise ValueError(f"stft_mel_log_pcm16: the window must be "
+                                 f"float32 ({n},)")
+        dev = _cuda.check_cuda("stft_mel_log_pcm16", *tensors)
+        slots, weights, groups = _mel_band_table(fwd_weights)
+        tw, tw_pass = rfft_mag.fft_tables(n, dev)
+        n_in, mels = pcm.shape[-1], fwd_weights.shape[0]
+        rows = pcm.shape[0] if pcm.ndim == 2 else 1
+        frames = num_frames_of(max(n_in, pad_to), n, hop)
+        out = torch.empty(pcm.shape[:-1] + (frames, mels, 2),
+                          dtype=torch.float32, device=dev)
+        if out.numel() == 0:
+            return out
+        _cuda.launch("gomel_stft_mel_log_pcm16", dev, pcm.data_ptr(),
+                     0.0 if per_row else float(scale),
+                     tensors[1].data_ptr() if per_row else None, n_in,
+                     None if window is None else window.data_ptr(),
+                     tw.data_ptr(), tw_pass.data_ptr(), slots.data_ptr(),
+                     weights.data_ptr(), groups, out.data_ptr(), 2 * mels,
+                     rows, frames, hop, n, *rfft_mag.fft_plan_args(n))
+        FUSED_PCM16_KERNEL.launches += 1
     return out
 
 
@@ -524,16 +535,19 @@ def mel_to_magnitudes(src: torch.Tensor, inv_weights: torch.Tensor,
     if src.device.type == "cpu":
         return mel_to_magnitudes_plain(src, inv_weights, tune_mul, tune_add,
                                        boost, mgc_max, mgc_min, max_val)
-    mx = mn = None
-    if quantized:
-        f32 = torch.float32
-        mx = torch.as_tensor(mgc_max, dtype=f32, device=src.device)
-        mn = torch.as_tensor(mgc_min, dtype=f32, device=src.device)
-        mx, mn = mx.reshape(-1).contiguous(), mn.reshape(-1).contiguous()
-    first, count, taps = _band_table(inv_weights)
-    return launch_mel_to_mag(src, mx, mn, first.to(src.device),
-                             count.to(src.device), taps.to(src.device),
-                             max_val, boost, tune_mul, tune_add)
+    with annotate(MAG_KERNEL.span):
+        mx = mn = None
+        if quantized:
+            f32 = torch.float32
+            with transfer(mgc_max, src.device):
+                mx = torch.as_tensor(mgc_max, dtype=f32, device=src.device)
+            with transfer(mgc_min, src.device):
+                mn = torch.as_tensor(mgc_min, dtype=f32, device=src.device)
+            mx, mn = mx.reshape(-1).contiguous(), mn.reshape(-1).contiguous()
+        first, count, taps = _band_table(inv_weights)
+        return launch_mel_to_mag(src, mx, mn, first.to(src.device),
+                                 count.to(src.device), taps.to(src.device),
+                                 max_val, boost, tune_mul, tune_add)
 
 
 def launch_mel_to_mag(src: torch.Tensor, mx: torch.Tensor | None,

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate, transfer
 from . import fftbackend, istft, quantize
 from .quantize import dequantize_planes
 from .rfft_mag import stft_planes
@@ -130,9 +131,10 @@ def _synthesize(spec2: torch.Tensor, frame_len: int, window: torch.Tensor,
     planes through that route's inverse."""
     if route == "mxu" and spec2.device.type == "cuda":
         *lead, frames, nf, _ = spec2.shape
-        return istft.launch_irfft_window(
-            istft.MODE_SPEC, spec2.contiguous(), (), frame_len, frames, nf,
-            window, tuple(lead), real_frames=real_frames)
+        with annotate(istft.synth_kernel(real_frames).span):
+            return istft.launch_irfft_window(
+                istft.MODE_SPEC, spec2.contiguous(), (), frame_len, frames,
+                nf, window, tuple(lead), real_frames=real_frames)
     re, im = grow_half_planes(spec2, frame_len // 2)
     return istft.irfft_window(re, im, frame_len, window, real_frames, route)
 
@@ -200,6 +202,22 @@ def dequantize_decode_plain(planes: torch.Tensor, maxs, mins, max_val: int,
                               pcm16)
 
 
+def _extrema_window(maxs, mins, planes: torch.Tensor, lead: list,
+                    frame_len: int, window):
+    """The per-channel extrema [*lead, 2] as float32 on the planes' card
+    (each a blocking upload from host memory) and the window there."""
+    dev = planes.device
+    with transfer(maxs, dev):
+        maxs = torch.as_tensor(maxs, dtype=torch.float32, device=dev)
+    with transfer(mins, dev):
+        mins = torch.as_tensor(mins, dtype=torch.float32, device=dev)
+    maxs, mins = maxs.contiguous(), mins.contiguous()
+    if maxs.shape != tuple(lead) + (2,) or mins.shape != maxs.shape:
+        raise ValueError(f"dequantize_decode: extrema {tuple(maxs.shape)}, "
+                         f"{tuple(mins.shape)} for planes {tuple(planes.shape)}")
+    return maxs, mins, window_like(window, frame_len, maxs)
+
+
 def dequantize_decode(planes: torch.Tensor, maxs, mins, max_val: int,
                       ihs_passes: int, frame_len: int, hop: int,
                       volume_boost: float = 0.0,
@@ -223,20 +241,18 @@ def dequantize_decode(planes: torch.Tensor, maxs, mins, max_val: int,
         raise ValueError(f"dequantize_decode: planes must be uint8 or uint16 "
                          f"(got {planes.dtype})")
     *lead, nf, frames, _ = planes.shape
-    maxs = torch.as_tensor(maxs, dtype=torch.float32,
-                           device=planes.device).contiguous()
-    mins = torch.as_tensor(mins, dtype=torch.float32,
-                           device=planes.device).contiguous()
-    window = window_like(window, frame_len, maxs)
-    if maxs.shape != tuple(lead) + (2,) or mins.shape != maxs.shape:
-        raise ValueError(f"dequantize_decode: extrema {tuple(maxs.shape)}, "
-                         f"{tuple(mins.shape)} for planes {tuple(planes.shape)}")
     route = fftbackend.resolve("auto", frame_len, "cuda")
     if route == "mxu":
-        frames_w = istft.launch_irfft_window(
-            modes[planes.dtype], planes.contiguous(), (maxs, mins), frame_len,
-            frames, nf, window, tuple(lead), float(max_val), ihs_passes)
+        with annotate(istft.SYNTH_KERNEL.span):
+            maxs, mins, window = _extrema_window(maxs, mins, planes, lead,
+                                                 frame_len, window)
+            frames_w = istft.launch_irfft_window(
+                modes[planes.dtype], planes.contiguous(), (maxs, mins),
+                frame_len, frames, nf, window, tuple(lead), float(max_val),
+                ihs_passes)
     else:
+        maxs, mins, window = _extrema_window(maxs, mins, planes, lead,
+                                             frame_len, window)
         # KL row by row (its extrema are per channel), then the planes
         rows = planes.reshape((-1, nf, frames, 2))
         spec = torch.stack([quantize.dequantize_raw(

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, transfer
 from . import _cuda
 
 KERNEL = _cuda.Kernel("threefry_uniform", "gomel_tpu_torch/csrc/threefry.cu",
@@ -135,8 +136,9 @@ def _device_keys(table: np.ndarray, device: torch.device) -> torch.Tensor:
     if kt is None:
         if len(_KEY_TABLES) >= _KEY_TABLES_MAX:
             _KEY_TABLES.clear()
-        kt = _KEY_TABLES[entry] = torch.tensor(
-            table.view(np.int32), dtype=torch.int32, device=device)
+        with transfer(table, device):
+            kt = _KEY_TABLES[entry] = torch.tensor(
+                table.view(np.int32), dtype=torch.int32, device=device)
     return kt
 
 
@@ -214,15 +216,17 @@ def uniform(keys, shape, dtype: torch.dtype = torch.float32,
     device = _cuda.require_device(device, "uniform")
     if device.type == "cpu":
         return uniform_plain(keys, shape, dtype, device)
-    table, out_shape, per_key = _check(keys, shape, dtype)
-    if device.type != "cuda":
-        raise ValueError(f"uniform: device {device} is neither cuda nor cpu")
-    if dtype != torch.float32:
-        raise ValueError("uniform: the CUDA kernel draws float32")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    kt = _device_keys(table, device)
-    return launch_uniform(kt, per_key).reshape(out_shape)
+    with annotate(KERNEL.span):
+        table, out_shape, per_key = _check(keys, shape, dtype)
+        if device.type != "cuda":
+            raise ValueError(f"uniform: device {device} is neither cuda nor "
+                             f"cpu")
+        if dtype != torch.float32:
+            raise ValueError("uniform: the CUDA kernel draws float32")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        kt = _device_keys(table, device)
+        return launch_uniform(kt, per_key).reshape(out_shape)
 
 
 def launch_uniform(kt: torch.Tensor, per_key: int) -> torch.Tensor:

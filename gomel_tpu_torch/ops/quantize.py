@@ -38,6 +38,7 @@ import torch
 
 from ..core.config import PAD_SHIFT_TABLE
 from ..core.framing import zero_stuff_output_length
+from ..utils.profiling import annotate, transfer
 from . import _cuda
 from .resample import zero_stuff_upsample
 
@@ -128,30 +129,36 @@ def _ingest(pcm: torch.Tensor, dtype: torch.dtype, scale, pad_to: int,
     per_row = (scale.ndim > 0 if isinstance(scale, torch.Tensor)
                else np.ndim(scale) > 0)
     if per_row:
-        scale = torch.as_tensor(scale, dtype=torch.float32, device=pcm.device)
+        with transfer(scale, pcm.device):
+            scale = torch.as_tensor(scale, dtype=torch.float32,
+                                    device=pcm.device)
         if not batched or tuple(scale.shape) != (rows,):
             raise ValueError(f"pcm16_ingest: per-row scales {tuple(scale.shape)}"
                              f" need a [B, L] batch of {rows} rows")
     if pcm.device.type == "cpu":
         return pcm16_ingest_plain(pcm, dtype, scale, pad_to, batched, zp, zs)
-    tensors = (pcm, scale.contiguous()) if per_row else (pcm,)
-    dev = _cuda.check_cuda("pcm16_ingest", *tensors)
-    if pcm.dtype != torch.int16 or dtype != torch.float32:
-        raise ValueError("pcm16_ingest: the CUDA kernel maps int16 to float32")
-    if (zp, zs) not in ZERO_STUFF_PAIRS:
-        raise ValueError(f"pcm16_ingest: the CUDA kernel takes the (zp, zs) "
-                         f"pairs of PAD_SHIFT_TABLE, not ({zp}, {zs})")
-    n_out = max(zero_stuff_output_length(n_in, zp, zs), pad_to)
-    out = torch.empty((rows, n_out) if batched else (n_out,),
-                      dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    _cuda.launch("gomel_pcm16_ingest", dev, pcm.data_ptr(), out.data_ptr(),
-                 rows, n_in, n_out, channels, 0.0 if per_row else float(scale),
-                 tensors[1].data_ptr() if per_row else None, zp, zs)
-    (INGEST_ROWS_KERNEL if per_row else INGEST_KERNEL).launches += 1
-    if zp > 0:
-        INGEST_ZERO_STUFF_KERNEL.launches += 1
+    kernel = INGEST_ROWS_KERNEL if per_row else INGEST_KERNEL
+    with annotate(kernel.span):
+        tensors = (pcm, scale.contiguous()) if per_row else (pcm,)
+        dev = _cuda.check_cuda("pcm16_ingest", *tensors)
+        if pcm.dtype != torch.int16 or dtype != torch.float32:
+            raise ValueError("pcm16_ingest: the CUDA kernel maps int16 to "
+                             "float32")
+        if (zp, zs) not in ZERO_STUFF_PAIRS:
+            raise ValueError(f"pcm16_ingest: the CUDA kernel takes the (zp, "
+                             f"zs) pairs of PAD_SHIFT_TABLE, not ({zp}, {zs})")
+        n_out = max(zero_stuff_output_length(n_in, zp, zs), pad_to)
+        out = torch.empty((rows, n_out) if batched else (n_out,),
+                          dtype=torch.float32, device=dev)
+        if out.numel() == 0:
+            return out
+        _cuda.launch("gomel_pcm16_ingest", dev, pcm.data_ptr(),
+                     out.data_ptr(), rows, n_in, n_out, channels,
+                     0.0 if per_row else float(scale),
+                     tensors[1].data_ptr() if per_row else None, zp, zs)
+        kernel.launches += 1
+        if zp > 0:
+            INGEST_ZERO_STUFF_KERNEL.launches += 1
     return out
 
 
@@ -212,7 +219,8 @@ def _true_frames(frames, batch: int, device: torch.device):
     """``frames`` as an int32 [batch] tensor on ``device`` (None stays)."""
     if frames is None:
         return None
-    frames = torch.as_tensor(frames, dtype=torch.int32, device=device)
+    with transfer(frames, device):
+        frames = torch.as_tensor(frames, dtype=torch.int32, device=device)
     if tuple(frames.shape) != (batch,):
         raise ValueError(f"frames has shape {tuple(frames.shape)} for a "
                          f"{batch}-row batch")
@@ -226,7 +234,9 @@ def _quantize(spec2: torch.Tensor, max_val: int, batched: bool, frames=None):
     true_frames = _true_frames(frames, spec2.shape[0], spec2.device)
     if spec2.device.type == "cpu":
         return quantize_mel_plane_plain(spec2, max_val, true_frames)
-    return launch_quantize_mel(spec2, max_val, batched, true_frames)
+    with annotate((QUANTIZE_KERNEL if true_frames is None
+                   else QUANTIZE_MASKED_KERNEL).span):
+        return launch_quantize_mel(spec2, max_val, batched, true_frames)
 
 
 def launch_quantize_mel(spec2: torch.Tensor, max_val: int, batched: bool,
@@ -315,8 +325,10 @@ def _quantize_planes(spec2: torch.Tensor, max_val: int, ihs_passes: int,
     true_frames = _true_frames(frames, spec2.shape[0], spec2.device)
     if spec2.device.type == "cpu":
         return quantize_planes_plain(spec2, max_val, ihs_passes, true_frames)
-    return launch_quantize_planes(spec2, max_val, ihs_passes, batched,
-                                  true_frames)
+    with annotate((PLANES_KERNEL if true_frames is None
+                   else PLANES_MASKED_KERNEL).span):
+        return launch_quantize_planes(spec2, max_val, ihs_passes, batched,
+                                      true_frames)
 
 
 def launch_quantize_planes(spec2: torch.Tensor, max_val: int,
@@ -448,25 +460,30 @@ def dequantize_raw(img: torch.Tensor, maxs, mins, max_val: int,
     if img.device.type == "cpu":
         return dequantize_raw_plain(img, maxs, mins, max_val, ihs_passes,
                                     boost, dtype)
-    f32 = torch.float32
-    mx = torch.as_tensor(maxs, dtype=f32, device=img.device).contiguous()
-    mn = torch.as_tensor(mins, dtype=f32, device=img.device).contiguous()
-    if mx.shape != mn.shape or mx.ndim > 1 or (
-            mx.ndim == 1 and (img.ndim == 0 or mx.shape[0] != img.shape[-1])):
-        raise ValueError(f"dequantize_raw: extrema {tuple(mx.shape)}, "
-                         f"{tuple(mn.shape)} do not broadcast over the "
-                         f"trailing axis of {tuple(img.shape)}")
-    img = img.contiguous()
-    dev = _cuda.check_cuda("dequantize_raw", img, mx, mn)
-    if dtype != f32:
-        raise ValueError("dequantize_raw: the CUDA kernel writes float32")
-    out = torch.empty(img.shape, dtype=f32, device=dev)
-    if img.numel() > 0:
-        _cuda.launch("gomel_dequantize_raw", dev, img.data_ptr(),
-                     mx.data_ptr(), mn.data_ptr(), out.data_ptr(), img.numel(),
-                     img.element_size(), max(1, mx.numel()), float(max_val),
-                     int(ihs_passes), float(boost))
-        DEQUANTIZE_RAW_KERNEL.launches += 1
+    with annotate(DEQUANTIZE_RAW_KERNEL.span):
+        f32 = torch.float32
+        with transfer(maxs, img.device):
+            mx = torch.as_tensor(maxs, dtype=f32, device=img.device)
+        with transfer(mins, img.device):
+            mn = torch.as_tensor(mins, dtype=f32, device=img.device)
+        mx, mn = mx.contiguous(), mn.contiguous()
+        if mx.shape != mn.shape or mx.ndim > 1 or (
+                mx.ndim == 1 and (img.ndim == 0
+                                  or mx.shape[0] != img.shape[-1])):
+            raise ValueError(f"dequantize_raw: extrema {tuple(mx.shape)}, "
+                             f"{tuple(mn.shape)} do not broadcast over the "
+                             f"trailing axis of {tuple(img.shape)}")
+        img = img.contiguous()
+        dev = _cuda.check_cuda("dequantize_raw", img, mx, mn)
+        if dtype != f32:
+            raise ValueError("dequantize_raw: the CUDA kernel writes float32")
+        out = torch.empty(img.shape, dtype=f32, device=dev)
+        if img.numel() > 0:
+            _cuda.launch("gomel_dequantize_raw", dev, img.data_ptr(),
+                         mx.data_ptr(), mn.data_ptr(), out.data_ptr(),
+                         img.numel(), img.element_size(), max(1, mx.numel()),
+                         float(max_val), int(ihs_passes), float(boost))
+            DEQUANTIZE_RAW_KERNEL.launches += 1
     return out
 
 

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from . import _cuda, dft_mm, fftbackend
 from .stft import frame_signal, num_frames_of
 
@@ -342,12 +343,14 @@ def stft_mag(x: torch.Tensor, window: torch.Tensor | None, n: int,
         return dft_mm.stft_mag(x, n, hop, window, precision)
     if x.device.type == "cpu":
         return stft_mag_plain(x, window, n, hop)
-    dev = _check("stft_mag", x, window, n)
-    if route == "xla":
-        fftbackend.XLA_ROUTE.launches += 1
-        return stft_mag_plain(x, window, n, hop)
-    return launch_stft_mag(x, window, *fft_tables(n, dev), fft_plan_args(n),
-                           n, hop)
+    kernel = fftbackend.XLA_ROUTE if route == "xla" else KERNEL
+    with annotate(kernel.span):
+        dev = _check("stft_mag", x, window, n)
+        if route == "xla":
+            kernel.launches += 1
+            return stft_mag_plain(x, window, n, hop)
+        return launch_stft_mag(x, window, *fft_tables(n, dev),
+                               fft_plan_args(n), n, hop)
 
 
 def launch_stft_mag(x: torch.Tensor, window: torch.Tensor | None,
@@ -397,12 +400,14 @@ def stft_planes(x: torch.Tensor, window: torch.Tensor | None, n: int,
         return dft_mm.stft_pairs(x, n, hop, window, first, count, precision)
     if x.device.type == "cpu":
         return stft_planes_plain(x, window, n, hop, first, count)
-    dev = _check("stft_planes", x, window, n)
-    if route == "xla":
-        fftbackend.XLA_ROUTE.launches += 1
-        return stft_planes_plain(x, window, n, hop, first, count)
-    return launch_stft_planes(x, window, *fft_tables(n, dev),
-                              fft_plan_args(n), n, hop, first, count)
+    kernel = fftbackend.XLA_ROUTE if route == "xla" else PLANES_KERNEL
+    with annotate(kernel.span):
+        dev = _check("stft_planes", x, window, n)
+        if route == "xla":
+            kernel.launches += 1
+            return stft_planes_plain(x, window, n, hop, first, count)
+        return launch_stft_planes(x, window, *fft_tables(n, dev),
+                                  fft_plan_args(n), n, hop, first, count)
 
 
 def launch_stft_planes(x: torch.Tensor, window: torch.Tensor | None,

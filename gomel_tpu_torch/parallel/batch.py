@@ -50,8 +50,9 @@ from ..ops.phase_ops import dequantize_decode, phase_decode, phase_encode_batch
 from ..ops.quantize import quantize_mel_plane_batch, quantize_planes_batch
 from ..pipelines.mel import Mel
 from ..pipelines.phase import Phase
-from .mesh import (DATA_AXIS, FRAME_AXIS, Mesh, data_group_for_process,
-                   process_local_batch_multiple)
+from ..utils.profiling import annotate
+from .mesh import (DATA_AXIS, FRAME_AXIS, Mesh, _moved,
+                   data_group_for_process, process_local_batch_multiple)
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +142,7 @@ def _rows(batch, dtype: torch.dtype | None, device: torch.device
     ``dtype`` unless None)."""
     if not isinstance(batch, torch.Tensor):
         batch = torch.from_numpy(np.require(batch, requirements=["C", "W"]))
-    return batch.to(device=device, dtype=dtype).contiguous()
+    return _moved(batch, device, dtype).contiguous()
 
 
 def _is_pcm(batch) -> bool:
@@ -220,14 +221,17 @@ class _MeshRows:
         index)."""
         rows = inputs[0][0].shape[0]
         if self.mesh is None:
-            args = [_rows(a, dt, device) for a, dt, _ in inputs]
-            args += [_rows(a, dt, torch.device("cpu")) for a, dt, _ in host]
+            with annotate("gomel.rows.ingest"):
+                args = [_rows(a, dt, device) for a, dt, _ in inputs]
+                args += [_rows(a, dt, torch.device("cpu"))
+                         for a, dt, _ in host]
             if seed is not None:
                 args.append(row_keys(seed, rows))
             return fn(device, *args)
         mesh = self.mesh
-        padded = [self._pad(a, dt, v) for a, dt, v in inputs]
-        host_rows = [self._pad(a, dt, v) for a, dt, v in host]
+        with annotate("gomel.rows.ingest"):
+            padded = [self._pad(a, dt, v) for a, dt, v in inputs]
+            host_rows = [self._pad(a, dt, v) for a, dt, v in host]
         n_local = padded[0].shape[0]
         n_global, off = n_local, 0
         if self.input_mode == "process_local" and self.multiproc:
@@ -249,7 +253,9 @@ class _MeshRows:
                     f"this process's rows [{off}, {off + n_local})")
             # the block goes to its first local cell only: one copy a block
             dev = mesh.device(cells[0])
-            args = [p[r0 - off:r1 - off].to(dev).contiguous() for p in padded]
+            with annotate("gomel.rows.ingest"):
+                args = [_rows(p[r0 - off:r1 - off], None, dev)
+                        for p in padded]
             args += [h[r0 - off:r1 - off] for h in host_rows]
             if keys is not None:
                 args.append(keys[r0:r1])
@@ -260,12 +266,13 @@ class _MeshRows:
         """The blocks' results in data order on ``device``, trimmed to the
         true ``rows`` unless the mesh spans processes."""
         def cat(parts):
-            out = torch.cat([p.to(device) for p in parts])
+            out = torch.cat([_moved(p, device) for p in parts])
             return out if self.multiproc else out[:rows]
-        if isinstance(outs[0], tuple):
-            return tuple(cat([o[k] for o in outs])
-                         for k in range(len(outs[0])))
-        return cat(outs)
+        with annotate("gomel.rows.assemble"):
+            if isinstance(outs[0], tuple):
+                return tuple(cat([o[k] for o in outs])
+                             for k in range(len(outs[0])))
+            return cat(outs)
 
 
 def _default_device(device, mesh: Mesh | None) -> torch.device | str:
@@ -331,13 +338,14 @@ class BatchedMel:
 
     def encode(self, audio_batch) -> torch.Tensor:
         """[B, L_pad] -> [B, F, num_mels, 2] log-mel on ``device``."""
-        c = self.config
+        with annotate("gomel.batch.encode"):
+            c = self.config
 
-        def fn(dev, x):
-            fwd, _, win = self._weights(dev)
-            return mel_encode_batch(x, c.num_mels, c.resolut, c.window, fwd,
-                                    win)
-        return self._run(fn, (audio_batch, self.dtype, 0))
+            def fn(dev, x):
+                fwd, _, win = self._weights(dev)
+                return mel_encode_batch(x, c.num_mels, c.resolut, c.window,
+                                        fwd, win)
+            return self._run(fn, (audio_batch, self.dtype, 0))
 
     def encode_quantized(self, audio_batch, frames, scales=None):
         """[B, L_pad] + per-row TRUE frame counts [B] -> (img2 [B, mels,
@@ -353,44 +361,49 @@ class BatchedMel:
         two, so the conversion is exact. Where the fused KB + KC takes the
         encode (ops/mel_ops.fused_route) its int16 mode reads the rows
         itself, in one launch; else kernel KA converts them first."""
-        c = self.config
-        rows = audio_batch.shape[0]
-        _check_rows("frames", frames, rows)
-        frames_in = (np.asarray(frames, np.int64), None, 0)
-        if _is_pcm(audio_batch):
-            if scales is None:
-                raise ValueError("int16 audio_batch requires per-row scales")
-            _check_rows("scales", scales, rows)
+        with annotate("gomel.batch.encode_quantized"):
+            c = self.config
+            rows = audio_batch.shape[0]
+            _check_rows("frames", frames, rows)
+            frames_in = (np.asarray(frames, np.int64), None, 0)
+            if _is_pcm(audio_batch):
+                if scales is None:
+                    raise ValueError("int16 audio_batch requires per-row "
+                                     "scales")
+                _check_rows("scales", scales, rows)
 
-            def fn_pcm(dev, pcm, divisors, fr):
+                def fn_pcm(dev, pcm, divisors, fr):
+                    fwd, _, win = self._weights(dev)
+                    spec = mel_encode_batch(pcm, c.num_mels, c.resolut,
+                                            c.window, fwd, win,
+                                            pcm_scale=divisors)
+                    return quantize_mel_plane_batch(spec, 255, frames=fr)
+                # padding rows divide by 32768: any power of two converts them
+                return self._run(fn_pcm, (audio_batch, None, 0), host=(
+                    (np.asarray(scales, np.float32), None, 32768.0),
+                    frames_in))
+
+            def fn(dev, x, fr):
                 fwd, _, win = self._weights(dev)
-                spec = mel_encode_batch(pcm, c.num_mels, c.resolut, c.window,
-                                        fwd, win, pcm_scale=divisors)
+                spec = mel_encode_batch(x, c.num_mels, c.resolut, c.window,
+                                        fwd, win)
                 return quantize_mel_plane_batch(spec, 255, frames=fr)
-            # padding rows divide by 32768: any power of two converts them
-            return self._run(fn_pcm, (audio_batch, None, 0), host=(
-                (np.asarray(scales, np.float32), None, 32768.0), frames_in))
-
-        def fn(dev, x, fr):
-            fwd, _, win = self._weights(dev)
-            spec = mel_encode_batch(x, c.num_mels, c.resolut, c.window, fwd,
-                                    win)
-            return quantize_mel_plane_batch(spec, 255, frames=fr)
-        return self._run(fn, (audio_batch, self.dtype, 0),
-                         host=(frames_in,))
+            return self._run(fn, (audio_batch, self.dtype, 0),
+                             host=(frames_in,))
 
     def decode(self, logmel_batch, seed: int = 0) -> torch.Tensor:
         """[B, F, num_mels, 2] -> [B, out_len] by Griffin-Lim, row r from
         the key :func:`row_keys` (seed)[r] (r the global row index)."""
-        c = self.config
-        self.mel._check_mels(logmel_batch.shape[-2])
+        with annotate("gomel.batch.decode"):
+            c = self.config
+            self.mel._check_mels(logmel_batch.shape[-2])
 
-        def fn(dev, lm, keys):
-            _, inv, win = self._weights(dev)
-            return mel_decode(lm, c.resolut, c.window, inv,
-                              c.griffin_lim_iterations, keys, c.tune_mul,
-                              c.tune_add, win, momentum=self.gl_momentum)
-        return self._run(fn, (logmel_batch, self.dtype, 0), seed=seed)
+            def fn(dev, lm, keys):
+                _, inv, win = self._weights(dev)
+                return mel_decode(lm, c.resolut, c.window, inv,
+                                  c.griffin_lim_iterations, keys, c.tune_mul,
+                                  c.tune_add, win, momentum=self.gl_momentum)
+            return self._run(fn, (logmel_batch, self.dtype, 0), seed=seed)
 
     def decode_quantized(self, img2_batch, mgc_max, mgc_min, seed: int = 0,
                          boost: float = 0.0, pcm16: bool = False):
@@ -400,19 +413,20 @@ class BatchedMel:
         iteration) from the key :func:`row_keys` (seed)[r] for row r. ``pcm16``
         fuses the PCM-16 conversion and returns (int16 [B, out_len], per-row
         finite flags [B]): one bad row does not spoil its batch."""
-        c = self.config
-        self.mel._check_mels(img2_batch.shape[-3])
+        with annotate("gomel.batch.decode_quantized"):
+            c = self.config
+            self.mel._check_mels(img2_batch.shape[-3])
 
-        def fn(dev, planes, mx, mn, keys):
-            _, inv, win = self._weights(dev)
-            mag = mel_to_magnitudes(planes, inv, c.tune_mul, c.tune_add,
-                                    float(boost), mx, mn)
-            return griffin_lim(mag, c.window, c.griffin_lim_iterations,
-                               keys, win.to(torch.float32),
-                               momentum=self.gl_momentum, pcm16=pcm16)
-        return self._run(fn, (img2_batch, None, 0), host=(
-            (np.asarray(mgc_max, np.float32), None, 0),
-            (np.asarray(mgc_min, np.float32), None, 0)), seed=seed)
+            def fn(dev, planes, mx, mn, keys):
+                _, inv, win = self._weights(dev)
+                mag = mel_to_magnitudes(planes, inv, c.tune_mul, c.tune_add,
+                                        float(boost), mx, mn)
+                return griffin_lim(mag, c.window, c.griffin_lim_iterations,
+                                   keys, win.to(torch.float32),
+                                   momentum=self.gl_momentum, pcm16=pcm16)
+            return self._run(fn, (img2_batch, None, 0), host=(
+                (np.asarray(mgc_max, np.float32), None, 0),
+                (np.asarray(mgc_min, np.float32), None, 0)), seed=seed)
 
     def encode_buckets(self, utterances: Sequence[np.ndarray],
                        max_batch: int = 64):
@@ -469,10 +483,11 @@ class BatchedPhase:
 
     def encode(self, audio_batch) -> torch.Tensor:
         """[B, L_pad] -> [B, F, num_freqs, 2] on ``device``."""
-        c = self.config
-        return self._run(lambda dev, x: phase_encode_batch(
-            x, c.num_freqs, c.resolut, c.window, self._window(dev)),
-            (audio_batch, self.dtype, 0))
+        with annotate("gomel.batch.encode"):
+            c = self.config
+            return self._run(lambda dev, x: phase_encode_batch(
+                x, c.num_freqs, c.resolut, c.window, self._window(dev)),
+                (audio_batch, self.dtype, 0))
 
     def encode_quantized(self, audio_batch, frames):
         """[B, L_pad] + per-row TRUE frame counts [B] -> (img2 [B, nf,
@@ -485,24 +500,26 @@ class BatchedPhase:
         An int16 ``audio_batch`` (rows already upsampled, or zp = 0) goes
         up as int16 and is converted on the device at the phase 1/32768
         scaling (kernel KA)."""
-        c = self.config
-        _check_rows("frames", frames, audio_batch.shape[0])
-        pcm = _is_pcm(audio_batch)
+        with annotate("gomel.batch.encode_quantized"):
+            c = self.config
+            _check_rows("frames", frames, audio_batch.shape[0])
+            pcm = _is_pcm(audio_batch)
 
-        def fn(dev, x, fr):
-            spec = phase_encode_batch(x, c.num_freqs, c.resolut, c.window,
-                                      self._window(dev))
-            return quantize_planes_batch(spec, self._max_val, c.ihs_passes,
-                                         frames=fr)
-        return self._run(fn, (audio_batch, None if pcm else self.dtype, 0),
-                         host=((np.asarray(frames, np.int64), None, 0),))
+            def fn(dev, x, fr):
+                spec = phase_encode_batch(x, c.num_freqs, c.resolut, c.window,
+                                          self._window(dev))
+                return quantize_planes_batch(spec, self._max_val, c.ihs_passes,
+                                             frames=fr)
+            return self._run(fn, (audio_batch, None if pcm else self.dtype, 0),
+                             host=((np.asarray(frames, np.int64), None, 0),))
 
     def decode(self, spec_batch) -> torch.Tensor:
         """[B, F, num_freqs, 2] -> [B, out_len]."""
-        c = self.config
-        return self._run(lambda dev, s: phase_decode(
-            s, c.resolut, c.window, float(c.volume_boost), self._window(dev)),
-            (spec_batch, self.dtype, 0))
+        with annotate("gomel.batch.decode"):
+            c = self.config
+            return self._run(lambda dev, s: phase_decode(
+                s, c.resolut, c.window, float(c.volume_boost),
+                self._window(dev)), (spec_batch, self.dtype, 0))
 
     def decode_quantized(self, img2_batch, maxs, mins, pcm16: bool = False):
         """Integer PNG planes [B, nf, F, 2] + per-row extrema [B, 2] ->
@@ -510,13 +527,14 @@ class BatchedPhase:
         device pass (kernels KG and KH). ``pcm16`` fuses the PCM-16
         conversion and returns (int16 [B, out_len], per-row finite flags
         [B])."""
-        c = self.config
-        return self._run(lambda dev, planes, mx, mn: dequantize_decode(
-            planes, mx, mn, self._max_val, c.ihs_passes, c.resolut, c.window,
-            float(c.volume_boost), self._window(dev), pcm16),
-            (img2_batch, None, 0), host=(
-                (np.asarray(maxs, np.float32), None, 0),
-                (np.asarray(mins, np.float32), None, 0)))
+        with annotate("gomel.batch.decode_quantized"):
+            c = self.config
+            return self._run(lambda dev, planes, mx, mn: dequantize_decode(
+                planes, mx, mn, self._max_val, c.ihs_passes, c.resolut,
+                c.window, float(c.volume_boost), self._window(dev), pcm16),
+                (img2_batch, None, 0), host=(
+                    (np.asarray(maxs, np.float32), None, 0),
+                    (np.asarray(mins, np.float32), None, 0)))
 
     def encode_buckets(self, utterances: Sequence[np.ndarray],
                        max_batch: int = 64):

@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops._cuda import require_device
+from ..utils.profiling import annotate, transfer
 
 DATA_AXIS = "data"
 FRAME_AXIS = "frame"
@@ -463,18 +464,29 @@ class Sharded:
                 f"{self.mesh.processes}; process {process_index()} holds "
                 f"shards {self.mesh.local_indices} only (read them with "
                 f"addressable_shards or shard(i))")
-        device = self.mesh.first_device if device is None else device
-        n_data, n_frame = (self.mesh.shape[DATA_AXIS],
-                           self.mesh.shape[FRAME_AXIS])
-        if self._frame_split:
-            rows = [torch.cat([s.to(device) for s in
-                               self.shards[d * n_frame:(d + 1) * n_frame]],
-                              dim=1) for d in range(n_data)]
-        else:
-            rows = [self.shards[d * n_frame].to(device) for d in range(n_data)]
-        out = torch.cat(rows, dim=0)
-        return out if self.trim is None else out[:self.trim[0],
-                                                 :self.trim[1]]
+        with annotate("gomel.mesh.gather"):
+            device = torch.device(self.mesh.first_device if device is None
+                                  else device)
+            n_data, n_frame = (self.mesh.shape[DATA_AXIS],
+                               self.mesh.shape[FRAME_AXIS])
+            if self._frame_split:
+                rows = [torch.cat([_moved(s, device) for s in
+                                   self.shards[d * n_frame:(d + 1) * n_frame]],
+                                  dim=1) for d in range(n_data)]
+            else:
+                rows = [_moved(self.shards[d * n_frame], device)
+                        for d in range(n_data)]
+            out = torch.cat(rows, dim=0)
+            return out if self.trim is None else out[:self.trim[0],
+                                                     :self.trim[1]]
+
+
+def _moved(t: torch.Tensor, device: torch.device,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``t`` on ``device`` (in ``dtype`` unless None), the copy traced
+    (utils/profiling.transfer)."""
+    with transfer(t, device):
+        return t.to(device=device, dtype=dtype)
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -490,22 +502,24 @@ def shard_array(x, mesh: Mesh, dtype: torch.dtype | None = None,
     None). B must divide by the data axis and, with the ``(data, frame)``
     layout, T by the frame axis. On a mesh over several processes every
     process passes the same whole array (the replicated-input model)."""
-    spec = _layout(spec)
-    n_data, n_frame = mesh.shape[DATA_AXIS], mesh.shape[FRAME_AXIS]
-    split = FRAME_AXIS in spec
-    x = _as_tensor(x)
-    if x.ndim < 2 or x.shape[0] % n_data or (split and x.shape[1] % n_frame):
-        raise ValueError(f"array {tuple(x.shape)} does not split over mesh "
-                         f"{mesh.shape}")
-    b = x.shape[0] // n_data
-    t = x.shape[1] // n_frame if split else x.shape[1]
-    shards: list = [None] * mesh.size
-    for i in mesh.local_indices:
-        d, f = divmod(i, n_frame)
-        cols = slice(f * t, (f + 1) * t) if split else slice(None)
-        shards[i] = x[d * b:(d + 1) * b, cols].to(
-            device=mesh.device(i), dtype=dtype).contiguous()
-    return Sharded(mesh, shards, spec=spec)
+    with annotate("gomel.mesh.scatter"):
+        spec = _layout(spec)
+        n_data, n_frame = mesh.shape[DATA_AXIS], mesh.shape[FRAME_AXIS]
+        split = FRAME_AXIS in spec
+        x = _as_tensor(x)
+        if x.ndim < 2 or x.shape[0] % n_data or (split
+                                                 and x.shape[1] % n_frame):
+            raise ValueError(f"array {tuple(x.shape)} does not split over "
+                             f"mesh {mesh.shape}")
+        b = x.shape[0] // n_data
+        t = x.shape[1] // n_frame if split else x.shape[1]
+        shards: list = [None] * mesh.size
+        for i in mesh.local_indices:
+            d, f = divmod(i, n_frame)
+            cols = slice(f * t, (f + 1) * t) if split else slice(None)
+            shards[i] = _moved(x[d * b:(d + 1) * b, cols], mesh.device(i),
+                               dtype).contiguous()
+        return Sharded(mesh, shards, spec=spec)
 
 
 def host_to_global(arr, mesh: Mesh, spec=(DATA_AXIS, FRAME_AXIS)) -> Sharded:

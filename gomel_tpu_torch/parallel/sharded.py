@@ -55,7 +55,8 @@ from ..ops.phase_ops import phase_encode, phase_synthesize
 from ..ops.quantize import pcm16_encode
 from ..ops.rfft_mag import stft_planes
 from ..ops.stft import auto_frame_chunk, hann_window
-from .mesh import DATA_AXIS, FRAME_AXIS, Mesh, Sharded
+from ..utils.profiling import annotate, sync, transfer
+from .mesh import DATA_AXIS, FRAME_AXIS, Mesh, Sharded, _moved
 from .mesh import backend as _backend
 
 
@@ -169,27 +170,32 @@ def _exchange(sends: list, recvs: list) -> None:
     before the send, H2D after the receive."""
     if not sends and not recvs:
         return
-    staged = _backend() == "gloo"
+    with annotate("gomel.halo.exchange"):
+        staged = _backend() == "gloo"
 
-    def wire(t: torch.Tensor) -> torch.Tensor:
-        """A contiguous buffer of ``t``'s shape on the transport's side."""
-        if staged and t.device.type == "cuda":
-            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        def wire(t: torch.Tensor) -> torch.Tensor:
+            """A contiguous buffer of ``t``'s shape on the transport's
+            side."""
+            if staged and t.device.type == "cuda":
+                return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return torch.empty(t.shape, dtype=t.dtype, device=t.device)
 
-    ops, landed = [], []
-    for peer, tag, t in sends:
-        buf = wire(t)
-        buf.copy_(t)                       # D2H when staged: synchronous
-        ops.append(dist.P2POp(dist.isend, buf, peer, tag=tag))
-    for peer, tag, dst in recvs:
-        buf = wire(dst)
-        ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
-        landed.append((buf, dst))
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    for buf, dst in landed:
-        dst.copy_(buf)                     # H2D when staged
+        ops, landed = [], []
+        for peer, tag, t in sends:
+            buf = wire(t)
+            with transfer(t, buf.device):
+                buf.copy_(t)               # D2H when staged: synchronous
+            ops.append(dist.P2POp(dist.isend, buf, peer, tag=tag))
+        for peer, tag, dst in recvs:
+            buf = wire(dst)
+            ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+            landed.append((buf, dst))
+        with sync("exchange_wait"):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for buf, dst in landed:
+            with transfer(buf, dst.device):
+                dst.copy_(buf)             # H2D when staged
 
 
 def _pull_right_halo(exts: list, mesh: Mesh, plan: FrameShardPlan) -> None:
@@ -198,22 +204,25 @@ def _pull_right_halo(exts: list, mesh: Mesh, plan: FrameShardPlan) -> None:
     neighbour's chunk; the last frame shard reads zeros (open boundary). In
     place: a copy when the neighbour is local, else one exchange over the
     process group for all the shards."""
-    chunk, halo = plan.chunk, plan.halo
-    n_frame = mesh.shape[FRAME_AXIS]
-    sends, recvs = [], []
-    for i in range(mesh.size):
-        if _frame_index(mesh, i) + 1 == n_frame:
-            if exts[i] is not None:
-                exts[i][:, chunk:].zero_()
-            continue
-        mine, right = exts[i] is not None, exts[i + 1] is not None
-        if mine and right:
-            exts[i][:, chunk:].copy_(exts[i + 1][:, :halo])
-        elif mine:
-            recvs.append((mesh.rank(i + 1), i, exts[i][:, chunk:]))
-        elif right:
-            sends.append((mesh.rank(i), i, exts[i + 1][:, :halo]))
-    _exchange(sends, recvs)
+    with annotate("gomel.halo.pull"):
+        chunk, halo = plan.chunk, plan.halo
+        n_frame = mesh.shape[FRAME_AXIS]
+        sends, recvs = [], []
+        for i in range(mesh.size):
+            if _frame_index(mesh, i) + 1 == n_frame:
+                if exts[i] is not None:
+                    exts[i][:, chunk:].zero_()
+                continue
+            mine, right = exts[i] is not None, exts[i + 1] is not None
+            if mine and right:
+                head = exts[i + 1][:, :halo]
+                with transfer(head, exts[i].device):
+                    exts[i][:, chunk:].copy_(head)
+            elif mine:
+                recvs.append((mesh.rank(i + 1), i, exts[i][:, chunk:]))
+            elif right:
+                sends.append((mesh.rank(i), i, exts[i + 1][:, :halo]))
+        _exchange(sends, recvs)
 
 
 def _push_tail_right(sig_exts: list, mesh: Mesh,
@@ -224,23 +233,25 @@ def _push_tail_right(sig_exts: list, mesh: Mesh,
     filled by the exchange when the neighbour is another process's); None
     for frame shard 0 (open boundary: it receives zeros) and for the shards
     of other processes."""
-    chunk, halo = plan.chunk, plan.halo
-    recv: list = [None] * mesh.size
-    sends, recvs = [], []
-    for i in range(mesh.size):
-        if _frame_index(mesh, i) == 0:
-            continue
-        mine, left = sig_exts[i] is not None, sig_exts[i - 1] is not None
-        if mine and left:
-            recv[i] = sig_exts[i - 1][:, chunk:].to(sig_exts[i].device)
-        elif mine:
-            s = sig_exts[i]
-            recv[i] = s.new_empty((s.shape[0], halo))
-            recvs.append((mesh.rank(i - 1), i, recv[i]))
-        elif left:
-            sends.append((mesh.rank(i), i, sig_exts[i - 1][:, chunk:]))
-    _exchange(sends, recvs)
-    return recv
+    with annotate("gomel.halo.push"):
+        chunk, halo = plan.chunk, plan.halo
+        recv: list = [None] * mesh.size
+        sends, recvs = [], []
+        for i in range(mesh.size):
+            if _frame_index(mesh, i) == 0:
+                continue
+            mine, left = sig_exts[i] is not None, sig_exts[i - 1] is not None
+            if mine and left:
+                recv[i] = _moved(sig_exts[i - 1][:, chunk:],
+                                 sig_exts[i].device)
+            elif mine:
+                s = sig_exts[i]
+                recv[i] = s.new_empty((s.shape[0], halo))
+                recvs.append((mesh.rank(i - 1), i, recv[i]))
+            elif left:
+                sends.append((mesh.rank(i), i, sig_exts[i - 1][:, chunk:]))
+        _exchange(sends, recvs)
+        return recv
 
 
 def _local(shards: list, fn) -> list:
@@ -298,16 +309,16 @@ def _rows_finite(flags: list, mesh: Mesh) -> torch.Tensor:
         ok = torch.ones(b_loc, dtype=torch.bool, device=dev)
         for f in flags[d * n_frame:(d + 1) * n_frame]:
             if f is not None:
-                ok = ok & f.to(dev)
+                ok = ok & _moved(f, dev)
         rows.append(ok)
     out = torch.cat(rows)
     if not mesh.spans_processes:
         return out
     wire = out.to(torch.int32)
     if _backend() == "gloo":
-        wire = wire.cpu()
+        wire = _moved(wire, torch.device("cpu"))
     dist.all_reduce(wire, op=dist.ReduceOp.MIN)
-    return wire.to(dev) > 0
+    return _moved(wire, dev) > 0
 
 
 def _pcm16_result(outs: list, mesh: Mesh):

@@ -52,6 +52,7 @@ from ..parallel import sharded as sh
 from ..parallel.mesh import (_CPU_MESH_HINT, DATA_AXIS, FRAME_AXIS, Mesh,
                              Sharded, all_reduce_min_host, make_mesh,
                              process_count, process_index, shard_array)
+from ..utils.profiling import annotate, transfer
 
 
 def _default_mesh(what: str) -> Mesh:
@@ -181,8 +182,13 @@ def _finite_pcm(result, out_len: int) -> np.ndarray:
     """(Sharded int16, finite [B]) -> row 0's int16 samples on the host;
     raises on a non-finite sample."""
     pcm, finite = result
-    wave = pcm.gather()[0, :out_len].cpu().numpy()   # int16: half the bytes
-    if not bool(finite[0]):
+    pcm = pcm.gather()[0, :out_len]
+    host = torch.device("cpu")
+    with transfer(pcm, host):
+        wave = pcm.cpu().numpy()   # int16: half the bytes
+    with transfer(finite, host):
+        ok = bool(finite[0])
+    if not ok:
         raise ValueError("audio contains NaN/Inf samples")
     return wave
 
@@ -215,17 +221,19 @@ class LongFormPhase(_LongFormBase):
     def encode(self, x) -> torch.Tensor | Sharded:
         """[B, L] (or [L]) -> [B, F, num_freqs, 2] (F = real frame count;
         this process's shards of it on a mesh over processes)."""
-        plan = self._plan(_as_array(x).shape[-1])
-        xp, b = self._prep_signal(x, plan)
-        return self._trim(self._encode_fn(plan)(xp), b, plan.n_frames)
+        with annotate("gomel.longform.encode"):
+            plan = self._plan(_as_array(x).shape[-1])
+            xp, b = self._prep_signal(x, plan)
+            return self._trim(self._encode_fn(plan)(xp), b, plan.n_frames)
 
     def decode(self, spec) -> torch.Tensor | Sharded:
         """[B, F, num_freqs, 2] -> [B, out_len] (this process's shards on a
         mesh over processes)."""
-        spec = _as_array(spec)
-        plan = self._plan_for_frames(spec.shape[1])
-        spec_p, b = self._prep_frames(spec, plan)
-        return self._trim(self._decode_fn(plan)(spec_p), b, plan.out_len)
+        with annotate("gomel.longform.decode"):
+            spec = _as_array(spec)
+            plan = self._plan_for_frames(spec.shape[1])
+            spec_p, b = self._prep_frames(spec, plan)
+            return self._trim(self._decode_fn(plan)(spec_p), b, plan.out_len)
 
     # -- file API (reference surface: phase/phase.go:195-275) ---------------
     def _write_spec(self, spec: torch.Tensor, original: int, sr: int,
@@ -387,9 +395,10 @@ class LongFormMel(_LongFormBase):
     def encode(self, x) -> torch.Tensor | Sharded:
         """[B, L] (or [L]) -> [B, F, num_mels, 2] log-mel (this process's
         shards on a mesh over processes)."""
-        plan = self._plan(_as_array(x).shape[-1])
-        xp, b = self._prep_signal(x, plan)
-        return self._trim(self._encode_fn(plan)(xp), b, plan.n_frames)
+        with annotate("gomel.longform.encode"):
+            plan = self._plan(_as_array(x).shape[-1])
+            xp, b = self._prep_signal(x, plan)
+            return self._trim(self._encode_fn(plan)(xp), b, plan.n_frames)
 
     def decode(self, logmel, seed: int = 0,
                momentum: float = 0.0) -> torch.Tensor | Sharded:
@@ -399,12 +408,12 @@ class LongFormMel(_LongFormBase):
         ``fold_in(key(seed), shard)`` (parallel/sharded._shard_noise): the
         JAX package's starts for that seed on the same mesh shape.
         ``momentum`` > 0 opts into fast Griffin-Lim."""
-        logmel = _as_array(logmel)
-        plan = self._plan_for_frames(logmel.shape[1])
-        logmel_p, b = self._prep_frames(logmel, plan)
-        return self._trim(self._decode_fn(plan, float(momentum))(logmel_p,
-                                                                 seed),
-                          b, plan.out_len)
+        with annotate("gomel.longform.decode"):
+            logmel = _as_array(logmel)
+            plan = self._plan_for_frames(logmel.shape[1])
+            logmel_p, b = self._prep_frames(logmel, plan)
+            return self._trim(self._decode_fn(plan, float(momentum))(
+                logmel_p, seed), b, plan.out_len)
 
     # -- file API (reference surface: mel/mel.go:176-238) -------------------
     def _write_spec(self, spec: torch.Tensor, input_len: int, sr: int,

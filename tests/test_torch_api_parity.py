@@ -92,6 +92,9 @@ DEPARTURES = {
         "a prefix frame_mask given as its length (KG's real-frame count)",
     ("gomel_tpu.ops.mel_ops", "mel_encode*", "pcm_scale", "extra"):
         "the divisor of an int16 source (KA, or the fused launch's int16 mode)",
+    ("gomel_tpu.utils*", "StageTimer*", None, "absent"):
+        "the span record (utils/profiling.annotate, recorded) replaces it "
+        "and never synchronises the card",
 }
 
 

@@ -13,9 +13,9 @@ import pytest
 import torch
 
 from gomel_tpu.utils import spectral_convergence as jax_spectral_convergence
-from gomel_tpu_torch.utils import (StageTimer, ThroughputResult, get_logger,
-                                   log_event, measure_throughput,
-                                   scaling_efficiency, spectral_convergence)
+from gomel_tpu_torch.utils import (ThroughputResult, get_logger, log_event,
+                                   measure_throughput, scaling_efficiency,
+                                   spectral_convergence)
 from gomel_tpu_torch.utils import logging as tlog
 from gomel_tpu_torch.utils import metrics
 
@@ -54,20 +54,6 @@ def test_scaling_efficiency():
                          n_devices=8)
     assert scaling_efficiency(a, b) == 0.9
     assert b.per_chip == 90.0
-
-
-def test_stage_timer():
-    t = StageTimer()
-    for name in ("a", "a", "b"):
-        with t.stage(name):
-            pass
-    rep = t.report()
-    assert rep["a"]["count"] == 2 and rep["b"]["count"] == 1
-    assert rep["a"]["total_s"] >= 0
-    with pytest.raises(ValueError):
-        with t.stage("c"):
-            raise ValueError("a stage that raises is still timed")
-    assert t.report()["c"]["count"] == 1
 
 
 def test_logger_is_one_per_process():
