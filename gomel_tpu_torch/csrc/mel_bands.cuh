@@ -78,6 +78,17 @@ __device__ __forceinline__ void mel_column(const float* mags, int stride,
   }
 }
 
+// Item (rb, p) -> the item ``warps`` on: p + warps, wrapped into the next
+// row blocks.
+__device__ __forceinline__ void mel_next_item(int& p, int& rb, int warps,
+                                              int groups) {
+  p += warps;
+  while (p >= groups) {
+    p -= groups;
+    ++rb;
+  }
+}
+
 // Every thread of the block (a multiple of kMelWarps warps): the log-mel
 // rows of frames 0 .. rows - 1, frame r's magnitudes at mags + r * stride
 // (shared memory), its row at out + r * cols. An item is kRows frames of
@@ -91,10 +102,15 @@ __device__ __forceinline__ void mel_band_sums(const float* mags, int stride,
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int ch = lane & 1;
-  const int items = (rows + kRows - 1) / kRows * t.groups;
-  for (int i = warp; i < items; i += warps) {
-    const int rb = i / t.groups;
-    const int p = i - rb * t.groups;
+  // item i = rb groups + p, i = warp, warp + warps, ...: (rb, p) carried
+  // from item to item by adds, with no division an item
+  if (t.groups < 1) return;
+  int rb = 0, p = warp;
+  while (p >= t.groups) {
+    p -= t.groups;
+    ++rb;
+  }
+  for (; rb * kRows < rows; mel_next_item(p, rb, warps, t.groups)) {
     const int4 s = kShared ? t.slots[p * kMelBands + (lane >> 1)]
                            : __ldg(&t.slots[p * kMelBands + (lane >> 1)]);
     if (s.z < 0) continue;

@@ -151,8 +151,7 @@ def walk(plan: mel_ops.MelBandPlan, rows: int, warps: int):
     """(frame, column, [bins], [weights]) of every lane of every item of
     mel_band_sums on a block of ``warps`` warps over ``rows`` frames."""
     for warp in range(warps):
-        for i in range(warp, rows * plan.groups, warps):
-            r, p = divmod(i, plan.groups)
+        for r, p in carried_walk(plan.groups, rows, warps, 1, warp):
             assert p % mel_ops.KC_WARPS == warp % mel_ops.KC_WARPS
             for lane in range(32):
                 lo, width, col, woff = plan.slots[16 * p + lane // 2]
@@ -192,6 +191,39 @@ def test_walk_writes_each_column_once_in_span_order(cfg, rows, warps):
         np.testing.assert_array_equal(k, want[col][0])
         np.testing.assert_array_equal(wt, want[col][1])
     assert (hits == 1).all()
+
+
+def carried_walk(groups: int, rows: int, warps: int, rows_an_item: int,
+                 warp: int):
+    """mel_band_sums's items of one warp as the kernel finds them: (row
+    block, position) carried from item to item by adds (mel_next_item),
+    no division an item."""
+    rb, p = 0, warp
+    while p >= groups:
+        p -= groups
+        rb += 1
+    out = []
+    while rb * rows_an_item < rows:
+        out.append((rb, p))
+        p += warps
+        while p >= groups:
+            p -= groups
+            rb += 1
+    return out
+
+
+@pytest.mark.parametrize("groups", [4, 8, 12, 16, 36])
+@pytest.mark.parametrize("warps", [4, 8, 16])
+@pytest.mark.parametrize("rows,rows_an_item", [(1, 1), (3, 1), (128, 1),
+                                               (4, 4), (7, 4), (16, 2)])
+def test_carried_walk_is_the_divided_walk(groups, warps, rows, rows_an_item):
+    """Each warp's items, carried by adds, are the items i = warp, warp +
+    warps, ... of (rows / rows_an_item) x groups split as (i / groups,
+    i % groups): the same items, in the same order, on the same warps."""
+    items = -(-rows // rows_an_item) * groups
+    for warp in range(warps):
+        want = [divmod(i, groups) for i in range(warp, items, warps)]
+        assert carried_walk(groups, rows, warps, rows_an_item, warp) == want
 
 
 @pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)

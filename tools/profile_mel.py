@@ -2,7 +2,7 @@
 long-form dequantize) against the forms they replaced, and where their time
 goes, by ablation.
 
-    python3 tools/profile_mel.py [--iters 20]
+    python3 tools/profile_mel.py [--iters 20] [--cases LABEL ...]
 
 Needs one NVIDIA GPU and nvcc. Builds gomel_tpu_torch/csrc/mel_log.cu (KC),
 rfft_mag.cu (KB and the fused launch) and dequantize.cu (KL) as shipped,
@@ -23,36 +23,54 @@ walk with a per-channel lookup table for uint8 in place of the division,
                     in tiles of as many frames
   fused_no_sums     the fused launch without the band sums (KB's transform
                     and the magnitudes into shared memory)
+  fused_load_only, fused_transform_only, fused_sums_only
+                    the fused launch's split: the first pass's loads with
+                    the split (no DFT, later pass or sums); every pass and
+                    the split with no signal read and no sums; the split
+                    and the sums with no signal read, DFT or later pass
   fused_store_mags  the fused launch also storing the magnitudes to device
                     memory, as KB does
+  fused_min_blocks_10
+                    the fused launch asking for 10 blocks an SM (48
+                    registers; shipped: 9 at 56)
+  sums_items_divided
+                    the band sums' items found by a division an item, as
+                    before the carried walk (mel_bands.cuh mel_next_item)
+  fused_sums_no_conflict
+                    the per-frame sums reading a lane's own bins (wrong
+                    values, no bank conflict): what the conflicts cost
   kl_copy_only      KL converts and stores each value, no arithmetic
 
-Then, on one card and in turns (old, new, new, old; chip_smoke.race), at
-the shapes of chip_smoke.py:
+Then, on one card and in turns (old, new, new, old; chip_smoke.race):
 
   KC bench     [2, 1122, 2049] magnitudes of the bench signal, CLI widths
   KC n = 3000  the same signal's [2, 1497, 1501] magnitudes (mixed radix)
   fused bench  the bench signal: the fused launch against KB then KC, KB
                then the earlier KC, and KB alone
+  fused cell   the cell mel-encode-dev's calls: 64 rows of 10 s (372
+               frames a row) from 8 batches cycled past L2, the fused
+               launch against KB then KC, and KB alone
   KL shard     one shard of the 30-minute phase decode: uint8 [1, 16875,
                1536, 2], per-channel extrema
   KL offset    the same shard read from one byte on (narrow loads)
 
 each as new, old and every variant, with its byte bound (each input read
 once, each output written once, at 3.35 TB/s) and share of it. New and old
-(and the exact variants: the tiles, the shared table, the lookup table) are
-held bit-equal before they are timed (KB alone is timed only). Prints the card's name and power
-limit, ptxas's registers and spills and the occupancy query's blocks an SM
-of each kernel at n = 4096, and one line per measurement: device ms per call
-(CUDA events over calls queued behind a sleep kernel, chip_smoke.cuda_ms,
-lower of two runs). The same numbers go to chiprun_out/profile_mel.json.
-Imports nothing of JAX.
+(and the exact variants: the tiles, the shared table, the lookup table, the
+divided walk, the register cap) are held bit-equal before they are timed
+(KB alone is timed only). Prints the card's name and power limit, ptxas's
+registers and spills and the occupancy query's blocks an SM of each kernel
+at n = 4096, and one line per measurement: device ms per call (CUDA events
+over calls queued behind a sleep kernel, chip_smoke.cuda_ms, lower of two
+runs). The same numbers go to chiprun_out/profile_mel.json. Imports nothing
+of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -68,14 +86,25 @@ from gomel_tpu_torch.core.config import MelConfig  # noqa: E402
 from gomel_tpu_torch.core.filterbank import mel_weights  # noqa: E402
 from gomel_tpu_torch.ops import _cuda, mel_ops, rfft_mag  # noqa: E402
 from gomel_tpu_torch.ops.stft import hann_window  # noqa: E402
-from tools.profile_fft import ptxas_lines  # noqa: E402
+from tools.profile_fft import (_NO_DFT1, _NO_LOAD, _NO_PASSES,  # noqa: E402
+                               ptxas_lines)
 
 OLD = os.path.join(HERE, "tools", "mel_dequant_earlier.cu")
-SOURCES = ("mel_bands.cuh", "mel_log.cu", "rfft_mag.cu", "dequantize.cu")
+SOURCES = ("mel_bands.cuh", "fft_core.cuh", "mel_log.cu", "rfft_mag.cu",
+           "dequantize.cu")
 UNITS = ("mel_log.cu", "rfft_mag.cu", "dequantize.cu")
 SHARD = (1, 16875, 1536, 2)      # one of 4 shards of the 30-minute file
+# the cell mel-encode-dev (portbench/traffic/encode-dev-64x10s.json): 64 rows
+# of 10 s at 48 kHz a call (480,000 samples, the codec's padded length), and
+# 8 batches cycled so that no call reads its signal from L2
+CELL_ROWS, CELL_SAMPLES, POOL = 64, 480000, 8
 
 _TILE = "constexpr int kMelTileBytes = 9 * 1024;"
+_NO_SUMS = ("rfft_mag.cu",
+            "  mel_band_sums<false, 1>(reinterpret_cast<const float*>(sbuf), "
+            "2 * m,",
+            "  if (false) mel_band_sums<false, 1>("
+            "reinterpret_cast<const float*>(sbuf), 2 * m,")
 _FUSED_STORE = ("      mag[k] = mag_k[i];\n"
                 "      if (2 * k != m) mag[m - k] = mag_mk[i];\n")
 
@@ -108,12 +137,17 @@ VARIANTS = {
     "kc_t128": _kc(threads=128),
     "kc_rows_2_tile_2": _kc(tile_kb=18, rows=2),
     "kc_rows_4_tile_4": _kc(tile_kb=36, rows=4),
-    "fused_no_sums": (("rfft_mag.cu",), [
-        ("rfft_mag.cu",
-         "  mel_band_sums<false, 1>(reinterpret_cast<const float*>(sbuf), "
-         "2 * m,",
-         "  if (false) mel_band_sums<false, 1>("
-         "reinterpret_cast<const float*>(sbuf), 2 * m,")]),
+    "fused_no_sums": (("rfft_mag.cu",), [_NO_SUMS]),
+    # the split of the fused launch (PERF.md: its phases' shares of a call):
+    # the first pass's loads and shared writes, the split and magnitudes,
+    # no DFT, no later pass, no band sums
+    "fused_load_only": (("rfft_mag.cu",), [_NO_DFT1, _NO_PASSES, _NO_SUMS]),
+    # no signal read (registers from the thread index), every pass, the
+    # split and magnitudes, no band sums
+    "fused_transform_only": (("rfft_mag.cu",), [_NO_LOAD, _NO_SUMS]),
+    # no signal read, DFT or later pass: the first pass writes index values,
+    # then the split, the magnitudes, the band sums and their stores
+    "fused_sums_only": (("rfft_mag.cu",), [_NO_LOAD, _NO_DFT1, _NO_PASSES]),
     # the magnitudes after the log-mel rows of ``out``
     "fused_store_mags": (("rfft_mag.cu",), [("rfft_mag.cu", _FUSED_STORE,
                                              _FUSED_STORE + (
@@ -131,7 +165,37 @@ VARIANTS = {
          "  return v;")]),
 }
 EXACT = ("kc_table_shared", "kc_tile_2", "kc_tile_4", "kc_tile_8", "kc_t128",
-         "kc_rows_2_tile_2", "kc_rows_4_tile_4", "fused_store_mags")
+         "kc_rows_2_tile_2", "kc_rows_4_tile_4", "fused_store_mags",
+         "sums_items_divided", "fused_min_blocks_10")
+
+# the per-frame fused kernel with __launch_bounds__ asking for 10 blocks an
+# SM (a register cap: 9 blocks of 128 threads at its 56 registers)
+_MIN_BLOCKS = "FwdPlan<kLogM>::frames_per_block)\nstft_mel_log_pow2_kernel("
+VARIANTS["fused_min_blocks_10"] = (("rfft_mag.cu",), [(
+    "rfft_mag.cu", _MIN_BLOCKS,
+    _MIN_BLOCKS.replace("frames_per_block)", "frames_per_block, 10)"))])
+# the band sums' items as the walk before this one found them: a division
+# an item (what the division costs)
+VARIANTS["sums_items_divided"] = (("rfft_mag.cu",), [("mel_bands.cuh", """\
+  if (t.groups < 1) return;
+  int rb = 0, p = warp;
+  while (p >= t.groups) {
+    p -= t.groups;
+    ++rb;
+  }
+  for (; rb * kRows < rows; mel_next_item(p, rb, warps, t.groups)) {""", """\
+  const int items = (rows + kRows - 1) / kRows * t.groups;
+  for (int i = warp; i < items; i += warps) {
+    const int rb = i / t.groups;
+    const int p = i - rb * t.groups;""")])
+# the per-frame sums reading a lane's own bins (wrong values, no bank
+# conflict): what the conflicts of the band sums' reads cost
+VARIANTS["fused_sums_no_conflict"] = (("rfft_mag.cu",), [(
+    "mel_bands.cuh",
+    "    for (int r = 0; r < kRows; ++r) "
+    "acc[r] = fmaf(m[r * stride + t], wt, acc[r]);",
+    "    for (int r = 0; r < kRows; ++r) "
+    "acc[r] = fmaf(mags[(threadIdx.x & 31) + t], wt, acc[r]);")])
 
 # appended to each build: the occupancy query of each kernel at n = 4096,
 # blocks an SM at its launch's threads and dynamic shared memory
@@ -141,12 +205,12 @@ GOMEL_API int prof_occupancy_rfft(int* out) {
   const size_t smem = FwdPlan<11>::m * sizeof(float2);
   cudaFuncSetAttribute(stft_mag_pow2_kernel<11>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, 64 * 1024);
-  cudaFuncSetAttribute(stft_mel_log_pow2_kernel<11>,
+  cudaFuncSetAttribute(stft_mel_log_pow2_kernel<11, FloatSignal>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, 64 * 1024);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[0], stft_mag_pow2_kernel<11>, 128, smem);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[1], stft_mel_log_pow2_kernel<11>, 128, smem);
+      &out[1], stft_mel_log_pow2_kernel<11, FloatSignal>, 128, smem);
   return gomel_status();
 }
 """,
@@ -257,6 +321,8 @@ def occupancy(lib) -> dict[str, int]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--cases", nargs="*", default=None,
+                    help="run only these cases (labels as printed)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_mel: no CUDA device", file=sys.stderr)
@@ -393,6 +459,63 @@ def main(argv=None) -> int:
         b_ms = chip_smoke.bound(count * 5.0 + 16.0, 0.0)[0]
         return make, outs, b_ms
 
+    def cell_case():
+        """The fused launch at the cell mel-encode-dev's shape: 64 rows of
+        10 s at 48 kHz (372 frames a row), from a pool of POOL batches
+        (983 MB, past the card's 50 MB L2) cycled call by call; the forms as
+        kc_case's fused ones."""
+        rows, length = CELL_ROWS, CELL_SAMPLES
+        g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+        t = torch.arange(length, device=dev, dtype=torch.float32) / 48000.0
+        pool = []
+        for _ in range(POOL):
+            f = 80.0 + 3920.0 * torch.rand(rows, 1, generator=g, device=dev)
+            pool.append((0.1 * torch.sin(2 * math.pi * f * t)
+                         + 0.01 * torch.randn(rows, length, generator=g,
+                                              device=dev)).contiguous())
+        win = torch.tensor(hann_window(n), dtype=torch.float32, device=dev)
+        fwd = torch.tensor(mel_weights(n // 2, cfg.num_mels, cfg.mel_fmin,
+                                       cfg.mel_fmax),
+                           dtype=torch.float32, device=dev)
+        frames = (length - n) // hop + 1
+        bins, cols, f_all = n // 2 + 1, 2 * cfg.num_mels, rows * frames
+        slots, weights, groups = mel_ops._mel_band_table(fwd)
+        tw = rfft_mag._twiddles(n, dev).data_ptr()
+        tw_pass, *plan = rfft_mag._fft_args(n, dev)
+        mags = torch.empty(f_all * bins, device=dev)
+        outs = {}
+
+        def make(lib, kind):
+            out = torch.empty(f_all * (cols + bins), device=dev)
+            outs[(id(lib), kind)] = out[:f_all * cols]
+            calls = [0]
+
+            def signal():
+                x = pool[calls[0] % POOL]
+                calls[0] += 1
+                return x.data_ptr()
+
+            def kb(xp):
+                return lib.gomel_stft_mag(
+                    xp, win.data_ptr(), tw, tw_pass, mags.data_ptr(), rows,
+                    frames, length, hop, n, *plan, dev.index, stream)
+
+            if kind == "new":
+                return lambda: lib.gomel_stft_mel_log(
+                    signal(), win.data_ptr(), tw, tw_pass, slots.data_ptr(),
+                    weights.data_ptr(), groups, out.data_ptr(), cols, rows,
+                    frames, length, hop, n, *plan, dev.index, stream)
+            if kind == "kb":
+                return lambda: kb(signal())
+            return lambda: kb(signal()) or lib.gomel_mel_log(
+                mags.data_ptr(), slots.data_ptr(), weights.data_ptr(),
+                groups, weights.numel(), out.data_ptr(), f_all, bins, cols,
+                dev.index, stream)
+        b_ms = chip_smoke.bound(4.0 * rows * length
+                                + chip_smoke.nbytes(win, slots, weights)
+                                + 4.0 * f_all * cols, 0.0)[0]
+        return make, outs, b_ms
+
     # label -> (setup, variant builds, other forms held bit-equal, other
     # forms timed only)
     kc_variants = tuple(v for v in VARIANTS if v.startswith("kc_"))
@@ -402,11 +525,19 @@ def main(argv=None) -> int:
         "fused bench": (lambda: kc_case(n, hop, True),
                         ("fused_no_sums", "fused_store_mags"),
                         ("two_earlier",), ("kb",)),
+        "fused cell": (cell_case, ("fused_no_sums", "fused_load_only",
+                                   "fused_transform_only", "fused_sums_only",
+                                   "sums_items_divided",
+                                   "fused_sums_no_conflict",
+                                   "fused_min_blocks_10"),
+                       (), ("kb",)),
         "KL shard": (lambda: kl_case(0), ("kl_copy_only",), ("wide", "lut"),
                      ()),
         "KL offset": (lambda: kl_case(1), (), ("wide",), ()),
     }
     for label, (setup, variants, kinds, timed_only) in cases.items():
+        if args.cases and label not in args.cases:
+            continue
         make, outs, b_ms = setup()
         new_fn, old_fn = make(shipped, "new"), make(shipped, "old")
         fns = {v: make(libs[v][0], "new") for v in variants}
