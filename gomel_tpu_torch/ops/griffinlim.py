@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, count
 from . import _cuda, dft_mm, fftbackend, istft, prng
 from .istft import overlap_add_plain
 from .quantize import pcm16_encode
@@ -272,6 +272,11 @@ def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, key=None,
     ``fft_backend``: ``auto`` resolves as ``auto_lowp`` (exact on every
     device); ``mm`` is the JAX package's TPU default (see the module
     docstring); ``xla`` and ``mxu`` are exact.
+
+    Each iteration is a ``gomel.gl.iteration`` span (its ``kind``
+    "momentum", "plain" or "final"; the op wrappers' spans nest inside)
+    counted in ``gl_iterations.<kind>``, while a profiler records
+    (utils/profiling.py).
     """
     if key is not None:
         key = np.asarray(key.cpu() if isinstance(key, torch.Tensor) else key)
@@ -311,16 +316,20 @@ def griffin_lim(mag_half: torch.Tensor, hop: int, n_iter: int, key=None,
                           window_host)
 
     interior = max(n_iter - 1, 0)
-    if momentum != 0.0:
-        t_prev = sig
-        for _ in range(interior):
-            sig, t_prev = gl_overlap_add(project(sig), hop, t_prev,
-                                         float(momentum))
-    else:
-        for _ in range(interior):
-            sig = gl_overlap_add(project(sig), hop)
+    kind = "momentum" if momentum != 0.0 else "plain"
+    t_prev = sig
+    for _ in range(interior):
+        with annotate("gomel.gl.iteration", kind=kind):
+            count("gl_iterations." + kind)
+            if momentum != 0.0:
+                sig, t_prev = gl_overlap_add(project(sig), hop, t_prev,
+                                             float(momentum))
+            else:
+                sig = gl_overlap_add(project(sig), hop)
     if n_iter >= 1:
-        return gl_overlap_add(project(sig, final=True), hop, pcm16=pcm16)
+        with annotate("gomel.gl.iteration", kind="final"):
+            count("gl_iterations.final")
+            return gl_overlap_add(project(sig, final=True), hop, pcm16=pcm16)
     if pcm16:
         return pcm16_encode(sig)[0], torch.isfinite(sig).all(dim=-1)
     return sig

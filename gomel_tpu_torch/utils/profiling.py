@@ -23,9 +23,11 @@ its own ``pb.*`` spans) would count those copies as work.
 The program's spans are named ``gomel.<layer>.<what>``: the API calls
 (``gomel.batch.*``, ``gomel.longform.*``), the batch codecs' glue
 (``gomel.rows.*``), the op wrappers (``gomel.op.<kernel>``, one a launch),
-the mesh and its halos (``gomel.mesh.*``, ``gomel.halo.*``) and the host's
-waits on the card (``gomel.sync``, counted in ``host_syncs.<kind>``).
-Copies between two cards count their bytes in ``peer_bytes``.
+the Griffin-Lim iterations (``gomel.gl.iteration``, counted in
+``gl_iterations.<kind>``), the mesh and its halos (``gomel.mesh.*``,
+``gomel.halo.*``) and the host's waits on the card (``gomel.sync``,
+counted in ``host_syncs.<kind>``). Copies between two cards count their
+bytes in ``peer_bytes``.
 """
 from __future__ import annotations
 

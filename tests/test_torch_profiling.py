@@ -4,6 +4,7 @@ profiler's timeline, one call id a call, self times, counters, and the
 benchmark's readers of them (portbench/metrics)."""
 import conftest  # noqa: F401  (forces CPU)
 
+import dataclasses
 import json
 import os
 import sys
@@ -304,3 +305,88 @@ def test_every_new_reader_is_in_the_manifest():
                      "wrapper_host_ms", "mesh_host_ms", "peer_mb_per_call"):
         assert any(n.split(".", 1)[0] == quantity for n in names)
         assert os.path.exists(Manifest().reader_path(quantity))
+
+
+def _mel_decode(n_iter: int, momentum: float):
+    """A batched decode of PNG planes by ``n_iter`` Griffin-Lim iterations
+    (fast Griffin-Lim with ``momentum`` > 0)."""
+    cfg = dataclasses.replace(SMALL_MEL, griffin_lim_iterations=n_iter)
+    planes = torch.randint(0, 256, (2, 32, 6, 2), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(n_iter))
+    BatchedMel(cfg, gl_momentum=momentum, device="cpu").decode_quantized(
+        planes, np.array([1.0, 2.0], np.float32),
+        np.array([-8.0, -9.0], np.float32), 5, pcm16=True)
+
+
+GL_RUNS = [(4, 0.99, "momentum"), (32, 0.99, "momentum"),
+           (1, 0.99, "momentum"), (3, 0.0, "plain")]
+
+
+@pytest.mark.parametrize("n_iter, momentum, kind", GL_RUNS)
+def test_griffin_lim_iterations_record_spans_and_counters(n_iter, momentum,
+                                                         kind):
+    """n iterations: n ``gomel.gl.iteration`` spans on the profiler's
+    timeline, n - 1 interior ones counted by their kind and one final; the
+    benchmark's readers of them read a call's worth."""
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    try:
+        _mel_decode(n_iter, momentum)
+    finally:
+        prof.stop()
+    assert sum(e.name == "gomel.gl.iteration" for e in prof.events()) == \
+        n_iter
+    rec = profiling.recorded()
+    assert rec["spans"]["gomel.gl.iteration"]["count"] == n_iter
+    want = {"gl_iterations.final": 1}
+    if n_iter > 1:
+        want["gl_iterations." + kind] = n_iter - 1
+    assert {k: v for k, v in rec["counters"].items()
+            if k.startswith("gl_iterations.")} == want
+    ctx = types.SimpleNamespace(traced=types.SimpleNamespace(attempted=1),
+                                trace=object())
+    man = Manifest()
+    iters = man.reader("gl_momentum_iters_per_call.mel-towav-gl32").read(ctx)
+    assert iters == (n_iter - 1 if kind == "momentum" and n_iter > 1
+                     else None)
+    host_ms = man.reader("gl_iter_host_ms.mel-towav-gl32").read(ctx)
+    assert host_ms == pytest.approx(
+        1e3 * rec["spans"]["gomel.gl.iteration"]["total_s"])
+    assert host_ms > 0
+
+
+def test_griffin_lim_iteration_spans_carry_their_kind(monkeypatch):
+    ranges = _Ranges()
+    monkeypatch.setattr(profiling, "_record_function", ranges)
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        True)
+    _mel_decode(4, 0.99)
+    iters = [(a["kind"], parent) for name, a, parent in ranges.seen
+             if name == "gomel.gl.iteration"]
+    assert iters == [("momentum", "gomel.batch.decode_quantized")] * 3 + [
+        ("final", "gomel.batch.decode_quantized")]
+
+
+def test_griffin_lim_without_a_profiler_records_nothing():
+    _mel_decode(4, 0.99)
+    _mel_decode(2, 0.0)
+    assert profiling.recorded() == {"spans": {}, "counters": {}}
+
+
+@pytest.mark.parametrize("metric", [
+    "gl_iter_host_ms.mel-towav-gl32",
+    "gl_momentum_iters_per_call.mel-towav-gl32"])
+def test_griffin_lim_readers_read_nothing_without_the_record(monkeypatch,
+                                                             metric):
+    """A program without the iteration's span and counter (the parent of
+    this change), or without a trace, reads nothing and raises nothing."""
+    reader = Manifest().reader(metric)
+    traced = types.SimpleNamespace(attempted=4)
+    for prof in (types.SimpleNamespace(recorded=lambda: {"spans": {},
+                                                         "counters": {}}),
+                 types.SimpleNamespace()):
+        monkeypatch.setitem(sys.modules, "gomel_tpu_torch.utils.profiling",
+                            prof)
+        assert reader.read(types.SimpleNamespace(traced=traced,
+                                                 trace=object())) is None
+    assert reader.read(types.SimpleNamespace(traced=None, trace=None)) is None
